@@ -1,0 +1,566 @@
+"""Block-pool KV-cache memory manager for the serving engine.
+
+The continuous-batching arena (serving/continuous.py) reserves a full
+max-length KV strip per slot: HBM pays worst-case sequence length for
+every resident, which caps co-residency far below what the traffic
+actually needs.  This module is the vLLM-PagedAttention /
+SGLang-RadixAttention answer: ONE flat pool of fixed-size blocks
+``[n_layers, n_blocks, block_size, kv_heads, head_dim]`` on device,
+and a host-side :class:`BlockPool` that hands blocks to requests as
+they actually grow, refcounts them, and indexes FULL prompt blocks by
+a position-aligned chain hash so later requests sharing a prompt
+prefix attach to the same physical blocks copy-free.
+
+Division of labour: everything here is host-side bookkeeping (plain
+Python ints — no jax in this module); the device arena and the block
+tables that feed ``TransformerLM.decode_step_paged`` live in the
+engine.  The engine calls, in order:
+
+- :meth:`BlockPool.block_hashes` + :meth:`BlockPool.lookup` at
+  admission to find how many leading prompt blocks are already
+  resident, then :meth:`BlockPool.acquire` each match (ref++),
+- :meth:`BlockPool.allocate` for every block it must fill itself
+  (free list first, then LRU eviction of unreferenced cached blocks),
+- :meth:`BlockPool.insert` after a successful prefill to publish the
+  request's own full prompt blocks for future sharing,
+- :meth:`BlockPool.release` for every held block when the request
+  finishes or is preempted — blocks that are still hash-indexed park
+  in the LRU (reusable by future lookups OR evictable), unindexed
+  ones return straight to the free list.
+
+Hash-chain safety: a block's key hashes ALL tokens from position 0
+through the block's end, so equal hash ⇒ equal token history ⇒ equal
+K/V content at those positions for BOTH rope and learned position
+encodings (K is stored post-rotation at absolute positions — see
+``_apply_rope`` in models/lm.py).  Only full, position-aligned prompt
+blocks are ever indexed; a partially-filled tail block is always
+private to its request.
+
+Block 0 is the SINK: never allocated, never indexed, permanently
+garbage.  The engine points every unallocated block-table entry at it
+so out-of-range or padding-row writes land in storage nothing ever
+attends.
+
+Two-tenant accounting: a speculative engine runs a SECOND pool for
+the draft model's K/V (its own device arena and block tables — block
+ids from one pool mean nothing in the other).  Each pool carries a
+``name`` ("target" / "draft") that labels its metrics and event
+callbacks so a scrape can tell whose blocks ran dry, and
+:func:`split_block_budget` turns one HBM byte budget into the common
+block count both tenants can afford — the split is proportional to
+per-block cost (layers x kv_heads x head_dim x dtype), which is why a
+small draft is nearly free to page alongside its target.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict, deque
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+SINK_BLOCK = 0
+
+# The ONE statement of the pool-callback discipline.  The per-hook
+# parameter docs below and every dispatch-site comment point here
+# instead of paraphrasing it — three slightly-different wordings of
+# "record-only under the pool lock" had already drifted apart once.
+CALLBACK_CONTRACT = """\
+BlockPool callback contract (event_cb / spill_cb / index_cb — and the
+tiered-store hooks evict_cb/handoff_cb in serving/kv_store.py):
+
+Every hook fires synchronously inside a pool mutation, while the
+CALLER is typically holding its pool lock (the engine's _pool_lock).
+A callback must therefore be RECORD-ONLY:
+
+- append into its own structures, taking at most a private leaf lock
+  that is never held around pool or engine calls (the documented
+  fleet lock order is pool -> telemetry / store / directory, never
+  inverted);
+- never call back into this pool or the engine — re-entry would
+  deadlock a non-reentrant pool lock or corrupt allocator state
+  mid-mutation.  Under __debug__ the pool traps this with an
+  assertion at every public entry point;
+- never block: no device transfers (jax.device_get / device_put), no
+  sleeps, no queue or socket waits.  Heavy work (the actual D2H spill
+  copy) is deferred by the caller and drained after the pool lock is
+  released — see _drain_spills in serving/continuous.py.
+
+tpulint enforces this statically (TZ103 checks every callable passed
+as event_cb=/spill_cb=/index_cb=/evict_cb= plus in-module invocation
+sites under held locks) and dynamically (lint.lockguard.LockGuard
+records under-lock blocking calls and raises on re-entry at test
+time).
+"""
+
+# bytes per stored K (or V) element, keyed by the pool's ``kv_dtype``
+# mode.  int8 rows carry a per-(block, position, kv-head) bfloat16
+# scale alongside the 1-byte elements (see
+# ``ops/flash_attention.quantize_kv``), so its cost is accounted per
+# ROW as ``head_dim + KV_SCALE_BYTES`` rather than per element.
+KV_DTYPE_BYTES = {"bf16": 2, "f16": 2, "f32": 4, "f64": 8, "int8": 1}
+KV_SCALE_BYTES = 2  # bfloat16 scale per int8 row
+
+
+def block_bytes(n_layers: int, block_size: int, kv_heads: int,
+                head_dim: int, kv_dtype: str = "bf16") -> int:
+    """HBM bytes ONE physical block costs across all layers, K and V
+    both.  This is the quantity :func:`split_block_budget` splits a
+    byte budget by, and the engine's capacity report bills.  For
+    ``kv_dtype="int8"`` each ``head_dim`` row additionally stores a
+    ``KV_SCALE_BYTES`` quantization scale, so the int8 pool fits
+    ``(2*D)/(D+2)`` ≈ 1.94x (at D=64) as many blocks as bf16 in the
+    same budget."""
+    if kv_dtype not in KV_DTYPE_BYTES:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}; expected one "
+                         f"of {sorted(KV_DTYPE_BYTES)}")
+    row = head_dim * KV_DTYPE_BYTES[kv_dtype]
+    if kv_dtype == "int8":
+        row += KV_SCALE_BYTES
+    return 2 * int(n_layers) * int(block_size) * int(kv_heads) * row
+
+
+def split_block_budget(budget_bytes: int,
+                       per_block_costs: Sequence[int]) -> int:
+    """The COMMON block count every tenant can hold inside one HBM
+    byte budget: tenants grow in lockstep (the engine mirrors a row's
+    draft table onto its target table positions), so the budget splits
+    proportionally to per-block cost rather than evenly — ``n`` blocks
+    for each tenant where ``n * sum(costs) <= budget``."""
+    total = sum(int(c) for c in per_block_costs)
+    if total <= 0:
+        raise ValueError(f"per-block costs must sum > 0, got "
+                         f"{per_block_costs!r}")
+    return int(budget_bytes) // total
+
+
+def chain_hashes(tokens: Sequence[int], block_size: int) -> List[int]:
+    """Position-aligned chain hash of each FULL ``block_size`` chunk of
+    ``tokens``: chunk j's key covers tokens[0 : (j+1)*block_size], so
+    two sequences share a key only when their entire history through
+    that block is identical.  A trailing partial chunk gets no hash
+    (it must stay private — its K/V will keep growing)."""
+    out: List[int] = []
+    h = 0x9E3779B97F4A7C15  # non-zero seed so an empty prefix != hash 0
+    for j in range(len(tokens) // block_size):
+        chunk = tuple(int(t) for t in
+                      tokens[j * block_size:(j + 1) * block_size])
+        # int-tuple hashing is deterministic (PYTHONHASHSEED only
+        # perturbs str/bytes), so the index is stable across runs
+        h = hash((h, chunk))
+        out.append(h)
+    return out
+
+
+class BlockPool:
+    """Host-side allocator/refcounter/prefix-index over ``n_blocks``
+    physical KV blocks of ``block_size`` token positions each.
+
+    Lifecycle of a physical block:
+
+    - FREE (on ``_free``): content is garbage; ``allocate`` hands it
+      out with ref=1.
+    - REFERENCED (ref >= 1): owned by one or more live requests.  A
+      block published via ``insert`` may be acquired by later lookups
+      (ref counts sharers).
+    - CACHED (ref == 0 but hash-indexed, on ``_lru``): no live owner,
+      but its K/V is intact and future lookups may resurrect it
+      (``acquire`` → ref=1).  ``allocate`` evicts from here, oldest
+      first, when the free list is dry — eviction unpublishes the
+      hash so no later lookup can match stale storage.
+
+    Block 0 (``SINK_BLOCK``) is outside all three states forever.
+    """
+
+    def __init__(self, n_blocks: int, block_size: int,
+                 enable_prefix_cache: bool = True,
+                 event_cb: Optional[Callable[..., None]] = None,
+                 name: str = "target",
+                 kv_dtype: str = "bf16",
+                 bytes_per_block: Optional[int] = None,
+                 spill_cb: Optional[Callable[[int, int], None]] = None,
+                 index_cb: Optional[Callable[..., None]] = None):
+        if n_blocks < 2:
+            raise ValueError(
+                f"n_blocks must be >= 2 (block 0 is the sink), got "
+                f"{n_blocks}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.n_blocks = int(n_blocks)
+        self.block_size = int(block_size)
+        self.enable_prefix_cache = bool(enable_prefix_cache)
+        # tenant label ("target" / "draft" in the speculative engine):
+        # stamped on every event callback so a timeline can tell WHOSE
+        # pool evicted or ran dry when two tenants share one telemetry
+        self.name = str(name)
+        # storage-mode accounting (the pool itself is jax-free — the
+        # device arena actually quantizes/dequantizes; this is the
+        # label and cost a scrape bills blocks at).  ``bytes_per_block``
+        # is the all-layer K+V cost the engine computed via
+        # :func:`block_bytes`; 0 when the caller did not say.
+        if kv_dtype not in KV_DTYPE_BYTES:
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r}; expected "
+                             f"one of {sorted(KV_DTYPE_BYTES)}")
+        self.kv_dtype = kv_dtype
+        self.bytes_per_block = int(bytes_per_block or 0)
+        # observability hook, called as event_cb(kind, **info) for
+        # "eviction" and "alloc_failure" (the two transitions the
+        # cumulative counters alone cannot place on a timeline).  The
+        # engine wires Telemetry.pool_event; record-only per
+        # CALLBACK_CONTRACT (module top).
+        self.event_cb = event_cb
+        # tiered-KV hooks (serving/kv_store.py; both default None =
+        # tier off, zero behavior change).  ``spill_cb(block, hash)``
+        # fires when a CACHED block is evicted — the one moment its
+        # K/V is intact, unreferenced, and about to become garbage —
+        # giving the engine a last chance to note it for host-store
+        # copy before the block id is reused.  ``index_cb(kind,
+        # hash_, block)`` mirrors index membership ("publish" /
+        # "unpublish") into the fleet PrefixDirectory.  Record-only
+        # per CALLBACK_CONTRACT, same as event_cb.
+        self.spill_cb = spill_cb
+        self.index_cb = index_cb
+        # True only while one of the three hooks above is on the
+        # stack; armed by _fire, checked (``__debug__`` only) at every
+        # public entry point to trap contract-breaking re-entry
+        self._in_cb = False
+        self._free: deque = deque(range(1, self.n_blocks))
+        self._ref: Dict[int, int] = {}
+        self._hash_of: Dict[int, int] = {}     # block -> published hash
+        self._index: Dict[int, int] = {}       # hash  -> block
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        # metrics (monotonic counters except the gauges derived below)
+        self.prefix_queries = 0    # blocks asked of lookup()
+        self.prefix_hits = 0       # blocks answered from the index
+        self.evictions = 0
+        self.alloc_failures = 0    # allocate() returned None
+        self.resizes = 0           # grow()/shrink() calls that moved
+        self.resize_clamps = 0     # shrink clamped by referenced tail
+        self.chains_exported = 0   # export_chain() calls
+        self.chains_adopted = 0    # successful adopt_chain() calls
+
+    # -- callback dispatch (see CALLBACK_CONTRACT) --------------------
+
+    def _fire(self, cb: Callable[..., None], *args, **kwargs) -> None:
+        """Run one registered hook with the re-entrancy trap armed:
+        while a callback is on the stack, every public pool method
+        asserts instead of deadlocking on the caller's pool lock or
+        corrupting allocator state mid-mutation."""
+        self._in_cb = True
+        try:
+            cb(*args, **kwargs)
+        finally:
+            self._in_cb = False
+
+    def _entered(self) -> bool:
+        """Used as ``assert self._entered()`` so ``-O`` strips the
+        whole check along with the assert statement."""
+        if self._in_cb:
+            raise AssertionError(
+                f"BlockPool({self.name!r}) re-entered from inside one "
+                f"of its own callbacks; hooks are record-only — see "
+                f"paged_cache.CALLBACK_CONTRACT")
+        return True
+
+    # -- hashing / lookup --------------------------------------------
+
+    def block_hashes(self, tokens: Sequence[int]) -> List[int]:
+        """Chain hashes of every full block of ``tokens`` (see
+        :func:`chain_hashes`)."""
+        return chain_hashes(tokens, self.block_size)
+
+    def lookup(self, hashes: Sequence[int]) -> List[int]:
+        """Longest indexed run from the start of ``hashes`` → physical
+        block ids.  Counts every offered hash as a query and every
+        match as a hit (the hit RATE is hits/queries).  Does NOT take
+        references — call :meth:`acquire` on each returned block while
+        still holding the engine lock, or another admission could
+        evict them out from under you."""
+        assert self._entered()
+        if not self.enable_prefix_cache:
+            # the index was never consulted: counting these as queries
+            # would drag the reported hit rate toward zero on a pool
+            # that has prefix caching switched off
+            return []
+        self.prefix_queries += len(hashes)
+        out: List[int] = []
+        for h in hashes:
+            blk = self._index.get(h)
+            if blk is None:
+                break
+            out.append(blk)
+        self.prefix_hits += len(out)
+        return out
+
+    # -- reference management ----------------------------------------
+
+    def acquire(self, block: int) -> None:
+        """ref++ on an indexed block a lookup returned (resurrects it
+        from the LRU if it was unreferenced)."""
+        assert self._entered()
+        if block == SINK_BLOCK:
+            raise ValueError("cannot acquire the sink block")
+        self._ref[block] = self._ref.get(block, 0) + 1
+        self._lru.pop(block, None)
+
+    def allocate(self) -> Optional[int]:
+        """A fresh block with ref=1 and garbage content: free list
+        first, else evict the least-recently-parked CACHED block
+        (unpublishing its hash).  ``None`` when every block is
+        referenced — the engine's cue to stop admitting / preempt."""
+        assert self._entered()
+        if self._free:
+            blk = self._free.popleft()
+        elif self._lru:
+            blk, _ = self._lru.popitem(last=False)
+            h = self._hash_of.pop(blk)
+            del self._index[h]
+            self.evictions += 1
+            # spill window: the block is unreferenced, unindexed, and
+            # its K/V is still intact on device — the engine notes it
+            # for the host tier here, before the id is reused below
+            # (record-only per CALLBACK_CONTRACT)
+            if self.spill_cb is not None:
+                self._fire(self.spill_cb, blk, h)
+            if self.index_cb is not None:
+                self._fire(self.index_cb, "unpublish", hash_=h, block=blk)
+            if self.event_cb is not None:
+                self._fire(self.event_cb, "eviction", block=blk,
+                           tenant=self.name)
+        else:
+            self.alloc_failures += 1
+            if self.event_cb is not None:
+                # every block is referenced — stamp who holds them so a
+                # flight-ring/timeline reader sees the dry pool's shape
+                # without a separate scrape
+                self._fire(self.event_cb, "alloc_failure",
+                           tenant=self.name, referenced=len(self._ref),
+                           n_blocks=self.n_blocks)
+            return None
+        self._ref[blk] = 1
+        return blk
+
+    def release(self, block: int) -> None:
+        """ref--; at zero the block parks in the LRU if it is still
+        hash-indexed (K/V reusable), else returns to the free list."""
+        assert self._entered()
+        if block == SINK_BLOCK:
+            raise ValueError("cannot release the sink block")
+        r = self._ref.get(block, 0) - 1
+        if r < 0:
+            raise ValueError(f"release of unreferenced block {block}")
+        if r:
+            self._ref[block] = r
+            return
+        del self._ref[block]
+        if block in self._hash_of:
+            self._lru[block] = None
+        else:
+            self._free.append(block)
+
+    def insert(self, hash_: int, block: int) -> None:
+        """Publish a REFERENCED block under its chain hash so future
+        lookups can share it.  First writer wins: if the hash is
+        already indexed (two identical prompts prefetched in the same
+        admission wave) the existing mapping stands and this block
+        simply stays private — correct, merely not deduplicated."""
+        assert self._entered()
+        if not self.enable_prefix_cache:
+            return
+        if block == SINK_BLOCK or self._ref.get(block, 0) < 1:
+            raise ValueError(
+                f"insert requires a referenced non-sink block, got "
+                f"{block} (ref={self._ref.get(block, 0)})")
+        if hash_ in self._index or block in self._hash_of:
+            return
+        self._index[hash_] = block
+        self._hash_of[block] = hash_
+        if self.index_cb is not None:
+            self._fire(self.index_cb, "publish", hash_=hash_, block=block)
+
+    # -- prefill/decode handoff (docs/serving_memory.md) ---------------
+
+    def export_chain(self, blocks: Sequence[int]) -> Dict[str, object]:
+        """Host-side half of a prefill→decode handoff: snapshot a
+        request's block chain so ANOTHER pool can adopt an equivalent
+        chain.  Returns the wire-format dict (``block_size`` /
+        ``kv_dtype`` / per-block published hashes, ``None`` for a
+        private block) — plain Python data, no device state; the
+        engine ships the device pool slices alongside.  Read-only:
+        the source pool's refcounts are untouched (the engine releases
+        the source chain through the normal completion path once the
+        export is materialized)."""
+        assert self._entered()
+        hashes: List[Optional[int]] = []
+        for b in blocks:
+            if b == SINK_BLOCK or self._ref.get(b, 0) < 1:
+                raise ValueError(
+                    f"export_chain needs referenced non-sink blocks, "
+                    f"got {b} (ref={self._ref.get(b, 0)})")
+            hashes.append(self._hash_of.get(b))
+        self.chains_exported += 1
+        return {"block_size": self.block_size,
+                "kv_dtype": self.kv_dtype,
+                "n": len(hashes), "hashes": hashes}
+
+    def adopt_chain(self, chain: Dict[str, object]) -> Optional[List[int]]:
+        """Allocate a same-length chain in THIS pool (ref=1 each) and
+        republish the carried prefix hashes so the decode side keeps
+        sharing/serving the prefix — first writer wins exactly like
+        :meth:`insert`.  Returns the new block ids in chain order, or
+        ``None`` when the pool cannot take the whole chain right now
+        (any partial allocation is rolled back — the caller's
+        requeue/blocked path)."""
+        assert self._entered()
+        if int(chain["block_size"]) != self.block_size:
+            raise ValueError(
+                f"adopt_chain block_size {chain['block_size']} != "
+                f"pool block_size {self.block_size}")
+        if chain["kv_dtype"] != self.kv_dtype:
+            raise ValueError(
+                f"adopt_chain kv_dtype {chain['kv_dtype']!r} != pool "
+                f"kv_dtype {self.kv_dtype!r}")
+        out: List[int] = []
+        for _ in range(int(chain["n"])):
+            blk = self.allocate()
+            if blk is None:
+                for b in out:
+                    self.release(b)
+                return None
+            out.append(blk)
+        for h, b in zip(chain["hashes"], out):
+            if h is not None:
+                self.insert(h, b)
+        self.chains_adopted += 1
+        return out
+
+    # -- elastic resize (block-granular, at the eviction boundary) -----
+
+    def grow(self, n: int) -> int:
+        """Append ``n`` fresh FREE blocks at the top of the id range
+        (ids ``n_blocks .. n_blocks+n-1``).  The caller must have
+        already extended the device arena to match — block ids are
+        indices into it.  Returns ``n``."""
+        assert self._entered()
+        if n < 0:
+            raise ValueError(f"grow needs n >= 0, got {n}")
+        if n == 0:
+            return 0
+        start = self.n_blocks
+        self.n_blocks += int(n)
+        self._free.extend(range(start, self.n_blocks))
+        self.resizes += 1
+        return int(n)
+
+    def shrinkable(self) -> int:
+        """Length of the contiguous UNREFERENCED tail of the id range —
+        the most :meth:`shrink` can remove right now.  Only a tail can
+        go: the device arena is dense in block id, so dropping a middle
+        block would renumber live tables.  Bounded so ``n_blocks``
+        never drops below 2 (sink + one usable block)."""
+        n = 0
+        b = self.n_blocks - 1
+        while b >= 2 and b not in self._ref:
+            n += 1
+            b -= 1
+        return n
+
+    def shrink(self, n: int) -> int:
+        """Remove up to ``n`` blocks from the top of the id range,
+        stopping at the first referenced block (the eviction boundary —
+        a live request's storage is NEVER evicted).  Cached tail blocks
+        are evicted (hash unpublished, counted like an LRU eviction);
+        free tail blocks just leave the free list.  Returns the count
+        actually removed; a clamped request (achieved < asked) bumps
+        ``resize_clamps`` instead of raising.  The caller slices the
+        device arena to the new ``n_blocks`` afterwards."""
+        assert self._entered()
+        if n < 0:
+            raise ValueError(f"shrink needs n >= 0, got {n}")
+        m = min(int(n), self.shrinkable())
+        if m < n:
+            self.resize_clamps += 1
+        if m == 0:
+            return 0
+        for b in range(self.n_blocks - 1, self.n_blocks - m - 1, -1):
+            if b in self._lru:
+                del self._lru[b]
+                h = self._hash_of.pop(b)
+                del self._index[h]
+                self.evictions += 1
+                # same spill window as allocate(): intact K/V about to
+                # vanish — the caller slices the arena only after
+                # shrink returns, so the device copy is still readable
+                if self.spill_cb is not None:
+                    self._fire(self.spill_cb, b, h)
+                if self.index_cb is not None:
+                    self._fire(self.index_cb, "unpublish", hash_=h, block=b)
+                if self.event_cb is not None:
+                    self._fire(self.event_cb, "eviction", block=b,
+                               tenant=self.name)
+            else:
+                self._free.remove(b)
+        self.n_blocks -= m
+        self.resizes += 1
+        return m
+
+    # -- introspection -----------------------------------------------
+
+    def allocatable(self) -> int:
+        """Blocks ``allocate`` could return right now (free + cached)."""
+        return len(self._free) + len(self._lru)
+
+    def num_referenced(self) -> int:
+        return len(self._ref)
+
+    def num_cached(self) -> int:
+        return len(self._lru)
+
+    def occupancy(self) -> float:
+        """Fraction of non-sink blocks currently referenced by live
+        requests (cached-but-unreferenced blocks do not count — they
+        are reclaimable on demand)."""
+        return len(self._ref) / max(1, self.n_blocks - 1)
+
+    def hit_rate(self) -> float:
+        return self.prefix_hits / max(1, self.prefix_queries)
+
+    def metrics(self) -> Dict[str, float]:
+        return {
+            "tenant": self.name,
+            "kv_dtype": self.kv_dtype,
+            "bytes_per_block": self.bytes_per_block,
+            "n_blocks": self.n_blocks,
+            "block_size": self.block_size,
+            "referenced_blocks": len(self._ref),
+            "cached_blocks": len(self._lru),
+            "free_blocks": len(self._free),
+            "occupancy": self.occupancy(),
+            "prefix_queries": self.prefix_queries,
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_rate": self.hit_rate(),
+            "evictions": self.evictions,
+            "alloc_failures": self.alloc_failures,
+            "resizes": self.resizes,
+            "resize_clamps": self.resize_clamps,
+            "chains_exported": self.chains_exported,
+            "chains_adopted": self.chains_adopted,
+        }
+
+    def check(self) -> None:
+        """Invariant audit (tests): every non-sink block is in exactly
+        one of free/referenced/cached, and the hash index is a
+        bijection onto indexed blocks."""
+        free = set(self._free)
+        ref = set(self._ref)
+        cached = set(self._lru)
+        assert not (free & ref) and not (free & cached) \
+            and not (ref & cached), "block state overlap"
+        assert free | ref | cached == set(range(1, self.n_blocks)), \
+            "block leak/duplication"
+        assert cached <= set(self._hash_of), "cached block lost its hash"
+        assert set(self._hash_of) <= ref | cached, \
+            "indexed block neither referenced nor cached"
+        assert (sorted(self._index.values())
+                == sorted(self._hash_of.keys())), "index not a bijection"
+        assert all(self._index[h] == b
+                   for b, h in self._hash_of.items()), \
+            "index/hash_of disagree"
