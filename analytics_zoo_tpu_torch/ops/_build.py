@@ -26,13 +26,17 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each library's entry points: every pointer and the stream
 # are c_void_p, so ctypes never cuts one to 32 bits
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "paged_attention": {
         "paged_attention_fwd": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "flash_attention": {
+        "flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _I, _I, _F, _P),
     },
 }
 

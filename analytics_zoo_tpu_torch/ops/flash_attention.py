@@ -1,9 +1,19 @@
-"""Paged attention over a block-pool KV cache, in PyTorch and CUDA.
+"""Flash and paged attention, in PyTorch and CUDA.
 
-The port of the paged half of ``analytics_zoo_tpu/ops/flash_attention.py``.
-The pool layout is the reference's, HEAD-MAJOR ``[N, KH, bs, D]``
-(physical block, kv head, position in block, head dim), so the block
-tables the serving engine keeps mean the same thing in both packages.
+The port of ``analytics_zoo_tpu/ops/flash_attention.py``.
+
+Dense half (the forward; the backward kernels are not ported yet):
+
+- :func:`flash_attention` is fused attention over ``[B, T, H, D]``
+  operands with an optional key-padding mask and causal masking.  On a
+  CUDA tensor it launches the hand-written CUDA kernel
+  (``csrc/flash_attention.cu``, :func:`flash_attention_fused`); on a CPU
+  tensor it runs the plain version, :func:`flash_attention_ref`.
+
+Paged half.  The pool layout is the reference's, HEAD-MAJOR
+``[N, KH, bs, D]`` (physical block, kv head, position in block, head
+dim), so the block tables the serving engine keeps mean the same thing
+in both packages.
 
 - :func:`paged_kv_update` scatters new K/V rows through the block
   tables, quantizing on write for int8 :class:`QuantKV` pools.  It
@@ -14,21 +24,159 @@ tables the serving engine keeps mean the same thing in both packages.
   tensor and runs the plain version on a CPU tensor;
   ``kernel="gather"`` always runs the plain version,
   :func:`paged_attention_ref`, the reference's ``"gather"`` path.
-
-The dense flash kernels of the reference module (forward and backward)
-are not ported yet.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps exp/where NaN-free
 
 KV_SCALE_DTYPE = torch.bfloat16   # per-(block, position, head) int8 scales
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def flash_attention_ref(q, k, v, kv_mask=None, *, causal: bool,
+                        scale: Optional[float] = None):
+    """The plain version of the dense flash forward: the function the
+    reference's ``_fwd_kernel`` computes, in one pass.
+
+    q: ``[B, Tq, H, D]``; k/v: ``[B, Tk, H, D]``; kv_mask: ``[B, Tk]``
+    bool, True = the key attends.  ``causal`` masks key t for query i
+    when ``t > i``.  Scores are f32 (``scale * q.k``), masked keys get
+    ``NEG_INF``; a row with nothing live subtracts 0 instead of its max
+    (the kernel's ``m_sub`` guard), so its ``exp`` underflows to 0.  p is
+    rounded to v's dtype before ``p @ v``, which accumulates in f32.
+
+    Returns ``(o, lse)``: o ``[B, Tq, H, D]`` in q's dtype, ``acc / l``,
+    0 for a fully masked row; lse f32 ``[B*H, Tq]`` (row ``b*H + h``),
+    ``m + log(l)``, or ``+1e30`` where ``l == 0``."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = None
+    if kv_mask is not None:
+        mask = kv_mask.to(torch.bool)[:, None, None, :]
+    if causal:
+        tri = (torch.arange(Tq, device=q.device)[:, None]
+               >= torch.arange(Tk, device=q.device)[None, :])
+        mask = tri if mask is None else mask & tri
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)                    # [B, H, Tq, 1]
+    m_sub = torch.where(m > NEG_INF * 0.5, m, torch.zeros_like(m))
+    p = torch.exp(s - m_sub)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    l_safe = torch.where(l > 0, l, torch.ones_like(l))
+    o = (acc / l_safe.permute(0, 2, 1, 3)).to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(l_safe),
+                      torch.full_like(l, -NEG_INF))
+    return o, lse.reshape(B * H, Tq)
+
+
+def flash_attention_fused(q, k, v, kv_mask=None, *, causal: bool,
+                          scale: Optional[float] = None):
+    """Launch the CUDA flash-attention forward kernel (CUDA tensors
+    only).  Same contract as :func:`flash_attention_ref`.  Takes q, k
+    and v contiguous in one dtype, f32 or bf16, head dims 64 and 128,
+    kv_mask a contiguous bool ``[B, Tk]``; raises on anything else.
+    ``flash_attention_fused.launches`` counts the launches."""
+    from analytics_zoo_tpu_torch.ops import _build
+
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k and v must be [B, T, H, D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    if tuple(k.shape) != (B, Tk, H, D) or tuple(v.shape) != (B, Tk, H, D):
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    operands = [q, k, v] + ([] if kv_mask is None else [kv_mask])
+    for t in operands:
+        if t.device != q.device or t.device.type != "cuda":
+            raise ValueError(f"flash_attention_fused needs every operand "
+                             f"on one CUDA device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("flash_attention_fused needs contiguous "
+                             "operands")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype} not "
+                         f"supported (one of f32, bf16 for q, k and v)")
+    if D not in (64, 128):
+        raise ValueError(f"head dim {D} not supported (64, 128)")
+    if kv_mask is not None and (kv_mask.dtype != torch.bool
+                                or tuple(kv_mask.shape) != (B, Tk)):
+        raise ValueError(f"kv_mask must be bool [B, Tk] = {(B, Tk)}, got "
+                         f"{kv_mask.dtype} {tuple(kv_mask.shape)}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    o = torch.empty_like(q)
+    lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    rc = _build.load("flash_attention").flash_attention_fwd(
+        _ptr(q), _ptr(k), _ptr(v),
+        ctypes.c_void_p(0) if kv_mask is None else _ptr(kv_mask),
+        _ptr(o), _ptr(lse), int(q.dtype == torch.bfloat16),
+        B, Tq, Tk, H, D, int(bool(causal)), float(scale), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed with "
+                           f"CUDA error {rc}")
+    flash_attention_fused.launches += 1
+    return o, lse
+
+
+flash_attention_fused.launches = 0
+
+
+def flash_attention(q, k, v, kv_mask=None, *, causal: bool = False,
+                    scale: Optional[float] = None,
+                    block_q: int = 512, block_k: int = 512):
+    """Fused attention over ``[B, T, H, D]`` operands; returns o
+    ``[B, Tq, H, D]`` in q's dtype.
+
+    kv_mask: ``[B, Tk]`` bool, True = key position attends (padding
+    mask); ``causal`` adds the autoregressive mask.  On a CUDA tensor
+    this launches the CUDA kernel, on a CPU tensor it runs
+    :func:`flash_attention_ref`.  ``block_q``/``block_k`` are accepted
+    for signature parity with the reference, whose TPU tiles they set;
+    the CUDA kernel picks its own tile (tiling does not change the
+    function), so they are not read.
+
+    Only the forward is ported: with grad mode on and an input that
+    requires grad this raises rather than return a result that cannot
+    be differentiated (the backward kernels are ROADMAP Queue 2 item
+    4)."""
+    del block_q, block_k
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention's backward is not ported yet (ROADMAP "
+            "Queue 2 item 4): call it under torch.no_grad() or on "
+            "inputs that do not require grad")
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, kv_mask, causal=causal,
+                                   scale=scale)[0]
+    if kv_mask is not None:
+        kv_mask = kv_mask.to(torch.bool).contiguous()
+    return flash_attention_fused(q, k, v, kv_mask, causal=causal,
+                                 scale=scale)[0]
 
 
 class QuantKV:
@@ -139,19 +287,16 @@ def paged_kv_update(pool_k, pool_v, tables, pos, new_k, new_v,
 def paged_attention_ref(q, pool_k, pool_v, tables, pos):
     """The plain version of the paged read: the reference's ``"gather"``
     path.  One materialised ``[B, M*bs, KH, D]`` gather per pool (int8
-    pools dequantize the gathered rows), then the masked einsum-softmax
-    with f32 accumulation.  The attention weights are rounded to the
-    pool dtype before the ``p @ v`` product, as the reference does.
+    pools dequantize the gathered rows), then :func:`cache_attention`:
+    the masked einsum-softmax with f32 accumulation, the attention
+    weights rounded to the pool dtype before the ``p @ v`` product, as
+    the reference does.
 
     q: ``[B, S, H, D]``; query s of row b attends logical positions
     ``<= pos[b] + s``.  Returns f32 ``[B, S, H, D]``."""
     B, S, H, D = q.shape
     quant = isinstance(pool_k, QuantKV)
     N, KH, bs, _ = (pool_k.data if quant else pool_k).shape
-    if H % KH:
-        raise ValueError(f"query heads {H} not a multiple of KV heads "
-                         f"{KH}")
-    G = H // KH
     M = tables.shape[1]
     L = M * bs
     idx = tables.long()
@@ -165,18 +310,32 @@ def paged_attention_ref(q, pool_k, pool_v, tables, pos):
             cache = pool[idx]                           # [B, M, KH, bs, D]
         return cache.movedim(2, 3).reshape(B, L, KH, D)
 
-    cache_k = gathered(pool_k)
-    cache_v = gathered(pool_v)
     p = pos[:, None].long() + torch.arange(S, device=q.device)[None, :]
-    mask = (torch.arange(L, device=q.device)[None, None, :]
-            <= p[:, :, None])[:, None, None, :, :]      # [B,1,1,S,L]
-    scale = 1.0 / math.sqrt(D)
-    qg = q.reshape(B, S, KH, G, D)
-    # f32 operands = the reference's preferred_element_type=f32: bf16
-    # products are exact in f32, the sums accumulate in f32
+    visible = (torch.arange(L, device=q.device)[None, None, :]
+               <= p[:, :, None])[:, None, None, :, :]   # [B,1,1,S,L]
+    return cache_attention(q, gathered(pool_k), gathered(pool_v), visible)
+
+
+def cache_attention(q, cache_k, cache_v, visible):
+    """Grouped attention of S query tokens per row against a whole
+    ``[B, L, KH, D]`` cache, in plain PyTorch: the reference's cached
+    decode math, shared by the slot-arena decode and the paged gather.
+    q: ``[B, S, H, D]``; ``visible``: bool, broadcastable to
+    ``[B, 1, 1, S, L]``.  Scores ``q.k / sqrt(D)`` in f32 (f32 operands =
+    the reference's ``preferred_element_type=f32``: bf16 products are
+    exact in f32), ``-inf`` where not visible, softmax; the weights are
+    cast to the cache dtype before ``p @ v`` with f32 accumulation.
+    Each kv head serves its G query heads without an expanded copy of
+    the cache.  Returns f32 ``[B, S, H, D]``."""
+    B, S, H, D = q.shape
+    KH = cache_k.shape[2]
+    if H % KH:
+        raise ValueError(f"query heads {H} not a multiple of KV heads "
+                         f"{KH}")
+    qg = q.reshape(B, S, KH, H // KH, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          cache_k.float()) * scale
-    logits = logits.masked_fill(~mask, float("-inf"))
+                          cache_k.float()) * (1.0 / math.sqrt(D))
+    logits = logits.masked_fill(~visible, float("-inf"))
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(cache_v.dtype).float(),
                      cache_v.float())
@@ -184,10 +343,6 @@ def paged_attention_ref(q, pool_k, pool_v, tables, pos):
 
 
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def paged_attention_fused(q, pool_k, pool_v, tables, pos):
@@ -253,8 +408,7 @@ def paged_attention_fused(q, pool_k, pool_v, tables, pos):
         _ptr(pool_k.scale) if quant else none,
         _ptr(pool_v.scale) if quant else none,
         _KV_KINDS[kd.dtype], _ptr(tables), _ptr(pos), _ptr(out),
-        B, S, H, KH, D, bs, M,
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+        B, S, H, KH, D, bs, M, _stream(q))
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed with "
                            f"CUDA error {rc}")

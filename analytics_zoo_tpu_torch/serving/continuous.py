@@ -1,27 +1,38 @@
-"""Continuous batching for generative serving, on a paged KV cache.
+"""Continuous batching for generative serving, on a slot arena or a
+paged KV cache.
 
-The port of ``analytics_zoo_tpu/serving/continuous.py`` in its paged
-greedy mode.  K/V live in one flat pool of ``block_size``-token blocks
-per layer (``[n_layers, N, kv_heads, bs, D]``, head-major); each
-resident holds only the blocks it has filled, through a per-slot block
-table kept on the host by :class:`BlockPool`.  Full prompt blocks are
-hash-indexed, so a request sharing a prompt prefix attaches to the same
-physical blocks and prefills only its suffix; when the pool runs dry
-the latest admission is PREEMPTED back to the queue front and
-regenerates the same tokens on readmission (greedy argmax).
+The port of ``analytics_zoo_tpu/serving/continuous.py`` in its two
+greedy modes.
 
-The device work is two methods of the model: the admission prefill of
-each suffix-bucket group (``prefill_chunk_paged``) and one
-``decode_step_paged`` per decode tick, ``ticks_per_step`` ticks per
-:meth:`ContinuousEngine.step` in a plain Python loop.  PyTorch runs
-eagerly, so nothing is compiled per shape; the pools are updated in
-place where the JAX engine donates its buffers.
+- **Arena** (``paged=False``, the default, as in the reference): every
+  slot owns a full-length row of one ``[n_layers, S, L, kv_heads, D]``
+  cache.  Joiners sharing a prompt bucket prefill together in one
+  causal forward (``TransformerLM.prefill``, whose attention is the
+  flash kernel on a CUDA device), and each row's K/V are copied into
+  its slot.  ``register_prefix`` prefills a shared prompt prefix once;
+  requests naming it get the stored K/V spliced into their rows and
+  prefill only their suffix against it (``prefill_chunk``).
+- **Paged** (``paged=True``): K/V live in one flat pool of
+  ``block_size``-token blocks per layer (``[n_layers, N, kv_heads, bs,
+  D]``, head-major); each resident holds only the blocks it has filled,
+  through a per-slot block table kept on the host by
+  :class:`BlockPool`.  Full prompt blocks are hash-indexed, so a request
+  sharing a prompt prefix attaches to the same physical blocks and
+  prefills only its suffix; when the pool runs dry the latest admission
+  is PREEMPTED back to the queue front and regenerates the same tokens
+  on readmission (greedy argmax).
 
-The other engine modes (arena, chunked prefill, speculative decoding,
-QoS and brownout, handoff, elastic pools, the host KV tier, tensor
-parallelism) and sampled decoding raise ``NotImplementedError`` naming
-their ROADMAP item.  Telemetry and the flight recorder come later; the
-engine keeps plain counters meanwhile.
+Decode is one ``decode_step`` (arena) or ``decode_step_paged`` per
+tick, ``ticks_per_step`` ticks per :meth:`ContinuousEngine.step` in a
+plain Python loop.  PyTorch runs eagerly, so nothing is compiled per
+shape and admission groups are not padded to a power of two; caches are
+updated in place where the JAX engine donates its buffers.
+
+The other engine modes (chunked prefill, speculative decoding, QoS and
+brownout, handoff, elastic pools, the host KV tier, tensor parallelism)
+and sampled decoding raise ``NotImplementedError`` naming their ROADMAP
+item.  Telemetry and the flight recorder come later; the engine keeps
+plain counters meanwhile.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ class _Req(NamedTuple):
     on_error: Optional[Callable]
     max_new: int
     on_token: Optional[Callable] = None
+    prefix: Optional[int] = None
 
 
 @dataclass
@@ -83,24 +95,31 @@ def _later(what: str, item: str) -> NotImplementedError:
 
 
 class ContinuousEngine:
-    """Paged continuous-batching engine over one ``TransformerLM``.
+    """Continuous-batching engine over one ``TransformerLM``: the slot
+    arena by default, a paged block pool with ``paged=True``.
 
     Same constructor names as the JAX engine, minus the modes not ported
     yet.  ``variables``, when given, is a ``state_dict`` (for example
     from ``models.lm.params_from_flax``) loaded into ``model`` before
     serving; ``None`` serves the model's own weights.  ``device``:
     ``cuda`` unless the caller names another; without a CUDA device
-    the caller must pass ``device="cpu"``.
+    the caller must pass ``device="cpu"``.  The model's ``use_flash``
+    picks the arena prefill's attention.
 
-    ``kernel`` picks the paged-attention read: ``"fused"`` (default) is
-    the CUDA kernel on a CUDA device (the plain version on the CPU),
-    ``"gather"`` the plain PyTorch version everywhere.  ``kv_dtype``
-    picks the pool's storage: ``None`` follows ``cache_dtype`` (itself
-    defaulting to the model dtype), ``"bf16"`` forces bfloat16,
-    ``"int8"`` stores quantized rows with bfloat16 scales.
+    ``kernel`` and ``kv_dtype`` select the PAGED path only, as in the
+    reference; an arena engine raises for ``kernel="fused"`` or a
+    ``kv_dtype``.  ``kernel`` picks the paged-attention read:
+    ``"fused"`` (what ``None`` means for a paged engine) is the CUDA
+    kernel on a CUDA device (the plain version on the CPU), ``"gather"``
+    the plain PyTorch version everywhere.  ``kv_dtype`` picks the pool's
+    storage: ``None`` follows ``cache_dtype`` (itself defaulting to the
+    model dtype), ``"bf16"`` forces bfloat16, ``"int8"`` stores
+    quantized rows with bfloat16 scales.
 
     Not thread-safe by itself: ``submit`` may be called from any
-    thread, but ``step``/``drain``/``abort`` must run on ONE pump
+    thread, but ``step``/``drain``/``abort`` and ``register_prefix``/
+    ``unregister_prefix`` (which write the caches and, paged, the block
+    pool, which has no lock of its own here) must run on ONE pump
     thread.
     """
 
@@ -111,10 +130,10 @@ class ContinuousEngine:
                  eos_id: Optional[int] = None, pad_id: int = 0,
                  ticks_per_step: int = 1,
                  cache_dtype: Optional[torch.dtype] = None,
-                 kernel: str = "fused",
+                 kernel: Optional[str] = None,
                  kv_dtype: Optional[str] = None,
                  mesh=None, draft_model=None,
-                 paged: bool = True, block_size: int = 16,
+                 paged: bool = False, block_size: int = 16,
                  n_blocks: Optional[int] = None,
                  enable_prefix_cache: bool = True,
                  elastic_pool: bool = False,
@@ -122,7 +141,6 @@ class ContinuousEngine:
                  chunked: bool = False, qos=None,
                  device=None):
         for on, what, item in (
-                (not paged, "paged=False (the slot-arena engine)", "4.4"),
                 (chunked, "chunked prefill", "4.2"),
                 (draft_model is not None, "speculative decoding "
                  "(draft_model)", "4.3"),
@@ -133,12 +151,17 @@ class ContinuousEngine:
                 (mesh is not None, "tensor-parallel serving (mesh)", "6")):
             if on:
                 raise _later(what, item)
-        if kernel not in ("gather", "fused"):
+        if kernel not in (None, "gather", "fused"):
             raise ValueError(f"kernel must be 'gather' or 'fused', got "
                              f"{kernel!r}")
         if kv_dtype not in (None, "bf16", "int8"):
             raise ValueError(f"kv_dtype must be None, 'bf16' or "
                              f"'int8', got {kv_dtype!r}")
+        if not paged and (kernel == "fused" or kv_dtype is not None):
+            raise ValueError(
+                f"kernel={kernel!r} / kv_dtype={kv_dtype!r} require "
+                f"paged=True: both select the paged-attention path "
+                f"(the arena engine has no block pool to apply them to)")
         self.device = resolve_device(device)
         if variables is not None:
             model.load_state_dict(variables)
@@ -146,7 +169,8 @@ class ContinuousEngine:
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
         self.pad_id = int(pad_id)
-        self.kernel = kernel
+        self.paged = bool(paged)
+        self.kernel = kernel or ("fused" if self.paged else "gather")
         self.prompt_buckets = filter_prompt_buckets(
             prompt_buckets, model.max_position, max_new_tokens)
         self.max_prompt_width = self.prompt_buckets[-1]
@@ -168,10 +192,39 @@ class ContinuousEngine:
         self._peak_resident = 0
         self._admit_seq = 0
         # device-call counters: chip runs check that every attention
-        # call of these went through the selected kernel
+        # call of these went through the selected kernel.  prefill_calls
+        # counts the admission prefills (arena: one ``prefill`` forward
+        # per prompt bucket; paged: one ``prefill_chunk_paged`` per
+        # suffix bucket, and one per ``register_prefix`` that has blocks
+        # to fill); prefill_shapes counts the arena's by (rows, width).
         self.decode_ticks = 0
         self.prefill_calls = 0
-        bs = int(block_size)
+        self.prefill_shapes: collections.Counter = collections.Counter()
+        # register_prefix ids -> arena (ks, vs, P) / paged (tokens,
+        # pinned blocks)
+        self._prefixes: Dict[int, tuple] = {}
+        self._next_prefix_id = 0
+        dev = self.device
+        if not self.paged:
+            self._ck = torch.zeros((model.num_layers, S, L, H, D),
+                                   dtype=cdtype, device=dev)
+            self._cv = torch.zeros_like(self._ck)
+        else:
+            self._init_pool(model, S, L, H, D, cdtype, int(block_size),
+                            n_blocks, enable_prefix_cache)
+        self.ticks_per_step = max(1, int(ticks_per_step))
+        # host-side per-slot state (device copies travel per step)
+        self._tok = np.zeros(S, np.int32)
+        self._pos = np.zeros(S, np.int32)
+        self._done = np.zeros(S, bool)
+        self._slots: List[Optional[_Slot]] = [None] * S
+        self._free = collections.deque(range(S))
+        self._lock = threading.Lock()
+        self._waiting: collections.deque = collections.deque()
+
+    def _init_pool(self, model, S, L, H, D, cdtype, bs, n_blocks,
+                   enable_prefix_cache) -> None:
+        """The paged mode's block pool, device pools and tables."""
         if bs < 1:
             raise ValueError(f"block_size must be >= 1, got {bs}")
         M = -(-L // bs)         # logical blocks per row, ceil(L/bs)
@@ -213,15 +266,6 @@ class ContinuousEngine:
         # so stray writes land in storage nothing attends
         self._tables = np.full((S, M), SINK_BLOCK, np.int32)
         self._row_blocks: List[List[int]] = [[] for _ in range(S)]
-        self.ticks_per_step = max(1, int(ticks_per_step))
-        # host-side per-slot state (device copies travel per step)
-        self._tok = np.zeros(S, np.int32)
-        self._pos = np.zeros(S, np.int32)
-        self._done = np.zeros(S, bool)
-        self._slots: List[Optional[_Slot]] = [None] * S
-        self._free = collections.deque(range(S))
-        self._lock = threading.Lock()
-        self._waiting: collections.deque = collections.deque()
 
     @property
     def n_active(self) -> int:
@@ -232,10 +276,98 @@ class ContinuousEngine:
         with self._lock:
             return len(self._waiting)
 
+    @torch.no_grad()
+    def register_prefix(self, tokens: np.ndarray) -> int:
+        """Prefill a shared prompt PREFIX (system prompt) once; returns
+        an id for ``submit(..., prefix=id)``, whose prompt is then only
+        the suffix.  Arena: the prefix's K/V are kept, and admission
+        splices them into each request's row and prefills the suffix
+        against them.  Paged: the prefix's full blocks are prefilled and
+        pinned in the pool, and requests concatenate the tokens on the
+        host and match the pinned blocks at admission."""
+        tokens = np.asarray(tokens, np.int32)
+        if tokens.ndim != 1 or len(tokens) < 1:
+            raise ValueError("prefix must be a non-empty 1-D int32 array")
+        P = len(tokens)
+        if P >= self.max_prompt_width:
+            raise ValueError(
+                f"prefix length {P} leaves no room for a suffix inside "
+                f"max prompt width {self.max_prompt_width}")
+        if self.paged:
+            entry = (tokens, self._pin_prefix_blocks(tokens))
+        else:
+            _, ks, vs = self.model._prefill_hidden(
+                torch.as_tensor(tokens[None], device=self.device))
+            entry = (ks, vs, P)
+        with self._lock:
+            pid = self._next_prefix_id
+            self._next_prefix_id += 1
+            self._prefixes[pid] = entry
+        return pid
+
+    def _pin_prefix_blocks(self, tokens: np.ndarray) -> List[int]:
+        """Paged ``register_prefix``: match the prefix's FULL blocks in
+        the index, allocate the rest, prefill the unmatched span through
+        the paged path and publish it; the blocks stay referenced until
+        ``unregister_prefix``.  The partial tail block recomputes per
+        request inside its suffix (a partial block keeps growing, so it
+        is never shared)."""
+        bs = self._bs
+        nfull = len(tokens) // bs
+        hashes = self._pool.block_hashes(tokens[:nfull * bs])
+        matched = self._pool.lookup(hashes)
+        for b in matched:
+            self._pool.acquire(b)
+        blocks = list(matched)
+        for _ in range(nfull - len(matched)):
+            b = self._pool.allocate()
+            if b is None:
+                for bb in blocks:
+                    self._pool.release(bb)
+                raise RuntimeError(
+                    f"block pool has no room to pin a {nfull}-block "
+                    f"prefix ({self._pool.num_referenced()} of "
+                    f"{self._pool.n_blocks} blocks referenced)")
+            blocks.append(b)
+        if len(matched) < nfull:
+            span = tokens[len(matched) * bs:nfull * bs]
+            sb = _next_bucket(len(span), self.prompt_buckets)
+            padded = np.full((1, sb), self.pad_id, np.int32)
+            padded[0, :len(span)] = span
+            tabs = np.full((1, self._M), SINK_BLOCK, np.int32)
+            tabs[0, :len(blocks)] = blocks
+            dev = self.device
+            self.model.prefill_chunk_paged(
+                torch.as_tensor(padded, device=dev), self._pk, self._pv,
+                torch.as_tensor(tabs, device=dev),
+                torch.tensor([len(matched) * bs], dtype=torch.int32,
+                             device=dev),
+                torch.tensor([len(span)], dtype=torch.int32, device=dev),
+                kernel=self.kernel)
+            self.prefill_calls += 1
+            for j in range(len(matched), nfull):
+                self._pool.insert(hashes[j], blocks[j])
+        return blocks
+
+    def unregister_prefix(self, pid: int) -> None:
+        """Release a prefix: the arena drops its stored K/V; the paged
+        engine drops its pin on the prefix's blocks, which park in the
+        pool's LRU (still shareable) until allocation evicts them.
+        Admitted requests keep what they already have; queued requests
+        naming the id fail admission."""
+        with self._lock:
+            if pid not in self._prefixes:
+                raise ValueError(f"unknown prefix id {pid}")
+            entry = self._prefixes.pop(pid)
+        if self.paged:
+            for b in entry[1]:
+                self._pool.release(b)
+
     def abort(self, uri: str) -> bool:
         """Drop a request nobody will collect: remove it from the
-        waiting queue, or free its resident slot and blocks.  Returns
-        True if the uri was found.  No callback fires."""
+        waiting queue, or free its resident slot (and, paged, its
+        blocks).  Returns True if the uri was found.  No callback
+        fires."""
         with self._lock:
             for req in self._waiting:
                 if req.uri == uri:
@@ -246,7 +378,8 @@ class ContinuousEngine:
                 self._slots[slot] = None
                 self._done[slot] = True     # frozen until readmission
                 self._free.append(slot)
-                self._release_slot_blocks(slot)
+                if self.paged:
+                    self._release_slot_blocks(slot)
                 return True
         return False
 
@@ -265,17 +398,28 @@ class ContinuousEngine:
         tail); ``on_error(uri, exc)`` fires if admission fails after the
         request left the waiting queue; ``on_token(uri, token, index)``
         streams every generated token.  ``max_new`` (default: the
-        engine budget) caps THIS request's tokens.  Raises on bounds
-        violations."""
+        engine budget) caps THIS request's tokens.  ``prefix``: a
+        ``register_prefix`` id; ``prompt`` is then the suffix that
+        follows it.  Raises on bounds violations."""
         if temperature > 0.0 or top_p > 0.0:
             raise _later("sampled decoding (temperature/top_p)", "4.1")
-        if prefix is not None:
-            raise _later("register_prefix ids", "4.1")
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1:
             raise ValueError(f"prompt must be 1-D, got {prompt.shape}")
         n = len(prompt)
-        if n < 1 or n > self.max_prompt_width:
+        if prefix is not None:
+            with self._lock:
+                if prefix not in self._prefixes:
+                    raise ValueError(f"unknown prefix id {prefix}")
+                entry = self._prefixes[prefix]
+            plen_pref = len(entry[0]) if self.paged else entry[2]
+            # the TRUE prompt (prefix + suffix) must fit the prompt
+            # budget; the padded suffix only needs to fit the cache
+            if n < 1 or plen_pref + n > self.max_prompt_width:
+                raise ValueError(
+                    f"prefix({plen_pref}) + suffix({n}) exceeds max "
+                    f"prompt width {self.max_prompt_width}")
+        elif n < 1 or n > self.max_prompt_width:
             raise ValueError(
                 f"prompt length {n} outside [1, {self.max_prompt_width}]")
         mn = self.max_new_tokens if max_new is None else int(max_new)
@@ -284,7 +428,7 @@ class ContinuousEngine:
                 f"max_new {mn} outside [1, {self.max_new_tokens}]")
         with self._lock:
             self._waiting.append(_Req(uri, prompt, on_done, on_error, mn,
-                                      on_token))
+                                      on_token, prefix))
 
     # ---- pump ---------------------------------------------------------
 
@@ -297,12 +441,184 @@ class ContinuousEngine:
             logger.exception("on_error callback failed for %r", uri)
 
     def _full_prompt(self, req: _Req) -> np.ndarray:
-        """The TRUE token sequence a paged request decodes (a
-        ``register_prefix`` id would expand here; prefix ids are not
-        ported yet, so it is the submitted prompt)."""
-        return req.prompt
+        """The TRUE token sequence a paged request decodes: a
+        ``prefix=`` id expands to its registered tokens + the suffix,
+        and the chain-hash index then shares the pinned blocks."""
+        if req.prefix is None:
+            return req.prompt
+        with self._lock:
+            if req.prefix not in self._prefixes:
+                raise ValueError(f"prefix id {req.prefix} was "
+                                 f"unregistered while queued")
+            ptoks = self._prefixes[req.prefix][0]
+        return np.concatenate([ptoks, req.prompt])
 
     def _admit(self) -> int:
+        return self._admit_paged() if self.paged else self._admit_arena()
+
+    # ---- arena mode ---------------------------------------------------
+
+    def _admit_arena(self) -> int:
+        """Move waiting requests into free slots.  Joiners sharing a
+        prompt bucket prefill TOGETHER in one forward and their K/V are
+        copied into their slots; prefix-id requests sharing (prefix,
+        suffix width) are admitted as one group.  Returns the number
+        admitted."""
+        admitted = 0
+        while self._free:
+            with self._lock:
+                grab = min(len(self._free), len(self._waiting))
+                batch = [self._waiting.popleft() for _ in range(grab)]
+            if not batch:
+                break
+            by_bucket: Dict[int, list] = {}
+            by_prefix: Dict[tuple, list] = {}
+            for req in batch:
+                if req.prefix is not None:
+                    with self._lock:
+                        P = self._prefixes.get(req.prefix,
+                                               (None, None, 0))[2]
+                    sb = self._suffix_width(len(req.prompt), P)
+                    by_prefix.setdefault((req.prefix, sb), []).append(req)
+                    continue
+                pb = _next_bucket(len(req.prompt), self.prompt_buckets)
+                by_bucket.setdefault(pb, []).append(req)
+            for (pid, sb), reqs in by_prefix.items():
+                try:
+                    admitted += self._admit_prefix_group(pid, sb, reqs)
+                except Exception as e:
+                    logger.exception("prefix admission failed for %d "
+                                     "request(s), prefix %s", len(reqs),
+                                     pid)
+                    for req in reqs:
+                        self._req_error(req.uri, req.on_error, e)
+            for pb, reqs in by_bucket.items():
+                # a failed prefill/splice must not swallow requests that
+                # already left the waiting queue
+                try:
+                    pre = self._prefill(pb, reqs)
+                except Exception as e:
+                    logger.exception("prefill failed for %d request(s), "
+                                     "bucket %d", len(reqs), pb)
+                    for req in reqs:
+                        self._req_error(req.uri, req.on_error, e)
+                    continue
+                for i, req in enumerate(reqs):
+                    try:
+                        self._splice_one(pre, i, req)
+                        admitted += 1
+                    except Exception as e:
+                        logger.exception("splice failed for %r", req.uri)
+                        self._req_error(req.uri, req.on_error, e)
+        return admitted
+
+    @torch.no_grad()
+    def _prefill(self, pb: int, reqs):
+        """One causal forward over a bucket's ``[k, pb]`` right-padded
+        prompts; returns (first-token logits ``[k, V]`` on the host, K/V
+        ``[n_layers, k, pb, KH, D]``).  The head is applied to each
+        row's last real position only."""
+        k = len(reqs)
+        padded = np.full((k, pb), self.pad_id, np.int32)
+        plens = np.empty(k, np.int64)
+        for i, req in enumerate(reqs):
+            padded[i, :len(req.prompt)] = req.prompt
+            plens[i] = len(req.prompt)
+        dev = self.device
+        h, ks, vs = self.model._prefill_hidden(
+            torch.as_tensor(padded, device=dev))
+        last = self.model._logits(
+            h[torch.arange(k, device=dev), torch.as_tensor(plens - 1,
+                                                           device=dev)])
+        self.prefill_calls += 1
+        self.prefill_shapes[(k, pb)] += 1
+        return last.cpu().numpy(), ks, vs       # one D2H per bucket
+
+    def _splice_one(self, pre, i: int, req: _Req) -> None:
+        """Copy joiner ``i``'s prefilled K/V into a free slot's row and
+        install it; the slot goes back to the free list if that
+        fails."""
+        last, ks, vs = pre
+        slot = self._free.popleft()
+        try:
+            pb = ks.shape[2]
+            self._ck[:, slot, :pb] = ks[:, i]
+            self._cv[:, slot, :pb] = vs[:, i]
+            first = self._pick_first(last[i])
+        except Exception:
+            self._free.append(slot)
+            raise
+        self._install_slot(slot, req, len(req.prompt), first)
+
+    def _suffix_width(self, n: int, P: int) -> int:
+        """Padded width of a prefix request's suffix: a prompt bucket
+        when one fits after the prefix, else the exact room left in the
+        cache.  Suffix padding writes dead K/V past the true prompt that
+        are never attended and later overwritten, so only the cache
+        bound (L) applies, not the prompt budget."""
+        for b in self.prompt_buckets:
+            if n <= b and P + b <= self._L - 1:
+                return b
+        return self._L - 1 - P
+
+    @torch.no_grad()
+    def _admit_prefix_group(self, pid: int, sb: int, reqs) -> int:
+        """Admission for prefix-id requests sharing (prefix, suffix
+        width): splice the stored prefix K/V into each member's row and
+        run all their suffixes against it in one ``prefill_chunk``
+        forward at offset P, which is what prefilling each concatenated
+        prompt computes.  Returns the number admitted."""
+        with self._lock:
+            if pid not in self._prefixes:
+                raise ValueError(f"prefix id {pid} was unregistered "
+                                 f"while queued")
+            pks, pvs, P = self._prefixes[pid]
+        n = min(len(reqs), len(self._free))
+        if n < len(reqs):
+            # free slots ran out mid-batch: requeue the rest in order
+            with self._lock:
+                for req in reversed(reqs[n:]):
+                    self._waiting.appendleft(req)
+            reqs = reqs[:n]
+        if not reqs:
+            return 0
+        padded = np.full((n, sb), self.pad_id, np.int32)
+        lens = np.empty(n, np.int32)
+        for i, req in enumerate(reqs):
+            padded[i, :len(req.prompt)] = req.prompt
+            lens[i] = len(req.prompt)
+        slots = [self._free.popleft() for _ in range(n)]
+        dev = self.device
+        try:
+            idx = torch.as_tensor(slots, device=dev)
+            rows_k = self._ck[:, idx]           # [layers, n, L, KH, D]
+            rows_v = self._cv[:, idx]
+            rows_k[:, :, :P] = pks
+            rows_v[:, :, :P] = pvs
+            last = self.model.prefill_chunk(
+                torch.as_tensor(padded, device=dev), rows_k, rows_v,
+                torch.full((n,), P, dtype=torch.int32, device=dev),
+                torch.as_tensor(lens, device=dev))
+            self._ck[:, idx] = rows_k
+            self._cv[:, idx] = rows_v
+        except Exception:
+            self._free.extend(slots)
+            raise
+        last = last.cpu().numpy()       # one D2H for the whole group
+        admitted = 0
+        for i, req in enumerate(reqs):
+            try:
+                self._install_slot(slots[i], req, P + int(lens[i]),
+                                   self._pick_first(last[i]))
+                admitted += 1
+            except Exception as e:
+                self._free.append(slots[i])
+                self._req_error(req.uri, req.on_error, e)
+        return admitted
+
+    # ---- paged mode ---------------------------------------------------
+
+    def _admit_paged(self) -> int:
         """Paged admission: per request, match leading FULL prompt
         blocks in the chain-hash index (copy-free sharing), allocate
         private blocks for the rest, and prefill only the unshared
@@ -323,7 +639,11 @@ class ContinuousEngine:
                 if blocked:         # keep queue order behind the block
                     blocked.append(req)
                     continue
-                full = self._full_prompt(req)
+                try:
+                    full = self._full_prompt(req)
+                except Exception as e:
+                    self._req_error(req.uri, req.on_error, e)
+                    continue
                 plen = len(full)
                 hashes = self._pool.block_hashes(full)
                 total = -(-plen // self._bs)
@@ -491,13 +811,16 @@ class ContinuousEngine:
             self._pool.release(b)
 
     def cache_metrics(self) -> dict:
-        """Serving-visible cache counters: cumulative ``preemptions``,
-        ``peak_resident`` (running max) and the pool's counters and
-        gauges (``BlockPool.metrics``)."""
+        """Serving-visible cache counters: the ``mode`` (``"arena"`` or
+        ``"paged"``), cumulative ``preemptions``, ``peak_resident``
+        (running max) and, paged, the pool's counters and gauges
+        (``BlockPool.metrics``)."""
         with self._lock:
-            out = {"mode": "paged", "preemptions": self._preemptions,
+            out = {"mode": "paged" if self.paged else "arena",
+                   "preemptions": self._preemptions,
                    "peak_resident": self._peak_resident}
-        out.update(self._pool.metrics())
+        if self.paged:
+            out.update(self._pool.metrics())
         return out
 
     def _install_slot(self, slot: int, req: _Req, plen: int,
@@ -537,9 +860,10 @@ class ContinuousEngine:
         self._slots[slot] = None
         self._done[slot] = True     # terminal state until readmission
         self._free.append(slot)
-        # refcounts drop + table row -> sink BEFORE the next device
-        # step, so a recycled block can never see this row's writes
-        self._release_slot_blocks(slot)
+        if self.paged:
+            # refcounts drop + table row -> sink BEFORE the next device
+            # step, so a recycled block can never see this row's writes
+            self._release_slot_blocks(slot)
         if st.on_done is not None:
             try:
                 st.on_done(st.uri, out)
@@ -563,11 +887,12 @@ class ContinuousEngine:
         active = [i for i, s in enumerate(self._slots) if s is not None]
         if not active:
             return 0
-        # grow block tables for the coming step; may preempt
-        active = self._ensure_blocks(active)
-        if not active:
-            self._admit()   # preemptions freed blocks: retry now
-            return self.n_active
+        if self.paged:
+            # grow block tables for the coming step; may preempt
+            active = self._ensure_blocks(active)
+            if not active:
+                self._admit()   # preemptions freed blocks: retry now
+                return self.n_active
         self._peak_resident = max(self._peak_resident, len(active))
         n_eff = max(1, min(
             self.ticks_per_step,
@@ -584,22 +909,30 @@ class ContinuousEngine:
 
     @torch.no_grad()
     def _decode_ticks(self, n_ticks: int) -> np.ndarray:
-        """Advance every slot ``n_ticks`` tokens against the shared
-        pool.  Rows holding no blocks (free/done slots — their table
-        rows are all SINK) write and read only the sink block's
-        garbage, which their frozen/ignored outputs never surface.  A
-        slot that hits EOS mid-step keeps stepping, fed eos.  Returns
-        the tokens ``[n_ticks, S]`` in emission order and leaves the
-        host-side tok/pos/done advanced."""
+        """Advance every slot ``n_ticks`` tokens.  Arena: each row writes
+        and reads its own slot; a free or finished row writes garbage at
+        its frozen position, which the next occupant overwrites before
+        attending it.  Paged: rows holding no blocks (free/done slots —
+        their table rows are all SINK) write and read only the sink
+        block's garbage, which their frozen/ignored outputs never
+        surface.  A slot that hits EOS mid-step keeps stepping, fed eos.
+        Returns the tokens ``[n_ticks, S]`` in emission order and leaves
+        the host-side tok/pos/done advanced."""
         dev = self.device
         tok = torch.as_tensor(self._tok, device=dev)
         pos = torch.as_tensor(self._pos, device=dev)
         done = torch.as_tensor(self._done, device=dev)
-        tables = torch.as_tensor(self._tables, device=dev)
+        if self.paged:
+            tables = torch.as_tensor(self._tables, device=dev)
         out = []
         for _ in range(n_ticks):
-            logits = self.model.decode_step_paged(
-                tok, self._pk, self._pv, tables, pos, kernel=self.kernel)
+            if self.paged:
+                logits = self.model.decode_step_paged(
+                    tok, self._pk, self._pv, tables, pos,
+                    kernel=self.kernel)
+            else:
+                logits = self.model.decode_step(tok, self._ck, self._cv,
+                                                pos)
             self.decode_ticks += 1
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             if self.eos_id is not None:

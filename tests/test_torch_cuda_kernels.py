@@ -16,7 +16,8 @@ import torch
 
 from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
-# f32 and int8 pools: the same f32 arithmetic up to summation order.
+# Paged attention.  f32 and int8 pools: the same f32 arithmetic up to
+# summation order.
 # bf16 pools: the kernel rounds the unnormalised online-softmax p to
 # bf16 before p @ v, the plain version the normalised weights, so they
 # differ by about one bf16 ulp (2**-8) of each weight times |v|.
@@ -68,6 +69,66 @@ def test_paged_attention_kernel_matches_plain(cuda, kind, H, KH, S):
     ref = fa.paged_attention(*args, kernel="gather")
     assert out.dtype == torch.float32 and out.shape == args[0].shape
     assert (out - ref).abs().max().item() <= _ATOL[kind]
+
+
+def _flash_case(dev, kind, B, T, H, D, masked, seed=0):
+    """q, k, v ``[B, T, H, D]`` and (``masked``) a random key mask whose
+    last batch row masks every key."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((B, T, H, D), generator=g).to(dev, _DTYPE[kind])
+               for _ in range(3))
+    mask = None
+    if masked:
+        mask = torch.rand((B, T), generator=g) > 0.3
+        mask[0, 0] = True
+        mask[-1] = False
+        mask = mask.to(dev)
+    return q, k, v, mask
+
+
+# O: f32 up to summation order; bf16 rounds p before p @ v relative to
+# the running tile max (kernel) or the row max (plain), and O itself to
+# bf16.  lse: f32 arithmetic on exact products in both dtypes.
+_FLASH_ATOL = {"f32": 1e-4, "bf16": 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("T,H,D", [(1, 12, 64), (37, 12, 64),
+                                   (130, 8, 128)])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
+def test_flash_attention_kernel_matches_plain(cuda, kind, T, H, D, causal,
+                                              masked):
+    q, k, v, mask = _flash_case(cuda, kind, 2, T, H, D, masked, seed=T)
+    before = fa.flash_attention_fused.launches
+    o, lse = fa.flash_attention_fused(q, k, v, mask, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fused.launches == before + 1
+    ro, rlse = fa.flash_attention_ref(q, k, v, mask, causal=causal)
+    assert o.dtype == q.dtype and o.shape == q.shape
+    assert lse.shape == (2 * H, T)
+    assert (o.float() - ro.float()).abs().max().item() <= _FLASH_ATOL[kind]
+    assert torch.allclose(lse, rlse, atol=1e-3, rtol=1e-5)
+    if masked:
+        assert (o[-1] == 0).all() and (lse[H:] == 1e30).all()
+    # the dispatch launches the kernel for CUDA tensors
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, v, mask, causal=causal)
+    assert torch.equal(out, o)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v, _ = _flash_case(cuda, "f32", 1, 8, 2, 64, False)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fused(q[..., :32].contiguous(),
+                                 k[..., :32].contiguous(),
+                                 v[..., :32].contiguous(), causal=True)
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)  # same shape
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fused(strided, k, v, causal=True)
+    with pytest.raises(ValueError, match="dtypes"):
+        fa.flash_attention_fused(q, k.bfloat16(), v, causal=True)
 
 
 @pytest.mark.cuda

@@ -1,13 +1,15 @@
-"""The port's paged ContinuousEngine held to the JAX engine.
+"""The port's ContinuousEngine held to the JAX engine, in both modes.
 
-The same request stream goes to the reference
-``ContinuousEngine(paged=True, kernel="gather")`` at f32 and to the
-port on the CPU, on the same weights (``params_from_flax``).  The
-stream mixes prompt lengths, carries two requests that share two full
-prompt blocks (the second is admitted in a later wave, so it attaches
-to the first one's published blocks), and stops rows at an ``eos_id``
-that the greedy streams really emit.  Greedy tokens must be IDENTICAL
-per URI, and the preemption and prefix-hit counters equal.
+The same request stream goes to the reference engine at f32 and to the
+port on the CPU, on the same weights (``params_from_flax``): the slot
+arena (``paged=False``, the default of both) and the paged engine
+(``paged=True``; the reference's ``kernel="gather"``).  The stream
+mixes prompt lengths, carries two requests that share two full prompt
+blocks (the second is admitted in a later wave, so in paged mode it
+attaches to the first one's published blocks), optionally two more that
+name a ``register_prefix`` id, and stops rows at an ``eos_id`` that the
+greedy streams really emit.  Greedy tokens must be IDENTICAL per URI,
+and the preemption and prefix-hit counters equal.
 """
 
 import jax
@@ -53,12 +55,76 @@ def _stream():
     return [(u, np.asarray(p, np.int32)) for u, p in reqs]
 
 
-def _run(engine):
+_PREFIX = np.arange(20, 29, dtype=np.int32)    # 2 full blocks + 1
+_PREFIXED = [("p0", np.array([7, 8, 9], np.int32)),
+             ("p1", np.array([30, 31, 32, 33, 34, 35], np.int32))]
+
+
+def _run(engine, with_prefix=False):
+    """Serve the stream (and, ``with_prefix``, two requests naming a
+    registered prefix); returns (tokens per uri, cache_metrics)."""
     out = {}
-    for uri, prompt in _stream():
-        engine.submit(uri, prompt, lambda u, t: out.__setitem__(u, t))
+
+    def done(u, t):
+        out[u] = np.asarray(t)
+
+    reqs = [(u, p, None) for u, p in _stream()]
+    if with_prefix:
+        pid = engine.register_prefix(_PREFIX)
+        reqs[3:3] = [(u, p, pid) for u, p in _PREFIXED]
+    for uri, prompt, prefix in reqs:
+        engine.submit(uri, prompt, done, prefix=prefix)
     engine.drain()
+    if with_prefix:
+        engine.unregister_prefix(pid)
     return out, engine.cache_metrics()
+
+
+def _assert_same(got, ref, with_prefix=False):
+    uris = [u for u, _ in _stream()]
+    if with_prefix:
+        uris += [u for u, _ in _PREFIXED]
+    assert sorted(got) == sorted(ref) == sorted(uris)
+    for uri in ref:
+        np.testing.assert_array_equal(got[uri], ref[uri], err_msg=uri)
+    # the eos path ran: some row stopped early on eos (frozen tail)
+    assert any((t[:-1] == _EOS).any() for t in got.values())
+
+
+@pytest.mark.parametrize("ticks_per_step,cache_dtype,with_prefix", [
+    (1, None, False), (4, None, False), (1, "bfloat16", False),
+    (4, None, True), (1, "bfloat16", True)])
+def test_arena_engine_tokens_match_jax(models, ticks_per_step, cache_dtype,
+                                       with_prefix):
+    """The default (arena) engine of both packages.  A bf16 arena under
+    the f32 model stores the same rounded K/V in both packages, and the
+    attention reads it back into f32 math on both sides."""
+    jm, variables, tm, state = models
+    kw = dict(_ENGINE, eos_id=_EOS, ticks_per_step=ticks_per_step)
+    ref, ref_m = _run(JaxEngine(jm, variables, cache_dtype=cache_dtype,
+                                **kw), with_prefix)
+    got, got_m = _run(ContinuousEngine(
+        tm, state, device="cpu", cache_dtype=cache_dtype and getattr(
+            torch, cache_dtype), **kw), with_prefix)
+    _assert_same(got, ref, with_prefix)
+    assert got_m["mode"] == ref_m["mode"] == "arena"
+    assert got_m["peak_resident"] == ref_m["peak_resident"]
+
+
+def _paged_case(models, ticks_per_step, n_blocks, kv_dtype, with_prefix):
+    jm, variables, tm, state = models
+    kw = dict(_ENGINE, eos_id=_EOS, ticks_per_step=ticks_per_step,
+              n_blocks=n_blocks, kv_dtype=kv_dtype, paged=True)
+    ref, ref_m = _run(JaxEngine(jm, variables, kernel="gather", **kw),
+                      with_prefix)
+    got, got_m = _run(ContinuousEngine(tm, state, device="cpu", **kw),
+                      with_prefix)
+    _assert_same(got, ref, with_prefix)
+    for key in ("preemptions", "prefix_hits", "prefix_queries"):
+        assert got_m[key] == ref_m[key], key
+    assert (got_m["preemptions"] > 0) == (n_blocks is not None)
+    assert got_m["referenced_blocks"] == 0
+    return got_m
 
 
 @pytest.mark.parametrize("ticks_per_step,n_blocks,kv_dtype", [
@@ -66,28 +132,42 @@ def _run(engine):
     (1, None, "int8"), (4, 9, "bf16")])
 def test_engine_tokens_match_jax(models, ticks_per_step, n_blocks,
                                  kv_dtype):
-    """``n_blocks=9`` (8 usable blocks for 3 slots of up to 6 blocks
-    each) forces preemption; ``None`` sizes the pool so none occurs.
-    int8 and bf16 pools store the same bytes in both packages (the
-    quantization and the casts are bitwise equal), and the attention
-    math is f32 on both sides."""
-    jm, variables, tm, state = models
-    kw = dict(_ENGINE, eos_id=_EOS, ticks_per_step=ticks_per_step,
-              n_blocks=n_blocks, kv_dtype=kv_dtype)
-    ref, ref_m = _run(JaxEngine(jm, variables, paged=True,
-                                kernel="gather", **kw))
-    got, got_m = _run(ContinuousEngine(tm, state, device="cpu", **kw))
-    assert sorted(got) == sorted(ref) == sorted(u for u, _ in _stream())
-    for uri in ref:
-        np.testing.assert_array_equal(got[uri], np.asarray(ref[uri]),
-                                      err_msg=uri)
-    for key in ("preemptions", "prefix_hits", "prefix_queries"):
-        assert got_m[key] == ref_m[key], key
+    """The paged engine.  ``n_blocks=9`` (8 usable blocks for 3 slots of
+    up to 6 blocks each) forces preemption; ``None`` sizes the pool so
+    none occurs.  int8 and bf16 pools store the same bytes in both
+    packages (the quantization and the casts are bitwise equal), and the
+    attention math is f32 on both sides."""
+    got_m = _paged_case(models, ticks_per_step, n_blocks, kv_dtype, False)
     assert got_m["prefix_hits"] >= 2          # "b" shared "a"'s blocks
-    assert (got_m["preemptions"] > 0) == (n_blocks is not None)
-    # the eos path ran: some row stopped early on eos (frozen tail)
-    assert any((t[:-1] == _EOS).any() for t in got.values())
-    assert got_m["referenced_blocks"] == 0
+
+
+@pytest.mark.parametrize("ticks_per_step", [1, 4])
+def test_paged_prefix_tokens_match_jax(models, ticks_per_step):
+    """A registered prefix pins its two full blocks in the pool; the two
+    requests naming it match them at admission."""
+    got_m = _paged_case(models, ticks_per_step, None, None, True)
+    assert got_m["prefix_hits"] >= 2 * 2
+
+
+def test_default_engine_is_the_arena_in_both_packages(models):
+    jm, variables, tm, state = models
+    ref = JaxEngine(jm, variables, max_new_tokens=4)
+    got = ContinuousEngine(tm, state, device="cpu", max_new_tokens=4)
+    assert not ref.paged and not got.paged
+    assert ref.cache_metrics()["mode"] == got.cache_metrics()["mode"] \
+        == "arena"
+    assert ContinuousEngine(tm, device="cpu", max_new_tokens=4,
+                            paged=True).kernel == "fused"
+
+
+@pytest.mark.parametrize("kw", [dict(kernel="fused"), dict(kv_dtype="bf16"),
+                                dict(kv_dtype="int8")])
+def test_arena_rejects_paged_knobs(models, kw):
+    """As in the reference: kernel and kv_dtype select the paged path;
+    the arena accepts only the plain read, kernel="gather"."""
+    with pytest.raises(ValueError, match="require paged=True"):
+        ContinuousEngine(models[2], device="cpu", **_ENGINE, **kw)
+    ContinuousEngine(models[2], device="cpu", kernel="gather", **_ENGINE)
 
 
 def test_engine_needs_a_device_or_cuda(models):
@@ -104,7 +184,7 @@ def test_engine_needs_a_device_or_cuda(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(paged=False), "4.4"), (dict(chunked=True), "4.2"),
+    (dict(chunked=True), "4.2"),
     (dict(draft_model=object()), "4.3"), (dict(qos=object()), "4.5"),
     (dict(elastic_pool=True), "4.6"),
     (dict(kv_host_store_bytes=1 << 20), "4.6"),
@@ -124,7 +204,16 @@ def test_sampled_submit_raises(models):
 def test_abort_releases_blocks(models):
     """An aborted resident frees its slot and every block it held; an
     aborted waiter leaves the queue."""
-    eng = ContinuousEngine(models[2], device="cpu", **_ENGINE)
+    _abort_case(models, paged=True)
+
+
+def test_arena_abort_frees_the_slot(models):
+    _abort_case(models, paged=False)
+
+
+def _abort_case(models, paged):
+    eng = ContinuousEngine(models[2], device="cpu", paged=paged,
+                           **_ENGINE)
     done = {}
     for uri, prompt in _stream()[:4]:
         eng.submit(uri, prompt, lambda u, t: done.__setitem__(u, t))
@@ -134,4 +223,6 @@ def test_abort_releases_blocks(models):
     assert not eng.abort("nope")
     eng.drain()
     assert set(done) == {"a", "r0", "r1", "r2"} - {resident[0], "r2"}
-    assert eng.cache_metrics()["referenced_blocks"] == 0
+    assert eng.n_active == 0
+    if paged:
+        assert eng.cache_metrics()["referenced_blocks"] == 0

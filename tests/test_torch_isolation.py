@@ -31,6 +31,15 @@ def _port_modules():
         yield path, ".".join(parts)
 
 
+def test_scan_reaches_every_port_module():
+    mods = {m for _, m in _port_modules()}
+    assert {"analytics_zoo_tpu_torch.parallel.ring_attention",
+            "analytics_zoo_tpu_torch.models.transformer",
+            "analytics_zoo_tpu_torch.models.lm",
+            "analytics_zoo_tpu_torch.serving.continuous",
+            "analytics_zoo_tpu_torch.ops.flash_attention"} <= mods
+
+
 def test_forbidden_name_check_is_exact():
     assert _forbidden("jax.numpy") and _forbidden("analytics_zoo_tpu")
     assert _forbidden("analytics_zoo_tpu.ops.flash_attention")
@@ -80,3 +89,14 @@ def test_cpu_tensor_never_launches_the_kernel():
     out = tfa.paged_attention(q, pool, pool, tables, pos, kernel="fused")
     assert out.shape == (2, 1, 4, 64) and torch.isfinite(out).all()
     assert tfa.paged_attention_fused.launches == before
+
+
+def test_cpu_tensor_never_launches_the_flash_kernel():
+    q = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 9, 4, 64)).astype(np.float32))
+    before = tfa.flash_attention_fused.launches
+    with torch.no_grad():
+        out = tfa.flash_attention(q, q, q, torch.ones(2, 9, dtype=bool),
+                                  causal=True)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    assert tfa.flash_attention_fused.launches == before == 0
