@@ -1,21 +1,24 @@
-"""Decoder-only causal language model: the serving paths.
+"""Decoder-only causal language model: training and the serving paths.
 
-The port of ``analytics_zoo_tpu/models/lm.py`` as far as inference
-needs it, for the GPT-2-shaped configuration (learned positions,
-pre-LayerNorm blocks, tanh-GELU MLP, biases, tied head) with
-grouped-query attention:
+The port of ``analytics_zoo_tpu/models/lm.py`` for the GPT-2-shaped
+configuration (learned positions, pre-LayerNorm blocks, tanh-GELU MLP,
+biases, tied head) with grouped-query attention:
 
 - the dense forward (``__call__``/``hidden_states``) and ``prefill``,
   whose attention goes through ``models.transformer.attention_dispatch``
-  (the flash kernel on a CUDA tensor);
+  (the flash kernel on a CUDA tensor).  The forward is differentiable:
+  ``train=True`` is the training forward, and with grad on, the flash
+  branch's gradient runs the CUDA backward kernels; :func:`lm_loss` is
+  the reference's training loss.  The layers have no dropout (the
+  reference's GPT-2 import uses 0.0), so ``train`` changes nothing in
+  the arithmetic;
 - the slot-arena cache methods ``decode_step``, ``verify_step``/
   ``verify_hidden`` and ``prefill_chunk``, and greedy :func:`generate`;
 - the paged trio ``decode_step_paged``, ``verify_hidden_paged`` and
   ``prefill_chunk_paged``.
 
 rope, RMSNorm, SwiGLU, untied heads and MoE raise
-``NotImplementedError`` until a later slice ports them, and so does
-``train=True``: the training path comes with the backward kernels.
+``NotImplementedError`` until a later slice ports them.
 
 Numerics follow the reference's cast points, or bf16 logits drift from
 it: parameters are stored f32; every dense projection computes in the
@@ -45,13 +48,6 @@ from analytics_zoo_tpu_torch.models.transformer import attention_dispatch
 from analytics_zoo_tpu_torch.ops.flash_attention import (cache_attention,
                                                          paged_attention,
                                                          paged_kv_update)
-
-
-def _inference_only(train: bool) -> None:
-    if train:
-        raise NotImplementedError(
-            "train=True is not ported yet (ROADMAP Queue 1 item 7: the "
-            "training path, with the flash backward kernels)")
 
 
 def _dense(layer: nn.Linear, x, dtype):
@@ -231,8 +227,9 @@ class DecoderLayer(nn.Module):
     def forward_kv(self, x, train: bool = False):
         """The dense forward that also returns this layer's K/V
         ``[B, T, KH, D]``: the prompt-prefill payload the engine writes
-        into its KV arena."""
-        _inference_only(train)
+        into its KV arena.  ``train`` is accepted for the reference's
+        signature; with no dropout it changes nothing."""
+        del train
         a, k, v = self.attention(self.ln_attn(x).to(self.dtype),
                                  return_kv=True)
         return self._residual(x, a), k, v
@@ -333,25 +330,35 @@ class TransformerLM(nn.Module):
 
     def hidden_states(self, tokens, train: bool = False):
         """Final-LayerNorm hidden states ``[B, T, E]`` (f32) of the
-        causal forward: the forward minus the vocab head."""
-        return self._prefill_hidden(tokens, train)[0]
+        causal forward: the forward minus the vocab head.  ``train`` is
+        accepted for the reference's signature; with no dropout it
+        changes nothing."""
+        del train
+        x = self._embed_prompt(tokens)
+        for layer in self.layers:
+            x = layer(x)
+        return self.ln_f(x)
 
     def forward(self, tokens, train: bool = False):
         """Causal forward: logits ``[B, T, V]`` (f32)."""
         return self._logits(self.hidden_states(tokens, train))
 
-    def _prefill_hidden(self, tokens, train: bool = False):
-        """The causal forward's final-norm hidden states ``[B, T, E]``
-        and every layer's K/V, stacked ``[n_layers, B, T, KH, D]``."""
-        _inference_only(train)
+    def _embed_prompt(self, tokens):
+        """Token plus position embeddings of ``[B, T]`` tokens at
+        positions ``0 .. T-1``, in the compute dtype."""
         T = tokens.shape[1]
         if T > self.max_position:
             raise ValueError(
                 f"sequence length {T} exceeds max_position "
                 f"{self.max_position} (out-of-range position lookups "
                 f"would read clamped rows)")
-        x = self._embed(tokens.long(),
-                        torch.arange(T, device=tokens.device)[None])
+        return self._embed(tokens.long(),
+                           torch.arange(T, device=tokens.device)[None])
+
+    def _prefill_hidden(self, tokens):
+        """The causal forward's final-norm hidden states ``[B, T, E]``
+        and every layer's K/V, stacked ``[n_layers, B, T, KH, D]``."""
+        x = self._embed_prompt(tokens)
         ks, vs = [], []
         for layer in self.layers:
             x, k, v = layer.forward_kv(x)
@@ -450,6 +457,15 @@ class TransformerLM(nn.Module):
         last_h = h[torch.arange(h.shape[0], device=h.device),
                    lens.long() - 1]
         return self._logits(last_h)
+
+
+def lm_loss(logits, tokens):
+    """Shifted next-token cross-entropy, mean over ``B x (T-1)``: the
+    reference's ``lm_loss``.  logits ``[B, T, V]`` (computed in f32),
+    tokens ``[B, T]`` integer."""
+    V = logits.shape[-1]
+    return F.cross_entropy(logits[:, :-1].reshape(-1, V).float(),
+                           tokens[:, 1:].reshape(-1).long())
 
 
 @torch.no_grad()

@@ -38,6 +38,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _I, _I, _I, _I, _F, _P),
     },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _I, _I, _I, _I, _I, _F, _P),
+        "flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    },
 }
 
 

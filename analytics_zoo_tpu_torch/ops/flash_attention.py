@@ -2,13 +2,18 @@
 
 The port of ``analytics_zoo_tpu/ops/flash_attention.py``.
 
-Dense half (the forward; the backward kernels are not ported yet):
+Dense half:
 
 - :func:`flash_attention` is fused attention over ``[B, T, H, D]``
   operands with an optional key-padding mask and causal masking.  On a
   CUDA tensor it launches the hand-written CUDA kernel
   (``csrc/flash_attention.cu``, :func:`flash_attention_fused`); on a CPU
   tensor it runs the plain version, :func:`flash_attention_ref`.
+- Its gradient (:class:`_FlashAttention`, the reference's custom VJP)
+  launches the two hand-written backward kernels
+  (``csrc/flash_attention_bwd.cu``, :func:`flash_attention_bwd_fused`)
+  on a CUDA tensor and runs their plain version,
+  :func:`flash_attention_bwd_ref`, on a CPU tensor.
 
 Paged half.  The pool layout is the reference's, HEAD-MAJOR
 ``[N, KH, bs, D]`` (physical block, kv head, position in block, head
@@ -47,6 +52,23 @@ def _stream(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _masked_scores(q, k, kv_mask, causal, scale):
+    """f32 scores ``scale * q.k`` ``[B, H, Tq, Tk]``, ``NEG_INF`` where
+    ``kv_mask`` is False or, ``causal``, where key t > query i."""
+    Tq, Tk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = None
+    if kv_mask is not None:
+        mask = kv_mask.to(torch.bool)[:, None, None, :]
+    if causal:
+        tri = (torch.arange(Tq, device=q.device)[:, None]
+               >= torch.arange(Tk, device=q.device)[None, :])
+        mask = tri if mask is None else mask & tri
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return s
+
+
 def flash_attention_ref(q, k, v, kv_mask=None, *, causal: bool,
                         scale: Optional[float] = None):
     """The plain version of the dense flash forward: the function the
@@ -63,19 +85,9 @@ def flash_attention_ref(q, k, v, kv_mask=None, *, causal: bool,
     0 for a fully masked row; lse f32 ``[B*H, Tq]`` (row ``b*H + h``),
     ``m + log(l)``, or ``+1e30`` where ``l == 0``."""
     B, Tq, H, D = q.shape
-    Tk = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    mask = None
-    if kv_mask is not None:
-        mask = kv_mask.to(torch.bool)[:, None, None, :]
-    if causal:
-        tri = (torch.arange(Tq, device=q.device)[:, None]
-               >= torch.arange(Tk, device=q.device)[None, :])
-        mask = tri if mask is None else mask & tri
-    if mask is not None:
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s = _masked_scores(q, k, kv_mask, causal, scale)
     m = s.amax(dim=-1, keepdim=True)                    # [B, H, Tq, 1]
     m_sub = torch.where(m > NEG_INF * 0.5, m, torch.zeros_like(m))
     p = torch.exp(s - m_sub)
@@ -88,15 +100,11 @@ def flash_attention_ref(q, k, v, kv_mask=None, *, causal: bool,
     return o, lse.reshape(B * H, Tq)
 
 
-def flash_attention_fused(q, k, v, kv_mask=None, *, causal: bool,
-                          scale: Optional[float] = None):
-    """Launch the CUDA flash-attention forward kernel (CUDA tensors
-    only).  Same contract as :func:`flash_attention_ref`.  Takes q, k
-    and v contiguous in one dtype, f32 or bf16, head dims 64 and 128,
-    kv_mask a contiguous bool ``[B, Tk]``; raises on anything else.
-    ``flash_attention_fused.launches`` counts the launches."""
-    from analytics_zoo_tpu_torch.ops import _build
-
+def _check_dense(name, q, k, v, kv_mask, like_q=()):
+    """Raise on dense-attention operands the CUDA kernels do not take:
+    q ``[B, Tq, H, D]`` and k, v ``[B, Tk, H, D]`` contiguous on one CUDA
+    device in one dtype (f32 or bf16), D in (64, 128), kv_mask a
+    contiguous bool ``[B, Tk]``; ``like_q`` tensors must match q."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k and v must be [B, T, H, D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -106,14 +114,18 @@ def flash_attention_fused(q, k, v, kv_mask=None, *, causal: bool,
     if tuple(k.shape) != (B, Tk, H, D) or tuple(v.shape) != (B, Tk, H, D):
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
-    operands = [q, k, v] + ([] if kv_mask is None else [kv_mask])
+    for t in like_q:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name}: o and dO must match q "
+                             f"{tuple(q.shape)} {q.dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    operands = [q, k, v, *like_q] + ([] if kv_mask is None else [kv_mask])
     for t in operands:
         if t.device != q.device or t.device.type != "cuda":
-            raise ValueError(f"flash_attention_fused needs every operand "
-                             f"on one CUDA device, got {t.device}")
+            raise ValueError(f"{name} needs every operand on one CUDA "
+                             f"device, got {t.device}")
         if not t.is_contiguous():
-            raise ValueError("flash_attention_fused needs contiguous "
-                             "operands")
+            raise ValueError(f"{name} needs contiguous operands")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype} not "
@@ -124,6 +136,20 @@ def flash_attention_fused(q, k, v, kv_mask=None, *, causal: bool,
                                 or tuple(kv_mask.shape) != (B, Tk)):
         raise ValueError(f"kv_mask must be bool [B, Tk] = {(B, Tk)}, got "
                          f"{kv_mask.dtype} {tuple(kv_mask.shape)}")
+
+
+def flash_attention_fused(q, k, v, kv_mask=None, *, causal: bool,
+                          scale: Optional[float] = None):
+    """Launch the CUDA flash-attention forward kernel (CUDA tensors
+    only).  Same contract as :func:`flash_attention_ref`.  Takes q, k
+    and v contiguous in one dtype, f32 or bf16, head dims 64 and 128,
+    kv_mask a contiguous bool ``[B, Tk]``; raises on anything else.
+    ``flash_attention_fused.launches`` counts the launches."""
+    from analytics_zoo_tpu_torch.ops import _build
+
+    _check_dense("flash_attention_fused", q, k, v, kv_mask)
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     o = torch.empty_like(q)
@@ -145,6 +171,136 @@ def flash_attention_fused(q, k, v, kv_mask=None, *, causal: bool,
 flash_attention_fused.launches = 0
 
 
+def flash_attention_bwd_ref(q, k, v, kv_mask, o, lse, do, *, causal: bool,
+                            scale: Optional[float] = None):
+    """The plain version of the flash backward: the function the
+    reference's ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` compute
+    together, in one pass.
+
+    q, o, do: ``[B, Tq, H, D]``; k, v: ``[B, Tk, H, D]``; kv_mask and
+    causal as in :func:`flash_attention_ref`; lse: the forward's f32
+    ``[B*H, Tq]``.  Recomputes the masked f32 scores s and
+    ``p = exp(s - lse)`` (0 for masked keys and for a fully masked row,
+    whose lse is +1e30), ``delta = rowsum(do * o)`` in f32,
+    ``dp = do.v`` and ``ds = p * (dp - delta)``, with the kernels' cast
+    points: p rounded to do's dtype before ``p^T.do``, ds to k's dtype
+    before ``ds.k`` and to q's dtype before ``ds^T.q``, every product
+    accumulated in f32.  Returns ``(dq, dk, dv)`` in q's, k's and v's
+    dtypes: ``dq = scale * ds.k``, ``dk = scale * ds^T.q``,
+    ``dv = p^T.do``."""
+    B, Tq, H, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    s = _masked_scores(q, k, kv_mask, causal, scale)
+    p = torch.exp(s - lse.reshape(B, H, Tq, 1))
+    delta = flash_attention_bwd_delta(o, do).reshape(B, H, Tq, 1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(),
+                      do.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_launch(kernel, q, k, v, kv_mask, do, lse, delta,
+                               outs, causal, scale):
+    """Launch ONE backward kernel, ``kernel`` ("dq": outs ``(dq,)``;
+    "dkv": outs ``(dk, dv)``), into preallocated outputs; raises on a
+    refused launch.  :func:`flash_attention_bwd_fused` checks the
+    operands and makes both launches; this is the same launch, for
+    timing one kernel alone.  It does not check its operands and does
+    not count."""
+    from analytics_zoo_tpu_torch.ops import _build
+
+    B, Tq, H, D = q.shape
+    lib = _build.load("flash_attention_bwd")
+    rc = getattr(lib, f"flash_attention_bwd_{kernel}")(
+        _ptr(q), _ptr(k), _ptr(v),
+        ctypes.c_void_p(0) if kv_mask is None else _ptr(kv_mask),
+        _ptr(do), _ptr(lse), _ptr(delta), *map(_ptr, outs),
+        int(q.dtype == torch.bfloat16), B, Tq, k.shape[1], H, D,
+        int(bool(causal)), float(scale), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd {kernel} kernel launch "
+                           f"failed with CUDA error {rc}")
+
+
+def flash_attention_bwd_delta(o, do):
+    """``delta = rowsum(do * o)`` in f32 as ``[B*H, Tq]`` (row b*H + h),
+    the layout of lse: computed outside the kernels, as the reference
+    does, and read by both of them."""
+    B, Tq, H, _ = o.shape
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
+        B * H, Tq).contiguous()
+
+
+def flash_attention_bwd_fused(q, k, v, kv_mask, o, lse, do, *,
+                              causal: bool, scale: Optional[float] = None):
+    """Launch the CUDA flash backward, the dq kernel then the dk/dv
+    kernel (CUDA tensors only).  Same contract as
+    :func:`flash_attention_bwd_ref`.  Takes what
+    :func:`flash_attention_fused` takes, with o and do of q's shape and
+    dtype and lse a contiguous f32 ``[B*H, Tq]``; raises on anything
+    else.  ``flash_attention_bwd_fused.launches`` counts the calls, one
+    call being both kernels."""
+    _check_dense("flash_attention_bwd_fused", q, k, v, kv_mask,
+                 like_q=(o, do))
+    B, Tq, H, D = q.shape
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B * H, Tq) \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous f32 [B*H, Tq] = "
+                         f"{(B * H, Tq)} on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if q.numel() == 0 or k.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = flash_attention_bwd_delta(o, do)
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    args = (q, k, v, kv_mask, do, lse, delta)
+    flash_attention_bwd_launch("dq", *args, (dq,), causal, scale)
+    flash_attention_bwd_launch("dkv", *args, (dk, dv), causal, scale)
+    flash_attention_bwd_fused.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_fused.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the reference's ``_flash_fn``
+    custom VJP.  The forward keeps q, k, v, the mask, o and lse; the
+    backward recomputes p from lse.  A CUDA tensor runs the CUDA kernels
+    both ways, a CPU tensor their plain versions; no gradient flows to
+    the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, scale):
+        fwd = flash_attention_ref if q.device.type == "cpu" \
+            else flash_attention_fused
+        o, lse = fwd(q, k, v, kv_mask, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, kv_mask, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, kv_mask, o, lse = ctx.saved_tensors
+        # autograd often hands over a strided dO; the kernels read the
+        # model layout densely
+        do = do.contiguous()
+        bwd = flash_attention_bwd_ref if q.device.type == "cpu" \
+            else flash_attention_bwd_fused
+        dq, dk, dv = bwd(q, k, v, kv_mask, o, lse, do, causal=ctx.causal,
+                         scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, kv_mask=None, *, causal: bool = False,
                     scale: Optional[float] = None,
                     block_q: int = 512, block_k: int = 512):
@@ -156,25 +312,22 @@ def flash_attention(q, k, v, kv_mask=None, *, causal: bool = False,
     this launches the CUDA kernel, on a CPU tensor it runs
     :func:`flash_attention_ref`.  ``block_q``/``block_k`` are accepted
     for signature parity with the reference, whose TPU tiles they set;
-    the CUDA kernel picks its own tile (tiling does not change the
+    the CUDA kernels pick their own tile (tiling does not change the
     function), so they are not read.
 
-    Only the forward is ported: with grad mode on and an input that
-    requires grad this raises rather than return a result that cannot
-    be differentiated (the backward kernels are ROADMAP Queue 2 item
-    4)."""
+    With grad mode on and an input that requires grad the call goes
+    through :class:`_FlashAttention`, whose backward launches the CUDA
+    backward kernels on a CUDA tensor (their plain version on a CPU
+    tensor); no gradient flows to ``kv_mask``."""
     del block_q, block_k
+    if kv_mask is not None and q.device.type != "cpu":
+        kv_mask = kv_mask.to(torch.bool).contiguous()
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention's backward is not ported yet (ROADMAP "
-            "Queue 2 item 4): call it under torch.no_grad() or on "
-            "inputs that do not require grad")
+        return _FlashAttention.apply(q, k, v, kv_mask, causal, scale)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, kv_mask, causal=causal,
                                    scale=scale)[0]
-    if kv_mask is not None:
-        kv_mask = kv_mask.to(torch.bool).contiguous()
     return flash_attention_fused(q, k, v, kv_mask, causal=causal,
                                  scale=scale)[0]
 

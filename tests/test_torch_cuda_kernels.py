@@ -8,7 +8,7 @@ machine that has only PyTorch and the CUDA toolkit:
 
 (``--noconftest``: the suite's conftest configures JAX.)  The kernels
 build from ``analytics_zoo_tpu_torch/ops/csrc`` at their first launch.
-``chip_smoke.py`` runs the full sweep at serving shapes.
+``chip_smoke.py`` runs the full sweep at serving and training shapes.
 """
 
 import pytest
@@ -142,3 +142,74 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda):
         fa.paged_attention_fused(q.transpose(1, 2), pk, pv, tables, pos)
     with pytest.raises(ValueError, match="int32"):
         fa.paged_attention_fused(q, pk, pv, tables.long(), pos)
+
+
+# Backward.  Several keys: exactly equal in f32 and bf16, as the H100
+# reads: the kernels sum each product in the order of the plain
+# version's cuBLAS GEMMs and round p and ds at the same points; a looser
+# limit would let a skipped bf16 rounding of p or ds through, since the
+# final bf16 rounding hides most of it.  One key: the exact dq and dk are
+# 0 and both sides hold f32 rounding noise of dp - delta, so 1e-5 of
+# max(1, max |reference|).
+_BWD_ONE_KEY_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("T,H,D", [(1, 12, 64), (37, 12, 64),
+                                   (130, 8, 128)])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
+                                           (True, True)])
+def test_flash_backward_kernels_match_plain(cuda, kind, T, H, D, causal,
+                                            masked):
+    q, k, v, mask = _flash_case(cuda, kind, 2, T, H, D, masked, seed=T)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+        T + 1)).to(cuda, q.dtype)
+    o, lse = fa.flash_attention_fused(q, k, v, mask, causal=causal)
+    before = fa.flash_attention_bwd_fused.launches
+    got = fa.flash_attention_bwd_fused(q, k, v, mask, o, lse, do,
+                                       causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_fused.launches == before + 1
+    ref = fa.flash_attention_bwd_ref(q, k, v, mask, o, lse, do,
+                                     causal=causal)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        scale = max(1.0, r.float().abs().max().item())
+        tol = _BWD_ONE_KEY_TOL if T == 1 else 0.0
+        assert (g.float() - r.float()).abs().max().item() <= tol * scale
+    if masked:
+        # the last batch row masks every key: no gradient, and no NaN
+        for g in got:
+            assert (g[-1] == 0).all()
+    # the autograd Function launches the same kernels for CUDA tensors
+    # (no atomics: the same inputs give the same bits)
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*qkv, mask, causal=causal)
+    assert torch.equal(out, o)
+    assert fa.flash_attention_bwd_fused.launches == before + 1
+    grads = torch.autograd.grad(out, qkv, do)
+    assert fa.flash_attention_bwd_fused.launches == before + 2
+    for g, r in zip(grads, got):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_flash_backward_rejects_what_it_does_not_take(cuda):
+    q, k, v, _ = _flash_case(cuda, "f32", 1, 8, 2, 64, False)
+    o, lse = fa.flash_attention_fused(q, k, v, causal=True)
+    do = torch.ones_like(q)
+    bwd = fa.flash_attention_bwd_fused
+    with pytest.raises(ValueError, match="dO must match"):
+        bwd(q, k, v, None, o, lse, do.bfloat16(), causal=True)
+    strided = do.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(q, k, v, None, o, lse, strided, causal=True)
+    with pytest.raises(ValueError, match="lse"):
+        bwd(q, k, v, None, o, lse[:, :4].contiguous(), do, causal=True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        bwd(q.cpu(), k.cpu(), v.cpu(), None, o.cpu(), lse.cpu(), do.cpu(),
+            causal=True)
+    small = [x[..., :32].contiguous() for x in (q, k, v, o, do)]
+    with pytest.raises(ValueError, match="head dim"):
+        bwd(*small[:3], None, small[3], lse, small[4], causal=True)

@@ -9,7 +9,8 @@ lse against ``_fwd_call``, and O against the reference's XLA
 padding and dead-block paths of the reference kernel.  On this CPU host
 the port's ``flash_attention`` runs the plain version; the CUDA kernel
 itself is held to it on the card by ``chip_smoke.py`` and by
-``tests/test_torch_cuda_kernels.py``.
+``tests/test_torch_cuda_kernels.py``.  The backward's parity is in
+``tests/test_torch_flash_bwd.py``.
 """
 
 import importlib
@@ -158,9 +159,16 @@ def test_flash_attention_on_cpu_is_the_plain_version():
     assert torch.equal(got, ref)
 
 
-def test_flash_attention_backward_raises():
-    q = torch.zeros((1, 4, 2, 8), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        tfa.flash_attention(q, q, q, causal=True)
+def test_flash_attention_gradient_flows():
+    """With grad on, flash_attention is differentiable: the gradient
+    reaches q, k and v (through the plain backward on the CPU), and
+    under torch.no_grad() the same call builds no graph."""
+    q, k, v, mask = _case(16, "f32", True, seed=2)
+    args = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = tfa.flash_attention(*args, torch.from_numpy(mask), causal=True)
+    out.sum().backward()
+    for t in args:
+        assert t.grad is not None and t.grad.shape == t.shape
+        assert torch.isfinite(t.grad).all() and t.grad.abs().sum() > 0
     with torch.no_grad():
-        assert tfa.flash_attention(q, q, q, causal=True).shape == q.shape
+        assert tfa.flash_attention(*args, causal=True).grad_fn is None

@@ -37,7 +37,12 @@ def test_scan_reaches_every_port_module():
             "analytics_zoo_tpu_torch.models.transformer",
             "analytics_zoo_tpu_torch.models.lm",
             "analytics_zoo_tpu_torch.serving.continuous",
-            "analytics_zoo_tpu_torch.ops.flash_attention"} <= mods
+            "analytics_zoo_tpu_torch.ops.flash_attention",
+            "analytics_zoo_tpu_torch.common.config",
+            "analytics_zoo_tpu_torch.data.loader",
+            "analytics_zoo_tpu_torch.learn.objectives",
+            "analytics_zoo_tpu_torch.learn.metrics",
+            "analytics_zoo_tpu_torch.learn.estimator"} <= mods
 
 
 def test_forbidden_name_check_is_exact():
@@ -99,4 +104,11 @@ def test_cpu_tensor_never_launches_the_flash_kernel():
         out = tfa.flash_attention(q, q, q, torch.ones(2, 9, dtype=bool),
                                   causal=True)
     assert out.shape == q.shape and torch.isfinite(out).all()
+    # with grad: the forward and both backward kernels stay unlaunched
+    qg = q.clone().requires_grad_()
+    out = tfa.flash_attention(qg, qg, qg, torch.ones(2, 9, dtype=bool),
+                              causal=True)
+    out.sum().backward()
+    assert qg.grad is not None and torch.isfinite(qg.grad).all()
     assert tfa.flash_attention_fused.launches == before == 0
+    assert tfa.flash_attention_bwd_fused.launches == 0

@@ -12,6 +12,8 @@ into the port, and the same inputs run through both packages:
 - the slot-arena methods: ``prefill_chunk`` (two ragged chunks),
   greedy ``decode_step`` at per-row positions and a ``verify_hidden``
   of three tokens per row, and the caches they wrote;
+- the training forward and :func:`lm_loss`, and every parameter's
+  gradient against ``jax.value_and_grad`` (flash forced and default);
 - greedy :func:`generate` with ragged prompt lengths and an ``eos_id``;
 - the paged methods: ``prefill_chunk_paged`` (two chunks, the second
   attending the first through the pool) and ``decode_step_paged``.
@@ -28,8 +30,9 @@ import torch
 
 from analytics_zoo_tpu.models.lm import TransformerLM as JaxLM
 from analytics_zoo_tpu.models.lm import generate as jax_generate
+from analytics_zoo_tpu.models.lm import lm_loss as jax_lm_loss
 from analytics_zoo_tpu_torch.models.lm import (TransformerLM, generate,
-                                               params_from_flax)
+                                               lm_loss, params_from_flax)
 
 _CFG = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
             intermediate_size=64, max_position=64, ln_eps=1e-5)
@@ -69,8 +72,39 @@ def test_forward_and_prefill_match_jax(num_kv_heads, use_flash):
         _close(got, ref)
     with pytest.raises(ValueError, match="max_position"):
         tm.prefill(torch.zeros((1, 65), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tm(torch.from_numpy(toks), train=True)
+
+
+# Gradients: f32 on both sides, summed in another order (and, with the
+# flash branch, through the blockwise Pallas backward on the JAX side
+# against the one-pass plain version here): a few f32 ulps of gradients
+# of order 1e-2..1.
+_GRAD_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("num_kv_heads", [None, 2])
+@pytest.mark.parametrize("use_flash", [True, None])
+def test_lm_loss_and_grads_match_jax(num_kv_heads, use_flash):
+    """The training forward (``train=True``) and ``lm_loss``, and the
+    gradient of every parameter, against ``jax.value_and_grad`` of the
+    reference's ``lm_loss``; ``use_flash=True`` runs the reference's
+    Pallas backward in interpret mode and the port's
+    ``_FlashAttention`` with its plain versions."""
+    jm, variables, tm = _models(num_kv_heads, use_flash)
+    toks = np.random.default_rng(4).integers(0, 64, (2, 11)).astype(
+        np.int32)
+    ref_loss, ref_grads = jax.value_and_grad(
+        lambda p: jax_lm_loss(jm.apply({"params": p}, toks, train=True),
+                              toks))(variables["params"])
+    loss = lm_loss(tm(torch.from_numpy(toks), train=True),
+                   torch.from_numpy(toks))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-6)
+    want = params_from_flax(jax.tree_util.tree_map(np.asarray, ref_grads))
+    got = dict(tm.named_parameters())
+    assert set(want) == set(got)
+    for name, g in want.items():
+        np.testing.assert_allclose(got[name].grad.numpy(), g.numpy(),
+                                   atol=_GRAD_ATOL, rtol=0, err_msg=name)
 
 
 @pytest.mark.parametrize("num_kv_heads", [None, 2])
