@@ -4,10 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/torch_kernels/`` at the root of the checkout, at its first use,
 then loaded with ``ctypes``.  A library is named after a hash of its
-source, so an edited source builds anew; nothing here links against
-PyTorch, which keeps a build to seconds.  ``nvcc``'s report (ptxas
-registers, shared memory, spills) is kept beside each library as
-``<library>.log``.
+source and the shared headers (``csrc/*.cuh``), so an edited source or
+header builds anew; nothing here links against PyTorch, which keeps a
+build to seconds.  ``nvcc``'s report (ptxas registers, shared memory,
+spills) is kept beside each library as ``<library>.log``.
 """
 
 from __future__ import annotations
@@ -57,9 +57,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Where library ``name`` is built: named after a hash of its source,
+    the shared headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, Path]:

@@ -15,32 +15,55 @@
 //   a fully masked row); lse f32 [B*H, Tq] = m + log l, or +1e30 where
 //   l == 0, kept for the backward kernels.
 //
-// What bounds the work on this card.  At the arena's prefill shapes
-// (B=8, T=512, H=12, D=64, bf16, causal) the roofline bound is the bytes:
-// q, k, v and o once plus lse, about 25 MB, 7.6 us at 3.35 TB/s; the
-// causal q.k and p.v products are about 3.2 GFLOP, 3.3 us at the bf16
-// tensor-core rate.  This kernel does the products on CUDA cores in f32
-// (the H100 has about 67 TFLOP/s there, 1/15 of the bf16 tensor rate),
-// so it is held back by the products, not the bytes: about 50 us at the
-// f32 peak, more with the shared-memory traffic of scalar operands.
+// Two kernels, chosen by the operand type in flash_attention_fwd (an
+// explicit dispatch, not a fallback):
 //
-// How the design treats that.  One CUDA block per (query tile of 64
-// rows, b*H + h): the TPU grid's sequential axis over key blocks is the
-// loop over key tiles of 64 inside the block, and under causal masking
-// it stops at the tile's causal frontier, min(nk, q_last / 64 + 1) (the
-// TPU kernel's _block_live skip).  Each key tile of K and V is read
-// from device memory once per query tile and kept in shared memory as
-// f32; each of the 128 threads computes a 4 x 8 block of the 64 x 64
-// score tile (4 query rows, 8 keys), so every shared-memory operand
-// feeds several multiply-adds, and the online-softmax state of a row
-// lives in the 8 lanes that hold its scores.  Keys past Tk or with
-// kv_mask == 0 are masked in place.  The heaviest causal tiles (the
-// last query tiles) are scheduled first.
+// bf16 (every main path: serving and training compute in bf16):
+// flash_fwd_bf16_kernel, FlashAttention-2's design on the tensor cores.
+// What bounds the work: at the training shape (B=8, T=1024, H=12, D=64,
+// causal) the bytes are 50 MB (q, k, v, o once, lse), 15 us at
+// 3.35 TB/s, and the causal q.k and p.v products 12.9 GFLOP, 13 us at the
+// 989 TFLOP/s bf16 tensor rate: the two bounds meet, so the products must
+// run on tensor cores and the loads must stay in flight behind them.
+// One block of 4 warps per (64-row query tile, b*H + h), the heaviest
+// causal tiles first; each warp owns 16 query rows.  The block walks the
+// key tiles of 64 up to the tile's causal frontier min(nk, q_last/64 + 1)
+// (the TPU kernel's _block_live skip).
+//   - Tensor cores: q.k and p.V are mma.sync m16n8k16 bf16 -> f32.  The
+//     warp's Q A fragments are loaded once by ldmatrix and stay in
+//     registers; K's B fragments come from ldmatrix on the K tile (its
+//     rows are already the "col" operand), V's from ldmatrix.trans.
+//   - P never leaves registers: two neighbouring n8 score accumulators,
+//     rounded to bf16 (the TPU cast point) and packed, are one k16 A
+//     fragment of p.V.  Row max and row sum reduce over the 4 lanes of a
+//     quad; the row sum is reduced once, at the end.
+//   - In flight: K and V tiles stay bf16 in shared memory ([64][D + 8],
+//     conflict-free for ldmatrix), two stages filled by 16-byte cp.async;
+//     tile j + 1 is copied while tile j is multiplied.  Rows past Tk are
+//     zero-filled by the copy itself.
+//   - Masks: the causal comparison runs only on a warp's diagonal tile;
+//     the key mask is read as bytes, per tile, only when given; rows past
+//     Tq are never written; a fully masked row keeps o = 0 and
+//     lse = +1e30 exactly.
+//   Shared memory: 45 KB (D=64) / 85 KB (D=128).
+// Where this stops, and what is left: on Hopper only wgmma reaches the
+// full tensor-core rate, and cp.async spends a thread's instruction slots on
+// every 16-byte copy.  wgmma (a warpgroup's 64-row product, B read from
+// shared memory by the tensor cores themselves, asynchronous) and TMA
+// (one thread moves a whole tile and an mbarrier reports it), with a
+// producer warp and two consumer warpgroups, are the rest of the way to
+// the card's rate.  The design stops at mma.sync because the dq kernel
+// (flash_attention_bwd.cu) shares it: its 16-row warp tile and register
+// fragments carry over unchanged.
 //
-// Known shortfall, left for later work: CUDA-core f32 products instead
-// of tensor cores (mma.sync or wgmma on bf16 operands), no cp.async/TMA
-// pipelining of the next key tile behind the current one's products,
-// and scalar rather than vector shared-memory loads.
+// f32: flash_fwd_kernel, CUDA-core f32 products, exact f32 operands as
+// the TPU kernel multiplies them (preferred_element_type=f32; TF32
+// tensor cores keep about three digits and would break the card's f32
+// token-identity and training-parity checks).  One block per (query tile
+// of 64 rows, b*H + h), the same key-tile loop; K and V staged in shared
+// memory as f32; each of the 128 threads computes a 4 x 8 block of the
+// 64 x 64 score tile, and the online-softmax state of a row lives in the
+// 8 lanes that hold its scores.
 //
 // Plain C interface (loaded with ctypes): flash_attention_fwd returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
@@ -49,6 +72,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -61,9 +88,6 @@ constexpr int kKeys = 8;         // keys per thread: 8 key lanes
 constexpr int kLanes = kBk / kKeys;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -71,16 +95,9 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // p as the p.V product sees it: rounded to v's storage type
 __device__ __forceinline__ float round_p(float p, float) { return p; }
-__device__ __forceinline__ float round_p(float p, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(p));
-}
 
 // max / sum over the 8 consecutive lanes that hold one row's scores
 __device__ __forceinline__ float lanes_max(float v) {
@@ -104,6 +121,7 @@ constexpr size_t smem_bytes() {
          (kBq * (D + 1) + kBk * (D + 1) + kBk * D + kBq * (kBk + 1));
 }
 
+// f32 operands (bf16 takes flash_fwd_bf16_kernel below)
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -254,14 +272,175 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+constexpr size_t bf16_smem_bytes() {
+  // the q tile and two stages of k and v tiles, [64][D + 8] bf16 each
+  return sizeof(__nv_bfloat16) * (kBq + 4 * kBk) * (D + tc::kPad);
+}
+
+// bf16 operands on the tensor cores (see the header)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const uint8_t* __restrict__ kv_mask,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int Tq, int Tk, int H,
+                          float scale, int causal) {
+  constexpr int kLd = D + tc::kPad;
+  constexpr int kNs = kBk / 8;  // n8 blocks of a warp's score tile
+  constexpr int kNo = D / 8;    // n8 blocks of a warp's output rows
+  const int bh = blockIdx.x;    // b * H + h
+  const int b = bh / H, h = bh % H;
+  // the last query tiles carry the most causal work: start them first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBq;
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;  // the warp's rows r0 .. r0+15
+  const int c2 = (lane % 4) * 2;           // the lane's column pair
+  // the lane's two rows, g and g + 8 of the warp's 16
+  const int rows[2] = {q0 + r0 + lane / 4, q0 + r0 + lane / 4 + 8};
+
+  extern __shared__ __align__(16) __nv_bfloat16 tiles[];
+  __nv_bfloat16* q_s = tiles;                // [64][kLd]
+  __nv_bfloat16* k_s = q_s + kBq * kLd;      // [2][64][kLd]
+  __nv_bfloat16* v_s = k_s + 2 * kBk * kLd;  // [2][64][kLd]
+
+  const size_t tok = static_cast<size_t>(H) * D;  // stride of one token
+  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * Tq * tok + h * D;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Tk * tok + h * D;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Tk * tok + h * D;
+  const uint8_t* mb =
+      kv_mask ? kv_mask + static_cast<size_t>(b) * Tk : nullptr;
+
+  const int q_last = min(q0 + kBq, Tq) - 1;
+  int nk = (Tk + kBk - 1) / kBk;
+  if (causal) nk = min(nk, q_last / kBk + 1);
+
+  // stage 0: the q tile and the first k/v tile, one cp.async group
+  tc::load_tile_async<kBq, D, kThreads>(q_s, qb, q0, Tq, tok);
+  if (nk > 0) {
+    tc::load_tile_async<kBk, D, kThreads>(k_s, kb, 0, Tk, tok);
+    tc::load_tile_async<kBk, D, kThreads>(v_s, vb, 0, Tk, tok);
+  }
+  tc::cp_async_commit();
+
+  uint32_t qf[D / 16][4];  // the warp's Q A fragments, resident
+  float acc[kNo][4];
+#pragma unroll
+  for (int n = 0; n < kNo; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // per lane row: running max (base-2 units) and this lane's part of l
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float scale2 = scale * tc::kLog2e;  // scores in base-2 units
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kBk;
+    const int st = j & 1;
+    if (j + 1 < nk) {  // tile j + 1 into the other stage, in flight
+      tc::load_tile_async<kBk, D, kThreads>(k_s + (st ^ 1) * kBk * kLd, kb,
+                                            k0 + kBk, Tk, tok);
+      tc::load_tile_async<kBk, D, kThreads>(v_s + (st ^ 1) * kBk * kLd, vb,
+                                            k0 + kBk, Tk, tok);
+    }
+    tc::cp_async_commit();  // (empty on the last tile)
+    tc::cp_async_wait<1>();  // tile j (and, first, the q tile) landed
+    __syncthreads();
+    if (j == 0) tc::load_a_frags<D>(qf, q_s, r0, lane);
+
+    float s[kNs][4];
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    tc::mma_abt<D, kNs>(s, qf, k_s + st * kBk * kLd, lane);
+
+    // keys past Tk, masked keys, or (causal) keys past the warp's first
+    // row: only then is any key of this tile dead for this warp
+    const bool edge = k0 + kBk > Tk || mb != nullptr ||
+                      (causal && k0 + kBk - 1 > q0 + r0);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale2;
+        if (edge) {
+          const int t = k0 + n * 8 + c2 + (e & 1);
+          if (t >= Tk || (mb != nullptr && mb[t] == 0) ||
+              (causal && t > rows[e / 2]))
+            x = kNegInf;
+        }
+        s[n][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float m_sub[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], tc::quad_max(mx[i]));
+      m_sub[i] = m_new > kNegInf * 0.5f ? m_new : 0.f;
+      const float alpha = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int n = 0; n < kNo; ++n) {
+        acc[n][2 * i] *= alpha;
+        acc[n][2 * i + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m_sub[e / 2]);
+        l[e / 2] += p;
+        s[n][e] = p;
+      }
+    // p rounded to bf16 straight into A fragments: acc += p . V
+    tc::mma_xb<D, kBk>(acc, s, v_s + st * kBk * kLd, lane);
+    __syncthreads();  // every warp is done with stage st before its reload
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = tc::quad_sum(l[i]);
+    const int t = rows[i];
+    if (t >= Tq) continue;
+    const float l_safe = li > 0.f ? li : 1.f;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(b) * Tq + t) * tok + h * D;
+#pragma unroll
+    for (int n = 0; n < kNo; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + c2) =
+          __floats2bfloat162_rn(acc[n][2 * i] / l_safe,
+                                acc[n][2 * i + 1] / l_safe);
+    if (c2 == 0)
+      lse[static_cast<size_t>(bh) * Tq + t] =
+          li > 0.f ? m[i] * kLn2 + logf(l_safe) : -kNegInf;
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* mask, void* o, float* lse, int B, int Tq,
                    int Tk, int H, int causal, float scale,
                    cudaStream_t stream) {
   const dim3 grid(B * H, (Tq + kBq - 1) / kBq);
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D>;
+  // the operand type picks the kernel: bf16 on the tensor cores, f32 on
+  // the CUDA cores
+  void (*kernel)(const T*, const T*, const T*, const uint8_t*, T*, float*,
+                 int, int, int, float, int);
+  size_t smem;
+  if constexpr (std::is_same_v<T, float>) {
+    kernel = flash_fwd_kernel<float, D>;
+    smem = smem_bytes<D>();
+  } else {
+    kernel = flash_fwd_bf16_kernel<D>;
+    smem = bf16_smem_bytes<D>();
+  }
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -290,8 +469,9 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [B, Tq, H, D], k, v [B, Tk, H, D], all f32 (bf16 = 0) or bf16 (1),
-// contiguous; kv_mask [B, Tk] bool (one byte each) or null for all live;
-// o [B, Tq, H, D] in the operand type; lse [B*H, Tq] f32.
+// contiguous and 16-byte aligned (cp.async); kv_mask [B, Tk] bool (one
+// byte each) or null for all live; o [B, Tq, H, D] in the operand type;
+// lse [B*H, Tq] f32.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* kv_mask,
                                    void* o, void* lse, int bf16, int B,

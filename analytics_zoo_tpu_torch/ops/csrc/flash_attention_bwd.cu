@@ -29,42 +29,73 @@
 // 19.3 GFLOP, 19.5 us at the bf16 tensor-core rate, against 64 MB of
 // bytes (q, k, v, dO and dq once, lse and delta), 19 us at 3.35 TB/s.
 // The dk/dv kernel runs four (q.k, dO.v, p^T.dO, ds^T.Q): 25.8 GFLOP,
-// 26 us, against 76 MB, 23 us.  Both are bound by the products, barely.
-// These kernels do the products on CUDA cores in f32 (about 67 TFLOP/s,
-// 1/15 of the tensor rate), so they sit far above that bound, held back
-// by the products and the shared-memory loads that feed them.
+// 26 us, against 76 MB, 23 us.  Both are bound by the products, barely,
+// so the products belong on the tensor cores with the loads in flight.
 //
-// How the design treats that.  The TPU grid's sequential axis becomes a
-// loop inside a block: the dq kernel walks the key tiles of its 64 query
-// rows up to their causal frontier min(nk, q_last / 64 + 1) (the TPU
-// kernel's _block_live skip); the dk/dv kernel walks the query tiles that
-// can see its 64 keys, from tile k0 / 64 (the first tile whose last row
-// qi*64 + 63 >= k0) to the end.  The operand tiles live in shared memory
-// as f32, padded by one column so column reads are conflict-free; each of
-// the 256 threads computes a 2 x 8 block of every 64 x 64 score tile
-// (2 rows, 8 columns), and the rounded p / ds tiles go back through
-// shared memory to feed the gradient products, each row of them written
-// and read by the 8 lanes of one warp.  Per-row lse and delta sit in
-// registers (dq) or shared memory (dk/dv).  The dq kernel starts the
-// heaviest causal tiles (the last query tiles) first; the dk/dv kernel's
-// heaviest tiles (the first key tiles) are first already.  Shared memory
-// per block: dq 81 KB (D=64) / 145 KB (D=128), dk/dv 98 KB / 162 KB, so
-// the launch raises the dynamic shared-memory limit first and returns its
-// error if the card refuses.
+// The dq kernel, bf16 (flash_bwd_dq_bf16_kernel; every training step):
+// the forward kernel's design (flash_attention.cu) with two more
+// products.  One block of 4 warps per (64-row query tile, b*H + h),
+// heaviest causal tiles first, walking the key tiles up to the causal
+// frontier (the TPU kernel's _block_live skip); each warp owns 16 query
+// rows.
+//   - Tensor cores: S = Q.K^T, dP = dO.V^T and dq += dS.K are mma.sync
+//     m16n8k16 bf16 -> f32.  The warp's Q and dO A fragments are loaded
+//     once by ldmatrix and stay in registers, as do the lse and delta of
+//     its rows; K and V give their B fragments by ldmatrix (K and V rows
+//     are the "col" operand of Q.K^T and dO.V^T), K again by
+//     ldmatrix.trans for dS.K.
+//   - dS never leaves registers: ds = p * (dp - delta) in f32, rounded to
+//     bf16 (the TPU cast point, _bwd_dq_kernel's ds.astype(k.dtype)) and
+//     packed from two neighbouring n8 accumulators into one k16 A
+//     fragment.
+//   - In flight: K and V tiles stay bf16 in shared memory ([keys][D + 8],
+//     conflict-free for ldmatrix), two stages filled by 16-byte cp.async;
+//     tile j + 1 is copied while tile j is multiplied, rows past Tk
+//     zero-filled by the copy.
+//   - Registers: a lane holds D/2 f32 dq accumulators, the Q and dO
+//     fragments (D/4 registers each) and the S and dP tiles (keys/2
+//     each): at D=128 a 64-key tile would need 192 registers before
+//     addresses, so D=128 walks 32-key tiles and D=64 64-key tiles.
+//   Shared memory: 54 KB (D=64) / 68 KB (D=128).
+// Where this stops: the same place as the forward kernel (see its
+// header): wgmma and TMA with warp-specialised producers are the rest of
+// the way to the card's rate.
 //
-// Known shortfall, left for later work: CUDA-core f32 products instead of
-// tensor cores (mma.sync or wgmma on bf16 operands), no cp.async/TMA
-// pipelining of the next tile behind the current one's products, scalar
-// rather than vector shared-memory loads, and one or two blocks per SM at
-// these shared-memory sizes.
+// The f32 dq kernel and the dk/dv kernel (both types) are CUDA-core f32
+// products (flash_bwd_dq_kernel<float, D>, flash_bwd_dkv_kernel).  f32
+// stays exact on purpose: the TPU kernel multiplies f32 operands as f32,
+// and TF32 tensor cores would break the card's f32 training parity.  The
+// TPU grid's sequential axis becomes a loop inside a block: the dq
+// kernel walks the key tiles of its 64 query rows up to their causal
+// frontier min(nk, q_last / 64 + 1); the dk/dv kernel walks the query
+// tiles that can see its 64 keys, from tile k0 / 64 (the first tile
+// whose last row qi*64 + 63 >= k0) to the end.  The operand tiles live
+// in shared memory as f32, padded by one column so column reads are
+// conflict-free; each of the 256 threads computes a 2 x 8 block of every
+// 64 x 64 score tile (2 rows, 8 columns), and the rounded p / ds tiles go
+// back through shared memory to feed the gradient products, each row of
+// them written and read by the 8 lanes of one warp.  Per-row lse and
+// delta sit in registers (dq) or shared memory (dk/dv).  The dk/dv
+// kernel's heaviest tiles (the first key tiles) start first.  Shared
+// memory per block: f32 dq 81 KB (D=64) / 145 KB (D=128), dk/dv 98 KB /
+// 162 KB.  Known shortfall of dk/dv, the next kernel to redesign: its
+// CUDA-core products (the transposed p^T.dO and ds^T.Q on mma.sync need
+// the same tile machinery with the key tile resident), no cp.async, and
+// one or two blocks per SM at these shared-memory sizes.
 //
-// Plain C interface (loaded with ctypes): flash_attention_bwd_dq and
-// flash_attention_bwd_dkv each return cudaGetLastError() after their
-// launch, or cudaErrorInvalidValue for a shape they do not take.
+// Every launch raises the dynamic shared-memory limit first and returns
+// its error if the card refuses.  Plain C interface (loaded with ctypes):
+// flash_attention_bwd_dq and flash_attention_bwd_dkv each return
+// cudaGetLastError() after their launch, or cudaErrorInvalidValue for a
+// shape they do not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -146,6 +177,7 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kTld + 2 * kTile);
 }
 
+// f32 operands (bf16 takes flash_bwd_dq_bf16_kernel below)
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -253,6 +285,152 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kDc; ++c)
       row[tx + kLanes * c] = from_f32<T>(scale * acc[r][c]);
+  }
+}
+
+constexpr int kTcThreads = 128;  // 4 warps of 16 query rows
+
+// keys per tile of the bf16 dq kernel (see the header: registers)
+template <int D>
+__host__ __device__ constexpr int dq_keys() {
+  return D == 64 ? 64 : 32;
+}
+
+template <int D>
+constexpr size_t dq_bf16_smem_bytes() {
+  // q and dO tiles [64][D + 8], two stages of k and v tiles, all bf16
+  return sizeof(__nv_bfloat16) * (2 * kTile + 4 * dq_keys<D>()) *
+         (D + tc::kPad);
+}
+
+// bf16 operands on the tensor cores (see the header)
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const uint8_t* __restrict__ kv_mask,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, int Tq, int Tk,
+                             int H, float scale, int causal) {
+  constexpr int kBk = dq_keys<D>();
+  constexpr int kLd = D + tc::kPad;
+  constexpr int kNs = kBk / 8;  // n8 blocks of a warp's score tile
+  constexpr int kNo = D / 8;    // n8 blocks of a warp's dq rows
+  const int bh = blockIdx.x;    // b * H + h
+  const int b = bh / H, h = bh % H;
+  // the last query tiles carry the most causal work: start them first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;  // the warp's rows r0 .. r0+15
+  const int c2 = (lane % 4) * 2;           // the lane's column pair
+  // the lane's two rows, g and g + 8 of the warp's 16
+  const int rows[2] = {q0 + r0 + lane / 4, q0 + r0 + lane / 4 + 8};
+
+  extern __shared__ __align__(16) __nv_bfloat16 tiles[];
+  __nv_bfloat16* q_s = tiles;                // [64][kLd]
+  __nv_bfloat16* do_s = q_s + kTile * kLd;   // [64][kLd]
+  __nv_bfloat16* k_s = do_s + kTile * kLd;   // [2][kBk][kLd]
+  __nv_bfloat16* v_s = k_s + 2 * kBk * kLd;  // [2][kBk][kLd]
+
+  const size_t tok = static_cast<size_t>(H) * D;  // stride of one token
+  const size_t q_off = static_cast<size_t>(b) * Tq * tok + h * D;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Tk * tok + h * D;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Tk * tok + h * D;
+  const uint8_t* mb =
+      kv_mask ? kv_mask + static_cast<size_t>(b) * Tk : nullptr;
+
+  const int q_last = min(q0 + kTile, Tq) - 1;
+  int nk = (Tk + kBk - 1) / kBk;
+  if (causal) nk = min(nk, q_last / kBk + 1);
+
+  // stage 0: the q and dO tiles and the first k/v tile, one group
+  tc::load_tile_async<kTile, D, kTcThreads>(q_s, q + q_off, q0, Tq, tok);
+  tc::load_tile_async<kTile, D, kTcThreads>(do_s, dout + q_off, q0, Tq, tok);
+  tc::load_tile_async<kBk, D, kTcThreads>(k_s, kb, 0, Tk, tok);
+  tc::load_tile_async<kBk, D, kTcThreads>(v_s, vb, 0, Tk, tok);
+  tc::cp_async_commit();
+
+  // lse (base-2 units, as the scores) and delta of the lane's
+  // rows; a row past Tq gets lse = +1e30 and delta = 0, so p and ds are 0
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t idx = static_cast<size_t>(bh) * Tq + rows[i];
+    lse2[i] = rows[i] < Tq ? lse[idx] * tc::kLog2e : -kNegInf;
+    dlt[i] = rows[i] < Tq ? delta[idx] : 0.f;
+  }
+  const float scale2 = scale * tc::kLog2e;
+
+  uint32_t qf[D / 16][4], dof[D / 16][4];  // resident A fragments
+  float acc[kNo][4];
+#pragma unroll
+  for (int n = 0; n < kNo; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kBk;
+    const int st = j & 1;
+    if (j + 1 < nk) {  // tile j + 1 into the other stage, in flight
+      tc::load_tile_async<kBk, D, kTcThreads>(k_s + (st ^ 1) * kBk * kLd,
+                                              kb, k0 + kBk, Tk, tok);
+      tc::load_tile_async<kBk, D, kTcThreads>(v_s + (st ^ 1) * kBk * kLd,
+                                              vb, k0 + kBk, Tk, tok);
+    }
+    tc::cp_async_commit();   // (empty on the last tile)
+    tc::cp_async_wait<1>();  // tile j (and, first, q and dO) landed
+    __syncthreads();
+    if (j == 0) {
+      tc::load_a_frags<D>(qf, q_s, r0, lane);
+      tc::load_a_frags<D>(dof, do_s, r0, lane);
+    }
+    const __nv_bfloat16* ks = k_s + st * kBk * kLd;
+
+    float s[kNs][4], dp[kNs][4];
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    tc::mma_abt<D, kNs>(s, qf, ks, lane);
+    tc::mma_abt<D, kNs>(dp, dof, v_s + st * kBk * kLd, lane);
+
+    // keys past Tk, masked keys, or (causal) keys past the warp's first
+    // row: only then is any key of this tile dead for this warp
+    const bool edge = k0 + kBk > Tk || mb != nullptr ||
+                      (causal && k0 + kBk - 1 > q0 + r0);
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale2;
+        if (edge) {
+          const int t = k0 + n * 8 + c2 + (e & 1);
+          if (t >= Tk || (mb != nullptr && mb[t] == 0) ||
+              (causal && t > rows[e / 2]))
+            x = kNegInf;
+        }
+        const float p = exp2f(x - lse2[e / 2]);
+        s[n][e] = p * (dp[n][e] - dlt[e / 2]);  // ds, f32
+      }
+    // ds rounded to bf16 straight into A fragments: acc += ds . K
+    tc::mma_xb<D, kBk>(acc, s, ks, lane);
+    __syncthreads();  // every warp is done with stage st before its reload
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = rows[i];
+    if (t >= Tq) continue;
+    __nv_bfloat16* row = dq + (static_cast<size_t>(b) * Tq + t) * tok + h * D;
+#pragma unroll
+    for (int n = 0; n < kNo; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + c2) =
+          __floats2bfloat162_rn(scale * acc[n][2 * i],
+                                scale * acc[n][2 * i + 1]);
   }
 }
 
@@ -391,13 +569,26 @@ struct Args {
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a, void* dq) {
   const dim3 grid(a.B * a.H, (a.Tq + kTile - 1) / kTile);
-  constexpr size_t smem = dq_smem_bytes<D>();
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  // the operand type picks the kernel: bf16 on the tensor cores, f32 on
+  // the CUDA cores
+  void (*kernel)(const T*, const T*, const T*, const uint8_t*, const T*,
+                 const float*, const float*, T*, int, int, int, float, int);
+  size_t smem;
+  int threads;
+  if constexpr (std::is_same_v<T, float>) {
+    kernel = flash_bwd_dq_kernel<float, D>;
+    smem = dq_smem_bytes<D>();
+    threads = kThreads;
+  } else {
+    kernel = flash_bwd_dq_bf16_kernel<D>;
+    smem = dq_bf16_smem_bytes<D>();
+    threads = kTcThreads;
+  }
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem, a.stream>>>(
+  kernel<<<grid, threads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.mask, static_cast<const T*>(a.dout),
       a.lse, a.delta, static_cast<T*>(dq), a.Tq, a.Tk, a.H, a.scale,
@@ -450,8 +641,9 @@ Args args(const void* q, const void* k, const void* v, const void* kv_mask,
 }  // namespace
 
 // q, dout [B, Tq, H, D] and k, v [B, Tk, H, D], all f32 (bf16 = 0) or
-// bf16 (1), contiguous; kv_mask [B, Tk] bool (one byte each) or null for
-// all live; lse, delta [B*H, Tq] f32; dq [B, Tq, H, D] in the operand type.
+// bf16 (1), contiguous and 16-byte aligned (cp.async); kv_mask [B, Tk]
+// bool (one byte each) or null for all live; lse, delta [B*H, Tq] f32;
+// dq [B, Tq, H, D] in the operand type.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* kv_mask,
                                       const void* dout, const void* lse,

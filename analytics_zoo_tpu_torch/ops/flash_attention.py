@@ -102,9 +102,10 @@ def flash_attention_ref(q, k, v, kv_mask=None, *, causal: bool,
 
 def _check_dense(name, q, k, v, kv_mask, like_q=()):
     """Raise on dense-attention operands the CUDA kernels do not take:
-    q ``[B, Tq, H, D]`` and k, v ``[B, Tk, H, D]`` contiguous on one CUDA
-    device in one dtype (f32 or bf16), D in (64, 128), kv_mask a
-    contiguous bool ``[B, Tk]``; ``like_q`` tensors must match q."""
+    q ``[B, Tq, H, D]`` and k, v ``[B, Tk, H, D]`` contiguous and 16-byte
+    aligned on one CUDA device in one dtype (f32 or bf16), D in (64,
+    128), kv_mask a contiguous bool ``[B, Tk]``; ``like_q`` tensors must
+    match q."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k and v must be [B, T, H, D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -126,6 +127,11 @@ def _check_dense(name, q, k, v, kv_mask, like_q=()):
                              f"device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous operands")
+        # the kernels copy operand rows 16 bytes at a time (cp.async);
+        # the mask is read byte by byte
+        if t is not kv_mask and t.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte aligned operands, got "
+                             f"one at offset {t.data_ptr() % 16} bytes")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype} not "
@@ -142,8 +148,10 @@ def flash_attention_fused(q, k, v, kv_mask=None, *, causal: bool,
                           scale: Optional[float] = None):
     """Launch the CUDA flash-attention forward kernel (CUDA tensors
     only).  Same contract as :func:`flash_attention_ref`.  Takes q, k
-    and v contiguous in one dtype, f32 or bf16, head dims 64 and 128,
-    kv_mask a contiguous bool ``[B, Tk]``; raises on anything else.
+    and v contiguous and 16-byte aligned in one dtype, f32 or bf16, head
+    dims 64 and 128, kv_mask a contiguous bool ``[B, Tk]``; raises on
+    anything else.  bf16 runs on the tensor cores, f32 on the CUDA
+    cores in full f32.
     ``flash_attention_fused.launches`` counts the launches."""
     from analytics_zoo_tpu_torch.ops import _build
 

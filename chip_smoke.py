@@ -9,7 +9,12 @@ fails.  Phases, in order:
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and a build of every kernel from ``ops/csrc``, one ``nvcc``
    per source started together (seconds and the ``ptxas`` register/spill
-   report of each library).
+   report of each library); then each library's SASS (``cuobjdump
+   -sass``): its tensor-core (``HMMA``), async-copy (``LDGSTS``, which is
+   cp.async) and ``ldmatrix`` (``LDSM``) instructions per kernel.  The
+   run fails if ``flash_attention`` or ``flash_attention_bwd`` has no
+   ``HMMA`` or no ``LDGSTS``: the bf16 kernels must be the tensor-core
+   ones.
 2. Kernels against their plain versions on the card, on the same CUDA
    inputs, with stated tolerances: the paged-attention kernel against
    ``paged_attention_ref`` (f32, bf16 and int8 pools x (H, KH) in
@@ -17,8 +22,10 @@ fails.  Phases, in order:
    flash-attention forward against ``flash_attention_ref`` on O and lse,
    and the two backward kernels against ``flash_attention_bwd_ref`` on
    dq, dk and dv (each: causal or not x key mask or not, with a fully
-   masked row x T in {1, 37, 512, 1000} x (H, D) in {(12, 64), (8, 128)}
-   x f32 and bf16); then the autograd Function end to end:
+   masked row x T in {1, 16, 17, 37, 65, 129, 512, 1000} (the mma tile
+   edges among them) x (H, D) in {(12, 64), (8, 128)} x f32 and bf16;
+   the forward also with Tq = 37 against Tk = 1000, not causal); then
+   the autograd Function end to end:
    ``torch.autograd.grad`` through ``flash_attention`` against the same
    grad through plain ``full_attention``.
 3. Parity at GPT-2 width, 2 layers, f32.  Serving: the paged engine with
@@ -52,10 +59,13 @@ fails.  Phases, in order:
    flash forward at the arena's two most frequent prefill shapes and at
    the training shape; both backward kernels at the training shape,
    where dq, dk, dv, O and lse are first held to their plain versions),
-   with CUDA events, beside the plain version, the memory/compute bound
-   and, for flash, PyTorch's ``scaled_dot_product_attention`` (forward,
-   or its backward through autograd); printed as one
-   ``{"kernels": [...]}`` line.
+   beside the plain version, the memory/compute bound and, for flash,
+   PyTorch's ``scaled_dot_product_attention`` (forward, or its backward
+   through autograd); printed as one ``{"kernels": [...]}`` line.
+   ``ms`` is a call's time by CUDA events over back-to-back calls (the
+   host's work between launches included where a call is short);
+   ``kernel_ms`` the kernel's own device time a launch, by
+   torch.profiler.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -64,9 +74,11 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -107,17 +119,24 @@ POOL_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16,
 # exact products in both types, so summation order only.
 FLASH_ATOL = {"f32": 1e-4, "bf16": 2e-2}
 LSE_ATOL = 1e-3
-# backward kernels vs plain version.  Several keys (T >= 37, and the
-# training shape): exactly equal, in f32 and bf16 alike, which is what
-# the card reads (H100): the kernels sum each product in the order of
-# the plain version's cuBLAS GEMMs and round p and ds at the same
-# points.  Nothing looser: a kernel that skipped the bf16 rounding of p
-# or ds would move each sum by about an ulp per term, and the final
-# bf16 rounding hides most of that, so even one ulp per element would
-# let it through.  One key (T = 1): the exact dq and dk are 0, and both
-# sides hold f32 rounding noise of dp - delta (read: at most 1.6e-6 of
-# max(1, max |plain|)); held to 1e-5 of that.
+# backward kernels vs plain version, relative to max(1, max |plain|).
+# The CUDA-core kernels (f32 dq; dk and dv in both types), several keys
+# (T > 1, and the training shape): exactly equal, which is what the card
+# reads (H100): they sum each product in the order of the plain
+# version's cuBLAS GEMMs and round p and ds at the same points.  Nothing
+# looser: a kernel that skipped the bf16 rounding of p or ds would move
+# each sum by about an ulp per term, and the final bf16 rounding hides
+# most of that, so even one ulp per element would let it through.  One
+# key (T = 1): the exact dq and dk are 0, and both sides hold f32
+# rounding noise of dp - delta (read: at most 1.6e-6); held to 1e-5.
 BWD_ONE_KEY_TOL = 1e-5
+# The bf16 dq kernel sums its products on the tensor cores, in another
+# order than cuBLAS, so its f32 dp and ds can round to a neighbouring
+# bf16 ds and its dq to a neighbouring bf16 value: held to 2**-7 of
+# max(1, max |plain|), one to two bf16 ulps of the largest gradient, at
+# every T (read on the H100: at most 5.99e-3).  A skipped rounding of ds
+# cannot hide in that: the mma's A operand IS the ds rounded to bf16.
+DQ_BF16_TOL = 2.0 ** -7
 # autograd through the Function vs through plain full_attention (f32):
 # softmax's gradient and exp(s - lse) differ in their last bits, then
 # summation order: relative to max(1, max |plain|)
@@ -128,6 +147,14 @@ FUNCTION_GRAD_TOL = 1e-4
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
 TRAIN = dict(batch=8, seq=1024, steps_per_epoch=10, epochs=2)
+# phase 2's sequence lengths: one key, the m16/k16 and 64-row tile edges
+# (16, 17, 65, 129), ragged (37, 1000) and a whole number of tiles (512)
+SWEEP_T = (1, 16, 17, 37, 65, 129, 512, 1000)
+# instructions counted in each library's SASS: tensor-core products,
+# cp.async copies, ldmatrix loads
+SASS_OPS = ("HMMA", "LDGSTS", "LDSM")
+# libraries whose bf16 kernels must run on the tensor cores with cp.async
+TENSOR_CORE_LIBS = ("flash_attention", "flash_attention_bwd")
 MAIN = dict(max_new_tokens=32, max_slots=8,
             prompt_buckets=(32, 64, 128, 256, 512))
 SHARED = 256
@@ -170,15 +197,17 @@ def attention_case(dev, kind, H, KH, S, B, pos, bs=16, M=None,
     return q, pk, pv, tables, pos.to(dev)
 
 
-def flash_case(dev, dtype, B, T, H, D, masked=False, seed=0):
-    """q, k, v ``[B, T, H, D]`` on ``dev`` and, ``masked``, a random
-    key mask whose last batch row masks every key."""
+def flash_case(dev, dtype, B, T, H, D, masked=False, seed=0, Tk=None):
+    """q ``[B, T, H, D]`` and k, v ``[B, Tk, H, D]`` (Tk = T unless
+    given) on ``dev`` and, ``masked``, a random key mask whose last batch
+    row masks every key."""
+    Tk = T if Tk is None else Tk
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q, k, v = (torch.randn((B, T, H, D), generator=g).to(dev, dtype)
-               for _ in range(3))
+    q, k, v = (torch.randn((B, n, H, D), generator=g).to(dev, dtype)
+               for n in (T, Tk, Tk))
     mask = None
     if masked:
-        mask = torch.rand((B, T), generator=g) > 0.3
+        mask = torch.rand((B, Tk), generator=g) > 0.3
         mask[0, 0] = True
         mask[-1] = False
         mask = mask.to(dev)
@@ -224,44 +253,19 @@ def phase_kernel_vs_plain(dev):
     n = 0
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for H, D in ((12, 64), (8, 128)):
-            for T in (1, 37, 512, 1000):
-                for causal in (False, True):
-                    for masked in (False, True):
-                        q, k, v, mask = flash_case(dev, dtype, 2, T, H, D,
-                                                   masked, seed=T + D)
-                        o, lse = fa.flash_attention_fused(
-                            q, k, v, mask, causal=causal)
-                        ro, rlse = fa.flash_attention_ref(
-                            q, k, v, mask, causal=causal)
-                        torch.cuda.synchronize()
-                        err = (o.float() - ro.float()).abs().max().item()
-                        lerr = (lse - rlse).abs().max().item()
-                        ok = (bool(torch.isfinite(o).all())
-                              and err <= FLASH_ATOL[kind]
-                              and lerr <= LSE_ATOL)
-                        if masked:
-                            # the last batch row masks every key
-                            ok = ok and bool((o[-1] == 0).all()) and \
-                                bool((lse[H:] == 1e30).all())
-                        n += 1
-                        print(f"  {kind:4s} H={H:2d} D={D:3d} T={T:4d} "
-                              f"causal={int(causal)} mask={int(masked)} "
-                              f"o_err={err:.3e} (atol "
-                              f"{FLASH_ATOL[kind]:.0e}) lse_err="
-                              f"{lerr:.3e} (atol {LSE_ATOL:.0e}) "
-                              f"{'ok' if ok else 'FAIL'}")
-                        if not ok:
-                            raise AssertionError(
-                                f"flash kernel disagrees with the plain "
-                                f"version: {kind} H={H} D={D} T={T} "
-                                f"causal={causal} masked={masked} "
-                                f"o_err={err} lse_err={lerr}")
+            cases = [(T, T, causal, masked) for T in SWEEP_T
+                     for causal in (False, True) for masked in (False, True)]
+            # ragged q and k tiles, independently
+            cases += [(37, 1000, False, masked) for masked in (False, True)]
+            for Tq, Tk, causal, masked in cases:
+                n += check_forward(dev, kind, dtype, Tq, Tk, H, D, causal,
+                                   masked)
     print(f"  {n}/{n} flash cases agree")
     print("-- flash attention backward (dq, dk, dv)")
     n = 0
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for H, D in ((12, 64), (8, 128)):
-            for T in (1, 37, 512, 1000):
+            for T in SWEEP_T:
                 for causal in (False, True):
                     for masked in (False, True):
                         n += check_backward(dev, kind, dtype, T, H, D,
@@ -270,10 +274,42 @@ def phase_kernel_vs_plain(dev):
     check_function_grad(dev)
 
 
+def check_forward(dev, kind, dtype, Tq, Tk, H, D, causal, masked):
+    q, k, v, mask = flash_case(dev, dtype, 2, Tq, H, D, masked,
+                               seed=Tq + D, Tk=Tk)
+    o, lse = fa.flash_attention_fused(q, k, v, mask, causal=causal)
+    ro, rlse = fa.flash_attention_ref(q, k, v, mask, causal=causal)
+    torch.cuda.synchronize()
+    err = (o.float() - ro.float()).abs().max().item()
+    lerr = (lse - rlse).abs().max().item()
+    ok = (bool(torch.isfinite(o).all()) and err <= FLASH_ATOL[kind]
+          and lerr <= LSE_ATOL)
+    if masked:
+        # the last batch row masks every key
+        ok = ok and bool((o[-1] == 0).all()) and \
+            bool((lse[H:] == 1e30).all())
+    print(f"  {kind:4s} H={H:2d} D={D:3d} Tq={Tq:4d} Tk={Tk:4d} "
+          f"causal={int(causal)} mask={int(masked)} o_err={err:.3e} "
+          f"(atol {FLASH_ATOL[kind]:.0e}) lse_err={lerr:.3e} (atol "
+          f"{LSE_ATOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(
+            f"flash kernel disagrees with the plain version: {kind} H={H} "
+            f"D={D} Tq={Tq} Tk={Tk} causal={causal} masked={masked} "
+            f"o_err={err} lse_err={lerr}")
+    return 1
+
+
 def rel_err(got, ref):
     """max |got - ref| over max(1, max |ref|), in f32."""
     scale = max(1.0, ref.float().abs().max().item())
     return (got.float() - ref.float()).abs().max().item() / scale
+
+
+def bwd_tols(kind, T):
+    """(dq, dk, dv) limits relative to max(1, max |plain|)."""
+    exact = BWD_ONE_KEY_TOL if T == 1 else 0.0
+    return (DQ_BF16_TOL if kind == "bf16" else exact, exact, exact)
 
 
 def check_backward(dev, kind, dtype, T, H, D, causal, masked):
@@ -287,15 +323,15 @@ def check_backward(dev, kind, dtype, T, H, D, causal, masked):
                                      causal=causal)
     torch.cuda.synchronize()
     errs = [rel_err(a, b) for a, b in zip(got, ref)]
-    tol = BWD_ONE_KEY_TOL if T == 1 else 0.0
+    tols = bwd_tols(kind, T)
     ok = all(bool(torch.isfinite(a).all()) for a in got) and \
-        max(errs) <= tol
+        all(e <= t for e, t in zip(errs, tols))
     if masked:
         # the last batch row masks every key: no gradient reaches it
         ok = ok and all(bool((a[-1] == 0).all()) for a in got)
     print(f"  {kind:4s} H={H:2d} D={D:3d} T={T:4d} causal={int(causal)} "
-          f"mask={int(masked)} dq_err={errs[0]:.3e} dk_err={errs[1]:.3e} "
-          f"dv_err={errs[2]:.3e} (tol {tol:.0e}) "
+          f"mask={int(masked)} dq_err={errs[0]:.3e} (tol {tols[0]:.1e}) "
+          f"dk_err={errs[1]:.3e} dv_err={errs[2]:.3e} (tol {tols[1]:.0e}) "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(
@@ -543,6 +579,12 @@ def phase_training_main_path(dev, card, model):
     return fwd, bwd
 
 
+def dev_us(e):
+    """A profiler row's own device time in microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
 def profile_step(est, rows):
     """One more training step, a one-batch ``fit``, under
     torch.profiler: the device time by kernel (top entries) and the
@@ -561,11 +603,6 @@ def profile_step(est, rows):
         step()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     # the device's own rows (kernels, copies), not the host ops that
     # launched them nor annotated ranges over them (Optimizer.step), so
     # nothing is counted twice
@@ -714,6 +751,41 @@ def time_ms(fn, n_sets, iters=100):
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, n_sets, kernel, iters=20):
+    """Mean device time (ms) of one launch of the CUDA kernel whose name
+    contains ``kernel``, from torch.profiler over ``iters`` calls of
+    fn(i): the kernel's own time, without the host time between
+    launches that :func:`time_ms` also sees when a call is short.
+
+    The profiler traces one warm-up round it discards, then the measured
+    round. CUPTI may still lose a kernel record now and then (18 of 20
+    seen on an H100), so the mean is over the launches it recorded; it
+    must have recorded at least half of them and never more."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for i in range(n_sets):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for i in range(iters):
+                fn(i % n_sets)
+            torch.cuda.synchronize()
+            prof.step()
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and kernel in e.key]
+    launches = sum(e.count for e in rows)
+    if not iters // 2 <= launches <= iters:
+        raise AssertionError(f"profiler saw {launches} launches of "
+                             f"{kernel}, expected {iters}")
+    if launches < iters:
+        print(f"  profiler recorded {launches} of {iters} launches of "
+              f"{kernel}; device time is their mean")
+    return sum(dev_us(e) for e in rows) / launches / 1e3
+
+
 def least_ms(nbytes, ops, dtype):
     """The roofline bound in ms and what sets it: bytes over the HBM
     rate, or operations over the peak rate of the operand type."""
@@ -787,12 +859,14 @@ def training_timings(dev, train_launches):
         return s["q"], s["k"], s["v"], None, s["o"], s["lse"], s["do"]
 
     # the kernels at this shape against their plain versions, held as
-    # in phase 2: the backward exactly, the forward's O and lse to
-    # their tolerances
+    # in phase 2: dq to DQ_BF16_TOL, dk and dv exactly, the forward's O
+    # and lse to their tolerances
     got = fa.flash_attention_bwd_fused(*args(s0), causal=True)
     ref = fa.flash_attention_bwd_ref(*args(s0), causal=True)
     errs = [(a.float() - b.float()).abs().max().item()
             for a, b in zip(got, ref)]
+    rels = [rel_err(a, b) for a, b in zip(got, ref)]
+    tols = bwd_tols("bf16", T)
     finite = all(bool(torch.isfinite(a).all()) for a in got)
     del got, ref
     ro, rlse = fa.flash_attention_ref(s0["q"], s0["k"], s0["v"],
@@ -801,10 +875,12 @@ def training_timings(dev, train_launches):
     lse_err = (s0["lse"] - rlse).abs().max().item()
     del ro, rlse
     print(f"  {shape}: backward dq/dk/dv max_abs_err "
-          f"{' / '.join(f'{e:.3e}' for e in errs)} (tol exact); forward "
-          f"o_err {fwd_err:.3e} (atol {FLASH_ATOL['bf16']:.0e}) lse_err "
+          f"{' / '.join(f'{e:.3e}' for e in errs)}, relative to max(1, "
+          f"max |plain|) {' / '.join(f'{e:.3e}' for e in rels)} (tol "
+          f"{' / '.join(f'{t:.1e}' for t in tols)}); forward o_err "
+          f"{fwd_err:.3e} (atol {FLASH_ATOL['bf16']:.0e}) lse_err "
           f"{lse_err:.3e} (atol {LSE_ATOL:.0e})")
-    if not finite or max(errs) > 0.0:
+    if not finite or any(e > t for e, t in zip(rels, tols)):
         raise AssertionError(f"backward kernels disagree with the plain "
                              f"version at the training shape: {errs}")
     if fwd_err > FLASH_ATOL["bf16"] or lse_err > LSE_ATOL:
@@ -823,10 +899,16 @@ def training_timings(dev, train_launches):
     dq, dkv = launch("dq", ("dq",)), launch("dkv", ("dk", "dv"))
 
     dq_ms, dkv_ms = time_ms(dq, n_sets, 10), time_ms(dkv, n_sets, 10)
+    dq_dev = device_ms(dq, n_sets, "flash_bwd_dq_bf16_kernel")
+    dkv_dev = device_ms(dkv, n_sets, "flash_bwd_dkv_kernel")
     wrapper_ms = time_ms(lambda i: fa.flash_attention_bwd_fused(
         *args(sets[i]), causal=True), n_sets, 10)
-    fwd_ms = time_ms(lambda i: fa.flash_attention_fused(
-        sets[i]["q"], sets[i]["k"], sets[i]["v"], causal=True), n_sets, 10)
+    def fwd(i):
+        fa.flash_attention_fused(sets[i]["q"], sets[i]["k"], sets[i]["v"],
+                                 causal=True)
+
+    fwd_ms = time_ms(fwd, n_sets, 10)
+    fwd_dev = device_ms(fwd, n_sets, "flash_fwd_bf16_kernel")
     plain_bwd_ms = time_ms(lambda i: fa.flash_attention_bwd_ref(
         *args(sets[i]), causal=True), n_sets, 3)
     plain_fwd_ms = time_ms(lambda i: fa.flash_attention_ref(
@@ -854,19 +936,19 @@ def training_timings(dev, train_launches):
         "name": f"flash_attention_fwd[B={B},T={T}]", "route": "cuda",
         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES, "shape": shape,
         "launches": fwd_launches, "max_abs_err": fwd_err, "ms": fwd_ms,
-        "kernel_ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": bms,
+        "kernel_ms": fwd_dev, "plain_ms": plain_fwd_ms, "bound_ms": bms,
         "bound_by": by, "library_ms": lib_fwd_ms})
-    for name, replaces, ms, (bms, by), err in (
-            ("flash_attention_bwd_dq", DQ_REPLACES, dq_ms,
+    for name, replaces, ms, launch_ms, (bms, by), err in (
+            ("flash_attention_bwd_dq", DQ_REPLACES, dq_ms, dq_dev,
              bwd_bound(q0, 3, 1), errs[0]),
-            ("flash_attention_bwd_dkv", DKV_REPLACES, dkv_ms,
+            ("flash_attention_bwd_dkv", DKV_REPLACES, dkv_ms, dkv_dev,
              bwd_bound(q0, 4, 2), max(errs[1:]))):
         entries.append({
             "name": f"{name}[B={B},T={T}]", "route": "cuda",
             "source": BWD_SOURCE, "replaces": replaces, "shape": shape,
             "launches": bwd_launches, "max_abs_err": err, "ms": ms,
-            "kernel_ms": ms, "plain_ms": plain_bwd_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib_bwd_ms,
+            "kernel_ms": launch_ms, "plain_ms": plain_bwd_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_bwd_ms,
             "plain": "flash_attention_bwd_ref: dq, dk and dv in one pass",
             "library": "scaled_dot_product_attention backward: dq, dk "
                        "and dv in one call"})
@@ -893,8 +975,11 @@ def phase_timings(dev, paged_launches, flash_launches, prefill_shapes,
         err = (fa.paged_attention_fused(q, pk, pv, tabs[0], p)
                - fa.paged_attention_ref(q, pk, pv, tabs[0], p)
                ).abs().max().item()
-        ms = time_ms(lambda i: fa.paged_attention_fused(q, pk, pv,
-                                                        tabs[i], p), n_sets)
+        def paged(i):
+            fa.paged_attention_fused(q, pk, pv, tabs[i], p)
+
+        ms = time_ms(paged, n_sets)
+        launch_ms = device_ms(paged, n_sets, "paged_attention_kernel")
         plain = time_ms(lambda i: fa.paged_attention_ref(q, pk, pv,
                                                          tabs[i], p),
                         n_sets, iters=20)
@@ -905,7 +990,7 @@ def phase_timings(dev, paged_launches, flash_launches, prefill_shapes,
             "shape": f"B={B} S={S} H=12 KH=12 D=64 bs=16 M=34 bf16 "
                      f"pos={int(min(pos))}-{int(max(pos))}",
             "launches": paged_launches, "max_abs_err": err, "ms": ms,
-            "kernel_ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "kernel_ms": launch_ms, "plain_ms": plain, "bound_ms": bms,
             "bound_by": by,
             # no single PyTorch call computes attention through block
             # tables, so there is no library yardstick
@@ -919,9 +1004,11 @@ def phase_timings(dev, paged_launches, flash_launches, prefill_shapes,
         err = (fa.flash_attention_fused(q, k, v, causal=True)[0].float()
                - fa.flash_attention_ref(q, k, v, causal=True)[0].float()
                ).abs().max().item()
-        ms = time_ms(lambda i: fa.flash_attention_fused(*sets[i],
-                                                        causal=True),
-                     n_sets)
+        def fwd(i):
+            fa.flash_attention_fused(*sets[i], causal=True)
+
+        ms = time_ms(fwd, n_sets)
+        launch_ms = device_ms(fwd, n_sets, "flash_fwd_bf16_kernel")
         plain = time_ms(lambda i: fa.flash_attention_ref(*sets[i],
                                                          causal=True),
                         n_sets, iters=20)
@@ -937,17 +1024,95 @@ def phase_timings(dev, paged_launches, flash_launches, prefill_shapes,
             "shape": f"B={B} T={T} H={H} D={D} causal bf16 "
                      f"({calls} arena prefill calls at this shape)",
             "launches": flash_launches, "max_abs_err": err, "ms": ms,
-            "kernel_ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "kernel_ms": launch_ms, "plain_ms": plain, "bound_ms": bms,
             "bound_by": by, "library_ms": lib_ms})
     entries += training_timings(dev, train_launches)
     for e in entries:
         lib = e["library_ms"]
-        print(f"  {e['name']} {e['shape']}: kernel {e['ms']:.4f} ms, "
+        print(f"  {e['name']} {e['shape']}: kernel {e['ms']:.4f} ms a "
+              f"call ({e['kernel_ms']:.4f} ms device time a launch), "
               f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.5f} ms "
               f"({e['bound_by']}), library "
               f"{'-' if lib is None else f'{lib:.4f} ms'}, max_abs_err "
               f"{e['max_abs_err']:.2e}")
     return entries
+
+
+def sass_counts(path):
+    """{kernel: {op: count}} for the SASS_OPS instructions of every
+    kernel function in the built library ``path`` (``cuobjdump
+    -sass``)."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = kernel_label(line.split("Function :", 1)[1].strip())
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b",
+                                 line):
+                counts[fn][op] += 1
+    return counts
+
+
+def kernel_label(mangled):
+    """``name<template arguments>`` of a mangled kernel symbol, e.g.
+    ``flash_fwd_bf16_kernel<64>`` or ``flash_fwd_kernel<f32,64>``."""
+    m = re.search(r"_kernelI(.*?)EEv", mangled)
+    if m is None:
+        return mangled
+    # the name is the identifier whose length prefix ends where it starts
+    end = m.start() + len("_kernel")
+    name = next((mangled[end - n:end] for n in range(7, end)
+                 if mangled[:end - n].endswith(str(n))), mangled)
+    args = re.findall(r"f(?=L)|13__nv_bfloat16|Li\d+E", m.group(1))
+    names = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    return f"{name}<{','.join(names.get(a, a[2:-1]) for a in args)}>"
+
+
+def ptxas_report(log):
+    """{kernel: "N registers, spill stores/loads a/b bytes"} from an
+    ``nvcc -Xptxas -v`` log."""
+    report, fn, spill = {}, None, ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = kernel_label(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spill stores/loads {m.group(1)}/{m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            report[fn] = f"{m.group(1)} registers, {spill}"
+            fn = None
+    return report
+
+
+def phase_build():
+    print("== phase 1: build")
+    t0 = time.monotonic()
+    paths = _build.build_all()
+    print(f"  built {sorted(paths)} in {time.monotonic() - t0:.1f} s")
+    for name, path in sorted(paths.items()):
+        log = path.with_suffix(".log")
+        ptxas = ptxas_report(log.read_text()) if log.exists() else {}
+        counts = sass_counts(path)
+        total = {op: sum(c[op] for c in counts.values()) for op in SASS_OPS}
+        print(f"  {name} SASS: " + ", ".join(f"{op} {n}"
+                                              for op, n in total.items()))
+        for fn, c in sorted(counts.items()):
+            print(f"    {fn}: " + ", ".join(f"{op} {n}"
+                                            for op, n in c.items())
+                  + f"; ptxas: {ptxas.get(fn, 'not in the log')}")
+        if name in TENSOR_CORE_LIBS and not (total["HMMA"]
+                                             and total["LDGSTS"]):
+            raise AssertionError(f"{name}: no tensor-core (HMMA) or no "
+                                 f"cp.async (LDGSTS) instruction in its "
+                                 f"SASS: {total}")
 
 
 def main() -> int:
@@ -963,16 +1128,7 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
-    print("== phase 1: build")
-    t0 = time.monotonic()
-    paths = _build.build_all()
-    print(f"  built {sorted(paths)} in {time.monotonic() - t0:.1f} s")
-    for name, path in sorted(paths.items()):
-        log = path.with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
+    phase_build()
     phase_kernel_vs_plain(dev)
     phase_engine_parity(dev)
     phase_training_parity(dev)

@@ -71,22 +71,30 @@ def test_paged_attention_kernel_matches_plain(cuda, kind, H, KH, S):
     assert (out - ref).abs().max().item() <= _ATOL[kind]
 
 
+def _lengths(T):
+    """(Tq, Tk) of a case's ``T``: one length for both, or a pair."""
+    return T if isinstance(T, tuple) else (T, T)
+
+
 def _flash_case(dev, kind, B, T, H, D, masked, seed=0):
-    """q, k, v ``[B, T, H, D]`` and (``masked``) a random key mask whose
-    last batch row masks every key."""
+    """q ``[B, Tq, H, D]``, k, v ``[B, Tk, H, D]`` (:func:`_lengths`) and
+    (``masked``) a random key mask whose last batch row masks every
+    key."""
+    Tq, Tk = _lengths(T)
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn((B, T, H, D), generator=g).to(dev, _DTYPE[kind])
-               for _ in range(3))
+    q, k, v = (torch.randn((B, n, H, D), generator=g).to(dev, _DTYPE[kind])
+               for n in (Tq, Tk, Tk))
     mask = None
     if masked:
-        mask = torch.rand((B, T), generator=g) > 0.3
+        mask = torch.rand((B, Tk), generator=g) > 0.3
         mask[0, 0] = True
         mask[-1] = False
         mask = mask.to(dev)
     return q, k, v, mask
 
 
-# O: f32 up to summation order; bf16 rounds p before p @ v relative to
+# O: f32 up to summation order; bf16 (tensor cores: the same exact
+# products, summed in another order) rounds p before p @ v relative to
 # the running tile max (kernel) or the row max (plain), and O itself to
 # bf16.  lse: f32 arithmetic on exact products in both dtypes.
 _FLASH_ATOL = {"f32": 1e-4, "bf16": 2e-2}
@@ -94,19 +102,21 @@ _FLASH_ATOL = {"f32": 1e-4, "bf16": 2e-2}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
-@pytest.mark.parametrize("T,H,D", [(1, 12, 64), (37, 12, 64),
-                                   (130, 8, 128)])
+@pytest.mark.parametrize("T,H,D", [
+    (1, 12, 64), (16, 12, 64), (17, 12, 64), (37, 12, 64), (65, 12, 64),
+    ((37, 1000), 12, 64), (129, 8, 128), (130, 8, 128)])
 @pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
 def test_flash_attention_kernel_matches_plain(cuda, kind, T, H, D, causal,
                                               masked):
-    q, k, v, mask = _flash_case(cuda, kind, 2, T, H, D, masked, seed=T)
+    Tq, _ = _lengths(T)
+    q, k, v, mask = _flash_case(cuda, kind, 2, T, H, D, masked, seed=Tq)
     before = fa.flash_attention_fused.launches
     o, lse = fa.flash_attention_fused(q, k, v, mask, causal=causal)
     torch.cuda.synchronize()
     assert fa.flash_attention_fused.launches == before + 1
     ro, rlse = fa.flash_attention_ref(q, k, v, mask, causal=causal)
     assert o.dtype == q.dtype and o.shape == q.shape
-    assert lse.shape == (2 * H, T)
+    assert lse.shape == (2 * H, Tq)
     assert (o.float() - ro.float()).abs().max().item() <= _FLASH_ATOL[kind]
     assert torch.allclose(lse, rlse, atol=1e-3, rtol=1e-5)
     if masked:
@@ -129,6 +139,21 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention_fused(strided, k, v, causal=True)
     with pytest.raises(ValueError, match="dtypes"):
         fa.flash_attention_fused(q, k.bfloat16(), v, causal=True)
+    # contiguous but 2 bytes past a 16-byte boundary: cp.async cannot
+    # copy its rows
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fused(_misaligned(qb), kb, vb, causal=True)
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose storage starts one element past
+    an aligned address."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
 
 
 @pytest.mark.cuda
@@ -144,20 +169,31 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda):
         fa.paged_attention_fused(q, pk, pv, tables.long(), pos)
 
 
-# Backward.  Several keys: exactly equal in f32 and bf16, as the H100
-# reads: the kernels sum each product in the order of the plain
-# version's cuBLAS GEMMs and round p and ds at the same points; a looser
-# limit would let a skipped bf16 rounding of p or ds through, since the
-# final bf16 rounding hides most of it.  One key: the exact dq and dk are
-# 0 and both sides hold f32 rounding noise of dp - delta, so 1e-5 of
-# max(1, max |reference|).
+# Backward, relative to max(1, max |reference|).  The CUDA-core kernels
+# (f32 dq; dk and dv in both dtypes), several keys: exactly equal, as the
+# H100 reads: they sum each product in the order of the plain version's
+# cuBLAS GEMMs and round p and ds at the same points; a looser limit
+# would let a skipped bf16 rounding of p or ds through, since the final
+# bf16 rounding hides most of it.  One key: the exact dq and dk are 0
+# and both sides hold f32 rounding noise of dp - delta, so 1e-5.
+# The bf16 dq kernel sums on the tensor cores in another order, so ds
+# and dq may each land on a neighbouring bf16 value: 2**-7, one to two
+# bf16 ulps of the largest gradient, at every T; its ds rounding cannot
+# be skipped, since the mma's A operand is the bf16 ds itself.
 _BWD_ONE_KEY_TOL = 1e-5
+_DQ_BF16_TOL = 2.0 ** -7
+
+
+def _bwd_tols(kind, T):
+    exact = _BWD_ONE_KEY_TOL if T == 1 else 0.0
+    return (_DQ_BF16_TOL if kind == "bf16" else exact, exact, exact)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
-@pytest.mark.parametrize("T,H,D", [(1, 12, 64), (37, 12, 64),
-                                   (130, 8, 128)])
+@pytest.mark.parametrize("T,H,D", [(1, 12, 64), (16, 12, 64), (17, 12, 64),
+                                   (37, 12, 64), (65, 12, 64),
+                                   (129, 8, 128), (130, 8, 128)])
 @pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
                                            (True, True)])
 def test_flash_backward_kernels_match_plain(cuda, kind, T, H, D, causal,
@@ -173,10 +209,9 @@ def test_flash_backward_kernels_match_plain(cuda, kind, T, H, D, causal,
     assert fa.flash_attention_bwd_fused.launches == before + 1
     ref = fa.flash_attention_bwd_ref(q, k, v, mask, o, lse, do,
                                      causal=causal)
-    for g, r in zip(got, ref):
+    for g, r, tol in zip(got, ref, _bwd_tols(kind, T)):
         assert g.dtype == r.dtype and g.shape == r.shape
         scale = max(1.0, r.float().abs().max().item())
-        tol = _BWD_ONE_KEY_TOL if T == 1 else 0.0
         assert (g.float() - r.float()).abs().max().item() <= tol * scale
     if masked:
         # the last batch row masks every key: no gradient, and no NaN
@@ -207,6 +242,8 @@ def test_flash_backward_rejects_what_it_does_not_take(cuda):
         bwd(q, k, v, None, o, lse, strided, causal=True)
     with pytest.raises(ValueError, match="lse"):
         bwd(q, k, v, None, o, lse[:, :4].contiguous(), do, causal=True)
+    with pytest.raises(ValueError, match="aligned"):
+        bwd(q, k, v, None, o, lse, _misaligned(do), causal=True)
     with pytest.raises(ValueError, match="CUDA device"):
         bwd(q.cpu(), k.cpu(), v.cpu(), None, o.cpu(), lse.cpu(), do.cpu(),
             causal=True)
