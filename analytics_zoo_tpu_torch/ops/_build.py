@@ -31,8 +31,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # are c_void_p, so ctypes never cuts one to 32 bits
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "paged_attention": {
+        "paged_attention_splits": (_I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I),
         "paged_attention_fwd": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _P),
+                                _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "flash_attention": {
         "flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I,

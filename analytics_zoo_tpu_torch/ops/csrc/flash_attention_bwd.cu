@@ -30,7 +30,7 @@
 // bytes (q, k, v, dO and dq once, lse and delta), 19 us at 3.35 TB/s.
 // The dk/dv kernel runs four (q.k, dO.v, p^T.dO, ds^T.Q): 25.8 GFLOP,
 // 26 us, against 76 MB, 23 us.  Both are bound by the products, barely,
-// so the products belong on the tensor cores with the loads in flight.
+// so in bf16 both run them on the tensor cores with the loads in flight.
 //
 // The dq kernel, bf16 (flash_bwd_dq_bf16_kernel; every training step):
 // the forward kernel's design (flash_attention.cu) with two more
@@ -57,12 +57,39 @@
 //     each): at D=128 a 64-key tile would need 192 registers before
 //     addresses, so D=128 walks 32-key tiles and D=64 64-key tiles.
 //   Shared memory: 54 KB (D=64) / 68 KB (D=128).
-// Where this stops: the same place as the forward kernel (see its
+//
+// The dk/dv kernel, bf16 (flash_bwd_dkv_bf16_kernel; every training
+// step): the same machinery on the transposed tiles, so all four products
+// are the two helpers above and no new fragment layout is needed.  One
+// block of 4 warps per (64-key tile, b*H + h), the heaviest causal tiles
+// (the first key tiles) first, walking the query tiles from k0 / 64 (the
+// first whose last row reaches k0) to the end; each warp owns 16 keys.
+//   - Resident: the warp's K and V A fragments (ldmatrix once, D=64).
+//   - Streamed: the Q and dO tiles with their lse and delta, two stages
+//     of 16-byte (and 4-byte) cp.async, query tile i + 1 in flight while
+//     tile i is multiplied; rows past Tq zero-filled and masked.
+//   - s^T = K.Q^T and dp^T = V.dO^T are mma_abt (the query tile is the
+//     "col" operand); p^T = exp2(s^T * scale * log2 e - lse * log2 e)
+//     and ds^T = p^T * (dp^T - delta) in f32 registers, lse and delta
+//     indexed by the accumulator's column (the query) in shared memory.
+//   - dv += p^T.dO and dk += ds^T.Q are mma_xb on the same row-major
+//     tiles (.trans); its bf16 packing of p^T and ds^T is exactly the TPU
+//     cast points (_bwd_dkv_kernel: p.astype(do.dtype),
+//     ds.astype(q.dtype)), so the mma's A operand is the rounded value.
+//   - Masks: a masked key or one past Tk is dead for the whole loop (its
+//     dk and dv rows are 0); the causal comparison runs only on tiles
+//     that cross a warp's keys, and queries past Tq only on the last.
+//   - Registers: D=64 keeps 64 dk/dv accumulators, 32 K/V fragment
+//     registers and two 32-register s^T/dp^T tiles; D=128 would need 256
+//     for the same, so it walks 32-query tiles and re-reads the K and V
+//     fragments from shared memory every tile (mma_abt_smem).
+//   Shared memory: 55 KB (D=64) / 70 KB (D=128).
+// Where these stop: the same place as the forward kernel (see its
 // header): wgmma and TMA with warp-specialised producers are the rest of
 // the way to the card's rate.
 //
-// The f32 dq kernel and the dk/dv kernel (both types) are CUDA-core f32
-// products (flash_bwd_dq_kernel<float, D>, flash_bwd_dkv_kernel).  f32
+// The f32 dq and dk/dv kernels are CUDA-core f32 products
+// (flash_bwd_dq_kernel<float, D>, flash_bwd_dkv_kernel<float, D>).  f32
 // stays exact on purpose: the TPU kernel multiplies f32 operands as f32,
 // and TF32 tensor cores would break the card's f32 training parity.  The
 // TPU grid's sequential axis becomes a loop inside a block: the dq
@@ -72,16 +99,11 @@
 // whose last row qi*64 + 63 >= k0) to the end.  The operand tiles live
 // in shared memory as f32, padded by one column so column reads are
 // conflict-free; each of the 256 threads computes a 2 x 8 block of every
-// 64 x 64 score tile (2 rows, 8 columns), and the rounded p / ds tiles go
-// back through shared memory to feed the gradient products, each row of
-// them written and read by the 8 lanes of one warp.  Per-row lse and
-// delta sit in registers (dq) or shared memory (dk/dv).  The dk/dv
-// kernel's heaviest tiles (the first key tiles) start first.  Shared
-// memory per block: f32 dq 81 KB (D=64) / 145 KB (D=128), dk/dv 98 KB /
-// 162 KB.  Known shortfall of dk/dv, the next kernel to redesign: its
-// CUDA-core products (the transposed p^T.dO and ds^T.Q on mma.sync need
-// the same tile machinery with the key tile resident), no cp.async, and
-// one or two blocks per SM at these shared-memory sizes.
+// 64 x 64 score tile (2 rows, 8 columns), and the p / ds tiles go back
+// through shared memory to feed the gradient products, each row of them
+// written and read by the 8 lanes of one warp.  Per-row lse and delta
+// sit in registers (dq) or shared memory (dk/dv).  Shared memory per
+// block: dq 81 KB (D=64) / 145 KB (D=128), dk/dv 98 KB / 162 KB.
 //
 // Every launch raises the dynamic shared-memory limit first and returns
 // its error if the card refuses.  Plain C interface (loaded with ctypes):
@@ -108,9 +130,6 @@ constexpr int kLanes = kTile / kCols;  // 8 lanes share a row group
 constexpr int kTld = kTile + 1;        // padded row of a p / ds tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -118,16 +137,9 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
-// x as a product sees it after a cast to the operand type
+// x as a product sees it after a cast to the operand type (f32: as is)
 __device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // rows t0 .. t0+63 (zero past n) of one head of a [*, n, H, D] tensor
 // into shared memory as f32 [64][D + 1]; base points at (b, 0, h, 0)
@@ -434,6 +446,7 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
+// f32 operands (bf16 takes flash_bwd_dkv_bf16_kernel below)
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -557,6 +570,183 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// query rows per tile of the bf16 dk/dv kernel (see the header: registers)
+template <int D>
+__host__ __device__ constexpr int dkv_queries() {
+  return D == 64 ? 64 : 32;
+}
+
+template <int D>
+constexpr size_t dkv_bf16_smem_bytes() {
+  // k and v tiles [64][D + 8] and two stages of q and dO tiles
+  // [queries][D + 8], bf16; two stages of lse and delta, f32
+  return sizeof(__nv_bfloat16) * (2 * kTile + 4 * dkv_queries<D>()) *
+             (D + tc::kPad) +
+         sizeof(float) * 4 * dkv_queries<D>();
+}
+
+// bf16 operands on the tensor cores (see the header)
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const uint8_t* __restrict__ kv_mask,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int Tq,
+                              int Tk, int H, float scale, int causal) {
+  constexpr int kBq = dkv_queries<D>();
+  constexpr int kLd = D + tc::kPad;
+  constexpr int kNs = kBq / 8;  // n8 blocks (queries) of a warp's s^T tile
+  constexpr int kNo = D / 8;    // n8 blocks of a warp's dk / dv rows
+  // D=64 keeps the warp's K and V A fragments in registers; D=128 has no
+  // room for them and reads them from shared memory at every tile
+  constexpr bool kResident = D == 64;
+  const int bh = blockIdx.x;  // b * H + h
+  const int b = bh / H, h = bh % H;
+  // the first key tiles carry the most causal work and start first
+  const int k0 = blockIdx.y * kTile;
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;  // the warp's keys k0 + r0 ..
+  const int c2 = (lane % 4) * 2;           // the lane's column pair
+  // the lane's two keys, rows g and g + 8 of the warp's 16
+  const int keys[2] = {k0 + r0 + lane / 4, k0 + r0 + lane / 4 + 8};
+
+  extern __shared__ __align__(16) __nv_bfloat16 tiles[];
+  __nv_bfloat16* k_s = tiles;                 // [64][kLd]
+  __nv_bfloat16* v_s = k_s + kTile * kLd;     // [64][kLd]
+  __nv_bfloat16* q_s = v_s + kTile * kLd;     // [2][kBq][kLd]
+  __nv_bfloat16* do_s = q_s + 2 * kBq * kLd;  // [2][kBq][kLd]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kBq * kLd);  // [2][kBq]
+  float* dlt_s = lse_s + 2 * kBq;                                 // [2][kBq]
+
+  const size_t tok = static_cast<size_t>(H) * D;  // stride of one token
+  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * Tq * tok + h * D;
+  const __nv_bfloat16* dob =
+      dout + static_cast<size_t>(b) * Tq * tok + h * D;
+  const size_t k_off = static_cast<size_t>(b) * Tk * tok + h * D;
+  const float* lse_b = lse + static_cast<size_t>(bh) * Tq;
+  const float* dlt_b = delta + static_cast<size_t>(bh) * Tq;
+
+  const int nq = (Tq + kBq - 1) / kBq;
+  // causal: the first query tile whose last row reaches k0
+  const int i0 = causal ? k0 / kBq : 0;
+
+  // query tile i into stage st: q and dO rows, lse and delta (rows past
+  // Tq zero-filled; they are masked below)
+  auto load_queries = [&](int st, int i) {
+    const int q0 = i * kBq;
+    tc::load_tile_async<kBq, D, kTcThreads>(q_s + st * kBq * kLd, qb, q0, Tq,
+                                            tok);
+    tc::load_tile_async<kBq, D, kTcThreads>(do_s + st * kBq * kLd, dob, q0,
+                                            Tq, tok);
+    if (threadIdx.x < kBq) {
+      const int t = q0 + threadIdx.x;
+      const bool in = t < Tq;
+      tc::cp_async4(lse_s + st * kBq + threadIdx.x, in ? lse_b + t : lse_b,
+                    in ? 4 : 0);
+      tc::cp_async4(dlt_s + st * kBq + threadIdx.x, in ? dlt_b + t : dlt_b,
+                    in ? 4 : 0);
+    }
+  };
+
+  // stage 0: the k and v tiles and the first query tile, one group
+  tc::load_tile_async<kTile, D, kTcThreads>(k_s, k + k_off, k0, Tk, tok);
+  tc::load_tile_async<kTile, D, kTcThreads>(v_s, v + k_off, k0, Tk, tok);
+  if (i0 < nq) load_queries(0, i0);
+  tc::cp_async_commit();
+
+  // keys past Tk and masked keys: dead for the whole loop, so p, ds and
+  // both gradients of that key row are 0
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    live[i] = keys[i] < Tk &&
+              (kv_mask == nullptr ||
+               kv_mask[static_cast<size_t>(b) * Tk + keys[i]] != 0);
+  const float scale2 = scale * tc::kLog2e;  // scores in base-2 units
+
+  uint32_t kf[kResident ? D / 16 : 1][4], vf[kResident ? D / 16 : 1][4];
+  float dk_acc[kNo][4], dv_acc[kNo][4];
+#pragma unroll
+  for (int n = 0; n < kNo; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int i = i0; i < nq; ++i) {
+    const int q0 = i * kBq;
+    const int st = (i - i0) & 1;
+    if (i + 1 < nq) load_queries(st ^ 1, i + 1);  // in flight
+    tc::cp_async_commit();   // (empty on the last tile)
+    tc::cp_async_wait<1>();  // tile i (and, first, k and v) landed
+    __syncthreads();
+    const __nv_bfloat16* qs = q_s + st * kBq * kLd;
+    const __nv_bfloat16* dos = do_s + st * kBq * kLd;
+    const float* lses = lse_s + st * kBq;
+    const float* dlts = dlt_s + st * kBq;
+
+    // s^T = K . Q^T and dp^T = V . dO^T: the warp's 16 keys x kBq queries
+    float s[kNs][4], dp[kNs][4];
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    if constexpr (kResident) {
+      if (i == i0) {
+        tc::load_a_frags<D>(kf, k_s, r0, lane);
+        tc::load_a_frags<D>(vf, v_s, r0, lane);
+      }
+      tc::mma_abt<D, kNs>(s, kf, qs, lane);
+      tc::mma_abt<D, kNs>(dp, vf, dos, lane);
+    } else {
+      tc::mma_abt_smem<D, kNs>(s, k_s, r0, qs, lane);
+      tc::mma_abt_smem<D, kNs>(dp, v_s, r0, dos, lane);
+    }
+
+    // queries past Tq, or (causal) a query tile that starts before the
+    // warp's last key: only then is any query of the tile dead here
+    const bool edge = q0 + kBq > Tq || (causal && q0 < k0 + r0 + 15);
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + c2 + (e & 1);  // query q0 + col
+        float x = live[e / 2] ? s[n][e] * scale2 : kNegInf;
+        if (edge) {
+          const int t = q0 + col;
+          if (t >= Tq || (causal && keys[e / 2] > t)) x = kNegInf;
+        }
+        const float p = exp2f(fmaf(lses[col], -tc::kLog2e, x));
+        s[n][e] = p;                               // p^T, f32
+        dp[n][e] = p * (dp[n][e] - dlts[col]);     // ds^T, f32
+      }
+    // p^T and ds^T rounded to bf16 straight into A fragments (the TPU
+    // cast points): dv += p^T . dO, dk += ds^T . Q
+    tc::mma_xb<D, kBq>(dv_acc, s, dos, lane);
+    tc::mma_xb<D, kBq>(dk_acc, dp, qs, lane);
+    __syncthreads();  // every warp is done with stage st before its reload
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = keys[i];
+    if (t >= Tk) continue;  // a key past Tk in the last tile: no row
+    const size_t off = (static_cast<size_t>(b) * Tk + t) * tok + h * D;
+#pragma unroll
+    for (int n = 0; n < kNo; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + c2) =
+          __floats2bfloat162_rn(scale * dk_acc[n][2 * i],
+                                scale * dk_acc[n][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8 + c2) =
+          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const uint8_t* mask;
@@ -599,13 +789,26 @@ cudaError_t launch_dq(const Args& a, void* dq) {
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   const dim3 grid(a.B * a.H, (a.Tk + kTile - 1) / kTile);
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  // the operand type picks the kernel, as for dq
+  void (*kernel)(const T*, const T*, const T*, const uint8_t*, const T*,
+                 const float*, const float*, T*, T*, int, int, int, float,
+                 int);
+  size_t smem;
+  int threads;
+  if constexpr (std::is_same_v<T, float>) {
+    kernel = flash_bwd_dkv_kernel<float, D>;
+    smem = dkv_smem_bytes<D>();
+    threads = kThreads;
+  } else {
+    kernel = flash_bwd_dkv_bf16_kernel<D>;
+    smem = dkv_bf16_smem_bytes<D>();
+    threads = kTcThreads;
+  }
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem, a.stream>>>(
+  kernel<<<grid, threads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.mask, static_cast<const T*>(a.dout),
       a.lse, a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.Tq, a.Tk,

@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy building blocks for the bf16 flash
-// kernels (flash_attention.cu, flash_attention_bwd.cu), for Hopper
+// and paged kernels (flash_attention.cu, flash_attention_bwd.cu,
+// paged_attention.cu), for Hopper
 // (sm_90a; every instruction here exists from sm_80 on).
 //
 //   mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: one warp
@@ -17,7 +18,7 @@
 //     each matrix, with .trans column g, rows 2c, 2c + 1.
 //   cp.async.cg.shared.global: 16 bytes from device memory to shared
 //     memory, in flight until cp.async.wait_group; a source size of 0
-//     fills the 16 bytes with zeros.
+//     fills the 16 bytes with zeros (cp.async.ca: the same for 4 bytes).
 //
 // Shared-memory tiles are [rows][D + 8] bf16: the 16-byte pad puts the
 // eight rows one ldmatrix phase reads on eight different 4-bank groups,
@@ -42,6 +43,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes, or zeros when src_bytes == 0 (.ca: the 4-byte form)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
@@ -135,24 +145,52 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4],
                            (lane / 16) * 8);
 }
 
+// s[n] += a . rows^T over the k16 step kk of D: one A fragment times
+// NB*8 rows of a [*][D + kPad] shared tile, read as the "col" B operand
+// (each tile row is one output column)
+template <int D, int NB>
+__device__ __forceinline__ void mma_abt_step(float (&s)[NB][4],
+                                             const uint32_t (&a)[4],
+                                             const __nv_bfloat16* tile,
+                                             int kk, int lane) {
+#pragma unroll
+  for (int n2 = 0; n2 < NB / 2; ++n2) {
+    uint32_t b[4];
+    ldmatrix_x4(b, tile + (n2 * 16 + lane % 8 + (lane / 16) * 8) *
+                              (D + kPad) +
+                       kk * 16 + ((lane / 8) % 2) * 8);
+    mma_bf16(s[2 * n2], a, b[0], b[1]);
+    mma_bf16(s[2 * n2 + 1], a, b[2], b[3]);
+  }
+}
+
 // s[n] += a . rows^T over D: a warp's 16 x NB*8 product of its resident
-// A fragments with NB*8 rows of a [*][D + kPad] shared tile, read as the
-// "col" B operand (each tile row is one output column)
+// A fragments with NB*8 rows of a shared tile (see mma_abt_step)
 template <int D, int NB>
 __device__ __forceinline__ void mma_abt(float (&s)[NB][4],
                                         const uint32_t (&a)[D / 16][4],
                                         const __nv_bfloat16* tile, int lane) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
+    mma_abt_step<D, NB>(s, a[kk], tile, kk, lane);
+}
+
+// The same product with the A operand read from rows r0 .. r0 + 15 of a
+// [*][D + kPad] shared tile one k16 step at a time, for a kernel that
+// has no registers to keep all D / 16 fragments resident
+template <int D, int NB>
+__device__ __forceinline__ void mma_abt_smem(float (&s)[NB][4],
+                                             const __nv_bfloat16* atile,
+                                             int r0,
+                                             const __nv_bfloat16* tile,
+                                             int lane) {
 #pragma unroll
-    for (int n2 = 0; n2 < NB / 2; ++n2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, tile + (n2 * 16 + lane % 8 + (lane / 16) * 8) *
-                                (D + kPad) +
-                         kk * 16 + ((lane / 8) % 2) * 8);
-      mma_bf16(s[2 * n2], a[kk], b[0], b[1]);
-      mma_bf16(s[2 * n2 + 1], a[kk], b[2], b[3]);
-    }
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, atile + (r0 + lane % 16) * (D + kPad) + kk * 16 +
+                       (lane / 16) * 8);
+    mma_abt_step<D, NB>(s, a, tile, kk, lane);
+  }
 }
 
 // acc[n] += x . tile over K rows: a warp's 16 x K operand x, given as f32

@@ -34,6 +34,7 @@ in both packages.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -506,13 +507,37 @@ def cache_attention(q, cache_k, cache_v, visible):
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
+@functools.lru_cache(maxsize=256)
+def paged_attention_splits(q_bf16, kv_kind, B, S, H, KH, D, bs, M,
+                           device_index):
+    """How many ranges of logical positions the CUDA kernel splits one
+    call into at this shape on CUDA device ``device_index``
+    (``csrc/paged_attention.cu``'s ``paged_attention_splits``: for the
+    few-row kernel, enough CUDA blocks for two waves of the card's SMs,
+    at most 16; one for the tensor-core kernel)."""
+    from analytics_zoo_tpu_torch.ops import _build
+
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    n = _build.load("paged_attention").paged_attention_splits(
+        int(q_bf16), kv_kind, B, S, H, KH, D, bs, M, sms)
+    if n < 1:
+        raise ValueError(f"paged_attention_splits refused the shape "
+                         f"B={B} S={S} H={H} KH={KH} D={D} bs={bs} M={M}")
+    return n
+
+
 def paged_attention_fused(q, pool_k, pool_v, tables, pos):
-    """Launch the CUDA paged-attention kernel (CUDA tensors only).
+    """Launch the CUDA paged-attention kernels (CUDA tensors only).
 
     Same contract as :func:`paged_attention_ref`.  Takes q in f32 or
     bf16, pools in f32, bf16 or int8 (:class:`QuantKV` with bf16
-    scales), head dims 64 and 128, block sizes 1-64; raises on anything
-    else.  ``paged_attention_fused.launches`` counts the launches."""
+    scales), q and pools contiguous and 16-byte aligned, head dims 64
+    and 128, block sizes 1-64; raises on anything else.  Where
+    :func:`paged_attention_splits` gives more than one range of logical
+    positions, the ranges run on separate CUDA blocks and a combine
+    kernel merges them; one call counts as one launch in
+    ``paged_attention_fused.launches``, its split and combine kernels
+    together."""
     from analytics_zoo_tpu_torch.ops import _build
 
     quant = isinstance(pool_k, QuantKV)
@@ -535,6 +560,12 @@ def paged_attention_fused(q, pool_k, pool_v, tables, pos):
         if not t.is_contiguous():
             raise ValueError("paged_attention_fused needs contiguous "
                              "operands")
+    # the kernels copy q and pool rows 16 bytes at a time (cp.async)
+    for t in (q, kd, vd):
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged_attention_fused needs 16-byte aligned "
+                             f"q and pools, got one at offset "
+                             f"{t.data_ptr() % 16} bytes")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q dtype {q.dtype} not supported (f32, bf16)")
     if kd.dtype not in _KV_KINDS or vd.dtype != kd.dtype \
@@ -562,13 +593,21 @@ def paged_attention_fused(q, pool_k, pool_v, tables, pos):
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
+    q_bf16 = q.dtype == torch.bfloat16
+    splits = paged_attention_splits(q_bf16, _KV_KINDS[kd.dtype], B, S, H,
+                                    KH, D, bs, M, q.device.index)
     none = ctypes.c_void_p(0)
+    ws = none
+    if splits > 1:
+        # per split: acc [B*S*H, D], then m and l [B*S*H], f32
+        ws = torch.empty(splits * B * S * H * (D + 2), dtype=torch.float32,
+                         device=q.device)
     rc = _build.load("paged_attention").paged_attention_fwd(
-        _ptr(q), int(q.dtype == torch.bfloat16),
-        _ptr(kd), _ptr(vd),
+        _ptr(q), int(q_bf16), _ptr(kd), _ptr(vd),
         _ptr(pool_k.scale) if quant else none,
         _ptr(pool_v.scale) if quant else none,
         _KV_KINDS[kd.dtype], _ptr(tables), _ptr(pos), _ptr(out),
+        none if splits == 1 else _ptr(ws), splits,
         B, S, H, KH, D, bs, M, _stream(q))
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed with "

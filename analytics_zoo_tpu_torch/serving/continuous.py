@@ -196,7 +196,9 @@ class ContinuousEngine:
         # counts the admission prefills (arena: one ``prefill`` forward
         # per prompt bucket; paged: one ``prefill_chunk_paged`` per
         # suffix bucket, and one per ``register_prefix`` that has blocks
-        # to fill); prefill_shapes counts the arena's by (rows, width).
+        # to fill); prefill_shapes counts them by (rows, width) in the
+        # arena and by (rows, suffix bucket, each row's start position)
+        # in paged mode.
         self.decode_ticks = 0
         self.prefill_calls = 0
         self.prefill_shapes: collections.Counter = collections.Counter()
@@ -345,6 +347,7 @@ class ContinuousEngine:
                 torch.tensor([len(span)], dtype=torch.int32, device=dev),
                 kernel=self.kernel)
             self.prefill_calls += 1
+            self.prefill_shapes[(1, sb, (len(matched) * bs,))] += 1
             for j in range(len(matched), nfull):
                 self._pool.insert(hashes[j], blocks[j])
         return blocks
@@ -723,6 +726,7 @@ class ContinuousEngine:
             torch.as_tensor(pos, device=dev),
             torch.as_tensor(lens, device=dev), kernel=self.kernel)
         self.prefill_calls += 1
+        self.prefill_shapes[(n, sb, tuple(pos.tolist()))] += 1
         last = last.cpu().numpy()       # one D2H for the whole group
         admitted = 0
         for i, (req, full, hashes, n_match, blocks) in enumerate(plans):

@@ -12,13 +12,18 @@ fails.  Phases, in order:
    report of each library); then each library's SASS (``cuobjdump
    -sass``): its tensor-core (``HMMA``), async-copy (``LDGSTS``, which is
    cp.async) and ``ldmatrix`` (``LDSM``) instructions per kernel.  The
-   run fails if ``flash_attention`` or ``flash_attention_bwd`` has no
-   ``HMMA`` or no ``LDGSTS``: the bf16 kernels must be the tensor-core
-   ones.
+   run fails if ``flash_attention``, ``flash_attention_bwd`` or
+   ``paged_attention`` has no ``HMMA`` or no ``LDGSTS``, if one of the
+   bf16 tensor-core kernels (``SASS_REQUIRED``) is missing or lacks
+   them, if a paged kernel has no ``LDGSTS``, or if ptxas reports a
+   spill in any kernel.
 2. Kernels against their plain versions on the card, on the same CUDA
    inputs, with stated tolerances: the paged-attention kernel against
    ``paged_attention_ref`` (f32, bf16 and int8 pools x (H, KH) in
-   {(12, 12), (32, 4)} x S in {1, 5, 512} x full and sliced tables), the
+   {(12, 12), (32, 4)} x S in {1, 5, 512} x full and sliced tables; then
+   both regimes of the redesigned kernel: pools x block sizes {1, 16,
+   64} x S in {1, 5, 512} x G in {1, 8} x full, sliced and long (M >=
+   128, small positions: empty splits) tables), the
    flash-attention forward against ``flash_attention_ref`` on O and lse,
    and the two backward kernels against ``flash_attention_bwd_ref`` on
    dq, dk and dv (each: causal or not x key mask or not, with a fully
@@ -42,6 +47,8 @@ fails.  Phases, in order:
    prefix, 32 new tokens each.  Every request must come back whole, and
    the paged kernel's launch count must equal (prefill calls + decode
    ticks) x layers: every attention call of the run went through it.
+   Prints each prefill call's shape (rows, suffix bucket, start
+   positions) for phase 7.
 5. The arena main path: the same model and request stream served by the
    default engine (the slot arena); the four sharers name a
    ``register_prefix`` id for their 256-token prefix.  Every request
@@ -55,7 +62,10 @@ fails.  Phases, in order:
    12 x the forward passes and the backward kernels 12 x the steps.
    Prints training tokens/s and ms per step (second epoch) and the peak
    device memory.
-7. Kernel timings at the main paths' shapes (paged decode and prefill;
+7. Kernel timings at the main paths' shapes (paged: a decode tick, a
+   512-token prefill and every prefill shape of phase 4, each first held
+   to the plain version, at the split count the wrapper picks and at
+   1-9 splits;
    flash forward at the arena's two most frequent prefill shapes and at
    the training shape; both backward kernels at the training shape,
    where dq, dk, dv, O and lse are first held to their plain versions),
@@ -65,13 +75,19 @@ fails.  Phases, in order:
    ``ms`` is a call's time by CUDA events over back-to-back calls (the
    host's work between launches included where a call is short);
    ``kernel_ms`` the kernel's own device time a launch, by
-   torch.profiler.
+   torch.profiler (for paged, split and combine summed per call).
 
 The last line is ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --paged-rounds N`` runs none of the phases: it
+serves phase 4's stream N times after one warm-up, on phase 4's model,
+and prints a line a round (to compare two trees' paged serving in
+alternating processes).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -120,22 +136,19 @@ POOL_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16,
 FLASH_ATOL = {"f32": 1e-4, "bf16": 2e-2}
 LSE_ATOL = 1e-3
 # backward kernels vs plain version, relative to max(1, max |plain|).
-# The CUDA-core kernels (f32 dq; dk and dv in both types), several keys
-# (T > 1, and the training shape): exactly equal, which is what the card
-# reads (H100): they sum each product in the order of the plain
-# version's cuBLAS GEMMs and round p and ds at the same points.  Nothing
-# looser: a kernel that skipped the bf16 rounding of p or ds would move
-# each sum by about an ulp per term, and the final bf16 rounding hides
-# most of that, so even one ulp per element would let it through.  One
-# key (T = 1): the exact dq and dk are 0, and both sides hold f32
-# rounding noise of dp - delta (read: at most 1.6e-6); held to 1e-5.
+# The f32 CUDA-core kernels (dq and dk/dv), several keys (T > 1):
+# exactly equal, which is what the card reads (H100): they sum each
+# product in the order of the plain version's cuBLAS GEMMs.  One key
+# (T = 1): the exact dq and dk are 0, and both sides hold f32 rounding
+# noise of dp - delta (read: at most 1.6e-6); held to 1e-5.
 BWD_ONE_KEY_TOL = 1e-5
-# The bf16 dq kernel sums its products on the tensor cores, in another
-# order than cuBLAS, so its f32 dp and ds can round to a neighbouring
-# bf16 ds and its dq to a neighbouring bf16 value: held to 2**-7 of
-# max(1, max |plain|), one to two bf16 ulps of the largest gradient, at
-# every T (read on the H100: at most 5.99e-3).  A skipped rounding of ds
-# cannot hide in that: the mma's A operand IS the ds rounded to bf16.
+# The bf16 kernels (dq, and dk/dv) sum their products on the tensor
+# cores, in another order than cuBLAS, so their f32 p, dp and ds can
+# round to a neighbouring bf16 p or ds and each gradient to a
+# neighbouring bf16 value: held to 2**-7 of max(1, max |plain|), one to
+# two bf16 ulps of the largest gradient, at every T (dq read on the H100:
+# at most 5.99e-3).  A skipped rounding of p or ds cannot hide in that:
+# the mma's A operand IS the p or ds rounded to bf16.
 DQ_BF16_TOL = 2.0 ** -7
 # autograd through the Function vs through plain full_attention (f32):
 # softmax's gradient and exp(s - lse) differ in their last bits, then
@@ -154,10 +167,30 @@ SWEEP_T = (1, 16, 17, 37, 65, 129, 512, 1000)
 # cp.async copies, ldmatrix loads
 SASS_OPS = ("HMMA", "LDGSTS", "LDSM")
 # libraries whose bf16 kernels must run on the tensor cores with cp.async
-TENSOR_CORE_LIBS = ("flash_attention", "flash_attention_bwd")
+TENSOR_CORE_LIBS = ("flash_attention", "flash_attention_bwd",
+                    "paged_attention")
+# kernels (name prefix: instructions) that must be in the SASS with
+# these instructions; every instantiation named here must be found
+SASS_REQUIRED = {
+    "flash_fwd_bf16_kernel<": ("HMMA", "LDGSTS"),
+    "flash_bwd_dq_bf16_kernel<": ("HMMA", "LDGSTS"),
+    "flash_bwd_dkv_bf16_kernel<": ("HMMA", "LDGSTS"),
+    "paged_attention_bf16_kernel<": ("HMMA", "LDGSTS"),
+    "paged_attention_kernel<": ("LDGSTS",),
+}
+SASS_MUST_EXIST = ("flash_bwd_dkv_bf16_kernel<64>",
+                   "flash_bwd_dkv_bf16_kernel<128>",
+                   "paged_attention_bf16_kernel<64>",
+                   "paged_attention_bf16_kernel<128>",
+                   "paged_combine_kernel<64>", "paged_combine_kernel<128>")
+# the profiler names of the paged kernels of one call: the split kernel
+# (either path) and the combine kernel
+PAGED_KERNELS = ("paged_attention_", "paged_combine_kernel")
 MAIN = dict(max_new_tokens=32, max_slots=8,
             prompt_buckets=(32, 64, 128, 256, 512))
 SHARED = 256
+# the paged engine's table width: ceil((512-token bucket + 32 new) / 16)
+PAGED_M = 34
 
 
 def card_line() -> str:
@@ -249,6 +282,7 @@ def phase_kernel_vs_plain(dev):
                             f"kernel disagrees with the plain version: "
                             f"pool={kind} H={H} KH={KH} S={S} "
                             f"sliced={sliced} err={err}")
+    check_paged_regimes(dev)
     print("-- flash attention forward (O and lse)")
     n = 0
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -272,6 +306,83 @@ def phase_kernel_vs_plain(dev):
                                             causal, masked)
     print(f"  {n}/{n} backward cases agree")
     check_function_grad(dev)
+
+
+def regime_case(dev, kind, bs, S, G, table, seed=0):
+    """Paged inputs for one regime of the redesigned kernel: B=2 rows,
+    (H, KH, D) = (12, 12, 64), or (32, 4, 128) for G = 8; ``table``
+    "full" (row 0 two blocks short of the end), "sliced" (cut to the
+    blocks row 0 attends) or "long" (M >= 128 columns, positions 0-3:
+    most split ranges hold no live position)."""
+    g = torch.Generator().manual_seed(seed)
+    H, KH, D = (12, 12, 64) if G == 1 else (32, 4, 128)
+    B = 2
+    if table == "long":
+        hi = 3
+        M = max(128, (hi + S - 1) // bs + 1 + 128)
+    else:
+        M = (40 + S - 1) // bs + 3
+        hi = (M - 2) * bs - S
+    pos = torch.randint(0, hi + 1, (B,), generator=g, dtype=torch.int32)
+    pos[0] = hi
+    N = B * M + 1
+
+    def pool():
+        x = torch.randn((N, KH, bs, D), generator=g).to(dev)
+        if kind == "int8":
+            return fa.QuantKV(*fa.quantize_kv(x))
+        return x.to(POOL_DTYPE[kind])
+
+    pk, pv = pool(), pool()
+    q = torch.randn((B, S, H, D), generator=g).to(
+        dev, torch.float32 if kind == "f32" else torch.bfloat16)
+    tables = (1 + torch.randperm(B * M, generator=g)).to(torch.int32)
+    tables = tables.reshape(B, M)
+    if table == "sliced":
+        tables = tables[:, :(hi + S - 1) // bs + 1].contiguous()
+    return q, pk, pv, tables.to(dev), pos.to(dev)
+
+
+def check_paged_regimes(dev):
+    """Both regimes of the paged kernel: the CUDA-core split kernel (few
+    rows, and every f32/int8 case) and the bf16 tensor-core kernel (S*G
+    >= 16), with the split count the wrapper picks."""
+    print("-- paged attention regimes (block sizes, G, long tables)")
+    n = 0
+    for kind in ("f32", "bf16", "int8"):
+        for bs in (1, 16, 64):
+            for S in (1, 5, 512):
+                for G in (1, 8):
+                    for table in ("full", "sliced", "long"):
+                        args = regime_case(dev, kind, bs, S, G, table,
+                                           seed=bs + S + G)
+                        q, pk, _, t, _ = args
+                        kd = pk.data if kind == "int8" else pk
+                        B, _, H, D = q.shape
+                        splits = fa.paged_attention_splits(
+                            q.dtype == torch.bfloat16,
+                            fa._KV_KINDS[kd.dtype], B, S, H, kd.shape[1],
+                            D, bs, t.shape[1], q.device.index)
+                        out = fa.paged_attention_fused(*args)
+                        ref = fa.paged_attention_ref(*args)
+                        torch.cuda.synchronize()
+                        err = (out - ref).abs().max().item()
+                        ok = bool(torch.isfinite(out).all()) and \
+                            err <= ATOL[kind]
+                        mma = kind == "bf16" and S * G >= 16
+                        print(f"  pool={kind:4s} bs={bs:2d} S={S:3d} G={G} "
+                              f"table={table:6s} M={t.shape[1]:3d} "
+                              f"splits={splits:2d} "
+                              f"{'mma ' if mma else 'cuda'} "
+                              f"max_abs_err={err:.3e} "
+                              f"{'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            raise AssertionError(
+                                f"paged kernel disagrees with the plain "
+                                f"version: pool={kind} bs={bs} S={S} G={G} "
+                                f"table={table} err={err}")
+                        n += 1
+    print(f"  {n}/{n} paged regime cases agree")
 
 
 def check_forward(dev, kind, dtype, Tq, Tk, H, D, causal, masked):
@@ -308,8 +419,9 @@ def rel_err(got, ref):
 
 def bwd_tols(kind, T):
     """(dq, dk, dv) limits relative to max(1, max |plain|)."""
-    exact = BWD_ONE_KEY_TOL if T == 1 else 0.0
-    return (DQ_BF16_TOL if kind == "bf16" else exact, exact, exact)
+    if kind == "bf16":
+        return (DQ_BF16_TOL,) * 3
+    return ((BWD_ONE_KEY_TOL if T == 1 else 0.0),) * 3
 
 
 def check_backward(dev, kind, dtype, T, H, D, causal, masked):
@@ -655,11 +767,31 @@ def phase_paged_main_path(dev, card, model):
             f"{model.num_layers} layers: the plain path ran")
     report(card, eng, out, secs, first)
     print(f"  paged kernel launches {launches} = (prefill calls "
-          f"{eng.prefill_calls} + decode ticks {eng.decode_ticks}) x 12")
+          f"{eng.prefill_calls} + decode ticks {eng.decode_ticks}) x 12; "
+          f"prefill shapes (rows, suffix bucket, start positions): "
+          f"{dict(eng.prefill_shapes)}")
     if eng.cache_metrics()["prefix_hits"] < 3 * (SHARED // 16):
         raise AssertionError("the shared 256-token prefix was not reused")
     check_bf16_logits(model, dev)
-    return launches
+    return launches, eng.prefill_shapes
+
+
+def paged_rounds(dev, card, rounds):
+    """Phase 4's stream served ``rounds`` times on phase 4's model after
+    one warm-up; a line of tokens/s and mean time to first token a
+    round."""
+    torch.manual_seed(1234)
+    model = TransformerLM(**GPT2, num_layers=12, dtype=torch.bfloat16)
+    kw = dict(MAIN, paged=True, block_size=16)
+    warm, reqs, _ = main_stream()
+    serve(model, dev, warm, **kw)
+    for r in range(rounds):
+        _, out, secs, first = serve(model, dev, reqs, **kw)
+        check_served(out, reqs)
+        n_tok = sum(len(t) for t in out.values())
+        print(f"  [{card}] paged round {r}: {n_tok / secs:.1f} tokens/s, "
+              f"mean time to first token "
+              f"{1e3 * np.mean(list(first.values())):.1f} ms")
 
 
 def phase_arena_main_path(dev, card, model):
@@ -751,39 +883,59 @@ def time_ms(fn, n_sets, iters=100):
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, n_sets, kernel, iters=20):
-    """Mean device time (ms) of one launch of the CUDA kernel whose name
-    contains ``kernel``, from torch.profiler over ``iters`` calls of
-    fn(i): the kernel's own time, without the host time between
-    launches that :func:`time_ms` also sees when a call is short.
+def device_ms(fn, n_sets, kernels, iters=20):
+    """Mean device time (ms) of one call of fn(i), summed over the CUDA
+    kernels whose names contain one of ``kernels`` (a name or a tuple of
+    names), from torch.profiler over ``iters`` calls: the kernels' own
+    time, without the host time between launches that :func:`time_ms`
+    also sees when a call is short.  Each matching kernel must launch
+    once a call.  Returns (ms, {kernel: ms a launch}).
 
     The profiler traces one warm-up round it discards, then the measured
-    round. CUPTI may still lose a kernel record now and then (18 of 20
-    seen on an H100), so the mean is over the launches it recorded; it
-    must have recorded at least half of them and never more."""
+    round. CUPTI may still lose kernel records (18 of 20 seen on an
+    H100, and once all 20), so each mean is over the launches it
+    recorded; a round must have recorded at least half of them and never
+    more, else it is traced again, at most three times."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    if isinstance(kernels, str):
+        kernels = (kernels,)
     for i in range(n_sets):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            for i in range(iters):
-                fn(i % n_sets)
-            torch.cuda.synchronize()
-            prof.step()
-    rows = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and kernel in e.key]
-    launches = sum(e.count for e in rows)
-    if not iters // 2 <= launches <= iters:
-        raise AssertionError(f"profiler saw {launches} launches of "
-                             f"{kernel}, expected {iters}")
-    if launches < iters:
-        print(f"  profiler recorded {launches} of {iters} launches of "
-              f"{kernel}; device time is their mean")
-    return sum(dev_us(e) for e in rows) / launches / 1e3
+    fault = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for i in range(iters):
+                    fn(i % n_sets)
+                torch.cuda.synchronize()
+                prof.step()
+        counts, parts = {}, {}
+        for e in prof.key_averages():
+            if not str(e.device_type).endswith("CUDA") \
+                    or not any(k in e.key for k in kernels):
+                continue
+            name = re.sub(r"^void |\(.*$", "", e.key.replace(
+                "(anonymous namespace)::", ""))
+            counts[name] = counts.get(name, 0) + e.count
+            parts[name] = parts.get(name, 0.0) + dev_us(e) / 1e3
+        bad = {n: c for n, c in counts.items()
+               if not iters // 2 <= c <= iters}
+        if parts and not bad:
+            for name, c in counts.items():
+                if c < iters:
+                    print(f"  profiler recorded {c} of {iters} launches "
+                          f"of {name}; device time is their mean")
+            parts = {n: t / counts[n] for n, t in parts.items()}
+            return sum(parts.values()), parts
+        fault = (f"profiler saw launches {bad} of {iters}" if bad else
+                 f"profiler saw no launch of {kernels}")
+        print(f"  {fault}; tracing again")
+    raise AssertionError(fault)
 
 
 def least_ms(nbytes, ops, dtype):
@@ -859,8 +1011,8 @@ def training_timings(dev, train_launches):
         return s["q"], s["k"], s["v"], None, s["o"], s["lse"], s["do"]
 
     # the kernels at this shape against their plain versions, held as
-    # in phase 2: dq to DQ_BF16_TOL, dk and dv exactly, the forward's O
-    # and lse to their tolerances
+    # in phase 2: dq, dk and dv to DQ_BF16_TOL, the forward's O and lse
+    # to their tolerances
     got = fa.flash_attention_bwd_fused(*args(s0), causal=True)
     ref = fa.flash_attention_bwd_ref(*args(s0), causal=True)
     errs = [(a.float() - b.float()).abs().max().item()
@@ -899,8 +1051,8 @@ def training_timings(dev, train_launches):
     dq, dkv = launch("dq", ("dq",)), launch("dkv", ("dk", "dv"))
 
     dq_ms, dkv_ms = time_ms(dq, n_sets, 10), time_ms(dkv, n_sets, 10)
-    dq_dev = device_ms(dq, n_sets, "flash_bwd_dq_bf16_kernel")
-    dkv_dev = device_ms(dkv, n_sets, "flash_bwd_dkv_kernel")
+    dq_dev = device_ms(dq, n_sets, "flash_bwd_dq_bf16_kernel")[0]
+    dkv_dev = device_ms(dkv, n_sets, "flash_bwd_dkv_bf16_kernel")[0]
     wrapper_ms = time_ms(lambda i: fa.flash_attention_bwd_fused(
         *args(sets[i]), causal=True), n_sets, 10)
     def fwd(i):
@@ -908,7 +1060,7 @@ def training_timings(dev, train_launches):
                                  causal=True)
 
     fwd_ms = time_ms(fwd, n_sets, 10)
-    fwd_dev = device_ms(fwd, n_sets, "flash_fwd_bf16_kernel")
+    fwd_dev = device_ms(fwd, n_sets, "flash_fwd_bf16_kernel")[0]
     plain_bwd_ms = time_ms(lambda i: fa.flash_attention_bwd_ref(
         *args(sets[i]), causal=True), n_sets, 3)
     plain_fwd_ms = time_ms(lambda i: fa.flash_attention_ref(
@@ -961,25 +1113,58 @@ def n_sets_for(nbytes):
     return min(64, max(1, math.ceil(64e6 / nbytes)))
 
 
-def phase_timings(dev, paged_launches, flash_launches, prefill_shapes,
-                  train_launches):
-    print("== phase 7: kernel timings at the main paths' shapes")
+@contextlib.contextmanager
+def forced_splits(k):
+    """``paged_attention_fused`` at ``k`` ranges of logical positions
+    (any count gives the same function): what the split count buys at a
+    shape."""
+    policy = fa.paged_attention_splits
+    fa.paged_attention_splits = lambda *shape: k
+    try:
+        yield
+    finally:
+        fa.paged_attention_splits = policy
+
+
+def paged_timings(dev, paged_launches, paged_shapes):
+    """The paged kernel at a decode tick's shape, at a 512-token prefill
+    and at every prefill shape of the paged main path (rows, suffix
+    bucket, start positions), each held to the plain version, then timed
+    at the split count the wrapper picks and at 1, 2, 3, 5 and 9
+    splits."""
     rng = np.random.default_rng(5)
+    shapes = [("decode", 8, 1, rng.integers(290, 311, 8)),
+              ("prefill", 1, 512, [0])]
+    shapes += [(f"prefill B={B},S={S},pos={pos[0]}", B, S, list(pos))
+               for B, S, pos in sorted(paged_shapes)]
     entries = []
-    shapes = (("decode", 8, 1, rng.integers(290, 311, 8)),
-              ("prefill", 1, 512, [0]))
     for label, B, S, pos in shapes:
         n_sets = n_sets_for(sum(int(p) + S for p in pos) * 12 * 64 * 2 * 2)
         q, pk, pv, tabs, p = attention_case(
-            dev, "bf16", 12, 12, S, B, pos, M=34, n_sets=n_sets, seed=7)
+            dev, "bf16", 12, 12, S, B, pos, M=PAGED_M, n_sets=n_sets,
+            seed=7)
         err = (fa.paged_attention_fused(q, pk, pv, tabs[0], p)
                - fa.paged_attention_ref(q, pk, pv, tabs[0], p)
                ).abs().max().item()
+        if err > ATOL["bf16"]:
+            raise AssertionError(f"paged kernel disagrees with the plain "
+                                 f"version at {label} B={B} S={S} "
+                                 f"pos={list(pos)}: {err}")
+
         def paged(i):
             fa.paged_attention_fused(q, pk, pv, tabs[i], p)
 
+        splits = fa.paged_attention_splits(True, 1, B, S, 12, 12, 64, 16,
+                                           PAGED_M, q.device.index)
         ms = time_ms(paged, n_sets)
-        launch_ms = device_ms(paged, n_sets, "paged_attention_kernel")
+        launch_ms, parts = device_ms(paged, n_sets, PAGED_KERNELS)
+        sweep = {}
+        for k in (1, 2, 3, 5, 9):
+            with forced_splits(k):
+                sweep[k] = device_ms(paged, n_sets, PAGED_KERNELS)[0]
+        print(f"  paged {label}: {splits} splits, device time a call by "
+              f"kernel {json.dumps(parts)}; at splits "
+              + ", ".join(f"{k}: {v:.4f} ms" for k, v in sweep.items()))
         plain = time_ms(lambda i: fa.paged_attention_ref(q, pk, pv,
                                                          tabs[i], p),
                         n_sets, iters=20)
@@ -987,14 +1172,22 @@ def phase_timings(dev, paged_launches, flash_launches, prefill_shapes,
         entries.append({
             "name": f"paged_attention[{label}]", "route": "cuda",
             "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
-            "shape": f"B={B} S={S} H=12 KH=12 D=64 bs=16 M=34 bf16 "
+            "shape": f"B={B} S={S} H=12 KH=12 D=64 bs=16 M={PAGED_M} bf16 "
                      f"pos={int(min(pos))}-{int(max(pos))}",
             "launches": paged_launches, "max_abs_err": err, "ms": ms,
             "kernel_ms": launch_ms, "plain_ms": plain, "bound_ms": bms,
-            "bound_by": by,
+            "bound_by": by, "splits": splits, "kernel_ms_parts": parts,
+            "kernel_ms_at_splits": sweep,
             # no single PyTorch call computes attention through block
             # tables, so there is no library yardstick
             "library_ms": None})
+    return entries
+
+
+def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
+                  prefill_shapes, train_launches):
+    print("== phase 7: kernel timings at the main paths' shapes")
+    entries = paged_timings(dev, paged_launches, paged_shapes)
     for (B, T), calls in prefill_shapes.most_common(2):
         H, D = GPT2["num_heads"], GPT2["hidden_size"] // GPT2["num_heads"]
         n_sets = n_sets_for(3 * B * T * H * D * 2)
@@ -1008,7 +1201,7 @@ def phase_timings(dev, paged_launches, flash_launches, prefill_shapes,
             fa.flash_attention_fused(*sets[i], causal=True)
 
         ms = time_ms(fwd, n_sets)
-        launch_ms = device_ms(fwd, n_sets, "flash_fwd_bf16_kernel")
+        launch_ms = device_ms(fwd, n_sets, "flash_fwd_bf16_kernel")[0]
         plain = time_ms(lambda i: fa.flash_attention_ref(*sets[i],
                                                          causal=True),
                         n_sets, iters=20)
@@ -1068,26 +1261,32 @@ def kernel_label(mangled):
     end = m.start() + len("_kernel")
     name = next((mangled[end - n:end] for n in range(7, end)
                  if mangled[:end - n].endswith(str(n))), mangled)
-    args = re.findall(r"f(?=L)|13__nv_bfloat16|Li\d+E", m.group(1))
-    names = {"f": "f32", "13__nv_bfloat16": "bf16"}
-    return f"{name}<{','.join(names.get(a, a[2:-1]) for a in args)}>"
+    # f, a (int8), the bf16 class name or a substitution of the type
+    # argument before it (S1_: <bf16, bf16, ...>), then the int D
+    names = {"f": "f32", "a": "i8", "13__nv_bfloat16": "bf16"}
+    args = []
+    for a in re.findall(r"13__nv_bfloat16|S\d*_|Li\d+E|[fa]", m.group(1)):
+        args.append(args[-1] if a.startswith("S") else
+                    names.get(a, a[2:-1]))
+    return f"{name}<{','.join(args)}>"
 
 
 def ptxas_report(log):
-    """{kernel: "N registers, spill stores/loads a/b bytes"} from an
+    """{kernel: (registers, spill store bytes, spill load bytes)} from an
     ``nvcc -Xptxas -v`` log."""
-    report, fn, spill = {}, None, ""
+    report, fn, spill = {}, None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            fn = kernel_label(m.group(1))
+            # a function without a spill line spills nothing
+            fn, spill = kernel_label(m.group(1)), (0, 0)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            spill = f"spill stores/loads {m.group(1)}/{m.group(2)} bytes"
+            spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and fn is not None:
-            report[fn] = f"{m.group(1)} registers, {spill}"
+            report[fn] = (int(m.group(1)), *spill)
             fn = None
     return report
 
@@ -1097,6 +1296,7 @@ def phase_build():
     t0 = time.monotonic()
     paths = _build.build_all()
     print(f"  built {sorted(paths)} in {time.monotonic() - t0:.1f} s")
+    found = []
     for name, path in sorted(paths.items()):
         log = path.with_suffix(".log")
         ptxas = ptxas_report(log.read_text()) if log.exists() else {}
@@ -1105,14 +1305,29 @@ def phase_build():
         print(f"  {name} SASS: " + ", ".join(f"{op} {n}"
                                               for op, n in total.items()))
         for fn, c in sorted(counts.items()):
+            rep = ptxas.get(fn)
             print(f"    {fn}: " + ", ".join(f"{op} {n}"
                                             for op, n in c.items())
-                  + f"; ptxas: {ptxas.get(fn, 'not in the log')}")
+                  + "; ptxas: " + ("not in the log" if rep is None else
+                                   f"{rep[0]} registers, spill "
+                                   f"stores/loads {rep[1]}/{rep[2]} bytes"))
+            need = [ops for prefix, ops in SASS_REQUIRED.items()
+                    if fn.startswith(prefix)]
+            missing = [op for ops in need for op in ops if not c[op]]
+            if missing:
+                raise AssertionError(f"{fn}: no {missing} in its SASS: {c}")
+            if rep is not None and (rep[1] or rep[2]):
+                raise AssertionError(f"{fn}: ptxas spills {rep[1]}/"
+                                     f"{rep[2]} bytes")
+        found += list(counts)
         if name in TENSOR_CORE_LIBS and not (total["HMMA"]
                                              and total["LDGSTS"]):
             raise AssertionError(f"{name}: no tensor-core (HMMA) or no "
                                  f"cp.async (LDGSTS) instruction in its "
                                  f"SASS: {total}")
+    absent = [k for k in SASS_MUST_EXIST if k not in found]
+    if absent:
+        raise AssertionError(f"kernels not in any library's SASS: {absent}")
 
 
 def main() -> int:
@@ -1128,17 +1343,20 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
+    if sys.argv[1:2] == ["--paged-rounds"]:
+        paged_rounds(dev, card, int(sys.argv[2]))
+        return 0
     phase_build()
     phase_kernel_vs_plain(dev)
     phase_engine_parity(dev)
     phase_training_parity(dev)
     torch.manual_seed(1234)
     model = TransformerLM(**GPT2, num_layers=12, dtype=torch.bfloat16)
-    paged_launches = phase_paged_main_path(dev, card, model)
+    paged_launches, paged_shapes = phase_paged_main_path(dev, card, model)
     flash_launches, shapes = phase_arena_main_path(dev, card, model)
     train_launches = phase_training_main_path(dev, card, model)
-    kernels = phase_timings(dev, paged_launches, flash_launches, shapes,
-                            train_launches)
+    kernels = phase_timings(dev, paged_launches, paged_shapes,
+                            flash_launches, shapes, train_launches)
     print(f"whole run {time.monotonic() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -156,6 +156,80 @@ def _misaligned(x):
     return out
 
 
+def _regime_case(dev, kind, bs, S, G, table, seed=0):
+    """Paged inputs for one regime: B=2 rows, (H, KH) = (12, 12) at D=64
+    or (32, 4) at D=128 (G = 8); ``table`` "full" (row 0 two blocks short
+    of the end), "sliced" (cut to the blocks row 0 attends) or "long"
+    (M >= 128 columns, positions 0-3: most split ranges hold nothing)."""
+    g = torch.Generator().manual_seed(seed)
+    H, KH, D = (12, 12, 64) if G == 1 else (32, 4, 128)
+    B = 2
+    if table == "long":
+        hi = 3
+        M = max(128, (hi + S - 1) // bs + 1 + 128)
+    else:
+        M = (40 + S - 1) // bs + 3
+        hi = (M - 2) * bs - S
+    pos = torch.randint(0, hi + 1, (B,), generator=g, dtype=torch.int32)
+    pos[0] = hi
+    N = B * M + 1
+
+    def pool():
+        x = torch.randn((N, KH, bs, D), generator=g).to(dev)
+        if kind == "int8":
+            return fa.QuantKV(*fa.quantize_kv(x))
+        return x.to(_DTYPE[kind])
+
+    pk, pv = pool(), pool()
+    q = torch.randn((B, S, H, D), generator=g).to(
+        dev, torch.float32 if kind == "f32" else torch.bfloat16)
+    tables = (1 + torch.randperm(B * M, generator=g)).to(torch.int32)
+    tables = tables.reshape(B, M)
+    if table == "sliced":
+        tables = tables[:, :(hi + S - 1) // bs + 1].contiguous()
+    return q, pk, pv, tables.to(dev), pos.to(dev)
+
+
+# (S, G): decode with one and eight query heads a kv head, the row count
+# just below (15) and at (16) the bf16 tensor-core threshold, wide
+# verify (40 rows) and a 512-token prefill chunk
+_REGIMES = [(1, 1), (1, 8), (15, 1), (2, 8), (5, 8), (512, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("bs", [1, 16, 64])
+@pytest.mark.parametrize("S,G", _REGIMES)
+@pytest.mark.parametrize("table", ["full", "sliced", "long"])
+def test_paged_attention_kernel_regimes(cuda, kind, bs, S, G, table):
+    args = _regime_case(cuda, kind, bs, S, G, table, seed=bs + S)
+    before = fa.paged_attention_fused.launches
+    out = fa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert fa.paged_attention_fused.launches == before + 1
+    ref = fa.paged_attention_ref(*args)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= _ATOL[kind]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("S,G", [(1, 8), (512, 1)])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_paged_attention_kernel_any_split_count(cuda, kind, S, G, splits,
+                                                monkeypatch):
+    """Any split count computes the same function: the combine kernel
+    merges what the split kernel writes (the count forced through
+    ``paged_attention_splits``)."""
+    args = _regime_case(cuda, kind, 16, S, G, "full", seed=splits)
+    monkeypatch.setattr(fa, "paged_attention_splits",
+                        lambda *shape: splits)
+    out = fa.paged_attention_fused(*args)
+    torch.cuda.synchronize()
+    ref = fa.paged_attention_ref(*args)
+    assert (out - ref).abs().max().item() <= _ATOL[kind]
+
+
 @pytest.mark.cuda
 def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda):
     q, pk, pv, tables, pos = _case(cuda, "f32", 12, 12, 5)
@@ -167,26 +241,33 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda):
         fa.paged_attention_fused(q.transpose(1, 2), pk, pv, tables, pos)
     with pytest.raises(ValueError, match="int32"):
         fa.paged_attention_fused(q, pk, pv, tables.long(), pos)
+    # contiguous but 2 bytes past a 16-byte boundary: cp.async cannot
+    # copy its rows
+    qb, kb, vb = q.bfloat16(), pk.bfloat16(), pv.bfloat16()
+    with pytest.raises(ValueError, match="aligned"):
+        fa.paged_attention_fused(qb, _misaligned(kb), vb, tables, pos)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.paged_attention_fused(_misaligned(qb), kb, vb, tables, pos)
 
 
-# Backward, relative to max(1, max |reference|).  The CUDA-core kernels
-# (f32 dq; dk and dv in both dtypes), several keys: exactly equal, as the
-# H100 reads: they sum each product in the order of the plain version's
-# cuBLAS GEMMs and round p and ds at the same points; a looser limit
-# would let a skipped bf16 rounding of p or ds through, since the final
-# bf16 rounding hides most of it.  One key: the exact dq and dk are 0
-# and both sides hold f32 rounding noise of dp - delta, so 1e-5.
-# The bf16 dq kernel sums on the tensor cores in another order, so ds
-# and dq may each land on a neighbouring bf16 value: 2**-7, one to two
-# bf16 ulps of the largest gradient, at every T; its ds rounding cannot
-# be skipped, since the mma's A operand is the bf16 ds itself.
+# Backward, relative to max(1, max |reference|).  The f32 CUDA-core
+# kernels (dq and dk/dv), several keys: exactly equal, as the H100 reads:
+# they sum each product in the order of the plain version's cuBLAS GEMMs.
+# One key: the exact dq and dk are 0 and both sides hold f32 rounding
+# noise of dp - delta, so 1e-5.
+# The bf16 kernels (dq, and dk/dv) sum on the tensor cores in another
+# order, so p, ds and each gradient may land on a neighbouring bf16
+# value: 2**-7, one to two bf16 ulps of the largest gradient, at every
+# T; their p and ds rounding cannot be skipped, since the mma's A
+# operand is the bf16 p or ds itself.
 _BWD_ONE_KEY_TOL = 1e-5
 _DQ_BF16_TOL = 2.0 ** -7
 
 
 def _bwd_tols(kind, T):
-    exact = _BWD_ONE_KEY_TOL if T == 1 else 0.0
-    return (_DQ_BF16_TOL if kind == "bf16" else exact, exact, exact)
+    if kind == "bf16":
+        return (_DQ_BF16_TOL,) * 3
+    return ((_BWD_ONE_KEY_TOL if T == 1 else 0.0),) * 3
 
 
 @pytest.mark.cuda

@@ -149,6 +149,27 @@ def test_paged_prefix_tokens_match_jax(models, ticks_per_step):
     assert got_m["prefix_hits"] >= 2 * 2
 
 
+@pytest.mark.parametrize("paged", [False, True])
+def test_engine_counts_prefill_shapes(models, paged):
+    """Every admission prefill is counted by its shape: (rows, width) in
+    the arena, (rows, suffix bucket, each row's start position) in
+    paged mode, where the registered prefix and the blocks shared with
+    an earlier prompt start rows past position 0."""
+    _, _, tm, state = models
+    eng = ContinuousEngine(tm, state, device="cpu", paged=paged, **_ENGINE)
+    _run(eng, with_prefix=paged)
+    shapes = eng.prefill_shapes
+    assert sum(shapes.values()) == eng.prefill_calls > 0
+    for key in shapes:
+        assert key[1] in _ENGINE["prompt_buckets"]
+        if paged:
+            rows, _, pos = key
+            assert len(pos) == rows
+            assert all(p % _ENGINE["block_size"] == 0 for p in pos)
+    if paged:
+        assert any(p > 0 for _, _, pos in shapes for p in pos)
+
+
 def test_default_engine_is_the_arena_in_both_packages(models):
     jm, variables, tm, state = models
     ref = JaxEngine(jm, variables, max_new_tokens=4)

@@ -118,6 +118,28 @@ def test_signature_check_catches_drift(drift):
     assert faults, drift
 
 
+# the same for paged_attention.cu's split-K parameters and entry point,
+# and the SM count its split policy reads
+_PAGED_DRIFTS = {
+    "workspace dropped": ("void* out, void* workspace,", "void* out,"),
+    "splits became float": ("int splits,", "float splits,"),
+    "splits query renamed": ("int paged_attention_splits(",
+                             "int paged_attention_split_count("),
+    "SM count dropped": ("int M,\n                                      "
+                         "int sms)", "int M)"),
+}
+
+
+@pytest.mark.parametrize("drift", sorted(_PAGED_DRIFTS))
+def test_paged_signature_check_catches_drift(drift):
+    src = _source("paged_attention")
+    old, new = _PAGED_DRIFTS[drift]
+    assert old in src
+    faults = signature_mismatches(src.replace(old, new),
+                                  _build.SIGNATURES["paged_attention"])
+    assert faults, drift
+
+
 @pytest.mark.parametrize("name", sorted(REPLACES))
 def test_source_header_names_the_tpu_kernel(name):
     lines = _source(name).splitlines()

@@ -70,6 +70,67 @@ def _leaves(pool):
     return [_np(pool)]
 
 
+def _split_ref(q, pool_k, pool_v, tables, pos, splits, tile=64):
+    """The plain version of the CUDA kernel's split-K read.
+
+    The logical positions ``0 .. M*bs - 1`` are cut into ``splits``
+    ranges of ``ceil(ceil(M*bs / tile) / splits)`` whole tiles, as
+    ``csrc/paged_attention.cu`` cuts them.  Each range yields f32
+    partials of every query row: its max m of the live scores (NEG_INF
+    if it holds none), ``l = sum exp(s - m_sub)`` (``m_sub`` = m, or 0
+    for a range with nothing live, whose p then underflows to 0) and
+    ``acc = p @ v`` with p rounded to the pool dtype (bf16; f32 and int8,
+    whose v rows come dequantized, are not rounded); a range with nothing
+    live carries ``m = NEG_INF, l = 0`` and weighs 0.  The merge:
+    ``out = sum_k e^(m_k - m) acc_k / sum_k e^(m_k - m) l_k`` with
+    ``m = max_k m_k``.  Same contract as ``paged_attention_ref``."""
+    B, S, H, D = q.shape
+    quant = isinstance(pool_k, tfa.QuantKV)
+    KH, bs = (pool_k.data if quant else pool_k).shape[1:3]
+    L = tables.shape[1] * bs
+    idx = tables.long()
+
+    def gathered(pool):
+        # [B, M] tables -> [B, L, KH, D]: logical position l of row b is
+        # pool[tables[b, l // bs], :, l % bs]
+        if quant:
+            cache = tfa.dequantize_kv(pool.data[idx], pool.scale[idx])
+        else:
+            cache = pool[idx]
+        return cache.movedim(2, 3).reshape(B, L, KH, D)
+
+    cache_k, cache_v = gathered(pool_k), gathered(pool_v)
+    p = pos[:, None].long() + torch.arange(S)[None, :]
+    visible = (torch.arange(L)[None, None, :]
+               <= p[:, :, None])[:, None, None, :, :]   # [B,1,1,S,L]
+    qg = q.reshape(B, S, KH, H // KH, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                     cache_k.float()) * (1.0 / np.sqrt(D))
+    s = s.masked_fill(~visible, tfa.NEG_INF)            # [B,KH,G,S,L]
+    ntiles = -(-L // tile)
+    chunk = -(-ntiles // splits) * tile
+    ms, ls, accs = [], [], []
+    for k in range(splits):
+        part = s[..., k * chunk:(k + 1) * chunk]
+        v = cache_v[:, k * chunk:(k + 1) * chunk]
+        if part.shape[-1] == 0:                         # past the table
+            part = torch.full_like(s[..., :1], tfa.NEG_INF)
+            v = torch.zeros_like(cache_v[:, :1])
+        m = part.amax(dim=-1, keepdim=True)
+        m_sub = torch.where(m > tfa.NEG_INF * 0.5, m, torch.zeros_like(m))
+        pk = torch.exp(part - m_sub)
+        accs.append(torch.einsum("bhgqk,bkhd->bhgqd",
+                                 pk.to(cache_v.dtype).float(), v.float()))
+        ms.append(m)
+        ls.append(pk.sum(dim=-1, keepdim=True))
+    m = torch.stack(ms).amax(dim=0)
+    w = [torch.exp(mk - m) for mk in ms]
+    l = sum(wk * lk for wk, lk in zip(w, ls))
+    acc = sum(wk * ak for wk, ak in zip(w, accs))
+    o = acc / torch.where(l > 0, l, torch.ones_like(l))   # [B,KH,G,S,D]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+
+
 @pytest.mark.parametrize("in_dtype", ["f32", "bf16"])
 def test_quantize_kv_bitwise(in_dtype):
     """Data and scales are IDENTICAL: the scale rounds to bf16 before
@@ -196,3 +257,59 @@ def test_paged_attention_rejects_unknown_kernel():
     targs, _ = _attn_case(rng, "f32", 4, 4, 1, sliced=False)
     with pytest.raises(ValueError, match="kernel must be"):
         tfa.paged_attention(*targs, kernel="pallas")
+
+
+# The CUDA kernel's split-K read (csrc/paged_attention.cu) as its plain
+# version computes it: per range of logical positions the partial (m, l,
+# acc), then the merge.  tile=4 cuts the 24 positions (M=6, bs=4) into 6
+# tiles, so 7 splits leave one range past the table and short rows leave
+# whole ranges past their frontier: splits with no live position.  The
+# merge is exact algebra on f32 partials, so f32 and int8 are held as
+# tightly as paged_attention_ref; bf16 rounds each range's p relative to
+# that range's max (the kernel does the same), the one-ulp effect the
+# bf16 limit already covers.
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("H,KH,S", [(4, 4, 1), (4, 2, 3), (4, 1, 8)])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_paged_attention_split_ref_matches_jax(kind, H, KH, S, splits):
+    rng = np.random.default_rng(splits * 10 + S)
+    targs, jargs = _attn_case(rng, kind, H, KH, S, sliced=False)
+    out = _split_ref(*targs, splits=splits, tile=4)
+    assert out.dtype == torch.float32 and out.shape == targs[0].shape
+    ref = jfa.paged_attention(*jargs, kernel="gather")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               atol=_ATOL[kind], rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("splits", [2, 7])
+def test_paged_attention_split_ref_matches_jax_fused_kernel(kind, splits):
+    """Against the reference's Pallas kernel in interpret mode, GQA,
+    sliced tables."""
+    rng = np.random.default_rng(3 + splits)
+    targs, jargs = _attn_case(rng, kind, 4, 2, 3, sliced=True)
+    ref = jfa.paged_attention(*jargs, kernel="fused", interpret=True)
+    np.testing.assert_allclose(
+        _split_ref(*targs, splits=splits, tile=4).numpy(),
+        np.asarray(ref), atol=_ATOL[kind], rtol=0)
+
+
+def test_paged_attention_split_ref_empty_splits_weigh_nothing():
+    """A long table with short rows: every split past a row's frontier
+    holds no live position and must not move its output; one split is
+    the plain read itself."""
+    rng = np.random.default_rng(11)
+    targs, _ = _attn_case(rng, "f32", 4, 2, 1, sliced=False, M=6)
+    q, pk, pv, tables, pos = targs
+    pos = torch.tensor([0, 1, 5], dtype=torch.int32)  # frontiers 0, 1, 5
+    args = (q, pk, pv, tables, pos)
+    plain = tfa.paged_attention_ref(*args)
+    np.testing.assert_allclose(
+        _split_ref(*args, splits=1).numpy(),
+        plain.numpy(), atol=1e-6, rtol=0)
+    # tile 2: ranges of 2 positions, so rows 0-1 read only the first
+    for splits in (3, 7, 12):
+        np.testing.assert_allclose(
+            _split_ref(*args, splits=splits,
+                                          tile=2).numpy(),
+            plain.numpy(), atol=1e-6, rtol=0)
