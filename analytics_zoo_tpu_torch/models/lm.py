@@ -1,31 +1,37 @@
 """Decoder-only causal language model: training and the serving paths.
 
-The port of ``analytics_zoo_tpu/models/lm.py`` for the GPT-2-shaped
-configuration (learned positions, pre-LayerNorm blocks, tanh-GELU MLP,
-biases, tied head) with grouped-query attention:
+The port of ``analytics_zoo_tpu/models/lm.py``: the GPT-2 shape
+(learned positions, pre-LayerNorm blocks, tanh-GELU MLP, biases, tied
+head) and the Llama family the reference's ``net/hf_net.py`` imports
+(rotary positions, RMSNorm, SwiGLU, bias-free projections with optional
+q/k/v biases as in Qwen2, an untied f32 head), each with multi-head or
+grouped-query attention:
 
 - the dense forward (``__call__``/``hidden_states``) and ``prefill``,
   whose attention goes through ``models.transformer.attention_dispatch``
-  (the flash kernel on a CUDA tensor).  The forward is differentiable:
-  ``train=True`` is the training forward, and with grad on, the flash
-  branch's gradient runs the CUDA backward kernels; :func:`lm_loss` is
-  the reference's training loss.  The layers have no dropout (the
-  reference's GPT-2 import uses 0.0), so ``train`` changes nothing in
-  the arithmetic;
+  (the flash kernel on a CUDA tensor whose head dim the kernels take).
+  The forward is differentiable: ``train=True`` is the training
+  forward, and with grad on, the flash branch's gradient runs the CUDA
+  backward kernels; :func:`lm_loss` is the reference's training loss.
+  The layers have no dropout (``dropout`` takes only 0.0, as the
+  reference's importers set it), so ``train`` changes nothing in the
+  arithmetic;
 - the slot-arena cache methods ``decode_step``, ``verify_step``/
   ``verify_hidden`` and ``prefill_chunk``, and greedy :func:`generate`;
 - the paged trio ``decode_step_paged``, ``verify_hidden_paged`` and
   ``prefill_chunk_paged``.
 
-rope, RMSNorm, SwiGLU, untied heads and MoE raise
-``NotImplementedError`` until a later slice ports them.
+MoE layers (``moe_experts``) raise ``NotImplementedError`` until a later
+slice ports them.
 
 Numerics follow the reference's cast points, or bf16 logits drift from
 it: parameters are stored f32; every dense projection computes in the
-model dtype; LayerNorm computes in f32 (flax's fast variance,
-``E[x^2] - E[x]^2``) and its callers cast back; the embedding sum is
-cast to the model dtype; attention output (f32) is cast before
-``attn_out``; the tied head runs in f32.
+model dtype; LayerNorm (flax's fast variance, ``E[x^2] - E[x]^2``) and
+RMSNorm compute in f32 and their callers cast back; the embedding sum is
+cast to the model dtype; rotary positions rotate q and k in f32 at
+absolute positions and cast back, and K is cached post-rotation;
+attention output (f32) is cast before ``attn_out``; the head, tied or
+untied, runs in f32.
 
 Caches are updated IN PLACE by the arena and paged methods (the
 reference returns new caches that the JAX engine donates back into the
@@ -52,9 +58,10 @@ from analytics_zoo_tpu_torch.ops.flash_attention import (cache_attention,
 
 def _dense(layer: nn.Linear, x, dtype):
     """A flax ``Dense``/``DenseGeneral`` with ``dtype=dtype``: input,
-    kernel and bias all promoted to the compute dtype."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype),
-                    layer.bias.to(dtype))
+    kernel and bias (where the layer has one) all promoted to the
+    compute dtype."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 class LayerNorm(nn.Module):
@@ -76,18 +83,80 @@ class LayerNorm(nn.Module):
         return (xf - mean) * mul + self.bias
 
 
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm(dtype=float32)``: the f32 mean of squares
+    ``ms``, ``mul = rsqrt(ms + eps) * scale``, then ``x * mul``; the
+    output is f32."""
+
+    def __init__(self, features: int, eps: float):
+        super().__init__()
+        self.eps = float(eps)
+        self.scale = nn.Parameter(torch.ones(features))
+
+    def forward(self, x):
+        xf = x.float()
+        mul = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + self.eps) \
+            * self.scale
+        return xf * mul
+
+
+def _make_norm(kind: str, features: int, eps: float) -> nn.Module:
+    """One norm selector for the block norms and the final norm, as the
+    reference's ``_make_norm``: the two must never drift."""
+    if kind == "rmsnorm":
+        return RMSNorm(features, eps)
+    if kind == "layernorm":
+        return LayerNorm(features, eps)
+    raise ValueError(f"norm must be 'layernorm' or 'rmsnorm', got "
+                     f"{kind!r}")
+
+
+def _apply_rope(x, pos, base: float):
+    """Rotary position embedding (rotate-half convention), the
+    reference's ``_apply_rope``.
+
+    x: ``[..., T, H, D]`` (D even); pos: positions broadcastable against
+    the T axis: ``arange(T)`` for the dense forward, a ``[1]`` or
+    ``[B, 1]`` position for one cached decode step, ``[B, S]`` for S
+    tokens a row.  Frequencies ``base ** (-arange(D/2) * 2 / D)`` and the
+    angles are f32; the result is cast to x's dtype."""
+    D = x.shape[-1]
+    if D % 2:
+        raise ValueError(
+            f"rotary positions need an even head dim, got {D} "
+            f"(hidden_size must be divisible by 2*num_heads)")
+    half = D // 2
+    freqs = base ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) * 2.0 / D)
+    ang = pos[..., None].float() * freqs                # [..., T, half]
+    cos = torch.cos(ang)[..., None, :]                  # [..., T, 1, half]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
 class DecoderAttention(nn.Module):
     """Causal self-attention: a dense forward, and cached decode against
     a slot-arena or a paged KV cache, sharing the same projections.
     ``num_kv_heads < num_heads`` is grouped-query attention: K/V project
     to fewer heads, each shared by ``num_heads // num_kv_heads`` query
     heads, and the caches store only the kv heads.  ``use_flash`` picks
-    the dense forward's attention (``models.transformer.flash_ok``)."""
+    the dense forward's attention (``models.transformer.flash_ok``).
+
+    ``pos_encoding="rope"`` rotates q and k at their absolute positions
+    in every method (``rope_base``), before the K/V are cached and before
+    the kv heads are repeated for the dense dispatch; ``"learned"``
+    leaves positions to the model's table.  ``use_bias=False`` makes
+    every projection bias-free; ``qkv_bias`` (None follows ``use_bias``)
+    gives q/k/v biases of their own, the Qwen2 layout."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  num_kv_heads: Optional[int] = None,
                  dtype: torch.dtype = torch.bfloat16,
-                 use_flash: Optional[bool] = None):
+                 use_flash: Optional[bool] = None,
+                 pos_encoding: str = "learned", rope_base: float = 10000.0,
+                 use_bias: bool = True, qkv_bias: Optional[bool] = None):
         super().__init__()
         H = num_heads
         KH = num_kv_heads or H
@@ -98,19 +167,26 @@ class DecoderAttention(nn.Module):
         self._h, self._kh, self._d = H, KH, D
         self.dtype = dtype
         self.use_flash = use_flash
-        self.query = nn.Linear(hidden_size, H * D)
-        self.key = nn.Linear(hidden_size, KH * D)
-        self.value = nn.Linear(hidden_size, KH * D)
-        self.attn_out = nn.Linear(H * D, hidden_size)
+        self.rope = pos_encoding == "rope"
+        self.rope_base = float(rope_base)
+        qkvb = use_bias if qkv_bias is None else qkv_bias
+        self.query = nn.Linear(hidden_size, H * D, bias=qkvb)
+        self.key = nn.Linear(hidden_size, KH * D, bias=qkvb)
+        self.value = nn.Linear(hidden_size, KH * D, bias=qkvb)
+        self.attn_out = nn.Linear(H * D, hidden_size, bias=use_bias)
 
-    def _qkv(self, x):
+    def _qkv(self, x, pos):
+        """q ``[B, T, H, D]``, k and v ``[B, T, KH, D]`` of ``x``; under
+        rope q and k are rotated at positions ``pos`` (broadcastable
+        against T, see :func:`_apply_rope`)."""
         B, T, _ = x.shape
-        return (_dense(self.query, x, self.dtype).view(B, T, self._h,
-                                                       self._d),
-                _dense(self.key, x, self.dtype).view(B, T, self._kh,
-                                                     self._d),
-                _dense(self.value, x, self.dtype).view(B, T, self._kh,
-                                                       self._d))
+        q = _dense(self.query, x, self.dtype).view(B, T, self._h, self._d)
+        k = _dense(self.key, x, self.dtype).view(B, T, self._kh, self._d)
+        v = _dense(self.value, x, self.dtype).view(B, T, self._kh, self._d)
+        if self.rope:
+            q = _apply_rope(q, pos, self.rope_base)
+            k = _apply_rope(k, pos, self.rope_base)
+        return q, k, v
 
     def _expand_kv(self, t):
         """``[B, T, KH, D] -> [B, T, H, D]`` by repeating each kv head
@@ -123,8 +199,9 @@ class DecoderAttention(nn.Module):
     def forward(self, x, return_kv: bool = False):
         """Causal attention over ``[B, T, E]`` -> ``[B, T, E]``.
         ``return_kv=True`` also returns this layer's K/V projections
-        ``[B, T, KH, D]`` (the KV-arena prefill payload)."""
-        q, k, v = self._qkv(x)
+        ``[B, T, KH, D]`` (the KV-arena prefill payload; post-rotation
+        under rope)."""
+        q, k, v = self._qkv(x, torch.arange(x.shape[1], device=x.device))
         o = attention_dispatch(q, self._expand_kv(k), self._expand_kv(v),
                                None, causal=True, use_flash=self.use_flash)
         out = _dense(self.attn_out, o.reshape(x.shape[0], x.shape[1], -1),
@@ -141,7 +218,10 @@ class DecoderAttention(nn.Module):
         ``[B, 1, E]`` in the model dtype."""
         B = x1.shape[0]
         L = cache_k.shape[1]
-        q, k1, v1 = self._qkv(x1)
+        # rotated at the current position; the cache already holds
+        # post-rotation keys for earlier positions
+        q, k1, v1 = self._qkv(x1, pos.reshape(1) if pos.dim() == 0
+                              else pos[:, None])
         ar = torch.arange(L, device=x1.device)
         if pos.dim() == 0:
             cache_k[:, pos] = k1[:, 0].to(cache_k.dtype)
@@ -165,8 +245,8 @@ class DecoderAttention(nn.Module):
         Returns ``[B, S, E]`` in the model dtype."""
         B, S, _ = xs.shape
         L = cache_k.shape[1]
-        q, ks, vs = self._qkv(xs)
         p = pos[:, None].long() + torch.arange(S, device=xs.device)[None]
+        q, ks, vs = self._qkv(xs, p)
         keep = p < L
         rows = torch.arange(B, device=xs.device)[:, None].expand(B, S)
         cache_k[rows[keep], p[keep]] = ks[keep].to(cache_k.dtype)
@@ -188,33 +268,54 @@ class DecoderAttention(nn.Module):
         :func:`paged_attention`, so each token attends itself.  Returns
         ``[B, S, E]`` in the model dtype."""
         B, S, _ = xs.shape
-        q, ks, vs = self._qkv(xs)
+        q, ks, vs = self._qkv(xs, pos[:, None].long() + torch.arange(
+            S, device=xs.device)[None])
         paged_kv_update(pool_k, pool_v, tables, pos, ks, vs, limit=limit)
         o = paged_attention(q, pool_k, pool_v, tables, pos, kernel=kernel)
         return _dense(self.attn_out, o.reshape(B, S, -1), self.dtype)
 
 
 class DecoderLayer(nn.Module):
-    """Pre-LN causal decoder block with a tanh-GELU MLP."""
+    """Pre-norm causal decoder block: ``norm`` is ``"layernorm"`` or
+    ``"rmsnorm"``, ``mlp`` ``"gelu"`` (tanh-GELU) or ``"swiglu"``
+    (``ffn_down(silu(ffn_gate(x)) * ffn_up(x))``, all in the model
+    dtype); ``use_bias``/``qkv_bias`` and the position knobs go to the
+    attention (:class:`DecoderAttention`), ``use_bias`` to the MLP."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int,
                  dtype: torch.dtype = torch.bfloat16,
                  num_kv_heads: Optional[int] = None,
                  ln_eps: float = 1e-6,
-                 use_flash: Optional[bool] = None):
+                 use_flash: Optional[bool] = None,
+                 pos_encoding: str = "learned", rope_base: float = 10000.0,
+                 norm: str = "layernorm", mlp: str = "gelu",
+                 use_bias: bool = True, qkv_bias: Optional[bool] = None):
         super().__init__()
+        if mlp not in ("gelu", "swiglu"):
+            raise ValueError(f"mlp must be 'gelu' or 'swiglu', got {mlp!r}")
         self.dtype = dtype
-        self.ln_attn = LayerNorm(hidden_size, ln_eps)
-        self.attention = DecoderAttention(hidden_size, num_heads,
-                                          num_kv_heads=num_kv_heads,
-                                          dtype=dtype, use_flash=use_flash)
-        self.ln_ffn = LayerNorm(hidden_size, ln_eps)
-        self.ffn_up = nn.Linear(hidden_size, intermediate_size)
-        self.ffn_down = nn.Linear(intermediate_size, hidden_size)
+        self.swiglu = mlp == "swiglu"
+        self.ln_attn = _make_norm(norm, hidden_size, ln_eps)
+        self.attention = DecoderAttention(
+            hidden_size, num_heads, num_kv_heads=num_kv_heads, dtype=dtype,
+            use_flash=use_flash, pos_encoding=pos_encoding,
+            rope_base=rope_base, use_bias=use_bias, qkv_bias=qkv_bias)
+        self.ln_ffn = _make_norm(norm, hidden_size, ln_eps)
+        self.ffn_up = nn.Linear(hidden_size, intermediate_size,
+                                bias=use_bias)
+        self.ffn_down = nn.Linear(intermediate_size, hidden_size,
+                                  bias=use_bias)
+        if self.swiglu:
+            self.ffn_gate = nn.Linear(hidden_size, intermediate_size,
+                                      bias=use_bias)
 
     def _mlp(self, x):
-        h = F.gelu(_dense(self.ffn_up, x, self.dtype), approximate="tanh")
+        up = _dense(self.ffn_up, x, self.dtype)
+        if self.swiglu:
+            h = F.silu(_dense(self.ffn_gate, x, self.dtype)) * up
+        else:
+            h = F.gelu(up, approximate="tanh")
         return _dense(self.ffn_down, h, self.dtype)
 
     def _residual(self, x, a):
@@ -253,17 +354,27 @@ class DecoderLayer(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Decoder-only LM with tied embeddings, served through a slot-arena
-    or a paged KV cache (``serving/continuous.py``) or by
-    :func:`generate`.
+    """Decoder-only LM, served through a slot-arena or a paged KV cache
+    (``serving/continuous.py``) or by :func:`generate`.
+
+    The defaults are the GPT-2 shape (learned positions, LayerNorm,
+    tanh-GELU, biases, tied head).  The Llama family is
+    ``pos_encoding="rope"`` (``rope_base``; no position table, and
+    ``max_position`` still bounds a sequence), ``norm="rmsnorm"``,
+    ``mlp="swiglu"``, ``use_bias=False`` (with ``qkv_bias=True`` for
+    Qwen2's biased q/k/v) and ``tied_head=False``, an f32 bias-free
+    ``lm_head``; ``num_kv_heads`` sets grouped-query attention in
+    either.  ``dropout`` takes only 0.0 and ``moe_experts`` only 0 (both
+    not ported yet).
 
     Parameters are created f32 with GPT-2's initialisation (normal
-    0.02, zero biases, unit LayerNorm scales) from the global torch
+    0.02, zero biases, unit norm scales) from the global torch
     generator; seed it with ``torch.manual_seed`` for reproducible
     random weights, or load converted weights (:func:`params_from_flax`).
     ``use_flash`` picks the dense forward's attention, as in the
-    reference: ``None`` is the flash kernel on a CUDA tensor and plain
-    full attention on a CPU tensor; ``True``/``False`` force either.
+    reference: ``None`` is the flash kernel on a CUDA tensor (for a head
+    dim the kernels take, ``models.transformer.flash_ok``) and plain
+    full attention otherwise; ``True``/``False`` force either.
     """
 
     def __init__(self, vocab_size: int, hidden_size: int = 256,
@@ -275,19 +386,20 @@ class TransformerLM(nn.Module):
                  pos_encoding: str = "learned", ln_eps: float = 1e-6,
                  norm: str = "layernorm", mlp: str = "gelu",
                  use_bias: bool = True, tied_head: bool = True,
-                 moe_experts: int = 0):
+                 moe_experts: int = 0, rope_base: float = 10000.0,
+                 qkv_bias: Optional[bool] = None, dropout: float = 0.0):
         super().__init__()
-        later = {"pos_encoding": (pos_encoding, "learned"),
-                 "norm": (norm, "layernorm"), "mlp": (mlp, "gelu"),
-                 "use_bias": (use_bias, True),
-                 "tied_head": (tied_head, True),
-                 "moe_experts": (moe_experts, 0)}
-        for name, (got, ported) in later.items():
-            if got != ported:
-                raise NotImplementedError(
-                    f"{name}={got!r} is not ported yet (ROADMAP Queue 1 "
-                    f"item 2: rope, RMSNorm, SwiGLU, bias-free and "
-                    f"untied-head configs, MoE)")
+        if moe_experts:
+            raise NotImplementedError(
+                f"moe_experts={moe_experts!r} is not ported yet (ROADMAP "
+                f"Queue 1 item 2: MoE layers)")
+        if dropout:
+            raise NotImplementedError(
+                f"dropout={dropout!r} is not ported yet (ROADMAP Queue 1 "
+                f"item 7: dropout and remat); the port's layers take 0.0")
+        if pos_encoding not in ("learned", "rope"):
+            raise ValueError(f"pos_encoding must be 'learned' or 'rope', "
+                             f"got {pos_encoding!r}")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -295,15 +407,23 @@ class TransformerLM(nn.Module):
         self.num_kv_heads = num_kv_heads
         self.max_position = max_position
         self.dtype = dtype
+        self.tied_head = tied_head
         self.embed = nn.Embedding(vocab_size, hidden_size)
-        self.pos_embed = nn.Embedding(max_position, hidden_size)
+        # rope rotates q/k inside attention: no absolute position table
+        self.pos_embed = nn.Embedding(max_position, hidden_size) \
+            if pos_encoding == "learned" else None
         self.use_flash = use_flash
         self.layers = nn.ModuleList(
             DecoderLayer(hidden_size, num_heads, intermediate_size,
                          dtype=dtype, num_kv_heads=num_kv_heads,
-                         ln_eps=ln_eps, use_flash=use_flash)
+                         ln_eps=ln_eps, use_flash=use_flash,
+                         pos_encoding=pos_encoding, rope_base=rope_base,
+                         norm=norm, mlp=mlp, use_bias=use_bias,
+                         qkv_bias=qkv_bias)
             for _ in range(num_layers))
-        self.ln_f = LayerNorm(hidden_size, ln_eps)
+        self.ln_f = _make_norm(norm, hidden_size, ln_eps)
+        if not tied_head:
+            self.lm_head = nn.Linear(hidden_size, vocab_size, bias=False)
         with torch.no_grad():
             for name, p in self.named_parameters():
                 if name.endswith("bias"):
@@ -317,19 +437,24 @@ class TransformerLM(nn.Module):
         return self.num_kv_heads or self.num_heads
 
     def _logits(self, x):
-        # tied head: f32 logits for a stable softmax/argmax
+        # f32 logits for a stable softmax/argmax, tied or untied
+        if not self.tied_head:
+            return F.linear(x.float(), self.lm_head.weight.float())
         return x.float() @ self.embed.weight.float().t()
 
     def _embed(self, toks, p):
-        # positions past the table (padding columns of a suffix grid)
-        # are clamped: their rows are never read, and an out-of-range
-        # lookup would be a device assert on CUDA
-        x = self.embed(toks) + self.pos_embed(
-            torch.clamp(p, max=self.max_position - 1))
+        """Token embeddings (plus, for learned positions, the table's
+        rows at positions ``p``) in the compute dtype."""
+        x = self.embed(toks)
+        if self.pos_embed is not None:
+            # positions past the table (padding columns of a suffix
+            # grid) are clamped: their rows are never read, and an
+            # out-of-range lookup would be a device assert on CUDA
+            x = x + self.pos_embed(torch.clamp(p, max=self.max_position - 1))
         return x.to(self.dtype)
 
     def hidden_states(self, tokens, train: bool = False):
-        """Final-LayerNorm hidden states ``[B, T, E]`` (f32) of the
+        """Final-norm hidden states ``[B, T, E]`` (f32) of the
         causal forward: the forward minus the vocab head.  ``train`` is
         accepted for the reference's signature; with no dropout it
         changes nothing."""
@@ -344,8 +469,8 @@ class TransformerLM(nn.Module):
         return self._logits(self.hidden_states(tokens, train))
 
     def _embed_prompt(self, tokens):
-        """Token plus position embeddings of ``[B, T]`` tokens at
-        positions ``0 .. T-1``, in the compute dtype."""
+        """The embeddings of ``[B, T]`` tokens at positions ``0 .. T-1``
+        (:meth:`_embed`), in the compute dtype."""
         T = tokens.shape[1]
         if T > self.max_position:
             raise ValueError(
@@ -486,12 +611,16 @@ def generate(model: TransformerLM, variables, prompt, max_new_tokens: int,
     unless the caller names another).  Returns int32
     ``[B, max_new_tokens]`` on that device.
 
-    Sampling (``temperature > 0``) and the lockstep ``prefill="scan"``
-    path are not ported yet (ROADMAP Queue 1 item 2) and raise."""
-    if temperature > 0.0 or prefill == "scan":
+    Sampling (``temperature > 0``, ROADMAP Queue 1 item 4.1) and the
+    lockstep ``prefill="scan"`` path (item 2) are not ported yet and
+    raise."""
+    if temperature > 0.0:
         raise NotImplementedError(
-            "sampled generation and prefill='scan' are not ported yet "
-            "(ROADMAP Queue 1 item 2)")
+            "sampled generation is not ported yet (ROADMAP Queue 1 item "
+            "4.1)")
+    if prefill == "scan":
+        raise NotImplementedError(
+            "prefill='scan' is not ported yet (ROADMAP Queue 1 item 2)")
     if prefill not in ("auto", "forward"):
         raise ValueError(f"prefill must be auto|forward|scan, got "
                          f"{prefill!r}")
@@ -546,34 +675,43 @@ def params_from_flax(params) -> Dict[str, torch.Tensor]:
     model's ``state_dict``.  ``DenseGeneral`` kernels fold their head
     axes (``query``/``key``/``value`` ``[E, H, D]``, ``attn_out``
     ``[H, D, E]``) and every kernel transposes to ``nn.Linear``'s
-    ``[out, in]``."""
+    ``[out, in]``.  Every tree the reference builds converts: learned
+    positions or none (rope), LayerNorm ``scale``/``bias`` or RMSNorm
+    ``scale``, any projection with or without its bias (q/k/v biases
+    alone, as in Qwen2), ``ffn_gate`` (SwiGLU) and an untied ``lm_head``
+    (``[E, V]`` to ``[V, E]``)."""
     def t(x):
         return torch.from_numpy(np.array(x, dtype=np.float32))
 
-    def linear(p, in_dims):
+    out: Dict[str, torch.Tensor] = {}
+
+    def linear(name, p, in_dims):
         k = np.asarray(p["kernel"], np.float32)
         n_in = int(np.prod(k.shape[:in_dims]))
-        return t(k.reshape(n_in, -1).T), t(np.asarray(p["bias"]).reshape(-1))
+        out[name + ".weight"] = t(k.reshape(n_in, -1).T)
+        if "bias" in p:
+            out[name + ".bias"] = t(np.asarray(p["bias"]).reshape(-1))
 
-    def norm(p):
-        return t(p["scale"]), t(p["bias"])
+    def norm(name, p):
+        out[name + ".scale"] = t(p["scale"])
+        if "bias" in p:
+            out[name + ".bias"] = t(p["bias"])
 
-    out = {"embed.weight": t(params["embed"]["embedding"]),
-           "pos_embed.weight": t(params["pos_embed"]["embedding"])}
-    out["ln_f.scale"], out["ln_f.bias"] = norm(params["ln_f"])
+    out["embed.weight"] = t(params["embed"]["embedding"])
+    if "pos_embed" in params:
+        out["pos_embed.weight"] = t(params["pos_embed"]["embedding"])
+    norm("ln_f", params["ln_f"])
+    if "lm_head" in params:
+        linear("lm_head", params["lm_head"], 1)
     n_layers = sum(1 for k in params if k.startswith("layer_"))
     for i in range(n_layers):
         lp, pre = params[f"layer_{i}"], f"layers.{i}."
         for ln in ("ln_attn", "ln_ffn"):
-            out[pre + ln + ".scale"], out[pre + ln + ".bias"] = norm(lp[ln])
-        ap = lp["attention"]
+            norm(pre + ln, lp[ln])
         for name, in_dims in (("query", 1), ("key", 1), ("value", 1),
                               ("attn_out", 2)):
-            w, b = linear(ap[name], in_dims)
-            out[f"{pre}attention.{name}.weight"] = w
-            out[f"{pre}attention.{name}.bias"] = b
-        for name in ("ffn_up", "ffn_down"):
-            w, b = linear(lp[name], 1)
-            out[f"{pre}{name}.weight"] = w
-            out[f"{pre}{name}.bias"] = b
+            linear(f"{pre}attention.{name}", lp["attention"][name], in_dims)
+        for name in ("ffn_up", "ffn_down", "ffn_gate"):
+            if name in lp:
+                linear(pre + name, lp[name], 1)
     return out

@@ -45,7 +45,8 @@
 //     the key mask is read as bytes, per tile, only when given; rows past
 //     Tq are never written; a fully masked row keeps o = 0 and
 //     lse = +1e30 exactly.
-//   Shared memory: 45 KB (D=64) / 85 KB (D=128).
+//   Shared memory: (64 + 4 x 64) rows of D + 8 bf16: 25 KB (D=32), 45 KB
+//   (D=64), 65 KB (D=96), 85 KB (D=128).
 // Where this stops, and what is left: on Hopper only wgmma reaches the
 // full tensor-core rate, and cp.async spends a thread's instruction slots on
 // every 16-byte copy.  wgmma (a warpgroup's 64-row product, B read from
@@ -452,18 +453,30 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The head dims the kernels are instantiated for: the multiples of 32 up
+// to 128, the set every kernel of the port takes.  Any other D is
+// refused; the Python dispatch routes it to the plain version up front.
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      const uint8_t* mask, void* o, float* lse, int B, int Tq,
                      int Tk, int H, int causal, float scale,
                      cudaStream_t stream) {
-  if (D == 64)
-    return launch<T, 64>(q, k, v, mask, o, lse, B, Tq, Tk, H, causal, scale,
-                         stream);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, mask, o, lse, B, Tq, Tk, H, causal,
-                          scale, stream);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 32:
+      return launch<T, 32>(q, k, v, mask, o, lse, B, Tq, Tk, H, causal,
+                           scale, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, mask, o, lse, B, Tq, Tk, H, causal,
+                           scale, stream);
+    case 96:
+      return launch<T, 96>(q, k, v, mask, o, lse, B, Tq, Tk, H, causal,
+                           scale, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, mask, o, lse, B, Tq, Tk, H, causal,
+                            scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -54,9 +54,12 @@
 //     zero-filled by the copy.
 //   - Registers: a lane holds D/2 f32 dq accumulators, the Q and dO
 //     fragments (D/4 registers each) and the S and dP tiles (keys/2
-//     each): at D=128 a 64-key tile would need 192 registers before
-//     addresses, so D=128 walks 32-key tiles and D=64 64-key tiles.
-//   Shared memory: 54 KB (D=64) / 68 KB (D=128).
+//     each): D + keys registers before addresses.  So D <= 64 walks
+//     64-key tiles (96 and 128 registers at D = 32 and 64) and D > 64
+//     32-key tiles (128 and 160 at D = 96 and 128; 64 keys would take
+//     160 and 192).
+//   Shared memory: 30 KB (D=32), 54 KB (D=64), 52 KB (D=96), 68 KB
+//   (D=128).
 //
 // The dk/dv kernel, bf16 (flash_bwd_dkv_bf16_kernel; every training
 // step): the same machinery on the transposed tiles, so all four products
@@ -64,7 +67,7 @@
 // block of 4 warps per (64-key tile, b*H + h), the heaviest causal tiles
 // (the first key tiles) first, walking the query tiles from k0 / 64 (the
 // first whose last row reaches k0) to the end; each warp owns 16 keys.
-//   - Resident: the warp's K and V A fragments (ldmatrix once, D=64).
+//   - Resident: the warp's K and V A fragments (ldmatrix once, D <= 64).
 //   - Streamed: the Q and dO tiles with their lse and delta, two stages
 //     of 16-byte (and 4-byte) cp.async, query tile i + 1 in flight while
 //     tile i is multiplied; rows past Tq zero-filled and masked.
@@ -79,11 +82,15 @@
 //   - Masks: a masked key or one past Tk is dead for the whole loop (its
 //     dk and dv rows are 0); the causal comparison runs only on tiles
 //     that cross a warp's keys, and queries past Tq only on the last.
-//   - Registers: D=64 keeps 64 dk/dv accumulators, 32 K/V fragment
-//     registers and two 32-register s^T/dp^T tiles; D=128 would need 256
-//     for the same, so it walks 32-query tiles and re-reads the K and V
-//     fragments from shared memory every tile (mma_abt_smem).
-//   Shared memory: 55 KB (D=64) / 70 KB (D=128).
+//   - Registers: a lane keeps D dk/dv accumulators, D/2 K/V fragment
+//     registers when they stay resident, and two s^T/dp^T tiles of
+//     queries/2 each.  D <= 64 keeps the fragments and walks 64-query
+//     tiles (D=64: 64 + 32 + 64 = 160 before addresses).  D > 64 would
+//     need 208 (D=96) or 256 (D=128) for the same, so it walks 32-query
+//     tiles and re-reads the K and V fragments from shared memory every
+//     tile (mma_abt_smem): 128 (D=96) and 160 (D=128).
+//   Shared memory: 31 KB (D=32), 55 KB (D=64), 52 KB (D=96), 70 KB
+//   (D=128).
 // Where these stop: the same place as the forward kernel (see its
 // header): wgmma and TMA with warp-specialised producers are the rest of
 // the way to the card's rate.
@@ -103,7 +110,8 @@
 // through shared memory to feed the gradient products, each row of them
 // written and read by the 8 lanes of one warp.  Per-row lse and delta
 // sit in registers (dq) or shared memory (dk/dv).  Shared memory per
-// block: dq 81 KB (D=64) / 145 KB (D=128), dk/dv 98 KB / 162 KB.
+// block: dq 49 / 81 / 113 / 145 KB (D = 32 / 64 / 96 / 128), dk/dv
+// 66 / 98 / 130 / 162 KB.
 //
 // Every launch raises the dynamic shared-memory limit first and returns
 // its error if the card refuses.  Plain C interface (loaded with ctypes):
@@ -189,9 +197,10 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kTld + 2 * kTile);
 }
 
-// f32 operands (bf16 takes flash_bwd_dq_bf16_kernel below)
+// f32 operands (bf16 takes flash_bwd_dq_bf16_kernel below).  Launch
+// bounds of one block an SM, as for the dk/dv kernel below
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const uint8_t* __restrict__ kv_mask,
@@ -305,7 +314,7 @@ constexpr int kTcThreads = 128;  // 4 warps of 16 query rows
 // keys per tile of the bf16 dq kernel (see the header: registers)
 template <int D>
 __host__ __device__ constexpr int dq_keys() {
-  return D == 64 ? 64 : 32;
+  return D <= 64 ? 64 : 32;
 }
 
 template <int D>
@@ -446,9 +455,11 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
-// f32 operands (bf16 takes flash_bwd_dkv_bf16_kernel below)
+// f32 operands (bf16 takes flash_bwd_dkv_bf16_kernel below).  Launch
+// bounds of one block an SM: with none given, ptxas held D=32 to 64
+// registers (four blocks an SM) and spilled 4 bytes to get there
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
                          const uint8_t* __restrict__ kv_mask,
@@ -570,10 +581,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// query rows per tile of the bf16 dk/dv kernel (see the header: registers)
+// query rows per tile of the bf16 dk/dv kernel, and whether the warp's
+// K and V fragments stay in registers (see the header: registers)
+template <int D>
+__host__ __device__ constexpr bool dkv_resident() {
+  return D <= 64;
+}
+
 template <int D>
 __host__ __device__ constexpr int dkv_queries() {
-  return D == 64 ? 64 : 32;
+  return dkv_resident<D>() ? 64 : 32;
 }
 
 template <int D>
@@ -602,9 +619,9 @@ __global__ void __launch_bounds__(kTcThreads)
   constexpr int kLd = D + tc::kPad;
   constexpr int kNs = kBq / 8;  // n8 blocks (queries) of a warp's s^T tile
   constexpr int kNo = D / 8;    // n8 blocks of a warp's dk / dv rows
-  // D=64 keeps the warp's K and V A fragments in registers; D=128 has no
-  // room for them and reads them from shared memory at every tile
-  constexpr bool kResident = D == 64;
+  // D <= 64 keeps the warp's K and V A fragments in registers; D > 64
+  // has no room for them and reads them from shared memory at every tile
+  constexpr bool kResident = dkv_resident<D>();
   const int bh = blockIdx.x;  // b * H + h
   const int b = bh / H, h = bh % H;
   // the first key tiles carry the most causal work and start first
@@ -857,13 +874,22 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   if (!valid(B, Tq, Tk, H)) return cudaErrorInvalidValue;
   const Args a = args(q, k, v, kv_mask, dout, lse, delta, B, Tq, Tk, H,
                       causal, scale, stream);
-  if (D == 64)
-    return bf16 ? launch_dq<__nv_bfloat16, 64>(a, dq)
-                : launch_dq<float, 64>(a, dq);
-  if (D == 128)
-    return bf16 ? launch_dq<__nv_bfloat16, 128>(a, dq)
-                : launch_dq<float, 128>(a, dq);
-  return cudaErrorInvalidValue;
+  switch (D) {  // the instantiated head dims (flash_attention.cu)
+    case 32:
+      return bf16 ? launch_dq<__nv_bfloat16, 32>(a, dq)
+                  : launch_dq<float, 32>(a, dq);
+    case 64:
+      return bf16 ? launch_dq<__nv_bfloat16, 64>(a, dq)
+                  : launch_dq<float, 64>(a, dq);
+    case 96:
+      return bf16 ? launch_dq<__nv_bfloat16, 96>(a, dq)
+                  : launch_dq<float, 96>(a, dq);
+    case 128:
+      return bf16 ? launch_dq<__nv_bfloat16, 128>(a, dq)
+                  : launch_dq<float, 128>(a, dq);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The same operands; dk, dv [B, Tk, H, D] in the operand type.
@@ -877,11 +903,20 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   if (!valid(B, Tq, Tk, H)) return cudaErrorInvalidValue;
   const Args a = args(q, k, v, kv_mask, dout, lse, delta, B, Tq, Tk, H,
                       causal, scale, stream);
-  if (D == 64)
-    return bf16 ? launch_dkv<__nv_bfloat16, 64>(a, dk, dv)
-                : launch_dkv<float, 64>(a, dk, dv);
-  if (D == 128)
-    return bf16 ? launch_dkv<__nv_bfloat16, 128>(a, dk, dv)
-                : launch_dkv<float, 128>(a, dk, dv);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 32:
+      return bf16 ? launch_dkv<__nv_bfloat16, 32>(a, dk, dv)
+                  : launch_dkv<float, 32>(a, dk, dv);
+    case 64:
+      return bf16 ? launch_dkv<__nv_bfloat16, 64>(a, dk, dv)
+                  : launch_dkv<float, 64>(a, dk, dv);
+    case 96:
+      return bf16 ? launch_dkv<__nv_bfloat16, 96>(a, dk, dv)
+                  : launch_dkv<float, 96>(a, dk, dv);
+    case 128:
+      return bf16 ? launch_dkv<__nv_bfloat16, 128>(a, dk, dv)
+                  : launch_dkv<float, 128>(a, dk, dv);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -23,7 +23,7 @@
 // and spreads the bytes over every SM:
 //
 //   - Gather.  K/V tiles of 64 logical positions (32 for the bf16 kernel
-//     at D=128) are copied by 16-byte cp.async into shared memory, two
+//     at D > 64) are copied by 16-byte cp.async into shared memory, two
 //     stages: tile j + 1 is in flight while tile j is used.  Each thread
 //     owns one position of a tile and reads its table entry one tile
 //     ahead of the copy (the TPU's scalar prefetch), so the copy never
@@ -98,9 +98,10 @@ constexpr int kSplitsLimit = 1024;
 // D / 32 accumulators a row): decode and narrow verify have 1-8
 constexpr int kCcRows = 8;
 
-// logical positions per K/V tile of the tensor-core kernel (registers:
-// the warp's 16 x keys score tile)
-__host__ __device__ constexpr int tc_keys(int D) { return D == 64 ? 64 : 32; }
+// logical positions per K/V tile of the tensor-core kernel (registers: a
+// lane holds D/4 Q fragment registers, D/2 accumulators and keys/2
+// scores, so D > 64 takes half the keys)
+__host__ __device__ constexpr int tc_keys(int D) { return D <= 64 ? 64 : 32; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -126,40 +127,47 @@ __device__ __forceinline__ float safe_div(float a, float l) {
 
 // kN consecutive elements of a shared-memory row as f32, read as the
 // widest aligned words the width allows (the row offset is a multiple
-// of kN elements)
+// of kN elements); a width that is no such word (1, 3, 6 or 12 bytes: a
+// lane's D / 32 values at D = 96, or at D = 32 in int8) element by
+// element
 template <typename T, int kN>
 __device__ __forceinline__ void load_f32(float (&dst)[kN], const T* src) {
   constexpr int kBytes = kN * static_cast<int>(sizeof(T));
-  uint32_t w[(kBytes + 3) / 4];
-  if constexpr (kBytes % 16 == 0) {
+  if constexpr (kBytes % 16 != 0 && kBytes != 8 && kBytes != 4 &&
+                kBytes != 2) {
 #pragma unroll
-    for (int i = 0; i < kBytes / 16; ++i) {
-      const uint4 x = reinterpret_cast<const uint4*>(src)[i];
-      w[4 * i] = x.x;
-      w[4 * i + 1] = x.y;
-      w[4 * i + 2] = x.z;
-      w[4 * i + 3] = x.w;
-    }
-  } else if constexpr (kBytes == 8) {
-    const uint2 x = *reinterpret_cast<const uint2*>(src);
-    w[0] = x.x;
-    w[1] = x.y;
-  } else if constexpr (kBytes == 4) {
-    w[0] = *reinterpret_cast<const uint32_t*>(src);
+    for (int i = 0; i < kN; ++i) dst[i] = to_f32(src[i]);
   } else {
-    static_assert(kBytes == 2, "2, 4, 8 or a multiple of 16 bytes");
-    w[0] = *reinterpret_cast<const uint16_t*>(src);
-  }
+    uint32_t w[(kBytes + 3) / 4];
+    if constexpr (kBytes % 16 == 0) {
 #pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    if constexpr (std::is_same_v<T, float>) {
-      dst[i] = __uint_as_float(w[i]);
-    } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-      dst[i] = __uint_as_float(i % 2 ? w[i / 2] & 0xffff0000u
-                                     : w[i / 2] << 16);
+      for (int i = 0; i < kBytes / 16; ++i) {
+        const uint4 x = reinterpret_cast<const uint4*>(src)[i];
+        w[4 * i] = x.x;
+        w[4 * i + 1] = x.y;
+        w[4 * i + 2] = x.z;
+        w[4 * i + 3] = x.w;
+      }
+    } else if constexpr (kBytes == 8) {
+      const uint2 x = *reinterpret_cast<const uint2*>(src);
+      w[0] = x.x;
+      w[1] = x.y;
+    } else if constexpr (kBytes == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(src);
     } else {
-      dst[i] = static_cast<float>(
-          static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu));
+      w[0] = *reinterpret_cast<const uint16_t*>(src);
+    }
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      if constexpr (std::is_same_v<T, float>) {
+        dst[i] = __uint_as_float(w[i]);
+      } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        dst[i] = __uint_as_float(i % 2 ? w[i / 2] & 0xffff0000u
+                                       : w[i / 2] << 16);
+      } else {
+        dst[i] = static_cast<float>(
+            static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu));
+      }
     }
   }
 }
@@ -716,11 +724,22 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+// the head dims valid() takes: the multiples of 32 up to 128 (a lane of
+// the CUDA-core kernel accumulates D / 32 output dims)
 template <typename TQ, typename TKV>
 cudaError_t launch_d(int D, const Args& a) {
-  if (D == 64) return launch<TQ, TKV, 64>(a);
-  if (D == 128) return launch<TQ, TKV, 128>(a);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 32:
+      return launch<TQ, TKV, 32>(a);
+    case 64:
+      return launch<TQ, TKV, 64>(a);
+    case 96:
+      return launch<TQ, TKV, 96>(a);
+    case 128:
+      return launch<TQ, TKV, 128>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename TQ>
@@ -740,7 +759,8 @@ cudaError_t launch_kv(int kv_kind, int D, const Args& a) {
 bool valid(int kv_kind, int B, int S, int H, int KH, int D, int bs, int M) {
   return B >= 1 && S >= 1 && KH >= 1 && H >= KH && H % KH == 0 && M >= 1 &&
          bs >= 1 && bs <= kMaxBs && B <= 65535 && KH <= 65535 &&
-         (D == 64 || D == 128) && kv_kind >= 0 && kv_kind <= 2 &&
+         D % 32 == 0 && D >= 32 && D <= 128 && kv_kind >= 0 &&
+         kv_kind <= 2 &&
          static_cast<long long>(M) * bs <= 0x7fffffffLL &&
          static_cast<long long>(B) * S * H <= 0x7fffffffLL;
 }

@@ -44,6 +44,26 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps exp/where NaN-free
 
 KV_SCALE_DTYPE = torch.bfloat16   # per-(block, position, head) int8 scales
 
+# The head dims all four CUDA kernels are instantiated for, and the
+# largest block the paged kernel takes.  A shape outside them is routed
+# to the plain version before any launch, by the callers that pick a
+# path (``models.transformer.flash_ok``, the paged engine's ``kernel``),
+# never after a failed one.
+KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+PAGED_MAX_BLOCK = 64
+
+
+def flash_kernel_takes(head_dim: int) -> bool:
+    """Whether the flash kernels (forward, dq, dk/dv) take this head
+    dim."""
+    return head_dim in KERNEL_HEAD_DIMS
+
+
+def paged_kernel_takes(head_dim: int, block_size: int) -> bool:
+    """Whether the paged-attention kernel takes this head dim and
+    block size."""
+    return head_dim in KERNEL_HEAD_DIMS and 1 <= block_size <= PAGED_MAX_BLOCK
+
 
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
@@ -104,9 +124,9 @@ def flash_attention_ref(q, k, v, kv_mask=None, *, causal: bool,
 def _check_dense(name, q, k, v, kv_mask, like_q=()):
     """Raise on dense-attention operands the CUDA kernels do not take:
     q ``[B, Tq, H, D]`` and k, v ``[B, Tk, H, D]`` contiguous and 16-byte
-    aligned on one CUDA device in one dtype (f32 or bf16), D in (64,
-    128), kv_mask a contiguous bool ``[B, Tk]``; ``like_q`` tensors must
-    match q."""
+    aligned on one CUDA device in one dtype (f32 or bf16), D in
+    :data:`KERNEL_HEAD_DIMS`, kv_mask a contiguous bool ``[B, Tk]``;
+    ``like_q`` tensors must match q."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k and v must be [B, T, H, D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -137,8 +157,9 @@ def _check_dense(name, q, k, v, kv_mask, like_q=()):
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype} not "
                          f"supported (one of f32, bf16 for q, k and v)")
-    if D not in (64, 128):
-        raise ValueError(f"head dim {D} not supported (64, 128)")
+    if not flash_kernel_takes(D):
+        raise ValueError(f"head dim {D} not supported "
+                         f"{KERNEL_HEAD_DIMS}")
     if kv_mask is not None and (kv_mask.dtype != torch.bool
                                 or tuple(kv_mask.shape) != (B, Tk)):
         raise ValueError(f"kv_mask must be bool [B, Tk] = {(B, Tk)}, got "
@@ -150,9 +171,9 @@ def flash_attention_fused(q, k, v, kv_mask=None, *, causal: bool,
     """Launch the CUDA flash-attention forward kernel (CUDA tensors
     only).  Same contract as :func:`flash_attention_ref`.  Takes q, k
     and v contiguous and 16-byte aligned in one dtype, f32 or bf16, head
-    dims 64 and 128, kv_mask a contiguous bool ``[B, Tk]``; raises on
-    anything else.  bf16 runs on the tensor cores, f32 on the CUDA
-    cores in full f32.
+    dims in :data:`KERNEL_HEAD_DIMS`, kv_mask a contiguous bool ``[B,
+    Tk]``; raises on anything else.  bf16 runs on the tensor cores, f32
+    on the CUDA cores in full f32.
     ``flash_attention_fused.launches`` counts the launches."""
     from analytics_zoo_tpu_torch.ops import _build
 
@@ -531,11 +552,11 @@ def paged_attention_fused(q, pool_k, pool_v, tables, pos):
 
     Same contract as :func:`paged_attention_ref`.  Takes q in f32 or
     bf16, pools in f32, bf16 or int8 (:class:`QuantKV` with bf16
-    scales), q and pools contiguous and 16-byte aligned, head dims 64
-    and 128, block sizes 1-64; raises on anything else.  Where
-    :func:`paged_attention_splits` gives more than one range of logical
-    positions, the ranges run on separate CUDA blocks and a combine
-    kernel merges them; one call counts as one launch in
+    scales), q and pools contiguous and 16-byte aligned, head dims and
+    block sizes :func:`paged_kernel_takes` accepts; raises on anything
+    else.  Where :func:`paged_attention_splits` gives more than one
+    range of logical positions, the ranges run on separate CUDA blocks
+    and a combine kernel merges them; one call counts as one launch in
     ``paged_attention_fused.launches``, its split and combine kernels
     together."""
     from analytics_zoo_tpu_torch.ops import _build
@@ -581,9 +602,10 @@ def paged_attention_fused(q, pool_k, pool_v, tables, pos):
         raise ValueError(f"pool shapes {tuple(kd.shape)}/"
                          f"{tuple(vd.shape)} do not match q's head dim "
                          f"{D}")
-    if D not in (64, 128) or not 1 <= bs <= 64:
+    if not paged_kernel_takes(D, bs):
         raise ValueError(f"head dim {D} / block size {bs} not supported "
-                         f"(D in (64, 128), bs in [1, 64])")
+                         f"(D in {KERNEL_HEAD_DIMS}, bs in "
+                         f"[1, {PAGED_MAX_BLOCK}])")
     if H % KH:
         raise ValueError(f"query heads {H} not a multiple of KV heads "
                          f"{KH}")

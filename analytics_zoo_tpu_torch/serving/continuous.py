@@ -50,8 +50,9 @@ from analytics_zoo_tpu_torch.device import resolve_device
 from analytics_zoo_tpu_torch.learn.inference_model import (
     _next_bucket, filter_prompt_buckets)
 from analytics_zoo_tpu_torch.models.lm import TransformerLM
-from analytics_zoo_tpu_torch.ops.flash_attention import (KV_SCALE_DTYPE,
-                                                         QuantKV)
+from analytics_zoo_tpu_torch.ops.flash_attention import (
+    KERNEL_HEAD_DIMS, KV_SCALE_DTYPE, PAGED_MAX_BLOCK, QuantKV,
+    paged_kernel_takes)
 from analytics_zoo_tpu_torch.serving import policy as scheduler_policy
 from analytics_zoo_tpu_torch.serving.paged_cache import (BlockPool,
                                                          SINK_BLOCK,
@@ -109,9 +110,14 @@ class ContinuousEngine:
     ``kernel`` and ``kv_dtype`` select the PAGED path only, as in the
     reference; an arena engine raises for ``kernel="fused"`` or a
     ``kv_dtype``.  ``kernel`` picks the paged-attention read:
-    ``"fused"`` (what ``None`` means for a paged engine) is the CUDA
-    kernel on a CUDA device (the plain version on the CPU), ``"gather"``
-    the plain PyTorch version everywhere.  ``kv_dtype`` picks the pool's
+    ``"fused"`` is the CUDA kernel on a CUDA device (the plain version on
+    the CPU), ``"gather"`` the plain PyTorch version everywhere.  A
+    paged engine resolves ``None`` by shape, up front: ``"fused"`` where
+    the kernel takes the model's head dim and the block size
+    (``ops.flash_attention.paged_kernel_takes``), ``"gather"`` otherwise;
+    ``engine.kernel`` records the choice.  An explicit ``"fused"`` for a
+    shape the kernel does not take raises here, not at the first
+    launch.  ``kv_dtype`` picks the pool's
     storage: ``None`` follows ``cache_dtype`` (itself defaulting to the
     model dtype), ``"bf16"`` forces bfloat16, ``"int8"`` stores
     quantized rows with bfloat16 scales.
@@ -170,7 +176,8 @@ class ContinuousEngine:
         self.eos_id = eos_id
         self.pad_id = int(pad_id)
         self.paged = bool(paged)
-        self.kernel = kernel or ("fused" if self.paged else "gather")
+        D = model.hidden_size // model.num_heads
+        self.kernel = self._resolve_kernel(kernel, D, int(block_size))
         self.prompt_buckets = filter_prompt_buckets(
             prompt_buckets, model.max_position, max_new_tokens)
         self.max_prompt_width = self.prompt_buckets[-1]
@@ -178,7 +185,6 @@ class ContinuousEngine:
         L = self.max_prompt_width + self.max_new_tokens
         self._S, self._L = S, L
         H = model.kv_heads
-        D = model.hidden_size // model.num_heads
         cdtype = model.dtype if cache_dtype is None else cache_dtype
         if not (isinstance(cdtype, torch.dtype) and cdtype.is_floating_point):
             raise ValueError(
@@ -223,6 +229,21 @@ class ContinuousEngine:
         self._free = collections.deque(range(S))
         self._lock = threading.Lock()
         self._waiting: collections.deque = collections.deque()
+
+    def _resolve_kernel(self, kernel: Optional[str], head_dim: int,
+                        block_size: int) -> str:
+        """The paged-attention read this engine runs, decided by shape
+        before any launch (the arena reads through plain attention)."""
+        if not self.paged:
+            return "gather"
+        takes = paged_kernel_takes(head_dim, block_size)
+        if kernel == "fused" and not takes:
+            raise ValueError(
+                f"kernel='fused': the paged-attention kernel does not take "
+                f"head dim {head_dim} with block_size {block_size} (head "
+                f"dims {KERNEL_HEAD_DIMS}, blocks of 1-{PAGED_MAX_BLOCK} "
+                f"tokens); pass kernel='gather' or None")
+        return kernel or ("fused" if takes else "gather")
 
     def _init_pool(self, model, S, L, H, D, cdtype, bs, n_blocks,
                    enable_prefix_cache) -> None:

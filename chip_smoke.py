@@ -12,35 +12,41 @@ fails.  Phases, in order:
    report of each library); then each library's SASS (``cuobjdump
    -sass``): its tensor-core (``HMMA``), async-copy (``LDGSTS``, which is
    cp.async) and ``ldmatrix`` (``LDSM``) instructions per kernel.  The
-   run fails if ``flash_attention``, ``flash_attention_bwd`` or
-   ``paged_attention`` has no ``HMMA`` or no ``LDGSTS``, if one of the
-   bf16 tensor-core kernels (``SASS_REQUIRED``) is missing or lacks
-   them, if a paged kernel has no ``LDGSTS``, or if ptxas reports a
-   spill in any kernel.
+   run fails, after every kernel is reported, if ``flash_attention``,
+   ``flash_attention_bwd`` or ``paged_attention`` has no ``HMMA`` or no
+   ``LDGSTS``, if one of the bf16 tensor-core kernels at any of the head
+   dims 32, 64, 96, 128 (``SASS_MUST_EXIST``, ``SASS_REQUIRED``) is
+   missing or lacks them, if a paged kernel has no ``LDGSTS``, or if
+   ptxas reports a spill in any kernel.
 2. Kernels against their plain versions on the card, on the same CUDA
    inputs, with stated tolerances: the paged-attention kernel against
    ``paged_attention_ref`` (f32, bf16 and int8 pools x (H, KH) in
    {(12, 12), (32, 4)} x S in {1, 5, 512} x full and sliced tables; then
-   both regimes of the redesigned kernel: pools x block sizes {1, 16,
-   64} x S in {1, 5, 512} x G in {1, 8} x full, sliced and long (M >=
-   128, small positions: empty splits) tables), the
-   flash-attention forward against ``flash_attention_ref`` on O and lse,
-   and the two backward kernels against ``flash_attention_bwd_ref`` on
-   dq, dk and dv (each: causal or not x key mask or not, with a fully
-   masked row x T in {1, 16, 17, 37, 65, 129, 512, 1000} (the mma tile
-   edges among them) x (H, D) in {(12, 64), (8, 128)} x f32 and bf16;
-   the forward also with Tq = 37 against Tk = 1000, not causal); then
+   both regimes of the redesigned kernel: pools x head dims {64 or 128,
+   32, 96} x block sizes {1, 16, 64} x S in {1, 5, 512} x G in {1, 8} x
+   full, sliced and long (M >= 128, small positions: empty splits)
+   tables), the flash-attention forward against ``flash_attention_ref``
+   on O and lse, and the two backward kernels against
+   ``flash_attention_bwd_ref`` on dq, dk and dv (each: causal or not x
+   key mask or not, with a fully masked row x T in {1, 16, 17, 37, 65,
+   129, 512, 1000} (the mma tile edges among them) x (H, D) in {(12,
+   64), (8, 128), (12, 32), (8, 96)} x f32 and bf16; the forward also
+   with Tq = 37 against Tk = 1000, not causal); then
    the autograd Function end to end:
    ``torch.autograd.grad`` through ``flash_attention`` against the same
    grad through plain ``full_attention``.
-3. Parity at GPT-2 width, 2 layers, f32.  Serving: the paged engine with
-   ``kernel="fused"`` and ``"gather"``; the arena engine with
-   ``use_flash=True`` and ``False``, and against the paged ``"gather"``
-   engine; greedy tokens must be identical.  Training: one model's
-   weights feed two ``Estimator.from_torch`` fits, ``use_flash=True``
-   (the kernels) and ``False`` (plain attention and autograd); with SGD
-   the per-step losses and the final parameters agree, with Adam the
-   losses.
+3. Parity, 2 layers, f32, for four models (``PARITY``): GPT-2 width;
+   a Llama at TinyLlama width (RMSNorm, SwiGLU, rope, 8-way GQA,
+   untied head); Qwen2-0.5B's shape (biased q/k/v, tied head,
+   rope_base 1e6); GPT-2's shape at head dim 32 (hidden 512, 16 heads).
+   Serving: the paged engine with ``kernel="fused"`` and ``"gather"``;
+   the arena engine with ``use_flash=True`` and ``False``, and against
+   the paged ``"gather"`` engine; greedy tokens must be identical, and
+   the kernel runs must count a launch for every attention call.
+   Training: one model's weights feed two ``Estimator.from_torch`` fits,
+   ``use_flash=True`` (the kernels) and ``False`` (plain attention and
+   autograd); with SGD the per-step losses and the final parameters
+   agree, with Adam the losses.
 4. The paged main path: full GPT-2 small (12 layers, random weights
    from a seed) in bf16 served by ``ContinuousEngine(paged=True)`` — 16
    requests with prompts of 20-500 tokens, four sharing a 256-token
@@ -62,13 +68,26 @@ fails.  Phases, in order:
    12 x the forward passes and the backward kernels 12 x the steps.
    Prints training tokens/s and ms per step (second epoch) and the peak
    device memory.
+6b. The Llama main path: TinyLlama-1.1B's published shape (vocab 32000,
+   hidden 2048, 22 layers, 32 heads over 4 kv heads, FFN 5632,
+   max_position 2048, RMSNorm eps 1e-5, rope_theta 10000, untied head),
+   random weights from a seed, bf16: phase 4's stream through the paged
+   engine (paged launches = (prefill calls + decode ticks) x 22) and
+   through the arena with ``register_prefix`` (flash launches = (prefill
+   calls + 1) x 22), then ``Estimator.from_torch`` trains 10 steps of
+   4 x 2048 tokens (forward = backward launches = 22 a step) and a
+   repeated-batch fit as in phase 6; its profiled step runs after phase
+   7 (7b).
 7. Kernel timings at the main paths' shapes (paged: a decode tick, a
    512-token prefill and every prefill shape of phase 4, each first held
    to the plain version, at the split count the wrapper picks and at
    1-9 splits;
    flash forward at the arena's two most frequent prefill shapes and at
    the training shape; both backward kernels at the training shape,
-   where dq, dk, dv, O and lse are first held to their plain versions),
+   where dq, dk, dv, O and lse are first held to their plain versions;
+   then the same at the Llama path's shapes: its paged decode tick and
+   largest prefill group with 8-way GQA, and the flash kernels at B=4,
+   T=2048, H=32, D=64),
    beside the plain version, the memory/compute bound and, for flash,
    PyTorch's ``scaled_dot_product_attention`` (forward, or its backward
    through autograd); printed as one ``{"kernels": [...]}`` line.
@@ -88,6 +107,8 @@ alternating processes).
 from __future__ import annotations
 
 import contextlib
+import gc
+import itertools
 import json
 import math
 import re
@@ -111,6 +132,27 @@ from analytics_zoo_tpu_torch.serving.continuous import ContinuousEngine
 # GPT-2 small, as analytics_zoo_tpu/net/hf_net.py builds it
 GPT2 = dict(vocab_size=50257, hidden_size=768, num_heads=12,
             intermediate_size=3072, max_position=1024, ln_eps=1e-5)
+# TinyLlama-1.1B (TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T,
+# config.json), as net/hf_net.py's from_hf_llama builds it: 22 layers,
+# 32 heads of 64 over 4 kv heads (8-way GQA), untied head
+TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, num_heads=32,
+                 num_kv_heads=4, intermediate_size=5632, max_position=2048,
+                 ln_eps=1e-5, pos_encoding="rope", rope_base=10000.0,
+                 norm="rmsnorm", mlp="swiglu", use_bias=False,
+                 tied_head=False)
+TINYLLAMA_LAYERS = 22
+# Qwen2-0.5B's shape (Qwen/Qwen2-0.5B config.json, as from_hf_qwen2
+# builds it): biased q/k/v, bias-free output and MLP, tied head,
+# rope_theta 1e6, 14 heads of 64 over 2 kv heads
+QWEN2 = dict(vocab_size=151936, hidden_size=896, num_heads=14,
+             num_kv_heads=2, intermediate_size=4864, max_position=32768,
+             ln_eps=1e-6, pos_encoding="rope", rope_base=1e6, norm="rmsnorm",
+             mlp="swiglu", use_bias=False, qkv_bias=True, tied_head=True)
+# GPT-2's shape at head dim 32 (hidden 512 over 16 heads)
+GPT2_D32 = dict(GPT2, hidden_size=512, num_heads=16, intermediate_size=2048)
+# phase 3's models: 2 layers each, f32
+PARITY = {"GPT-2 width": GPT2, "TinyLlama width": TINYLLAMA,
+          "Qwen2-0.5B shape": QWEN2, "GPT-2 shape, head dim 32": GPT2_D32}
 PAGED_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/paged_attention.cu"
 PAGED_REPLACES = "analytics_zoo_tpu/ops/flash_attention.py:594"
 FLASH_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attention.cu"
@@ -160,6 +202,11 @@ FUNCTION_GRAD_TOL = 1e-4
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
 TRAIN = dict(batch=8, seq=1024, steps_per_epoch=10, epochs=2)
+# the Llama training main path: 10 steps of 4 x 2048 tokens (the
+# model's max_position), in two epochs
+LLAMA_TRAIN = dict(batch=4, seq=2048, steps_per_epoch=5, epochs=2)
+# phase 2's flash grids: (H, D) at every instantiated head dim
+FLASH_GRID = ((12, 64), (8, 128), (12, 32), (8, 96))
 # phase 2's sequence lengths: one key, the m16/k16 and 64-row tile edges
 # (16, 17, 65, 129), ragged (37, 1000) and a whole number of tiles (512)
 SWEEP_T = (1, 16, 17, 37, 65, 129, 512, 1000)
@@ -178,11 +225,13 @@ SASS_REQUIRED = {
     "paged_attention_bf16_kernel<": ("HMMA", "LDGSTS"),
     "paged_attention_kernel<": ("LDGSTS",),
 }
-SASS_MUST_EXIST = ("flash_bwd_dkv_bf16_kernel<64>",
-                   "flash_bwd_dkv_bf16_kernel<128>",
-                   "paged_attention_bf16_kernel<64>",
-                   "paged_attention_bf16_kernel<128>",
-                   "paged_combine_kernel<64>", "paged_combine_kernel<128>")
+SASS_MUST_EXIST = tuple(
+    f"{name}<{D}>" for name in ("flash_fwd_bf16_kernel",
+                                "flash_bwd_dq_bf16_kernel",
+                                "flash_bwd_dkv_bf16_kernel",
+                                "paged_attention_bf16_kernel",
+                                "paged_combine_kernel")
+    for D in fa.KERNEL_HEAD_DIMS)
 # the profiler names of the paged kernels of one call: the split kernel
 # (either path) and the combine kernel
 PAGED_KERNELS = ("paged_attention_", "paged_combine_kernel")
@@ -202,14 +251,14 @@ def card_line() -> str:
 
 
 def attention_case(dev, kind, H, KH, S, B, pos, bs=16, M=None,
-                   n_sets=1, seed=0):
+                   n_sets=1, seed=0, D=None):
     """Paged-attention inputs on ``dev``: a head-major pool holding
     ``n_sets`` disjoint table sets of B rows x M private blocks each
     (block 0 is the sink), q in the model dtype (f32 for f32 pools,
-    bf16 otherwise).  Returns (q, pool_k, pool_v, [tables per set],
-    pos)."""
+    bf16 otherwise); head dim ``D``, by default 64 for MHA and 128 for
+    GQA.  Returns (q, pool_k, pool_v, [tables per set], pos)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    D = 64 if H == KH else 128
+    D = D or (64 if H == KH else 128)
     pos = torch.as_tensor(pos, dtype=torch.int32)
     if M is None:
         M = (int(pos.max()) + S - 1) // bs + 1
@@ -286,7 +335,7 @@ def phase_kernel_vs_plain(dev):
     print("-- flash attention forward (O and lse)")
     n = 0
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for H, D in ((12, 64), (8, 128)):
+        for H, D in FLASH_GRID:
             cases = [(T, T, causal, masked) for T in SWEEP_T
                      for causal in (False, True) for masked in (False, True)]
             # ragged q and k tiles, independently
@@ -298,7 +347,7 @@ def phase_kernel_vs_plain(dev):
     print("-- flash attention backward (dq, dk, dv)")
     n = 0
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for H, D in ((12, 64), (8, 128)):
+        for H, D in FLASH_GRID:
             for T in SWEEP_T:
                 for causal in (False, True):
                     for masked in (False, True):
@@ -308,14 +357,15 @@ def phase_kernel_vs_plain(dev):
     check_function_grad(dev)
 
 
-def regime_case(dev, kind, bs, S, G, table, seed=0):
+def regime_case(dev, kind, bs, S, G, table, seed=0, D=None):
     """Paged inputs for one regime of the redesigned kernel: B=2 rows,
-    (H, KH, D) = (12, 12, 64), or (32, 4, 128) for G = 8; ``table``
-    "full" (row 0 two blocks short of the end), "sliced" (cut to the
-    blocks row 0 attends) or "long" (M >= 128 columns, positions 0-3:
-    most split ranges hold no live position)."""
+    (H, KH, D) = (12, 12, 64), or (32, 4, 128) for G = 8, unless ``D`` is
+    given; ``table`` "full" (row 0 two blocks short of the end),
+    "sliced" (cut to the blocks row 0 attends) or "long" (M >= 128
+    columns, positions 0-3: most split ranges hold no live position)."""
     g = torch.Generator().manual_seed(seed)
-    H, KH, D = (12, 12, 64) if G == 1 else (32, 4, 128)
+    H, KH, D0 = (12, 12, 64) if G == 1 else (32, 4, 128)
+    D = D or D0
     B = 2
     if table == "long":
         hi = 3
@@ -346,42 +396,38 @@ def regime_case(dev, kind, bs, S, G, table, seed=0):
 def check_paged_regimes(dev):
     """Both regimes of the paged kernel: the CUDA-core split kernel (few
     rows, and every f32/int8 case) and the bf16 tensor-core kernel (S*G
-    >= 16), with the split count the wrapper picks."""
-    print("-- paged attention regimes (block sizes, G, long tables)")
+    >= 16), with the split count the wrapper picks; at the head dims of
+    the first slices (64 for G = 1, 128 for G = 8), then at 32 and 96."""
+    print("-- paged attention regimes (block sizes, G, long tables, head "
+          "dims)")
     n = 0
-    for kind in ("f32", "bf16", "int8"):
-        for bs in (1, 16, 64):
-            for S in (1, 5, 512):
-                for G in (1, 8):
-                    for table in ("full", "sliced", "long"):
-                        args = regime_case(dev, kind, bs, S, G, table,
-                                           seed=bs + S + G)
-                        q, pk, _, t, _ = args
-                        kd = pk.data if kind == "int8" else pk
-                        B, _, H, D = q.shape
-                        splits = fa.paged_attention_splits(
-                            q.dtype == torch.bfloat16,
-                            fa._KV_KINDS[kd.dtype], B, S, H, kd.shape[1],
-                            D, bs, t.shape[1], q.device.index)
-                        out = fa.paged_attention_fused(*args)
-                        ref = fa.paged_attention_ref(*args)
-                        torch.cuda.synchronize()
-                        err = (out - ref).abs().max().item()
-                        ok = bool(torch.isfinite(out).all()) and \
-                            err <= ATOL[kind]
-                        mma = kind == "bf16" and S * G >= 16
-                        print(f"  pool={kind:4s} bs={bs:2d} S={S:3d} G={G} "
-                              f"table={table:6s} M={t.shape[1]:3d} "
-                              f"splits={splits:2d} "
-                              f"{'mma ' if mma else 'cuda'} "
-                              f"max_abs_err={err:.3e} "
-                              f"{'ok' if ok else 'FAIL'}")
-                        if not ok:
-                            raise AssertionError(
-                                f"paged kernel disagrees with the plain "
-                                f"version: pool={kind} bs={bs} S={S} G={G} "
-                                f"table={table} err={err}")
-                        n += 1
+    for kind, D, bs, S, G, table in itertools.product(
+            ("f32", "bf16", "int8"), (None, 32, 96), (1, 16, 64),
+            (1, 5, 512), (1, 8), ("full", "sliced", "long")):
+        args = regime_case(dev, kind, bs, S, G, table, seed=bs + S + G,
+                           D=D)
+        q, pk, _, t, _ = args
+        kd = pk.data if kind == "int8" else pk
+        B, _, H, D = q.shape
+        splits = fa.paged_attention_splits(
+            q.dtype == torch.bfloat16, fa._KV_KINDS[kd.dtype], B, S, H,
+            kd.shape[1], D, bs, t.shape[1], q.device.index)
+        out = fa.paged_attention_fused(*args)
+        ref = fa.paged_attention_ref(*args)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and err <= ATOL[kind]
+        mma = kind == "bf16" and S * G >= 16
+        print(f"  pool={kind:4s} D={D:3d} bs={bs:2d} S={S:3d} G={G} "
+              f"table={table:6s} M={t.shape[1]:3d} splits={splits:2d} "
+              f"{'mma ' if mma else 'cuda'} max_abs_err={err:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(
+                f"paged kernel disagrees with the plain version: "
+                f"pool={kind} D={D} bs={bs} S={S} G={G} table={table} "
+                f"err={err}")
+        n += 1
     print(f"  {n}/{n} paged regime cases agree")
 
 
@@ -511,11 +557,11 @@ def serve(model, dev, requests, shared=None, **kw):
     return eng, out, secs, first
 
 
-def prompts(rng, lengths, shared_len=0, sharers=()):
-    """Random prompts of the given lengths; those at the ``sharers``
-    indices start with one common ``shared_len``-token prefix.  Returns
-    (requests, the shared prefix)."""
-    vocab = GPT2["vocab_size"]
+def prompts(rng, lengths, shared_len=0, sharers=(),
+            vocab=GPT2["vocab_size"]):
+    """Random prompts of the given lengths over ``vocab`` tokens; those
+    at the ``sharers`` indices start with one common ``shared_len``-token
+    prefix.  Returns (requests, the shared prefix)."""
     shared = rng.integers(0, vocab, shared_len).astype(np.int32)
     reqs = []
     for i, n in enumerate(lengths):
@@ -526,24 +572,24 @@ def prompts(rng, lengths, shared_len=0, sharers=()):
     return reqs, shared
 
 
-def main_stream():
+def main_stream(vocab=GPT2["vocab_size"]):
     """The main paths' request stream, from one seed: a warm-up pair and
     16 requests of 20-500 tokens, four sharing a 256-token prefix.  The
     first admission wave takes 8 requests: one sharer goes in it and
-    three in the next."""
+    three in the next.  The lengths do not depend on ``vocab``."""
     rng = np.random.default_rng(2)
-    warm, _ = prompts(rng, [40, 300])
+    warm, _ = prompts(rng, [40, 300], vocab=vocab)
     lengths = list(rng.integers(20, 501, 16))
     lengths[0], lengths[8], lengths[9], lengths[10] = 300, 420, 280, 500
-    reqs, shared = prompts(rng, lengths, SHARED, (0, 8, 9, 10))
+    reqs, shared = prompts(rng, lengths, SHARED, (0, 8, 9, 10), vocab=vocab)
     return warm, reqs, shared
 
 
-def twin(model, use_flash):
-    """A copy of ``model`` with the same weights and another
-    ``use_flash``."""
-    cfg = dict(GPT2, num_layers=model.num_layers, dtype=model.dtype)
-    other = TransformerLM(**cfg, use_flash=use_flash)
+def twin(cfg, model, use_flash):
+    """A copy of ``model`` (built from ``cfg``) with the same weights
+    and another ``use_flash``."""
+    other = TransformerLM(**cfg, num_layers=model.num_layers,
+                          dtype=model.dtype, use_flash=use_flash)
     other.load_state_dict(model.state_dict())
     return other
 
@@ -555,31 +601,56 @@ def same_tokens(a, b, what):
 
 
 def phase_engine_parity(dev):
-    print("== phase 3: engine parity, GPT-2 width, 2 layers, f32")
+    print("== phase 3: engine parity, 2 layers, f32: "
+          + ", ".join(PARITY))
+    for name, cfg in PARITY.items():
+        engine_parity(dev, name, cfg)
+
+
+def engine_parity(dev, name, cfg):
+    """One model's serving parity on the card: the paged engine with the
+    kernel and with the plain read, the arena with the flash kernel and
+    with plain attention, greedy tokens identical across all four; the
+    kernel runs must have launched their kernel for every attention
+    call."""
     torch.manual_seed(0)
-    model = TransformerLM(**GPT2, num_layers=2, dtype=torch.float32)
+    model = TransformerLM(**cfg, num_layers=2, dtype=torch.float32)
+    D = cfg["hidden_size"] // cfg["num_heads"]
+    print(f"-- {name} (hidden {cfg['hidden_size']}, {cfg['num_heads']} "
+          f"heads of {D}, {cfg.get('num_kv_heads') or cfg['num_heads']} kv "
+          f"heads, vocab {cfg['vocab_size']}, {cfg.get('norm', 'layernorm')}"
+          f", {cfg.get('pos_encoding', 'learned')} positions)")
     reqs, _ = prompts(np.random.default_rng(1),
-                      [80, 70, 20, 45, 130, 200, 33, 250], 64, (0, 5))
+                      [80, 70, 20, 45, 130, 200, 33, 250], 64, (0, 5),
+                      vocab=cfg["vocab_size"])
     kw = dict(max_new_tokens=16, max_slots=4,
               prompt_buckets=(32, 64, 128, 256))
     results = {}
     for kernel in ("fused", "gather"):
-        _, results[kernel], secs, _ = serve(
+        fa.paged_attention_fused.launches = 0
+        eng, results[kernel], secs, _ = serve(
             model, dev, reqs, paged=True, block_size=16, kernel=kernel,
             **kw)
+        launches = fa.paged_attention_fused.launches
+        want = (eng.prefill_calls + eng.decode_ticks) * model.num_layers \
+            if kernel == "fused" else 0
         print(f"  paged kernel={kernel}: {len(results[kernel])} requests "
-              f"in {secs:.2f} s")
+              f"in {secs:.2f} s, paged launches {launches}")
+        if launches != want or (kernel == "fused" and launches == 0):
+            raise AssertionError(f"{name}: paged launches {launches} != "
+                                 f"{want}")
     same_tokens(results["fused"], results["gather"], "paged fused != gather")
     for use_flash in (True, False):
         fa.flash_attention_fused.launches = 0
         eng, results[use_flash], secs, _ = serve(
-            twin(model, use_flash), dev, reqs, **kw)
+            twin(cfg, model, use_flash), dev, reqs, **kw)
         launches = fa.flash_attention_fused.launches
         want = eng.prefill_calls * model.num_layers if use_flash else 0
         print(f"  arena use_flash={use_flash}: {len(results[use_flash])} "
               f"requests in {secs:.2f} s, flash launches {launches}")
         if launches != want or (use_flash and launches == 0):
-            raise AssertionError(f"flash launches {launches} != {want}")
+            raise AssertionError(f"{name}: flash launches {launches} != "
+                                 f"{want}")
     same_tokens(results[True], results[False],
                 "arena use_flash=True != False")
     same_tokens(results[True], results["gather"],
@@ -599,19 +670,29 @@ def fit_lm(model, dev, toks, epochs, batch, optimizer, deterministic):
 
 
 def phase_training_parity(dev):
-    print("== phase 3b: training parity, GPT-2 width, 2 layers, f32: "
-          "kernels (use_flash=True) vs plain attention (use_flash=False)")
+    print("== phase 3b: training parity, 2 layers, f32: kernels "
+          "(use_flash=True) vs plain attention (use_flash=False)")
+    for name, cfg in PARITY.items():
+        training_parity(dev, name, cfg)
+
+
+def training_parity(dev, name, cfg):
+    """Two ``Estimator.from_torch`` fits of one model's weights, with the
+    kernels and with plain attention: SGD per-step losses and final
+    parameters, Adam losses; each kernel fit must launch the forward
+    and backward once a layer a step."""
     torch.manual_seed(0)
-    base = TransformerLM(**GPT2, num_layers=2, dtype=torch.float32)
+    base = TransformerLM(**cfg, num_layers=2, dtype=torch.float32)
     toks = np.random.default_rng(4).integers(
-        0, GPT2["vocab_size"], (4, 256)).astype(np.int32)
+        0, cfg["vocab_size"], (4, 256)).astype(np.int32)
     steps = 4          # one step an epoch: the history is per step
     optimizers = {"sgd": lambda ps: torch.optim.SGD(ps, lr=0.1),
                   "adam": 1e-3}
-    for name, opt in optimizers.items():
+    print(f"-- {name}")
+    for opt_name, opt in optimizers.items():
         runs = {}
         for use_flash in (True, False):
-            model = twin(base, use_flash)
+            model = twin(cfg, base, use_flash)
             fa.flash_attention_fused.launches = 0
             fa.flash_attention_bwd_fused.launches = 0
             _, hist = fit_lm(model, dev, toks, steps, 4, opt, True)
@@ -619,36 +700,44 @@ def phase_training_parity(dev):
             got = (fa.flash_attention_fused.launches,
                    fa.flash_attention_bwd_fused.launches)
             if got != (want, want):
-                raise AssertionError(f"{name} use_flash={use_flash}: "
-                                     f"launches {got} != {want} each")
+                raise AssertionError(f"{name} {opt_name} use_flash="
+                                     f"{use_flash}: launches {got} != "
+                                     f"{want} each")
             runs[use_flash] = ([h["loss"] for h in hist],
                                model.state_dict())
         (lk, pk), (lp, pp) = runs[True], runs[False]
         if not all(np.isfinite(lk)):
-            raise AssertionError(f"{name}: non-finite losses {lk}")
+            raise AssertionError(f"{name} {opt_name}: non-finite losses "
+                                 f"{lk}")
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
         param_err = max((pk[n] - pp[n]).abs().max().item() for n in pk)
-        print(f"  {name}: losses kernels {[round(x, 6) for x in lk]} vs "
-              f"plain {[round(x, 6) for x in lp]}, max rel err "
+        print(f"  {opt_name}: losses kernels {[round(x, 6) for x in lk]} "
+              f"vs plain {[round(x, 6) for x in lp]}, max rel err "
               f"{loss_err:.3e} (tol {TRAIN_LOSS_RTOL:.0e}); params max "
               f"abs diff {param_err:.3e}"
-              + (f" (tol {TRAIN_PARAM_ATOL:.0e})" if name == "sgd"
-                 else " (not held: Adam's near-zero-gradient steps)"))
+              + (f" (tol {TRAIN_PARAM_ATOL:.0e})" if opt_name == "sgd"
+                 else " (not held: Adam's near-zero-gradient steps)")
+              + f"; launches {steps * base.num_layers} forward = "
+                f"backward")
         if loss_err > TRAIN_LOSS_RTOL or (
-                name == "sgd" and param_err > TRAIN_PARAM_ATOL):
-            raise AssertionError(f"{name}: training with the kernels "
-                                 f"disagrees with plain attention")
+                opt_name == "sgd" and param_err > TRAIN_PARAM_ATOL):
+            raise AssertionError(f"{name} {opt_name}: training with the "
+                                 f"kernels disagrees with plain attention")
         if not lk[-1] < lk[0]:
-            raise AssertionError(f"{name}: loss did not fall: {lk}")
+            raise AssertionError(f"{name} {opt_name}: loss did not fall: "
+                                 f"{lk}")
 
 
-def phase_training_main_path(dev, card, model):
-    print("== phase 6: training main path, GPT-2 small (12 layers), f32 "
-          "parameters, bf16 compute, Estimator.from_torch + fit")
-    B, T = TRAIN["batch"], TRAIN["seq"]
-    epochs, per_epoch = TRAIN["epochs"], TRAIN["steps_per_epoch"]
+def phase_training_main_path(dev, card, model, train=TRAIN,
+                             vocab=GPT2["vocab_size"],
+                             title="== phase 6: training main path, GPT-2 "
+                                   "small (12 layers)", profile=True):
+    print(f"{title}, f32 parameters, bf16 compute, Estimator.from_torch + "
+          f"fit")
+    B, T = train["batch"], train["seq"]
+    epochs, per_epoch = train["epochs"], train["steps_per_epoch"]
     toks = np.random.default_rng(9).integers(
-        0, GPT2["vocab_size"], (B * per_epoch, T)).astype(np.int32)
+        0, vocab, (B * per_epoch, T)).astype(np.int32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention_fused.launches = 0
@@ -671,15 +760,19 @@ def phase_training_main_path(dev, card, model):
     ms_step = 1e3 * B / last["samples_per_sec"]
     print(f"  [{card}] {steps} steps of {B} x {T} tokens, epoch losses "
           f"{[round(x, 4) for x in losses]}")
-    print(f"  epoch {epochs} (steps {steps - per_epoch + 1}-{steps}): "
-          f"{last['samples_per_sec'] * T:.1f} training tokens/s, "
+    print(f"  [{card}] epoch {epochs} (steps {steps - per_epoch + 1}-"
+          f"{steps}): {last['samples_per_sec'] * T:.1f} training tokens/s, "
           f"{ms_step:.1f} ms per step; epoch 1 (with the first step): "
           f"{hist[0]['samples_per_sec'] * T:.1f} tokens/s")
-    print(f"  peak device memory {peak / 2**30:.2f} GiB "
+    print(f"  [{card}] peak device memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
     print(f"  flash forward launches {fwd} = backward launches {bwd} = "
           f"{steps} steps x {model.num_layers} layers")
-    profile_step(est, toks[:B])
+    if profile:
+        profile_step(est, toks[:B])
+    # the first fit's optimizer state goes before the second's is made
+    del est
+    free_memory()
     # a second fit that repeats one batch must lower its loss
     _, again = fit_lm(model, dev, toks[:B], 6, B, 1e-4, True)
     rep = [h["loss"] for h in again]
@@ -688,7 +781,15 @@ def phase_training_main_path(dev, card, model):
     if not (all(np.isfinite(rep)) and rep[-1] < rep[0]):
         raise AssertionError(f"repeating one batch did not lower the "
                              f"loss: {rep}")
+    free_memory()
     return fwd, bwd
+
+
+def free_memory():
+    """Release what the last phase left (optimizer states, caches) before
+    the next allocates."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def dev_us(e):
@@ -731,12 +832,12 @@ def profile_step(est, rows):
               f"{e.key[:90]}")
 
 
-def check_served(out, reqs):
+def check_served(out, reqs, vocab=GPT2["vocab_size"]):
     if sorted(out) != sorted(u for u, _ in reqs):
         raise AssertionError(f"missing results: {sorted(out)}")
     for uri, toks in out.items():
         if toks.shape != (MAIN["max_new_tokens"],) or toks.min() < 0 \
-                or toks.max() >= GPT2["vocab_size"]:
+                or toks.max() >= vocab:
             raise AssertionError(f"{uri}: bad tokens {toks}")
 
 
@@ -749,17 +850,22 @@ def report(card, eng, out, secs, first):
     print(f"  cache_metrics: {json.dumps(eng.cache_metrics())}")
 
 
-def phase_paged_main_path(dev, card, model):
-    print("== phase 4: paged main path, GPT-2 small (12 layers), bf16")
+def phase_paged_main_path(dev, card, model, vocab=GPT2["vocab_size"],
+                          title="== phase 4: paged main path, GPT-2 small "
+                                "(12 layers)"):
+    print(f"{title}, bf16")
     kw = dict(MAIN, paged=True, block_size=16)
-    warm, reqs, _ = main_stream()
+    warm, reqs, _ = main_stream(vocab)
     # warm-up: CUDA context, cuBLAS handles, the kernel's first load
     serve(model, dev, warm, **kw)
     fa.paged_attention_fused.launches = 0
     eng, out, secs, first = serve(model, dev, reqs, **kw)
     launches = fa.paged_attention_fused.launches
     expected = (eng.prefill_calls + eng.decode_ticks) * model.num_layers
-    check_served(out, reqs)
+    check_served(out, reqs, vocab)
+    if eng.kernel != "fused":
+        raise AssertionError(f"the paged engine resolved kernel=None to "
+                             f"{eng.kernel!r}")
     if launches == 0 or launches != expected:
         raise AssertionError(
             f"kernel launches {launches} != (prefill calls "
@@ -767,12 +873,12 @@ def phase_paged_main_path(dev, card, model):
             f"{model.num_layers} layers: the plain path ran")
     report(card, eng, out, secs, first)
     print(f"  paged kernel launches {launches} = (prefill calls "
-          f"{eng.prefill_calls} + decode ticks {eng.decode_ticks}) x 12; "
-          f"prefill shapes (rows, suffix bucket, start positions): "
-          f"{dict(eng.prefill_shapes)}")
+          f"{eng.prefill_calls} + decode ticks {eng.decode_ticks}) x "
+          f"{model.num_layers}; prefill shapes (rows, suffix bucket, start "
+          f"positions): {dict(eng.prefill_shapes)}")
     if eng.cache_metrics()["prefix_hits"] < 3 * (SHARED // 16):
         raise AssertionError("the shared 256-token prefix was not reused")
-    check_bf16_logits(model, dev)
+    check_bf16_logits(model, dev, vocab)
     return launches, eng.prefill_shapes
 
 
@@ -794,17 +900,18 @@ def paged_rounds(dev, card, rounds):
               f"{1e3 * np.mean(list(first.values())):.1f} ms")
 
 
-def phase_arena_main_path(dev, card, model):
-    print("== phase 5: arena main path (the default engine), GPT-2 small "
-          "(12 layers), bf16")
-    warm, reqs, shared = main_stream()
+def phase_arena_main_path(dev, card, model, vocab=GPT2["vocab_size"],
+                          title="== phase 5: arena main path (the default "
+                                "engine), GPT-2 small (12 layers)"):
+    print(f"{title}, bf16")
+    warm, reqs, shared = main_stream(vocab)
     serve(model, dev, warm, **MAIN)
     fa.flash_attention_fused.launches = 0
     eng, out, secs, first = serve(model, dev, reqs, shared=shared, **MAIN)
     launches = fa.flash_attention_fused.launches
     # one prefill forward per admission bucket, one per registration
     expected = (eng.prefill_calls + 1) * model.num_layers
-    check_served(out, reqs)
+    check_served(out, reqs, vocab)
     if eng.cache_metrics()["mode"] != "arena":
         raise AssertionError("the default engine is not the arena")
     if launches == 0 or launches != expected:
@@ -814,22 +921,22 @@ def phase_arena_main_path(dev, card, model):
             f"{model.num_layers} layers: the plain path ran")
     report(card, eng, out, secs, first)
     print(f"  flash kernel launches {launches} = (prefill calls "
-          f"{eng.prefill_calls} + 1 register_prefix) x 12; prefill "
-          f"shapes (rows, width): {dict(eng.prefill_shapes)}; decode "
-          f"ticks {eng.decode_ticks}")
-    check_bf16_prefill(model, dev)
+          f"{eng.prefill_calls} + 1 register_prefix) x {model.num_layers}; "
+          f"prefill shapes (rows, width): {dict(eng.prefill_shapes)}; "
+          f"decode ticks {eng.decode_ticks}")
+    check_bf16_prefill(model, dev, vocab)
     return launches, eng.prefill_shapes
 
 
 @torch.no_grad()
-def check_bf16_logits(model, dev):
-    """The 12-layer bf16 model's paged prefill logits through the kernel
-    against the plain version: finite, and within 10% of the largest
-    logit (bf16 p rounding at different points, through 12 bf16
-    layers)."""
+def check_bf16_logits(model, dev, vocab):
+    """The main path's bf16 model's paged prefill logits through the
+    kernel against the plain version: finite, and within 10% of the
+    largest logit (bf16 p rounding at different points, through every
+    bf16 layer)."""
     D = model.hidden_size // model.num_heads
     shape = (model.num_layers, 40, model.kv_heads, 16, D)
-    toks = torch.randint(0, GPT2["vocab_size"], (1, 512),
+    toks = torch.randint(0, vocab, (1, 512),
                          generator=torch.Generator().manual_seed(3))
     tables = torch.arange(1, 33, dtype=torch.int32)[None].to(dev)
     args = (toks.to(dev), tables, torch.zeros(1, dtype=torch.int32,
@@ -845,13 +952,22 @@ def check_bf16_logits(model, dev):
 
 
 @torch.no_grad()
-def check_bf16_prefill(model, dev):
+def check_bf16_prefill(model, dev, vocab):
     """The same check for the arena's ``prefill``: every position's
-    logits with the flash kernel against plain full attention."""
-    toks = torch.randint(0, GPT2["vocab_size"], (1, 512),
+    logits with the flash kernel against plain full attention (the same
+    model with ``use_flash=False`` on every layer for the second
+    forward)."""
+    toks = torch.randint(0, vocab, (1, 512),
                          generator=torch.Generator().manual_seed(3))
     got = model.prefill(toks.to(dev))[0]
-    ref = twin(model, False).to(dev).prefill(toks.to(dev))[0]
+    attns = [layer.attention for layer in model.layers]
+    try:
+        for a in attns:
+            a.use_flash = False
+        ref = model.prefill(toks.to(dev))[0]
+    finally:
+        for a in attns:
+            a.use_flash = model.use_flash
     compare_logits("arena prefill", got, ref)
 
 
@@ -864,6 +980,51 @@ def compare_logits(what, got, ref):
     if not (torch.isfinite(got).all() and err <= lim):
         raise AssertionError(f"bf16 {what} logits disagree with the "
                              f"plain path")
+
+
+def phase_llama_main_path(dev, card):
+    """TinyLlama-1.1B's published shape, 22 layers, random weights from a
+    seed, bf16: the paged engine and the arena engine serve phase 4's
+    stream (the arena with ``register_prefix``), then the Estimator
+    trains 10 steps of 4 x 2048 tokens.  Returns the kernels' launches
+    and the paged prefill shapes, for phase 7, and the trained model."""
+    title = (f"== phase 6b: Llama main path, TinyLlama-1.1B width "
+             f"({TINYLLAMA_LAYERS} layers, 32 heads over 4 kv heads, head dim "
+             f"64, untied head), random weights")
+    free_memory()
+    torch.manual_seed(4321)
+    with torch.device(dev):
+        model = TransformerLM(**TINYLLAMA, num_layers=TINYLLAMA_LAYERS,
+                              dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{title}: {n_params / 1e9:.3f} B parameters")
+    vocab = TINYLLAMA["vocab_size"]
+    out = {}
+    out["paged_launches"], out["paged_shapes"] = phase_paged_main_path(
+        dev, card, model, vocab, "-- 6b paged serving")
+    out["flash_launches"], out["prefill_shapes"] = phase_arena_main_path(
+        dev, card, model, vocab, "-- 6b arena serving (register_prefix)")
+    free_memory()
+    # its profiled step runs after phase 7 (phase_llama_profile): CUPTI
+    # lost every record of phase 7's traces after it
+    out["train_launches"] = phase_training_main_path(
+        dev, card, model, LLAMA_TRAIN, vocab, "-- 6b training",
+        profile=False)
+    free_memory()
+    return out, model
+
+
+def phase_llama_profile(dev, model):
+    """One Llama training step of phase 6b's shape under torch.profiler,
+    on a fresh Estimator of the trained model."""
+    print("== phase 7b: a profiled Llama training step (4 x 2048 tokens)")
+    B, T = LLAMA_TRAIN["batch"], LLAMA_TRAIN["seq"]
+    rows = np.random.default_rng(9).integers(
+        0, TINYLLAMA["vocab_size"], (B, T)).astype(np.int32)
+    est = Estimator.from_torch(
+        model=model, loss=lm_loss, optimizer=1e-4, feature_cols=("tokens",),
+        label_cols=("tokens",), device=dev)
+    profile_step(est, rows)
 
 
 def time_ms(fn, n_sets, iters=100):
@@ -895,7 +1056,11 @@ def device_ms(fn, n_sets, kernels, iters=20):
     round. CUPTI may still lose kernel records (18 of 20 seen on an
     H100, and once all 20), so each mean is over the launches it
     recorded; a round must have recorded at least half of them and never
-    more, else it is traced again, at most three times."""
+    more, else it is traced again, at most three times.  If all three
+    lose them, the device time is not measured: (None, {}).  (CUPTI lost
+    every record of three traces in a row on an H100, after a profiled
+    22-layer training step; ``ms``, by CUDA events, is always
+    measured.)"""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     if isinstance(kernels, str):
@@ -935,7 +1100,13 @@ def device_ms(fn, n_sets, kernels, iters=20):
         fault = (f"profiler saw launches {bad} of {iters}" if bad else
                  f"profiler saw no launch of {kernels}")
         print(f"  {fault}; tracing again")
-    raise AssertionError(fault)
+    print(f"  {fault} in three traces: device time not measured")
+    return None, {}
+
+
+def fmt_ms(ms, digits=4):
+    """A time in ms, or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
 
 
 def least_ms(nbytes, ops, dtype):
@@ -985,13 +1156,15 @@ def bwd_bound(q, n_products, n_outputs):
     return least_ms(nbytes, ops, q.dtype)
 
 
-def training_timings(dev, train_launches):
-    """The flash forward and both backward kernels at the training
-    main path's shape, beside the plain versions, the bounds and SDPA
-    (forward, and its backward through autograd)."""
+def training_timings(dev, train_launches, cfg=GPT2, train=TRAIN,
+                     path="training main path"):
+    """The flash forward and both backward kernels at a training main
+    path's shape (``train``'s batch and sequence, ``cfg``'s heads),
+    beside the plain versions, the bounds and SDPA (forward, and its
+    backward through autograd)."""
     fwd_launches, bwd_launches = train_launches
-    B, T = TRAIN["batch"], TRAIN["seq"]
-    H, D = GPT2["num_heads"], GPT2["hidden_size"] // GPT2["num_heads"]
+    B, T = train["batch"], train["seq"]
+    H, D = cfg["num_heads"], cfg["hidden_size"] // cfg["num_heads"]
     scale = 1.0 / math.sqrt(D)
     n_sets = n_sets_for(5 * B * T * H * D * 2)
     sets = []
@@ -1004,7 +1177,7 @@ def training_timings(dev, train_launches):
                          delta=fa.flash_attention_bwd_delta(o, do),
                          dq=torch.empty_like(q), dk=torch.empty_like(k),
                          dv=torch.empty_like(v)))
-    shape = f"B={B} T={T} H={H} D={D} causal bf16 (training main path)"
+    shape = f"B={B} T={T} H={H} D={D} causal bf16 ({path})"
     s0 = sets[0]
 
     def args(s):
@@ -1126,23 +1299,28 @@ def forced_splits(k):
         fa.paged_attention_splits = policy
 
 
-def paged_timings(dev, paged_launches, paged_shapes):
+def paged_timings(dev, paged_launches, paged_shapes, cfg=GPT2,
+                  model="GPT-2"):
     """The paged kernel at a decode tick's shape, at a 512-token prefill
-    and at every prefill shape of the paged main path (rows, suffix
-    bucket, start positions), each held to the plain version, then timed
-    at the split count the wrapper picks and at 1, 2, 3, 5 and 9
-    splits."""
+    and at every prefill shape of a paged main path (rows, suffix
+    bucket, start positions), with ``cfg``'s heads, each held to the
+    plain version, then timed at the split count the wrapper picks and
+    at 1, 2, 3, 5 and 9 splits."""
     rng = np.random.default_rng(5)
+    H = cfg["num_heads"]
+    KH = cfg.get("num_kv_heads") or H
+    D = cfg["hidden_size"] // H
     shapes = [("decode", 8, 1, rng.integers(290, 311, 8)),
               ("prefill", 1, 512, [0])]
     shapes += [(f"prefill B={B},S={S},pos={pos[0]}", B, S, list(pos))
                for B, S, pos in sorted(paged_shapes)]
     entries = []
     for label, B, S, pos in shapes:
-        n_sets = n_sets_for(sum(int(p) + S for p in pos) * 12 * 64 * 2 * 2)
+        label = f"{model} {label}"
+        n_sets = n_sets_for(sum(int(p) + S for p in pos) * KH * D * 2 * 2)
         q, pk, pv, tabs, p = attention_case(
-            dev, "bf16", 12, 12, S, B, pos, M=PAGED_M, n_sets=n_sets,
-            seed=7)
+            dev, "bf16", H, KH, S, B, pos, M=PAGED_M, n_sets=n_sets,
+            seed=7, D=D)
         err = (fa.paged_attention_fused(q, pk, pv, tabs[0], p)
                - fa.paged_attention_ref(q, pk, pv, tabs[0], p)
                ).abs().max().item()
@@ -1154,7 +1332,7 @@ def paged_timings(dev, paged_launches, paged_shapes):
         def paged(i):
             fa.paged_attention_fused(q, pk, pv, tabs[i], p)
 
-        splits = fa.paged_attention_splits(True, 1, B, S, 12, 12, 64, 16,
+        splits = fa.paged_attention_splits(True, 1, B, S, H, KH, D, 16,
                                            PAGED_M, q.device.index)
         ms = time_ms(paged, n_sets)
         launch_ms, parts = device_ms(paged, n_sets, PAGED_KERNELS)
@@ -1164,7 +1342,7 @@ def paged_timings(dev, paged_launches, paged_shapes):
                 sweep[k] = device_ms(paged, n_sets, PAGED_KERNELS)[0]
         print(f"  paged {label}: {splits} splits, device time a call by "
               f"kernel {json.dumps(parts)}; at splits "
-              + ", ".join(f"{k}: {v:.4f} ms" for k, v in sweep.items()))
+              + ", ".join(f"{k}: {fmt_ms(v)}" for k, v in sweep.items()))
         plain = time_ms(lambda i: fa.paged_attention_ref(q, pk, pv,
                                                          tabs[i], p),
                         n_sets, iters=20)
@@ -1172,8 +1350,8 @@ def paged_timings(dev, paged_launches, paged_shapes):
         entries.append({
             "name": f"paged_attention[{label}]", "route": "cuda",
             "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
-            "shape": f"B={B} S={S} H=12 KH=12 D=64 bs=16 M={PAGED_M} bf16 "
-                     f"pos={int(min(pos))}-{int(max(pos))}",
+            "shape": f"B={B} S={S} H={H} KH={KH} D={D} bs=16 M={PAGED_M} "
+                     f"bf16 pos={int(min(pos))}-{int(max(pos))}",
             "launches": paged_launches, "max_abs_err": err, "ms": ms,
             "kernel_ms": launch_ms, "plain_ms": plain, "bound_ms": bms,
             "bound_by": by, "splits": splits, "kernel_ms_parts": parts,
@@ -1185,7 +1363,9 @@ def paged_timings(dev, paged_launches, paged_shapes):
 
 
 def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
-                  prefill_shapes, train_launches):
+                  prefill_shapes, train_launches, llama):
+    """Phase 7 at the GPT-2 main paths' shapes, then at the Llama main
+    path's (``llama``: what :func:`phase_llama_main_path` returns)."""
     print("== phase 7: kernel timings at the main paths' shapes")
     entries = paged_timings(dev, paged_launches, paged_shapes)
     for (B, T), calls in prefill_shapes.most_common(2):
@@ -1220,10 +1400,17 @@ def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
             "kernel_ms": launch_ms, "plain_ms": plain, "bound_ms": bms,
             "bound_by": by, "library_ms": lib_ms})
     entries += training_timings(dev, train_launches)
+    # the Llama path: its decode tick and largest prefill group (8-way
+    # GQA), and its training shape
+    largest = max(llama["paged_shapes"], key=lambda k: k[0] * k[1])
+    entries += paged_timings(dev, llama["paged_launches"], {largest},
+                             TINYLLAMA, "TinyLlama")
+    entries += training_timings(dev, llama["train_launches"], TINYLLAMA,
+                                LLAMA_TRAIN, "Llama training main path")
     for e in entries:
         lib = e["library_ms"]
         print(f"  {e['name']} {e['shape']}: kernel {e['ms']:.4f} ms a "
-              f"call ({e['kernel_ms']:.4f} ms device time a launch), "
+              f"call ({fmt_ms(e['kernel_ms'])} device time a launch), "
               f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.5f} ms "
               f"({e['bound_by']}), library "
               f"{'-' if lib is None else f'{lib:.4f} ms'}, max_abs_err "
@@ -1296,7 +1483,7 @@ def phase_build():
     t0 = time.monotonic()
     paths = _build.build_all()
     print(f"  built {sorted(paths)} in {time.monotonic() - t0:.1f} s")
-    found = []
+    found, faults = [], []
     for name, path in sorted(paths.items()):
         log = path.with_suffix(".log")
         ptxas = ptxas_report(log.read_text()) if log.exists() else {}
@@ -1315,19 +1502,20 @@ def phase_build():
                     if fn.startswith(prefix)]
             missing = [op for ops in need for op in ops if not c[op]]
             if missing:
-                raise AssertionError(f"{fn}: no {missing} in its SASS: {c}")
+                faults.append(f"{fn}: no {missing} in its SASS: {c}")
             if rep is not None and (rep[1] or rep[2]):
-                raise AssertionError(f"{fn}: ptxas spills {rep[1]}/"
-                                     f"{rep[2]} bytes")
+                faults.append(f"{fn}: ptxas spills {rep[1]}/{rep[2]} bytes")
         found += list(counts)
         if name in TENSOR_CORE_LIBS and not (total["HMMA"]
                                              and total["LDGSTS"]):
-            raise AssertionError(f"{name}: no tensor-core (HMMA) or no "
-                                 f"cp.async (LDGSTS) instruction in its "
-                                 f"SASS: {total}")
+            faults.append(f"{name}: no tensor-core (HMMA) or no cp.async "
+                          f"(LDGSTS) instruction in its SASS: {total}")
     absent = [k for k in SASS_MUST_EXIST if k not in found]
     if absent:
-        raise AssertionError(f"kernels not in any library's SASS: {absent}")
+        faults.append(f"kernels not in any library's SASS: {absent}")
+    # every kernel is reported before the phase fails on any of them
+    if faults:
+        raise AssertionError("; ".join(faults))
 
 
 def main() -> int:
@@ -1355,8 +1543,11 @@ def main() -> int:
     paged_launches, paged_shapes = phase_paged_main_path(dev, card, model)
     flash_launches, shapes = phase_arena_main_path(dev, card, model)
     train_launches = phase_training_main_path(dev, card, model)
+    del model
+    llama, llama_model = phase_llama_main_path(dev, card)
     kernels = phase_timings(dev, paged_launches, paged_shapes,
-                            flash_launches, shapes, train_launches)
+                            flash_launches, shapes, train_launches, llama)
+    phase_llama_profile(dev, llama_model)
     print(f"whole run {time.monotonic() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -23,6 +23,11 @@ from analytics_zoo_tpu_torch.ops import flash_attention as fa
 # differ by about one bf16 ulp (2**-8) of each weight times |v|.
 _ATOL = {"f32": 1e-4, "int8": 1e-4, "bf16": 2e-2}
 _DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}
+# the head dims instantiated beside 64 and 128 (the multiples of 32 up
+# to 128): a lane of the paged CUDA-core kernel holds D / 32 values, 1
+# or 3 here, which at D = 96 (and at D = 32 in int8) no aligned word of a
+# row holds
+_NEW_HEAD_DIMS = [32, 96]
 
 
 @pytest.fixture()
@@ -128,12 +133,29 @@ def test_flash_attention_kernel_matches_plain(cuda, kind, T, H, D, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("D", _NEW_HEAD_DIMS)
+@pytest.mark.parametrize("T", [1, 17, 65, (37, 130), 130])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
+def test_flash_attention_kernel_head_dims(cuda, kind, D, T, causal, masked):
+    Tq, _ = _lengths(T)
+    q, k, v, mask = _flash_case(cuda, kind, 2, T, 4, D, masked, seed=Tq + D)
+    o, lse = fa.flash_attention_fused(q, k, v, mask, causal=causal)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_ref(q, k, v, mask, causal=causal)
+    assert (o.float() - ro.float()).abs().max().item() <= _FLASH_ATOL[kind]
+    assert torch.allclose(lse, rlse, atol=1e-3, rtol=1e-5)
+    if masked:
+        assert (o[-1] == 0).all() and (lse[4:] == 1e30).all()
+
+
+@pytest.mark.cuda
 def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v, _ = _flash_case(cuda, "f32", 1, 8, 2, 64, False)
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_fused(q[..., :32].contiguous(),
-                                 k[..., :32].contiguous(),
-                                 v[..., :32].contiguous(), causal=True)
+        fa.flash_attention_fused(q[..., :16].contiguous(),
+                                 k[..., :16].contiguous(),
+                                 v[..., :16].contiguous(), causal=True)
     strided = q.transpose(1, 2).contiguous().transpose(1, 2)  # same shape
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_fused(strided, k, v, causal=True)
@@ -156,13 +178,15 @@ def _misaligned(x):
     return out
 
 
-def _regime_case(dev, kind, bs, S, G, table, seed=0):
+def _regime_case(dev, kind, bs, S, G, table, seed=0, D=None):
     """Paged inputs for one regime: B=2 rows, (H, KH) = (12, 12) at D=64
-    or (32, 4) at D=128 (G = 8); ``table`` "full" (row 0 two blocks short
-    of the end), "sliced" (cut to the blocks row 0 attends) or "long"
-    (M >= 128 columns, positions 0-3: most split ranges hold nothing)."""
+    or (32, 4) at D=128 (G = 8), unless ``D`` is given; ``table`` "full"
+    (row 0 two blocks short of the end), "sliced" (cut to the blocks row
+    0 attends) or "long" (M >= 128 columns, positions 0-3: most split
+    ranges hold nothing)."""
     g = torch.Generator().manual_seed(seed)
-    H, KH, D = (12, 12, 64) if G == 1 else (32, 4, 128)
+    H, KH, D0 = (12, 12, 64) if G == 1 else (32, 4, 128)
+    D = D or D0
     B = 2
     if table == "long":
         hi = 3
@@ -214,6 +238,23 @@ def test_paged_attention_kernel_regimes(cuda, kind, bs, S, G, table):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("D", _NEW_HEAD_DIMS)
+@pytest.mark.parametrize("bs", [1, 16, 64])
+@pytest.mark.parametrize("S,G", [(1, 1), (1, 8), (2, 8), (512, 1)])
+@pytest.mark.parametrize("table", ["full", "long"])
+def test_paged_attention_kernel_head_dims(cuda, kind, D, bs, S, G, table):
+    args = _regime_case(cuda, kind, bs, S, G, table, seed=bs + S + D, D=D)
+    before = fa.paged_attention_fused.launches
+    out = fa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert fa.paged_attention_fused.launches == before + 1
+    ref = fa.paged_attention_ref(*args)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= _ATOL[kind]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("S,G", [(1, 8), (512, 1)])
 @pytest.mark.parametrize("splits", [1, 2, 3, 7])
 def test_paged_attention_kernel_any_split_count(cuda, kind, S, G, splits,
@@ -234,9 +275,9 @@ def test_paged_attention_kernel_any_split_count(cuda, kind, S, G, splits,
 def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda):
     q, pk, pv, tables, pos = _case(cuda, "f32", 12, 12, 5)
     with pytest.raises(ValueError, match="head dim"):
-        fa.paged_attention_fused(q[..., :32].contiguous(),
-                                 pk[..., :32].contiguous(),
-                                 pv[..., :32].contiguous(), tables, pos)
+        fa.paged_attention_fused(q[..., :16].contiguous(),
+                                 pk[..., :16].contiguous(),
+                                 pv[..., :16].contiguous(), tables, pos)
     with pytest.raises(ValueError, match="contiguous"):
         fa.paged_attention_fused(q.transpose(1, 2), pk, pv, tables, pos)
     with pytest.raises(ValueError, match="int32"):
@@ -311,6 +352,32 @@ def test_flash_backward_kernels_match_plain(cuda, kind, T, H, D, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("D", _NEW_HEAD_DIMS)
+@pytest.mark.parametrize("T", [1, 17, 33, 65, 130])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
+                                           (True, True)])
+def test_flash_backward_kernels_head_dims(cuda, kind, D, T, causal, masked):
+    """The dq and dk/dv kernels at the new head dims, across their tile
+    edges (32-key dq and 32-query dk/dv tiles at D = 96, 64 at D = 32)."""
+    q, k, v, mask = _flash_case(cuda, kind, 2, T, 4, D, masked, seed=T + D)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+        T + D + 1)).to(cuda, q.dtype)
+    o, lse = fa.flash_attention_fused(q, k, v, mask, causal=causal)
+    got = fa.flash_attention_bwd_fused(q, k, v, mask, o, lse, do,
+                                       causal=causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_ref(q, k, v, mask, o, lse, do,
+                                     causal=causal)
+    for g, r, tol in zip(got, ref, _bwd_tols(kind, T)):
+        scale = max(1.0, r.float().abs().max().item())
+        assert (g.float() - r.float()).abs().max().item() <= tol * scale
+    if masked:
+        for g in got:
+            assert (g[-1] == 0).all()
+
+
+@pytest.mark.cuda
 def test_flash_backward_rejects_what_it_does_not_take(cuda):
     q, k, v, _ = _flash_case(cuda, "f32", 1, 8, 2, 64, False)
     o, lse = fa.flash_attention_fused(q, k, v, causal=True)
@@ -328,6 +395,6 @@ def test_flash_backward_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA device"):
         bwd(q.cpu(), k.cpu(), v.cpu(), None, o.cpu(), lse.cpu(), do.cpu(),
             causal=True)
-    small = [x[..., :32].contiguous() for x in (q, k, v, o, do)]
+    small = [x[..., :16].contiguous() for x in (q, k, v, o, do)]
     with pytest.raises(ValueError, match="head dim"):
         bwd(*small[:3], None, small[3], lse, small[4], causal=True)

@@ -149,6 +149,57 @@ def test_paged_prefix_tokens_match_jax(models, ticks_per_step):
     assert got_m["prefix_hits"] >= 2 * 2
 
 
+# A Llama-family model: rope, RMSNorm, SwiGLU, GQA, bias-free
+# projections with biased q/k/v, untied head
+_LLAMA = dict(_CFG, num_kv_heads=2, pos_encoding="rope", norm="rmsnorm",
+              mlp="swiglu", use_bias=False, qkv_bias=True, tied_head=False,
+              rope_base=500.0)
+
+
+@pytest.fixture(scope="module")
+def llama_models():
+    """As ``models``, for the Llama config, with every initial value
+    moved by seeded noise (flax starts biases at 0 and norm scales at
+    1)."""
+    jm = JaxLM(dtype=jnp.float32, **_LLAMA)
+    params = jm.init(jax.random.key(1), np.zeros((1, 8), np.int32))[
+        "params"]
+    rng = np.random.default_rng(1)
+    params = jax.tree_util.tree_map(
+        lambda x: np.asarray(x) + 0.05 * rng.standard_normal(
+            x.shape).astype(np.float32), params)
+    state = params_from_flax(params)
+    tm = TransformerLM(dtype=torch.float32, **_LLAMA)
+    tm.load_state_dict(state)
+    return jm, {"params": params}, tm, state
+
+
+@pytest.mark.parametrize("paged,n_blocks,with_prefix", [
+    (False, None, False), (False, None, True), (True, None, False),
+    (True, 9, False), (True, None, True)])
+def test_llama_engine_tokens_match_jax(llama_models, paged, n_blocks,
+                                       with_prefix):
+    """Both engines serve the Llama config with the JAX engine's greedy
+    tokens.  In the paged engine "b" attaches to the two full blocks
+    "a" published (and the prefixed requests to the pinned ones): keys
+    cached post-rotation at their absolute positions are read back by a
+    later request; ``n_blocks=9`` adds preemption."""
+    jm, variables, tm, state = llama_models
+    kw = dict(_ENGINE, paged=paged, n_blocks=n_blocks)
+    ref, ref_m = _run(JaxEngine(jm, variables, **kw, **(
+        dict(kernel="gather") if paged else {})), with_prefix)
+    got, got_m = _run(ContinuousEngine(tm, state, device="cpu", **kw),
+                      with_prefix)
+    assert sorted(got) == sorted(ref)
+    for uri in ref:
+        np.testing.assert_array_equal(got[uri], ref[uri], err_msg=uri)
+    for key in ("preemptions", "prefix_hits", "prefix_queries"):
+        assert got_m.get(key) == ref_m.get(key), key
+    if paged:
+        assert got_m["prefix_hits"] >= 2
+        assert (got_m["preemptions"] > 0) == (n_blocks is not None)
+
+
 @pytest.mark.parametrize("paged", [False, True])
 def test_engine_counts_prefill_shapes(models, paged):
     """Every admission prefill is counted by its shape: (rows, width) in
@@ -177,8 +228,38 @@ def test_default_engine_is_the_arena_in_both_packages(models):
     assert not ref.paged and not got.paged
     assert ref.cache_metrics()["mode"] == got.cache_metrics()["mode"] \
         == "arena"
+    # head dim 8: the paged kernel does not take it, so the paged
+    # engine resolves kernel=None to the plain read up front
     assert ContinuousEngine(tm, device="cpu", max_new_tokens=4,
-                            paged=True).kernel == "fused"
+                            paged=True).kernel == "gather"
+
+
+def _model_of_head_dim(D):
+    return TransformerLM(vocab_size=16, hidden_size=2 * D, num_layers=1,
+                         num_heads=2, intermediate_size=16,
+                         max_position=64, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("D,bs,want", [
+    (32, 16, "fused"), (64, 1, "fused"), (96, 64, "fused"),
+    (128, 16, "fused"), (8, 16, "gather"), (80, 16, "gather"),
+    (64, 128, "gather")])
+def test_paged_kernel_resolves_by_shape(D, bs, want):
+    """kernel=None takes the paged kernel only where it takes (D, bs),
+    decided in the constructor and recorded in ``engine.kernel``; an
+    explicit kernel is kept, and an explicit "fused" for a shape the
+    kernel does not take raises there, before any launch."""
+    kw = dict(device="cpu", max_new_tokens=4, max_slots=2,
+              prompt_buckets=(8,), paged=True, block_size=bs)
+    model = _model_of_head_dim(D)
+    assert ContinuousEngine(model, **kw).kernel == want
+    assert ContinuousEngine(model, kernel="gather", **kw).kernel == "gather"
+    if want == "fused":
+        assert ContinuousEngine(model, kernel="fused", **kw).kernel \
+            == "fused"
+    else:
+        with pytest.raises(ValueError, match="does not take head dim"):
+            ContinuousEngine(model, kernel="fused", **kw)
 
 
 @pytest.mark.parametrize("kw", [dict(kernel="fused"), dict(kv_dtype="bf16"),

@@ -46,14 +46,31 @@ _LOSS_RTOL = 1e-5
 _PARAM_ATOL = 1e-5
 
 
-@pytest.fixture(scope="module")
-def weights():
-    jm = JaxLM(dtype=jax.numpy.float32, dropout=0.0, **_CFG)
+def _weights(cfg):
+    """(reference model, its params as numpy, token rows, the config)."""
+    jm = JaxLM(dtype=jax.numpy.float32, dropout=0.0, **cfg)
     params = jm.init(jax.random.key(7), np.zeros((1, 8), np.int32))
     params = jax.tree_util.tree_map(np.asarray, params["params"])
     toks = np.random.default_rng(1).integers(0, 32, (24, _T)).astype(
         np.int32)
-    return jm, params, toks
+    return jm, params, toks, cfg
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return _weights(_CFG)
+
+
+# A Llama-family config: rope, RMSNorm, SwiGLU, GQA, bias-free
+# projections with q/k/v biases, an untied head
+_LLAMA = dict(_CFG, num_heads=4, num_kv_heads=2, pos_encoding="rope",
+              norm="rmsnorm", mlp="swiglu", use_bias=False, qkv_bias=True,
+              tied_head=False)
+
+
+@pytest.fixture(scope="module")
+def llama_weights():
+    return _weights(_LLAMA)
 
 
 @pytest.fixture()
@@ -64,7 +81,7 @@ def mesh8():
 
 
 def _jax_est(weights, optimizer, deterministic=True):
-    jm, params, _ = weights
+    jm, params, _, _ = weights
     return JaxEstimator.from_flax(
         model=jm, loss=jax_lm_loss, optimizer=optimizer,
         feature_cols=("tokens",), label_cols=("tokens",),
@@ -73,8 +90,8 @@ def _jax_est(weights, optimizer, deterministic=True):
 
 
 def _port_est(weights, optimizer, deterministic=True):
-    _, params, _ = weights
-    tm = TransformerLM(dtype=torch.float32, **_CFG)
+    _, params, _, cfg = weights
+    tm = TransformerLM(dtype=torch.float32, **cfg)
     tm.load_state_dict(params_from_flax(params))
     return Estimator.from_torch(
         model=tm, loss=lm_loss, optimizer=optimizer,
@@ -96,7 +113,30 @@ def test_fit_losses_match_jax_adam(weights, mesh8, deterministic):
     assert got[1]["loss"] < got[0]["loss"]
 
 
+def test_llama_fit_losses_match_jax_adam(llama_weights, mesh8):
+    """The Llama config trains through ``Estimator.from_torch`` as it
+    does through ``Estimator.from_flax``: the same Adam loss history."""
+    toks = llama_weights[2]
+    ref = _jax_est(llama_weights, 3e-3).fit({"tokens": toks}, epochs=2,
+                                             batch_size=8)
+    got = _port_est(llama_weights, 3e-3).fit({"tokens": toks}, epochs=2,
+                                              batch_size=8)
+    np.testing.assert_allclose([h["loss"] for h in got],
+                               [h["loss"] for h in ref], rtol=_LOSS_RTOL)
+    assert got[1]["loss"] < got[0]["loss"]
+
+
 def test_sgd_params_match_jax(weights, mesh8):
+    _sgd_case(weights)
+
+
+def test_llama_sgd_params_match_jax(llama_weights, mesh8):
+    _sgd_case(llama_weights)
+
+
+def _sgd_case(weights):
+    """SGD at lr 0.5 for two epochs in both packages: losses, then every
+    parameter."""
     toks = weights[2]
     jest = _jax_est(weights, optax.sgd(0.5), deterministic=False)
     ref = jest.fit({"tokens": toks}, epochs=2, batch_size=8)

@@ -134,9 +134,10 @@ def test_dispatch_picks_the_plain_branch_on_the_cpu(monkeypatch):
     """use_flash=None: full_attention for a CPU tensor (as the
     reference does off its TPU), the kernel for a CUDA tensor;
     True/False force either branch."""
-    assert not ttr.flash_ok(None, "cpu")
-    assert ttr.flash_ok(None, "cuda")
-    assert ttr.flash_ok(True, "cpu") and not ttr.flash_ok(False, "cuda")
+    assert not ttr.flash_ok(None, "cpu", 64)
+    assert ttr.flash_ok(None, "cuda", 64)
+    assert ttr.flash_ok(True, "cpu", 64) \
+        and not ttr.flash_ok(False, "cuda", 64)
     calls = []
     monkeypatch.setattr(ttr, "full_attention",
                         lambda *a, **kw: calls.append("full"))
@@ -149,6 +150,20 @@ def test_dispatch_picks_the_plain_branch_on_the_cpu(monkeypatch):
     assert calls == ["full", "flash", "full"]
     with pytest.raises(NotImplementedError, match="mesh"):
         ttr.attention_dispatch(q, q, q, None, causal=True, mesh=object())
+
+
+@pytest.mark.parametrize("head_dim,takes", [
+    (8, False), (16, False), (32, True), (64, True), (80, False),
+    (96, True), (128, True), (256, False)])
+def test_flash_ok_decides_by_head_dim(head_dim, takes):
+    """use_flash=None on a CUDA device takes the kernel only for a head
+    dim the kernels are instantiated for, decided before any launch;
+    the CPU never takes it, and True/False still force either branch."""
+    assert ttr.flash_ok(None, "cuda", head_dim) is takes
+    assert tfa.flash_kernel_takes(head_dim) is takes
+    assert not ttr.flash_ok(None, "cpu", head_dim)
+    assert ttr.flash_ok(True, "cuda", head_dim)
+    assert not ttr.flash_ok(False, "cuda", head_dim)
 
 
 def test_flash_attention_on_cpu_is_the_plain_version():

@@ -42,7 +42,8 @@ def test_scan_reaches_every_port_module():
             "analytics_zoo_tpu_torch.data.loader",
             "analytics_zoo_tpu_torch.learn.objectives",
             "analytics_zoo_tpu_torch.learn.metrics",
-            "analytics_zoo_tpu_torch.learn.estimator"} <= mods
+            "analytics_zoo_tpu_torch.learn.estimator",
+            "analytics_zoo_tpu_torch.net.hf_net"} <= mods
 
 
 def test_forbidden_name_check_is_exact():

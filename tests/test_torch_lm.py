@@ -19,7 +19,9 @@ into the port, and the same inputs run through both packages:
   attending the first through the pool) and ``decode_step_paged``.
 
 f32 logits must agree within 1e-4, the tolerance the reference's own
-``hf_net`` parity uses; generated tokens must be identical.
+``hf_net`` parity uses; generated tokens must be identical.  The
+Llama-family configurations are held to the reference the same way in
+``tests/test_torch_llama.py``.
 """
 
 import jax
@@ -158,8 +160,10 @@ def test_generate_matches_jax(num_kv_heads):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref)
     assert (ref[0, 3:] == eos).all()            # row 0 froze at eos
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="item 4.1"):
         generate(tm, None, prompt, 8, temperature=0.7, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2"):
+        generate(tm, None, prompt, 8, prefill="scan", device="cpu")
 
 
 def _pools(model, N, bs):
@@ -207,10 +211,17 @@ def test_paged_prefill_and_decode_match_jax(num_kv_heads):
     np.testing.assert_allclose(pv_t.numpy(), np.asarray(pv_j), atol=_ATOL)
 
 
-@pytest.mark.parametrize("kw", [dict(pos_encoding="rope"),
-                                dict(norm="rmsnorm"), dict(mlp="swiglu"),
-                                dict(tied_head=False),
-                                dict(moe_experts=4)])
-def test_later_slice_configs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kw,item", [(dict(moe_experts=4), "item 2"),
+                                     (dict(dropout=0.1), "item 7")],
+                         ids=["moe_experts", "dropout"])
+def test_later_slice_configs_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+        TransformerLM(dtype=torch.float32, **_CFG, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(pos_encoding="alibi"),
+                                dict(norm="batchnorm"), dict(mlp="relu")],
+                         ids=["pos_encoding", "norm", "mlp"])
+def test_unknown_configs_raise(kw):
+    with pytest.raises(ValueError, match=next(iter(kw))):
         TransformerLM(dtype=torch.float32, **_CFG, **kw)
