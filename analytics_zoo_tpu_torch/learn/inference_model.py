@@ -1,12 +1,30 @@
-"""Prompt-bucket helpers shared by the serving engine.
+"""InferenceModel: the serving handle ``ClusterServing`` drives.
 
-Copied from ``analytics_zoo_tpu/learn/inference_model.py``, whose module
-imports JAX; ``InferenceModel`` itself is not ported yet.
+The port of ``analytics_zoo_tpu/learn/inference_model.py`` for the
+generative path.  :meth:`InferenceModel.load_torch_generator` (the
+counterpart of the reference's ``load_flax_generator``) serves a port
+``TransformerLM``: ``predict`` takes right-padded prompts ``[B, P]``
+(and optional per-row lengths) and returns ``[B, max_new_tokens]``
+token ids through ``models.lm.generate``, and
+:meth:`InferenceModel.make_continuous_engine` builds the
+``ContinuousEngine`` the server's continuous mode pumps.  Prompt widths
+are padded up to ``prompt_buckets`` and batches up to the batch buckets,
+as in the reference; eager PyTorch compiles nothing per shape, so the
+buckets only keep the two packages' serving bounds identical.
+
+Weight quantization (ROADMAP Queue 1 item 7), speculative decoding
+(item 4.3) and the other model formats (``load_flax``, ``load_tf``,
+``load_openvino``, ``load_torch``: items 8 and 9) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import threading
+from typing import Callable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 
 def _next_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -21,7 +39,7 @@ def filter_prompt_buckets(prompt_buckets: Sequence[int],
                           max_new_tokens: int) -> Tuple[int, ...]:
     """Prompt buckets usable by a generator: a bucket only counts if the
     padded prompt + generation still fits the model's position table.
-    Shared by load_flax_generator and ContinuousEngine so the two entry
+    Shared by load_torch_generator and ContinuousEngine so the two entry
     paths can never disagree about which prompts are servable."""
     limit = int(max_position) - int(max_new_tokens)
     out = tuple(b for b in sorted(set(int(b) for b in prompt_buckets))
@@ -32,3 +50,243 @@ def filter_prompt_buckets(prompt_buckets: Sequence[int],
             f"max_new_tokens {max_new_tokens} = {limit} < smallest "
             f"bucket {min(prompt_buckets)}")
     return out
+
+
+def _later(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def _torch_dtype(dtype) -> Optional[torch.dtype]:
+    """A cache dtype given as a torch dtype or by name ("bfloat16",
+    "float32", ...; ``ServingConfig.engine_cache_dtype``)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    out = getattr(torch, str(dtype), None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError(f"cache_dtype {dtype!r} names no torch dtype")
+    return out
+
+
+class InferenceModel:
+    """One serving handle: load a generator, then ``predict`` or build a
+    continuous-batching engine from it.
+
+    Args:
+      concurrent_num: caps concurrent ``predict`` calls (the reference
+        sizes its host-staging semaphore with it).
+      batch_buckets: batch sizes ``predict`` pads its rows up to.
+    """
+
+    def __init__(self, concurrent_num: int = 4,
+                 batch_buckets: Sequence[int] = (1, 8, 32, 128)):
+        self._apply_fn: Optional[Callable] = None
+        self._buckets = tuple(sorted(batch_buckets))
+        self._sem = threading.Semaphore(max(1, concurrent_num))
+        # host-side input normaliser (generator prompt padding)
+        self._pre_pad: Optional[Callable] = None
+        self.model = None
+        self.device: Optional[torch.device] = None
+        # generator-only serving bounds (load_torch_generator sets them)
+        self.max_prompt_width: Optional[int] = None
+        self.prompt_pad_id: Optional[int] = None
+        self._gen_max_new_tokens: Optional[int] = None
+        self._gen_prompt_buckets: Optional[Tuple[int, ...]] = None
+
+    # ---- loading -----------------------------------------------------
+
+    def load_torch_generator(self, model, variables=None,
+                             max_new_tokens: Optional[int] = None,
+                             prompt_buckets: Sequence[int] = (16, 32, 64,
+                                                              128),
+                             pad_id: int = 0, device=None,
+                             quantize: Optional[str] = None,
+                             draft_model=None, draft_variables=None
+                             ) -> "InferenceModel":
+        """Serve autoregressive generation from a port ``TransformerLM``:
+        ``predict`` takes right-padded prompts ``[B, P]`` (+ optional
+        per-row lengths ``[B]``) and returns ``[B, max_new_tokens]``
+        int32 token ids.  ``variables``: a ``state_dict`` loaded into
+        ``model`` first (``None`` keeps its weights).  ``device``:
+        ``cuda`` unless the caller names another.  Prompt widths pad up
+        to the usable ``prompt_buckets``; missing lengths are inferred
+        as the non-``pad_id`` width of each row."""
+        from analytics_zoo_tpu_torch.device import resolve_device
+        from analytics_zoo_tpu_torch.models.lm import generate
+
+        if max_new_tokens is None or int(max_new_tokens) < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got "
+                             f"{max_new_tokens!r}")
+        max_new_tokens = int(max_new_tokens)
+        if quantize:
+            raise _later(f"quantize={quantize!r}", "7")
+        if draft_model is not None or draft_variables is not None:
+            raise _later("speculative decoding (draft_model)", "4.3")
+        dev = resolve_device(device)
+        if variables is not None:
+            model.load_state_dict(variables)
+        self.model = model.to(dev).eval()
+        self.device = dev
+        pbuckets = filter_prompt_buckets(prompt_buckets, model.max_position,
+                                         max_new_tokens)
+        # the serving batcher bounds-checks ragged prompts with these
+        # and cross-checks its pad id against the generator's
+        self.max_prompt_width = pbuckets[-1]
+        self.prompt_pad_id = int(pad_id)
+        # continuous-batching serving builds its engine from these
+        self._gen_max_new_tokens = int(max_new_tokens)
+        self._gen_prompt_buckets = pbuckets
+
+        def apply_fn(prompts, lengths):
+            return generate(self.model, None, prompts, max_new_tokens,
+                            prompt_len=lengths, device=dev)
+
+        def pre_pad(inputs):
+            prompts = np.asarray(inputs[0])
+            if len(inputs) > 1:
+                lengths = np.asarray(inputs[1], np.int32)
+            else:
+                nonpad = prompts != pad_id
+                # length = index of last non-pad + 1 (right padding)
+                lengths = np.where(
+                    nonpad.any(axis=1),
+                    prompts.shape[1] - np.argmax(nonpad[:, ::-1], axis=1),
+                    0).astype(np.int32)
+            if (lengths <= 0).any():
+                raise ValueError(
+                    "empty prompt (length 0) — generation needs at least "
+                    "one real token per row")
+            pb = _next_bucket(prompts.shape[1], pbuckets)
+            if prompts.shape[1] < pb:
+                prompts = np.concatenate(
+                    [prompts, np.full((len(prompts), pb - prompts.shape[1]),
+                                      pad_id, prompts.dtype)], axis=1)
+            elif prompts.shape[1] > pb:
+                raise ValueError(
+                    f"prompt length {prompts.shape[1]} exceeds the largest "
+                    f"usable prompt bucket {pb}")
+            return prompts, lengths
+
+        self._apply_fn = apply_fn
+        self._pre_pad = pre_pad
+        return self
+
+    def make_continuous_engine(self, max_slots: int = 8,
+                               eos_id: Optional[int] = None,
+                               ticks_per_step: int = 1,
+                               cache_dtype=None,
+                               kernel: Optional[str] = None,
+                               kv_dtype: Optional[str] = None,
+                               mesh=None, partition_rules=None,
+                               paged: bool = False,
+                               block_size: int = 16,
+                               n_blocks: Optional[int] = None,
+                               hbm_fraction: Optional[float] = None,
+                               enable_prefix_cache: bool = True,
+                               chunked: bool = False,
+                               tick_token_budget: Optional[int] = None,
+                               speculation_k: Optional[int] = None,
+                               elastic_pool: bool = False,
+                               kv_host_store_bytes: int = 0,
+                               prefix_directory=None,
+                               replica_id: int = 0,
+                               fault_injector=None,
+                               record_timings: bool = False,
+                               telemetry=None, qos=None,
+                               flight=None, flight_capacity: int = 2048):
+        """Build a ``serving.continuous.ContinuousEngine`` on the loaded
+        generator's model, weights, device, token budget, prompt buckets
+        and pad id, with the reference's keywords.  ``cache_dtype`` may
+        name a dtype ("bfloat16", "float32").  ``kernel`` (paged only)
+        is the paged-attention read: ``None`` (the default) lets the
+        engine choose by shape, "fused" wherever the CUDA kernel takes
+        the model's head dim and block size; "gather" forces the plain
+        version.  Modes not ported yet raise in the engine, naming
+        their ROADMAP item."""
+        from analytics_zoo_tpu_torch.serving.continuous import (
+            ContinuousEngine)
+
+        if self._gen_max_new_tokens is None:
+            raise ValueError("continuous batching needs a model loaded "
+                             "via load_torch_generator")
+        return ContinuousEngine(
+            self.model, None,
+            max_new_tokens=self._gen_max_new_tokens,
+            max_slots=max_slots,
+            prompt_buckets=self._gen_prompt_buckets,
+            eos_id=eos_id, pad_id=self.prompt_pad_id,
+            ticks_per_step=ticks_per_step,
+            cache_dtype=_torch_dtype(cache_dtype),
+            kernel=kernel,
+            kv_dtype=kv_dtype,
+            mesh=mesh, partition_rules=partition_rules,
+            paged=paged, block_size=block_size, n_blocks=n_blocks,
+            hbm_fraction=hbm_fraction,
+            enable_prefix_cache=enable_prefix_cache,
+            chunked=chunked, tick_token_budget=tick_token_budget,
+            speculation_k=speculation_k, elastic_pool=elastic_pool,
+            kv_host_store_bytes=kv_host_store_bytes,
+            prefix_directory=prefix_directory, replica_id=replica_id,
+            fault_injector=fault_injector,
+            record_timings=record_timings, telemetry=telemetry,
+            qos=qos, flight=flight, flight_capacity=flight_capacity,
+            device=self.device)
+
+    def load_flax(self, model, variables, quantize=None):
+        raise _later("InferenceModel.load_flax (flax modules)", "8")
+
+    def load_openvino(self, xml_path: str, bin_path: str = None,
+                      quantize: Optional[str] = None):
+        raise _later("InferenceModel.load_openvino", "9")
+
+    def load_tf(self, path_or_fn, signature: str = "serving_default",
+                quantize: Optional[str] = None):
+        raise _later("InferenceModel.load_tf", "9")
+
+    def load_torch(self, module):
+        raise _later("InferenceModel.load_torch (plain modules)", "8")
+
+    # ---- predict -----------------------------------------------------
+
+    def predict(self, *inputs: np.ndarray) -> np.ndarray:
+        """Batched forward; inputs are ``[N, ...]`` host arrays.  N is
+        padded up to the next batch bucket."""
+        return self.predict_async(*inputs)()
+
+    def predict_async(self, *inputs: np.ndarray) -> Callable[[], np.ndarray]:
+        """Launch the forward and return a zero-argument callable that
+        waits for it and yields the numpy output (the serving loop's
+        pipelining hook: CUDA launches are asynchronous, and only the
+        copy to the host waits)."""
+        if self._apply_fn is None:
+            raise RuntimeError("load a model first")
+        if self._pre_pad is not None:
+            inputs = self._pre_pad(inputs)
+        n = len(inputs[0])
+        bucket = _next_bucket(n, self._buckets)
+        if n > bucket:          # n above the largest bucket: chunk
+            return lambda: self._predict_chunked(inputs, bucket)
+        padded = []
+        for a in inputs:
+            a = np.asarray(a)
+            if len(a) < bucket:
+                pad = np.zeros((bucket - len(a),) + a.shape[1:], a.dtype)
+                a = np.concatenate([a, pad])
+            padded.append(a)
+        # padding rows carry length 0; generate clamps them to 1
+        with self._sem:
+            out = self._apply_fn(*padded)
+        return lambda: out.cpu().numpy()[:n]
+
+    def _predict_chunked(self, inputs, bucket: int):
+        n = len(inputs[0])
+        outs = []
+        for lo in range(0, n, bucket):
+            outs.append(self.predict(*[np.asarray(a)[lo:lo + bucket]
+                                       for a in inputs]))
+        return np.concatenate(outs)
+
+    def set_concurrency(self, n: int) -> "InferenceModel":
+        """Resize the predict semaphore (ServingConfig.core_number)."""
+        self._sem = threading.Semaphore(max(1, n))
+        return self

@@ -17,7 +17,8 @@ grouped-query attention:
   reference's importers set it), so ``train`` changes nothing in the
   arithmetic;
 - the slot-arena cache methods ``decode_step``, ``verify_step``/
-  ``verify_hidden`` and ``prefill_chunk``, and greedy :func:`generate`;
+  ``verify_hidden`` and ``prefill_chunk``, and :func:`generate`, greedy
+  or sampled;
 - the paged trio ``decode_step_paged``, ``verify_hidden_paged`` and
   ``prefill_chunk_paged``.
 
@@ -32,6 +33,15 @@ cast to the model dtype; rotary positions rotate q and k in f32 at
 absolute positions and cast back, and K is cached post-rotation;
 attention output (f32) is cast before ``attn_out``; the head, tied or
 untied, runs in f32.
+
+Sampling (:func:`pick_next`, shared by :func:`generate` and every pick
+of the serving engine) draws a row's token as a pure function of (seed,
+absolute position of the token fed, logits), the reference's contract
+(``fold_in(key(seed), pos)``), but with the port's own random numbers:
+a counter-based integer hash of (seed, position, vocab index) in int64
+arithmetic, identical on the CPU and the card, and Gumbel-max over the
+temperature-scaled, :func:`top_p_filter`-ed logits.  Its tokens are not
+threefry's.
 
 Caches are updated IN PLACE by the arena and paged methods (the
 reference returns new caches that the JAX engine donates back into the
@@ -593,12 +603,100 @@ def lm_loss(logits, tokens):
                            tokens[:, 1:].reshape(-1).long())
 
 
+def top_p_filter(scaled, top_p):
+    """Nucleus filter over the last axis, the reference's
+    ``top_p_filter``: keep the smallest set of tokens whose
+    (temperature-scaled) probability mass reaches ``top_p``; everything
+    else goes to -inf.  The highest-probability token always survives.
+    ``top_p`` is a scalar or a per-row ``[..., 1]`` tensor; values >= 1
+    or <= 0 disable the filter row-wise."""
+    probs = torch.softmax(scaled, dim=-1)
+    sorted_probs = torch.sort(probs, dim=-1, descending=True).values
+    csum = torch.cumsum(sorted_probs, dim=-1)
+    top_p = torch.as_tensor(top_p, dtype=scaled.dtype, device=scaled.device)
+    # rank of the last kept token: first index where csum >= top_p
+    keep_n = (csum < top_p).sum(dim=-1, keepdim=True) + 1
+    kth = torch.gather(sorted_probs, -1,
+                       torch.clamp(keep_n - 1, max=scaled.shape[-1] - 1))
+    active = (top_p > 0.0) & (top_p < 1.0)
+    return torch.where(active & (probs < kth),
+                       torch.full_like(scaled, float("-inf")), scaled)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2**32`` for int64 ``x`` in ``[0, 2**32)`` and a 32-bit
+    constant, with every partial product below 2**63 (int64 arithmetic
+    gives the same bits on the CPU and the card)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h):
+    """MurmurHash3's 32-bit finalizer (a bijection with full
+    avalanche) on int64 values in ``[0, 2**32)``."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def draw_uniforms(seeds, pos, vocab: int):
+    """``[B, vocab]`` float64 uniforms in (0, 1), a pure function of each
+    row's (seed, position) and the vocab index: 24 bits of a hash of the
+    three, made in int64 on the rows' device."""
+    seeds = torch.as_tensor(seeds).to(torch.int64) & _M32
+    pos = torch.as_tensor(pos, device=seeds.device).to(torch.int64) & _M32
+    base = _fmix32(_fmix32(seeds) ^ pos)
+    idx = torch.arange(vocab, dtype=torch.int64, device=seeds.device)
+    h = _fmix32(base[:, None] ^ _mul32(idx, 0x9E3779B1)[None])
+    return ((h >> 8).to(torch.float64) + 0.5) * (1.0 / (1 << 24))
+
+
+def pick_next(logits, pos, temps=None, seeds=None, top_ps=None,
+              top_k: int = 0):
+    """One token per row from per-row logits ``[B, V]``: the ONE pick
+    definition of :func:`generate` and of the serving engine's first
+    token and decode ticks, so a preempted and readmitted row replays
+    identical tokens and the engine equals ``generate`` on the same
+    seed.
+
+    ``temps is None``: greedy argmax for every row.  Otherwise rows
+    with ``temps > 0`` sample: ``logits / max(T, 1e-6)`` in f32, the
+    ``top_k`` highest kept when ``top_k > 0``, then :func:`top_p_filter`
+    when ``top_ps`` is given, then Gumbel-max with the uniforms of
+    :func:`draw_uniforms` at (``seeds``, ``pos``), where ``pos`` is the
+    absolute position of the token whose logits these are.  Rows with
+    ``temps <= 0`` keep the argmax.  Returns int32 ``[B]``."""
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    if temps is None:
+        return nxt
+    temps = torch.as_tensor(temps, dtype=torch.float32,
+                            device=logits.device)
+    scaled = logits.float() / torch.clamp(temps, min=1e-6)[:, None]
+    if top_k > 0:
+        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled < kth,
+                             torch.full_like(scaled, float("-inf")), scaled)
+    if top_ps is not None:
+        scaled = top_p_filter(scaled, torch.as_tensor(
+            top_ps, dtype=torch.float32, device=logits.device)[:, None])
+    u = draw_uniforms(torch.as_tensor(seeds, device=logits.device), pos,
+                      logits.shape[-1])
+    gumbel = -torch.log(-torch.log(u))
+    sampled = torch.argmax(scaled.double() + gumbel, dim=-1).to(torch.int32)
+    return torch.where(temps > 0.0, sampled, nxt)
+
+
 @torch.no_grad()
 def generate(model: TransformerLM, variables, prompt, max_new_tokens: int,
              prompt_len=None, *, temperature: float = 0.0, top_k: int = 0,
              top_p: float = 0.0, rng=None, eos_id: Optional[int] = None,
              prefill: str = "auto", device=None) -> torch.Tensor:
-    """Greedy generation with a slot-arena KV cache, the reference's
+    """Generation with a slot-arena KV cache, the reference's
     forward-prefill path: one block-causal :meth:`~TransformerLM.
     verify_hidden` over the whole right-padded prompt fills the cache,
     then ``max_new_tokens - 1`` decode steps run at per-row positions.
@@ -611,13 +709,16 @@ def generate(model: TransformerLM, variables, prompt, max_new_tokens: int,
     unless the caller names another).  Returns int32
     ``[B, max_new_tokens]`` on that device.
 
-    Sampling (``temperature > 0``, ROADMAP Queue 1 item 4.1) and the
-    lockstep ``prefill="scan"`` path (item 2) are not ported yet and
-    raise."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "sampled generation is not ported yet (ROADMAP Queue 1 item "
-            "4.1)")
+    Sampling: ``temperature > 0`` samples through :func:`pick_next`,
+    optionally truncated to the ``top_k`` most probable tokens and to
+    the ``top_p`` nucleus (0 or >= 1 disables it).  ``rng`` is then
+    required: an integer seed for every row, or ``[B]`` seeds, one a
+    row.  The draw at each step is a function of (seed, position,
+    logits) only, so the serving engine given the same seed emits the
+    same tokens.  The reference samples on its lockstep scan path with
+    threefry; the port samples on the forward-prefill path with its own
+    random numbers.  ``prefill="scan"`` (ROADMAP Queue 1 item 2) is not
+    ported yet and raises."""
     if prefill == "scan":
         raise NotImplementedError(
             "prefill='scan' is not ported yet (ROADMAP Queue 1 item 2)")
@@ -625,8 +726,12 @@ def generate(model: TransformerLM, variables, prompt, max_new_tokens: int,
         raise ValueError(f"prefill must be auto|forward|scan, got "
                          f"{prefill!r}")
     if max_new_tokens < 1:
-        raise ValueError("greedy forward-prefill generation needs "
+        raise ValueError("forward-prefill generation needs "
                          "max_new_tokens > 0")
+    sampled = temperature > 0.0
+    if sampled and rng is None:
+        raise ValueError("temperature > 0 needs rng= (an integer seed, or "
+                         "one seed a row)")
     dev = resolve_device(device)
     if variables is not None:
         model.load_state_dict(variables)
@@ -642,6 +747,14 @@ def generate(model: TransformerLM, variables, prompt, max_new_tokens: int,
         if prompt_len is None else torch.clamp(
             torch.as_tensor(np.asarray(prompt_len), dtype=torch.int32,
                             device=dev), 1, Pn)
+    samp = {}
+    if sampled:
+        seeds = np.broadcast_to(np.asarray(rng, np.int64) & _M32, (B,))
+        samp = dict(temps=torch.full((B,), float(temperature), device=dev),
+                    seeds=torch.as_tensor(seeds.copy(), device=dev),
+                    top_ps=(torch.full((B,), float(top_p), device=dev)
+                            if top_p > 0.0 else None),
+                    top_k=int(top_k))
     D = model.hidden_size // model.num_heads
     ck = torch.zeros((model.num_layers, B, L, model.kv_heads, D),
                      dtype=model.dtype, device=dev)
@@ -653,14 +766,14 @@ def generate(model: TransformerLM, variables, prompt, max_new_tokens: int,
                                  torch.zeros(B, dtype=torch.int32,
                                              device=dev))
     last_h = hidden[torch.arange(B, device=dev), plen.long() - 1]
-    tok = torch.argmax(model._logits(last_h), dim=-1).to(torch.int32)
+    tok = pick_next(model._logits(last_h), plen - 1, **samp)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     if eos_id is not None:
         done = tok == eos_id
     out, pos = [tok], plen
     for _ in range(max_new_tokens - 1):
         logits = model.decode_step(tok, ck, cv, pos)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = pick_next(logits, pos, **samp)
         if eos_id is not None:
             nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
             done = done | (nxt == eos_id)

@@ -8,16 +8,23 @@ source and the shared headers (``csrc/*.cuh``), so an edited source or
 header builds anew; nothing here links against PyTorch, which keeps a
 build to seconds.  ``nvcc``'s report (ptxas registers, shared memory,
 spills) is kept beside each library as ``<library>.log``.
+
+Building and loading are thread-safe: serving runs one pump thread per
+engine replica, and the first launch of a kernel may come from several
+at once.  One module lock covers build-and-load, so each library is
+compiled once, by one thread of the process; the temporary file each
+``nvcc`` writes is named after the process, which keeps processes
+apart.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -47,6 +54,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                     _I, _I, _I, _I, _I, _I, _I, _F, _P),
     },
 }
+# one lock over build-and-load (re-entrant: ``load`` builds under it)
+_LOCK = threading.RLock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -72,6 +82,11 @@ def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
     """Compile every named kernel library that is not built yet, one
     ``nvcc`` per source, all started together.  Returns name -> path;
     raises with nvcc's output if any build fails."""
+    with _LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names: Sequence[str]) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
     procs = {}
@@ -95,12 +110,18 @@ def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
     return paths
 
 
-@functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built on first use."""
-    lib = ctypes.CDLL(str(build_all((name,))[name]))
-    for fn, argtypes in SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
-    return lib
+    """The loaded kernel library ``name``, built on first use (a dict
+    read once it is loaded)."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if name not in _LIBS:
+            lib = ctypes.CDLL(str(build_all((name,))[name]))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            _LIBS[name] = lib
+        return _LIBS[name]

@@ -20,7 +20,7 @@ greedy modes.
   sharing a prompt prefix attaches to the same physical blocks and
   prefills only its suffix; when the pool runs dry the latest admission
   is PREEMPTED back to the queue front and regenerates the same tokens
-  on readmission (greedy argmax).
+  on readmission.
 
 Decode is one ``decode_step`` (arena) or ``decode_step_paged`` per
 tick, ``ticks_per_step`` ticks per :meth:`ContinuousEngine.step` in a
@@ -28,11 +28,19 @@ plain Python loop.  PyTorch runs eagerly, so nothing is compiled per
 shape and admission groups are not padded to a power of two; caches are
 updated in place where the JAX engine donates its buffers.
 
-The other engine modes (chunked prefill, speculative decoding, QoS and
-brownout, handoff, elastic pools, the host KV tier, tensor parallelism)
-and sampled decoding raise ``NotImplementedError`` naming their ROADMAP
-item.  Telemetry and the flight recorder come later; the engine keeps
-plain counters meanwhile.
+Every pick, the first token of an admission and each decode tick's, goes
+through ``models.lm.pick_next``: greedy argmax, or with ``temperature >
+0`` a draw that is a pure function of (``rng_seed``, absolute position,
+logits), so a preempted row replays identical tokens and the engine
+emits what ``generate`` emits for the same seed.
+
+The engine carries the reference's serving surface: the ``Telemetry``
+request-lifecycle hooks and scrape-time gauges (``/metrics``), the
+per-tick flight recorder, the fault injector's tick hook, and the
+accessors ``ClusterServing`` reads.  The other engine modes (chunked
+prefill, speculative decoding, QoS, brownout and deadlines, handoff,
+elastic pools, the host KV tier, tensor parallelism) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from __future__ import annotations
 import collections
 import logging
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
@@ -48,15 +57,17 @@ import torch
 
 from analytics_zoo_tpu_torch.device import resolve_device
 from analytics_zoo_tpu_torch.learn.inference_model import (
-    _next_bucket, filter_prompt_buckets)
-from analytics_zoo_tpu_torch.models.lm import TransformerLM
+    _later, _next_bucket, filter_prompt_buckets)
+from analytics_zoo_tpu_torch.models.lm import TransformerLM, pick_next
 from analytics_zoo_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS, KV_SCALE_DTYPE, PAGED_MAX_BLOCK, QuantKV,
     paged_kernel_takes)
 from analytics_zoo_tpu_torch.serving import policy as scheduler_policy
-from analytics_zoo_tpu_torch.serving.paged_cache import (BlockPool,
-                                                         SINK_BLOCK,
-                                                         block_bytes)
+from analytics_zoo_tpu_torch.serving.flight import FlightRecorder
+from analytics_zoo_tpu_torch.serving.frontdoor import PRIORITIES
+from analytics_zoo_tpu_torch.serving.paged_cache import (
+    BlockPool, SINK_BLOCK, block_bytes, split_block_budget)
+from analytics_zoo_tpu_torch.serving.telemetry import Telemetry
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
@@ -74,6 +85,13 @@ class _Req(NamedTuple):
     max_new: int
     on_token: Optional[Callable] = None
     prefix: Optional[int] = None
+    temperature: float = 0.0
+    rng_seed: Optional[int] = None
+    top_p: float = 0.0
+    # front-door fields: recorded for telemetry's per-class
+    # attribution (admission stays FIFO: QoS is not ported)
+    priority: str = "standard"
+    tenant: str = ""
 
 
 @dataclass
@@ -83,6 +101,9 @@ class _Slot:
     tokens: List[int] = field(default_factory=list)
     on_done: Optional[Callable] = None
     on_token: Optional[Callable] = None
+    temperature: float = 0.0
+    rng_seed: Optional[int] = None
+    top_p: float = 0.0
     # the original request (requeued verbatim on preemption) and an
     # admission sequence number (the preemption victim is always the
     # LATEST admission, so preemption can never livelock)
@@ -90,9 +111,9 @@ class _Slot:
     admit_seq: int = 0
 
 
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype by the reference's (numpy) name: "float32"."""
+    return str(dtype).replace("torch.", "")
 
 
 class ContinuousEngine:
@@ -122,11 +143,23 @@ class ContinuousEngine:
     model dtype), ``"bf16"`` forces bfloat16, ``"int8"`` stores
     quantized rows with bfloat16 scales.
 
+    ``telemetry`` (a ``serving.telemetry.Telemetry``) and ``flight`` (a
+    ``serving.flight.FlightRecorder``) default to ones of the engine's
+    own (``flight_capacity=0``: no recorder); the server passes shared
+    ones.  ``fault_injector`` (``serving.fault.FaultInjector``) fires its
+    engine-side faults at tick counts of ``replica_id``.
+    ``record_timings`` keeps per-request stamps for
+    ``pop_request_timings``.  ``hbm_fraction`` (paged, ``n_blocks``
+    unset) sizes the pool to that fraction of the device memory
+    ``torch.cuda.mem_get_info`` reports; on the CPU it is ignored and
+    the pool is arena-equivalent, as in the reference.
+
     Not thread-safe by itself: ``submit`` may be called from any
     thread, but ``step``/``drain``/``abort`` and ``register_prefix``/
     ``unregister_prefix`` (which write the caches and, paged, the block
     pool, which has no lock of its own here) must run on ONE pump
-    thread.
+    thread.  Scrape-time gauges read the pool's counters from other
+    threads without a lock (plain ints under the GIL).
     """
 
     def __init__(self, model: TransformerLM,
@@ -138,23 +171,42 @@ class ContinuousEngine:
                  cache_dtype: Optional[torch.dtype] = None,
                  kernel: Optional[str] = None,
                  kv_dtype: Optional[str] = None,
-                 mesh=None, draft_model=None,
+                 mesh=None, partition_rules=None,
+                 draft_model=None,
+                 speculation_k: Optional[int] = None,
                  paged: bool = False, block_size: int = 16,
                  n_blocks: Optional[int] = None,
+                 hbm_fraction: Optional[float] = None,
                  enable_prefix_cache: bool = True,
                  elastic_pool: bool = False,
                  kv_host_store_bytes: int = 0,
-                 chunked: bool = False, qos=None,
+                 prefix_directory=None,
+                 replica_id: int = 0,
+                 fault_injector=None,
+                 chunked: bool = False,
+                 tick_token_budget: Optional[int] = None,
+                 record_timings: bool = False,
+                 telemetry: Optional[Telemetry] = None,
+                 qos=None,
+                 flight: Optional[FlightRecorder] = None,
+                 flight_capacity: int = 2048,
                  device=None):
         for on, what, item in (
                 (chunked, "chunked prefill", "4.2"),
+                (tick_token_budget is not None, "chunked prefill "
+                 "(tick_token_budget)", "4.2"),
                 (draft_model is not None, "speculative decoding "
                  "(draft_model)", "4.3"),
+                (speculation_k is not None, "speculative decoding "
+                 "(speculation_k)", "4.3"),
                 (qos is not None, "QoS scheduling", "4.5"),
                 (elastic_pool, "elastic_pool", "4.6"),
                 (kv_host_store_bytes, "the host KV tier "
                  "(kv_host_store_bytes)", "4.6"),
-                (mesh is not None, "tensor-parallel serving (mesh)", "6")):
+                (prefix_directory is not None, "the fleet prefix "
+                 "directory (prefix_directory)", "4.6"),
+                (mesh is not None or partition_rules is not None,
+                 "tensor-parallel serving (mesh)", "6")):
             if on:
                 raise _later(what, item)
         if kernel not in (None, "gather", "fused"):
@@ -176,6 +228,19 @@ class ContinuousEngine:
         self.eos_id = eos_id
         self.pad_id = int(pad_id)
         self.paged = bool(paged)
+        # ---- telemetry, flight recorder, fault hook --------------------
+        # host ints and floats only: nothing here reads the device
+        self.telemetry = telemetry if telemetry is not None \
+            else Telemetry()
+        self.flight = flight if flight is not None else (
+            FlightRecorder(flight_capacity) if flight_capacity > 0
+            else None)
+        self.record_timings = bool(record_timings)
+        self._replica_id = int(replica_id)
+        self._fault = fault_injector
+        self._alloc_fail_streak = 0
+        self._flight_last = {"preempt": 0, "alloc_fail": 0}
+        self._pool: Optional[BlockPool] = None
         D = model.hidden_size // model.num_heads
         self.kernel = self._resolve_kernel(kernel, D, int(block_size))
         self.prompt_buckets = filter_prompt_buckets(
@@ -217,9 +282,12 @@ class ContinuousEngine:
             self._ck = torch.zeros((model.num_layers, S, L, H, D),
                                    dtype=cdtype, device=dev)
             self._cv = torch.zeros_like(self._ck)
+            self._kv_bytes_per_token = \
+                2 * model.num_layers * H * D * cdtype.itemsize
         else:
             self._init_pool(model, S, L, H, D, cdtype, int(block_size),
-                            n_blocks, enable_prefix_cache)
+                            n_blocks, hbm_fraction, enable_prefix_cache)
+            self._kv_bytes_per_token = self._per_block_bytes // self._bs
         self.ticks_per_step = max(1, int(ticks_per_step))
         # host-side per-slot state (device copies travel per step)
         self._tok = np.zeros(S, np.int32)
@@ -229,6 +297,7 @@ class ContinuousEngine:
         self._free = collections.deque(range(S))
         self._lock = threading.Lock()
         self._waiting: collections.deque = collections.deque()
+        self._register_engine_gauges()
 
     def _resolve_kernel(self, kernel: Optional[str], head_dim: int,
                         block_size: int) -> str:
@@ -246,7 +315,7 @@ class ContinuousEngine:
         return kernel or ("fused" if takes else "gather")
 
     def _init_pool(self, model, S, L, H, D, cdtype, bs, n_blocks,
-                   enable_prefix_cache) -> None:
+                   hbm_fraction, enable_prefix_cache) -> None:
         """The paged mode's block pool, device pools and tables."""
         if bs < 1:
             raise ValueError(f"block_size must be >= 1, got {bs}")
@@ -257,9 +326,22 @@ class ContinuousEngine:
             per_block = 2 * model.num_layers * bs * H * D \
                 * cdtype.itemsize
         if n_blocks is None:
-            # arena-equivalent capacity: every slot can run to full
-            # length — paged still wins whenever real traffic doesn't
-            n_blocks = S * M + 1
+            lim = 0
+            if hbm_fraction is not None and self.device.type == "cuda":
+                lim = int(torch.cuda.mem_get_info(self.device)[1])
+            if lim:
+                n_blocks = max(M + 1, split_block_budget(
+                    int(lim * float(hbm_fraction)), (per_block,)))
+            else:
+                if hbm_fraction is not None:
+                    logger.warning(
+                        "hbm_fraction=%s ignored: the %s device reports "
+                        "no memory size; sizing the pool arena-equivalent "
+                        "(S*M+1 blocks)", hbm_fraction, self.device.type)
+                # arena-equivalent capacity: every slot can run to full
+                # length — paged still wins whenever real traffic
+                # doesn't
+                n_blocks = S * M + 1
         n_blocks = int(n_blocks)
         if n_blocks < M + 1:
             raise ValueError(
@@ -267,7 +349,9 @@ class ContinuousEngine:
                 f"sequence: need >= {M + 1} ({M} logical blocks of "
                 f"{bs} positions + the sink block 0)")
         self._bs, self._M = bs, M
+        self._per_block_bytes = per_block
         self._pool = BlockPool(n_blocks, bs, enable_prefix_cache,
+                               event_cb=self.telemetry.pool_event,
                                name="target", kv_dtype=self.kv_dtype,
                                bytes_per_block=per_block)
         # HEAD-MAJOR pool layout [layers, N, KH, bs, D], the kernel's
@@ -298,6 +382,146 @@ class ContinuousEngine:
     def n_waiting(self) -> int:
         with self._lock:
             return len(self._waiting)
+
+    def _register_engine_gauges(self) -> None:
+        """Scrape-time gauges over engine and pool state, the
+        reference's families for the ported modes: each callback reads
+        the live value when ``/metrics`` is scraped.  Features not
+        ported yet (elastic pools, handoff, the host KV tier) keep their
+        stable names at zero, as in a reference engine that has them
+        off."""
+        m = self.telemetry.metrics
+        m.gauge("zoo_engine_queue_depth",
+                "requests waiting for a slot", fn=lambda: self.n_waiting)
+        m.counter("zoo_engine_deadline_admission_sheds_total",
+                  "requests shed at admission because their deadline "
+                  "had already passed (never reached prefill)")
+        m.gauge("zoo_engine_active_slots",
+                "resident requests (decode + prefilling)",
+                fn=lambda: self.n_active)
+        m.gauge("zoo_engine_peak_resident",
+                "max co-resident requests observed",
+                fn=lambda: self._peak_resident)
+        m.gauge("zoo_engine_kv_bytes_per_token",
+                "HBM bytes one cached token position costs across all "
+                "layers and tenants",
+                fn=lambda: self._kv_bytes_per_token)
+        if not self.paged:
+            return
+        m.gauge("zoo_engine_kv_pool_bytes",
+                "total HBM bytes of the paged KV pools (target + "
+                "draft, all blocks)",
+                fn=lambda: self._per_block_bytes * self._pool.n_blocks)
+
+        def _pool_read(key):
+            return lambda: self._pool.metrics()[key]
+
+        for key, name, kind, hlp in (
+                ("free_blocks", "zoo_engine_free_blocks", "gauge",
+                 "pool blocks on the free list"),
+                ("cached_blocks", "zoo_engine_cached_blocks", "gauge",
+                 "unreferenced blocks parked in the prefix LRU"),
+                ("referenced_blocks", "zoo_engine_referenced_blocks",
+                 "gauge", "blocks held by live requests"),
+                ("occupancy", "zoo_engine_pool_occupancy", "gauge",
+                 "referenced fraction of non-sink blocks"),
+                ("prefix_hit_rate", "zoo_engine_prefix_hit_rate",
+                 "gauge", "prefix-cache block hits / queries"),
+                ("prefix_queries", "zoo_engine_prefix_queries_total",
+                 "counter", "prompt blocks offered to lookup()"),
+                ("prefix_hits", "zoo_engine_prefix_hits_total",
+                 "counter", "prompt blocks answered from the index"),
+                ("evictions", "zoo_engine_pool_evictions_total",
+                 "counter", "LRU evictions of cached blocks"),
+                ("alloc_failures",
+                 "zoo_engine_pool_alloc_failures_total", "counter",
+                 "allocate() calls the pool could not serve")):
+            m.gauge(name, hlp, fn=_pool_read(key), kind=kind)
+        m.gauge("zoo_engine_pool_n_blocks",
+                "current per-tenant pool size in blocks (moves "
+                "only under elastic_pool)",
+                fn=lambda: self._pool.n_blocks)
+        for name, hlp in (
+                ("zoo_engine_pool_resize_total",
+                 "applied elastic pool resizes (grow + shrink)"),
+                ("zoo_engine_pool_resize_clamped_total",
+                 "resize requests clamped at the eviction boundary "
+                 "or the floor/ceiling"),
+                ("zoo_engine_handoffs_out_total",
+                 "prefilled rows exported to a decode replica"),
+                ("zoo_engine_handoffs_in_total",
+                 "prefilled rows adopted from a prefill replica"),
+                ("zoo_engine_kv_spill_chains_total",
+                 "evicted blocks accepted by the host KV store"),
+                ("zoo_engine_kv_spill_bytes_total",
+                 "KV bytes spilled to the host store"),
+                ("zoo_engine_kv_readmit_chains_total",
+                 "host-store chains adopted back into the pool at "
+                 "admission"),
+                ("zoo_engine_kv_readmit_tokens_saved_total",
+                 "prompt tokens served host->HBM instead of "
+                 "re-prefilled")):
+            m.gauge(name, hlp, fn=lambda: 0, kind="counter")
+        m.gauge("zoo_engine_kv_store_bytes",
+                "host KV store occupancy in bytes", fn=lambda: 0)
+
+    def capacity_report(self) -> dict:
+        """KV memory economics, the reference's report for the ported
+        modes: bytes per slot (arena) or per block (paged), the whole
+        cache's bytes, and (arena) the multiplier against a full-head
+        cache in the model dtype.  One device, so per-chip bytes equal
+        the total; no draft model, so its bytes are 0."""
+        m = self.model
+        if self.paged:
+            per_block = self._per_block_bytes
+            return {
+                "mode": "paged",
+                "slots": self._S,
+                "cache_len": self._L,
+                "kv_heads": m.kv_heads,
+                "cache_dtype": _dtype_name(self._pk.data.dtype
+                                           if self._kv_int8
+                                           else self._pk.dtype),
+                "kv_dtype": self.kv_dtype,
+                "kernel": self.kernel,
+                "kv_bytes_per_token": self._kv_bytes_per_token,
+                "block_size": self._bs,
+                "n_blocks": self._pool.n_blocks,
+                "blocks_per_row_max": self._M,
+                "bytes_per_block": per_block,
+                "bytes_per_slot": per_block * self._M,
+                "arena_bytes": per_block * self._pool.n_blocks,
+                "arena_equivalent_bytes":
+                    (per_block // self._bs) * self._L * self._S,
+                "tp": 1,
+                "arena_bytes_per_chip": per_block * self._pool.n_blocks,
+                "draft_arena_bytes": 0,
+                "draft_n_blocks": 0,
+                "prefix_bytes": 0,
+            }
+        H, D = self._ck.shape[3], self._ck.shape[4]
+        per_slot = 2 * m.num_layers * self._L * H * D * \
+            self._ck.dtype.itemsize
+        full = 2 * m.num_layers * self._L * m.num_heads * D * \
+            m.dtype.itemsize
+        with self._lock:
+            prefixes = list(self._prefixes.values())
+        return {
+            "slots": self._S,
+            "cache_len": self._L,
+            "kv_heads": H,
+            "cache_dtype": _dtype_name(self._ck.dtype),
+            "bytes_per_slot": per_slot,
+            "arena_bytes": per_slot * self._S,
+            "tp": 1,
+            "arena_bytes_per_chip": per_slot * self._S,
+            "capacity_multiplier_vs_mha_model_dtype":
+                round(full / per_slot, 2),
+            "draft_arena_bytes": 0,
+            "prefix_bytes": sum(e.numel() * e.element_size()
+                                for entry in prefixes
+                                for e in entry[:2]),
+        }
 
     @torch.no_grad()
     def register_prefix(self, tokens: np.ndarray) -> int:
@@ -396,6 +620,7 @@ class ContinuousEngine:
             for req in self._waiting:
                 if req.uri == uri:
                     self._waiting.remove(req)
+                    self.telemetry.req_errored(uri, "aborted")
                     return True
         for slot, st in enumerate(self._slots):
             if st is not None and st.uri == uri:
@@ -404,6 +629,7 @@ class ContinuousEngine:
                 self._free.append(slot)
                 if self.paged:
                     self._release_slot_blocks(slot)
+                self.telemetry.req_errored(uri, "aborted")
                 return True
         return False
 
@@ -415,7 +641,11 @@ class ContinuousEngine:
                max_new: Optional[int] = None,
                prefix: Optional[int] = None,
                top_p: float = 0.0,
-               on_token: Optional[Callable] = None) -> None:
+               on_token: Optional[Callable] = None,
+               priority: str = "standard",
+               tenant: str = "",
+               handoff_cb: Optional[Callable] = None,
+               deadline_t: float = 0.0) -> None:
         """Queue one request.  ``prompt``: 1-D int32 token array.
         ``on_done(uri, tokens)`` fires from the pump thread when the
         request finishes (tokens: ``[max_new]`` int32, eos-padded frozen
@@ -424,9 +654,15 @@ class ContinuousEngine:
         streams every generated token.  ``max_new`` (default: the
         engine budget) caps THIS request's tokens.  ``prefix``: a
         ``register_prefix`` id; ``prompt`` is then the suffix that
-        follows it.  Raises on bounds violations."""
-        if temperature > 0.0 or top_p > 0.0:
-            raise _later("sampled decoding (temperature/top_p)", "4.1")
+        follows it.  ``temperature > 0`` samples (needs ``rng_seed``,
+        masked to 32 bits; ``top_p`` in (0, 1) adds the nucleus
+        filter).  ``priority``/``tenant`` are recorded for telemetry;
+        admission stays FIFO.  ``handoff_cb`` and ``deadline_t > 0``
+        (items 4.6 and 4.5) raise.  Raises on bounds violations."""
+        if handoff_cb is not None:
+            raise _later("prefill/decode handoff (handoff_cb)", "4.6")
+        if float(deadline_t or 0.0) > 0.0:
+            raise _later("deadline-aware admission (deadline_t)", "4.5")
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1:
             raise ValueError(f"prompt must be 1-D, got {prompt.shape}")
@@ -446,17 +682,31 @@ class ContinuousEngine:
         elif n < 1 or n > self.max_prompt_width:
             raise ValueError(
                 f"prompt length {n} outside [1, {self.max_prompt_width}]")
+        if temperature > 0.0 and rng_seed is None:
+            raise ValueError("temperature > 0 needs rng_seed")
+        if rng_seed is not None:
+            # an out-of-range client seed must not crash the pump
+            rng_seed = int(rng_seed) & 0xFFFFFFFF
         mn = self.max_new_tokens if max_new is None else int(max_new)
         if not 1 <= mn <= self.max_new_tokens:
             raise ValueError(
                 f"max_new {mn} outside [1, {self.max_new_tokens}]")
+        if priority not in PRIORITIES:
+            raise ValueError(
+                f"priority must be one of {PRIORITIES}, got {priority!r}")
+        # stamp AFTER validation: a rejected submit never existed as
+        # far as queue-wait/TTFT accounting is concerned
+        self.telemetry.req_enqueued(uri)
         with self._lock:
-            self._waiting.append(_Req(uri, prompt, on_done, on_error, mn,
-                                      on_token, prefix))
+            self._waiting.append(_Req(
+                uri, prompt, on_done, on_error, mn, on_token, prefix,
+                float(temperature), rng_seed, float(top_p), priority,
+                str(tenant)))
 
     # ---- pump ---------------------------------------------------------
 
     def _req_error(self, uri, on_error, exc):
+        self.telemetry.req_errored(uri, f"{type(exc).__name__}: {exc}")
         if on_error is None:
             return
         try:
@@ -539,7 +789,7 @@ class ContinuousEngine:
     @torch.no_grad()
     def _prefill(self, pb: int, reqs):
         """One causal forward over a bucket's ``[k, pb]`` right-padded
-        prompts; returns (first-token logits ``[k, V]`` on the host, K/V
+        prompts; returns (first tokens ``[k]`` on the host, K/V
         ``[n_layers, k, pb, KH, D]``).  The head is applied to each
         row's last real position only."""
         k = len(reqs)
@@ -556,23 +806,22 @@ class ContinuousEngine:
                                                            device=dev)])
         self.prefill_calls += 1
         self.prefill_shapes[(k, pb)] += 1
-        return last.cpu().numpy(), ks, vs       # one D2H per bucket
+        return self._pick_first(last, reqs, plens), ks, vs
 
     def _splice_one(self, pre, i: int, req: _Req) -> None:
         """Copy joiner ``i``'s prefilled K/V into a free slot's row and
         install it; the slot goes back to the free list if that
         fails."""
-        last, ks, vs = pre
+        firsts, ks, vs = pre
         slot = self._free.popleft()
         try:
             pb = ks.shape[2]
             self._ck[:, slot, :pb] = ks[:, i]
             self._cv[:, slot, :pb] = vs[:, i]
-            first = self._pick_first(last[i])
         except Exception:
             self._free.append(slot)
             raise
-        self._install_slot(slot, req, len(req.prompt), first)
+        self._install_slot(slot, req, len(req.prompt), int(firsts[i]))
 
     def _suffix_width(self, n: int, P: int) -> int:
         """Padded width of a prefix request's suffix: a prompt bucket
@@ -628,12 +877,12 @@ class ContinuousEngine:
         except Exception:
             self._free.extend(slots)
             raise
-        last = last.cpu().numpy()       # one D2H for the whole group
+        firsts = self._pick_first(last, reqs, P + lens)
         admitted = 0
         for i, req in enumerate(reqs):
             try:
                 self._install_slot(slots[i], req, P + int(lens[i]),
-                                   self._pick_first(last[i]))
+                                   int(firsts[i]))
                 admitted += 1
             except Exception as e:
                 self._free.append(slots[i])
@@ -748,7 +997,9 @@ class ContinuousEngine:
             torch.as_tensor(lens, device=dev), kernel=self.kernel)
         self.prefill_calls += 1
         self.prefill_shapes[(n, sb, tuple(pos.tolist()))] += 1
-        last = last.cpu().numpy()       # one D2H for the whole group
+        firsts = self._pick_first(
+            last, [plan[0] for plan in plans],
+            np.array([len(plan[1]) for plan in plans], np.int64))
         admitted = 0
         for i, (req, full, hashes, n_match, blocks) in enumerate(plans):
             plen = len(full)
@@ -761,8 +1012,7 @@ class ContinuousEngine:
             for j in range(n_match, plen // self._bs):
                 self._pool.insert(hashes[j], blocks[j])
             try:
-                self._install_slot(slot, req, plen,
-                                   self._pick_first(last[i]))
+                self._install_slot(slot, req, plen, int(firsts[i]))
                 admitted += 1
             except Exception as e:
                 self._free.append(slot)
@@ -812,7 +1062,8 @@ class ContinuousEngine:
         """Evict a resident back to the WAITING queue (front, original
         request intact, partial tokens discarded) and free its blocks.
         Readmission recomputes the prompt and regenerates the same
-        tokens (greedy argmax)."""
+        tokens (every pick is a function of seed, position and
+        logits)."""
         st = self._slots[slot]
         self._slots[slot] = None
         self._done[slot] = True
@@ -823,6 +1074,9 @@ class ContinuousEngine:
                        "readmission)", st.uri)
         with self._lock:
             self._waiting.appendleft(st.req)
+        # TTFT keeps the original arrival; partial tokens are
+        # discarded, so their stamps go too (telemetry mirrors both)
+        self.telemetry.req_preempted(st.uri, slot, prefilling=False)
 
     def _release_slot_blocks(self, slot: int) -> None:
         """Drop a finished/preempted row's block references and point
@@ -850,24 +1104,59 @@ class ContinuousEngine:
 
     def _install_slot(self, slot: int, req: _Req, plen: int,
                       first: int) -> None:
+        """Shared slot-state installation of every admission path."""
         self._slots[slot] = _Slot(
             uri=req.uri, max_new=req.max_new, on_done=req.on_done,
-            on_token=req.on_token, req=req, admit_seq=self._admit_seq)
+            on_token=req.on_token, temperature=req.temperature,
+            rng_seed=req.rng_seed, top_p=req.top_p, req=req,
+            admit_seq=self._admit_seq)
         self._admit_seq += 1
         self._tok[slot] = first
         self._pos[slot] = plen
         self._done[slot] = False
+        self.telemetry.req_admitted(req.uri, slot, priority=req.priority)
         self._record_token(slot, int(first))
 
-    def _pick_first(self, last_logits) -> int:
-        """The prefill's last-position logits (host numpy) give the
-        request's first token: greedy argmax."""
-        return int(np.argmax(last_logits))
+    @staticmethod
+    def _sampling(rows) -> dict:
+        """``pick_next``'s sampling keywords for rows carrying
+        ``temperature``/``rng_seed``/``top_p`` (requests or slots, in
+        batch order; ``None`` for an empty row): none when every row is
+        greedy, so greedy batches stay one argmax, and no ``top_ps``
+        unless some row asks for the nucleus filter."""
+        live = [r for r in rows if r is not None]
+        if not any(r.temperature > 0.0 for r in live):
+            return {}
+        temps = np.zeros(len(rows), np.float32)
+        seeds = np.zeros(len(rows), np.int64)
+        topps = np.zeros(len(rows), np.float32)
+        for i, r in enumerate(rows):
+            if r is not None:
+                temps[i] = r.temperature
+                seeds[i] = r.rng_seed or 0
+                topps[i] = r.top_p
+        out = dict(temps=temps, seeds=seeds)
+        if any(r.top_p > 0.0 for r in live):
+            out["top_ps"] = topps
+        return out
+
+    def _pick_first(self, last_logits, reqs, plens) -> np.ndarray:
+        """First tokens of an admission group from its prefill's
+        last-position logits ``[k, V]`` (on the device): the same
+        ``pick_next`` as the decode ticks, at each row's last prompt
+        position ``plen - 1``; one transfer to the host for the
+        group."""
+        samp = {k: torch.as_tensor(v, device=last_logits.device)
+                for k, v in self._sampling(reqs).items()}
+        pos = torch.as_tensor(np.asarray(plens, np.int64) - 1,
+                              device=last_logits.device)
+        return pick_next(last_logits, pos, **samp).cpu().numpy()
 
     def _record_token(self, slot: int, token: int):
         """Append one generated token; finish + free the slot when done."""
         st = self._slots[slot]
         st.tokens.append(token)
+        self.telemetry.req_token(st.uri, slot)
         if st.on_token is not None:
             try:
                 st.on_token(st.uri, token, len(st.tokens) - 1)
@@ -889,6 +1178,7 @@ class ContinuousEngine:
             # refcounts drop + table row -> sink BEFORE the next device
             # step, so a recycled block can never see this row's writes
             self._release_slot_blocks(slot)
+        self.telemetry.req_finished(st.uri, slot, len(st.tokens))
         if st.on_done is not None:
             try:
                 st.on_done(st.uri, out)
@@ -896,16 +1186,145 @@ class ContinuousEngine:
                 logger.exception("continuous-batching on_done callback "
                                  "failed for %r", st.uri)
 
+    @torch.no_grad()
     def step(self) -> int:
         """One engine iteration: admit joiners, then advance every
         resident by up to ``ticks_per_step`` tokens (capped by the
         largest remaining token budget among residents; a slot's
         surplus tokens are dropped host-side, and EOS mid-step freezes
         the row like generate()'s frozen tail).  Returns the number of
-        active slots afterwards (0 = idle)."""
+        active slots afterwards (0 = idle).  Runs under
+        ``torch.no_grad()`` itself: grad mode is per thread, and the
+        server calls this from its pump thread."""
         if self.n_active == 0 and not self._waiting:
             return 0
-        return self._step_impl()
+        if self._fault is not None:
+            self._fault_tick()
+        t0 = time.monotonic()
+        n = self._step_impl()
+        dur = time.monotonic() - t0
+        samples = self._tick_samples(n)
+        self.telemetry.tick(t0, dur, samples)
+        if self.flight is not None:
+            self._flight_record(t0, dur, samples)
+        return n
+
+    def _fault_tick(self) -> None:
+        """Apply the due engine-side fault actions for this busy tick
+        (``serving/fault.py``): ``freeze_tick`` sleeps here, an
+        ``alloc_storm`` tick records a pool allocation failure, and
+        ``raise_step`` escapes as ``InjectedFault`` out of ``step()``."""
+        acts = self._fault.tick_actions(self._replica_id)
+        if not acts:
+            return
+        freeze = acts.get("freeze_s", 0.0)
+        if freeze > 0:
+            time.sleep(freeze)
+        if acts.get("alloc_fail") and self._pool is not None:
+            self._pool.alloc_failures += 1
+        msg = acts.get("raise_step")
+        if msg:
+            from analytics_zoo_tpu_torch.serving.fault import InjectedFault
+            raise InjectedFault(msg)
+
+    def _tick_samples(self, n_active: int) -> dict:
+        """Post-tick residency and queue/pool pressure as host ints:
+        the per-tick sample row of the telemetry event log (every
+        resident of this engine decodes)."""
+        samples = {"active": n_active, "decode_rows": n_active,
+                   "prefill_rows": 0,
+                   "queue_depth": len(self._waiting)}
+        if self._pool is not None:
+            samples["free_blocks"] = self._pool.allocatable()
+        return samples
+
+    def _flight_record(self, ts: float, dur: float,
+                       samples: dict) -> None:
+        """Append one tick snapshot to the flight ring: the telemetry
+        samples, the resident rows, the read path, and the per-tick
+        deltas of the preemption and allocation-failure counters, in
+        the reference's schema for the ported modes."""
+        last = self._flight_last
+
+        def delta(key: str, cur: int) -> int:
+            d = cur - last[key]
+            last[key] = cur
+            return d
+
+        rec = dict(samples)
+        rec["seq"] = self.flight.next_seq()
+        rec["ts"] = round(ts, 6)
+        rec["dur_ms"] = round(dur * 1e3, 3)
+        rec["kind"] = "decode"
+        rec["kernel"] = self.kernel if self.paged else "dense"
+        rec["kv_dtype"] = self.kv_dtype
+        rec["kv_bytes_per_token"] = self._kv_bytes_per_token
+        rec["decode_uris"] = [s.uri for s in self._slots if s is not None]
+        rec["prefill_uris"] = []
+        rec["preempted"] = delta("preempt", self._preemptions)
+        rec["compiles"] = 0     # eager PyTorch compiles nothing
+        if self._pool is not None:
+            rec["used_blocks"] = self._pool.num_referenced()
+            rec["n_blocks"] = self._pool.n_blocks
+            for key in ("pool_resizes", "handoffs_out", "handoffs_in",
+                        "kv_spills", "kv_readmits"):
+                rec[key] = 0
+            fails = delta("alloc_fail", self._pool.alloc_failures)
+            rec["alloc_failures"] = fails
+            # consecutive ticks with at least one failed allocation
+            self._alloc_fail_streak = \
+                self._alloc_fail_streak + 1 if fails else 0
+            rec["alloc_fail_streak"] = self._alloc_fail_streak
+        self.flight.record(rec)
+
+    # ---- accessors the serving layer reads ---------------------------
+
+    @property
+    def record_timings(self) -> bool:
+        """Whether per-request stamps are kept for
+        ``pop_request_timings`` (the histograms are always on)."""
+        return self.telemetry.keep_request_stamps
+
+    @record_timings.setter
+    def record_timings(self, v: bool) -> None:
+        self.telemetry.keep_request_stamps = bool(v)
+
+    def pop_request_timings(self) -> Dict[str, dict]:
+        """Drain the per-request stamps kept under ``record_timings``:
+        uri -> {"arrival": t, "token_times": [...]}
+        (``time.monotonic()`` seconds)."""
+        return self.telemetry.pop_request_stamps()
+
+    @property
+    def alloc_fail_streak(self) -> int:
+        """Consecutive ticks whose flight record saw a block-pool
+        allocation failure (0 when not paged or healthy)."""
+        return self._alloc_fail_streak
+
+    @property
+    def brownout_level(self) -> int:
+        return 0
+
+    @property
+    def deadline_sheds(self) -> int:
+        return 0
+
+    def set_brownout(self, level: int, standard_max_new: int = 0) -> None:
+        """The broker's brownout ladder: level 0 is the only level this
+        engine serves (item 4.5)."""
+        if int(level) > 0:
+            raise _later("brownout (set_brownout level > 0)", "4.5")
+
+    def spec_acceptance(self) -> Optional[dict]:
+        """No draft model, so no speculative acceptance record."""
+        return None
+
+    def maybe_autoresize(self, goodput: Optional[Dict[str, float]] = None
+                         ) -> int:
+        raise _later("the elastic pool (maybe_autoresize)", "4.6")
+
+    def submit_handoff(self, state: dict) -> None:
+        raise _later("prefill/decode handoff (submit_handoff)", "4.6")
 
     def _step_impl(self) -> int:
         self._admit()
@@ -923,7 +1342,7 @@ class ContinuousEngine:
             self.ticks_per_step,
             max(self._slots[i].max_new - len(self._slots[i].tokens)
                 for i in active)))
-        toks = self._decode_ticks(n_eff)            # [n_eff, S]
+        toks = self._decode_ticks(n_eff, self._sampling(self._slots))
         for i in active:
             for j in range(n_eff):
                 if self._slots[i] is None:
@@ -932,8 +1351,7 @@ class ContinuousEngine:
         self._admit()       # freed slots recycle on the SAME iteration
         return self.n_active
 
-    @torch.no_grad()
-    def _decode_ticks(self, n_ticks: int) -> np.ndarray:
+    def _decode_ticks(self, n_ticks: int, sampling: dict) -> np.ndarray:
         """Advance every slot ``n_ticks`` tokens.  Arena: each row writes
         and reads its own slot; a free or finished row writes garbage at
         its frozen position, which the next occupant overwrites before
@@ -941,9 +1359,12 @@ class ContinuousEngine:
         their table rows are all SINK) write and read only the sink
         block's garbage, which their frozen/ignored outputs never
         surface.  A slot that hits EOS mid-step keeps stepping, fed eos.
+        ``sampling``: ``pick_next``'s keywords over the ``S`` slots.
         Returns the tokens ``[n_ticks, S]`` in emission order and leaves
         the host-side tok/pos/done advanced."""
         dev = self.device
+        samp = {k: torch.as_tensor(v, device=dev)
+                for k, v in sampling.items()}
         tok = torch.as_tensor(self._tok, device=dev)
         pos = torch.as_tensor(self._pos, device=dev)
         done = torch.as_tensor(self._done, device=dev)
@@ -959,7 +1380,7 @@ class ContinuousEngine:
                 logits = self.model.decode_step(tok, self._ck, self._cv,
                                                 pos)
             self.decode_ticks += 1
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = pick_next(logits, pos, **samp)
             if self.eos_id is not None:
                 nxt = torch.where(done, torch.full_like(nxt, self.eos_id),
                                   nxt)
@@ -972,6 +1393,7 @@ class ContinuousEngine:
         self._done = done.cpu().numpy()
         return torch.stack(out).cpu().numpy()
 
+    @torch.no_grad()
     def drain(self, max_ticks: int = 100_000) -> None:
         """Run steps until every submitted request has finished."""
         for _ in range(max_ticks):

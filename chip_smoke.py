@@ -96,6 +96,30 @@ fails.  Phases, in order:
    ``kernel_ms`` the kernel's own device time a launch, by
    torch.profiler (for paged, split and combine summed per call).
 
+7b. One profiled Llama training step.
+8. The serving stack on the card: ``InferenceModel.load_torch_generator``
+   -> ``ClusterServing`` (embedded RESP broker, pump thread) ->
+   ``HttpFrontend`` -> ``POST /v1/generate``.  8a, a 2-layer f32 model
+   at TinyLlama width in three modes (micro-batch, continuous arena,
+   continuous paged with ``engine_kernel="fused"``): greedy tokens equal
+   ``generate`` on the card, a stream's token events equal its final
+   result, sampled requests equal the engine driven directly with the
+   same seeds, ``/metrics`` carries the engine's families, each engine
+   mode launched its kernel for every device call it made, and the
+   sampler's draws on the card equal the CPU's on the same logits.  8b,
+   phase 6b's 22-layer bf16 model: phase 4's 16 requests through
+   ``/v1/generate`` from 8 client threads (every other one streamed,
+   four sampled with a seed each) on a paged server of the default
+   config, whose engine must resolve the ``fused`` kernel, then an arena
+   server (the sharers under a ``register_prefix`` id); every response
+   has 32 tokens, streams equal their final results, the launch counts
+   match the engines' device calls, and at most ``MAX_RESETS`` connects
+   are reset; each mode alternates ``STACK_ROUNDS`` pairs of a stack run
+   and the same requests served by an engine driven directly, and
+   prints their tokens/s and mean time to first token with the spread.
+   The kernels line gains each kernel's launches in 8b
+   (``stack_launches``) and a ``stack`` key with every pair's numbers.
+
 The last line is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --paged-rounds N`` runs none of the phases: it
@@ -108,12 +132,15 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import http.client
 import itertools
 import json
 import math
 import re
+import socketserver
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -123,10 +150,14 @@ import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.common.config import TrainConfig
 from analytics_zoo_tpu_torch.learn import Estimator
-from analytics_zoo_tpu_torch.models.lm import TransformerLM, lm_loss
+from analytics_zoo_tpu_torch.learn.inference_model import InferenceModel
+from analytics_zoo_tpu_torch.models.lm import (TransformerLM, generate,
+                                               lm_loss, pick_next)
 from analytics_zoo_tpu_torch.ops import _build
 from analytics_zoo_tpu_torch.ops import flash_attention as fa
 from analytics_zoo_tpu_torch.parallel.ring_attention import full_attention
+from analytics_zoo_tpu_torch.serving import (ClusterServing, HttpFrontend,
+                                             OutputQueue, ServingConfig)
 from analytics_zoo_tpu_torch.serving.continuous import ContinuousEngine
 
 # GPT-2 small, as analytics_zoo_tpu/net/hf_net.py builds it
@@ -238,6 +269,25 @@ PAGED_KERNELS = ("paged_attention_", "paged_combine_kernel")
 MAIN = dict(max_new_tokens=32, max_slots=8,
             prompt_buckets=(32, 64, 128, 256, 512))
 SHARED = 256
+# phase 8: the serving stack.  8a serves 2-layer f32 models at TinyLlama
+# width with STACK_NEW tokens; sampled requests draw at STACK_SAMPLING
+# with a seed each; 8b's 16 requests come from STACK_CLIENTS threads.
+STACK_NEW = 16
+STACK_BUCKETS = (32, 64, 128, 256)
+STACK_SAMPLING = dict(temperature=0.8, top_p=0.9)
+STACK_SEEDS = (11, 22, 33, 44)
+STACK_CLIENTS = 8
+# 8b: which of phase 4's 16 requests sample (each with its own seed)
+STACK_SAMPLED = (1, 4, 9, 14)
+STACK_TIMEOUT = 600
+# 8b: alternating (stack, direct) pairs a server mode runs, each on a
+# fresh server and a fresh engine, for the spread of the stack's cost
+STACK_ROUNDS = 2
+# /metrics families a continuous stack must expose
+STACK_FAMILIES = ("zoo_engine_ttft_seconds", "zoo_engine_tpot_seconds",
+                  "zoo_engine_queue_depth", "zoo_engine_active_slots",
+                  "zoo_engine_tick_seconds", "zoo_engine_ticks_total",
+                  "zoo_engine_tokens_emitted_total")
 # the paged engine's table width: ceil((512-token bucket + 32 new) / 16)
 PAGED_M = 34
 
@@ -1518,6 +1568,497 @@ def phase_build():
         raise AssertionError("; ".join(faults))
 
 
+def start_stack(im, **cfg):
+    """A ClusterServing on an embedded broker and an HttpFrontend in
+    front of it, both on free local ports."""
+    srv = ClusterServing(im, ServingConfig(prompt_col="tokens", **cfg),
+                         embedded_broker=True).start()
+    try:
+        fe = HttpFrontend(redis_port=srv.port, timeout=STACK_TIMEOUT,
+                          serving=srv).start()
+    except Exception:
+        srv.stop()
+        raise
+    return srv, fe
+
+
+# connections reset before any answer byte: the frontend's
+# ThreadingHTTPServer listens with socketserver's backlog of 5, and a
+# burst of more simultaneous connects than that was seen reset on the
+# card's machine with no handler logging an error; such a request never
+# reached a handler, so the client sends it again.  A run may see at
+# most the connects its clients make beyond the backlog reset
+# (check_resets); more fail the phase.
+CONNECT_RETRIES = {"n": 0}
+MAX_RESETS = max(0, STACK_CLIENTS - socketserver.TCPServer.request_queue_size)
+
+
+def check_resets(name):
+    """Fails when more connects were reset than the clients' burst
+    beyond the listen backlog explains; returns the count."""
+    n = CONNECT_RETRIES["n"]
+    if n > MAX_RESETS:
+        raise AssertionError(f"{name}: {n} connects reset before an "
+                             f"answer, more than {MAX_RESETS}")
+    return n
+
+
+def http_generate(port, body, stream=False):
+    """One ``POST /v1/generate``.  Returns (tokens, seconds from the
+    request to the first token for a stream or to the answer otherwise,
+    uri).  A stream's token events must arrive with indices 0, 1, ...
+    and end with ``done``.  A connection reset before the answer's
+    status line is retried (up to 5 times, counted in
+    ``CONNECT_RETRIES``); the time counts from the first attempt."""
+    t0 = time.monotonic()
+    for attempt in range(6):
+        conn = http.client.HTTPConnection("127.0.0.1", port,
+                                          timeout=STACK_TIMEOUT)
+        try:
+            conn.request("POST", "/v1/generate", json.dumps(
+                dict(body, stream=stream)),
+                {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            break
+        except (ConnectionResetError, ConnectionRefusedError,
+                BrokenPipeError):
+            conn.close()
+            if attempt == 5:
+                raise
+            CONNECT_RETRIES["n"] += 1
+            time.sleep(0.05)
+    try:
+        if resp.status != 200:
+            raise AssertionError(f"/v1/generate answered {resp.status}: "
+                                 f"{resp.read()[:400]!r}")
+        if not stream:
+            out = json.loads(resp.read())
+            return (np.asarray(out["tokens"], np.int32),
+                    time.monotonic() - t0, out["uri"])
+        toks, first, uri, event, done = [], None, None, None, False
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+                continue
+            if not line.startswith("data: "):
+                continue
+            data = json.loads(line[len("data: "):])
+            if event == "start":
+                uri = data["uri"]
+            elif event == "token":
+                if first is None:
+                    first = time.monotonic() - t0
+                if data["index"] != len(toks):
+                    raise AssertionError(f"SSE token index {data['index']} "
+                                         f"after {len(toks)} tokens")
+                toks.append(data["token"])
+            elif event == "done":
+                done = True
+                break
+            else:
+                raise AssertionError(f"SSE event {event}: {data}")
+        if not done:
+            raise AssertionError(f"SSE stream of {uri} ended without done")
+        return np.asarray(toks, np.int32), first, uri
+    finally:
+        conn.close()
+
+
+def check_stream_final(srv, uri, toks):
+    """A streamed request's token events against the final result the
+    server published for it."""
+    final = np.asarray(OutputQueue(port=srv.port).query(
+        uri, timeout=STACK_TIMEOUT), np.int32)
+    if not np.array_equal(final, toks):
+        raise AssertionError(f"{uri}: SSE tokens {toks} != final {final}")
+
+
+def metrics_families(port):
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=STACK_TIMEOUT)
+    try:
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        text = resp.read().decode()
+    finally:
+        conn.close()
+    fams = {line.split()[2] for line in text.splitlines()
+            if line.startswith("# TYPE ")}
+    missing = [f for f in STACK_FAMILIES if f not in fams]
+    if resp.status != 200 or missing:
+        raise AssertionError(f"/metrics ({resp.status}) lacks {missing}")
+    return fams
+
+
+def engine_counts(srv):
+    """(prefill calls, decode ticks) summed over the stack's engines."""
+    return (sum(e.prefill_calls for e in srv.engines),
+            sum(e.decode_ticks for e in srv.engines))
+
+
+def check_stack_launches(name, srv, before, paged, flash, layers,
+                         registrations=0):
+    """The kernels a stack's run launched against its engines' device
+    calls: a paged engine reads every attention call through the paged
+    kernel, an arena engine every admission prefill (and prefix
+    registration) through the flash forward; a zero count fails."""
+    prefills, ticks = (a - b for a, b in zip(engine_counts(srv), before))
+    if srv.config.engine_paged:
+        want = {"paged": (prefills + ticks) * layers, "flash": 0}
+    else:
+        want = {"paged": 0,
+                "flash": (prefills + registrations) * layers}
+    got = {"paged": paged, "flash": flash}
+    print(f"  {name}: paged launches {paged}, flash launches {flash} "
+          f"(prefill calls {prefills}, decode ticks {ticks}, x {layers} "
+          f"layers)")
+    if got != want or not max(got.values()):
+        raise AssertionError(f"{name}: launches {got} != {want}: the "
+                             f"plain path ran")
+
+
+def check_draws_cpu_vs_card(dev):
+    """The sampler's draws on the card equal the CPU's on the same
+    logits: the counter-based uniforms are int64 arithmetic on both."""
+    g = torch.Generator().manual_seed(5)
+    n, vocab = 64, TINYLLAMA["vocab_size"]
+    logits = 3 * torch.randn(n, vocab, generator=g)
+    pos = torch.arange(n) * 37
+    seeds = torch.arange(n) * 7919 + 1
+    temps = torch.where(torch.arange(n) % 8 == 0, 0.0, 0.8)
+    top_ps = torch.where(torch.arange(n) % 2 == 0, 0.9, 0.0)
+    cpu = pick_next(logits, pos, temps, seeds, top_ps)
+    card = pick_next(logits.to(dev), pos.to(dev), temps.to(dev),
+                     seeds.to(dev), top_ps.to(dev)).cpu()
+    differ = int((cpu != card).sum())
+    print(f"  sampler draws, card vs CPU on the same logits ({n} rows x "
+          f"vocab {vocab}): {n - differ} of {n} equal")
+    if differ:
+        raise AssertionError(f"{differ} draws differ between the card "
+                             f"and the CPU")
+
+
+def phase_stack_f32(dev, card):
+    """8a: ``ClusterServing`` + ``HttpFrontend`` over a 2-layer f32 model
+    at TinyLlama width in three modes: greedy tokens through
+    ``/v1/generate`` equal ``generate`` on the card, a stream equals its
+    final result, sampled tokens equal the engine driven directly with
+    the same seeds, and the engine modes launch their kernels."""
+    print("== phase 8a: serving stack (ClusterServing + HttpFrontend), "
+          "TinyLlama width, 2 layers, f32")
+    torch.manual_seed(0)
+    model = TransformerLM(**TINYLLAMA, num_layers=2, dtype=torch.float32)
+    im = InferenceModel().load_torch_generator(
+        model, None, STACK_NEW, prompt_buckets=STACK_BUCKETS, device=dev)
+    vocab = TINYLLAMA["vocab_size"]
+    reqs, _ = prompts(np.random.default_rng(1),
+                      [80, 70, 20, 45, 130, 200, 33, 250], 64, (0, 5),
+                      vocab=vocab)
+    # the reference: generate on the card, each prompt padded to its
+    # bucket as the stack pads it
+    ref = {}
+    for uri, p in reqs:
+        pb = next(b for b in STACK_BUCKETS if len(p) <= b)
+        padded = np.zeros((1, pb), np.int32)
+        padded[0, :len(p)] = p
+        ref[uri] = generate(model, None, padded, STACK_NEW,
+                            prompt_len=[len(p)], device=dev)[0].cpu().numpy()
+    modes = {
+        "micro-batch": dict(batch_size=8, batch_timeout_ms=5.0),
+        # an arena has no paged read: no kernel string to pick
+        "continuous arena": dict(continuous_batching=True, engine_slots=4,
+                                 engine_kernel=None),
+        "continuous paged": dict(continuous_batching=True, engine_slots=4,
+                                 engine_paged=True, engine_block_size=16,
+                                 engine_kernel="fused")}
+    for name, cfg in modes.items():
+        t0 = time.monotonic()
+        srv, fe = start_stack(im, **cfg)
+        try:
+            before = engine_counts(srv) if srv.engines else (0, 0)
+            CONNECT_RETRIES["n"] = 0
+            fa.paged_attention_fused.launches = 0
+            fa.flash_attention_fused.launches = 0
+            for uri, p in reqs:
+                toks, _, _ = http_generate(fe.port, {"tokens": p.tolist()})
+                same_tokens({uri: toks}, {uri: ref[uri]},
+                            f"{name} /v1/generate != generate")
+            paged = fa.paged_attention_fused.launches
+            flash = fa.flash_attention_fused.launches
+            if not srv.engines:
+                # the micro-batch path runs generate, whose prefill is
+                # the reference's block-causal cached attention: no
+                # kernel in either package; it streams no tokens
+                print(f"  {name}: paged launches {paged}, flash launches "
+                      f"{flash} (generate's cached prefill and decode)")
+                if paged or flash:
+                    raise AssertionError(f"{name}: unexpected launches")
+                print(f"  {name}: {len(reqs)} requests equal generate in "
+                      f"{time.monotonic() - t0:.1f} s")
+                continue
+            uri, p = reqs[2]
+            toks, _, sse_uri = http_generate(fe.port, {"tokens": p.tolist()},
+                                             stream=True)
+            same_tokens({uri: toks}, {uri: ref[uri]},
+                        f"{name} SSE != generate")
+            check_stream_final(srv, sse_uri, toks)
+            paged = fa.paged_attention_fused.launches
+            flash = fa.flash_attention_fused.launches
+            check_stack_launches(name, srv, before, paged, flash,
+                                 model.num_layers)
+            metrics_families(fe.port)
+            # sampled: the stack against the engine driven directly,
+            # one request at a time on both sides
+            got = {}
+            for seed, (uri, p) in zip(STACK_SEEDS, reqs):
+                got[uri], _, _ = http_generate(
+                    fe.port, dict(tokens=p.tolist(), seed=seed,
+                                  **STACK_SAMPLING))
+            check_resets(name)
+        finally:
+            fe.stop()
+            srv.stop()
+        eng = im.make_continuous_engine(
+            max_slots=cfg["engine_slots"],
+            paged=cfg.get("engine_paged", False),
+            block_size=cfg.get("engine_block_size", 16),
+            kernel=cfg["engine_kernel"])
+        direct = {}
+        for seed, (uri, p) in zip(STACK_SEEDS, reqs):
+            eng.submit(uri, p, lambda u, t: direct.__setitem__(u, t),
+                       rng_seed=seed, **STACK_SAMPLING)
+            eng.drain()
+        same_tokens(got, direct, f"{name} sampled stack != direct engine")
+        greedy = sum(np.array_equal(got[u], ref[u]) for u in got)
+        print(f"  {name}: {len(reqs) + 1} greedy requests equal generate, "
+              f"{len(got)} sampled equal the direct engine ({greedy} of "
+              f"them equal greedy), /metrics families present, in "
+              f"{time.monotonic() - t0:.1f} s")
+        del eng
+    check_draws_cpu_vs_card(dev)
+    del model, im
+    free_memory()
+
+
+def stack_bodies(reqs, shared=None, pid=None):
+    """Phase 4's requests as ``/v1/generate`` bodies: every other one
+    streamed, ``STACK_SAMPLED`` sampled with a seed each; with ``pid``
+    the sharers send their suffix under that prefix id."""
+    bodies = []
+    for i, (uri, p) in enumerate(reqs):
+        body = {"tokens": p.tolist()}
+        if pid is not None and np.array_equal(p[:len(shared)], shared):
+            body = {"tokens": p[len(shared):].tolist(), "prefix": pid}
+        if i in STACK_SAMPLED:
+            body.update(seed=1000 + i, **STACK_SAMPLING)
+        bodies.append((uri, body, i % 2 == 0))
+    return bodies
+
+
+def drive_clients(port, bodies):
+    """``bodies`` through ``STACK_CLIENTS`` client threads, all started
+    together.  Returns (uri -> (tokens, first-token seconds, server
+    uri, streamed), wall seconds)."""
+    out, errors = {}, []
+    todo = list(bodies)
+    lock = threading.Lock()
+    barrier = threading.Barrier(STACK_CLIENTS)
+
+    def client():
+        barrier.wait()
+        while True:
+            with lock:
+                if not todo:
+                    return
+                uri, body, stream = todo.pop(0)
+            try:
+                toks, first, suri = http_generate(port, body, stream)
+                out[uri] = (toks, first, suri, stream)
+            except Exception as e:     # reported by the caller
+                errors.append(f"{uri}: {e!r}")
+
+    threads = [threading.Thread(target=client)
+               for _ in range(STACK_CLIENTS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(STACK_TIMEOUT)
+    secs = time.monotonic() - t0
+    if errors or len(out) != len(bodies):
+        raise AssertionError(f"stack requests failed: {errors}")
+    return out, secs
+
+
+def direct_run(im, engine_kw, reqs, bodies, shared=None):
+    """The same requests (sampling and prefix included) served by an
+    engine built as the stack builds its own, driven directly in the
+    same closed loop as the stack's clients: after the warm-up pair,
+    ``STACK_CLIENTS`` requests are submitted and each finished request
+    submits the next.  Returns (tokens/s, mean ms from a request's
+    submit to its first token over all, over the ones the stack
+    streamed)."""
+    eng = im.make_continuous_engine(**engine_kw)
+    pid = None if shared is None else eng.register_prefix(shared)
+    warm, _, _ = main_stream(TINYLLAMA["vocab_size"])
+    for uri, p in warm:
+        eng.submit("warm-" + uri, p)
+    eng.drain()
+    out, first, sent = {}, {}, {}
+    todo = list(bodies)
+
+    def on_token(u, tok, idx):
+        if idx == 0:
+            first[u] = time.monotonic() - sent[u]
+
+    def submit_next():
+        if not todo:
+            return
+        uri, body, _ = todo.pop(0)
+        kw = {k: body[k] for k in ("temperature", "top_p") if k in body}
+        if "seed" in body:
+            kw["rng_seed"] = body["seed"]
+        sent[uri] = time.monotonic()
+        eng.submit(uri, np.asarray(body["tokens"], np.int32), on_done,
+                   on_token=on_token,
+                   prefix=pid if "prefix" in body else None, **kw)
+
+    def on_done(u, t):
+        out[u] = t
+        submit_next()
+
+    t0 = time.monotonic()
+    for _ in range(STACK_CLIENTS):
+        submit_next()
+    eng.drain()
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    check_served(out, reqs, TINYLLAMA["vocab_size"])
+    streamed = [u for u, _, s in bodies if s]
+    return (sum(len(t) for t in out.values()) / secs,
+            1e3 * np.mean(list(first.values())),
+            1e3 * np.mean([first[u] for u in streamed]))
+
+
+def stack_run(im, card, name, cfg, warm, reqs, shared, layers):
+    """One 8b run of the stream through a fresh server: every response
+    has its tokens, streams equal their final results, the launches
+    match the engines' device calls, connect resets stay within
+    ``MAX_RESETS``.  Returns the run's numbers."""
+    vocab = TINYLLAMA["vocab_size"]
+    srv, fe = start_stack(im, **cfg)
+    try:
+        if srv.config.engine_paged:
+            # the default config: the engine picks the kernel by shape
+            kernels = {e.kernel for e in srv.engines}
+            if kernels != {"fused"}:
+                raise AssertionError(f"{name}: a default paged server "
+                                     f"resolved kernel {kernels}")
+        pid = None if name == "paged" else srv.register_prefix(shared)
+        for uri, p in warm:
+            http_generate(fe.port, {"tokens": p.tolist()})
+        bodies = stack_bodies(reqs, shared, pid)
+        CONNECT_RETRIES["n"] = 0
+        before = engine_counts(srv)
+        fa.paged_attention_fused.launches = 0
+        fa.flash_attention_fused.launches = 0
+        out, secs = drive_clients(fe.port, bodies)
+        torch.cuda.synchronize()
+        paged = fa.paged_attention_fused.launches
+        flash = fa.flash_attention_fused.launches
+        resets = check_resets(f"8b {name} server")
+        check_served({u: o[0] for u, o in out.items()}, reqs, vocab)
+        for uri, (toks, _, suri, stream) in out.items():
+            if stream:
+                check_stream_final(srv, suri, toks)
+        check_stack_launches(f"8b {name} server", srv, before, paged,
+                             flash, layers)
+        metrics_families(fe.port)
+        ttft = srv.engines[0].telemetry.h_ttft.snapshot()
+    finally:
+        fe.stop()
+        srv.stop()
+    row = {"tokens_per_s": sum(len(o[0]) for o in out.values()) / secs,
+           "ttft_ms": 1e3 * np.mean([o[1] for o in out.values() if o[3]]),
+           "connect_resets": resets, "paged": paged, "flash": flash}
+    print(f"  [{card}] {name} stack: {len(out)} requests x "
+          f"{MAIN['max_new_tokens']} tokens in {secs:.3f} s: "
+          f"{row['tokens_per_s']:.1f} tokens/s, mean client-side time to "
+          f"first token {row['ttft_ms']:.1f} ms (the 8 streamed), engine "
+          f"TTFT p50 {1e3 * ttft.get('p50', float('nan')):.1f} ms over "
+          f"{ttft['count']} requests (warm-up included); SSE tokens "
+          f"equal the final results; {resets} reset connects sent again")
+    return row
+
+
+def spread(rows, key):
+    vals = sorted(r[key] for r in rows)
+    return (f"median {float(np.median(vals)):.1f} "
+            f"[{vals[0]:.1f}-{vals[-1]:.1f}]")
+
+
+def phase_stack_llama(dev, card, model):
+    """8b: phase 4's stream at TinyLlama-1.1B width (phase 6b's model,
+    22 layers, bf16) through ``/v1/generate`` from ``STACK_CLIENTS``
+    client threads, half streamed and four sampled: a paged server with
+    the default config (whose engine must pick the ``fused`` kernel),
+    then an arena server (the sharers under a ``register_prefix`` id).
+    Each mode runs ``STACK_ROUNDS`` alternating pairs of a stack run and
+    the same requests through an engine driven directly, each on a
+    fresh server or engine.  Returns, per mode, the last stack run's
+    launches and every pair's numbers."""
+    print(f"== phase 8b: serving stack at TinyLlama-1.1B width "
+          f"({model.num_layers} layers, bf16): {len(STACK_SAMPLED)} of 16 "
+          f"requests sampled, every other one streamed, "
+          f"{STACK_CLIENTS} client threads, {STACK_ROUNDS} alternating "
+          f"stack/direct pairs a mode")
+    im = InferenceModel().load_torch_generator(
+        model, None, MAIN["max_new_tokens"],
+        prompt_buckets=MAIN["prompt_buckets"], device=dev)
+    warm, reqs, shared = main_stream(TINYLLAMA["vocab_size"])
+    out = {}
+    for name, cfg in (("paged", dict(engine_paged=True,
+                                     engine_block_size=16)),
+                      ("arena", {})):
+        cfg = dict(cfg, continuous_batching=True,
+                   engine_slots=MAIN["max_slots"])
+        engine_kw = dict(max_slots=MAIN["max_slots"],
+                         paged=cfg.get("engine_paged", False),
+                         block_size=16)
+        stack, direct = [], []
+        for r in range(STACK_ROUNDS):
+            for which in (("stack", "direct") if r % 2 == 0
+                          else ("direct", "stack")):
+                if which == "stack":
+                    stack.append(stack_run(im, card, name, cfg, warm, reqs,
+                                           shared, model.num_layers))
+                    continue
+                tps, ttft, ttft_streamed = direct_run(
+                    im, engine_kw, reqs,
+                    stack_bodies(reqs, shared,
+                                 0 if name == "arena" else None),
+                    None if name == "paged" else shared)
+                direct.append({"tokens_per_s": tps, "ttft_ms": ttft,
+                               "ttft_streamed_ms": ttft_streamed})
+                print(f"  [{card}] {name} engine driven directly, same "
+                      f"requests, {STACK_CLIENTS} in flight: {tps:.1f} "
+                      f"tokens/s, mean time to first token {ttft:.1f} ms "
+                      f"({ttft_streamed:.1f} ms over the 8 the stack "
+                      f"streamed)")
+                free_memory()
+        print(f"  [{card}] {name}, {STACK_ROUNDS} pairs: stack tokens/s "
+              f"{spread(stack, 'tokens_per_s')} vs direct "
+              f"{spread(direct, 'tokens_per_s')}; time to first token "
+              f"(the 8 streamed) stack {spread(stack, 'ttft_ms')} ms vs "
+              f"direct {spread(direct, 'ttft_streamed_ms')} ms")
+        out[name] = {"paged": stack[-1]["paged"],
+                     "flash": stack[-1]["flash"],
+                     "pairs": [dict(stack=a, direct=b)
+                               for a, b in zip(stack, direct)]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1548,9 +2089,19 @@ def main() -> int:
     kernels = phase_timings(dev, paged_launches, paged_shapes,
                             flash_launches, shapes, train_launches, llama)
     phase_llama_profile(dev, llama_model)
+    phase_stack_f32(dev, card)
+    stack = phase_stack_llama(dev, card, llama_model)
+    for e in kernels:
+        # each kernel's launches in phase 8b's two servers (the paged
+        # server reads through paged, the arena prefills through flash)
+        e["stack_launches"] = (
+            stack["paged"]["paged"] if e["name"].startswith("paged")
+            else stack["arena"]["flash"]
+            if e["name"].startswith("flash_attention_fwd") else 0)
     print(f"whole run {time.monotonic() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "stack": {
+        name: run["pairs"] for name, run in stack.items()}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -297,10 +297,19 @@ def test_later_slice_modes_raise(models, kw, item):
 
 
 def test_sampled_submit_raises(models):
+    """Sampling is served now: a sampled submit without a seed raises
+    as in the reference, and the modes of later slices raise naming
+    their ROADMAP item."""
     eng = ContinuousEngine(models[2], device="cpu", **_ENGINE)
-    with pytest.raises(NotImplementedError, match="sampled"):
-        eng.submit("x", np.arange(1, 5, dtype=np.int32), temperature=0.7,
-                   rng_seed=1)
+    prompt = np.arange(1, 5, dtype=np.int32)
+    with pytest.raises(ValueError, match="rng_seed"):
+        eng.submit("x", prompt, temperature=0.7)
+    with pytest.raises(NotImplementedError, match="4.5"):
+        eng.submit("x", prompt, deadline_t=1.0)
+    with pytest.raises(NotImplementedError, match="4.6"):
+        eng.submit("x", prompt, handoff_cb=print)
+    eng.submit("x", prompt, temperature=0.7, rng_seed=1)
+    assert eng.n_waiting == 1
 
 
 def test_abort_releases_blocks(models):

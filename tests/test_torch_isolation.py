@@ -43,7 +43,20 @@ def test_scan_reaches_every_port_module():
             "analytics_zoo_tpu_torch.learn.objectives",
             "analytics_zoo_tpu_torch.learn.metrics",
             "analytics_zoo_tpu_torch.learn.estimator",
-            "analytics_zoo_tpu_torch.net.hf_net"} <= mods
+            "analytics_zoo_tpu_torch.net.hf_net",
+            "analytics_zoo_tpu_torch.common.log",
+            "analytics_zoo_tpu_torch.learn.inference_model",
+            "analytics_zoo_tpu_torch.serving",
+            "analytics_zoo_tpu_torch.serving.policy",
+            "analytics_zoo_tpu_torch.serving.telemetry",
+            "analytics_zoo_tpu_torch.serving.fault",
+            "analytics_zoo_tpu_torch.serving.kv_store",
+            "analytics_zoo_tpu_torch.serving.resp",
+            "analytics_zoo_tpu_torch.serving.frontdoor",
+            "analytics_zoo_tpu_torch.serving.flight",
+            "analytics_zoo_tpu_torch.serving.queues",
+            "analytics_zoo_tpu_torch.serving.server",
+            "analytics_zoo_tpu_torch.serving.http_frontend"} <= mods
 
 
 def test_forbidden_name_check_is_exact():

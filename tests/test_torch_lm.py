@@ -160,7 +160,7 @@ def test_generate_matches_jax(num_kv_heads):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref)
     assert (ref[0, 3:] == eos).all()            # row 0 froze at eos
-    with pytest.raises(NotImplementedError, match="item 4.1"):
+    with pytest.raises(ValueError, match="rng="):
         generate(tm, None, prompt, 8, temperature=0.7, device="cpu")
     with pytest.raises(NotImplementedError, match="item 2"):
         generate(tm, None, prompt, 8, prefill="scan", device="cpu")
