@@ -12,10 +12,13 @@ are padded up to ``prompt_buckets`` and batches up to the batch buckets,
 as in the reference; eager PyTorch compiles nothing per shape, so the
 buckets only keep the two packages' serving bounds identical.
 
-Weight quantization (ROADMAP Queue 1 item 7), speculative decoding
-(item 4.3) and the other model formats (``load_flax``, ``load_tf``,
-``load_openvino``, ``load_torch``: items 8 and 9) raise
-``NotImplementedError``.
+With a draft model (``load_torch_generator(draft_model=...,
+draft_variables=...)``) ``predict`` decodes speculatively
+(``models.speculative.speculative_generate``: the same greedy tokens,
+cumulative statistics in ``spec_stats``) and the continuous engine is a
+speculative one.  Weight quantization (ROADMAP Queue 1 item 7) and the
+other model formats (``load_flax``, ``load_tf``, ``load_openvino``,
+``load_torch``: items 8 and 9) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -92,6 +95,10 @@ class InferenceModel:
         self.prompt_pad_id: Optional[int] = None
         self._gen_max_new_tokens: Optional[int] = None
         self._gen_prompt_buckets: Optional[Tuple[int, ...]] = None
+        # speculative decoding (load_torch_generator's draft branch)
+        self.spec_stats: Optional[dict] = None
+        self._spec_stats_lock = threading.Lock()
+        self._spec_draft = None     # (draft model, variables, k)
 
     # ---- loading -----------------------------------------------------
 
@@ -101,7 +108,8 @@ class InferenceModel:
                                                               128),
                              pad_id: int = 0, device=None,
                              quantize: Optional[str] = None,
-                             draft_model=None, draft_variables=None
+                             draft_model=None, draft_variables=None,
+                             speculation_k: int = 4
                              ) -> "InferenceModel":
         """Serve autoregressive generation from a port ``TransformerLM``:
         ``predict`` takes right-padded prompts ``[B, P]`` (+ optional
@@ -110,9 +118,19 @@ class InferenceModel:
         ``model`` first (``None`` keeps its weights).  ``device``:
         ``cuda`` unless the caller names another.  Prompt widths pad up
         to the usable ``prompt_buckets``; missing lengths are inferred
-        as the non-``pad_id`` width of each row."""
+        as the non-``pad_id`` width of each row.
+
+        ``draft_model``/``draft_variables`` (together or neither; the
+        variables a ``state_dict``, as ``variables``) switch decoding
+        to SPECULATIVE: the draft proposes ``speculation_k`` tokens a
+        round and the target verifies them in one cached forward, with
+        the same greedy tokens.  The prompt buckets then leave room for
+        the k+1 verify positions in both models' position tables.
+        Cumulative statistics land in ``spec_stats``."""
         from analytics_zoo_tpu_torch.device import resolve_device
         from analytics_zoo_tpu_torch.models.lm import generate
+        from analytics_zoo_tpu_torch.models.speculative import (
+            load_draft, speculative_generate)
 
         if max_new_tokens is None or int(max_new_tokens) < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got "
@@ -120,15 +138,23 @@ class InferenceModel:
         max_new_tokens = int(max_new_tokens)
         if quantize:
             raise _later(f"quantize={quantize!r}", "7")
-        if draft_model is not None or draft_variables is not None:
-            raise _later("speculative decoding (draft_model)", "4.3")
+        if (draft_model is None) != (draft_variables is None):
+            raise ValueError("pass draft_model and draft_variables "
+                             "together (or neither)")
         dev = resolve_device(device)
         if variables is not None:
             model.load_state_dict(variables)
         self.model = model.to(dev).eval()
         self.device = dev
-        pbuckets = filter_prompt_buckets(prompt_buckets, model.max_position,
-                                         max_new_tokens)
+        # speculative decoding needs k+1 cache positions of slack and
+        # must fit BOTH position tables: checked here, so a request the
+        # serving bounds check admits cannot fail at predict time
+        eff_max_pos, eff_new = model.max_position, max_new_tokens
+        if draft_model is not None:
+            eff_max_pos = min(model.max_position, draft_model.max_position)
+            eff_new = max_new_tokens + int(speculation_k) + 1
+        pbuckets = filter_prompt_buckets(prompt_buckets, eff_max_pos,
+                                         eff_new)
         # the serving batcher bounds-checks ragged prompts with these
         # and cross-checks its pad id against the generator's
         self.max_prompt_width = pbuckets[-1]
@@ -137,9 +163,36 @@ class InferenceModel:
         self._gen_max_new_tokens = int(max_new_tokens)
         self._gen_prompt_buckets = pbuckets
 
-        def apply_fn(prompts, lengths):
-            return generate(self.model, None, prompts, max_new_tokens,
-                            prompt_len=lengths, device=dev)
+        self.spec_stats = None
+        self._spec_draft = None
+        if draft_model is not None:
+            load_draft(model, draft_model, draft_variables)
+            draft_model.to(dev).eval()
+            k = int(speculation_k)
+            self._spec_draft = (draft_model, draft_variables, k)
+
+            def apply_fn(prompts, lengths):
+                toks, stats = speculative_generate(
+                    self.model, None, draft_model, None, prompts,
+                    max_new_tokens, k=k, prompt_len=lengths, device=dev)
+                # cumulative since load; batch-bucket padding rows have
+                # length 0, so only real rows count
+                real = np.asarray(lengths) > 0
+                with self._spec_stats_lock:
+                    agg = self.spec_stats or {
+                        "rounds": 0, "emitted_tokens": 0, "row_rounds": 0}
+                    agg["rounds"] += stats["rounds"]
+                    agg["emitted_tokens"] += int(
+                        stats["per_row_emitted"][real].sum())
+                    agg["row_rounds"] += stats["rounds"] * int(real.sum())
+                    agg["mean_accepted_per_round"] = (
+                        agg["emitted_tokens"] / max(1, agg["row_rounds"]))
+                    self.spec_stats = agg
+                return toks
+        else:
+            def apply_fn(prompts, lengths):
+                return generate(self.model, None, prompts, max_new_tokens,
+                                prompt_len=lengths, device=dev)
 
         def pre_pad(inputs):
             prompts = np.asarray(inputs[0])
@@ -201,14 +254,27 @@ class InferenceModel:
         is the paged-attention read: ``None`` (the default) lets the
         engine choose by shape, "fused" wherever the CUDA kernel takes
         the model's head dim and block size; "gather" forces the plain
-        version.  Modes not ported yet raise in the engine, naming
-        their ROADMAP item."""
+        version.  A draft-loaded handle builds a speculative engine;
+        ``speculation_k`` overrides the depth stored at load (``None``
+        keeps it) and is refused without a draft.  Modes not ported yet
+        raise in the engine, naming their ROADMAP item."""
         from analytics_zoo_tpu_torch.serving.continuous import (
             ContinuousEngine)
 
         if self._gen_max_new_tokens is None:
             raise ValueError("continuous batching needs a model loaded "
                              "via load_torch_generator")
+        spec = {}
+        if self._spec_draft is not None:
+            draft, dvars, k = self._spec_draft
+            spec = dict(draft_model=draft, draft_variables=dvars,
+                        speculation_k=(k if speculation_k is None
+                                       else int(speculation_k)))
+        elif speculation_k is not None:
+            raise ValueError(
+                "speculation_k needs a draft model: load one via "
+                "load_torch_generator(draft_model=..., "
+                "draft_variables=...)")
         return ContinuousEngine(
             self.model, None,
             max_new_tokens=self._gen_max_new_tokens,
@@ -224,13 +290,13 @@ class InferenceModel:
             hbm_fraction=hbm_fraction,
             enable_prefix_cache=enable_prefix_cache,
             chunked=chunked, tick_token_budget=tick_token_budget,
-            speculation_k=speculation_k, elastic_pool=elastic_pool,
+            elastic_pool=elastic_pool,
             kv_host_store_bytes=kv_host_store_bytes,
             prefix_directory=prefix_directory, replica_id=replica_id,
             fault_injector=fault_injector,
             record_timings=record_timings, telemetry=telemetry,
             qos=qos, flight=flight, flight_capacity=flight_capacity,
-            device=self.device)
+            device=self.device, **spec)
 
     def load_flax(self, model, variables, quantize=None):
         raise _later("InferenceModel.load_flax (flax modules)", "8")

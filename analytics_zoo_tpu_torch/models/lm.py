@@ -565,6 +565,18 @@ class TransformerLM(nn.Module):
                                    kernel=kernel)
         return self._logits(self.ln_f(x))[:, 0]
 
+    def verify_step_paged(self, toks, pools_k, pools_v, tables, pos,
+                          kernel="fused"):
+        """:meth:`verify_step` against a paged cache: S tokens per row
+        in one block-causal forward, their K/V written through the block
+        tables (pools updated in place).  Returns logits ``[B, S, V]``.
+        All S entries are written; a caller that advances ``pos`` by
+        fewer than S leaves the surplus entries dead, and the next call
+        overwrites them before the causal mask reaches them: speculative
+        rollback copies no block."""
+        return self._logits(self.verify_hidden_paged(
+            toks, pools_k, pools_v, tables, pos, kernel=kernel))
+
     def verify_hidden_paged(self, toks, pools_k, pools_v, tables, pos,
                             limit=None, kernel="fused"):
         """S tokens per row in one block-causal forward against the

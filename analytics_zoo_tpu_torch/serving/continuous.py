@@ -1,8 +1,7 @@
 """Continuous batching for generative serving, on a slot arena or a
 paged KV cache.
 
-The port of ``analytics_zoo_tpu/serving/continuous.py`` in its two
-greedy modes.
+The port of ``analytics_zoo_tpu/serving/continuous.py``.
 
 - **Arena** (``paged=False``, the default, as in the reference): every
   slot owns a full-length row of one ``[n_layers, S, L, kv_heads, D]``
@@ -22,11 +21,34 @@ greedy modes.
   is PREEMPTED back to the queue front and regenerates the same tokens
   on readmission.
 
+- **Chunked prefill** (``chunked=True``, either cache): admission runs
+  no prefill; a request is installed PREFILLING and its prompt lands
+  chunk by chunk inside the ticks, next to the decodes, under a per-tick
+  token budget (``tick_token_budget``), so a long prompt does not stall
+  the residents.  A tick decodes every slot once and then runs the
+  tick's chunks in one ``prefill_chunk`` (arena, on a window of the
+  chunk rows' caches) or ``prefill_chunk_paged`` call (through block
+  tables sliced narrow to the fill frontier, writes limited to each
+  chunk's true length); a prompt's last chunk picks its first token.
+- **Speculative decoding** (``draft_model=``, either cache, greedy
+  only): a round runs k+1 cached draft steps, verifies the k proposals
+  of every row in one ``verify_step`` (arena) or ``verify_step_paged``
+  call, accepts each row's longest matching prefix
+  (``models.speculative.accept_proposals``) and advances each row by
+  its own count; rejected entries stay written past the pointer and
+  the next round overwrites them.  The draft keeps its own arena, or
+  its own block pool (a second pool tenant, grown and freed in
+  lockstep with the target's).  With ``chunked=True`` as well, a tick
+  with PREFILLING rows runs a spec round for the decoders and lands the
+  chunks in both models' caches.
+
 Decode is one ``decode_step`` (arena) or ``decode_step_paged`` per
 tick, ``ticks_per_step`` ticks per :meth:`ContinuousEngine.step` in a
 plain Python loop.  PyTorch runs eagerly, so nothing is compiled per
-shape and admission groups are not padded to a power of two; caches are
-updated in place where the JAX engine donates its buffers.
+shape; monolithic admission groups are not padded to a power of two,
+and chunk grids are (their row count and width bucketed as in the
+reference, padding rows on all-sink tables); caches are updated in
+place where the JAX engine donates its buffers.
 
 Every pick, the first token of an admission and each decode tick's, goes
 through ``models.lm.pick_next``: greedy argmax, or with ``temperature >
@@ -37,10 +59,10 @@ emits what ``generate`` emits for the same seed.
 The engine carries the reference's serving surface: the ``Telemetry``
 request-lifecycle hooks and scrape-time gauges (``/metrics``), the
 per-tick flight recorder, the fault injector's tick hook, and the
-accessors ``ClusterServing`` reads.  The other engine modes (chunked
-prefill, speculative decoding, QoS, brownout and deadlines, handoff,
-elastic pools, the host KV tier, tensor parallelism) raise
-``NotImplementedError`` naming their ROADMAP item.
+accessors ``ClusterServing`` reads.  The other engine modes (QoS,
+brownout and deadlines, handoff, elastic pools, the host KV tier,
+tensor parallelism) raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -50,7 +72,8 @@ import logging
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import (Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -59,6 +82,8 @@ from analytics_zoo_tpu_torch.device import resolve_device
 from analytics_zoo_tpu_torch.learn.inference_model import (
     _later, _next_bucket, filter_prompt_buckets)
 from analytics_zoo_tpu_torch.models.lm import TransformerLM, pick_next
+from analytics_zoo_tpu_torch.models.speculative import (
+    accept_proposals, load_draft)
 from analytics_zoo_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS, KV_SCALE_DTYPE, PAGED_MAX_BLOCK, QuantKV,
     paged_kernel_takes)
@@ -109,6 +134,20 @@ class _Slot:
     # LATEST admission, so preemption can never livelock)
     req: Optional[_Req] = None
     admit_seq: int = 0
+    # chunked-prefill state machine: a slot admits as "PREFILLING" and
+    # feeds its prompt to the cache chunk by chunk (fill_pos = next
+    # cache position to write, starting past any spliced/shared
+    # prefix); the tick its last chunk lands it emits its first token
+    # and flips to "DECODE".  ``full`` holds the not-yet-fed tokens
+    # (positions base..plen-1); ``hashes``/``n_pub`` track which full
+    # prompt blocks the paged path has already published for sharing.
+    plen: int = 0
+    state: str = "DECODE"
+    fill_pos: int = 0
+    base: int = 0
+    full: Optional[np.ndarray] = None
+    hashes: Optional[list] = None
+    n_pub: int = 0
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -120,8 +159,8 @@ class ContinuousEngine:
     """Continuous-batching engine over one ``TransformerLM``: the slot
     arena by default, a paged block pool with ``paged=True``.
 
-    Same constructor names as the JAX engine, minus the modes not ported
-    yet.  ``variables``, when given, is a ``state_dict`` (for example
+    Same constructor names as the JAX engine; the modes not ported yet
+    raise.  ``variables``, when given, is a ``state_dict`` (for example
     from ``models.lm.params_from_flax``) loaded into ``model`` before
     serving; ``None`` serves the model's own weights.  ``device``:
     ``cuda`` unless the caller names another; without a CUDA device
@@ -136,7 +175,8 @@ class ContinuousEngine:
     paged engine resolves ``None`` by shape, up front: ``"fused"`` where
     the kernel takes the model's head dim and the block size
     (``ops.flash_attention.paged_kernel_takes``), ``"gather"`` otherwise;
-    ``engine.kernel`` records the choice.  An explicit ``"fused"`` for a
+    ``engine.kernel`` records the choice; a draft tenant resolves its
+    own read by its own head dim.  An explicit ``"fused"`` for a
     shape the kernel does not take raises here, not at the first
     launch.  ``kv_dtype`` picks the pool's
     storage: ``None`` follows ``cache_dtype`` (itself defaulting to the
@@ -152,7 +192,19 @@ class ContinuousEngine:
     ``pop_request_timings``.  ``hbm_fraction`` (paged, ``n_blocks``
     unset) sizes the pool to that fraction of the device memory
     ``torch.cuda.mem_get_info`` reports; on the CPU it is ignored and
-    the pool is arena-equivalent, as in the reference.
+    the pool is arena-equivalent, as in the reference; with a draft
+    the fraction covers both tenants.
+
+    ``chunked=True`` streams prompts into the cache in chunks under
+    ``tick_token_budget`` tokens a tick (default: all slots' decode
+    positions plus one smallest-bucket chunk, at least one block; a
+    budget below the smallest prompt bucket or, paged, below
+    ``block_size`` raises).  ``draft_model`` with ``draft_variables``
+    (both required together; a state_dict, as ``variables``) switches
+    decoding to speculative rounds of ``speculation_k`` proposals
+    (greedy requests only); paged, the draft's pool holds
+    ``draft_n_blocks`` blocks (default ``n_blocks``).  Both compose with
+    either cache and with each other.
 
     Not thread-safe by itself: ``submit`` may be called from any
     thread, but ``step``/``drain``/``abort`` and ``register_prefix``/
@@ -172,10 +224,12 @@ class ContinuousEngine:
                  kernel: Optional[str] = None,
                  kv_dtype: Optional[str] = None,
                  mesh=None, partition_rules=None,
-                 draft_model=None,
-                 speculation_k: Optional[int] = None,
+                 draft_model: Optional[TransformerLM] = None,
+                 draft_variables: Optional[Dict[str, torch.Tensor]] = None,
+                 speculation_k: int = 4,
                  paged: bool = False, block_size: int = 16,
                  n_blocks: Optional[int] = None,
+                 draft_n_blocks: Optional[int] = None,
                  hbm_fraction: Optional[float] = None,
                  enable_prefix_cache: bool = True,
                  elastic_pool: bool = False,
@@ -192,13 +246,6 @@ class ContinuousEngine:
                  flight_capacity: int = 2048,
                  device=None):
         for on, what, item in (
-                (chunked, "chunked prefill", "4.2"),
-                (tick_token_budget is not None, "chunked prefill "
-                 "(tick_token_budget)", "4.2"),
-                (draft_model is not None, "speculative decoding "
-                 "(draft_model)", "4.3"),
-                (speculation_k is not None, "speculative decoding "
-                 "(speculation_k)", "4.3"),
                 (qos is not None, "QoS scheduling", "4.5"),
                 (elastic_pool, "elastic_pool", "4.6"),
                 (kv_host_store_bytes, "the host KV tier "
@@ -220,10 +267,26 @@ class ContinuousEngine:
                 f"kernel={kernel!r} / kv_dtype={kv_dtype!r} require "
                 f"paged=True: both select the paged-attention path "
                 f"(the arena engine has no block pool to apply them to)")
+        # speculative mode: greedy only (submit() rejects temperature >
+        # 0); each verify round advances every row by its own count
+        self._spec_k = int(speculation_k) if draft_model is not None else 0
+        if draft_model is not None:
+            if draft_variables is None:
+                raise ValueError("draft_model needs draft_variables")
+            if draft_model.vocab_size != model.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_model.vocab_size} != target "
+                    f"vocab {model.vocab_size}")
+            if self._spec_k < 1:
+                raise ValueError("speculation_k must be >= 1")
         self.device = resolve_device(device)
         if variables is not None:
             model.load_state_dict(variables)
         self.model = model.to(self.device).eval()
+        self.draft_model = None
+        if draft_model is not None:
+            load_draft(model, draft_model, draft_variables)
+            self.draft_model = draft_model.to(self.device).eval()
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
         self.pad_id = int(pad_id)
@@ -238,16 +301,31 @@ class ContinuousEngine:
         self.record_timings = bool(record_timings)
         self._replica_id = int(replica_id)
         self._fault = fault_injector
+        self._tick_kind = "decode"
         self._alloc_fail_streak = 0
-        self._flight_last = {"preempt": 0, "alloc_fail": 0}
+        # cumulative-counter baselines for the flight record's deltas
+        self._flight_last = {"preempt": 0, "chunks": 0, "budget_tokens": 0,
+                             "alloc_fail": 0, "draft_alloc_fail": 0,
+                             "spec_proposed": 0, "spec_accepted": 0}
         self._pool: Optional[BlockPool] = None
+        self._dpool: Optional[BlockPool] = None
         D = model.hidden_size // model.num_heads
         self.kernel = self._resolve_kernel(kernel, D, int(block_size))
+        # the draft tenant's read, resolved by its own shape
+        self._dkernel = None if draft_model is None else \
+            self._resolve_kernel(
+                kernel, draft_model.hidden_size // draft_model.num_heads,
+                int(block_size))
+        # speculative verify writes k+1 entries past the pointer, so the
+        # bucket limit tightens by k+1 and must fit BOTH position tables
+        eff_max_pos = model.max_position if draft_model is None else \
+            min(model.max_position, draft_model.max_position)
+        extra = self._spec_k + 1 if draft_model is not None else 0
         self.prompt_buckets = filter_prompt_buckets(
-            prompt_buckets, model.max_position, max_new_tokens)
+            prompt_buckets, eff_max_pos, max_new_tokens + extra)
         self.max_prompt_width = self.prompt_buckets[-1]
         S = int(max_slots)
-        L = self.max_prompt_width + self.max_new_tokens
+        L = self.max_prompt_width + self.max_new_tokens + extra
         self._S, self._L = S, L
         H = model.kv_heads
         cdtype = model.dtype if cache_dtype is None else cache_dtype
@@ -264,17 +342,26 @@ class ContinuousEngine:
         self._admit_seq = 0
         # device-call counters: chip runs check that every attention
         # call of these went through the selected kernel.  prefill_calls
-        # counts the admission prefills (arena: one ``prefill`` forward
-        # per prompt bucket; paged: one ``prefill_chunk_paged`` per
-        # suffix bucket, and one per ``register_prefix`` that has blocks
-        # to fill); prefill_shapes counts them by (rows, width) in the
-        # arena and by (rows, suffix bucket, each row's start position)
-        # in paged mode.
+        # counts the target's admission prefills (arena: one ``prefill``
+        # forward per prompt bucket; paged: one ``prefill_chunk_paged``
+        # per suffix bucket, and one per ``register_prefix`` that has
+        # blocks to fill); prefill_shapes counts them by (rows, width)
+        # in the arena and by (rows, suffix bucket, each row's start
+        # position) in paged mode.  decode_ticks counts the target's
+        # decode steps (fused chunked ticks included), chunk_calls the
+        # ticks' chunk calls, spec_rounds the verify rounds; the draft's
+        # calls are draft_prefill_calls (its admission prefills and
+        # prefix pins, counted like the target's) plus k+1 decode steps
+        # a round plus one chunk call per spec chunk call.
         self.decode_ticks = 0
         self.prefill_calls = 0
         self.prefill_shapes: collections.Counter = collections.Counter()
-        # register_prefix ids -> arena (ks, vs, P) / paged (tokens,
-        # pinned blocks)
+        self.chunk_calls = 0
+        self.draft_prefill_calls = 0
+        self._spec_rounds = 0
+        self._spec_emitted = 0
+        # register_prefix ids -> arena (ks, vs, P, dks, dvs) / paged
+        # (tokens, pinned blocks, pinned draft blocks)
         self._prefixes: Dict[int, tuple] = {}
         self._next_prefix_id = 0
         dev = self.device
@@ -284,14 +371,28 @@ class ContinuousEngine:
             self._cv = torch.zeros_like(self._ck)
             self._kv_bytes_per_token = \
                 2 * model.num_layers * H * D * cdtype.itemsize
+            if draft_model is not None:
+                dm = draft_model
+                dD = dm.hidden_size // dm.num_heads
+                self._dck = torch.zeros(
+                    (dm.num_layers, S, L, dm.kv_heads, dD), dtype=cdtype,
+                    device=dev)
+                self._dcv = torch.zeros_like(self._dck)
+                self._kv_bytes_per_token += \
+                    2 * dm.num_layers * dm.kv_heads * dD * cdtype.itemsize
         else:
             self._init_pool(model, S, L, H, D, cdtype, int(block_size),
-                            n_blocks, hbm_fraction, enable_prefix_cache)
-            self._kv_bytes_per_token = self._per_block_bytes // self._bs
+                            n_blocks, draft_n_blocks, hbm_fraction,
+                            enable_prefix_cache)
+            self._kv_bytes_per_token = (
+                self._per_block_bytes + self._draft_per_block_bytes) \
+                // self._bs
+        self._init_chunked(chunked, tick_token_budget)
         self.ticks_per_step = max(1, int(ticks_per_step))
         # host-side per-slot state (device copies travel per step)
         self._tok = np.zeros(S, np.int32)
         self._pos = np.zeros(S, np.int32)
+        self._dpos = np.zeros(S, np.int32)
         self._done = np.zeros(S, bool)
         self._slots: List[Optional[_Slot]] = [None] * S
         self._free = collections.deque(range(S))
@@ -299,24 +400,80 @@ class ContinuousEngine:
         self._waiting: collections.deque = collections.deque()
         self._register_engine_gauges()
 
+    def _init_chunked(self, chunked: bool,
+                      tick_token_budget: Optional[int]) -> None:
+        """The token-budget tick scheduler's state: the budget (by
+        default all S decode rows, at k+1 positions each under
+        speculation, plus one smallest-bucket chunk and at least one
+        paged block), the chunk widths (the prompt buckets the budget
+        can schedule) and the arena's read windows (powers of two up to
+        the cache length)."""
+        self.chunked = bool(chunked)
+        self._prefill_stall_ticks = 0
+        self._prefill_preemptions = 0
+        self._budget_tokens_used = 0
+        self._budget_ticks = 0
+        self.tick_token_budget: Optional[int] = None
+        if not self.chunked:
+            return
+        S, L = self._S, self._L
+        if tick_token_budget is None:
+            per_row = self._spec_k + 1
+            budget = max(self.prompt_buckets[0] + per_row * S,
+                         2 * per_row * S)
+            if self.paged:
+                budget = max(budget, self._bs)
+        else:
+            budget = int(tick_token_budget)
+            if budget < self.prompt_buckets[0]:
+                raise ValueError(
+                    f"tick_token_budget={budget} is below the smallest "
+                    f"chunk bucket {self.prompt_buckets[0]}: no prefill "
+                    f"chunk could ever be scheduled and admission would "
+                    f"livelock; raise the budget or add a smaller prompt "
+                    f"bucket")
+            if self.paged and budget < self._bs:
+                raise ValueError(
+                    f"tick_token_budget={budget} is below "
+                    f"block_size={self._bs}: a chunk could never cover "
+                    f"one paged block per tick; raise the budget or "
+                    f"shrink block_size")
+        self.tick_token_budget = budget
+        self._chunk_buckets = tuple(
+            b for b in self.prompt_buckets if b <= budget)
+        rb: List[int] = []
+        v = 8
+        while v < L:
+            rb.append(v)
+            v *= 2
+        rb.append(L)
+        self._read_buckets = tuple(rb)
+
     def _resolve_kernel(self, kernel: Optional[str], head_dim: int,
                         block_size: int) -> str:
-        """The paged-attention read this engine runs, decided by shape
-        before any launch (the arena reads through plain attention)."""
+        """One pool tenant's paged-attention read, decided by its shape
+        before any launch (the arena reads through plain attention).
+        The target and a draft resolve apart: a draft head dim the
+        kernel does not take leaves the target on the kernel."""
         if not self.paged:
             return "gather"
         takes = paged_kernel_takes(head_dim, block_size)
         if kernel == "fused" and not takes:
             raise ValueError(
                 f"kernel='fused': the paged-attention kernel does not take "
-                f"head dim {head_dim} with block_size {block_size} (head "
-                f"dims {KERNEL_HEAD_DIMS}, blocks of 1-{PAGED_MAX_BLOCK} "
-                f"tokens); pass kernel='gather' or None")
+                f"head dim {head_dim} with block_size "
+                f"{block_size} (head dims {KERNEL_HEAD_DIMS}, blocks of "
+                f"1-{PAGED_MAX_BLOCK} tokens); pass kernel='gather' or "
+                f"None")
         return kernel or ("fused" if takes else "gather")
 
     def _init_pool(self, model, S, L, H, D, cdtype, bs, n_blocks,
-                   hbm_fraction, enable_prefix_cache) -> None:
-        """The paged mode's block pool, device pools and tables."""
+                   draft_n_blocks, hbm_fraction,
+                   enable_prefix_cache) -> None:
+        """The paged mode's block pools, device pools and tables: the
+        target's, and with a draft model the draft's second tenant (its
+        own block ids, tables and allocator; stored in the cache dtype
+        even when the target pool is int8)."""
         if bs < 1:
             raise ValueError(f"block_size must be >= 1, got {bs}")
         M = -(-L // bs)         # logical blocks per row, ceil(L/bs)
@@ -325,13 +482,23 @@ class ContinuousEngine:
         else:
             per_block = 2 * model.num_layers * bs * H * D \
                 * cdtype.itemsize
+        dm = self.draft_model
+        draft_per_block = 0
+        if dm is not None:
+            dD = dm.hidden_size // dm.num_heads
+            draft_per_block = 2 * dm.num_layers * bs * dm.kv_heads * dD \
+                * cdtype.itemsize
         if n_blocks is None:
             lim = 0
             if hbm_fraction is not None and self.device.type == "cuda":
                 lim = int(torch.cuda.mem_get_info(self.device)[1])
             if lim:
+                # with a draft the byte budget covers BOTH tenants: the
+                # common block count splits it by per-block cost
                 n_blocks = max(M + 1, split_block_budget(
-                    int(lim * float(hbm_fraction)), (per_block,)))
+                    int(lim * float(hbm_fraction)),
+                    (per_block, draft_per_block) if dm is not None
+                    else (per_block,)))
             else:
                 if hbm_fraction is not None:
                     logger.warning(
@@ -350,6 +517,7 @@ class ContinuousEngine:
                 f"{bs} positions + the sink block 0)")
         self._bs, self._M = bs, M
         self._per_block_bytes = per_block
+        self._draft_per_block_bytes = draft_per_block
         self._pool = BlockPool(n_blocks, bs, enable_prefix_cache,
                                event_cb=self.telemetry.pool_event,
                                name="target", kv_dtype=self.kv_dtype,
@@ -373,6 +541,24 @@ class ContinuousEngine:
         # so stray writes land in storage nothing attends
         self._tables = np.full((S, M), SINK_BLOCK, np.int32)
         self._row_blocks: List[List[int]] = [[] for _ in range(S)]
+        if dm is None:
+            return
+        dnb = n_blocks if draft_n_blocks is None else int(draft_n_blocks)
+        if dnb < M + 1:
+            raise ValueError(
+                f"draft_n_blocks={dnb} cannot hold one full-length "
+                f"sequence: need >= {M + 1} ({M} logical blocks of {bs} "
+                f"positions + the sink block 0)")
+        self._dpool = BlockPool(dnb, bs, enable_prefix_cache,
+                                event_cb=self.telemetry.pool_event,
+                                name="draft", kv_dtype=_KV_LABELS[cdtype],
+                                bytes_per_block=draft_per_block)
+        dshape = (dm.num_layers, dnb, dm.kv_heads, bs,
+                  dm.hidden_size // dm.num_heads)
+        self._dpk = torch.zeros(dshape, dtype=cdtype, device=dev)
+        self._dpv = torch.zeros(dshape, dtype=cdtype, device=dev)
+        self._dtables = np.full((S, M), SINK_BLOCK, np.int32)
+        self._drow_blocks: List[List[int]] = [[] for _ in range(S)]
 
     @property
     def n_active(self) -> int:
@@ -385,8 +571,8 @@ class ContinuousEngine:
 
     def _register_engine_gauges(self) -> None:
         """Scrape-time gauges over engine and pool state, the
-        reference's families for the ported modes: each callback reads
-        the live value when ``/metrics`` is scraped.  Features not
+        reference's families: each callback reads the live value when
+        ``/metrics`` is scraped.  Features not
         ported yet (elastic pools, handoff, the host KV tier) keep their
         stable names at zero, as in a reference engine that has them
         off."""
@@ -406,12 +592,28 @@ class ContinuousEngine:
                 "HBM bytes one cached token position costs across all "
                 "layers and tenants",
                 fn=lambda: self._kv_bytes_per_token)
+        if self.chunked:
+            def _budget_util():
+                denom = self._budget_ticks * self.tick_token_budget
+                return (self._budget_tokens_used / denom) if denom \
+                    else 0.0
+
+            m.gauge("zoo_engine_budget_utilization",
+                    "mean filled fraction of the tick token budget",
+                    fn=_budget_util)
+            m.gauge("zoo_engine_prefill_stall_ticks_total",
+                    "ticks whose budget left no room for any chunk",
+                    fn=lambda: self._prefill_stall_ticks,
+                    kind="counter")
         if not self.paged:
             return
         m.gauge("zoo_engine_kv_pool_bytes",
                 "total HBM bytes of the paged KV pools (target + "
                 "draft, all blocks)",
-                fn=lambda: self._per_block_bytes * self._pool.n_blocks)
+                fn=lambda: (
+                    self._per_block_bytes * self._pool.n_blocks
+                    + (self._draft_per_block_bytes * self._dpool.n_blocks
+                       if self._dpool is not None else 0)))
 
         def _pool_read(key):
             return lambda: self._pool.metrics()[key]
@@ -464,13 +666,32 @@ class ContinuousEngine:
             m.gauge(name, hlp, fn=lambda: 0, kind="counter")
         m.gauge("zoo_engine_kv_store_bytes",
                 "host KV store occupancy in bytes", fn=lambda: 0)
+        if self._dpool is None:
+            return
+
+        def _dpool_read(key):
+            return lambda: self._dpool.metrics()[key]
+
+        for key, name, kind, hlp in (
+                ("free_blocks", "zoo_engine_draft_free_blocks",
+                 "gauge", "draft-pool blocks on the free list"),
+                ("referenced_blocks",
+                 "zoo_engine_draft_referenced_blocks", "gauge",
+                 "draft-pool blocks held by live requests"),
+                ("occupancy", "zoo_engine_draft_pool_occupancy",
+                 "gauge", "referenced fraction of the draft pool"),
+                ("alloc_failures",
+                 "zoo_engine_draft_pool_alloc_failures_total",
+                 "counter", "draft-pool allocate() calls it could not "
+                 "serve")):
+            m.gauge(name, hlp, fn=_dpool_read(key), kind=kind)
 
     def capacity_report(self) -> dict:
-        """KV memory economics, the reference's report for the ported
-        modes: bytes per slot (arena) or per block (paged), the whole
-        cache's bytes, and (arena) the multiplier against a full-head
-        cache in the model dtype.  One device, so per-chip bytes equal
-        the total; no draft model, so its bytes are 0."""
+        """KV memory economics, the reference's report: bytes per slot
+        (arena) or per block (paged), the whole cache's bytes, and
+        (arena) the multiplier against a full-head cache in the model
+        dtype; the draft's cache and the arena's stored prefixes beside
+        them.  One device, so per-chip bytes equal the total."""
         m = self.model
         if self.paged:
             per_block = self._per_block_bytes
@@ -495,8 +716,11 @@ class ContinuousEngine:
                     (per_block // self._bs) * self._L * self._S,
                 "tp": 1,
                 "arena_bytes_per_chip": per_block * self._pool.n_blocks,
-                "draft_arena_bytes": 0,
-                "draft_n_blocks": 0,
+                "draft_arena_bytes": (
+                    self._draft_per_block_bytes * self._dpool.n_blocks
+                    if self._dpool is not None else 0),
+                "draft_n_blocks": (self._dpool.n_blocks
+                                   if self._dpool is not None else 0),
                 "prefix_bytes": 0,
             }
         H, D = self._ck.shape[3], self._ck.shape[4]
@@ -517,21 +741,26 @@ class ContinuousEngine:
             "arena_bytes_per_chip": per_slot * self._S,
             "capacity_multiplier_vs_mha_model_dtype":
                 round(full / per_slot, 2),
-            "draft_arena_bytes": 0,
+            "draft_arena_bytes": (
+                2 * self._dck.numel() * self._dck.element_size()
+                if self.draft_model is not None else 0),
             "prefix_bytes": sum(e.numel() * e.element_size()
                                 for entry in prefixes
-                                for e in entry[:2]),
+                                for e in (entry[0], entry[1], entry[3],
+                                          entry[4])
+                                if e is not None),
         }
 
     @torch.no_grad()
     def register_prefix(self, tokens: np.ndarray) -> int:
         """Prefill a shared prompt PREFIX (system prompt) once; returns
         an id for ``submit(..., prefix=id)``, whose prompt is then only
-        the suffix.  Arena: the prefix's K/V are kept, and admission
-        splices them into each request's row and prefills the suffix
-        against them.  Paged: the prefix's full blocks are prefilled and
-        pinned in the pool, and requests concatenate the tokens on the
-        host and match the pinned blocks at admission."""
+        the suffix.  Arena: the prefix's K/V (and the draft's) are kept,
+        and admission splices them into each request's row and prefills
+        the suffix against them.  Paged: the prefix's full blocks are
+        prefilled and pinned in the pool (in both tenants with a draft),
+        and requests concatenate the tokens on the host and match the
+        pinned blocks at admission."""
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim != 1 or len(tokens) < 1:
             raise ValueError("prefix must be a non-empty 1-D int32 array")
@@ -541,40 +770,57 @@ class ContinuousEngine:
                 f"prefix length {P} leaves no room for a suffix inside "
                 f"max prompt width {self.max_prompt_width}")
         if self.paged:
-            entry = (tokens, self._pin_prefix_blocks(tokens))
+            blocks = self._pin_prefix_blocks(tokens, self._pool, self.model,
+                                             self._pk, self._pv)
+            dblocks: List[int] = []
+            if self._dpool is not None:
+                try:
+                    dblocks = self._pin_prefix_blocks(
+                        tokens, self._dpool, self.draft_model, self._dpk,
+                        self._dpv)
+                except Exception:
+                    # a half-pinned prefix would leak target blocks
+                    for b in blocks:
+                        self._pool.release(b)
+                    raise
+            entry = (tokens, blocks, dblocks)
         else:
-            _, ks, vs = self.model._prefill_hidden(
-                torch.as_tensor(tokens[None], device=self.device))
-            entry = (ks, vs, P)
+            toks = torch.as_tensor(tokens[None], device=self.device)
+            _, ks, vs = self.model._prefill_hidden(toks)
+            dks = dvs = None
+            if self.draft_model is not None:
+                _, dks, dvs = self.draft_model._prefill_hidden(toks)
+            entry = (ks, vs, P, dks, dvs)
         with self._lock:
             pid = self._next_prefix_id
             self._next_prefix_id += 1
             self._prefixes[pid] = entry
         return pid
 
-    def _pin_prefix_blocks(self, tokens: np.ndarray) -> List[int]:
-        """Paged ``register_prefix``: match the prefix's FULL blocks in
-        the index, allocate the rest, prefill the unmatched span through
-        the paged path and publish it; the blocks stay referenced until
-        ``unregister_prefix``.  The partial tail block recomputes per
-        request inside its suffix (a partial block keeps growing, so it
-        is never shared)."""
+    def _pin_prefix_blocks(self, tokens: np.ndarray, pool: BlockPool,
+                           model: TransformerLM, pk, pv) -> List[int]:
+        """Paged ``register_prefix`` for one pool tenant: match the
+        prefix's FULL blocks in the index, allocate the rest, prefill
+        the unmatched span through the tenant's paged path and publish
+        it; the blocks stay referenced until ``unregister_prefix``.  The
+        partial tail block recomputes per request inside its suffix (a
+        partial block keeps growing, so it is never shared)."""
         bs = self._bs
         nfull = len(tokens) // bs
-        hashes = self._pool.block_hashes(tokens[:nfull * bs])
-        matched = self._pool.lookup(hashes)
+        hashes = pool.block_hashes(tokens[:nfull * bs])
+        matched = pool.lookup(hashes)
         for b in matched:
-            self._pool.acquire(b)
+            pool.acquire(b)
         blocks = list(matched)
         for _ in range(nfull - len(matched)):
-            b = self._pool.allocate()
+            b = pool.allocate()
             if b is None:
                 for bb in blocks:
-                    self._pool.release(bb)
+                    pool.release(bb)
                 raise RuntimeError(
-                    f"block pool has no room to pin a {nfull}-block "
-                    f"prefix ({self._pool.num_referenced()} of "
-                    f"{self._pool.n_blocks} blocks referenced)")
+                    f"{pool.name} block pool has no room to pin a "
+                    f"{nfull}-block prefix ({pool.num_referenced()} of "
+                    f"{pool.n_blocks} blocks referenced)")
             blocks.append(b)
         if len(matched) < nfull:
             span = tokens[len(matched) * bs:nfull * bs]
@@ -584,25 +830,28 @@ class ContinuousEngine:
             tabs = np.full((1, self._M), SINK_BLOCK, np.int32)
             tabs[0, :len(blocks)] = blocks
             dev = self.device
-            self.model.prefill_chunk_paged(
-                torch.as_tensor(padded, device=dev), self._pk, self._pv,
+            model.prefill_chunk_paged(
+                torch.as_tensor(padded, device=dev), pk, pv,
                 torch.as_tensor(tabs, device=dev),
                 torch.tensor([len(matched) * bs], dtype=torch.int32,
                              device=dev),
                 torch.tensor([len(span)], dtype=torch.int32, device=dev),
-                kernel=self.kernel)
-            self.prefill_calls += 1
-            self.prefill_shapes[(1, sb, (len(matched) * bs,))] += 1
+                kernel=self.kernel if pool is self._pool else self._dkernel)
+            if pool is self._pool:
+                self.prefill_calls += 1
+                self.prefill_shapes[(1, sb, (len(matched) * bs,))] += 1
+            else:
+                self.draft_prefill_calls += 1
             for j in range(len(matched), nfull):
-                self._pool.insert(hashes[j], blocks[j])
+                pool.insert(hashes[j], blocks[j])
         return blocks
 
     def unregister_prefix(self, pid: int) -> None:
         """Release a prefix: the arena drops its stored K/V; the paged
-        engine drops its pin on the prefix's blocks, which park in the
-        pool's LRU (still shareable) until allocation evicts them.
-        Admitted requests keep what they already have; queued requests
-        naming the id fail admission."""
+        engine drops its pin on the prefix's blocks (both tenants'),
+        which park in the pool's LRU (still shareable) until allocation
+        evicts them.  Admitted requests keep what they already have;
+        queued requests naming the id fail admission."""
         with self._lock:
             if pid not in self._prefixes:
                 raise ValueError(f"unknown prefix id {pid}")
@@ -610,12 +859,14 @@ class ContinuousEngine:
         if self.paged:
             for b in entry[1]:
                 self._pool.release(b)
+            for b in entry[2]:
+                self._dpool.release(b)
 
     def abort(self, uri: str) -> bool:
         """Drop a request nobody will collect: remove it from the
-        waiting queue, or free its resident slot (and, paged, its
-        blocks).  Returns True if the uri was found.  No callback
-        fires."""
+        waiting queue, or free its resident slot (and, paged, its blocks
+        in both pool tenants).  Returns True if the uri was found.  No
+        callback fires."""
         with self._lock:
             for req in self._waiting:
                 if req.uri == uri:
@@ -656,7 +907,8 @@ class ContinuousEngine:
         ``register_prefix`` id; ``prompt`` is then the suffix that
         follows it.  ``temperature > 0`` samples (needs ``rng_seed``,
         masked to 32 bits; ``top_p`` in (0, 1) adds the nucleus
-        filter).  ``priority``/``tenant`` are recorded for telemetry;
+        filter; not with a draft model: speculative serving is greedy
+        only).  ``priority``/``tenant`` are recorded for telemetry;
         admission stays FIFO.  ``handoff_cb`` and ``deadline_t > 0``
         (items 4.6 and 4.5) raise.  Raises on bounds violations."""
         if handoff_cb is not None:
@@ -684,6 +936,11 @@ class ContinuousEngine:
                 f"prompt length {n} outside [1, {self.max_prompt_width}]")
         if temperature > 0.0 and rng_seed is None:
             raise ValueError("temperature > 0 needs rng_seed")
+        if temperature > 0.0 and self.draft_model is not None:
+            raise ValueError(
+                "speculative continuous batching is greedy-only (the "
+                "sampled contract needs rejection sampling); submit "
+                "with temperature=0 or build the engine without a draft")
         if rng_seed is not None:
             # an out-of-range client seed must not crash the pump
             rng_seed = int(rng_seed) & 0xFFFFFFFF
@@ -728,16 +985,18 @@ class ContinuousEngine:
         return np.concatenate([ptoks, req.prompt])
 
     def _admit(self) -> int:
+        if self.chunked:
+            return self._admit_chunked()
         return self._admit_paged() if self.paged else self._admit_arena()
 
     # ---- arena mode ---------------------------------------------------
 
     def _admit_arena(self) -> int:
         """Move waiting requests into free slots.  Joiners sharing a
-        prompt bucket prefill TOGETHER in one forward and their K/V are
-        copied into their slots; prefix-id requests sharing (prefix,
-        suffix width) are admitted as one group.  Returns the number
-        admitted."""
+        prompt bucket prefill TOGETHER in one forward (the draft too,
+        with a draft model) and their K/V are copied into their slots;
+        prefix-id requests sharing (prefix, suffix width) are admitted
+        as one group.  Returns the number admitted."""
         admitted = 0
         while self._free:
             with self._lock:
@@ -789,9 +1048,10 @@ class ContinuousEngine:
     @torch.no_grad()
     def _prefill(self, pb: int, reqs):
         """One causal forward over a bucket's ``[k, pb]`` right-padded
-        prompts; returns (first tokens ``[k]`` on the host, K/V
-        ``[n_layers, k, pb, KH, D]``).  The head is applied to each
-        row's last real position only."""
+        prompts, and the draft's over the same prompts; returns (first
+        tokens ``[k]`` on the host, K/V ``[n_layers, k, pb, KH, D]``,
+        the draft's K/V or ``None``).  The head is applied to each row's
+        last real position only."""
         k = len(reqs)
         padded = np.full((k, pb), self.pad_id, np.int32)
         plens = np.empty(k, np.int64)
@@ -799,25 +1059,32 @@ class ContinuousEngine:
             padded[i, :len(req.prompt)] = req.prompt
             plens[i] = len(req.prompt)
         dev = self.device
-        h, ks, vs = self.model._prefill_hidden(
-            torch.as_tensor(padded, device=dev))
+        toks = torch.as_tensor(padded, device=dev)
+        h, ks, vs = self.model._prefill_hidden(toks)
         last = self.model._logits(
             h[torch.arange(k, device=dev), torch.as_tensor(plens - 1,
                                                            device=dev)])
         self.prefill_calls += 1
         self.prefill_shapes[(k, pb)] += 1
-        return self._pick_first(last, reqs, plens), ks, vs
+        dks = dvs = None
+        if self.draft_model is not None:
+            _, dks, dvs = self.draft_model._prefill_hidden(toks)
+            self.draft_prefill_calls += 1
+        return self._pick_first(last, reqs, plens), ks, vs, dks, dvs
 
     def _splice_one(self, pre, i: int, req: _Req) -> None:
-        """Copy joiner ``i``'s prefilled K/V into a free slot's row and
-        install it; the slot goes back to the free list if that
-        fails."""
-        firsts, ks, vs = pre
+        """Copy joiner ``i``'s prefilled K/V (both models') into a free
+        slot's row and install it; the slot goes back to the free list
+        if that fails."""
+        firsts, ks, vs, dks, dvs = pre
         slot = self._free.popleft()
         try:
             pb = ks.shape[2]
             self._ck[:, slot, :pb] = ks[:, i]
             self._cv[:, slot, :pb] = vs[:, i]
+            if dks is not None:
+                self._dck[:, slot, :pb] = dks[:, i]
+                self._dcv[:, slot, :pb] = dvs[:, i]
         except Exception:
             self._free.append(slot)
             raise
@@ -839,13 +1106,14 @@ class ContinuousEngine:
         """Admission for prefix-id requests sharing (prefix, suffix
         width): splice the stored prefix K/V into each member's row and
         run all their suffixes against it in one ``prefill_chunk``
-        forward at offset P, which is what prefilling each concatenated
-        prompt computes.  Returns the number admitted."""
+        forward at offset P (the draft likewise, against its own stored
+        prefix), which is what prefilling each concatenated prompt
+        computes.  Returns the number admitted."""
         with self._lock:
             if pid not in self._prefixes:
                 raise ValueError(f"prefix id {pid} was unregistered "
                                  f"while queued")
-            pks, pvs, P = self._prefixes[pid]
+            pks, pvs, P, dks, dvs = self._prefixes[pid]
         n = min(len(reqs), len(self._free))
         if n < len(reqs):
             # free slots ran out mid-batch: requeue the rest in order
@@ -862,18 +1130,25 @@ class ContinuousEngine:
             lens[i] = len(req.prompt)
         slots = [self._free.popleft() for _ in range(n)]
         dev = self.device
+        toks = torch.as_tensor(padded, device=dev)
+        pos = torch.full((n,), P, dtype=torch.int32, device=dev)
+        lens_t = torch.as_tensor(lens, device=dev)
         try:
             idx = torch.as_tensor(slots, device=dev)
-            rows_k = self._ck[:, idx]           # [layers, n, L, KH, D]
-            rows_v = self._cv[:, idx]
-            rows_k[:, :, :P] = pks
-            rows_v[:, :, :P] = pvs
-            last = self.model.prefill_chunk(
-                torch.as_tensor(padded, device=dev), rows_k, rows_v,
-                torch.full((n,), P, dtype=torch.int32, device=dev),
-                torch.as_tensor(lens, device=dev))
-            self._ck[:, idx] = rows_k
-            self._cv[:, idx] = rows_v
+            tenants = [(self.model, self._ck, self._cv, pks, pvs)]
+            if self.draft_model is not None:
+                tenants.append((self.draft_model, self._dck, self._dcv,
+                                dks, dvs))
+            for j, (m, ck, cv, qk, qv) in enumerate(tenants):
+                rows_k = ck[:, idx]             # [layers, n, L, KH, D]
+                rows_v = cv[:, idx]
+                rows_k[:, :, :P] = qk
+                rows_v[:, :, :P] = qv
+                out = m.prefill_chunk(toks, rows_k, rows_v, pos, lens_t)
+                ck[:, idx] = rows_k
+                cv[:, idx] = rows_v
+                if j == 0:
+                    last = out
         except Exception:
             self._free.extend(slots)
             raise
@@ -891,15 +1166,41 @@ class ContinuousEngine:
 
     # ---- paged mode ---------------------------------------------------
 
+    def _match_blocks(self, hashes, plen: int):
+        """Leading full prompt blocks found in the index, capped at
+        ``(plen-1)//bs`` so the LAST prompt token always recomputes (its
+        forward yields the first-token logits).  With a draft both
+        tenants must start at the same frontier, so the usable match is
+        the shorter of the two.  Returns (matched, draft matched or
+        None); nothing is acquired."""
+        cap = (plen - 1) // self._bs
+        matched = self._pool.lookup(hashes[:cap])
+        if self._dpool is None:
+            return matched, None
+        dmatch = self._dpool.lookup(hashes[:cap])
+        m = min(len(matched), len(dmatch))
+        return matched[:m], dmatch[:m]
+
+    def _pool_cap(self) -> int:
+        cap = self._pool.n_blocks - 1
+        if self._dpool is not None:
+            cap = min(cap, self._dpool.n_blocks - 1)
+        return cap
+
+    def _pools_short(self, n: int) -> bool:
+        """Whether either pool tenant has fewer than ``n`` allocatable
+        blocks."""
+        return self._pool.allocatable() < n or (
+            self._dpool is not None and self._dpool.allocatable() < n)
+
     def _admit_paged(self) -> int:
         """Paged admission: per request, match leading FULL prompt
         blocks in the chain-hash index (copy-free sharing), allocate
-        private blocks for the rest, and prefill only the unshared
-        suffix — grouped by suffix bucket, one device call per bucket.
-        A request the pool can't hold yet requeues at the FRONT (order
-        preserved) and admission stops.  The match length is capped at
-        ``(plen-1)//bs`` blocks so the LAST prompt token always
-        recomputes: its forward yields the first-token logits."""
+        private blocks for the rest (in both tenants with a draft), and
+        prefill only the unshared suffix — grouped by suffix bucket, one
+        device call per bucket and tenant.  A request the pool can't
+        hold yet requeues at the FRONT (order preserved) and admission
+        stops."""
         admitted = 0
         while self._free:
             with self._lock:
@@ -920,17 +1221,17 @@ class ContinuousEngine:
                 plen = len(full)
                 hashes = self._pool.block_hashes(full)
                 total = -(-plen // self._bs)
-                matched = self._pool.lookup(hashes[:(plen - 1) // self._bs])
+                matched, dmatch = self._match_blocks(hashes, plen)
                 need = total - len(matched)
                 # +1 headroom: the first decode tokens must not
                 # instantly preempt what admission just built
-                cap = self._pool.n_blocks - 1
+                cap = self._pool_cap()
                 if need + 1 > cap:
                     self._req_error(req.uri, req.on_error, ValueError(
                         f"prompt needs {need} private blocks + headroom "
                         f"but the pool holds {cap}"))
                     continue
-                if self._pool.allocatable() < need + 1:
+                if self._pools_short(need + 1):
                     if self.n_active == 0 and not plans and admitted == 0:
                         # nothing in flight will ever free blocks
                         self._req_error(req.uri, req.on_error, RuntimeError(
@@ -945,7 +1246,15 @@ class ContinuousEngine:
                 blocks = list(matched)
                 for _ in range(need):
                     blocks.append(self._pool.allocate())
-                plans.append((req, full, hashes, len(matched), blocks))
+                dblocks = None
+                if dmatch is not None:
+                    for b in dmatch:
+                        self._dpool.acquire(b)
+                    dblocks = list(dmatch)
+                    for _ in range(need):
+                        dblocks.append(self._dpool.allocate())
+                plans.append((req, full, hashes, len(matched), blocks,
+                              dblocks))
             if blocked:
                 with self._lock:
                     for req in reversed(blocked):
@@ -961,10 +1270,12 @@ class ContinuousEngine:
                 except Exception as e:
                     logger.exception("paged admission failed for %d "
                                      "request(s)", len(plist))
-                    for _, _, _, _, blocks in plist:
+                    for _, _, _, _, blocks, dblocks in plist:
                         for b in blocks:
                             self._pool.release(b)
-                    for req, _, _, _, _ in plist:
+                        for b in dblocks or ():
+                            self._dpool.release(b)
+                    for req, _, _, _, _, _ in plist:
                         self._req_error(req.uri, req.on_error, e)
             if blocked:
                 break
@@ -973,44 +1284,57 @@ class ContinuousEngine:
     @torch.no_grad()
     def _admit_paged_group(self, sb: int, plans) -> int:
         """One paged-prefill device call for every planned request
-        sharing a suffix bucket.  After the call each row's full private
-        prompt blocks are published in the hash index, so the NEXT
-        identical prompt shares them.  (The JAX engine also pads the row
-        count to a power of two to bound its compile count; eager
-        PyTorch compiles nothing, so rows are not padded.)"""
+        sharing a suffix bucket, and the same grid against the draft
+        tenant (whose logits are discarded).  After the call each row's
+        full private prompt blocks are published in the hash index, so
+        the NEXT identical prompt shares them.  (The JAX engine also
+        pads the row count to a power of two to bound its compile count;
+        eager PyTorch compiles nothing, so rows are not padded.)"""
         n = len(plans)
         padded = np.full((n, sb), self.pad_id, np.int32)
         lens = np.ones(n, np.int32)
         pos = np.zeros(n, np.int32)
         tabs = np.full((n, self._M), SINK_BLOCK, np.int32)
-        for i, (req, full, hashes, n_match, blocks) in enumerate(plans):
+        dtabs = np.full((n, self._M), SINK_BLOCK, np.int32)
+        for i, (req, full, hashes, n_match, blocks,
+                dblocks) in enumerate(plans):
             sfx = full[n_match * self._bs:]
             padded[i, :len(sfx)] = sfx
             lens[i] = len(sfx)
             pos[i] = n_match * self._bs
             tabs[i, :len(blocks)] = blocks
+            if dblocks is not None:
+                dtabs[i, :len(dblocks)] = dblocks
         dev = self.device
+        toks = torch.as_tensor(padded, device=dev)
+        pos_t = torch.as_tensor(pos, device=dev)
+        lens_t = torch.as_tensor(lens, device=dev)
         last = self.model.prefill_chunk_paged(
-            torch.as_tensor(padded, device=dev), self._pk, self._pv,
-            torch.as_tensor(tabs, device=dev),
-            torch.as_tensor(pos, device=dev),
-            torch.as_tensor(lens, device=dev), kernel=self.kernel)
+            toks, self._pk, self._pv, torch.as_tensor(tabs, device=dev),
+            pos_t, lens_t, kernel=self.kernel)
         self.prefill_calls += 1
         self.prefill_shapes[(n, sb, tuple(pos.tolist()))] += 1
+        if self._dpool is not None:
+            self.draft_model.prefill_chunk_paged(
+                toks, self._dpk, self._dpv,
+                torch.as_tensor(dtabs, device=dev), pos_t, lens_t,
+                kernel=self._dkernel)
+            self.draft_prefill_calls += 1
         firsts = self._pick_first(
             last, [plan[0] for plan in plans],
             np.array([len(plan[1]) for plan in plans], np.int64))
         admitted = 0
-        for i, (req, full, hashes, n_match, blocks) in enumerate(plans):
+        for i, (req, full, hashes, n_match, blocks,
+                dblocks) in enumerate(plans):
             plen = len(full)
             slot = self._free.popleft()
-            self._row_blocks[slot] = blocks
-            self._tables[slot, :] = SINK_BLOCK
-            self._tables[slot, :len(blocks)] = blocks
+            self._set_row_blocks(slot, blocks, dblocks)
             # publish BEFORE install: the prefill succeeded, so the
             # blocks' content is valid for sharing
             for j in range(n_match, plen // self._bs):
                 self._pool.insert(hashes[j], blocks[j])
+                if dblocks is not None:
+                    self._dpool.insert(hashes[j], dblocks[j])
             try:
                 self._install_slot(slot, req, plen, int(firsts[i]))
                 admitted += 1
@@ -1020,42 +1344,234 @@ class ContinuousEngine:
                 self._req_error(req.uri, req.on_error, e)
         return admitted
 
+    def _set_row_blocks(self, slot: int, blocks, dblocks) -> None:
+        """Point a slot's block table(s) at its blocks, SINK beyond."""
+        self._row_blocks[slot] = list(blocks)
+        self._tables[slot, :] = SINK_BLOCK
+        self._tables[slot, :len(blocks)] = blocks
+        if dblocks is not None:
+            self._drow_blocks[slot] = list(dblocks)
+            self._dtables[slot, :] = SINK_BLOCK
+            self._dtables[slot, :len(dblocks)] = dblocks
+
+    # ---- chunked admission (PREFILLING slots, no device call) ---------
+
+    def _admit_chunked(self) -> int:
+        """Chunked admission runs NO prefill: it claims a slot, installs
+        it PREFILLING and (paged) attaches any prefix-matched blocks;
+        the prompt lands chunk by chunk inside the ticks.  A paged
+        request the pool can't start yet requeues at the front and
+        admission stops (order preserved)."""
+        admitted = 0
+        while self._free:
+            with self._lock:
+                req = self._waiting.popleft() if self._waiting else None
+            if req is None:
+                break
+            res = (self._admit_one_chunked_paged(req) if self.paged
+                   else self._admit_one_chunked(req))
+            if res == "admitted":
+                admitted += 1
+            elif res == "blocked":
+                with self._lock:
+                    self._waiting.appendleft(req)
+                break
+        return admitted
+
+    def _admit_one_chunked(self, req: _Req) -> str:
+        """Arena chunked admission: splice a named prefix's stored K/V
+        (both models') into the slot's row and install it PREFILLING at
+        the prefix boundary."""
+        base = 0
+        entry = None
+        if req.prefix is not None:
+            with self._lock:
+                entry = self._prefixes.get(req.prefix)
+            if entry is None:
+                self._req_error(req.uri, req.on_error, ValueError(
+                    f"prefix id {req.prefix} was unregistered while "
+                    f"queued"))
+                return "error"
+            base = entry[2]
+        slot = self._free.popleft()
+        if entry is not None:
+            pks, pvs, P, dks, dvs = entry
+            try:
+                self._ck[:, slot, :P] = pks[:, 0]
+                self._cv[:, slot, :P] = pvs[:, 0]
+                if self.draft_model is not None:
+                    # the draft's chunks run against the same prefix
+                    self._dck[:, slot, :P] = dks[:, 0]
+                    self._dcv[:, slot, :P] = dvs[:, 0]
+            except Exception as e:
+                self._free.append(slot)
+                logger.exception("chunked prefix splice failed for %r",
+                                 req.uri)
+                self._req_error(req.uri, req.on_error, e)
+                return "error"
+        self._install_prefill(slot, req, base + len(req.prompt),
+                              base=base, full=req.prompt)
+        return "admitted"
+
+    def _admit_one_chunked_paged(self, req: _Req) -> str:
+        """Paged chunked admission: match and acquire leading full
+        prompt blocks (both tenants) and install PREFILLING at the
+        matched boundary.  Blocks for the unmatched tail are allocated
+        per chunk by the tick; a mid-prompt dry pool preempts this
+        prefilling row back to the queue, never a decoder."""
+        try:
+            full = self._full_prompt(req)
+        except Exception as e:
+            self._req_error(req.uri, req.on_error, e)
+            return "error"
+        plen = len(full)
+        hashes = self._pool.block_hashes(full)
+        total = -(-plen // self._bs)
+        matched, dmatch = self._match_blocks(hashes, plen)
+        need = total - len(matched)
+        cap = self._pool_cap()
+        if need + 1 > cap:
+            self._req_error(req.uri, req.on_error, ValueError(
+                f"prompt needs {need} private blocks + headroom but the "
+                f"pool holds {cap}"))
+            return "error"
+        # per-chunk allocation only needs room to START (first chunk
+        # block + decode headroom)
+        if self._pools_short(2):
+            if self.n_active == 0:
+                self._req_error(req.uri, req.on_error, RuntimeError(
+                    f"pool dry with no residents: "
+                    f"{self._pool.num_referenced()} of "
+                    f"{self._pool.n_blocks} blocks are pinned (unregister "
+                    f"a prefix or raise n_blocks)"))
+                return "error"
+            return "blocked"
+        for b in matched:
+            self._pool.acquire(b)
+        for b in dmatch or ():
+            self._dpool.acquire(b)
+        slot = self._free.popleft()
+        self._set_row_blocks(slot, matched, dmatch)
+        self._install_prefill(slot, req, plen, base=0, full=full,
+                              hashes=list(hashes),
+                              fill=len(matched) * self._bs,
+                              n_pub=len(matched))
+        return "admitted"
+
+    def _install_prefill(self, slot: int, req: _Req, plen: int, *,
+                         base: int, full, hashes=None, fill=None,
+                         n_pub: int = 0) -> None:
+        """Install a slot PREFILLING: the decode side sees a frozen row
+        (done, fed pad) anchored at the fill frontier until its last
+        chunk lands.  ``fill`` (paged) starts past prefix-matched
+        blocks; arena rows start past the spliced prefix (``base``)."""
+        st = _Slot(uri=req.uri, max_new=req.max_new, on_done=req.on_done,
+                   on_token=req.on_token, temperature=req.temperature,
+                   rng_seed=req.rng_seed, top_p=req.top_p, req=req,
+                   admit_seq=self._admit_seq, plen=plen,
+                   state="PREFILLING",
+                   fill_pos=base if fill is None else fill, base=base,
+                   full=np.asarray(full, np.int32), hashes=hashes,
+                   n_pub=n_pub)
+        self._slots[slot] = st
+        self._admit_seq += 1
+        self._tok[slot] = self.pad_id
+        self._pos[slot] = st.fill_pos
+        self._dpos[slot] = st.fill_pos
+        self._done[slot] = True
+        self.telemetry.req_admitted(req.uri, slot, prefilling=True,
+                                    priority=req.priority)
+
     def _ensure_blocks(self, active) -> list:
-        """Grow each resident's block table to cover the positions the
-        coming step will write.  When the pool is dry, PREEMPT the
-        latest admission (never the oldest — earliest requests keep
-        strict forward progress, so this terminates).  Returns the
-        still-active subset."""
+        """Grow each resident's block table(s) to cover the positions
+        the coming step will write (a spec round writes k+1 verify
+        positions).  When a pool is dry, PREEMPT the latest admission
+        (never the oldest — earliest requests keep strict forward
+        progress, so this terminates).  Returns the still-active
+        subset."""
         for i in list(active):
             st = self._slots[i]
             if st is None:
                 continue
-            ticks = max(1, min(self.ticks_per_step,
-                               st.max_new - len(st.tokens)))
-            last_write = min(int(self._pos[i]) + ticks - 1, self._L - 1)
+            if self.draft_model is not None:
+                last_write = min(int(self._pos[i]) + self._spec_k,
+                                 self._L - 1)
+            else:
+                ticks = max(1, min(self.ticks_per_step,
+                                   st.max_new - len(st.tokens)))
+                last_write = min(int(self._pos[i]) + ticks - 1,
+                                 self._L - 1)
             self._grow_row(i, last_write // self._bs + 1)
         return [i for i in active if self._slots[i] is not None]
 
     def _grow_row(self, i: int, need: int) -> None:
-        """Grow row ``i``'s block table to ``need`` blocks, preempting
-        whenever the pool is dry — including row ``i`` itself, which
-        ends the loop.  (The JAX engine splits this into
-        ``_grow_tenant`` per pool tenant; the draft tenant comes with
-        speculative decoding.)"""
-        while (self._slots[i] is not None
-               and len(self._row_blocks[i]) < need):
-            b = self._pool.allocate()
+        """Grow row ``i``'s block table(s) to ``need`` blocks,
+        preempting whenever a pool is dry — including row ``i`` itself,
+        which ends the loop.  With a draft model the two tenants grow in
+        LOCKSTEP to the same block count, and a preemption frees both,
+        so a row's verify pointer never outruns its draft pages."""
+        self._grow_tenant(i, need, self._pool, self._row_blocks,
+                          self._tables)
+        if self._dpool is not None:
+            self._grow_tenant(i, need, self._dpool, self._drow_blocks,
+                              self._dtables)
+
+    def _grow_tenant(self, i: int, need: int, pool, row_blocks,
+                     tables) -> None:
+        while self._slots[i] is not None and len(row_blocks[i]) < need:
+            b = pool.allocate()
             if b is None:
                 self._preempt(self._pick_victim())
                 continue
-            self._tables[i, len(self._row_blocks[i])] = b
-            self._row_blocks[i].append(b)
+            tables[i, len(row_blocks[i])] = b
+            row_blocks[i].append(b)
+
+    def _grow_chunk_blocks(self, decode_rows, chunks) -> None:
+        """Per-tick paged growth for a chunked tick: decode rows need
+        their write positions covered (k+1 under speculation); each
+        chunk row needs blocks through its chunk's last write.  Pool-dry
+        preemption takes the LATEST PREFILLING row first
+        (``_pick_victim``): decoders that already emitted tokens are
+        never evicted to feed a joiner's prompt."""
+        for i in decode_rows:
+            if self._slots[i] is None:
+                continue
+            last_write = min(int(self._pos[i]) + self._spec_k,
+                             self._L - 1)
+            self._grow_row(i, last_write // self._bs + 1)
+        for i, clen in chunks:
+            st = self._slots[i]
+            if st is None:
+                continue
+            self._grow_row(i, (st.fill_pos + clen - 1) // self._bs + 1)
+
+    def _publish_chunk_blocks(self, i: int, st: _Slot) -> None:
+        """Hash-publish the prompt blocks a landed chunk fully covered
+        (never the frontier block: a partially written block must not
+        be shared), in both tenants, as monolithic admission publishes
+        after its prefill."""
+        if st.hashes is None:
+            return
+        hi = min(st.fill_pos // self._bs, st.plen // self._bs)
+        if hi <= st.n_pub:
+            return
+        for j in range(st.n_pub, hi):
+            self._pool.insert(st.hashes[j], self._row_blocks[i][j])
+            if self._dpool is not None:
+                self._dpool.insert(st.hashes[j], self._drow_blocks[i][j])
+        st.n_pub = hi
+
+    def _table_width(self, need: int) -> int:
+        """Power-of-two narrow table width for a chunk grid, wide enough
+        for every position the chunks write or attend, at most M."""
+        v = 1
+        while v < need:
+            v *= 2
+        return min(v, self._M)
 
     def _pick_victim(self) -> int:
-        # every resident of this engine decodes; PREFILLING rows come
-        # with chunked prefill
         return scheduler_policy.pick_victim(
-            (i, "DECODE", s.admit_seq)
+            (i, s.state, s.admit_seq)
             for i, s in enumerate(self._slots) if s is not None)
 
     def _preempt(self, slot: int) -> None:
@@ -1070,49 +1586,91 @@ class ContinuousEngine:
         self._free.append(slot)
         self._release_slot_blocks(slot)
         self._preemptions += 1
+        prefilling = st.state == "PREFILLING"
+        if prefilling:
+            self._prefill_preemptions += 1
         logger.warning("block pool dry: preempted %r (recompute on "
                        "readmission)", st.uri)
         with self._lock:
             self._waiting.appendleft(st.req)
         # TTFT keeps the original arrival; partial tokens are
         # discarded, so their stamps go too (telemetry mirrors both)
-        self.telemetry.req_preempted(st.uri, slot, prefilling=False)
+        self.telemetry.req_preempted(st.uri, slot, prefilling=prefilling)
 
     def _release_slot_blocks(self, slot: int) -> None:
-        """Drop a finished/preempted row's block references and point
-        its whole table row at the sink, so the frozen row's future
-        writes can never touch a block the pool hands to someone
-        else."""
+        """Drop a finished/preempted row's block references (both
+        tenants together) and point its table rows at the sink, so the
+        frozen row's future writes can never touch a block the pool
+        hands to someone else."""
         blocks = self._row_blocks[slot]
         self._row_blocks[slot] = []
         self._tables[slot, :] = SINK_BLOCK
         for b in blocks:
             self._pool.release(b)
+        if self._dpool is not None:
+            dblocks = self._drow_blocks[slot]
+            self._drow_blocks[slot] = []
+            self._dtables[slot, :] = SINK_BLOCK
+            for b in dblocks:
+                self._dpool.release(b)
 
     def cache_metrics(self) -> dict:
         """Serving-visible cache counters: the ``mode`` (``"arena"`` or
         ``"paged"``), cumulative ``preemptions``, ``peak_resident``
-        (running max) and, paged, the pool's counters and gauges
-        (``BlockPool.metrics``)."""
+        (running max); chunked: the budget, its mean utilization, the
+        prefill queue, chunks in flight, stall ticks and prefill
+        preemptions; speculative: ``speculation_k``, rounds, emitted,
+        proposed and accepted tokens; paged: the pool's counters and
+        gauges (``BlockPool.metrics``), the draft pool's prefixed
+        ``draft_``."""
         with self._lock:
             out = {"mode": "paged" if self.paged else "arena",
                    "preemptions": self._preemptions,
-                   "peak_resident": self._peak_resident}
+                   "peak_resident": self._peak_resident,
+                   "qos": False}
+            if self.chunked:
+                denom = self._budget_ticks * self.tick_token_budget
+                out.update({
+                    "chunked": True,
+                    "tick_token_budget": self.tick_token_budget,
+                    "budget_utilization": (
+                        self._budget_tokens_used / denom if denom
+                        else 0.0),
+                    "prefill_queue_depth": len(self._waiting),
+                    "chunks_in_flight": sum(
+                        1 for s in self._slots
+                        if s is not None and s.state == "PREFILLING"),
+                    "prefill_stall_ticks": self._prefill_stall_ticks,
+                    "prefill_preemptions": self._prefill_preemptions,
+                })
+            if self.draft_model is not None:
+                out.update({
+                    "speculation_k": self._spec_k,
+                    "spec_rounds": self._spec_rounds,
+                    "spec_emitted": self._spec_emitted,
+                    "spec_proposed": self.telemetry.c_spec_proposed.value,
+                    "spec_accepted": self.telemetry.c_spec_accepted.value,
+                })
         if self.paged:
             out.update(self._pool.metrics())
+            if self._dpool is not None:
+                out.update({"draft_" + k: v for k, v in
+                            self._dpool.metrics().items()})
         return out
 
     def _install_slot(self, slot: int, req: _Req, plen: int,
                       first: int) -> None:
-        """Shared slot-state installation of every admission path."""
+        """Shared slot-state installation of every monolithic admission
+        path."""
         self._slots[slot] = _Slot(
             uri=req.uri, max_new=req.max_new, on_done=req.on_done,
             on_token=req.on_token, temperature=req.temperature,
             rng_seed=req.rng_seed, top_p=req.top_p, req=req,
-            admit_seq=self._admit_seq)
+            admit_seq=self._admit_seq, plen=plen)
         self._admit_seq += 1
         self._tok[slot] = first
         self._pos[slot] = plen
+        self._dpos[slot] = plen
         self._done[slot] = False
         self.telemetry.req_admitted(req.uri, slot, priority=req.priority)
         self._record_token(slot, int(first))
@@ -1228,22 +1786,27 @@ class ContinuousEngine:
             raise InjectedFault(msg)
 
     def _tick_samples(self, n_active: int) -> dict:
-        """Post-tick residency and queue/pool pressure as host ints:
-        the per-tick sample row of the telemetry event log (every
-        resident of this engine decodes)."""
-        samples = {"active": n_active, "decode_rows": n_active,
-                   "prefill_rows": 0,
+        """Post-tick residency mix and queue/pool pressure as host ints:
+        the per-tick sample row of the telemetry event log."""
+        decode = sum(1 for s in self._slots
+                     if s is not None and s.state == "DECODE")
+        samples = {"active": n_active, "decode_rows": decode,
+                   "prefill_rows": n_active - decode,
                    "queue_depth": len(self._waiting)}
         if self._pool is not None:
             samples["free_blocks"] = self._pool.allocatable()
+            if self._dpool is not None:
+                samples["draft_free_blocks"] = self._dpool.allocatable()
         return samples
 
     def _flight_record(self, ts: float, dur: float,
                        samples: dict) -> None:
         """Append one tick snapshot to the flight ring: the telemetry
-        samples, the resident rows, the read path, and the per-tick
-        deltas of the preemption and allocation-failure counters, in
-        the reference's schema for the ported modes."""
+        samples, the resident rows by state, the tick kind and read
+        path, and the per-tick deltas of the cumulative counters
+        (preemptions, chunks and budget use, speculative proposals and
+        acceptances, allocation failures of both pools), in the
+        reference's schema."""
         last = self._flight_last
 
         def delta(key: str, cur: int) -> int:
@@ -1255,21 +1818,39 @@ class ContinuousEngine:
         rec["seq"] = self.flight.next_seq()
         rec["ts"] = round(ts, 6)
         rec["dur_ms"] = round(dur * 1e3, 3)
-        rec["kind"] = "decode"
+        rec["kind"] = self._tick_kind
         rec["kernel"] = self.kernel if self.paged else "dense"
         rec["kv_dtype"] = self.kv_dtype
         rec["kv_bytes_per_token"] = self._kv_bytes_per_token
-        rec["decode_uris"] = [s.uri for s in self._slots if s is not None]
-        rec["prefill_uris"] = []
+        rec["decode_uris"] = [s.uri for s in self._slots
+                              if s is not None and s.state == "DECODE"]
+        rec["prefill_uris"] = [s.uri for s in self._slots
+                               if s is not None and s.state != "DECODE"]
         rec["preempted"] = delta("preempt", self._preemptions)
         rec["compiles"] = 0     # eager PyTorch compiles nothing
+        if self.chunked:
+            rec["budget"] = self.tick_token_budget
+            rec["budget_used"] = delta("budget_tokens",
+                                       self._budget_tokens_used)
+            rec["chunks"] = delta("chunks", self.telemetry.c_chunks.value)
+        if self.draft_model is not None:
+            rec["spec_proposed"] = delta(
+                "spec_proposed", self.telemetry.c_spec_proposed.value)
+            rec["spec_accepted"] = delta(
+                "spec_accepted", self.telemetry.c_spec_accepted.value)
         if self._pool is not None:
             rec["used_blocks"] = self._pool.num_referenced()
             rec["n_blocks"] = self._pool.n_blocks
+            daf = 0
+            if self._dpool is not None:
+                rec["draft_used_blocks"] = self._dpool.num_referenced()
+                rec["draft_n_blocks"] = self._dpool.n_blocks
+                daf = self._dpool.alloc_failures
             for key in ("pool_resizes", "handoffs_out", "handoffs_in",
                         "kv_spills", "kv_readmits"):
                 rec[key] = 0
-            fails = delta("alloc_fail", self._pool.alloc_failures)
+            fails = delta("alloc_fail", self._pool.alloc_failures) \
+                + delta("draft_alloc_fail", daf)
             rec["alloc_failures"] = fails
             # consecutive ticks with at least one failed allocation
             self._alloc_fail_streak = \
@@ -1316,8 +1897,14 @@ class ContinuousEngine:
             raise _later("brownout (set_brownout level > 0)", "4.5")
 
     def spec_acceptance(self) -> Optional[dict]:
-        """No draft model, so no speculative acceptance record."""
-        return None
+        """The recorded speculative-acceptance distribution (exact
+        counts of accepted draft tokens per row per verify round,
+        0..k, and ``k``), or None without a draft model."""
+        if self.draft_model is None:
+            return None
+        section = self.telemetry.spec_acceptance()
+        section["k"] = self._spec_k
+        return section
 
     def maybe_autoresize(self, goodput: Optional[Dict[str, float]] = None
                          ) -> int:
@@ -1327,10 +1914,31 @@ class ContinuousEngine:
         raise _later("prefill/decode handoff (submit_handoff)", "4.6")
 
     def _step_impl(self) -> int:
+        self._tick_kind = "decode"
         self._admit()
         active = [i for i, s in enumerate(self._slots) if s is not None]
         if not active:
             return 0
+        prefilling = self.chunked and any(
+            self._slots[i].state == "PREFILLING" for i in active)
+        if self.draft_model is not None:
+            if prefilling:
+                self._tick_kind = "spec_chunked"
+                return self._spec_chunked_tick(active)
+            self._tick_kind = "spec"
+            if self.paged:
+                # grow BOTH tenants' tables to cover the round's k+1
+                # verify writes; may preempt
+                active = self._ensure_blocks(active)
+                if not active:
+                    self._admit()   # preemptions freed blocks
+                    return self.n_active
+            return self._spec_tick(active)
+        if prefilling:
+            self._tick_kind = "chunked"
+            return self._chunked_tick(active)
+        # a chunked engine with no prefill in flight decodes on the
+        # plain multi-tick path below
         if self.paged:
             # grow block tables for the coming step; may preempt
             active = self._ensure_blocks(active)
@@ -1351,6 +1959,14 @@ class ContinuousEngine:
         self._admit()       # freed slots recycle on the SAME iteration
         return self.n_active
 
+    def _decode_call(self, tok, pos, tables):
+        """One target decode step over every slot (caches updated in
+        place); returns logits ``[S, V]``."""
+        if self.paged:
+            return self.model.decode_step_paged(
+                tok, self._pk, self._pv, tables, pos, kernel=self.kernel)
+        return self.model.decode_step(tok, self._ck, self._cv, pos)
+
     def _decode_ticks(self, n_ticks: int, sampling: dict) -> np.ndarray:
         """Advance every slot ``n_ticks`` tokens.  Arena: each row writes
         and reads its own slot; a free or finished row writes garbage at
@@ -1358,7 +1974,9 @@ class ContinuousEngine:
         attending it.  Paged: rows holding no blocks (free/done slots —
         their table rows are all SINK) write and read only the sink
         block's garbage, which their frozen/ignored outputs never
-        surface.  A slot that hits EOS mid-step keeps stepping, fed eos.
+        surface.  PREFILLING rows ride along frozen at their fill
+        frontier, where their own next chunk overwrites the write.  A
+        slot that hits EOS mid-step keeps stepping, fed eos.
         ``sampling``: ``pick_next``'s keywords over the ``S`` slots.
         Returns the tokens ``[n_ticks, S]`` in emission order and leaves
         the host-side tok/pos/done advanced."""
@@ -1368,17 +1986,11 @@ class ContinuousEngine:
         tok = torch.as_tensor(self._tok, device=dev)
         pos = torch.as_tensor(self._pos, device=dev)
         done = torch.as_tensor(self._done, device=dev)
-        if self.paged:
-            tables = torch.as_tensor(self._tables, device=dev)
+        tables = torch.as_tensor(self._tables, device=dev) \
+            if self.paged else None
         out = []
         for _ in range(n_ticks):
-            if self.paged:
-                logits = self.model.decode_step_paged(
-                    tok, self._pk, self._pv, tables, pos,
-                    kernel=self.kernel)
-            else:
-                logits = self.model.decode_step(tok, self._ck, self._cv,
-                                                pos)
+            logits = self._decode_call(tok, pos, tables)
             self.decode_ticks += 1
             nxt = pick_next(logits, pos, **samp)
             if self.eos_id is not None:
@@ -1392,6 +2004,412 @@ class ContinuousEngine:
         self._pos = pos.cpu().numpy()
         self._done = done.cpu().numpy()
         return torch.stack(out).cpu().numpy()
+
+    # ---- chunked ticks ------------------------------------------------
+
+    def _rows_of(self, rows) -> list:
+        """The slots at ``rows``, ``None`` elsewhere (``_sampling``'s
+        batch-aligned argument over all S slots)."""
+        keep = set(rows)
+        return [s if i in keep else None for i, s in enumerate(self._slots)]
+
+    def _grant_rank(self, slot: int):
+        """Prefill-grant sort key: with QoS off (the only mode served
+        here) the admission sequence number, FIFO."""
+        return scheduler_policy.grant_rank(None, None, 0.0,
+                                           self._slots[slot].admit_seq)
+
+    def _reanchor_prefill(self) -> None:
+        """Re-pin every still-PREFILLING row's decode-side state after a
+        device step: frozen (done), fed pad, positioned at the fill
+        frontier, so the decode part of the next tick writes its dead
+        K/V entry exactly where the row's own next chunk overwrites
+        it."""
+        for i, st in enumerate(self._slots):
+            if st is not None and st.state == "PREFILLING":
+                self._done[i] = True
+                self._pos[i] = st.fill_pos
+                self._dpos[i] = st.fill_pos
+                self._tok[i] = self.pad_id
+
+    def _plan_tick(self, active, per_row: int):
+        """Bill one chunked tick's budget (``policy.plan_chunks``:
+        decode rows cost ``per_row`` positions each, the rest grants
+        chunks FIFO by admission), grow the paged tables (which may
+        preempt, PREFILLING rows first) and count the budget use.
+        Returns (decode rows, chunks) still resident, or None when
+        nothing is left to run."""
+        decode_rows = [i for i in active
+                       if self._slots[i].state == "DECODE"]
+        prefill_rows = sorted(
+            (i for i in active if self._slots[i].state == "PREFILLING"),
+            key=self._grant_rank)
+        chunks, stalled = scheduler_policy.plan_chunks(
+            self.tick_token_budget, per_row, len(decode_rows),
+            [(i, self._slots[i].plen - self._slots[i].fill_pos)
+             for i in prefill_rows],
+            self._chunk_buckets[-1])
+        if stalled:
+            # budget fully consumed by decode rows: prefill waits
+            self._prefill_stall_ticks += 1
+        if self.paged:
+            self._grow_chunk_blocks(decode_rows, chunks)  # may preempt
+            decode_rows = [i for i in decode_rows
+                           if self._slots[i] is not None]
+            chunks = [(i, c) for i, c in chunks
+                      if self._slots[i] is not None]
+        if not decode_rows and not chunks:
+            return None
+        self._peak_resident = max(self._peak_resident, len(active))
+        self._budget_ticks += 1
+        self._budget_tokens_used += per_row * len(decode_rows) \
+            + sum(c for _, c in chunks)
+        return decode_rows, chunks
+
+    def _chunked_tick(self, active) -> int:
+        """One budget-bounded tick: every DECODE row advances one token
+        (a decode over every slot, PREFILLING rows frozen) and then the
+        tick's chunks land in one chunk call; a prompt's final chunk
+        picks its first token."""
+        plan = self._plan_tick(active, 1)
+        if plan is None:
+            self._admit()       # preemptions may have freed blocks
+            return self.n_active
+        decode_rows, chunks = plan
+        toks = None
+        if decode_rows:
+            toks = self._decode_ticks(
+                1, self._sampling(self._rows_of(decode_rows)))
+        if chunks:
+            self._land_chunks(chunks)
+        self._reanchor_prefill()
+        for i in decode_rows:
+            if self._slots[i] is not None:
+                self._record_token(i, int(toks[0, i]))
+        self._admit()       # freed slots recycle on the SAME iteration
+        return self.n_active
+
+    def _chunk_grid(self, chunks):
+        """A tick's chunk grid: rows padded to a power of two, width the
+        smallest chunk bucket that holds the longest chunk (padding rows
+        carry the out-of-range slot S), and the read window: the paged
+        narrow table width or the arena's read length."""
+        k = len(chunks)
+        kb = 1 << (k - 1).bit_length()
+        Cb = _next_bucket(max(c for _, c in chunks), self._chunk_buckets)
+        ctoks = np.full((kb, Cb), self.pad_id, np.int32)
+        cpos = np.zeros(kb, np.int32)
+        clens = np.ones(kb, np.int32)
+        cslots = np.full(kb, self._S, np.int32)
+        for j, (i, clen) in enumerate(chunks):
+            st = self._slots[i]
+            off = st.fill_pos - st.base
+            ctoks[j, :clen] = st.full[off:off + clen]
+            cpos[j] = st.fill_pos
+            clens[j] = clen
+            cslots[j] = i
+        need = int((cpos + clens).max())
+        if self.paged:
+            width = self._table_width(-(-need // self._bs))
+        else:
+            width = next(b for b in self._read_buckets if b >= need)
+        return ctoks, cpos, clens, cslots, width
+
+    def _run_chunk(self, ctoks, cpos, clens, cslots, width):
+        """One chunk call on the grid, in the target and, with a draft,
+        in the draft: paged through each tenant's tables sliced to
+        ``width`` blocks (built contiguous on the host; padding rows
+        all sink) with writes limited to each chunk's length; arena on
+        copies of the chunk rows' first ``width`` positions, written
+        back for the real rows only.  Returns the target's
+        last-real-position logits ``[kb, V]``."""
+        dev = self.device
+        toks = torch.as_tensor(ctoks, device=dev)
+        pos = torch.as_tensor(cpos, device=dev)
+        lens = torch.as_tensor(clens, device=dev)
+        S = self._S
+        real = np.nonzero(cslots < S)[0]
+        if self.paged:
+            tenants = [(self.model, self._pk, self._pv, self._tables,
+                        self.kernel)]
+            if self.draft_model is not None:
+                tenants.append((self.draft_model, self._dpk, self._dpv,
+                                self._dtables, self._dkernel))
+        else:
+            tenants = [(self.model, self._ck, self._cv, None, None)]
+            if self.draft_model is not None:
+                tenants.append((self.draft_model, self._dck, self._dcv,
+                                None, None))
+            read = torch.as_tensor(np.minimum(cslots, S - 1), device=dev)
+            dst = torch.as_tensor(cslots[real], device=dev)
+            src = torch.as_tensor(real, device=dev)
+        out = None
+        for model, ck, cv, tables, kern in tenants:
+            if self.paged:
+                ctabs = np.full((len(cslots), width), SINK_BLOCK, np.int32)
+                ctabs[real] = tables[cslots[real], :width]
+                logits = model.prefill_chunk_paged(
+                    toks, ck, cv, torch.as_tensor(ctabs, device=dev), pos,
+                    lens, kernel=kern)
+            else:
+                rows_k = ck[:, read, :width]
+                rows_v = cv[:, read, :width]
+                logits = model.prefill_chunk(toks, rows_k, rows_v, pos,
+                                             lens)
+                if len(real):
+                    ck[:, dst, :width] = rows_k[:, src]
+                    cv[:, dst, :width] = rows_v[:, src]
+            if out is None:
+                out = logits
+        return out
+
+    def _land_chunks(self, chunks) -> None:
+        """Land a tick's chunks (both models' caches with a draft) in
+        one chunk call, advance each row's fill frontier, publish the
+        blocks a chunk completed, and flip each prompt whose last chunk
+        landed to DECODE with its first token (picked at position
+        ``plen - 1`` from the target's logits, as monolithic admission
+        picks it)."""
+        ctoks, cpos, clens, cslots, width = self._chunk_grid(chunks)
+        t0 = time.monotonic()
+        logits = self._run_chunk(ctoks, cpos, clens, cslots, width)
+        self.chunk_calls += 1
+        rows = [self._slots[i] for i, _ in chunks]
+        rows += [None] * (len(cslots) - len(rows))
+        samp = {k: torch.as_tensor(v, device=logits.device)
+                for k, v in self._sampling(rows).items()}
+        firsts = pick_next(logits, torch.as_tensor(
+            cpos + clens - 1, device=logits.device), **samp).cpu().numpy()
+        # all of a tick's chunks land in the one call: they share its span
+        dur = time.monotonic() - t0
+        for i, clen in chunks:
+            self.telemetry.events.span(
+                "prefill_chunk", t0, dur, i,
+                {"uri": self._slots[i].uri, "tokens": int(clen),
+                 "fill_pos": int(self._slots[i].fill_pos)})
+        self.telemetry.c_chunks.inc(len(chunks))
+        completed: List[Tuple[int, int]] = []
+        for j, (i, clen) in enumerate(chunks):
+            st = self._slots[i]
+            st.fill_pos += clen
+            if self.paged:
+                self._publish_chunk_blocks(i, st)
+            if st.fill_pos >= st.plen:
+                completed.append((i, int(firsts[j])))
+        for i, first in completed:
+            st = self._slots[i]
+            st.state = "DECODE"
+            st.full = st.hashes = None
+            self._tok[i] = first
+            self._pos[i] = st.plen
+            self._dpos[i] = st.plen
+            self._done[i] = False
+            self._record_token(i, first)    # the request's FIRST token
+
+    # ---- speculative rounds -------------------------------------------
+
+    def _spec_tick(self, active) -> int:
+        """One speculative round for the whole batch: every resident
+        advances by its own accepted count (1..k+1 tokens).  Paged
+        dispatch already grew both tenants' tables."""
+        self._peak_resident = max(self._peak_resident, len(active))
+        self._spec_round(active)
+        self._admit()       # freed slots recycle on the SAME iteration
+        return self.n_active
+
+    def _spec_call(self, tok, pos, dpos, done, tables, dtables):
+        """The spec round on the device: k+1 greedy cached draft steps
+        (the extra step writes d_{k-1}'s K/V, so a full-acceptance
+        round leaves the draft cache complete), one target verify of
+        [tok, d_0..d_{k-1}] at pos..pos+k, the shared acceptance rule,
+        and the pointer advance — which IS the rollback: rejected
+        entries stay written past the new pointer, unreachable, and the
+        next round overwrites them.  Returns (t ``[S, k+1]``, n_emit,
+        new tok, pos, dpos, done)."""
+        k = self._spec_k
+        t, p, props = tok, dpos, []
+        for _ in range(k + 1):
+            if self.paged:
+                logits = self.draft_model.decode_step_paged(
+                    t, self._dpk, self._dpv, dtables, p,
+                    kernel=self._dkernel)
+            else:
+                logits = self.draft_model.decode_step(t, self._dck,
+                                                      self._dcv, p)
+            t = torch.argmax(logits, dim=-1).to(torch.int32)
+            props.append(t)
+            # live rows stay below L-k-1; a done or free row at L-1
+            # keeps writing its own last position
+            p = torch.clamp(p + 1, max=self._L - 1)
+        d = torch.stack(props[:k], dim=1)                   # [S, k]
+        inputs = torch.cat([tok[:, None], d], dim=1)
+        if self.paged:
+            logits = self.model.verify_step_paged(
+                inputs, self._pk, self._pv, tables, pos, kernel=self.kernel)
+        else:
+            logits = self.model.verify_step(inputs, self._ck, self._cv, pos)
+        t, n_emit, new_tok, done = accept_proposals(
+            logits, d, tok, done, k=k, eos_id=self.eos_id)
+        pos = torch.clamp(pos + n_emit, max=self._L - 1)
+        dpos = torch.clamp(dpos + n_emit, max=self._L - 1)
+        return t, n_emit, new_tok, pos, dpos, done
+
+    def _spec_round(self, rows) -> None:
+        """Run one spec round over every slot and record each row's
+        emitted tokens, per slot in order, stopping when the slot
+        finishes (budget surplus dropped host-side).  PREFILLING rows
+        ride along frozen (done, so they emit nothing); their k+1
+        garbage writes land at or past the fill frontier, where their
+        own chunks overwrite them before anything attends that far."""
+        dev = self.device
+        S, k = self._S, self._spec_k
+        tables = dtables = None
+        if self.paged:
+            tables = torch.as_tensor(self._tables, device=dev)
+            dtables = torch.as_tensor(self._dtables, device=dev)
+        t, n_emit, tok, pos, dpos, done = self._spec_call(
+            torch.as_tensor(self._tok, device=dev),
+            torch.as_tensor(self._pos, device=dev),
+            torch.as_tensor(self._dpos, device=dev),
+            torch.as_tensor(self._done, device=dev), tables, dtables)
+        # one transfer to the host for the whole round
+        host = torch.cat([t.reshape(-1), n_emit, tok, pos, dpos,
+                          done.to(torch.int32)]).cpu().numpy()
+        toks = host[:S * (k + 1)].reshape(S, k + 1).T       # [k+1, S]
+        n_emit, self._tok, self._pos, self._dpos, done = (
+            host[S * (k + 1) + j * S:S * (k + 1) + (j + 1) * S].copy()
+            for j in range(5))
+        self._done = done.astype(bool)
+        self._spec_rounds += 1
+        self._spec_emitted += int(n_emit[rows].sum())
+        # acceptance accounting: every live row consumed k proposals;
+        # n_emit-1 of them matched (eos clipping only shortens usage)
+        emitting = [i for i in rows if int(n_emit[i]) > 0]
+        lens = [int(n_emit[i]) - 1 for i in emitting]
+        self.telemetry.spec_round(k * len(emitting), sum(lens), lens)
+        for i in rows:
+            for j in range(int(n_emit[i])):
+                if self._slots[i] is None:
+                    break       # finished mid-round; the rest is frozen
+                self._record_token(i, int(toks[j, i]))
+
+    def _spec_chunked_tick(self, active) -> int:
+        """Chunked tick with a draft model: one token budget covers both
+        work kinds — each DECODE row costs k+1 verify positions, the
+        rest grants prefill chunks FIFO.  A spec round for the decode
+        rows, then the chunk call that lands the chunks in both
+        tenants."""
+        plan = self._plan_tick(active, self._spec_k + 1)
+        if plan is None:
+            self._admit()       # preemptions may have freed blocks
+            return self.n_active
+        decode_rows, chunks = plan
+        if decode_rows:
+            self._spec_round(decode_rows)
+        # a round finishes rows but never chunk rows (PREFILLING rows
+        # are frozen in it); re-filter for safety
+        chunks = [(i, c) for i, c in chunks if self._slots[i] is not None]
+        if chunks:
+            self._land_chunks(chunks)
+        self._reanchor_prefill()
+        self._admit()       # freed slots recycle on the SAME iteration
+        return self.n_active
+
+    # ---- cold start ---------------------------------------------------
+
+    def _chunk_grid_shapes(self, max_chunk_rows: Optional[int] = None):
+        """Every (rows, width, read window) a chunked tick can reach,
+        in the reference's order: rows powers of two up to
+        ``max_chunk_rows`` (default ``max_slots``), widths the chunk
+        buckets, and per width the windows that can hold a chunk
+        longer than the previous bucket (paged narrow-table widths or
+        arena read lengths, capped at the largest prompt)."""
+        S = self._S
+        kmax = min(max_chunk_rows or S, S)
+        kbs, kb = [], 1
+        while kb < kmax:
+            kbs.append(kb)
+            kb *= 2
+        kbs.append(kb)
+        max_prompt = self.prompt_buckets[-1]
+        for ci, Cb in enumerate(self._chunk_buckets):
+            prev = self._chunk_buckets[ci - 1] if ci else 0
+            if self.paged:
+                lo = self._table_width(-(-(prev + 1) // self._bs))
+                hi = self._table_width(-(-max_prompt // self._bs))
+                widths = []
+                v = lo
+                while v <= hi:
+                    widths.append(v)
+                    if v >= self._M:
+                        break
+                    v *= 2
+            else:
+                widths = [b for bi, b in enumerate(self._read_buckets)
+                          if b > prev
+                          and (self._read_buckets[bi - 1] if bi else 0)
+                          < max_prompt]
+            for kb in kbs:
+                for width in widths:
+                    yield kb, Cb, width
+
+    @torch.no_grad()
+    def precompile_chunked(self, sampled: bool = False,
+                           use_topp: bool = False,
+                           max_chunk_rows: Optional[int] = None) -> int:
+        """Run the chunked scheduler's whole grid of tick shapes once, so
+        that serving meets no first-launch cost: every kernel the ticks
+        launch is built and loaded, and each shape's split choice is
+        made.  The grid is the reference's (``_chunk_grid_shapes``):
+        per shape the chunk call without and with the decode before it
+        (speculative engines: the two-tenant chunk call, and one spec
+        round).  ``sampled``/``use_topp`` run the decode pick with the
+        sampler.  Runs on the live pools and caches without changing
+        what any row attends: paged calls write and read only the sink
+        block, arena chunks run on copies of the rows, and arena decodes
+        write every row's last position, restored after.  Returns
+        the number of (program, shape) variants visited, as the
+        reference counts them."""
+        if not self.chunked:
+            raise ValueError("precompile_chunked requires chunked=True")
+        dev, S = self.device, self._S
+        tok = torch.zeros(S, dtype=torch.int32, device=dev)
+        # paged: all-sink tables at position 0; arena: position L-1
+        pos = torch.full((S,), 0 if self.paged else self._L - 1,
+                         dtype=torch.int32, device=dev)
+        arena = [] if self.paged else [self._ck, self._cv] + (
+            [] if self.draft_model is None else [self._dck, self._dcv])
+        saved = [c[:, :, -1].clone() for c in arena]
+        done = torch.ones(S, dtype=torch.bool, device=dev)
+        sink = torch.full((S, self._M), SINK_BLOCK, dtype=torch.int32,
+                          device=dev) if self.paged else None
+        samp = {}
+        if sampled:
+            samp = dict(temps=torch.zeros(S, device=dev),
+                        seeds=torch.zeros(S, dtype=torch.int64, device=dev))
+            if use_topp:
+                samp["top_ps"] = torch.zeros(S, device=dev)
+        count = 0
+        for kb, Cb, width in self._chunk_grid_shapes(max_chunk_rows):
+            grid = (np.full((kb, Cb), self.pad_id, np.int32),
+                    np.zeros(kb, np.int32), np.ones(kb, np.int32),
+                    np.full(kb, S, np.int32), width)
+            if self.draft_model is not None:
+                self._run_chunk(*grid)
+                count += 1
+                continue
+            for with_decode in (False, True):
+                if with_decode:
+                    pick_next(self._decode_call(tok, pos, sink), pos,
+                              **samp)
+                self._run_chunk(*grid)
+                count += 1
+        if self.draft_model is not None:
+            self._spec_call(tok, pos, pos, done, sink, sink)
+            count += 1
+        for c, col in zip(arena, saved):
+            c[:, :, -1] = col
+        return count
 
     @torch.no_grad()
     def drain(self, max_ticks: int = 100_000) -> None:

@@ -77,7 +77,7 @@ fails.  Phases, in order:
    calls + 1) x 22), then ``Estimator.from_torch`` trains 10 steps of
    4 x 2048 tokens (forward = backward launches = 22 a step) and a
    repeated-batch fit as in phase 6; its profiled step runs after phase
-   7 (7b).
+   7 (7b).  Phase 9 runs next, on this model (see 9 below).
 7. Kernel timings at the main paths' shapes (paged: a decode tick, a
    512-token prefill and every prefill shape of phase 4, each first held
    to the plain version, at the split count the wrapper picks and at
@@ -90,7 +90,13 @@ fails.  Phases, in order:
    T=2048, H=32, D=64),
    beside the plain version, the memory/compute bound and, for flash,
    PyTorch's ``scaled_dot_product_attention`` (forward, or its backward
-   through autograd); printed as one ``{"kernels": [...]}`` line.
+   through autograd); then the paged kernel at phase 9's shapes: the
+   speculative verify at TinyLlama width (B=8, S=5 at unaligned
+   positions: tensor cores), GPT-2's MHA verify (S=5: CUDA cores,
+   split), and a chunked tick's grid (rows at fill frontiers 0, 96 and
+   301, 32-token chunks, a table narrowed to the frontier, an all-sink
+   padding row) in bf16 and int8; printed as one ``{"kernels": [...]}``
+   line.
    ``ms`` is a call's time by CUDA events over back-to-back calls (the
    host's work between launches included where a call is short);
    ``kernel_ms`` the kernel's own device time a launch, by
@@ -120,7 +126,29 @@ fails.  Phases, in order:
    The kernels line gains each kernel's launches in 8b
    (``stack_launches``) and a ``stack`` key with every pair's numbers.
 
-The last line is ``{"ok": true, "device": {...}}``.
+9. Chunked prefill and speculative decoding (run after 6b, before 7).
+   9a, 2 layers at TinyLlama width, f32: the paged engine (the kernel)
+   chunked = monolithic = speculative (k=4; self-draft and a 1-layer
+   draft made of the target's first layer), in the arena and paged =
+   speculative + chunked = ``generate``; chunked arena = arena; int8
+   chunked = int8 monolithic.  9b, phase 6b's 22-layer bf16 model on
+   phase 4's stream, paged: the chunked engine (default budget)
+   alternating twice with the monolithic one, the speculative engine
+   (k=4) with a 2-layer draft (the target's first two layers,
+   embeddings, final norm and head) and self-drafted, and speculative +
+   chunked; each run prints tokens/s, mean time to first token and the
+   short requests' (prompts of at most 128 tokens), ticks by kind,
+   chunks, budget use, acceptance and peak memory.  In both, every run's
+   paged and flash launches must equal what the engine's own counters
+   give (:func:`expected_launches`), and a paged engine must resolve
+   the ``fused`` kernel.  9b then reports a witness of its bf16 token
+   differences (:func:`bf16_witness`): the self-drafted and monolithic
+   runs again through the plain gather read, and the logit gap where
+   the kernel's speculative tokens first part from the monolithic ones.
+
+The line before the last is ``{"kernels": [...], "stack": ..., "modes":
+[phase 9b's runs], "witness": {...}}``; the last is ``{"ok": true,
+"device": {...}}``.
 
 ``python3 chip_smoke.py --paged-rounds N`` runs none of the phases: it
 serves phase 4's stream N times after one warm-up, on phase 4's model,
@@ -130,6 +158,7 @@ alternating processes).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import http.client
@@ -159,6 +188,7 @@ from analytics_zoo_tpu_torch.parallel.ring_attention import full_attention
 from analytics_zoo_tpu_torch.serving import (ClusterServing, HttpFrontend,
                                              OutputQueue, ServingConfig)
 from analytics_zoo_tpu_torch.serving.continuous import ContinuousEngine
+from analytics_zoo_tpu_torch.serving.paged_cache import SINK_BLOCK
 
 # GPT-2 small, as analytics_zoo_tpu/net/hf_net.py builds it
 GPT2 = dict(vocab_size=50257, hidden_size=768, num_heads=12,
@@ -1413,9 +1443,11 @@ def paged_timings(dev, paged_launches, paged_shapes, cfg=GPT2,
 
 
 def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
-                  prefill_shapes, train_launches, llama):
+                  prefill_shapes, train_launches, llama, modes):
     """Phase 7 at the GPT-2 main paths' shapes, then at the Llama main
-    path's (``llama``: what :func:`phase_llama_main_path` returns)."""
+    path's (``llama``: what :func:`phase_llama_main_path` returns), then
+    at phase 9's verify and chunk shapes (``modes``: the launches
+    :func:`phase_modes_llama` returns)."""
     print("== phase 7: kernel timings at the main paths' shapes")
     entries = paged_timings(dev, paged_launches, paged_shapes)
     for (B, T), calls in prefill_shapes.most_common(2):
@@ -1457,6 +1489,7 @@ def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
                              TINYLLAMA, "TinyLlama")
     entries += training_timings(dev, llama["train_launches"], TINYLLAMA,
                                 LLAMA_TRAIN, "Llama training main path")
+    entries += spec_chunk_timings(dev, modes)
     for e in entries:
         lib = e["library_ms"]
         print(f"  {e['name']} {e['shape']}: kernel {e['ms']:.4f} ms a "
@@ -2059,6 +2092,341 @@ def phase_stack_llama(dev, card, model):
     return out
 
 
+def first_layers(model, cfg, n):
+    """A draft made of ``model``'s first ``n`` layers with its
+    embeddings, final norm and head (``cfg`` builds the model).  Returns
+    (draft on the model's device, its state_dict)."""
+    state = {k: v for k, v in model.state_dict().items()
+             if not k.startswith("layers.") or int(k.split(".")[1]) < n}
+    dev = next(model.parameters()).device
+    with torch.device(dev):
+        draft = TransformerLM(**cfg, num_layers=n, dtype=model.dtype)
+    draft.load_state_dict(state)
+    return draft, state
+
+
+def expected_launches(eng):
+    """The paged and flash kernel launches an engine's run must have
+    made, from its own counters: per target layer one paged call for
+    each paged admission prefill, decode step, chunk call and verify
+    round; per draft layer one for each draft admission prefill, each
+    of the k+1 draft steps of a round and each chunk call (a
+    speculative chunk call lands in both tenants).  Arena: one flash
+    call per layer for each admission prefill of either model; the
+    arena's chunks and decodes read through plain attention."""
+    m = eng.cache_metrics()
+    Lt = eng.model.num_layers
+    Ld = eng.draft_model.num_layers if eng.draft_model is not None else 0
+    rounds = m.get("spec_rounds", 0)
+    if not eng.paged:
+        return 0, eng.prefill_calls * Lt + eng.draft_prefill_calls * Ld
+    paged = (eng.prefill_calls + eng.decode_ticks + eng.chunk_calls
+             + rounds) * Lt
+    if eng.draft_model is not None:
+        paged += (eng.draft_prefill_calls + (eng._spec_k + 1) * rounds
+                  + eng.chunk_calls) * Ld
+    return paged, 0
+
+
+def checked_run(model, dev, reqs, name, **kw):
+    """Serve ``reqs`` on a fresh engine, counting the kernels' launches
+    from 0; fail unless they equal :func:`expected_launches` and, for a
+    paged engine, it resolved the ``fused`` kernel.  Returns (engine,
+    tokens, seconds, first-token latencies, paged launches)."""
+    fa.paged_attention_fused.launches = 0
+    fa.flash_attention_fused.launches = 0
+    eng, out, secs, first = serve(model, dev, reqs, **kw)
+    got = (fa.paged_attention_fused.launches,
+           fa.flash_attention_fused.launches)
+    want = expected_launches(eng)
+    if eng.paged and eng.kernel != "fused":
+        raise AssertionError(f"{name}: the paged engine resolved "
+                             f"{eng.kernel!r}, not the kernel")
+    # (a chunked arena reads through plain attention only: 0 and 0)
+    if got != want or (eng.paged and got[0] == 0):
+        raise AssertionError(f"{name}: (paged, flash) launches {got} != "
+                             f"{want} from the engine's counters")
+    return eng, out, secs, first, got[0]
+
+
+def phase_modes_f32(dev):
+    """9a: chunked prefill and speculative decoding at f32, 2 layers at
+    TinyLlama width: every mode's greedy tokens against plain greedy
+    ``generate`` or its monolithic twin, and every launch accounted
+    for."""
+    print("== phase 9a: chunked prefill and speculative decoding, 2 layers "
+          "at TinyLlama width, f32")
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = TransformerLM(**TINYLLAMA, num_layers=2,
+                              dtype=torch.float32)
+    draft, dvars = first_layers(model, TINYLLAMA, 1)
+    vocab = TINYLLAMA["vocab_size"]
+    reqs, _ = prompts(np.random.default_rng(1),
+                      [80, 70, 20, 45, 130, 200, 33, 250], 64, (0, 5),
+                      vocab=vocab)
+    kw = dict(max_new_tokens=16, max_slots=4,
+              prompt_buckets=(32, 64, 128, 256), block_size=16)
+    want = {uri: generate(model, None, p[None], 16, device=dev)[0]
+            .cpu().numpy() for uri, p in reqs}
+    k4 = dict(speculation_k=4)
+    self_draft = dict(k4, draft_model=model,
+                      draft_variables=model.state_dict())
+    one_layer = dict(k4, draft_model=draft, draft_variables=dvars)
+    runs = {}
+    for name, extra in (
+            ("paged", dict(paged=True)),
+            ("paged chunked", dict(paged=True, chunked=True)),
+            ("arena", {}), ("arena chunked", dict(chunked=True)),
+            ("paged spec self-draft", dict(paged=True, **self_draft)),
+            ("paged spec 1-layer draft", dict(paged=True, **one_layer)),
+            ("arena spec self-draft", self_draft),
+            ("arena spec 1-layer draft", one_layer),
+            ("paged spec + chunked", dict(paged=True, chunked=True,
+                                          **one_layer)),
+            ("paged int8", dict(paged=True, kv_dtype="int8")),
+            ("paged int8 chunked", dict(paged=True, kv_dtype="int8",
+                                        chunked=True))):
+        eng, runs[name], secs, _, launches = checked_run(
+            model, dev, reqs, name, **kw, **extra)
+        m = eng.cache_metrics()
+        acc = (f", acceptance {m['spec_accepted']}/{m['spec_proposed']}"
+               if "spec_rounds" in m else "")
+        print(f"  {name}: {len(runs[name])} requests in {secs:.2f} s, "
+              f"launches (paged, flash) {expected_launches(eng)}"
+              f"{acc}")
+    for name in ("paged", "paged chunked", "paged spec self-draft",
+                 "paged spec 1-layer draft", "arena spec self-draft",
+                 "arena spec 1-layer draft", "paged spec + chunked"):
+        same_tokens(runs[name], want, f"{name} != generate")
+    same_tokens(runs["arena chunked"], runs["arena"],
+                "arena chunked != arena")
+    same_tokens(runs["paged int8 chunked"], runs["paged int8"],
+                "int8 chunked != int8 monolithic")
+    print("  greedy tokens identical: chunked paged = monolithic paged = "
+          "speculative (paged, arena; self-draft, 1-layer draft) = "
+          "speculative + chunked = generate; chunked arena = arena; int8 "
+          "chunked = int8 monolithic")
+    del model, draft
+    free_memory()
+
+
+def short_ttft_ms(first, reqs):
+    """Mean time to first token of the stream's short requests (prompts
+    of at most 128 tokens), which queue behind the long prompts."""
+    short = [first[u] for u, p in reqs if len(p) <= 128]
+    return 1e3 * float(np.mean(short))
+
+
+def phase_modes_llama(dev, card, model):
+    """9b: phase 4's stream at TinyLlama-1.1B width (phase 6b's model,
+    22 layers, bf16) through the paged chunked engine (default budget)
+    alternating twice with the monolithic paged engine, the paged
+    speculative engine (k=4) with a 2-layer draft and self-drafted, and
+    speculative + chunked; every run's launches checked exactly.
+    Returns each run's numbers and the launches phase 7 reports."""
+    vocab = TINYLLAMA["vocab_size"]
+    print(f"== phase 9b: chunked prefill and speculative decoding at "
+          f"TinyLlama-1.1B width ({model.num_layers} layers, bf16), phase "
+          f"4's stream, paged")
+    warm, reqs, _ = main_stream(vocab)
+    draft, dvars = first_layers(model, TINYLLAMA, 2)
+    base = dict(MAIN, paged=True, block_size=16, flight_capacity=8192)
+    two = dict(draft_model=draft, draft_variables=dvars, speculation_k=4)
+    runs = [("chunked", dict(chunked=True)), ("monolithic", {}),
+            ("chunked", dict(chunked=True)), ("monolithic", {}),
+            ("spec k=4, 2-layer draft", two),
+            ("spec k=4, self-draft",
+             dict(draft_model=model, draft_variables=model.state_dict(),
+                  speculation_k=4)),
+            ("spec k=4 + chunked, 2-layer draft", dict(two, chunked=True))]
+    # warm-up: every program of the modes on two requests
+    for extra in (dict(chunked=True), dict(two, chunked=True)):
+        serve(model, dev, warm, **base, **extra)
+    # each shape's own calls: per target layer a verify a round; per
+    # layer of each tenant a chunk grid a chunk call
+    results, launches = [], {"chunk": 0, "verify": 0}
+    mono = spec_self = None
+    for name, extra in runs:
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        eng, out, secs, first, n = checked_run(model, dev, reqs, name,
+                                               **base, **extra)
+        check_served(out, reqs, vocab)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        m = eng.cache_metrics()
+        kinds = dict(collections.Counter(
+            r["kind"] for r in eng.flight.snapshot()))
+        n_tok = sum(len(t) for t in out.values())
+        row = {"run": name, "tokens_per_s": n_tok / secs,
+               "ttft_ms": 1e3 * float(np.mean(list(first.values()))),
+               "short_ttft_ms": short_ttft_ms(first, reqs),
+               "ticks": kinds, "chunks": eng.telemetry.c_chunks.value,
+               "budget_utilization": m.get("budget_utilization"),
+               "acceptance": (m["spec_accepted"] / m["spec_proposed"]
+                              if m.get("spec_proposed") else None),
+               "spec_rounds": m.get("spec_rounds"), "peak_gib": peak,
+               "paged_launches": n}
+        if name == "monolithic":
+            mono = out
+        elif mono is not None and name.startswith("spec"):
+            # bf16: the verify's k+1 rows round differently from single
+            # decode steps, so tokens may part; reported, not held (the
+            # witness below runs the same pair through the plain read)
+            row["tokens_equal_monolithic"] = agreement(out, mono)
+        if name == "spec k=4, self-draft":
+            spec_self = out, row["acceptance"]
+        results.append(row)
+        layers = model.num_layers + (
+            eng.draft_model.num_layers if eng.draft_model is not None
+            else 0)
+        launches["chunk"] += eng.chunk_calls * layers
+        launches["verify"] += m.get("spec_rounds", 0) * model.num_layers
+        print(f"  [{card}] {name}: {row['tokens_per_s']:.1f} tokens/s, "
+              f"mean TTFT {row['ttft_ms']:.1f} ms, short requests' TTFT "
+              f"{row['short_ttft_ms']:.1f} ms, ticks {kinds}, chunks "
+              f"{row['chunks']}, budget use "
+              f"{row['budget_utilization']}, acceptance "
+              f"{row['acceptance']}, peak {peak:.2f} GiB, paged launches "
+              f"{n} = engine counters {expected_launches(eng)}")
+        if name == "spec k=4, self-draft" and row["acceptance"] < 0.8:
+            raise AssertionError(f"self-draft acceptance "
+                                 f"{row['acceptance']}: the draft tenant's "
+                                 f"cache does not follow the target's")
+    print("  acceptance comes from random weights: the 2-layer draft's "
+          "near-zero rate exercises rollback every round, self-draft's "
+          "near-1.0 the full k+1 advance across block boundaries")
+    print(f"  calls at phase 7's shapes in these runs: verify "
+          f"{launches['verify']}, chunk grids {launches['chunk']}")
+    del draft
+    free_memory()
+    witness = bf16_witness(model, dev, reqs, base, mono, *spec_self)
+    free_memory()
+    return {"runs": results, "witness": witness, "launches": launches}
+
+
+def agreement(a, b):
+    """Mean over requests of the share of positions where two runs'
+    tokens are equal."""
+    return float(np.mean([np.mean(a[u] == b[u]) for u in b]))
+
+
+def bf16_witness(model, dev, reqs, base, mono, spec, acceptance):
+    """Whether 9b's bf16 speculative tokens part from the monolithic
+    ones by rounding or by a fault of the kernel's tensor-core verify
+    path.  (1) The self-drafted and the monolithic runs once more
+    through the plain gather read (same weights, stream and dtype):
+    their acceptance and agreement beside the kernel's.  (2) At each
+    request's first position where the kernel's self-draft tokens
+    leave the monolithic ones, the logit gap between the two tokens in
+    one plain causal forward over the monolithic sequence, beside the
+    median top-1/top-2 gap over every generated position.  Reported,
+    not held."""
+    plain = dict(base, kernel="gather")
+    _, mono_g, _, _ = serve(model, dev, reqs, **plain)
+    eng, spec_g, _, _ = serve(
+        model, dev, reqs, **plain, draft_model=model,
+        draft_variables=model.state_dict(), speculation_k=4)
+    if eng.kernel != "gather":
+        raise AssertionError(f"witness resolved {eng.kernel!r}")
+    m = eng.cache_metrics()
+    gaps, at_parting = [], []
+    with torch.no_grad():
+        for u, p in reqs:
+            a, b = np.asarray(mono[u]), np.asarray(spec[u])
+            seq = torch.as_tensor(np.r_[p, a][None], device=dev)
+            lg = model(seq)[0, len(p) - 1:len(p) - 1 + len(a)].float()
+            top = lg.topk(2, dim=-1).values
+            gaps += (top[:, 0] - top[:, 1]).tolist()
+            parts = np.nonzero(a != b)[0]
+            if len(parts):
+                j = int(parts[0])
+                at_parting.append(abs(float(lg[j, a[j]] - lg[j, b[j]])))
+    w = {"acceptance_kernel": acceptance,
+         "acceptance_plain": m["spec_accepted"] / m["spec_proposed"],
+         "spec_equal_monolithic_kernel": agreement(spec, mono),
+         "spec_equal_monolithic_plain": agreement(spec_g, mono_g),
+         "monolithic_kernel_equal_plain": agreement(mono, mono_g),
+         "parted_requests": len(at_parting),
+         "gap_at_parting_max": max(at_parting, default=None),
+         "gap_at_parting_median": (float(np.median(at_parting))
+                                   if at_parting else None),
+         "top2_gap_median": float(np.median(gaps))}
+    print(f"  bf16 witness (self-draft k=4): acceptance kernel "
+          f"{w['acceptance_kernel']} / plain gather "
+          f"{w['acceptance_plain']}; spec tokens equal monolithic: kernel "
+          f"{w['spec_equal_monolithic_kernel']} / plain "
+          f"{w['spec_equal_monolithic_plain']}; monolithic kernel = plain "
+          f"on {w['monolithic_kernel_equal_plain']}; {len(at_parting)} "
+          f"requests part, logit gap at the parting median "
+          f"{w['gap_at_parting_median']} max {w['gap_at_parting_max']} "
+          f"vs median top-1/top-2 gap {w['top2_gap_median']}")
+    return w
+
+
+def spec_chunk_timings(dev, p9):
+    """Phase 7's rows for the modes of phase 9: the paged kernel at the
+    speculative verify shape (TinyLlama B=8 S=5, 8-way GQA: tensor
+    cores), at GPT-2's MHA verify (S=5: CUDA cores, split), and at a
+    chunked tick's grid (rows at frontiers 0, 96 and 301, 32-token
+    chunks, a table narrowed to the frontier, an all-sink padding row),
+    bf16 and int8, each held to the plain version first.  ``launches``
+    are the calls at that shape in 9b's runs (which serve bf16 pools
+    and no GPT-2 model: 0 for those two rows)."""
+    rng = np.random.default_rng(9)
+    cases = [("TinyLlama verify", TINYLLAMA, "bf16", 8, 5,
+              rng.integers(290, 311, 8), PAGED_M, p9["verify"]),
+             ("GPT-2 verify", GPT2, "bf16", 8, 5,
+              rng.integers(290, 311, 8), PAGED_M, 0),
+             ("TinyLlama chunk grid", TINYLLAMA, "bf16", 4, 32,
+              [0, 96, 301, 0], 32, p9["chunk"]),
+             ("TinyLlama chunk grid", TINYLLAMA, "int8", 4, 32,
+              [0, 96, 301, 0], 32, 0)]
+    entries = []
+    for label, cfg, kind, B, S, pos, M, launches in cases:
+        H = cfg["num_heads"]
+        KH = cfg.get("num_kv_heads") or H
+        D = cfg["hidden_size"] // H
+        n_sets = n_sets_for(sum(int(p) + S for p in pos) * KH * D * 2 * 2)
+        q, pk, pv, tabs, p = attention_case(
+            dev, kind, H, KH, S, B, pos, M=M, n_sets=n_sets, seed=13, D=D)
+        if "grid" in label:
+            for t in tabs:
+                t[-1] = SINK_BLOCK      # the grid's padding row
+        err = (fa.paged_attention_fused(q, pk, pv, tabs[0], p)
+               - fa.paged_attention_ref(q, pk, pv, tabs[0], p)
+               ).abs().max().item()
+        if err > ATOL[kind]:
+            raise AssertionError(f"paged kernel disagrees with the plain "
+                                 f"version at {label} {kind}: {err}")
+        splits = fa.paged_attention_splits(
+            q.dtype == torch.bfloat16, fa._KV_KINDS[
+                (pk.data if kind == "int8" else pk).dtype],
+            B, S, H, KH, D, 16, M, q.device.index)
+        if label == "GPT-2 verify" and splits < 2:
+            raise AssertionError(f"GPT-2 verify ran {splits} split")
+
+        def paged(i):
+            fa.paged_attention_fused(q, pk, pv, tabs[i], p)
+
+        ms = time_ms(paged, n_sets)
+        launch_ms, parts = device_ms(paged, n_sets, PAGED_KERNELS)
+        plain = time_ms(lambda i: fa.paged_attention_ref(q, pk, pv,
+                                                         tabs[i], p),
+                        n_sets, iters=20)
+        bms, by = paged_bound(q, pk, tabs[0], p, S)
+        entries.append({
+            "name": f"paged_attention[{label} {kind}]", "route": "cuda",
+            "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
+            "shape": f"B={B} S={S} H={H} KH={KH} D={D} bs=16 M={M} {kind} "
+                     f"pos={[int(x) for x in pos]}",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "kernel_ms": launch_ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "splits": splits, "kernel_ms_parts": parts,
+            "library_ms": None})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2086,8 +2454,13 @@ def main() -> int:
     train_launches = phase_training_main_path(dev, card, model)
     del model
     llama, llama_model = phase_llama_main_path(dev, card)
+    # phase 9 runs here, on phase 6b's model, so that phase 7 (traced
+    # before 7b's profiled step) can time its shapes
+    phase_modes_f32(dev)
+    modes = phase_modes_llama(dev, card, llama_model)
     kernels = phase_timings(dev, paged_launches, paged_shapes,
-                            flash_launches, shapes, train_launches, llama)
+                            flash_launches, shapes, train_launches, llama,
+                            modes["launches"])
     phase_llama_profile(dev, llama_model)
     phase_stack_f32(dev, card)
     stack = phase_stack_llama(dev, card, llama_model)
@@ -2101,7 +2474,8 @@ def main() -> int:
     print(f"whole run {time.monotonic() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, "stack": {
-        name: run["pairs"] for name, run in stack.items()}}))
+        name: run["pairs"] for name, run in stack.items()},
+        "modes": modes["runs"], "witness": modes["witness"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -286,8 +286,7 @@ def test_engine_needs_a_device_or_cuda(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(chunked=True), "4.2"),
-    (dict(draft_model=object()), "4.3"), (dict(qos=object()), "4.5"),
+    (dict(qos=object()), "4.5"),
     (dict(elastic_pool=True), "4.6"),
     (dict(kv_host_store_bytes=1 << 20), "4.6"),
     (dict(mesh=object()), "item 6")])

@@ -295,9 +295,7 @@ def test_unported_modes_answer_errors(models):
     # the stack still serves after both
     status, text = st.generate(tokens=_prompts()[2].tolist())
     assert status == 200, text
-    for cfg, item in ((dict(engine_chunked=True), "4.2"),
-                      (dict(engine_speculation_k=2), "4.3"),
-                      (dict(qos_enabled=True), "4.5"),
+    for cfg, item in ((dict(qos_enabled=True), "4.5"),
                       (dict(engine_elastic_pool=True), "4.6")):
         im = InferenceModel().load_torch_generator(
             models[2], None, _NEW, prompt_buckets=_BUCKETS, device="cpu")
@@ -372,8 +370,6 @@ def test_inference_model_matches_jax(models):
         im.predict(np.zeros((1, 4), np.int32))
     for call, item in ((lambda: im.load_torch_generator(
             tm, None, 4, quantize="int8", device="cpu"), "item 7"),
-            (lambda: im.load_torch_generator(
-                tm, None, 4, draft_model=tm, device="cpu"), "4.3"),
             (lambda: im.load_flax(tm, None), "item 8"),
             (lambda: im.load_tf("model"), "item 9")):
         with pytest.raises(NotImplementedError, match=item):
