@@ -256,8 +256,10 @@ class InferenceModel:
         the model's head dim and block size; "gather" forces the plain
         version.  A draft-loaded handle builds a speculative engine;
         ``speculation_k`` overrides the depth stored at load (``None``
-        keeps it) and is refused without a draft.  Modes not ported yet
-        raise in the engine, naming their ROADMAP item."""
+        keeps it) and is refused without a draft.  ``qos``,
+        ``elastic_pool``, ``kv_host_store_bytes`` and
+        ``prefix_directory`` pass through to the engine; only ``mesh``
+        (tensor parallelism, ROADMAP item 6) raises there."""
         from analytics_zoo_tpu_torch.serving.continuous import (
             ContinuousEngine)
 

@@ -59,10 +59,35 @@ emits what ``generate`` emits for the same seed.
 The engine carries the reference's serving surface: the ``Telemetry``
 request-lifecycle hooks and scrape-time gauges (``/metrics``), the
 per-tick flight recorder, the fault injector's tick hook, and the
-accessors ``ClusterServing`` reads.  The other engine modes (QoS,
-brownout and deadlines, handoff, elastic pools, the host KV tier,
-tensor parallelism) raise ``NotImplementedError`` naming their ROADMAP
-item.
+accessors ``ClusterServing`` reads, and the reference's production
+modes:
+
+- **QoS** (``qos=``): the waiting queue is a ``WeightedWaitQueue``
+  (weighted stride over (class, tenant) subqueues, EDF inside a class)
+  and chunk grants rank by aged class first; ``qos=None`` keeps the
+  plain FIFO deque.
+- **Deadlines and brownout**: ``submit(deadline_t=)`` sheds a request
+  whose deadline passed before any prefill (``DeadlineExceeded``);
+  ``set_brownout`` levels 1-4 defer batch admission (work-conserving
+  when slots idle), clamp standard ``max_new``, drop speculative rounds
+  and admit interactive only.
+- **Host KV tier** (``kv_host_store_bytes``, paged): evicted indexed
+  blocks spill to a ``HostKVStore`` in one batched D2H gather a wave
+  and are readmitted H2D at admission instead of re-prefilled;
+  ``prefix_directory`` mirrors both tiers' membership fleet-wide.
+- **Elastic pool** (``elastic_pool``, paged): ``resize_pool`` grows or
+  shrinks both tenants' pools at the eviction boundary, and
+  ``maybe_autoresize`` runs ``policy.plan_pool_resize``.
+- **Prefill/decode handoff** (paged, greedy, no draft):
+  ``submit(handoff_cb=)`` exports a row's block chain and a copy of its
+  K/V at first-token time; ``submit_handoff`` adopts it on another
+  engine, which decodes it without a prefill.
+
+The pools are updated in place (the reference donates them), so every
+ordering rule the reference states is a real hazard here: an evicted
+block is gathered to the host before any write can reuse its id, and
+no device copy runs under the pool lock.  Tensor parallelism (``mesh``)
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -90,14 +115,48 @@ from analytics_zoo_tpu_torch.ops.flash_attention import (
 from analytics_zoo_tpu_torch.serving import policy as scheduler_policy
 from analytics_zoo_tpu_torch.serving.flight import FlightRecorder
 from analytics_zoo_tpu_torch.serving.frontdoor import PRIORITIES
+from analytics_zoo_tpu_torch.serving.kv_store import (HostKVStore,
+                                                      TIER_HBM, TIER_HOST)
 from analytics_zoo_tpu_torch.serving.paged_cache import (
     BlockPool, SINK_BLOCK, block_bytes, split_block_budget)
+from analytics_zoo_tpu_torch.serving.policy import WeightedWaitQueue
 from analytics_zoo_tpu_torch.serving.telemetry import Telemetry
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
 _KV_LABELS = {torch.bfloat16: "bf16", torch.float32: "f32",
               torch.float16: "f16", torch.float64: "f64"}
+
+
+def _kv_map(fn, *pools):
+    """``fn`` over KV pool tensors, or over each part of ``QuantKV``
+    pools (int8 data, then scales): a copy of an int8 pool must move
+    its scales with its data."""
+    if isinstance(pools[0], QuantKV):
+        return QuantKV(fn(*(p.data for p in pools)),
+                       fn(*(p.scale for p in pools)))
+    return fn(*pools)
+
+
+def _kv_parts(pool) -> list:
+    """The tensors of one KV pool: itself, or an int8 pool's data and
+    scales."""
+    return [pool.data, pool.scale] if isinstance(pool, QuantKV) \
+        else [pool]
+
+
+def _kv_scatter(dst, idx: torch.Tensor, src) -> None:
+    """Write ``src`` (``[layers, n, ...]`` per part, on any device) into
+    pool ``dst`` at block ids ``idx``, in place."""
+    for d, s in zip(_kv_parts(dst), _kv_parts(src)):
+        d[:, idx] = s.to(device=d.device, dtype=d.dtype)
+
+
+class DeadlineExceeded(RuntimeError):
+    """Terminal error of a request shed at ADMISSION because its
+    end-to-end deadline had already passed, apart from the supervisor's
+    in-flight deadline give-up.  The message starts with
+    ``deadline_exceeded``, the wire error event's name."""
 
 
 class _Req(NamedTuple):
@@ -113,10 +172,19 @@ class _Req(NamedTuple):
     temperature: float = 0.0
     rng_seed: Optional[int] = None
     top_p: float = 0.0
-    # front-door fields: recorded for telemetry's per-class
-    # attribution (admission stays FIFO: QoS is not ported)
+    # front-door fields: the QoS scheduler's class, tenant and arrival
+    # (``time.monotonic``); recorded for telemetry without QoS
     priority: str = "standard"
     tenant: str = ""
+    enq_t: float = 0.0
+    # prefill/decode handoff: on the SOURCE engine ``handoff_cb(state)``
+    # fires when the prompt's first token lands; on the DESTINATION
+    # ``handoff_state`` carries the exported chain (``submit_handoff``)
+    handoff_cb: Optional[Callable] = None
+    handoff_state: Optional[dict] = None
+    # absolute ``time.monotonic`` deadline, 0.0 = none: admission sheds
+    # an entry already past it before any prefill
+    deadline_t: float = 0.0
 
 
 @dataclass
@@ -159,8 +227,9 @@ class ContinuousEngine:
     """Continuous-batching engine over one ``TransformerLM``: the slot
     arena by default, a paged block pool with ``paged=True``.
 
-    Same constructor names as the JAX engine; the modes not ported yet
-    raise.  ``variables``, when given, is a ``state_dict`` (for example
+    Same constructor names as the JAX engine; only ``mesh`` and
+    ``partition_rules`` (tensor parallelism, ROADMAP item 6) raise.
+    ``variables``, when given, is a ``state_dict`` (for example
     from ``models.lm.params_from_flax``) loaded into ``model`` before
     serving; ``None`` serves the model's own weights.  ``device``:
     ``cuda`` unless the caller names another; without a CUDA device
@@ -206,12 +275,25 @@ class ContinuousEngine:
     ``draft_n_blocks`` blocks (default ``n_blocks``).  Both compose with
     either cache and with each other.
 
-    Not thread-safe by itself: ``submit`` may be called from any
-    thread, but ``step``/``drain``/``abort`` and ``register_prefix``/
-    ``unregister_prefix`` (which write the caches and, paged, the block
-    pool, which has no lock of its own here) must run on ONE pump
-    thread.  Scrape-time gauges read the pool's counters from other
-    threads without a lock (plain ints under the GIL).
+    ``qos`` (a ``policy.QosPolicy``) orders admission and chunk grants
+    by class and tenant.  ``kv_host_store_bytes`` (paged, no draft)
+    sizes the host tier for evicted prefix blocks; ``prefix_directory``
+    (a ``kv_store.PrefixDirectory``, paged) receives this replica's
+    (``replica_id``) tier claims.  ``elastic_pool`` (paged) lets
+    ``resize_pool``/``maybe_autoresize`` move the pool between a floor
+    of one full-length sequence and a ceiling probed at construction:
+    the pool plus 80% of the device memory ``torch.cuda.mem_get_info``
+    reports free after it (memory PyTorch's allocator holds cached
+    counts as used), arena-equivalent on the CPU.
+
+    Not thread-safe by itself: ``submit``, ``submit_handoff`` and
+    ``set_brownout`` may be called from any thread, but ``step``/
+    ``drain``/``abort``, ``register_prefix`` and ``resize_pool``/
+    ``maybe_autoresize`` (which write the caches) must run on ONE pump
+    thread.  The block pools are guarded by ``_pool_lock``, the
+    reference's: ``unregister_prefix`` releases from client threads and
+    scrapes and the router read pool state from theirs.  Pool callbacks
+    fire under it and only record; no device copy runs under it.
     """
 
     def __init__(self, model: TransformerLM,
@@ -245,17 +327,8 @@ class ContinuousEngine:
                  flight: Optional[FlightRecorder] = None,
                  flight_capacity: int = 2048,
                  device=None):
-        for on, what, item in (
-                (qos is not None, "QoS scheduling", "4.5"),
-                (elastic_pool, "elastic_pool", "4.6"),
-                (kv_host_store_bytes, "the host KV tier "
-                 "(kv_host_store_bytes)", "4.6"),
-                (prefix_directory is not None, "the fleet prefix "
-                 "directory (prefix_directory)", "4.6"),
-                (mesh is not None or partition_rules is not None,
-                 "tensor-parallel serving (mesh)", "6")):
-            if on:
-                raise _later(what, item)
+        if mesh is not None or partition_rules is not None:
+            raise _later("tensor-parallel serving (mesh)", "6")
         if kernel not in (None, "gather", "fused"):
             raise ValueError(f"kernel must be 'gather' or 'fused', got "
                              f"{kernel!r}")
@@ -267,6 +340,26 @@ class ContinuousEngine:
                 f"kernel={kernel!r} / kv_dtype={kv_dtype!r} require "
                 f"paged=True: both select the paged-attention path "
                 f"(the arena engine has no block pool to apply them to)")
+        if elastic_pool and not paged:
+            raise ValueError(
+                "elastic_pool=True requires paged=True: the arena "
+                "engine has no block pool to grow or shrink")
+        if kv_host_store_bytes < 0:
+            raise ValueError(f"kv_host_store_bytes must be >= 0, got "
+                             f"{kv_host_store_bytes}")
+        if (kv_host_store_bytes > 0 or prefix_directory is not None) \
+                and not paged:
+            raise ValueError(
+                "kv_host_store_bytes / prefix_directory require "
+                "paged=True: the tiered KV store spills and re-admits "
+                "BLOCK CHAINS (the arena engine has no blocks to spill)")
+        if kv_host_store_bytes > 0 and draft_model is not None:
+            raise ValueError(
+                "kv_host_store_bytes does not compose with a draft "
+                "model: speculative mode runs two pool tenants in "
+                "lockstep and re-admitting only the target tenant's "
+                "chain would desynchronize them; serve the host tier "
+                "on non-speculative replicas")
         # speculative mode: greedy only (submit() rejects temperature >
         # 0); each verify round advances every row by its own count
         self._spec_k = int(speculation_k) if draft_model is not None else 0
@@ -306,9 +399,38 @@ class ContinuousEngine:
         # cumulative-counter baselines for the flight record's deltas
         self._flight_last = {"preempt": 0, "chunks": 0, "budget_tokens": 0,
                              "alloc_fail": 0, "draft_alloc_fail": 0,
-                             "spec_proposed": 0, "spec_accepted": 0}
+                             "spec_proposed": 0, "spec_accepted": 0,
+                             "pool_resizes": 0, "handoffs_out": 0,
+                             "handoffs_in": 0, "kv_spills": 0,
+                             "kv_readmits": 0, "deadline_sheds": 0}
+        # brownout and deadline admission: 0/off until the broker calls
+        # set_brownout or a deadline arrives, and every gate checks the
+        # level first, so untouched engines decide as before
+        self._brownout_level = 0
+        self._brownout_enabled = False
+        self._brownout_clamp = 0
+        self._deadline_seen = False
+        self._deadline_sheds = 0
         self._pool: Optional[BlockPool] = None
         self._dpool: Optional[BlockPool] = None
+        # pool-mutation guard (the reference's): pool callbacks fire
+        # under it and only record; the device work they defer (spill
+        # gathers, readmit scatters) runs after it is released
+        self._pool_lock = threading.Lock()
+        # tiered KV: host store, fleet directory, their counters and the
+        # deferred device work ((block, hash) spills; (blocks, k, v)
+        # readmits), drained by the pump before its next pool write
+        self._kv_store: Optional[HostKVStore] = None
+        self._prefix_directory = prefix_directory
+        self._kv_spills = 0
+        self._kv_spill_bytes = 0
+        self._kv_readmits = 0
+        self._kv_readmit_tokens_saved = 0
+        self._pending_spills: List[Tuple[int, int]] = []
+        self._pending_readmits: List[tuple] = []
+        # handoff traffic: rows exported at first token / adopted
+        self._handoffs_out = 0
+        self._handoffs_in = 0
         D = model.hidden_size // model.num_heads
         self.kernel = self._resolve_kernel(kernel, D, int(block_size))
         # the draft tenant's read, resolved by its own shape
@@ -352,11 +474,14 @@ class ContinuousEngine:
         # ticks' chunk calls, spec_rounds the verify rounds; the draft's
         # calls are draft_prefill_calls (its admission prefills and
         # prefix pins, counted like the target's) plus k+1 decode steps
-        # a round plus one chunk call per spec chunk call.
+        # a round plus draft_chunk_calls, the chunk calls that landed in
+        # the draft too (all of them unless brownout dropped
+        # speculation).
         self.decode_ticks = 0
         self.prefill_calls = 0
         self.prefill_shapes: collections.Counter = collections.Counter()
         self.chunk_calls = 0
+        self.draft_chunk_calls = 0
         self.draft_prefill_calls = 0
         self._spec_rounds = 0
         self._spec_emitted = 0
@@ -383,10 +508,11 @@ class ContinuousEngine:
         else:
             self._init_pool(model, S, L, H, D, cdtype, int(block_size),
                             n_blocks, draft_n_blocks, hbm_fraction,
-                            enable_prefix_cache)
+                            enable_prefix_cache, int(kv_host_store_bytes))
             self._kv_bytes_per_token = (
                 self._per_block_bytes + self._draft_per_block_bytes) \
                 // self._bs
+        self._init_elastic(bool(elastic_pool))
         self._init_chunked(chunked, tick_token_budget)
         self.ticks_per_step = max(1, int(ticks_per_step))
         # host-side per-slot state (device copies travel per step)
@@ -397,8 +523,49 @@ class ContinuousEngine:
         self._slots: List[Optional[_Slot]] = [None] * S
         self._free = collections.deque(range(S))
         self._lock = threading.Lock()
-        self._waiting: collections.deque = collections.deque()
+        # QoS off: the plain FIFO deque (decisions bit-identical to an
+        # engine without the front door); on: the weighted scheduler,
+        # with the same deque surface at every call site
+        self._qos = qos
+        self._waiting = (WeightedWaitQueue(qos) if qos is not None
+                         else collections.deque())
         self._register_engine_gauges()
+
+    def _init_elastic(self, elastic_pool: bool) -> None:
+        """The elastic pool's bounds, probed once after the weights and
+        the pool are allocated: floor one full-length sequence (M+1
+        blocks), step an eighth of the pool (at least a block's token
+        count), ceiling the pool plus 80% of the free device memory
+        split over both tenants' per-block bytes (the reference's
+        formula; ``torch.cuda.mem_get_info``'s free figure counts
+        memory PyTorch's allocator has reserved but not handed out as
+        used), arena-equivalent (S*M+1) where the device reports no
+        memory.  Two elastic engines on one card probe the same free
+        memory, so their ceilings overlap, as in the reference."""
+        self.elastic_pool = elastic_pool
+        self._pool_resizes = 0
+        self._pool_resize_clamps = 0
+        self._autoresize_last_fails = 0
+        self._pool_floor = (self._M + 1) if self.paged else 0
+        self._pool_ceiling = 0
+        self._resize_step = 0
+        self.elastic_probe_free_bytes = 0
+        if not elastic_pool:
+            return
+        n = self._pool.n_blocks
+        self._resize_step = max(self._bs, n // 8)
+        free = 0
+        if self.device.type == "cuda":
+            free = int(torch.cuda.mem_get_info(self.device)[0])
+        self.elastic_probe_free_bytes = free
+        per = self._per_block_bytes + self._draft_per_block_bytes
+        if free > 0 and per > 0:
+            # leave 20% of the probed headroom for activations: the
+            # elastic pool must never be the reason a forward runs out
+            ceiling = max(n, n + int(free * 0.8) // per)
+        else:
+            ceiling = max(n, self._S * self._M + 1)
+        self._pool_ceiling = int(ceiling)
 
     def _init_chunked(self, chunked: bool,
                       tick_token_budget: Optional[int]) -> None:
@@ -468,12 +635,13 @@ class ContinuousEngine:
         return kernel or ("fused" if takes else "gather")
 
     def _init_pool(self, model, S, L, H, D, cdtype, bs, n_blocks,
-                   draft_n_blocks, hbm_fraction,
-                   enable_prefix_cache) -> None:
+                   draft_n_blocks, hbm_fraction, enable_prefix_cache,
+                   kv_host_store_bytes) -> None:
         """The paged mode's block pools, device pools and tables: the
         target's, and with a draft model the draft's second tenant (its
         own block ids, tables and allocator; stored in the cache dtype
-        even when the target pool is int8)."""
+        even when the target pool is int8).  The host tier and the
+        directory hook into the target pool's evictions and index."""
         if bs < 1:
             raise ValueError(f"block_size must be >= 1, got {bs}")
         M = -(-L // bs)         # logical blocks per row, ceil(L/bs)
@@ -518,10 +686,17 @@ class ContinuousEngine:
         self._bs, self._M = bs, M
         self._per_block_bytes = per_block
         self._draft_per_block_bytes = draft_per_block
-        self._pool = BlockPool(n_blocks, bs, enable_prefix_cache,
-                               event_cb=self.telemetry.pool_event,
-                               name="target", kv_dtype=self.kv_dtype,
-                               bytes_per_block=per_block)
+        if kv_host_store_bytes > 0:
+            self._kv_store = HostKVStore(kv_host_store_bytes,
+                                         evict_cb=self._store_evicted)
+        self._pool = BlockPool(
+            n_blocks, bs, enable_prefix_cache,
+            event_cb=self.telemetry.pool_event, name="target",
+            kv_dtype=self.kv_dtype, bytes_per_block=per_block,
+            spill_cb=(self._spill_block if self._kv_store is not None
+                      else None),
+            index_cb=(self._pool_index_event
+                      if self._prefix_directory is not None else None))
         # HEAD-MAJOR pool layout [layers, N, KH, bs, D], the kernel's
         # (and the reference's) page layout; int8 pools are QuantKV
         # pairs (int8 data + per-(block, position, head) bf16 scales)
@@ -572,10 +747,9 @@ class ContinuousEngine:
     def _register_engine_gauges(self) -> None:
         """Scrape-time gauges over engine and pool state, the
         reference's families: each callback reads the live value when
-        ``/metrics`` is scraped.  Features not
-        ported yet (elastic pools, handoff, the host KV tier) keep their
-        stable names at zero, as in a reference engine that has them
-        off."""
+        ``/metrics`` is scraped; pool fields are read under the pool
+        lock.  Every paged engine registers the elastic, handoff and
+        host-tier families, zero while those modes are off."""
         m = self.telemetry.metrics
         m.gauge("zoo_engine_queue_depth",
                 "requests waiting for a slot", fn=lambda: self.n_waiting)
@@ -616,7 +790,10 @@ class ContinuousEngine:
                        if self._dpool is not None else 0)))
 
         def _pool_read(key):
-            return lambda: self._pool.metrics()[key]
+            def read():
+                with self._pool_lock:
+                    return self._pool.metrics()[key]
+            return read
 
         for key, name, kind, hlp in (
                 ("free_blocks", "zoo_engine_free_blocks", "gauge",
@@ -643,34 +820,45 @@ class ContinuousEngine:
                 "current per-tenant pool size in blocks (moves "
                 "only under elastic_pool)",
                 fn=lambda: self._pool.n_blocks)
-        for name, hlp in (
+        for name, hlp, fn in (
                 ("zoo_engine_pool_resize_total",
-                 "applied elastic pool resizes (grow + shrink)"),
+                 "applied elastic pool resizes (grow + shrink)",
+                 lambda: self._pool_resizes),
                 ("zoo_engine_pool_resize_clamped_total",
                  "resize requests clamped at the eviction boundary "
-                 "or the floor/ceiling"),
+                 "or the floor/ceiling",
+                 lambda: self._pool_resize_clamps),
                 ("zoo_engine_handoffs_out_total",
-                 "prefilled rows exported to a decode replica"),
+                 "prefilled rows exported to a decode replica",
+                 lambda: self._handoffs_out),
                 ("zoo_engine_handoffs_in_total",
-                 "prefilled rows adopted from a prefill replica"),
+                 "prefilled rows adopted from a prefill replica",
+                 lambda: self._handoffs_in),
                 ("zoo_engine_kv_spill_chains_total",
-                 "evicted blocks accepted by the host KV store"),
+                 "evicted blocks accepted by the host KV store",
+                 lambda: self._kv_spills),
                 ("zoo_engine_kv_spill_bytes_total",
-                 "KV bytes spilled to the host store"),
+                 "KV bytes spilled to the host store",
+                 lambda: self._kv_spill_bytes),
                 ("zoo_engine_kv_readmit_chains_total",
                  "host-store chains adopted back into the pool at "
-                 "admission"),
+                 "admission", lambda: self._kv_readmits),
                 ("zoo_engine_kv_readmit_tokens_saved_total",
                  "prompt tokens served host->HBM instead of "
-                 "re-prefilled")):
-            m.gauge(name, hlp, fn=lambda: 0, kind="counter")
+                 "re-prefilled", lambda: self._kv_readmit_tokens_saved)):
+            m.gauge(name, hlp, fn=fn, kind="counter")
         m.gauge("zoo_engine_kv_store_bytes",
-                "host KV store occupancy in bytes", fn=lambda: 0)
+                "host KV store occupancy in bytes",
+                fn=lambda: (self._kv_store.occupancy_bytes
+                            if self._kv_store is not None else 0))
         if self._dpool is None:
             return
 
         def _dpool_read(key):
-            return lambda: self._dpool.metrics()[key]
+            def read():
+                with self._pool_lock:
+                    return self._dpool.metrics()[key]
+            return read
 
         for key, name, kind, hlp in (
                 ("free_blocks", "zoo_engine_draft_free_blocks",
@@ -780,8 +968,9 @@ class ContinuousEngine:
                         self._dpv)
                 except Exception:
                     # a half-pinned prefix would leak target blocks
-                    for b in blocks:
-                        self._pool.release(b)
+                    with self._pool_lock:
+                        for b in blocks:
+                            self._pool.release(b)
                     raise
             entry = (tokens, blocks, dblocks)
         else:
@@ -808,20 +997,24 @@ class ContinuousEngine:
         bs = self._bs
         nfull = len(tokens) // bs
         hashes = pool.block_hashes(tokens[:nfull * bs])
-        matched = pool.lookup(hashes)
-        for b in matched:
-            pool.acquire(b)
-        blocks = list(matched)
-        for _ in range(nfull - len(matched)):
-            b = pool.allocate()
-            if b is None:
-                for bb in blocks:
-                    pool.release(bb)
-                raise RuntimeError(
-                    f"{pool.name} block pool has no room to pin a "
-                    f"{nfull}-block prefix ({pool.num_referenced()} of "
-                    f"{pool.n_blocks} blocks referenced)")
-            blocks.append(b)
+        with self._pool_lock:
+            matched = pool.lookup(hashes)
+            for b in matched:
+                pool.acquire(b)
+            blocks = list(matched)
+            for _ in range(nfull - len(matched)):
+                b = pool.allocate()
+                if b is None:
+                    for bb in blocks:
+                        pool.release(bb)
+                    raise RuntimeError(
+                        f"{pool.name} block pool has no room to pin a "
+                        f"{nfull}-block prefix ({pool.num_referenced()} "
+                        f"of {pool.n_blocks} blocks referenced)")
+                blocks.append(b)
+        # allocation may have evicted indexed blocks: gather their old
+        # bytes before the prefill below rewrites the ids
+        self._drain_spills()
         if len(matched) < nfull:
             span = tokens[len(matched) * bs:nfull * bs]
             sb = _next_bucket(len(span), self.prompt_buckets)
@@ -842,8 +1035,9 @@ class ContinuousEngine:
                 self.prefill_shapes[(1, sb, (len(matched) * bs,))] += 1
             else:
                 self.draft_prefill_calls += 1
-            for j in range(len(matched), nfull):
-                pool.insert(hashes[j], blocks[j])
+            with self._pool_lock:
+                for j in range(len(matched), nfull):
+                    pool.insert(hashes[j], blocks[j])
         return blocks
 
     def unregister_prefix(self, pid: int) -> None:
@@ -857,10 +1051,11 @@ class ContinuousEngine:
                 raise ValueError(f"unknown prefix id {pid}")
             entry = self._prefixes.pop(pid)
         if self.paged:
-            for b in entry[1]:
-                self._pool.release(b)
-            for b in entry[2]:
-                self._dpool.release(b)
+            with self._pool_lock:
+                for b in entry[1]:
+                    self._pool.release(b)
+                for b in entry[2]:
+                    self._dpool.release(b)
 
     def abort(self, uri: str) -> bool:
         """Drop a request nobody will collect: remove it from the
@@ -908,13 +1103,16 @@ class ContinuousEngine:
         follows it.  ``temperature > 0`` samples (needs ``rng_seed``,
         masked to 32 bits; ``top_p`` in (0, 1) adds the nucleus
         filter; not with a draft model: speculative serving is greedy
-        only).  ``priority``/``tenant`` are recorded for telemetry;
-        admission stays FIFO.  ``handoff_cb`` and ``deadline_t > 0``
-        (items 4.6 and 4.5) raise.  Raises on bounds violations."""
-        if handoff_cb is not None:
-            raise _later("prefill/decode handoff (handoff_cb)", "4.6")
-        if float(deadline_t or 0.0) > 0.0:
-            raise _later("deadline-aware admission (deadline_t)", "4.5")
+        only).  ``priority``/``tenant`` feed the QoS scheduler of an
+        engine built with ``qos`` (recorded for telemetry otherwise).
+        ``deadline_t`` (absolute ``time.monotonic`` seconds, 0 = none):
+        a request still waiting past it is shed at admission with
+        ``DeadlineExceeded``.  ``handoff_cb(state)`` makes this engine
+        the request's prefill side: when the first token lands the
+        row's block chain and a copy of its K/V are exported, the row
+        is freed, and the callback gets the state dict for another
+        engine's ``submit_handoff`` (paged, greedy, no draft).  Raises
+        on bounds violations."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1:
             raise ValueError(f"prompt must be 1-D, got {prompt.shape}")
@@ -951,6 +1149,31 @@ class ContinuousEngine:
         if priority not in PRIORITIES:
             raise ValueError(
                 f"priority must be one of {PRIORITIES}, got {priority!r}")
+        if handoff_cb is not None:
+            if not self.paged:
+                raise ValueError(
+                    "handoff_cb requires paged=True: a prefill/decode "
+                    "handoff exports a KV BLOCK chain; the arena engine "
+                    "has no block tables to rewrite")
+            if temperature > 0.0:
+                raise ValueError(
+                    "prefill/decode handoff is greedy-only: a sampled "
+                    "row's RNG stream cannot be split across replicas "
+                    "bitwise; submit with temperature=0 or without "
+                    "handoff_cb")
+            if self.draft_model is not None:
+                raise ValueError(
+                    "prefill/decode handoff does not compose with "
+                    "speculative decoding yet: the draft tenant's block "
+                    "chain would have to ship alongside the target's "
+                    "(the ROADMAP follow-on 'spec-aware KV handoff' "
+                    "lifts this); serve the disaggregated fleet without "
+                    "a draft model")
+        deadline_t = float(deadline_t or 0.0)
+        if deadline_t > 0.0:
+            # the admission sweep costs a queue scan a tick: armed by
+            # the first deadline, so deadline-free serving pays nothing
+            self._deadline_seen = True
         # stamp AFTER validation: a rejected submit never existed as
         # far as queue-wait/TTFT accounting is concerned
         self.telemetry.req_enqueued(uri)
@@ -958,7 +1181,56 @@ class ContinuousEngine:
             self._waiting.append(_Req(
                 uri, prompt, on_done, on_error, mn, on_token, prefix,
                 float(temperature), rng_seed, float(top_p), priority,
-                str(tenant)))
+                str(tenant), time.monotonic(), handoff_cb,
+                deadline_t=deadline_t))
+
+    def submit_handoff(self, state: dict) -> None:
+        """Adopt a prefilled request exported by another engine's
+        ``handoff_cb``: queue it for admission as a DECODE row whose
+        block chain is copied from the shipped K/V instead of
+        recomputed.  ``state`` is the dict ``_handoff_slot`` built on
+        the source (prompt, emitted tokens, chain hashes, the K/V
+        copies, callbacks).  Thread-safe like ``submit``: the source's
+        pump may call straight in; every device write happens later on
+        THIS engine's pump thread, at admission."""
+        if not self.paged:
+            raise ValueError(
+                "submit_handoff requires a paged engine: the handoff "
+                "wire format is a KV block chain")
+        if self.draft_model is not None:
+            raise ValueError(
+                "prefill/decode handoff does not compose with "
+                "speculative decoding yet (ROADMAP follow-on "
+                "'spec-aware KV handoff'); the decode replica must "
+                "serve without a draft model")
+        chain = state["chain"]
+        if int(chain["block_size"]) != self._bs:
+            raise ValueError(
+                f"handoff block_size {chain['block_size']} != this "
+                f"engine's block_size {self._bs}")
+        if chain["kv_dtype"] != self.kv_dtype:
+            raise ValueError(
+                f"handoff kv_dtype {chain['kv_dtype']!r} != this "
+                f"engine's kv_dtype {self.kv_dtype!r}")
+        plen = int(state["plen"])
+        mn = int(state["max_new"])
+        if plen > self.max_prompt_width:
+            raise ValueError(
+                f"handoff prompt length {plen} exceeds max prompt "
+                f"width {self.max_prompt_width}")
+        if mn > self.max_new_tokens:
+            raise ValueError(
+                f"handoff max_new {mn} exceeds engine budget "
+                f"{self.max_new_tokens}")
+        self.telemetry.req_enqueued(state["uri"])
+        with self._lock:
+            self._waiting.append(_Req(
+                state["uri"], np.asarray(state["prompt"], np.int32),
+                state.get("on_done"), state.get("on_error"), mn,
+                state.get("on_token"),
+                priority=state.get("priority", "standard"),
+                tenant=state.get("tenant", ""), enq_t=time.monotonic(),
+                handoff_state=state))
 
     # ---- pump ---------------------------------------------------------
 
@@ -985,9 +1257,70 @@ class ContinuousEngine:
         return np.concatenate([ptoks, req.prompt])
 
     def _admit(self) -> int:
+        """Move waiting requests into free slots: shed expired
+        deadlines, hold the classes the brownout level sheds, run one
+        admission pass, and with nothing admissible left and slots free
+        serve the held requests after all (work-conserving: the ladder
+        gates NEW arrivals at the front door; work already accepted
+        must not strand behind idle slots).  Held requests return to
+        the front of their subqueues in order.  Returns the number
+        admitted."""
+        if self._deadline_seen:
+            self._shed_expired_waiting()
+        deferred = (self._brownout_defer_extract()
+                    if self._brownout_level >= 1 else None)
+        try:
+            admitted = self._admit_pass()
+            if deferred and admitted == 0 and self._free \
+                    and not len(self._waiting):
+                with self._lock:
+                    for req in reversed(deferred):
+                        self._waiting.appendleft(req)
+                deferred = None
+                admitted = self._admit_pass()
+            return admitted
+        finally:
+            if deferred:
+                with self._lock:
+                    for req in reversed(deferred):
+                        self._waiting.appendleft(req)
+
+    def _admit_pass(self) -> int:
         if self.chunked:
             return self._admit_chunked()
         return self._admit_paged() if self.paged else self._admit_arena()
+
+    def _shed_expired_waiting(self) -> None:
+        """Admission-time deadline shed: every waiting request whose
+        ``deadline_t`` has passed ends now with ``DeadlineExceeded``,
+        before any prefill, slot or block is spent on it."""
+        now = time.monotonic()
+        with self._lock:
+            expired = [r for r in self._waiting
+                       if r.deadline_t > 0.0 and now > r.deadline_t]
+            for r in expired:
+                self._waiting.remove(r)
+        for r in expired:
+            self._deadline_sheds += 1
+            self.telemetry.deadline_shed(r.uri)
+            late_ms = (now - r.deadline_t) * 1e3
+            self._req_error(r.uri, r.on_error, DeadlineExceeded(
+                f"deadline_exceeded: deadline passed {late_ms:.0f}ms "
+                f"before admission"))
+
+    def _brownout_defer_extract(self) -> list:
+        """Take every waiting request whose class the brownout level
+        sheds out of the queue for this admission pass (the caller puts
+        them back at the front).  Their ``enq_t`` is untouched, so they
+        keep aging."""
+        lvl = self._brownout_level
+        with self._lock:
+            deferred = [r for r in self._waiting
+                        if not scheduler_policy.brownout_admit(
+                            lvl, r.priority)]
+            for r in deferred:
+                self._waiting.remove(r)
+        return deferred
 
     # ---- arena mode ---------------------------------------------------
 
@@ -1213,52 +1546,34 @@ class ContinuousEngine:
                 if blocked:         # keep queue order behind the block
                     blocked.append(req)
                     continue
+                if req.handoff_state is not None:
+                    # an adopted chain runs no prefill: no plan, no group
+                    res = self._admit_handoff(req)
+                    if res == "admitted":
+                        admitted += 1
+                    elif res == "blocked":
+                        blocked.append(req)
+                    continue
                 try:
                     full = self._full_prompt(req)
                 except Exception as e:
                     self._req_error(req.uri, req.on_error, e)
                     continue
-                plen = len(full)
-                hashes = self._pool.block_hashes(full)
-                total = -(-plen // self._bs)
-                matched, dmatch = self._match_blocks(hashes, plen)
-                need = total - len(matched)
-                # +1 headroom: the first decode tokens must not
-                # instantly preempt what admission just built
-                cap = self._pool_cap()
-                if need + 1 > cap:
-                    self._req_error(req.uri, req.on_error, ValueError(
-                        f"prompt needs {need} private blocks + headroom "
-                        f"but the pool holds {cap}"))
-                    continue
-                if self._pools_short(need + 1):
-                    if self.n_active == 0 and not plans and admitted == 0:
-                        # nothing in flight will ever free blocks
-                        self._req_error(req.uri, req.on_error, RuntimeError(
-                            f"pool dry with no residents: "
-                            f"{self._pool.num_referenced()} of "
-                            f"{self._pool.n_blocks} blocks are held"))
-                    else:
-                        blocked.append(req)
-                    continue
-                for b in matched:
-                    self._pool.acquire(b)
-                blocks = list(matched)
-                for _ in range(need):
-                    blocks.append(self._pool.allocate())
-                dblocks = None
-                if dmatch is not None:
-                    for b in dmatch:
-                        self._dpool.acquire(b)
-                    dblocks = list(dmatch)
-                    for _ in range(need):
-                        dblocks.append(self._dpool.allocate())
-                plans.append((req, full, hashes, len(matched), blocks,
-                              dblocks))
+                plan = self._plan_paged(req, full,
+                                        not plans and admitted == 0)
+                if plan == "blocked":
+                    blocked.append(req)
+                elif plan is not None:
+                    plans.append(plan)
             if blocked:
                 with self._lock:
                     for req in reversed(blocked):
                         self._waiting.appendleft(req)
+            # deferred pool-callback device work, in dependency order:
+            # spills gather an evicted id's OLD bytes before a readmit
+            # scatter or the group prefill below rewrites it
+            self._drain_spills()
+            self._apply_readmits()
             groups: Dict[int, list] = {}
             for plan in plans:
                 slen = len(plan[1]) - plan[3] * self._bs
@@ -1270,11 +1585,12 @@ class ContinuousEngine:
                 except Exception as e:
                     logger.exception("paged admission failed for %d "
                                      "request(s)", len(plist))
-                    for _, _, _, _, blocks, dblocks in plist:
-                        for b in blocks:
-                            self._pool.release(b)
-                        for b in dblocks or ():
-                            self._dpool.release(b)
+                    with self._pool_lock:
+                        for _, _, _, _, blocks, dblocks in plist:
+                            for b in blocks:
+                                self._pool.release(b)
+                            for b in dblocks or ():
+                                self._dpool.release(b)
                     for req, _, _, _, _, _ in plist:
                         self._req_error(req.uri, req.on_error, e)
             if blocked:
@@ -1282,6 +1598,81 @@ class ContinuousEngine:
         return admitted
 
     @torch.no_grad()
+    def _plan_paged(self, req: _Req, full: np.ndarray, first: bool):
+        """One request's monolithic paged plan, under the pool lock:
+        match and acquire its leading prompt blocks, extend the match
+        from the host tier, allocate the rest in both tenants.  Returns
+        the plan, ``"blocked"`` when the pools cannot hold it yet, or
+        None after failing the request (a prompt larger than the pool,
+        or a dry pool with nothing in flight when ``first``).  Errors
+        surface after the lock: ``on_error`` is user code."""
+        plen = len(full)
+        hashes = self._pool.block_hashes(full)
+        total = -(-plen // self._bs)
+        err: Optional[Exception] = None
+        with self._pool_lock:
+            matched, dmatch = self._match_blocks(hashes, plen)
+            need = total - len(matched)
+            # +1 headroom: the first decode tokens must not instantly
+            # preempt what admission just built
+            cap = self._pool_cap()
+            if need + 1 > cap:
+                err = ValueError(
+                    f"prompt needs {need} private blocks + headroom but "
+                    f"the pool holds {cap}")
+            elif self._take_matched(matched, dmatch, need):
+                if self._kv_store is not None:
+                    # extend the (now pinned: adoption may evict CACHED
+                    # blocks, never a held one) device match from the
+                    # host tier; adoption takes exactly the blocks the
+                    # shorter ``need`` no longer asks for, so the dry
+                    # gate still covers the allocations below
+                    matched = matched + self._store_readmit(
+                        hashes, len(matched), (plen - 1) // self._bs)
+                    need = total - len(matched)
+                blocks = list(matched)
+                for _ in range(need):
+                    blocks.append(self._pool.allocate())
+                dblocks = None
+                if dmatch is not None:
+                    dblocks = list(dmatch)
+                    for _ in range(need):
+                        dblocks.append(self._dpool.allocate())
+            elif not (self.n_active == 0 and first):
+                return "blocked"
+            else:
+                # nothing in flight will ever free blocks
+                err = RuntimeError(
+                    f"pool dry with no residents: "
+                    f"{self._pool.num_referenced()} of "
+                    f"{self._pool.n_blocks} blocks are held")
+        if err is not None:
+            self._req_error(req.uri, req.on_error, err)
+            return None
+        return req, full, hashes, len(matched), blocks, dblocks
+
+    def _take_matched(self, matched, dmatch, need: int) -> bool:
+        """Acquire a plan's matched blocks (both tenants) if the pools
+        can then still allocate its ``need`` private blocks, with one
+        block of headroom checked first.  A matched block parked in the
+        LRU counts as allocatable until it is acquired, so the check
+        repeats after the acquires, which are undone when it fails (the
+        reference's gate checks only before, and its allocation then
+        hands out no block).  Caller holds ``_pool_lock``."""
+        if self._pools_short(need + 1):
+            return False
+        for b in matched:
+            self._pool.acquire(b)
+        for b in dmatch or ():
+            self._dpool.acquire(b)
+        if not self._pools_short(need):
+            return True
+        for b in matched:
+            self._pool.release(b)
+        for b in dmatch or ():
+            self._dpool.release(b)
+        return False
+
     def _admit_paged_group(self, sb: int, plans) -> int:
         """One paged-prefill device call for every planned request
         sharing a suffix bucket, and the same grid against the draft
@@ -1331,10 +1722,11 @@ class ContinuousEngine:
             self._set_row_blocks(slot, blocks, dblocks)
             # publish BEFORE install: the prefill succeeded, so the
             # blocks' content is valid for sharing
-            for j in range(n_match, plen // self._bs):
-                self._pool.insert(hashes[j], blocks[j])
-                if dblocks is not None:
-                    self._dpool.insert(hashes[j], dblocks[j])
+            with self._pool_lock:
+                for j in range(n_match, plen // self._bs):
+                    self._pool.insert(hashes[j], blocks[j])
+                    if dblocks is not None:
+                        self._dpool.insert(hashes[j], dblocks[j])
             try:
                 self._install_slot(slot, req, plen, int(firsts[i]))
                 admitted += 1
@@ -1419,6 +1811,8 @@ class ContinuousEngine:
         matched boundary.  Blocks for the unmatched tail are allocated
         per chunk by the tick; a mid-prompt dry pool preempts this
         prefilling row back to the queue, never a decoder."""
+        if req.handoff_state is not None:
+            return self._admit_handoff(req)
         try:
             full = self._full_prompt(req)
         except Exception as e:
@@ -1427,29 +1821,46 @@ class ContinuousEngine:
         plen = len(full)
         hashes = self._pool.block_hashes(full)
         total = -(-plen // self._bs)
-        matched, dmatch = self._match_blocks(hashes, plen)
-        need = total - len(matched)
-        cap = self._pool_cap()
-        if need + 1 > cap:
-            self._req_error(req.uri, req.on_error, ValueError(
-                f"prompt needs {need} private blocks + headroom but the "
-                f"pool holds {cap}"))
-            return "error"
-        # per-chunk allocation only needs room to START (first chunk
-        # block + decode headroom)
-        if self._pools_short(2):
-            if self.n_active == 0:
-                self._req_error(req.uri, req.on_error, RuntimeError(
+        err: Optional[Exception] = None
+        with self._pool_lock:
+            matched, dmatch = self._match_blocks(hashes, plen)
+            need = total - len(matched)
+            cap = self._pool_cap()
+            if need + 1 > cap:
+                err = ValueError(
+                    f"prompt needs {need} private blocks + headroom but "
+                    f"the pool holds {cap}")
+            # per-chunk allocation only needs room to START (first
+            # chunk block + decode headroom)
+            elif self._pools_short(2):
+                if self.n_active != 0:
+                    return "blocked"
+                err = RuntimeError(
                     f"pool dry with no residents: "
                     f"{self._pool.num_referenced()} of "
                     f"{self._pool.n_blocks} blocks are pinned (unregister "
-                    f"a prefix or raise n_blocks)"))
-                return "error"
-            return "blocked"
-        for b in matched:
-            self._pool.acquire(b)
-        for b in dmatch or ():
-            self._dpool.acquire(b)
+                    f"a prefix or raise n_blocks)")
+            else:
+                for b in matched:
+                    self._pool.acquire(b)
+                for b in dmatch or ():
+                    self._dpool.acquire(b)
+                if self._kv_store is not None:
+                    # extend the device match from the host tier, leaving
+                    # the 2 allocatable blocks the first chunk needs (no
+                    # draft tenant: the tier refuses speculative engines)
+                    limit = min((plen - 1) // self._bs,
+                                len(matched)
+                                + max(0, self._pool.allocatable() - 2))
+                    matched = matched + self._store_readmit(
+                        hashes, len(matched), limit)
+        if err is not None:
+            self._req_error(req.uri, req.on_error, err)
+            return "error"
+        # adoption may have evicted (spill pending) and recorded host
+        # payloads: flush both before the tick's device work
+        self._drain_spills()
+        self._apply_readmits()
         slot = self._free.popleft()
         self._set_row_blocks(slot, matched, dmatch)
         self._install_prefill(slot, req, plen, base=0, full=full,
@@ -1465,11 +1876,12 @@ class ContinuousEngine:
         (done, fed pad) anchored at the fill frontier until its last
         chunk lands.  ``fill`` (paged) starts past prefix-matched
         blocks; arena rows start past the spliced prefix (``base``)."""
-        st = _Slot(uri=req.uri, max_new=req.max_new, on_done=req.on_done,
-                   on_token=req.on_token, temperature=req.temperature,
-                   rng_seed=req.rng_seed, top_p=req.top_p, req=req,
-                   admit_seq=self._admit_seq, plen=plen,
-                   state="PREFILLING",
+        st = _Slot(uri=req.uri,
+                   max_new=self._brownout_mn(req.priority, req.max_new),
+                   on_done=req.on_done, on_token=req.on_token,
+                   temperature=req.temperature, rng_seed=req.rng_seed,
+                   top_p=req.top_p, req=req, admit_seq=self._admit_seq,
+                   plen=plen, state="PREFILLING",
                    fill_pos=base if fill is None else fill, base=base,
                    full=np.asarray(full, np.int32), hashes=hashes,
                    n_pub=n_pub)
@@ -1502,6 +1914,9 @@ class ContinuousEngine:
                 last_write = min(int(self._pos[i]) + ticks - 1,
                                  self._L - 1)
             self._grow_row(i, last_write // self._bs + 1)
+        # growth may have evicted indexed blocks: gather their bytes
+        # before the coming step writes the reused ids
+        self._drain_spills()
         return [i for i in active if self._slots[i] is not None]
 
     def _grow_row(self, i: int, need: int) -> None:
@@ -1519,7 +1934,8 @@ class ContinuousEngine:
     def _grow_tenant(self, i: int, need: int, pool, row_blocks,
                      tables) -> None:
         while self._slots[i] is not None and len(row_blocks[i]) < need:
-            b = pool.allocate()
+            with self._pool_lock:
+                b = pool.allocate()
             if b is None:
                 self._preempt(self._pick_victim())
                 continue
@@ -1544,6 +1960,9 @@ class ContinuousEngine:
             if st is None:
                 continue
             self._grow_row(i, (st.fill_pos + clen - 1) // self._bs + 1)
+        # growth may have evicted indexed blocks: gather their bytes
+        # before the tick writes the reused ids
+        self._drain_spills()
 
     def _publish_chunk_blocks(self, i: int, st: _Slot) -> None:
         """Hash-publish the prompt blocks a landed chunk fully covered
@@ -1555,10 +1974,12 @@ class ContinuousEngine:
         hi = min(st.fill_pos // self._bs, st.plen // self._bs)
         if hi <= st.n_pub:
             return
-        for j in range(st.n_pub, hi):
-            self._pool.insert(st.hashes[j], self._row_blocks[i][j])
-            if self._dpool is not None:
-                self._dpool.insert(st.hashes[j], self._drow_blocks[i][j])
+        with self._pool_lock:
+            for j in range(st.n_pub, hi):
+                self._pool.insert(st.hashes[j], self._row_blocks[i][j])
+                if self._dpool is not None:
+                    self._dpool.insert(st.hashes[j],
+                                       self._drow_blocks[i][j])
         st.n_pub = hi
 
     def _table_width(self, need: int) -> int:
@@ -1605,14 +2026,339 @@ class ContinuousEngine:
         blocks = self._row_blocks[slot]
         self._row_blocks[slot] = []
         self._tables[slot, :] = SINK_BLOCK
-        for b in blocks:
-            self._pool.release(b)
+        dblocks = []
         if self._dpool is not None:
             dblocks = self._drow_blocks[slot]
             self._drow_blocks[slot] = []
             self._dtables[slot, :] = SINK_BLOCK
+        with self._pool_lock:
+            for b in blocks:
+                self._pool.release(b)
             for b in dblocks:
                 self._dpool.release(b)
+
+    # ---- prefill/decode handoff ---------------------------------------
+
+    def _admit_handoff(self, req: _Req) -> str:
+        """Adopt a prefill exported by another engine (the decode half
+        of a handoff): allocate a same-length block chain
+        (``adopt_chain``, carried prefix hashes republished, first
+        writer wins), copy the shipped K/V into it (device to device
+        when both engines share a card) and install the slot in DECODE
+        at the donor's position; no prefill runs here.  A pool that
+        cannot hold the chain yet blocks (requeue at the front); a
+        later preemption requeues the same request with its immutable
+        ``handoff_state``, so re-adoption rebuilds the identical row.
+        Then acks the adoption (``on_adopt``, record-only): the source
+        may drop what it retained."""
+        state = req.handoff_state
+        chain = state["chain"]
+        n = int(chain["n"])
+        err: Optional[Exception] = None
+        with self._pool_lock:
+            # +1 headroom, as monolithic admission: the first decode
+            # tokens must not instantly preempt the adoption
+            cap = self._pool.n_blocks - 1
+            if n + 1 > cap:
+                err = ValueError(
+                    f"handoff chain needs {n} blocks + headroom but the "
+                    f"pool holds {cap}")
+            elif self._pool.allocatable() < n + 1:
+                if self.n_active != 0:
+                    return "blocked"
+                err = RuntimeError(
+                    f"pool dry with no residents: "
+                    f"{self._pool.num_referenced()} of "
+                    f"{self._pool.n_blocks} blocks are pinned (unregister "
+                    f"a prefix or raise n_blocks)")
+            else:
+                blocks = self._pool.adopt_chain(chain)
+                if blocks is None:
+                    return "blocked"
+        if err is not None:
+            self._req_error(req.uri, req.on_error, err)
+            return "error"
+        # adoption may have evicted indexed blocks (spill pending), and
+        # an adopted id may BE one: gather before the copy below
+        self._drain_spills()
+        idx = torch.as_tensor(blocks, device=self.device)
+        _kv_scatter(self._pk, idx, state["k"])
+        _kv_scatter(self._pv, idx, state["v"])
+        slot = self._free.popleft()
+        self._set_row_blocks(slot, blocks, None)
+        self._slots[slot] = _Slot(
+            uri=req.uri, max_new=req.max_new, tokens=list(state["tokens"]),
+            on_done=req.on_done, on_token=req.on_token, req=req,
+            admit_seq=self._admit_seq, plen=int(state["plen"]))
+        self._admit_seq += 1
+        # the donor already emitted token[0]; decode resumes from it
+        self._tok[slot] = int(state["last_token"])
+        self._pos[slot] = int(state["pos"])
+        self._dpos[slot] = int(state["pos"])
+        self._done[slot] = False
+        self._handoffs_in += 1
+        self.telemetry.req_admitted(req.uri, slot, priority=req.priority)
+        ack = state.get("on_adopt")
+        if ack is not None:
+            try:
+                ack(req.uri, self._replica_id)
+            except Exception:
+                logger.exception("handoff adoption ack failed for %r",
+                                 req.uri)
+        return "admitted"
+
+    def _handoff_slot(self, slot: int, st: _Slot) -> None:
+        """Export a just-prefilled row for adoption by another engine
+        (the prefill half of a handoff), at first-token time: snapshot
+        the block chain and its published hashes (``export_chain``),
+        COPY the row's blocks out of the pools (``index_select`` makes
+        new tensors: the ids are released below and the pools are
+        written in place, so a view would change under the
+        destination), then free the slot as a completion does.  The
+        state dict is self-contained."""
+        blocks = list(self._row_blocks[slot])
+        with self._pool_lock:
+            chain = self._pool.export_chain(blocks)
+        idx = torch.as_tensor(blocks, device=self.device)
+
+        def gather(x):
+            return x.index_select(1, idx)
+
+        state = {
+            "uri": st.uri,
+            "prompt": np.asarray(self._full_prompt(st.req), np.int32),
+            "plen": st.plen,
+            "pos": int(self._pos[slot]),
+            "tokens": list(st.tokens),
+            "last_token": int(st.tokens[-1]),
+            "max_new": st.max_new,
+            "priority": st.req.priority,
+            "tenant": st.req.tenant,
+            "chain": chain,
+            "k": _kv_map(gather, self._pk),
+            "v": _kv_map(gather, self._pv),
+            "on_done": st.on_done,
+            "on_error": st.req.on_error,
+            "on_token": st.on_token,
+        }
+        self._slots[slot] = None
+        self._done[slot] = True
+        self._free.append(slot)
+        self._release_slot_blocks(slot)
+        self._handoffs_out += 1
+        # this engine's part is over; the destination runs its own
+        # enqueue -> admit -> finish lifecycle
+        self.telemetry.req_finished(st.uri, slot, len(st.tokens))
+        try:
+            st.req.handoff_cb(state)
+        except Exception as e:
+            logger.exception("handoff callback failed for %r", st.uri)
+            self._req_error(st.uri, st.req.on_error, e)
+
+    # ---- tiered KV memory ---------------------------------------------
+
+    def _store_evicted(self, hash_: int) -> None:
+        """HostKVStore eviction callback: the host copy is gone, so
+        retract the host-tier directory claim."""
+        if self._prefix_directory is not None:
+            self._prefix_directory.unpublish(self._replica_id, hash_,
+                                             TIER_HOST)
+
+    def _pool_index_event(self, kind: str, *, hash_: int,
+                          block: int) -> None:
+        """BlockPool ``index_cb``: mirror device-index membership into
+        the fleet PrefixDirectory (under ``_pool_lock``; the directory
+        has its own leaf lock and never calls back)."""
+        if kind == "publish":
+            self._prefix_directory.publish(self._replica_id, hash_,
+                                           TIER_HBM)
+        else:
+            self._prefix_directory.unpublish(self._replica_id, hash_,
+                                             TIER_HBM)
+
+    def _spill_block(self, block: int, hash_: int) -> None:
+        """BlockPool ``spill_cb``: an indexed CACHED block is being
+        evicted.  Record only (it fires under ``_pool_lock``): the copy
+        to the host happens in ``_drain_spills``, which every evicting
+        path runs before its next pool write, so until then the pools
+        still hold the bytes the hash describes."""
+        self._pending_spills.append((int(block), hash_))
+
+    def _drain_spills(self) -> None:
+        """Copy the blocks ``_spill_block`` recorded to the host store:
+        one ``index_select`` gather per pool part into new device
+        tensors, packed into one byte buffer, and ONE synchronising D2H
+        copy for the wave; then the store puts and the directory's
+        host-tier claims, all outside ``_pool_lock``.  Runs before any
+        write that could reuse an evicted id (admission, growth, a
+        readmit or handoff copy, a shrink): the gather is enqueued
+        ahead of those writes on the stream.  Pump thread only."""
+        with self._pool_lock:
+            pending, self._pending_spills = self._pending_spills, []
+        if not pending:
+            return
+        idx = torch.as_tensor([b for b, _ in pending], device=self.device)
+        parts = [x.index_select(1, idx) for pool in (self._pk, self._pv)
+                 for x in _kv_parts(pool)]
+        flat = torch.cat([x.reshape(-1).view(torch.uint8)
+                          for x in parts]).cpu()
+        host, off = [], 0
+        for x in parts:
+            nb = x.numel() * x.element_size()
+            host.append(flat[off:off + nb].view(x.dtype).view(x.shape))
+            off += nb
+        if isinstance(self._pk, QuantKV):
+            fetched = {"k": QuantKV(host[0], host[1]),
+                       "v": QuantKV(host[2], host[3])}
+        else:
+            fetched = {"k": host[0], "v": host[1]}
+        for i, (_, hash_) in enumerate(pending):
+            payload = {key: _kv_map(lambda x: x[:, i:i + 1].clone(), kv)
+                       for key, kv in fetched.items()}
+            if self._kv_store.put(hash_, payload, self._per_block_bytes):
+                self._kv_spills += 1
+                self._kv_spill_bytes += self._per_block_bytes
+                if self._prefix_directory is not None:
+                    self._prefix_directory.publish(
+                        self._replica_id, hash_, TIER_HOST)
+
+    def _store_readmit(self, hashes, n_matched: int,
+                       max_blocks: int) -> List[int]:
+        """Extend a device-index prefix match from the host tier: probe
+        the store past the device match, adopt the hit chain into the
+        pool (all or nothing, carried hashes republished, first writer
+        wins) and RECORD the host payloads for ``_apply_readmits`` to
+        copy after the lock is released (no H2D under the pool lock).
+        Admission applies every recorded copy before its prefill reads
+        the blocks and before it could release them.  Returns the
+        adopted block ids ([] on a miss or a dry pool; the store keeps
+        its entries either way).  Caller holds ``_pool_lock`` and a
+        reference on every device-matched block."""
+        run = self._kv_store.probe(hashes[n_matched:max_blocks])
+        if not run:
+            return []
+        chain = {"block_size": self._bs, "kv_dtype": self.kv_dtype,
+                 "n": len(run), "hashes": [h for h, _ in run]}
+        blocks = self._pool.adopt_chain(chain)
+        if blocks is None:
+            return []
+
+        def cat(*leaves):
+            return torch.cat(leaves, dim=1)
+
+        kcat = _kv_map(cat, *[p["k"] for _, p in run])
+        vcat = _kv_map(cat, *[p["v"] for _, p in run])
+        self._pending_readmits.append((list(blocks), kcat, vcat))
+        self._kv_readmits += 1
+        self._kv_readmit_tokens_saved += len(blocks) * self._bs
+        return blocks
+
+    def _apply_readmits(self) -> None:
+        """Copy the host payloads ``_store_readmit`` recorded into the
+        device pool (H2D), outside ``_pool_lock``, AFTER
+        ``_drain_spills`` (an adopted id may be a just-evicted one whose
+        old bytes the spill must gather first) and before the
+        admission's prefill reads the blocks."""
+        pending, self._pending_readmits = self._pending_readmits, []
+        for blocks, kcat, vcat in pending:
+            idx = torch.as_tensor(blocks, device=self.device)
+            _kv_scatter(self._pk, idx, kcat)
+            _kv_scatter(self._pv, idx, vcat)
+
+    # ---- elastic pool -------------------------------------------------
+
+    def resize_pool(self, target: int) -> int:
+        """Grow or shrink BOTH tenants' block pools toward ``target``
+        blocks (clamped to [floor, ceiling]) and reallocate the device
+        pools to match.  A shrink sheds only the contiguous unreferenced
+        TAIL of the id space (``BlockPool.shrink`` stops at the first
+        referenced block; cached tail blocks are evicted, and spilled to
+        the host tier first), and a deeper request is clamped and
+        counted, never raised; both tenants move by the same count.  A
+        grow allocates the new pools before dropping the old ones (2x
+        the pool at its peak); a shrink copies the kept prefix so the
+        old storage is freed (to PyTorch's allocator cache, which
+        ``torch.cuda.mem_get_info`` still counts as used).  Pump thread
+        only, between ticks.  Returns the signed block delta
+        applied."""
+        if not self.paged:
+            raise ValueError("resize_pool requires paged=True")
+        want = int(target)
+        target = max(self._pool_floor,
+                     min(want, self._pool_ceiling or want))
+        clamped = target != want
+        with self._pool_lock:
+            n = self._pool.n_blocks
+            if target > n:
+                applied = self._pool.grow(target - n)
+                if self._dpool is not None:
+                    self._dpool.grow(target - n)
+            elif target < n:
+                m = min(n - target, self._pool.shrinkable())
+                if self._dpool is not None:
+                    m = min(m, self._dpool.shrinkable())
+                if m < n - target:
+                    clamped = True
+                applied = -self._pool.shrink(m) if m else 0
+                if m and self._dpool is not None:
+                    self._dpool.shrink(m)
+            else:
+                applied = 0
+        # a shrink evicts the cached tail: gather those blocks into the
+        # host tier BEFORE the pools lose them
+        self._drain_spills()
+        if clamped:
+            self._pool_resize_clamps += 1
+        if applied == 0:
+            return 0
+        new_n = n + applied
+
+        def fit(x):
+            if applied > 0:
+                # one new allocation (no separate pad tensor): the peak
+                # is the old pool plus the new one
+                out = x.new_zeros((x.shape[0], new_n) + x.shape[2:])
+                out[:, :n] = x
+                return out
+            return x[:, :new_n].clone(memory_format=torch.contiguous_format)
+
+        self._pk = _kv_map(fit, self._pk)
+        self._pv = _kv_map(fit, self._pv)
+        if self._dpool is not None:
+            self._dpk = fit(self._dpk)
+            self._dpv = fit(self._dpv)
+        self._pool_resizes += 1
+        logger.info("elastic pool resized %d -> %d blocks (%+d)",
+                    n, new_n, applied)
+        return applied
+
+    def maybe_autoresize(self,
+                         goodput: Optional[Dict[str, float]] = None
+                         ) -> int:
+        """One elastic-pool control step (pump thread): the pool's
+        pressure (allocatable blocks, allocation failures since the
+        last call) and the caller's per-class goodput go through
+        ``policy.plan_pool_resize``, and a non-zero delta through
+        ``resize_pool``.  Returns 0 unless built with
+        ``elastic_pool=True``."""
+        if not (self.paged and self.elastic_pool):
+            return 0
+        with self._pool_lock:
+            n = self._pool.n_blocks
+            alloc = self._pool.allocatable()
+            fails = self._pool.alloc_failures
+            if self._dpool is not None:
+                alloc = min(alloc, self._dpool.allocatable())
+                fails += self._dpool.alloc_failures
+        streak = fails - self._autoresize_last_fails
+        self._autoresize_last_fails = fails
+        delta = scheduler_policy.plan_pool_resize(
+            n_blocks=n, allocatable=alloc, alloc_fail_streak=streak,
+            step=self._resize_step, floor=self._pool_floor,
+            ceiling=self._pool_ceiling, goodput=goodput)
+        if delta == 0:
+            return 0
+        return self.resize_pool(n + delta)
 
     def cache_metrics(self) -> dict:
         """Serving-visible cache counters: the ``mode`` (``"arena"`` or
@@ -1627,7 +2373,11 @@ class ContinuousEngine:
             out = {"mode": "paged" if self.paged else "arena",
                    "preemptions": self._preemptions,
                    "peak_resident": self._peak_resident,
-                   "qos": False}
+                   "qos": self._qos is not None}
+            if self._qos is not None:
+                out["qos_waiting"] = {
+                    f"{cls}/{tenant}": d for (cls, tenant), d in
+                    self._waiting.depths().items()}
             if self.chunked:
                 denom = self._budget_ticks * self.tick_token_budget
                 out.update({
@@ -1652,18 +2402,35 @@ class ContinuousEngine:
                     "spec_accepted": self.telemetry.c_spec_accepted.value,
                 })
         if self.paged:
-            out.update(self._pool.metrics())
-            if self._dpool is not None:
-                out.update({"draft_" + k: v for k, v in
-                            self._dpool.metrics().items()})
+            with self._pool_lock:
+                out.update(self._pool.metrics())
+                if self._dpool is not None:
+                    out.update({"draft_" + k: v for k, v in
+                                self._dpool.metrics().items()})
+            out.update({
+                "pool_resizes": self._pool_resizes,
+                "pool_resize_clamps": self._pool_resize_clamps,
+                "pool_floor": self._pool_floor,
+                "pool_ceiling": self._pool_ceiling,
+                "handoffs_out": self._handoffs_out,
+                "handoffs_in": self._handoffs_in,
+                "kv_spills": self._kv_spills,
+                "kv_spill_bytes": self._kv_spill_bytes,
+                "kv_readmits": self._kv_readmits,
+                "kv_readmit_tokens_saved": self._kv_readmit_tokens_saved,
+                "kv_store_bytes": (self._kv_store.occupancy_bytes
+                                   if self._kv_store is not None else 0),
+            })
         return out
 
     def _install_slot(self, slot: int, req: _Req, plen: int,
                       first: int) -> None:
         """Shared slot-state installation of every monolithic admission
-        path."""
+        path (the brownout token clamp's one choke point there)."""
         self._slots[slot] = _Slot(
-            uri=req.uri, max_new=req.max_new, on_done=req.on_done,
+            uri=req.uri, max_new=self._brownout_mn(req.priority,
+                                                   req.max_new),
+            on_done=req.on_done,
             on_token=req.on_token, temperature=req.temperature,
             rng_seed=req.rng_seed, top_p=req.top_p, req=req,
             admit_seq=self._admit_seq, plen=plen)
@@ -1724,6 +2491,11 @@ class ContinuousEngine:
         done = len(st.tokens) >= st.max_new or \
             (self.eos_id is not None and token == self.eos_id)
         if not done:
+            if (len(st.tokens) == 1 and st.req is not None
+                    and st.req.handoff_cb is not None):
+                # prefill role: the first token is this engine's last;
+                # export the row instead of decoding it here
+                self._handoff_slot(slot, st)
             return
         out = np.full(st.max_new,
                       self.eos_id if self.eos_id is not None else 0,
@@ -1779,7 +2551,8 @@ class ContinuousEngine:
         if freeze > 0:
             time.sleep(freeze)
         if acts.get("alloc_fail") and self._pool is not None:
-            self._pool.alloc_failures += 1
+            with self._pool_lock:
+                self._pool.alloc_failures += 1
         msg = acts.get("raise_step")
         if msg:
             from analytics_zoo_tpu_torch.serving.fault import InjectedFault
@@ -1794,9 +2567,11 @@ class ContinuousEngine:
                    "prefill_rows": n_active - decode,
                    "queue_depth": len(self._waiting)}
         if self._pool is not None:
-            samples["free_blocks"] = self._pool.allocatable()
-            if self._dpool is not None:
-                samples["draft_free_blocks"] = self._dpool.allocatable()
+            with self._pool_lock:
+                samples["free_blocks"] = self._pool.allocatable()
+                if self._dpool is not None:
+                    samples["draft_free_blocks"] = \
+                        self._dpool.allocatable()
         return samples
 
     def _flight_record(self, ts: float, dur: float,
@@ -1839,23 +2614,40 @@ class ContinuousEngine:
             rec["spec_accepted"] = delta(
                 "spec_accepted", self.telemetry.c_spec_accepted.value)
         if self._pool is not None:
-            rec["used_blocks"] = self._pool.num_referenced()
-            rec["n_blocks"] = self._pool.n_blocks
-            daf = 0
-            if self._dpool is not None:
-                rec["draft_used_blocks"] = self._dpool.num_referenced()
-                rec["draft_n_blocks"] = self._dpool.n_blocks
-                daf = self._dpool.alloc_failures
-            for key in ("pool_resizes", "handoffs_out", "handoffs_in",
-                        "kv_spills", "kv_readmits"):
-                rec[key] = 0
-            fails = delta("alloc_fail", self._pool.alloc_failures) \
+            with self._pool_lock:
+                af = self._pool.alloc_failures
+                rec["used_blocks"] = self._pool.num_referenced()
+                rec["n_blocks"] = self._pool.n_blocks
+                daf = 0
+                if self._dpool is not None:
+                    rec["draft_used_blocks"] = \
+                        self._dpool.num_referenced()
+                    rec["draft_n_blocks"] = self._dpool.n_blocks
+                    daf = self._dpool.alloc_failures
+            for key, cur in (("pool_resizes", self._pool_resizes),
+                             ("handoffs_out", self._handoffs_out),
+                             ("handoffs_in", self._handoffs_in),
+                             ("kv_spills", self._kv_spills),
+                             ("kv_readmits", self._kv_readmits)):
+                rec[key] = delta(key, cur)
+            fails = delta("alloc_fail", af) \
                 + delta("draft_alloc_fail", daf)
             rec["alloc_failures"] = fails
             # consecutive ticks with at least one failed allocation
             self._alloc_fail_streak = \
                 self._alloc_fail_streak + 1 if fails else 0
             rec["alloc_fail_streak"] = self._alloc_fail_streak
+        if self._qos is not None:
+            rec["qos_depths"] = {f"{c}/{t}" if t else c: n
+                                 for (c, t), n in
+                                 self._waiting.depths().items()}
+        # brownout and deadline fields appear only once the feature is
+        # live, so records of untouched engines keep their schema
+        if self._brownout_enabled:
+            rec["brownout_level"] = self._brownout_level
+        if self._deadline_seen:
+            rec["deadline_sheds"] = delta("deadline_sheds",
+                                          self._deadline_sheds)
         self.flight.record(rec)
 
     # ---- accessors the serving layer reads ---------------------------
@@ -1884,17 +2676,35 @@ class ContinuousEngine:
 
     @property
     def brownout_level(self) -> int:
-        return 0
+        return self._brownout_level
 
     @property
     def deadline_sheds(self) -> int:
-        return 0
+        """Requests shed at admission because their deadline had
+        passed (apart from the supervisor's in-flight give-ups)."""
+        return self._deadline_sheds
 
     def set_brownout(self, level: int, standard_max_new: int = 0) -> None:
-        """The broker's brownout ladder: level 0 is the only level this
-        engine serves (item 4.5)."""
-        if int(level) > 0:
-            raise _later("brownout (set_brownout level > 0)", "4.5")
+        """The broker controller's ladder level, read by the pump at
+        tick boundaries (plain int stores, any thread): level >= 1
+        defers batch admission, >= 2 clamps standard ``max_new`` to
+        ``standard_max_new`` at slot install, >= 3 drops speculative
+        rounds (the target decodes alone and the draft's pointer goes
+        stale, which costs acceptance after recovery, never tokens: the
+        verify picks them), >= 4 admits interactive only.  An engine
+        nobody browns out decides as one without the ladder."""
+        self._brownout_enabled = True
+        self._brownout_level = max(
+            0, min(int(level), scheduler_policy.BROWNOUT_MAX_LEVEL))
+        self._brownout_clamp = max(0, int(standard_max_new))
+
+    def _brownout_mn(self, priority: str, mn: int) -> int:
+        """The level-2 token clamp at slot install (a handoff adoption
+        is exempt: its tokens are already in flight)."""
+        if self._brownout_level < 2:
+            return mn
+        return scheduler_policy.brownout_max_new(
+            self._brownout_level, priority, mn, self._brownout_clamp)
 
     def spec_acceptance(self) -> Optional[dict]:
         """The recorded speculative-acceptance distribution (exact
@@ -1906,13 +2716,6 @@ class ContinuousEngine:
         section["k"] = self._spec_k
         return section
 
-    def maybe_autoresize(self, goodput: Optional[Dict[str, float]] = None
-                         ) -> int:
-        raise _later("the elastic pool (maybe_autoresize)", "4.6")
-
-    def submit_handoff(self, state: dict) -> None:
-        raise _later("prefill/decode handoff (submit_handoff)", "4.6")
-
     def _step_impl(self) -> int:
         self._tick_kind = "decode"
         self._admit()
@@ -1921,7 +2724,12 @@ class ContinuousEngine:
             return 0
         prefilling = self.chunked and any(
             self._slots[i].state == "PREFILLING" for i in active)
-        if self.draft_model is not None:
+        # brownout level >= 3 drops speculative rounds: a draft engine
+        # falls through to the target-only ticks below, whose growth
+        # still covers pos + k writes in both tenants
+        spec_on = self.draft_model is not None and \
+            scheduler_policy.brownout_spec_enabled(self._brownout_level)
+        if spec_on:
             if prefilling:
                 self._tick_kind = "spec_chunked"
                 return self._spec_chunked_tick(active)
@@ -1950,6 +2758,10 @@ class ContinuousEngine:
             self.ticks_per_step,
             max(self._slots[i].max_new - len(self._slots[i].tokens)
                 for i in active)))
+        if self.draft_model is not None:
+            # only with speculation browned out: single-tick steps keep
+            # the writes inside the pos + k the growth granted
+            n_eff = 1
         toks = self._decode_ticks(n_eff, self._sampling(self._slots))
         for i in active:
             for j in range(n_eff):
@@ -2014,10 +2826,17 @@ class ContinuousEngine:
         return [s if i in keep else None for i, s in enumerate(self._slots)]
 
     def _grant_rank(self, slot: int):
-        """Prefill-grant sort key: with QoS off (the only mode served
-        here) the admission sequence number, FIFO."""
-        return scheduler_policy.grant_rank(None, None, 0.0,
-                                           self._slots[slot].admit_seq)
+        """Prefill-grant sort key (``policy.grant_rank``): QoS off, the
+        admission sequence number, FIFO; QoS on, the aged priority
+        class first and FIFO within a class."""
+        st = self._slots[slot]
+        req = st.req
+        if req is None:
+            return scheduler_policy.grant_rank(self._qos, None, 0.0,
+                                               st.admit_seq)
+        return scheduler_policy.grant_rank(
+            self._qos, req.priority, time.monotonic() - req.enq_t,
+            st.admit_seq)
 
     def _reanchor_prefill(self) -> None:
         """Re-pin every still-PREFILLING row's decode-side state after a
@@ -2081,7 +2900,9 @@ class ContinuousEngine:
             toks = self._decode_ticks(
                 1, self._sampling(self._rows_of(decode_rows)))
         if chunks:
-            self._land_chunks(chunks)
+            # target only: a draft engine gets here with speculation
+            # browned out, and its cache then goes cold, as its pointer
+            self._land_chunks(chunks, with_draft=False)
         self._reanchor_prefill()
         for i in decode_rows:
             if self._slots[i] is not None:
@@ -2115,14 +2936,15 @@ class ContinuousEngine:
             width = next(b for b in self._read_buckets if b >= need)
         return ctoks, cpos, clens, cslots, width
 
-    def _run_chunk(self, ctoks, cpos, clens, cslots, width):
-        """One chunk call on the grid, in the target and, with a draft,
-        in the draft: paged through each tenant's tables sliced to
-        ``width`` blocks (built contiguous on the host; padding rows
-        all sink) with writes limited to each chunk's length; arena on
-        copies of the chunk rows' first ``width`` positions, written
-        back for the real rows only.  Returns the target's
-        last-real-position logits ``[kb, V]``."""
+    def _run_chunk(self, ctoks, cpos, clens, cslots, width,
+                   with_draft: bool = True):
+        """One chunk call on the grid, in the target and, with a draft
+        and ``with_draft``, in the draft: paged through each tenant's
+        tables sliced to ``width`` blocks (built contiguous on the
+        host; padding rows all sink) with writes limited to each
+        chunk's length; arena on copies of the chunk rows' first
+        ``width`` positions, written back for the real rows only.
+        Returns the target's last-real-position logits ``[kb, V]``."""
         dev = self.device
         toks = torch.as_tensor(ctoks, device=dev)
         pos = torch.as_tensor(cpos, device=dev)
@@ -2132,12 +2954,12 @@ class ContinuousEngine:
         if self.paged:
             tenants = [(self.model, self._pk, self._pv, self._tables,
                         self.kernel)]
-            if self.draft_model is not None:
+            if with_draft and self.draft_model is not None:
                 tenants.append((self.draft_model, self._dpk, self._dpv,
                                 self._dtables, self._dkernel))
         else:
             tenants = [(self.model, self._ck, self._cv, None, None)]
-            if self.draft_model is not None:
+            if with_draft and self.draft_model is not None:
                 tenants.append((self.draft_model, self._dck, self._dcv,
                                 None, None))
             read = torch.as_tensor(np.minimum(cslots, S - 1), device=dev)
@@ -2163,17 +2985,20 @@ class ContinuousEngine:
                 out = logits
         return out
 
-    def _land_chunks(self, chunks) -> None:
-        """Land a tick's chunks (both models' caches with a draft) in
-        one chunk call, advance each row's fill frontier, publish the
-        blocks a chunk completed, and flip each prompt whose last chunk
-        landed to DECODE with its first token (picked at position
-        ``plen - 1`` from the target's logits, as monolithic admission
-        picks it)."""
+    def _land_chunks(self, chunks, with_draft: bool) -> None:
+        """Land a tick's chunks (both models' caches with a draft and
+        ``with_draft``) in one chunk call, advance each row's fill
+        frontier, publish the blocks a chunk completed, and flip each
+        prompt whose last chunk landed to DECODE with its first token
+        (picked at position ``plen - 1`` from the target's logits, as
+        monolithic admission picks it)."""
         ctoks, cpos, clens, cslots, width = self._chunk_grid(chunks)
         t0 = time.monotonic()
-        logits = self._run_chunk(ctoks, cpos, clens, cslots, width)
+        logits = self._run_chunk(ctoks, cpos, clens, cslots, width,
+                                 with_draft)
         self.chunk_calls += 1
+        if with_draft and self.draft_model is not None:
+            self.draft_chunk_calls += 1
         rows = [self._slots[i] for i, _ in chunks]
         rows += [None] * (len(cslots) - len(rows))
         samp = {k: torch.as_tensor(v, device=logits.device)
@@ -2202,7 +3027,8 @@ class ContinuousEngine:
             st.full = st.hashes = None
             self._tok[i] = first
             self._pos[i] = st.plen
-            self._dpos[i] = st.plen
+            if with_draft:
+                self._dpos[i] = st.plen
             self._done[i] = False
             self._record_token(i, first)    # the request's FIRST token
 
@@ -2310,7 +3136,7 @@ class ContinuousEngine:
         # are frozen in it); re-filter for safety
         chunks = [(i, c) for i, c in chunks if self._slots[i] is not None]
         if chunks:
-            self._land_chunks(chunks)
+            self._land_chunks(chunks, with_draft=True)
         self._reanchor_prefill()
         self._admit()       # freed slots recycle on the SAME iteration
         return self.n_active

@@ -132,8 +132,8 @@ fails.  Phases, in order:
    draft made of the target's first layer), in the arena and paged =
    speculative + chunked = ``generate``; chunked arena = arena; int8
    chunked = int8 monolithic.  9b, phase 6b's 22-layer bf16 model on
-   phase 4's stream, paged: the chunked engine (default budget)
-   alternating twice with the monolithic one, the speculative engine
+   phase 4's stream, paged: the chunked engine (default budget) and
+   the monolithic one, the speculative engine
    (k=4) with a 2-layer draft (the target's first two layers,
    embeddings, final norm and head) and self-drafted, and speculative +
    chunked; each run prints tokens/s, mean time to first token and the
@@ -146,9 +146,34 @@ fails.  Phases, in order:
    runs again through the plain gather read, and the logit gap where
    the kernel's speculative tokens first part from the monolithic ones.
 
+10. The rest of the serving engine (run after 8): 10a, 2 layers at
+   TinyLlama width, f32 model, with f32, bf16 and int8 pools, phase 4's
+   stream, each mode against a reference engine of the same pool dtype
+   (large pool, no tier; at f32 also ``generate``): the host KV tier
+   (a pool just over one sequence: the stream cold, a churn, the stream
+   again; spills and readmits > 0), a prefill/decode handoff between
+   two engines on the card (16 handoffs; the adopted blocks equal the
+   exported copies bitwise, scales included), the elastic pool (resizes
+   between steps with residents on a dry pool, to the floor, to four
+   sequences and to the probed ceiling; every table entry inside the
+   pool; the allocator's reserved and allocated bytes around the
+   resizes), brownout level 3 on a self-drafted speculative engine for
+   part of the stream, deadlines (an expired backlog shed with 0
+   launches) and QoS (all-standard traffic decides as QoS off); every
+   run's launches equal its engines' counters.  10b, phase 6b's
+   22-layer bf16 model through a two-replica prefill/decode
+   ``ClusterServing`` (fleet prefix directory, host tiers, elastic
+   pools, QoS with mixed priorities, the brownout controller; clients
+   send a 429 again), the stream twice with an idle pause between (the
+   second pass readmits), alternated twice with 8b's paged server:
+   every request completes, every handoff is adopted and acked, the
+   pools end idle and consistent, launches equal the engines' counters;
+   prints tokens/s, client TTFT, the handoff histogram, the tiers',
+   resizes' and ceilings' figures and the peak memory.
+
 The line before the last is ``{"kernels": [...], "stack": ..., "modes":
-[phase 9b's runs], "witness": {...}}``; the last is ``{"ok": true,
-"device": {...}}``.
+[phase 9b's runs], "witness": {...}, "serving_modes": {phase 10}}``;
+the last is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --paged-rounds N`` runs none of the phases: it
 serves phase 4's stream N times after one warm-up, on phase 4's model,
@@ -310,9 +335,9 @@ STACK_CLIENTS = 8
 # 8b: which of phase 4's 16 requests sample (each with its own seed)
 STACK_SAMPLED = (1, 4, 9, 14)
 STACK_TIMEOUT = 600
-# 8b: alternating (stack, direct) pairs a server mode runs, each on a
-# fresh server and a fresh engine, for the spread of the stack's cost
-STACK_ROUNDS = 2
+# 8b: (stack, direct) pairs a server mode runs, each on a fresh server
+# and a fresh engine (one, so that phase 10 fits the run's time)
+STACK_ROUNDS = 1
 # /metrics families a continuous stack must expose
 STACK_FAMILIES = ("zoo_engine_ttft_seconds", "zoo_engine_tpot_seconds",
                   "zoo_engine_queue_depth", "zoo_engine_active_slots",
@@ -1889,10 +1914,12 @@ def stack_bodies(reqs, shared=None, pid=None):
     return bodies
 
 
-def drive_clients(port, bodies):
+def drive_clients(port, bodies, gen=None):
     """``bodies`` through ``STACK_CLIENTS`` client threads, all started
-    together.  Returns (uri -> (tokens, first-token seconds, server
-    uri, streamed), wall seconds)."""
+    together, each request through ``gen`` (default
+    :func:`http_generate`).  Returns (uri -> (tokens, first-token
+    seconds, server uri, streamed), wall seconds)."""
+    gen = gen or http_generate
     out, errors = {}, []
     todo = list(bodies)
     lock = threading.Lock()
@@ -1906,7 +1933,7 @@ def drive_clients(port, bodies):
                     return
                 uri, body, stream = todo.pop(0)
             try:
-                toks, first, suri = http_generate(port, body, stream)
+                toks, first, suri = gen(port, body, stream)
                 out[uri] = (toks, first, suri, stream)
             except Exception as e:     # reported by the caller
                 errors.append(f"{uri}: {e!r}")
@@ -2110,8 +2137,9 @@ def expected_launches(eng):
     made, from its own counters: per target layer one paged call for
     each paged admission prefill, decode step, chunk call and verify
     round; per draft layer one for each draft admission prefill, each
-    of the k+1 draft steps of a round and each chunk call (a
-    speculative chunk call lands in both tenants).  Arena: one flash
+    of the k+1 draft steps of a round and each chunk call that landed
+    in the draft too (all of them unless brownout dropped speculation).
+    Arena: one flash
     call per layer for each admission prefill of either model; the
     arena's chunks and decodes read through plain attention."""
     m = eng.cache_metrics()
@@ -2124,7 +2152,7 @@ def expected_launches(eng):
              + rounds) * Lt
     if eng.draft_model is not None:
         paged += (eng.draft_prefill_calls + (eng._spec_k + 1) * rounds
-                  + eng.chunk_calls) * Ld
+                  + eng.draft_chunk_calls) * Ld
     return paged, 0
 
 
@@ -2221,7 +2249,8 @@ def short_ttft_ms(first, reqs):
 def phase_modes_llama(dev, card, model):
     """9b: phase 4's stream at TinyLlama-1.1B width (phase 6b's model,
     22 layers, bf16) through the paged chunked engine (default budget)
-    alternating twice with the monolithic paged engine, the paged
+    and the monolithic paged engine (once each, so that phase 10 fits
+    the run's time), the paged
     speculative engine (k=4) with a 2-layer draft and self-drafted, and
     speculative + chunked; every run's launches checked exactly.
     Returns each run's numbers and the launches phase 7 reports."""
@@ -2234,7 +2263,6 @@ def phase_modes_llama(dev, card, model):
     base = dict(MAIN, paged=True, block_size=16, flight_capacity=8192)
     two = dict(draft_model=draft, draft_variables=dvars, speculation_k=4)
     runs = [("chunked", dict(chunked=True)), ("monolithic", {}),
-            ("chunked", dict(chunked=True)), ("monolithic", {}),
             ("spec k=4, 2-layer draft", two),
             ("spec k=4, self-draft",
              dict(draft_model=model, draft_variables=model.state_dict(),
@@ -2427,6 +2455,664 @@ def spec_chunk_timings(dev, p9):
     return entries
 
 
+# phase 10: the serving modes of the rest of the engine.  10a's host
+# tier runs on a pool just above one full-length sequence; 10b's fleet
+# replicas start arena-equivalent (FLEET_BLOCKS None: every slot can
+# run to full length; the elastic pools then move) with a host store of
+# FLEET_STORE bytes each
+TIER_BLOCKS = PAGED_M + 2
+TIER_STORE = 1 << 30
+FLEET_BLOCKS = None
+FLEET_STORE = 1 << 30
+FLEET_PRIORITIES = ("interactive", "standard", "batch")
+FLEET_DEADLINE_MS = 600_000
+# 10b: idle seconds between the fleet's two passes, in which the
+# elastic pools shrink (spilling their cached tails to the host tiers)
+FLEET_IDLE_S = 3.0
+# 10b's handoff ack timeout: an adoption that waits behind a dry decode
+# pool is late, not lost, and must not be sent twice
+FLEET_ACK_S = 120.0
+# 10b's per-class SLO targets: far above what the stream's queueing
+# costs, so the brownout ladder answers the pools' allocation failures
+# (its trigger that has no knob), not this closed loop's waits
+FLEET_SLO = {f"slo_{dim}_s_{cls}": 120.0 for dim in ("ttft", "tpot",
+                                                     "queue_wait")
+             for cls in FLEET_PRIORITIES}
+
+
+def memory_line():
+    """The caching allocator's reserved and allocated bytes and the free
+    memory ``torch.cuda.mem_get_info`` reports (which counts reserved
+    but unallocated memory as used)."""
+    free, total = torch.cuda.mem_get_info()
+    return (f"reserved {torch.cuda.memory_reserved()} B, allocated "
+            f"{torch.cuda.memory_allocated()} B, mem_get_info free {free} B "
+            f"of {total} B")
+
+
+def time_calls(engines, rows):
+    """Time the KV copies of the new modes on ``engines``: each spill
+    wave (``_drain_spills``: the gather and its one D2H copy), each
+    readmit wave (``_apply_readmits``: H2D scatters), each handoff
+    export (``_handoff_slot``: the chain's gather and the slot's
+    release) and each adoption (``_admit_handoff``: the copy into the
+    destination pool).  Appends ``(kind, blocks, seconds)`` to
+    ``rows``, the device synchronised before and after each call."""
+    sizes = {
+        "_drain_spills": lambda e, *a: len(e._pending_spills),
+        "_apply_readmits": lambda e, *a: sum(
+            len(b) for b, _, _ in e._pending_readmits),
+        "_handoff_slot": lambda e, slot, st: len(e._row_blocks[slot]),
+        "_admit_handoff": lambda e, req: int(
+            req.handoff_state["chain"]["n"])}
+    for eng in engines:
+        for name, size in sizes.items():
+            fn = getattr(eng, name)
+
+            def timed(*a, _fn=fn, _name=name, _size=size, _eng=eng):
+                n = _size(_eng, *a)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = _fn(*a)
+                torch.cuda.synchronize()
+                if n and res in (None, "admitted"):
+                    rows.append((_name, n, time.perf_counter() - t0))
+                return res
+
+            setattr(eng, name, timed)
+
+
+def copy_costs(rows, block_bytes):
+    """Per kind of copy: calls, blocks, median and largest ms a call and
+    the median GB/s (``block_bytes`` a block)."""
+    out = {}
+    for kind in sorted({k for k, _, _ in rows}):
+        calls = [(n, t) for k, n, t in rows if k == kind]
+        ms = sorted(1e3 * t for _, t in calls)
+        rate = sorted(n * block_bytes / t / 1e9 for n, t in calls)
+        out[kind.strip("_")] = {
+            "calls": len(calls), "blocks": sum(n for n, _ in calls),
+            "ms_median": ms[len(ms) // 2], "ms_max": ms[-1],
+            "gb_per_s_median": rate[len(rate) // 2]}
+    return out
+
+
+def run_engines(engines, submit, n, max_steps=100_000):
+    """Step ``engines`` in turn (a handoff pair: prefill side first)
+    after ``submit(results, errors)`` queued the requests, until ``n``
+    requests finished.  Returns (tokens per uri, errors, seconds)."""
+    out, errors = {}, {}
+    t0 = time.monotonic()
+    submit(out, errors)
+    for _ in range(max_steps):
+        for eng in engines:
+            eng.step()
+        if len(out) + len(errors) >= n and not any(
+                e.n_active or e.n_waiting for e in engines):
+            torch.cuda.synchronize()
+            return out, errors, time.monotonic() - t0
+    raise AssertionError("engines did not drain")
+
+
+def counted(name, engines, fn):
+    """Run ``fn`` with the kernels' counts from 0 and fail unless the
+    paged launches equal the engines' own counters (flash: 0, paged
+    engines only).  Returns ``fn``'s result."""
+    fa.paged_attention_fused.launches = 0
+    fa.flash_attention_fused.launches = 0
+    res = fn()
+    got = (fa.paged_attention_fused.launches,
+           fa.flash_attention_fused.launches)
+    want = tuple(map(sum, zip(*(expected_launches(e) for e in engines))))
+    if any(e.kernel != "fused" for e in engines):
+        raise AssertionError(f"{name}: an engine resolved a plain read")
+    if got != want:
+        raise AssertionError(f"{name}: (paged, flash) launches {got} != "
+                             f"{want} from the engines' counters")
+    return res, got[0]
+
+
+def submit_all(eng, reqs, prefix="", **kw):
+    def go(out, errors):
+        for uri, p in reqs:
+            eng.submit(prefix + uri, p, lambda u, t: out.__setitem__(u, t),
+                       on_error=lambda u, e: errors.__setitem__(u, e),
+                       **kw)
+    return go
+
+
+def tier_identity(model, dev, reqs, churn, ref, base, kvkw, tag):
+    """Host tier: the stream cold, a churn of disjoint prompts, the
+    stream again, on one engine whose pool holds just over one
+    sequence; both passes equal the reference, with spills and
+    readmits."""
+    eng = ContinuousEngine(model, device=dev, n_blocks=TIER_BLOCKS,
+                           kv_host_store_bytes=TIER_STORE, **base, **kvkw)
+    runs, copies = [], []
+    time_calls([eng], copies)
+
+    def serve_passes():
+        for prefix, stream in (("cold-", reqs), ("churn-", churn),
+                               ("warm-", reqs)):
+            out, errors, secs = run_engines(
+                [eng], submit_all(eng, stream, prefix), len(stream))
+            if errors:
+                raise AssertionError(f"{tag} tier: {errors}")
+            runs.append((prefix, out, secs))
+
+    _, launches = counted(f"{tag} tier", [eng], serve_passes)
+    for prefix, out, _ in runs:
+        if prefix != "churn-":
+            same_tokens({u[len(prefix):]: t for u, t in out.items()}, ref,
+                        f"{tag} host tier ({prefix[:-1]}) != reference")
+    m = eng.cache_metrics()
+    if not (m["kv_spills"] > 0 and m["kv_readmits"] > 0):
+        raise AssertionError(f"{tag} tier: spills {m['kv_spills']}, "
+                             f"readmits {m['kv_readmits']}")
+    eng._pool.check()
+    row = {k: m[k] for k in ("kv_spills", "kv_spill_bytes", "kv_readmits",
+                             "kv_readmit_tokens_saved", "kv_store_bytes",
+                             "preemptions", "evictions")}
+    row.update(cold_s=runs[0][2], warm_s=runs[2][2], launches=launches,
+               copies=copy_costs(copies, eng._per_block_bytes))
+    return row
+
+
+def handoff_identity(model, dev, reqs, ref, base, kvkw, tag):
+    """Handoff: a prefill engine hands every request at its first token
+    to a decode engine on the same card; tokens equal the reference's
+    and the adopted blocks hold the exported bytes bitwise (int8 data
+    and scales), compared right after the copy, before any decode."""
+    a = ContinuousEngine(model, device=dev, **base, **kvkw)
+    b = ContinuousEngine(model, device=dev, **base, **kvkw)
+    checked, copies = [], []
+    time_calls([a, b], copies)
+
+    def parts(kv):
+        return [kv.data, kv.scale] if isinstance(kv, fa.QuantKV) else [kv]
+
+    def handoff(state):
+        def on_adopt(uri, replica):
+            slot = next(i for i, s in enumerate(b._slots)
+                        if s is not None and s.uri == uri)
+            idx = torch.as_tensor(b._row_blocks[slot][:state["chain"]["n"]],
+                                  device=dev)
+            for pool, src in ((b._pk, state["k"]), (b._pv, state["v"])):
+                for d, s in zip(parts(pool), parts(src)):
+                    if s.device != d.device or not torch.equal(
+                            d.index_select(1, idx), s):
+                        raise AssertionError(f"{tag} handoff {uri}: "
+                                             f"adopted bytes differ")
+            checked.append(uri)
+
+        state["on_adopt"] = on_adopt
+        b.submit_handoff(state)
+
+    (out, errors, secs), launches = counted(
+        f"{tag} handoff", [a, b], lambda: run_engines(
+            [a, b], submit_all(a, reqs, handoff_cb=handoff), len(reqs)))
+    if errors:
+        raise AssertionError(f"{tag} handoff: {errors}")
+    same_tokens(out, ref, f"{tag} handoff != single engine")
+    n = len(reqs)
+    if not (a._handoffs_out == b._handoffs_in == len(checked) == n):
+        raise AssertionError(f"{tag} handoff: out {a._handoffs_out}, in "
+                             f"{b._handoffs_in}, checked {len(checked)}")
+    for eng in (a, b):
+        eng._pool.check()
+        if eng._pool.num_referenced():
+            raise AssertionError(f"{tag} handoff: a pool is not idle")
+    return {"handoffs": n, "seconds": secs, "launches": launches,
+            "copies": copy_costs(copies, a._per_block_bytes),
+            "prefill_side_decode_ticks": a.decode_ticks,
+            "decode_side_prefill_calls": b.prefill_calls}
+
+
+def elastic_identity(model, dev, reqs, ref, base, kvkw, tag):
+    """Elastic pool: with residents on a dry pool, resize every other
+    step to the floor and to four sequences' worth of blocks, twice
+    each, then once to the ceiling probed at construction; tokens equal the
+    reference's, the device pools follow the block count and every
+    table entry lies inside the pool after each resize.  Prints the
+    allocator's figures around the resizes.  (No shrink follows the
+    ceiling: ``BlockPool.shrink`` takes O(blocks removed x pool size),
+    far too long from a ceiling of ~10^6 blocks; ROADMAP Queue 3.)"""
+    eng = ContinuousEngine(model, device=dev, n_blocks=2 * PAGED_M + 2,
+                           elastic_pool=True, **base, **kvkw)
+    ceiling_bytes = eng._pool_ceiling * eng._per_block_bytes
+    print(f"    {tag} elastic: floor {eng._pool_floor}, ceiling "
+          f"{eng._pool_ceiling} blocks ({ceiling_bytes} B) from "
+          f"{eng.elastic_probe_free_bytes} B free at the probe")
+    targets = [eng._pool_floor, 4 * PAGED_M] * 2 + [eng._pool_ceiling]
+    sizes, notes = [], []
+
+    def resize(target):
+        before = memory_line()
+        eng.resize_pool(target)
+        torch.cuda.synchronize()
+        n = eng._pool.n_blocks
+        pk = eng._pk.data if isinstance(eng._pk, fa.QuantKV) else eng._pk
+        if pk.shape[1] != n or int(eng._tables.max()) >= n:
+            raise AssertionError(f"{tag} elastic: pool {pk.shape[1]} "
+                                 f"blocks, tables up to "
+                                 f"{eng._tables.max()}, N {n}")
+        sizes.append(n)
+        if target == eng._pool_ceiling or len(notes) < 2:
+            notes.append(f"      resize to {target} -> {n} blocks: before "
+                         f"{before}; after {memory_line()}")
+
+    def go():
+        out, errors = {}, {}
+        submit_all(eng, reqs)(out, errors)
+        t = 0
+        while len(out) + len(errors) < len(reqs) or eng.n_active:
+            if t % 2 == 0 and t // 2 < len(targets):
+                if not eng.n_active and t:
+                    raise AssertionError(f"{tag} elastic: no residents "
+                                         f"left for resize {t // 2}")
+                resize(targets[t // 2])
+            eng.step()
+            t += 1
+        torch.cuda.synchronize()
+        return out, errors
+
+    (out, errors), launches = counted(f"{tag} elastic", [eng], go)
+    for line in notes:
+        print(line)
+    if errors:
+        raise AssertionError(f"{tag} elastic: {errors}")
+    same_tokens(out, ref, f"{tag} elastic != no resize")
+    m = eng.cache_metrics()
+    if sizes[-1] != eng._pool_ceiling or not m["pool_resize_clamps"]:
+        raise AssertionError(f"{tag} elastic: sizes {sizes}, clamps "
+                             f"{m['pool_resize_clamps']}")
+    row = {"resizes": m["pool_resizes"], "clamps": m["pool_resize_clamps"],
+           "sizes": sizes, "floor": eng._pool_floor,
+           "ceiling": eng._pool_ceiling, "ceiling_bytes": ceiling_bytes,
+           "probe_free_bytes": eng.elastic_probe_free_bytes,
+           "preemptions": m["preemptions"], "launches": launches}
+    del eng
+    free_memory()
+    return row
+
+
+def brownout_identity(model, dev, reqs, ref, base, kvkw, tag):
+    """Brownout level 3 on a self-drafted speculative engine for part of
+    the stream: those ticks decode with the target alone, and the tokens
+    equal the monolithic reference's."""
+    eng = ContinuousEngine(model, device=dev, draft_model=model,
+                           draft_variables=model.state_dict(),
+                           speculation_k=4, **base, **kvkw)
+    kinds = collections.Counter()
+
+    def go():
+        out, errors = {}, {}
+        submit_all(eng, reqs)(out, errors)
+        t = 0
+        while len(out) + len(errors) < len(reqs) or eng.n_active:
+            if t in (1, 12):
+                eng.set_brownout(3 if t == 1 else 0)
+            eng.step()
+            kinds[(eng.brownout_level, eng._tick_kind)] += 1
+            t += 1
+        torch.cuda.synchronize()
+        return out, errors
+
+    (out, errors), launches = counted(f"{tag} brownout", [eng], go)
+    if errors:
+        raise AssertionError(f"{tag} brownout: {errors}")
+    same_tokens(out, ref, f"{tag} brownout level 3 != monolithic")
+    if not kinds[(3, "decode")] or not kinds[(0, "spec")]:
+        raise AssertionError(f"{tag} brownout: tick kinds {dict(kinds)}")
+    return {"ticks": {f"level {lv} {k}": n for (lv, k), n in kinds.items()},
+            "launches": launches}
+
+
+def deadline_qos_identity(model, dev, reqs, ref, base, kvkw, tag):
+    """Deadlines: an all-expired backlog is shed before any prefill (0
+    launches); a stream with every other request expired serves the
+    rest exactly as an engine given only those requests does (the shed
+    ones never reached the device, so the runs are the same calls).
+    QoS: all-standard traffic gives the tokens and the tick-by-tick
+    decisions of QoS off."""
+    from analytics_zoo_tpu_torch.serving.policy import QosPolicy
+
+    eng = ContinuousEngine(model, device=dev, **base, **kvkw)
+    expired = time.monotonic() - 1.0
+    (out, errors, _), launches = counted(
+        f"{tag} expired backlog", [eng], lambda: run_engines(
+            [eng], submit_all(eng, reqs, deadline_t=expired), len(reqs)))
+    if launches or out or eng.deadline_sheds != len(reqs) \
+            or eng.prefill_calls:
+        raise AssertionError(f"{tag} deadlines: {launches} launches, "
+                             f"{len(out)} served, {eng.deadline_sheds} "
+                             f"shed")
+    eng = ContinuousEngine(model, device=dev, **base, **kvkw)
+
+    def mixed(out, errors):
+        for i, (uri, p) in enumerate(reqs):
+            eng.submit(uri, p, lambda u, t: out.__setitem__(u, t),
+                       on_error=lambda u, e: errors.__setitem__(u, e),
+                       deadline_t=(expired if i % 2
+                                   else time.monotonic() + 600))
+
+    (out, errors, _), launches = counted(
+        f"{tag} deadlines", [eng],
+        lambda: run_engines([eng], mixed, len(reqs)))
+    if sorted(errors) != sorted(u for i, (u, _) in enumerate(reqs) if i % 2):
+        raise AssertionError(f"{tag} deadlines: shed {sorted(errors)}")
+    live = ContinuousEngine(model, device=dev, **base, **kvkw)
+    (want, _, _), _ = counted(f"{tag} survivors alone", [live],
+                              lambda: run_engines(
+                                  [live], submit_all(live, reqs[::2]),
+                                  len(reqs[::2])))
+    same_tokens(out, want, f"{tag} deadline survivors != survivors alone")
+    decisions = []
+    for qos in (None, QosPolicy()):
+        eng = ContinuousEngine(model, device=dev, qos=qos, **base, **kvkw)
+        (out, errors, _), _ = counted(
+            f"{tag} qos={qos is not None}", [eng], lambda: run_engines(
+                [eng], submit_all(eng, reqs), len(reqs)))
+        same_tokens(out, ref, f"{tag} qos={qos is not None} != reference")
+        decisions.append([(r["kind"], r["decode_uris"], r["prefill_uris"])
+                          for r in eng.flight.snapshot()])
+    if decisions[0] != decisions[1]:
+        raise AssertionError(f"{tag}: QoS with all-standard traffic "
+                             f"decided otherwise than QoS off")
+    return {"shed": len(reqs) // 2, "expired_backlog_launches": 0}
+
+
+def phase_serving_modes_f32(dev, card):
+    """10a: 2 layers at TinyLlama width, f32, pools f32, bf16 and int8,
+    phase 4's stream: each mode's tokens against a reference engine of
+    the same pool dtype (large pool, no tier; at f32 also
+    ``generate``), every launch accounted for."""
+    print("== phase 10a: host KV tier, handoff, elastic pool, brownout, "
+          "deadlines and QoS, 2 layers at TinyLlama width, f32 model; f32, "
+          "bf16 and int8 pools")
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = TransformerLM(**TINYLLAMA, num_layers=2,
+                              dtype=torch.float32)
+    vocab = TINYLLAMA["vocab_size"]
+    _, reqs, _ = main_stream(vocab)
+    churn, _ = prompts(np.random.default_rng(3), [500, 480, 460, 440],
+                       vocab=vocab)
+    base = dict(MAIN, paged=True, block_size=16)
+    want = {uri: generate(model, None, p[None], MAIN["max_new_tokens"],
+                          device=dev)[0].cpu().numpy() for uri, p in reqs}
+    rows = {}
+    for kv in (None, "bf16", "int8"):
+        tag = kv or "f32"
+        kvkw = {} if kv is None else dict(kv_dtype=kv)
+        _, ref, secs, _, _ = checked_run(model, dev, reqs, f"{tag} ref",
+                                         **base, **kvkw)
+        if kv is None:
+            same_tokens(ref, want, "f32 reference engine != generate")
+        row = {"reference_s": secs}
+        for name, fn in (("tier", tier_identity), ("handoff",
+                                                   handoff_identity),
+                         ("elastic", elastic_identity),
+                         ("brownout", brownout_identity),
+                         ("deadlines_qos", deadline_qos_identity)):
+            args = (model, dev, reqs) + ((churn,) if name == "tier" else ())
+            row[name] = fn(*args, ref, base, kvkw, tag)
+            free_memory()
+        print(f"  [{card}] {tag} pool: {json.dumps(row)}")
+        rows[tag] = row
+    print("  tokens identical to each pool dtype's reference engine: host "
+          "tier cold and readmitted, handoff (adopted bytes bitwise equal), "
+          "resize, brownout level 3, deadline survivors, QoS; f32 = "
+          "generate")
+    del model
+    free_memory()
+    return rows
+
+
+def fleet_bodies(reqs):
+    """Phase 8b's bodies with mixed priorities and a far deadline on
+    every third request."""
+    bodies = []
+    for i, (uri, body, stream) in enumerate(stack_bodies(reqs)):
+        body = dict(body, priority=FLEET_PRIORITIES[i % 3])
+        if i % 3 == 0:
+            body["deadline_ms"] = FLEET_DEADLINE_MS
+        bodies.append((uri, body, stream))
+    return bodies
+
+
+REFUSALS = {"n": 0}
+
+
+def generate_retrying(port, body, stream=False):
+    """:func:`http_generate` as a client under a brownout ladder sends
+    it: a 429 (the front door refusing a class the ladder sheds) is
+    sent again after half a second, up to ``STACK_TIMEOUT``; counted in
+    ``REFUSALS``.  The first-token time counts from the first
+    attempt."""
+    t0 = time.monotonic()
+    while True:
+        t_try = time.monotonic()
+        try:
+            toks, first, uri = http_generate(port, body, stream)
+            return toks, first + (t_try - t0), uri
+        except AssertionError as e:
+            if "answered 429" not in str(e) or \
+                    time.monotonic() - t0 > STACK_TIMEOUT:
+                raise
+            REFUSALS["n"] += 1
+            time.sleep(0.5)
+
+
+def fleet_run(im, card, warm, reqs, layers):
+    """One 10b run: a two-replica prefill/decode fleet with the fleet
+    prefix directory, host tiers, elastic pools, QoS and the brownout
+    controller (its token clamp set to the full budget, so a level-2
+    episode shortens no response), the stream twice through
+    ``/v1/generate`` with ``FLEET_IDLE_S`` idle seconds between the
+    passes (the elastic pools shrink, spilling to the host tiers, and
+    the second pass readmits).  Clients send a 429 again.  Every request
+    completes, every handoff was adopted, the pools end idle and
+    consistent, and every paged launch is an engine's."""
+    vocab = TINYLLAMA["vocab_size"]
+    cfg = dict(continuous_batching=True, engine_slots=MAIN["max_slots"],
+               engine_paged=True, engine_block_size=16, n_replicas=2,
+               replica_roles=["prefill", "decode"], prefix_directory=True,
+               engine_blocks=FLEET_BLOCKS,
+               engine_kv_host_store_bytes=FLEET_STORE,
+               engine_elastic_pool=True, qos_enabled=True, brownout=True,
+               brownout_standard_max_new=MAIN["max_new_tokens"],
+               brownout_exit_ticks=2, handoff_ack_timeout_s=FLEET_ACK_S,
+               **FLEET_SLO)
+    torch.cuda.reset_peak_memory_stats()
+    srv, fe = start_stack(im, **cfg)
+    try:
+        free = torch.cuda.mem_get_info()[0]
+        ceilings = [e._pool_ceiling * e._per_block_bytes
+                    for e in srv.engines]
+        for r, eng in enumerate(srv.engines):
+            print(f"  replica {r} ({srv.replica_roles[r]}): ceiling "
+                  f"{eng._pool_ceiling} blocks = {ceilings[r]} B from "
+                  f"{eng.elastic_probe_free_bytes} B free at its probe")
+        print(f"  both ceilings {sum(ceilings)} B against the card's "
+              f"{free} B free now: "
+              f"{'overlapping' if sum(ceilings) > free else 'disjoint'}")
+        for uri, p in warm:
+            http_generate(fe.port, {"tokens": p.tolist()})
+        copies = []
+        time_calls(srv.engines, copies)
+        bodies = fleet_bodies(reqs)
+        CONNECT_RETRIES["n"] = 0
+        REFUSALS["n"] = 0
+        fa.paged_attention_fused.launches = 0
+        fa.flash_attention_fused.launches = 0
+        before = [expected_launches(e)[0] for e in srv.engines]
+        passes, blocks = [], []
+        for k in range(2):
+            if k:
+                time.sleep(FLEET_IDLE_S)
+            blocks.append([e._pool.n_blocks for e in srv.engines])
+            out, secs = drive_clients(fe.port, bodies, generate_retrying)
+            check_served({u: o[0] for u, o in out.items()}, reqs, vocab)
+            for uri, (toks, _, suri, stream) in out.items():
+                if stream:
+                    check_stream_final(srv, suri, toks)
+            passes.append((out, secs))
+        torch.cuda.synchronize()
+        deadline = time.monotonic() + 30
+        while any(e.n_active or e.n_waiting for e in srv.engines):
+            if time.monotonic() > deadline:
+                raise AssertionError("10b fleet: engines not idle")
+            time.sleep(0.05)
+        paged = fa.paged_attention_fused.launches
+        want = sum(expected_launches(e)[0] - b
+                   for e, b in zip(srv.engines, before))
+        if paged != want or fa.flash_attention_fused.launches:
+            raise AssertionError(f"10b fleet: paged launches {paged} != "
+                                 f"engines' {want}")
+        resets = check_resets("10b fleet")
+        status = srv.router_status()
+        e0, e1 = srv.engines
+        # every export adopted and acked once; handoffs_in also counts
+        # re-adoptions of a chain whose row the decode pool preempted
+        # (the request requeues with its handoff state), as in the
+        # reference
+        extra = e1._handoffs_in - e0._handoffs_out
+        if not e0._handoffs_out or status["handoff_acks"] != \
+                e0._handoffs_out or not 0 <= extra <= e1._preemptions:
+            raise AssertionError(f"10b fleet: handoffs out "
+                                 f"{e0._handoffs_out}, in {e1._handoffs_in}"
+                                 f", acks {status['handoff_acks']}, decode "
+                                 f"preemptions {e1._preemptions}")
+        for eng in srv.engines:
+            with eng._pool_lock:
+                eng._pool.check()
+                if eng._pool.num_referenced():
+                    raise AssertionError("10b fleet: a pool is not idle")
+        ms = [e.cache_metrics() for e in srv.engines]
+        if not sum(m["kv_readmits"] for m in ms):
+            raise AssertionError("10b fleet: the second pass readmitted "
+                                 "nothing from the host tiers")
+        hist = srv._h_handoff.snapshot()
+        brownout = {"level": srv._brownout_state.level,
+                    "transitions": srv._brownout_transitions,
+                    "refusals_sent_again": REFUSALS["n"]}
+    finally:
+        fe.stop()
+        srv.stop()
+    peak = torch.cuda.max_memory_allocated()
+    row = {"tokens_per_s": [sum(len(o[0]) for o in out.values()) / secs
+                            for out, secs in passes],
+           "ttft_ms": [1e3 * float(np.mean([o[1] for o in out.values()
+                                            if o[3]]))
+                       for out, _ in passes],
+           "handoffs": status["handoffs"],
+           "handoff_acks": status["handoff_acks"],
+           "handoff_retries": status["handoff_retries"],
+           "handoff_seconds": hist, "routed": status["routed"],
+           "brownout": brownout, "connect_resets": resets,
+           "paged_launches": paged, "peak_bytes": peak,
+           "ceiling_bytes": ceilings, "n_blocks_at_pass_start": blocks,
+           "copies": copy_costs(copies, srv.engines[0]._per_block_bytes),
+           "replicas": [{k: m[k] for k in (
+               "n_blocks", "pool_ceiling", "pool_resizes",
+               "pool_resize_clamps", "kv_spills", "kv_spill_bytes",
+               "kv_readmits", "kv_readmit_tokens_saved", "kv_store_bytes",
+               "handoffs_out", "handoffs_in", "prefix_hits",
+               "preemptions")} for m in ms]}
+    print(f"  [{card}] fleet: {json.dumps(row)}")
+    return row
+
+
+def copy_waves(dev, card, model, reps=5):
+    """The KV copies of the new modes at TinyLlama width (22 layers,
+    bf16, 360,448 B a block), alone on an idle card, for chains of 1, 16
+    and 32 blocks: a spill wave (``_drain_spills``: gather, one D2H,
+    the store puts), a readmit (``_apply_readmits``: the H2D scatter),
+    a handoff export (the chain's gather) and an adoption (the D2D
+    scatter).  Median ms of ``reps`` each, and GB/s."""
+    from analytics_zoo_tpu_torch.serving.continuous import (_kv_map,
+                                                            _kv_scatter)
+    eng = ContinuousEngine(model, device=dev, paged=True, block_size=16,
+                           kv_host_store_bytes=FLEET_STORE, **MAIN)
+    per = eng._per_block_bytes
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    rows = {}
+    for n in (1, 16, 32):
+        src = list(range(1, n + 1))
+        dst = list(range(n + 1, 2 * n + 1))
+        ts = collections.defaultdict(list)
+        for r in range(reps):
+            hashes = [(n << 40) + (r << 20) + b for b in src]
+            eng._pending_spills = list(zip(src, hashes))
+            ts["spill"].append(timed(eng._drain_spills)[0])
+            payloads = [p for _, p in eng._kv_store.probe(hashes)]
+            eng._pending_readmits = [(dst, torch.cat(
+                [p["k"] for p in payloads], 1), torch.cat(
+                [p["v"] for p in payloads], 1))]
+            ts["readmit"].append(timed(eng._apply_readmits)[0])
+            idx = torch.as_tensor(src, device=dev)
+            t, (k, v) = timed(lambda: tuple(
+                _kv_map(lambda x: x.index_select(1, idx), pool)
+                for pool in (eng._pk, eng._pv)))
+            ts["export"].append(t)
+            idx2 = torch.as_tensor(dst, device=dev)
+            ts["adopt"].append(timed(lambda: (
+                _kv_scatter(eng._pk, idx2, k),
+                _kv_scatter(eng._pv, idx2, v)))[0])
+        rows[n] = {kind: {"ms": 1e3 * float(np.median(t)),
+                          "gb_per_s": n * per / float(np.median(t)) / 1e9}
+                   for kind, t in ts.items()}
+        print(f"  [{card}] {n}-block chain ({n * per} B): " + ", ".join(
+            f"{kind} {row['ms']:.3f} ms ({row['gb_per_s']:.2f} GB/s)"
+            for kind, row in rows[n].items()))
+    del eng
+    free_memory()
+    return rows
+
+
+def phase_fleet_llama(dev, card, model):
+    """10b: phase 6b's 22-layer bf16 model on phase 4's stream through
+    a two-replica prefill/decode ``ClusterServing`` (fleet prefix
+    directory, host KV tiers, elastic pools, QoS with mixed priorities,
+    the brownout controller), alternated twice with phase 8b's
+    single-replica paged server."""
+    print(f"== phase 10b: two-replica prefill/decode fleet at TinyLlama-1.1B "
+          f"width ({model.num_layers} layers, bf16): directory, host tier, "
+          f"elastic pools, QoS, brownout; alternated with 8b's paged server")
+    im = InferenceModel().load_torch_generator(
+        model, None, MAIN["max_new_tokens"],
+        prompt_buckets=MAIN["prompt_buckets"], device=dev)
+    warm, reqs, shared = main_stream(TINYLLAMA["vocab_size"])
+    waves = copy_waves(dev, card, model)
+    single_cfg = dict(continuous_batching=True,
+                      engine_slots=MAIN["max_slots"], engine_paged=True,
+                      engine_block_size=16)
+    fleet, single = [], []
+    for r in range(2):
+        for which in (("fleet", "single") if r == 0
+                      else ("single", "fleet")):
+            if which == "fleet":
+                fleet.append(fleet_run(im, card, warm, reqs,
+                                       model.num_layers))
+            else:
+                single.append(stack_run(im, card, "paged", single_cfg, warm,
+                                        reqs, shared, model.num_layers))
+            free_memory()
+    print(f"  [{card}] fleet pass-1 tokens/s "
+          f"{[round(f['tokens_per_s'][0], 1) for f in fleet]}, pass-2 "
+          f"{[round(f['tokens_per_s'][1], 1) for f in fleet]} vs single "
+          f"paged server {[round(s['tokens_per_s'], 1) for s in single]}")
+    return {"fleet": fleet, "single": single, "copy_waves": waves}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2443,27 +3129,42 @@ def main() -> int:
     if sys.argv[1:2] == ["--paged-rounds"]:
         paged_rounds(dev, card, int(sys.argv[2]))
         return 0
+    def lap(name):
+        print(f"[{time.monotonic() - t_start:.1f} s] {name} done")
+
     phase_build()
+    lap("phase 1")
     phase_kernel_vs_plain(dev)
+    lap("phase 2")
     phase_engine_parity(dev)
     phase_training_parity(dev)
+    lap("phase 3")
     torch.manual_seed(1234)
     model = TransformerLM(**GPT2, num_layers=12, dtype=torch.bfloat16)
     paged_launches, paged_shapes = phase_paged_main_path(dev, card, model)
     flash_launches, shapes = phase_arena_main_path(dev, card, model)
     train_launches = phase_training_main_path(dev, card, model)
     del model
+    lap("phases 4-6")
     llama, llama_model = phase_llama_main_path(dev, card)
+    lap("phase 6b")
     # phase 9 runs here, on phase 6b's model, so that phase 7 (traced
     # before 7b's profiled step) can time its shapes
     phase_modes_f32(dev)
     modes = phase_modes_llama(dev, card, llama_model)
+    lap("phase 9")
     kernels = phase_timings(dev, paged_launches, paged_shapes,
                             flash_launches, shapes, train_launches, llama,
                             modes["launches"])
     phase_llama_profile(dev, llama_model)
+    lap("phases 7, 7b")
     phase_stack_f32(dev, card)
     stack = phase_stack_llama(dev, card, llama_model)
+    lap("phase 8")
+    serving_modes = {"10a": phase_serving_modes_f32(dev, card)}
+    lap("phase 10a")
+    serving_modes["10b"] = phase_fleet_llama(dev, card, llama_model)
+    lap("phase 10b")
     for e in kernels:
         # each kernel's launches in phase 8b's two servers (the paged
         # server reads through paged, the arena prefills through flash)
@@ -2475,7 +3176,8 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": kernels, "stack": {
         name: run["pairs"] for name, run in stack.items()},
-        "modes": modes["runs"], "witness": modes["witness"]}))
+        "modes": modes["runs"], "witness": modes["witness"],
+        "serving_modes": serving_modes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -286,29 +286,41 @@ def test_engine_needs_a_device_or_cuda(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(qos=object()), "4.5"),
-    (dict(elastic_pool=True), "4.6"),
-    (dict(kv_host_store_bytes=1 << 20), "4.6"),
     (dict(mesh=object()), "item 6")])
 def test_later_slice_modes_raise(models, kw, item):
+    """Only tensor-parallel serving is left to a later slice; the QoS,
+    elastic-pool and host-tier engines are built here and held to the
+    reference in ``test_torch_qos.py`` and ``test_torch_kv_tier.py``."""
     with pytest.raises(NotImplementedError, match=item):
         ContinuousEngine(models[2], device="cpu", **_ENGINE, **kw)
+    from analytics_zoo_tpu_torch.serving.policy import QosPolicy
+    for ok in (dict(qos=QosPolicy()),
+               dict(paged=True, elastic_pool=True),
+               dict(paged=True, kv_host_store_bytes=1 << 20)):
+        eng = ContinuousEngine(models[2], device="cpu", **_ENGINE, **ok)
+        assert eng.cache_metrics()["qos"] is ("qos" in ok)
 
 
 def test_sampled_submit_raises(models):
-    """Sampling is served now: a sampled submit without a seed raises
-    as in the reference, and the modes of later slices raise naming
-    their ROADMAP item."""
+    """Sampling is served: a sampled submit without a seed raises as in
+    the reference.  A deadline queues (an expired one is shed at
+    admission); ``handoff_cb`` queues on a paged engine and raises on
+    the arena, as in the reference."""
     eng = ContinuousEngine(models[2], device="cpu", **_ENGINE)
     prompt = np.arange(1, 5, dtype=np.int32)
     with pytest.raises(ValueError, match="rng_seed"):
         eng.submit("x", prompt, temperature=0.7)
-    with pytest.raises(NotImplementedError, match="4.5"):
-        eng.submit("x", prompt, deadline_t=1.0)
-    with pytest.raises(NotImplementedError, match="4.6"):
+    with pytest.raises(ValueError, match="requires paged"):
         eng.submit("x", prompt, handoff_cb=print)
+    eng.submit("d", prompt, deadline_t=1.0)
     eng.submit("x", prompt, temperature=0.7, rng_seed=1)
-    assert eng.n_waiting == 1
+    assert eng.n_waiting == 2
+    eng.drain()
+    assert eng.deadline_sheds == 1
+    paged = ContinuousEngine(models[2], device="cpu", paged=True,
+                             **_ENGINE)
+    paged.submit("h", prompt, handoff_cb=print)
+    assert paged.n_waiting == 1
 
 
 def test_abort_releases_blocks(models):

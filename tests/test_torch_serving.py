@@ -17,6 +17,7 @@ latency is asserted.
 
 import http.client
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -279,15 +280,26 @@ def test_two_replicas_match_jax(models):
 
 
 def test_unported_modes_answer_errors(models):
-    """A deadline (item 4.5) and an image payload (item 8) answer an
-    error result naming their item; a config selecting an engine mode
-    of a later slice fails at ``start``; ``from_config`` (item 5)
-    raises."""
+    """An image payload (item 8) answers an error result naming its
+    item, and ``from_config`` (item 5) raises.  The engine modes of
+    items 4.5 and 4.6 are served: ``/v1/generate`` with a deadline
+    answers the JAX tokens, a request whose deadline has passed answers
+    the reference's ``deadline_exceeded``, and servers with QoS or the
+    elastic pool start and serve."""
     st = _stack(models, "paged")
-    status, text = st.generate(tokens=[1, 2, 3], deadline_ms=60_000)
-    assert status == 502 and "4.5" in text, (status, text)
+    p = _prompts()[1]
+    status, text = st.generate(tokens=p.tolist(), deadline_ms=60_000)
+    assert status == 200, (status, text)
+    np.testing.assert_array_equal(
+        np.asarray(json.loads(text)["tokens"], np.int32),
+        _jax_tokens(models, p))
     inq = InputQueue(port=st.serving.port)
     outq = OutputQueue(port=st.serving.port)
+    late = inq.enqueue("late", tokens=p, deadline=np.int64(
+        int(time.time() * 1000) - 1000))
+    with pytest.raises(RuntimeError, match="deadline_exceeded"):
+        outq.query(late, timeout=_TIMEOUT)
+    assert st.serving.engines[0].deadline_sheds == 1
     uri = inq.enqueue_image("img", image=b"\x89PNG not an image",
                             col="tokens")
     with pytest.raises(RuntimeError, match="item 8"):
@@ -295,18 +307,17 @@ def test_unported_modes_answer_errors(models):
     # the stack still serves after both
     status, text = st.generate(tokens=_prompts()[2].tolist())
     assert status == 200, text
-    for cfg, item in ((dict(qos_enabled=True), "4.5"),
-                      (dict(engine_elastic_pool=True), "4.6")):
-        im = InferenceModel().load_torch_generator(
-            models[2], None, _NEW, prompt_buckets=_BUCKETS, device="cpu")
-        srv = ClusterServing(im, ServingConfig(
-            prompt_col="tokens", **_MODES["paged"], **cfg),
-            embedded_broker=True)
+    for cfg in (dict(qos_enabled=True), dict(engine_elastic_pool=True)):
+        st = _port_stack(models, **_MODES["paged"], **cfg)
         try:
-            with pytest.raises(NotImplementedError, match=item):
-                srv.start()
+            status, text = st.generate(tokens=p.tolist(),
+                                       priority="interactive")
+            assert status == 200, (cfg, status, text)
+            np.testing.assert_array_equal(
+                np.asarray(json.loads(text)["tokens"], np.int32),
+                _jax_tokens(models, p))
         finally:
-            srv.stop()
+            st.stop()
     with pytest.raises(NotImplementedError, match="item 5"):
         ClusterServing.from_config("config.yaml")
 
@@ -403,8 +414,12 @@ def test_engine_surface_matches_jax(models, paged):
     assert all(len(gt[u]["token_times"]) == _NEW for u in gt)
     assert got.alloc_fail_streak == 0 and got.spec_acceptance() is None
     got.set_brownout(0)
-    with pytest.raises(NotImplementedError, match="4.5"):
-        got.set_brownout(1)
-    for call in (got.maybe_autoresize, lambda: got.submit_handoff({})):
-        with pytest.raises(NotImplementedError, match="4.6"):
-            call()
+    for eng in engines:
+        eng.set_brownout(1)
+    assert got.brownout_level == ref.brownout_level == 1
+    # no elastic pool: the control step is a no-op in both
+    assert got.maybe_autoresize() == ref.maybe_autoresize() == 0
+    if not paged:
+        for eng in engines:
+            with pytest.raises(ValueError, match="paged engine"):
+                eng.submit_handoff({})
