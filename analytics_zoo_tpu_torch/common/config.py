@@ -3,18 +3,20 @@
 The same fields and defaults as ``TrainConfig`` in
 ``analytics_zoo_tpu/common/config.py``, so a config written for the
 reference's Estimator reads the same here.  The port's Estimator
-(``learn/estimator.py``) honours ``seed`` and ``deterministic``; it
-raises ``NotImplementedError`` for a non-default value of a field whose
+(``learn/estimator.py``) honours ``seed`` (the shuffle and the dropout
+seeds), ``deterministic``, ``checkpoint_dir``, ``keep_checkpoints`` and
+``checkpoint_every_steps`` (with a ``checkpoint_dir``: also save every
+that many steps, where 0 saves at epoch ends only); it raises
+``NotImplementedError`` for a non-default value of a field whose
 feature is not ported yet and would change a result or an output
-(``accum_steps``, ``checkpoint_dir``, ``tensorboard_dir``,
-``metrics_jsonl``, ``profile``, ``fault_inject_step``, ``debug_nans``).
+(``accum_steps``, ``tensorboard_dir``, ``metrics_jsonl``, ``profile``,
+``fault_inject_step``, ``debug_nans``).
 The rest change nothing here, as in the reference's Estimator:
 ``pack_transfer`` and ``donate_state`` steer JAX host-to-device
 transfers and buffer donation, which have no meaning in eager PyTorch;
 ``epochs``, ``dtype``, ``param_dtype`` and ``remat`` are not read by
 the reference's Estimator either (the model carries its own dtype);
-``log_every_steps`` sets a logging cadence, ``checkpoint_every_steps``
-and ``keep_checkpoints`` take effect only with a ``checkpoint_dir``.
+``log_every_steps`` sets a logging cadence.
 """
 
 from __future__ import annotations

@@ -19,17 +19,41 @@ it is, with no conversion.  The contract follows the reference:
   ``torch.no_grad()`` with ``train=False``.
 - ``predict``: the concatenated outputs as numpy, padding rows dropped.
 
+- Dropout: a model whose ``forward`` takes ``rng`` gets the step's seed
+  ``fold_in(seed, step)`` in a training step (``seed`` is
+  ``config.seed``, ``step`` the global step before the update), the
+  reference's ``fold_in(rng, step)``; see ``models.transformer``.
+- Checkpoints (``config.checkpoint_dir``): ``checkpoint_trigger``
+  (default ``EveryEpoch``, or every ``checkpoint_every_steps`` steps as
+  well when that is above 0) saves after a step or an epoch;
+  ``keep_checkpoints`` newest are kept; ``fit(auto_resume=True)``
+  restores the newest and trains the remaining epochs, continuing the
+  shuffle schedule (epoch-granular, as in the reference);
+  ``save``/``load`` export and restore the model's weights alone.
+
+The checkpoint format is the port's own, not orbax's: one directory
+``ckpt_<step>`` a checkpoint, holding ``state.pt``, a ``torch.save`` of
+the model's and the optimizer's ``state_dict``s, the step, the epoch
+and the dropout seed; ``save`` writes ``model.pt`` (the model's
+``state_dict``) into its directory.  The two packages' checkpoints are
+not interchangeable: weights cross from the reference only through
+``params_from_flax``.
+
 Metrics stay on the device through an epoch and come to the host once
 at its end, so the step loop never waits on the card.  The estimator
 moves the model to its device (``nn.Module.to``, in place).  Not ported
-yet (ROADMAP Queue 1 item 7): ``save``/``load`` and checkpoints, LoRA,
-``initial_variables`` (load weights into the model before handing it
-over), XShards and DiskFeatureSet inputs, meshes and multi-host.
+yet (ROADMAP Queue 1 item 7): LoRA, ``initial_variables`` (load weights
+into the model before handing it over), XShards and DiskFeatureSet
+inputs (``frames.NNEstimator`` takes an ``XShards``), meshes and
+multi-host.
 """
 
 from __future__ import annotations
 
 import inspect
+import os
+import re
+import shutil
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
@@ -37,20 +61,28 @@ import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.config import TrainConfig
+from analytics_zoo_tpu_torch.common.log import logger
 from analytics_zoo_tpu_torch.data.loader import NumpyBatchIterator
 from analytics_zoo_tpu_torch.device import resolve_device
 from analytics_zoo_tpu_torch.learn.metrics import (EpochAccumulator,
                                                    resolve_metrics)
 from analytics_zoo_tpu_torch.learn.objectives import get_loss
+from analytics_zoo_tpu_torch.learn.triggers import (EveryEpoch,
+                                                    SeveralIteration, Trigger)
+from analytics_zoo_tpu_torch.models.transformer import fold_in
 
 _DEFAULT_BATCH = 32     # the reference's batch size when none is given
 
 # TrainConfig fields whose features are not ported yet, with the value
 # that leaves them off: any other value would change a result or an
 # output, so it raises rather than be ignored
-_NOT_PORTED = {"checkpoint_dir": None, "tensorboard_dir": None,
-               "metrics_jsonl": None, "profile": None,
-               "fault_inject_step": 0, "debug_nans": False}
+_NOT_PORTED = {"tensorboard_dir": None, "metrics_jsonl": None,
+               "profile": None, "fault_inject_step": 0,
+               "debug_nans": False}
+
+_CKPT_DIR = re.compile(r"^ckpt_(\d+)$")
+_CKPT_FILE = "state.pt"
+_MODEL_FILE = "model.pt"
 
 
 def _check_config(config: TrainConfig) -> None:
@@ -61,8 +93,8 @@ def _check_config(config: TrainConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"TrainConfig {bad} is not ported yet (ROADMAP Queue 1 item "
-            f"7: gradient accumulation, checkpoints, summaries, profiling "
-            f"and fault injection)")
+            f"7: gradient accumulation, summaries, profiling and fault "
+            f"injection)")
 
 
 def _model_accepts(model, kwarg: str) -> bool:
@@ -158,8 +190,11 @@ class TorchEstimator:
         self.feature_cols = tuple(feature_cols)
         self.label_cols = tuple(label_cols)
         self._takes_train = _model_accepts(self.model, "train")
+        self._takes_rng = _model_accepts(self.model, "rng")
         self._epoch = 0
         self._global_step = 0
+        # the dropout seed; a restored checkpoint brings its own
+        self._seed = int(self.config.seed)
 
     def _set_cols(self, feature_cols, label_cols):
         if feature_cols:
@@ -174,6 +209,8 @@ class TorchEstimator:
 
     def _forward(self, batch, train: bool):
         kw = {"train": train} if self._takes_train else {}
+        if train and self._takes_rng:
+            kw["rng"] = fold_in(self._seed, self._global_step)
         return self.model(*[batch[c] for c in self.feature_cols], **kw)
 
     def _labels(self, batch):
@@ -219,10 +256,24 @@ class TorchEstimator:
             validation_data=None,
             feature_cols: Optional[Sequence[str]] = None,
             label_cols: Optional[Sequence[str]] = None,
-            callbacks: Sequence[Callable[[Dict], object]] = ()
-            ) -> List[Dict[str, float]]:
+            checkpoint_trigger: Optional[Trigger] = None,
+            callbacks: Sequence[Callable[[Dict], object]] = (),
+            auto_resume: bool = False) -> List[Dict[str, float]]:
         """Train for ``epochs`` epochs of ``batch_size`` rows; returns
-        the per-epoch stats dicts."""
+        the per-epoch stats dicts.
+
+        ``checkpoint_trigger`` is called after every step with
+        ``{"step", "epoch"}`` and at every epoch end with ``{"step",
+        "epoch", "epoch_end": True, "metrics"}``; when it fires, a
+        checkpoint goes to ``config.checkpoint_dir``.  With a
+        ``checkpoint_dir`` and no trigger, every epoch end saves (and
+        every ``checkpoint_every_steps`` steps, when that is above 0).
+        ``auto_resume=True`` restores the newest checkpoint under
+        ``checkpoint_dir``, if there is one, and trains only the epochs
+        that remain of ``epochs``, continuing the shuffle schedule: a
+        restarted process goes on where the stopped one saved.  Resume
+        is epoch-granular, as in the reference: a mid-epoch checkpoint
+        trains its epoch's leading batches again."""
         _check_config(self.config)
         batch_size = batch_size or _DEFAULT_BATCH
         self._set_cols(feature_cols, label_cols)
@@ -230,6 +281,32 @@ class TorchEstimator:
             _to_arrays(data), batch_size,
             shuffle=not self.config.deterministic, drop_remainder=True,
             seed=self.config.seed)
+        if auto_resume:
+            if not self.config.checkpoint_dir:
+                raise ValueError(
+                    "fit(auto_resume=True) needs config.checkpoint_dir: "
+                    "there is nowhere to resume from")
+            if latest_checkpoint(self.config.checkpoint_dir) is not None:
+                self.load_checkpoint(self.config.checkpoint_dir)
+                logger.info("auto-resume: restored step %d (epoch %d) "
+                            "from %s", self._global_step, self._epoch,
+                            self.config.checkpoint_dir)
+                if self._global_step % max(1, it.steps_per_epoch()):
+                    logger.warning(
+                        "auto-resume: restored step %d is mid-epoch "
+                        "(steps_per_epoch=%d); resume is epoch-granular, "
+                        "so the partial epoch's leading batches are "
+                        "trained again", self._global_step,
+                        it.steps_per_epoch())
+            if self._epoch >= epochs:
+                logger.info("auto-resume: %d epochs already complete",
+                            self._epoch)
+                return []
+            epochs -= self._epoch
+            # continue the shuffle-seed schedule where the stopped run
+            # left it
+            it.epoch = self._epoch
+        trigger = checkpoint_trigger or self._default_trigger()
         for cb in callbacks:
             # stop-requesting callbacks restart fresh per fit
             if getattr(cb, "requests_stop", False):
@@ -238,9 +315,13 @@ class TorchEstimator:
         for _ in range(epochs):
             self.model.train()
             t0 = time.perf_counter()
-            step_mets = [self._train_step(self._on_device(b))
-                         for b in it.epoch_batches()]
-            self._global_step += len(step_mets)
+            step_mets = []
+            for b in it.epoch_batches():
+                step_mets.append(self._train_step(self._on_device(b)))
+                self._global_step += 1
+                if trigger and trigger({"step": self._global_step,
+                                        "epoch": self._epoch}):
+                    self._maybe_checkpoint()
             acc = EpochAccumulator()
             if step_mets:
                 # the epoch barrier: one fetch per metric, which waits
@@ -258,6 +339,10 @@ class TorchEstimator:
             if validation_data is not None:
                 val = self.evaluate(validation_data, batch_size=batch_size)
                 stats.update({f"val_{k}": v for k, v in val.items()})
+            if trigger and trigger({"step": self._global_step,
+                                    "epoch": self._epoch, "epoch_end": True,
+                                    "metrics": stats}):
+                self._maybe_checkpoint()
             stop = False
             for cb in callbacks:
                 ret = cb({"epoch": self._epoch, **stats})
@@ -269,6 +354,13 @@ class TorchEstimator:
             if stop:
                 break
         return history
+
+    def _default_trigger(self) -> Optional[Trigger]:
+        if not self.config.checkpoint_dir:
+            return None
+        every = int(self.config.checkpoint_every_steps or 0)
+        return EveryEpoch() | SeveralIteration(every) if every > 0 \
+            else EveryEpoch()
 
     def evaluate(self, data, batch_size: Optional[int] = None,
                  feature_cols=None, label_cols=None) -> Dict[str, float]:
@@ -315,6 +407,90 @@ class TorchEstimator:
                 preds = preds.float()
             outs.append(preds[:real].cpu())
         return torch.cat(outs).numpy()
+
+
+    # ---- checkpoints and exports ------------------------------------
+
+    def _maybe_checkpoint(self):
+        if self.config.checkpoint_dir:
+            self.save_checkpoint(self.config.checkpoint_dir)
+
+    def save_checkpoint(self, path: str):
+        """Save the model, the optimizer, the step, the epoch and the
+        dropout seed as ``path/ckpt_<step>/state.pt``, then drop all but
+        the ``config.keep_checkpoints`` newest checkpoints."""
+        path = os.path.abspath(path)
+        final = os.path.join(path, f"ckpt_{self._global_step}")
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save({"model": self.model.state_dict(),
+                    "optimizer": self.optimizer.state_dict(),
+                    "step": self._global_step, "epoch": self._epoch,
+                    "seed": self._seed}, os.path.join(tmp, _CKPT_FILE))
+        # a checkpoint appears whole or not at all
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        keep = max(1, int(self.config.keep_checkpoints))
+        for step in checkpoint_steps(path)[:-keep]:
+            shutil.rmtree(os.path.join(path, f"ckpt_{step}"))
+
+    def load_checkpoint(self, path: str, step: Optional[int] = None):
+        """Restore a :meth:`save_checkpoint` (the newest under ``path``,
+        or ``step``'s): model and optimizer state, step, epoch and the
+        dropout seed."""
+        step = latest_checkpoint(path) if step is None else int(step)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {path}")
+        state = torch.load(
+            os.path.join(os.path.abspath(path), f"ckpt_{step}", _CKPT_FILE),
+            map_location=self.device, weights_only=True)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self._global_step = int(state["step"])
+        self._epoch = int(state["epoch"])
+        self._seed = int(state["seed"])
+
+    def save(self, path: str):
+        """Export the trained weights (the model's ``state_dict``) as
+        ``path/model.pt``, replacing an earlier export: the reference's
+        ``Estimator.save``, which ``InferenceModel.load`` serves."""
+        os.makedirs(path, exist_ok=True)
+        torch.save(self.model.state_dict(), os.path.join(path, _MODEL_FILE))
+
+    def load(self, path: str, sample_data=None):
+        """Restore a :meth:`save` export into the model.
+        ``sample_data`` is accepted for the reference's signature (it
+        builds its state from it); a torch module has its own."""
+        del sample_data
+        self.model.load_state_dict(load_export(path, self.device))
+
+    def get_model(self):
+        """``(model, state_dict)``: the reference's ``(model, params)``."""
+        return self.model, self.model.state_dict()
+
+
+def checkpoint_steps(path: str) -> List[int]:
+    """The steps of the checkpoints under ``path``, oldest first."""
+    path = os.path.abspath(path)
+    if not os.path.isdir(path):
+        return []
+    return sorted(int(m.group(1)) for m in map(_CKPT_DIR.match,
+                                               os.listdir(path))
+                  if m and os.path.isfile(os.path.join(path, m.group(0),
+                                                       _CKPT_FILE)))
+
+
+def latest_checkpoint(path: str) -> Optional[int]:
+    """The newest checkpoint's step under ``path``, or ``None``."""
+    steps = checkpoint_steps(path)
+    return steps[-1] if steps else None
+
+
+def load_export(path: str, device=None) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` an :meth:`TorchEstimator.save` export holds."""
+    return torch.load(os.path.join(os.path.abspath(path), _MODEL_FILE),
+                      map_location=device, weights_only=True)
 
 
 class Estimator:

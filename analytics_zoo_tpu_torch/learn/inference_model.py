@@ -16,9 +16,20 @@ With a draft model (``load_torch_generator(draft_model=...,
 draft_variables=...)``) ``predict`` decodes speculatively
 (``models.speculative.speculative_generate``: the same greedy tokens,
 cumulative statistics in ``spec_stats``) and the continuous engine is a
-speculative one.  Weight quantization (ROADMAP Queue 1 item 7) and the
-other model formats (``load_flax``, ``load_tf``, ``load_openvino``,
-``load_torch``: items 8 and 9) raise ``NotImplementedError``.
+speculative one.
+
+:meth:`InferenceModel.load_torch` serves a plain ``nn.Module`` (a
+fine-tuned ``BERTForSequenceClassification``, say): moved to the card,
+in ``eval()``, each micro-batch run under ``torch.inference_mode()``
+with ``train=False`` where the forward takes it.  It is the port's
+counterpart of the reference's ``load_torch``, which converted a torch
+module into flax; here the module runs as it is.  :meth:`load` serves
+an ``Estimator.save`` export.  Rows ``predict_async`` pads a batch with
+are all zeros (for BERT, a fully masked row, which the model keeps
+finite) and never reach the result.  Weight quantization (ROADMAP
+Queue 1 item 7) and the other model formats (``load_flax``,
+``load_tf``, ``load_openvino``: items 8 and 9) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,9 +82,20 @@ def _torch_dtype(dtype) -> Optional[torch.dtype]:
     return out
 
 
+def _host(out, n: int):
+    """The first ``n`` rows of a forward's output (a tensor, or a tuple
+    of them) as numpy; bf16 comes back as f32."""
+    if isinstance(out, tuple):
+        return tuple(_host(o, n) for o in out)
+    if out.dtype == torch.bfloat16:
+        out = out.float()
+    return out[:n].cpu().numpy()
+
+
 class InferenceModel:
-    """One serving handle: load a generator, then ``predict`` or build a
-    continuous-batching engine from it.
+    """One serving handle: load a module or a generator, then
+    ``predict``, or build a continuous-batching engine from a
+    generator.
 
     Args:
       concurrent_num: caps concurrent ``predict`` calls (the reference
@@ -311,8 +333,53 @@ class InferenceModel:
                 quantize: Optional[str] = None):
         raise _later("InferenceModel.load_tf", "9")
 
-    def load_torch(self, module):
-        raise _later("InferenceModel.load_torch (plain modules)", "8")
+    def load_torch(self, module, device=None) -> "InferenceModel":
+        """Serve a torch ``nn.Module``: ``predict(*inputs)`` feeds the
+        host arrays to ``module``'s forward positionally, as tensors on
+        ``device`` (``cuda`` unless the caller names another), with
+        ``train=False`` where the forward takes it, under
+        ``torch.inference_mode()``, and returns its output as numpy (a
+        tuple of outputs as a tuple; bf16 as f32)."""
+        import inspect
+
+        from analytics_zoo_tpu_torch.device import resolve_device
+
+        dev = resolve_device(device)
+        self.model = module.to(dev).eval()
+        self.device = dev
+        try:
+            takes_train = "train" in inspect.signature(
+                module.forward).parameters
+        except (TypeError, ValueError):
+            takes_train = False
+        kw = {"train": False} if takes_train else {}
+
+        def apply_fn(*feats):
+            with torch.inference_mode():
+                return self.model(*[torch.as_tensor(
+                    np.ascontiguousarray(f), device=dev) for f in feats],
+                    **kw)
+
+        self._apply_fn = apply_fn
+        # a stale generator's hooks and bounds would corrupt plain inputs
+        self._pre_pad = None
+        self.max_prompt_width = None
+        self.prompt_pad_id = None
+        self._gen_max_new_tokens = None
+        self._gen_prompt_buckets = None
+        self.spec_stats = None
+        self._spec_draft = None
+        return self
+
+    def load(self, path: str, model, device=None) -> "InferenceModel":
+        """Serve an ``Estimator.save`` export at ``path`` (the port's
+        ``model.pt``, not the reference's orbax payload) with ``model``,
+        the module it was trained as: its weights are loaded, then
+        :meth:`load_torch`."""
+        from analytics_zoo_tpu_torch.learn.estimator import load_export
+
+        model.load_state_dict(load_export(path))
+        return self.load_torch(model, device=device)
 
     # ---- predict -----------------------------------------------------
 
@@ -341,10 +408,11 @@ class InferenceModel:
                 pad = np.zeros((bucket - len(a),) + a.shape[1:], a.dtype)
                 a = np.concatenate([a, pad])
             padded.append(a)
-        # padding rows carry length 0; generate clamps them to 1
+        # padding rows carry length 0 (generate clamps them to 1) or an
+        # all-zero mask; they are sliced off the result
         with self._sem:
             out = self._apply_fn(*padded)
-        return lambda: out.cpu().numpy()[:n]
+        return lambda: _host(out, n)
 
     def _predict_chunked(self, inputs, bucket: int):
         n = len(inputs[0])
@@ -352,6 +420,8 @@ class InferenceModel:
         for lo in range(0, n, bucket):
             outs.append(self.predict(*[np.asarray(a)[lo:lo + bucket]
                                        for a in inputs]))
+        if isinstance(outs[0], tuple):
+            return tuple(np.concatenate(xs) for xs in zip(*outs))
         return np.concatenate(outs)
 
     def set_concurrency(self, n: int) -> "InferenceModel":

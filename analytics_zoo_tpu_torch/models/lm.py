@@ -11,11 +11,11 @@ grouped-query attention:
   whose attention goes through ``models.transformer.attention_dispatch``
   (the flash kernel on a CUDA tensor whose head dim the kernels take).
   The forward is differentiable: ``train=True`` is the training
-  forward, and with grad on, the flash branch's gradient runs the CUDA
-  backward kernels; :func:`lm_loss` is the reference's training loss.
-  The layers have no dropout (``dropout`` takes only 0.0, as the
-  reference's importers set it), so ``train`` changes nothing in the
-  arithmetic;
+  forward (dropout, with masks seeded from the forward's ``rng``:
+  ``models.transformer.dropout``; ``remat`` recomputes each layer in
+  backward), and with grad on, the flash branch's gradient runs the
+  CUDA backward kernels; :func:`lm_loss` is the reference's training
+  loss;
 - the slot-arena cache methods ``decode_step``, ``verify_step``/
   ``verify_hidden`` and ``prefill_chunk``, and :func:`generate`, greedy
   or sampled;
@@ -60,37 +60,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.device import resolve_device
-from analytics_zoo_tpu_torch.models.transformer import attention_dispatch
+from analytics_zoo_tpu_torch.models.transformer import (LayerNorm, _dense,
+                                                        attention_dispatch,
+                                                        dropout, run_layer,
+                                                        site_seed)
 from analytics_zoo_tpu_torch.ops.flash_attention import (cache_attention,
                                                          paged_attention,
                                                          paged_kv_update)
-
-
-def _dense(layer: nn.Linear, x, dtype):
-    """A flax ``Dense``/``DenseGeneral`` with ``dtype=dtype``: input,
-    kernel and bias (where the layer has one) all promoted to the
-    compute dtype."""
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
-
-
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(dtype=float32)``: statistics in f32 with the
-    fast variance ``max(0, E[x^2] - E[x]^2)``; the output is f32."""
-
-    def __init__(self, features: int, eps: float):
-        super().__init__()
-        self.eps = float(eps)
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-
-    def forward(self, x):
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
-                          min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        return (xf - mean) * mul + self.bias
 
 
 class RMSNorm(nn.Module):
@@ -293,7 +269,7 @@ class DecoderLayer(nn.Module):
     attention (:class:`DecoderAttention`), ``use_bias`` to the MLP."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 intermediate_size: int,
+                 intermediate_size: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16,
                  num_kv_heads: Optional[int] = None,
                  ln_eps: float = 1e-6,
@@ -305,6 +281,7 @@ class DecoderLayer(nn.Module):
         if mlp not in ("gelu", "swiglu"):
             raise ValueError(f"mlp must be 'gelu' or 'swiglu', got {mlp!r}")
         self.dtype = dtype
+        self.dropout = float(dropout)
         self.swiglu = mlp == "swiglu"
         self.ln_attn = _make_norm(norm, hidden_size, ln_eps)
         self.attention = DecoderAttention(
@@ -328,22 +305,27 @@ class DecoderLayer(nn.Module):
             h = F.gelu(up, approximate="tanh")
         return _dense(self.ffn_down, h, self.dtype)
 
-    def _residual(self, x, a):
-        x = x + a
-        return x + self._mlp(self.ln_ffn(x).to(self.dtype))
+    def _residual(self, x, a, train: bool = False,
+                  rng: Optional[int] = None):
+        """``x + drop(a)``, then ``+ drop(mlp(ln_ffn(.)))``: the two
+        dropout sites of the reference's block, seeded ``site_seed(rng,
+        0)`` and ``site_seed(rng, 1)`` (identity unless ``train``)."""
+        x = x + dropout(a, self.dropout, site_seed(rng, 0), train)
+        h = self._mlp(self.ln_ffn(x).to(self.dtype))
+        return x + dropout(h, self.dropout, site_seed(rng, 1), train)
 
-    def forward(self, x, train: bool = False):
-        return self.forward_kv(x, train)[0]
+    def forward(self, x, train: bool = False, rng: Optional[int] = None):
+        return self.forward_kv(x, train, rng)[0]
 
-    def forward_kv(self, x, train: bool = False):
+    def forward_kv(self, x, train: bool = False,
+                   rng: Optional[int] = None):
         """The dense forward that also returns this layer's K/V
         ``[B, T, KH, D]``: the prompt-prefill payload the engine writes
-        into its KV arena.  ``train`` is accepted for the reference's
-        signature; with no dropout it changes nothing."""
-        del train
+        into its KV arena.  ``train`` applies dropout with masks seeded
+        from ``rng`` (:func:`models.transformer.dropout`)."""
         a, k, v = self.attention(self.ln_attn(x).to(self.dtype),
                                  return_kv=True)
-        return self._residual(x, a), k, v
+        return self._residual(x, a, train, rng), k, v
 
     def decode(self, x1, cache_k, cache_v, pos):
         a = self.attention.decode(self.ln_attn(x1).to(self.dtype),
@@ -374,8 +356,10 @@ class TransformerLM(nn.Module):
     ``mlp="swiglu"``, ``use_bias=False`` (with ``qkv_bias=True`` for
     Qwen2's biased q/k/v) and ``tied_head=False``, an f32 bias-free
     ``lm_head``; ``num_kv_heads`` sets grouped-query attention in
-    either.  ``dropout`` takes only 0.0 and ``moe_experts`` only 0 (both
-    not ported yet).
+    either.  ``dropout`` applies after each block's attention and MLP in
+    a training forward, with masks seeded from the forward's ``rng``
+    (the Estimator passes one a step); ``remat=True`` recomputes each
+    block in backward.  ``moe_experts`` takes only 0 (not ported yet).
 
     Parameters are created f32 with GPT-2's initialisation (normal
     0.02, zero biases, unit norm scales) from the global torch
@@ -397,16 +381,13 @@ class TransformerLM(nn.Module):
                  norm: str = "layernorm", mlp: str = "gelu",
                  use_bias: bool = True, tied_head: bool = True,
                  moe_experts: int = 0, rope_base: float = 10000.0,
-                 qkv_bias: Optional[bool] = None, dropout: float = 0.0):
+                 qkv_bias: Optional[bool] = None, dropout: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         if moe_experts:
             raise NotImplementedError(
                 f"moe_experts={moe_experts!r} is not ported yet (ROADMAP "
                 f"Queue 1 item 2: MoE layers)")
-        if dropout:
-            raise NotImplementedError(
-                f"dropout={dropout!r} is not ported yet (ROADMAP Queue 1 "
-                f"item 7: dropout and remat); the port's layers take 0.0")
         if pos_encoding not in ("learned", "rope"):
             raise ValueError(f"pos_encoding must be 'learned' or 'rope', "
                              f"got {pos_encoding!r}")
@@ -418,6 +399,7 @@ class TransformerLM(nn.Module):
         self.max_position = max_position
         self.dtype = dtype
         self.tied_head = tied_head
+        self.remat = bool(remat)
         self.embed = nn.Embedding(vocab_size, hidden_size)
         # rope rotates q/k inside attention: no absolute position table
         self.pos_embed = nn.Embedding(max_position, hidden_size) \
@@ -425,7 +407,7 @@ class TransformerLM(nn.Module):
         self.use_flash = use_flash
         self.layers = nn.ModuleList(
             DecoderLayer(hidden_size, num_heads, intermediate_size,
-                         dtype=dtype, num_kv_heads=num_kv_heads,
+                         dropout, dtype=dtype, num_kv_heads=num_kv_heads,
                          ln_eps=ln_eps, use_flash=use_flash,
                          pos_encoding=pos_encoding, rope_base=rope_base,
                          norm=norm, mlp=mlp, use_bias=use_bias,
@@ -463,20 +445,22 @@ class TransformerLM(nn.Module):
             x = x + self.pos_embed(torch.clamp(p, max=self.max_position - 1))
         return x.to(self.dtype)
 
-    def hidden_states(self, tokens, train: bool = False):
+    def hidden_states(self, tokens, train: bool = False, *,
+                      rng: Optional[int] = None):
         """Final-norm hidden states ``[B, T, E]`` (f32) of the
-        causal forward: the forward minus the vocab head.  ``train`` is
-        accepted for the reference's signature; with no dropout it
-        changes nothing."""
-        del train
+        causal forward: the forward minus the vocab head.  ``train``
+        applies dropout, layer i's masks seeded from ``site_seed(rng,
+        i)``, and ``remat`` recomputes each layer in backward."""
         x = self._embed_prompt(tokens)
-        for layer in self.layers:
-            x = layer(x)
+        for i, layer in enumerate(self.layers):
+            x = run_layer(layer, self.remat, train, x, train,
+                          site_seed(rng, i))
         return self.ln_f(x)
 
-    def forward(self, tokens, train: bool = False):
+    def forward(self, tokens, train: bool = False, *,
+                rng: Optional[int] = None):
         """Causal forward: logits ``[B, T, V]`` (f32)."""
-        return self._logits(self.hidden_states(tokens, train))
+        return self._logits(self.hidden_states(tokens, train, rng=rng))
 
     def _embed_prompt(self, tokens):
         """The embeddings of ``[B, T]`` tokens at positions ``0 .. T-1``

@@ -95,8 +95,11 @@ fails.  Phases, in order:
    positions: tensor cores), GPT-2's MHA verify (S=5: CUDA cores,
    split), and a chunked tick's grid (rows at fill frontiers 0, 96 and
    301, 32-token chunks, a table narrowed to the frontier, an all-sink
-   padding row) in bf16 and int8; printed as one ``{"kernels": [...]}``
-   line.
+   padding row) in bf16 and int8; then the flash forward and both
+   backward kernels at phase 11b's BERT shapes (B=32 T=128 and B=16
+   T=384, H=12, D=64, not causal, under a key mask of row lengths
+   32-128 / 96-384, no fully masked row), beside SDPA with a boolean
+   ``attn_mask``; printed as one ``{"kernels": [...]}`` line.
    ``ms`` is a call's time by CUDA events over back-to-back calls (the
    host's work between launches included where a call is short);
    ``kernel_ms`` the kernel's own device time a launch, by
@@ -171,14 +174,42 @@ fails.  Phases, in order:
    prints tokens/s, client TTFT, the handoff histogram, the tiers',
    resizes' and ceilings' figures and the peak memory.
 
+11. BERT (run after 9, before 7; its profiled step, 11c, after 7 and
+   before 7b).  11a, 2 layers at BERT-base width (hidden 768, 12 heads,
+   FFN 3072, vocab 30522), f32, inputs of batch 4 at T = 128 and 384
+   with two token-type segments and a fully padded row: ``seq`` and
+   ``pooled`` through the kernels (``use_flash=True``) against plain
+   attention within 1e-4 (forward launches = layers); a 5-step SGD
+   ``Estimator.from_torch`` classification fit, kernels vs plain, by
+   phase 3's rule (launches = layers x steps each); at dropout 0.1 one
+   ``config.seed`` twice gives identical losses, and remat on equals
+   remat off in loss and gradients within 1e-5 (remat launches the
+   forward twice a layer).  11b, BERT-base in full (12 layers, random
+   weights from a seed, bf16 compute, dropout 0.1): ``NNClassifier``
+   over an ``XShards`` of numpy dicts fine-tunes a planted two-class
+   task (more A than B tokens; batch 32, T = 128, lengths 32-128,
+   masks and token types; AdamW 2e-5) for 30 steps, then its held-out
+   accuracy must reach 0.8; ``Estimator.save`` ->
+   ``InferenceModel.load`` -> ``predict`` must give ``Estimator.predict``'s
+   argmax; ``ClusterServing`` + ``HttpFrontend`` ``/predict`` (input
+   columns ids, token types, mask) answers 64 requests from 8 clients,
+   each equal to ``InferenceModel.predict`` of its row; then
+   ``BERTForQuestionAnswering`` + ``qa_loss`` trains the encoder 10
+   steps of 16 x 384.  Each fit prints its median and mean step and
+   its samples/s over the steps after 3 warm-up steps (CUDA events,
+   no sync added to the Estimator's loop) and its peak memory, and
+   must launch the forward and the backward exactly 12 times a step.
+
 The line before the last is ``{"kernels": [...], "stack": ..., "modes":
-[phase 9b's runs], "witness": {...}, "serving_modes": {phase 10}}``;
-the last is ``{"ok": true, "device": {...}}``.
+[phase 9b's runs], "witness": {...}, "serving_modes": {phase 10},
+"bert": {phase 11b}}``; the last is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --paged-rounds N`` runs none of the phases: it
 serves phase 4's stream N times after one warm-up, on phase 4's model,
 and prints a line a round (to compare two trees' paged serving in
-alternating processes).
+alternating processes).  ``python3 chip_smoke.py --bert`` runs phase 1,
+11a, 11b, phase 7's BERT rows and 11c only, and prints those rows and
+11b's figures as its last line.
 """
 
 from __future__ import annotations
@@ -203,10 +234,15 @@ import torch
 import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.common.config import TrainConfig
+from analytics_zoo_tpu_torch.data.shards import XShards
+from analytics_zoo_tpu_torch.frames import NNClassifier
 from analytics_zoo_tpu_torch.learn import Estimator
+from analytics_zoo_tpu_torch.learn.estimator import TorchEstimator
 from analytics_zoo_tpu_torch.learn.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.models.lm import (TransformerLM, generate,
                                                lm_loss, pick_next)
+from analytics_zoo_tpu_torch.models.transformer import (
+    BERT, BERTForQuestionAnswering, BERTForSequenceClassification, qa_loss)
 from analytics_zoo_tpu_torch.ops import _build
 from analytics_zoo_tpu_torch.ops import flash_attention as fa
 from analytics_zoo_tpu_torch.parallel.ring_attention import full_attention
@@ -345,6 +381,25 @@ STACK_FAMILIES = ("zoo_engine_ttft_seconds", "zoo_engine_tpot_seconds",
                   "zoo_engine_tokens_emitted_total")
 # the paged engine's table width: ceil((512-token bucket + 32 new) / 16)
 PAGED_M = 34
+# BERT-base: bert-base-uncased's config.json, the reference's BERT
+# defaults (analytics_zoo_tpu/models/transformer.py)
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_heads=12,
+                 intermediate_size=3072, max_position=512, type_vocab=2)
+BERT_LAYERS = 12
+BERT_FEATS = ("input_ids", "token_type_ids", "attention_mask")
+BERT_PARITY_T = (128, 384)
+BERT_PARITY_ATOL = 1e-4     # seq and pooled, f32, kernels vs plain
+REMAT_TOL = 1e-5            # remat on vs off, f32, relative to max(1, |g|)
+# 11b: GLUE-shaped classification (planted task), then SQuAD-shaped QA
+BERT_CLS = dict(batch=32, seq=128, min_len=32, steps_per_epoch=10,
+                epochs=3, eval_rows=128, warm=3)
+BERT_QA = dict(batch=16, seq=384, min_len=96, steps=10, warm=3)
+BERT_SERVE = dict(requests=64, clients=8)
+# the planted task is separable (chance 0.5); 30 steps reach 0.97
+BERT_MIN_ACC = 0.8
+# the planted task's two token sets (tests/test_convergence.py's BERT
+# task): the class is whether a row holds more A than B tokens
+BERT_A, BERT_B = np.arange(100, 118), np.arange(200, 218)
 
 
 def card_line() -> str:
@@ -874,7 +929,7 @@ def phase_training_main_path(dev, card, model, train=TRAIN,
     print(f"  flash forward launches {fwd} = backward launches {bwd} = "
           f"{steps} steps x {model.num_layers} layers")
     if profile:
-        profile_step(est, toks[:B])
+        profile_step(est, {"tokens": toks[:B]})
     # the first fit's optimizer state goes before the second's is made
     del est
     free_memory()
@@ -903,15 +958,28 @@ def dev_us(e):
                    getattr(e, "self_cuda_time_total", 0))
 
 
-def profile_step(est, rows):
-    """One more training step, a one-batch ``fit``, under
-    torch.profiler: the device time by kernel (top entries) and the
-    device's busy share of the step (its wall time includes the
-    profiler's own cost)."""
+def kinds_ms(events, busy_ms):
+    """A profile's device time (ms) split into the flash kernels, the
+    GEMMs (cuBLAS/cuBLASLt/CUTLASS) and the rest (elementwise kernels,
+    reductions, copies)."""
+    kinds = {"flash kernels": ("flash_",),
+             "GEMMs": ("gemm", "nvjet", "xmma", "cutlass")}
+    out = {kind: sum(dev_us(e) for e in events
+                     if any(k in e.key for k in keys)) / 1e3
+           for kind, keys in kinds.items()}
+    out["the rest"] = busy_ms - sum(out.values())
+    return out
+
+
+def profile_step(est, data):
+    """One more training step, a one-batch ``fit`` of ``data`` (a dict
+    of one batch's columns), under torch.profiler: the device time by
+    kernel (top entries) and the device's busy share of the step (its
+    wall time includes the profiler's own cost)."""
     from torch.profiler import ProfilerActivity, profile
 
     def step():
-        est.fit({"tokens": rows}, epochs=1, batch_size=len(rows))
+        est.fit(data, epochs=1, batch_size=len(next(iter(data.values()))))
 
     step()                                # warm, outside the trace
     torch.cuda.synchronize()
@@ -929,9 +997,13 @@ def profile_step(est, rows):
                      and not getattr(e, "is_user_annotation", False)),
                     key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
-    print(f"  profiled step: {wall_ms:.1f} ms wall (profiler on), device "
+    print(f"  profiled step: {wall_ms:.1f} ms wall (profiler on), "
+          f"{sum(e.count for e in events)} device launches, device "
           f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), by "
-          f"kernel (self device time, calls):")
+          f"kind: " + ", ".join(
+              f"{kind} {ms:.2f} ms ({100 * ms / max(busy_ms, 1e-9):.0f}%)"
+              for kind, ms in kinds_ms(events, busy_ms).items()))
+    print("  by kernel (self device time, calls):")
     for e in events[:10]:
         print(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
@@ -1129,7 +1201,7 @@ def phase_llama_profile(dev, model):
     est = Estimator.from_torch(
         model=model, loss=lm_loss, optimizer=1e-4, feature_cols=("tokens",),
         label_cols=("tokens",), device=dev)
-    profile_step(est, rows)
+    profile_step(est, {"tokens": rows})
 
 
 def time_ms(fn, n_sets, iters=100):
@@ -1239,68 +1311,102 @@ def paged_bound(q, pk, tables, pos, S):
     return least_ms(nbytes, 4 * D * H * live, q.dtype)
 
 
-def flash_bound(q):
-    """Least time (ms) for one causal flash call without a mask: q, k,
-    v read once, o and lse written once; or the q.k and p.v
-    multiply-adds (2 operations each) over the live (causal) pairs."""
+def live_pairs(q, mask):
+    """(query, key) pairs a call must compute a row of heads for:
+    causal ones without a mask; under a key mask (not causal), every
+    query of a row against that row's live keys (this run's data)."""
+    B, T = q.shape[:2]
+    if mask is None:
+        return B * T * (T + 1) // 2
+    return T * int(mask.sum())
+
+
+def kv_bytes(q, mask):
+    """Bytes of k and v a call must read: every key without a mask;
+    under a key mask only the live keys (a masked key adds nothing to
+    any output, so its K and V need not be read; this run's data)."""
+    keys = q.shape[0] * q.shape[1] if mask is None else int(mask.sum())
+    return 2 * keys * q.shape[2] * q.shape[3] * q.element_size()
+
+
+def flash_bound(q, mask=None):
+    """Least time (ms) for one flash call, causal without a mask or not
+    causal under ``mask``: q (and the mask) read once, k and v read
+    once (:func:`kv_bytes`), o and lse written once; or the q.k and p.v
+    multiply-adds (2 operations each) over the live pairs
+    (:func:`live_pairs`)."""
     B, T, H, D = q.shape
-    nbytes = 4 * q.numel() * q.element_size() + B * H * T * 4
-    ops = 2 * 2 * D * B * H * T * (T + 1) // 2
+    nbytes = 2 * q.numel() * q.element_size() + kv_bytes(q, mask) \
+        + B * H * T * 4 + (0 if mask is None else mask.numel())
+    ops = 2 * 2 * D * H * live_pairs(q, mask)
     return least_ms(nbytes, ops, q.dtype)
 
 
-def bwd_bound(q, n_products, n_outputs):
-    """Least time (ms) for one causal backward kernel without a mask:
-    q, k, v and dO read once, lse and delta read, ``n_outputs`` gradients
-    written once; or ``n_products`` multiply-add products (2 operations
-    each) over the live (causal) pairs."""
+def bwd_bound(q, n_products, n_outputs, mask=None):
+    """Least time (ms) for one backward kernel, causal without a mask or
+    not causal under ``mask``: q and dO (and the mask) read once, k and
+    v read once (:func:`kv_bytes`), lse and delta read, ``n_outputs``
+    gradients written once at full size; or ``n_products`` multiply-add
+    products (2 operations each) over the live pairs."""
     B, T, H, D = q.shape
     tensor = q.numel() * q.element_size()
-    nbytes = (4 + n_outputs) * tensor + 2 * B * H * T * 4
-    ops = n_products * 2 * D * B * H * T * (T + 1) // 2
+    nbytes = (2 + n_outputs) * tensor + kv_bytes(q, mask) \
+        + 2 * B * H * T * 4 + (0 if mask is None else mask.numel())
+    ops = n_products * 2 * D * H * live_pairs(q, mask)
     return least_ms(nbytes, ops, q.dtype)
 
 
 def training_timings(dev, train_launches, cfg=GPT2, train=TRAIN,
-                     path="training main path"):
+                     path="training main path", min_len=None):
     """The flash forward and both backward kernels at a training main
     path's shape (``train``'s batch and sequence, ``cfg``'s heads),
     beside the plain versions, the bounds and SDPA (forward, and its
-    backward through autograd)."""
+    backward through autograd).  Causal, or with ``min_len`` (BERT's
+    shapes) not causal under a key mask of row lengths drawn from
+    [min_len, T] (no fully masked row: SDPA answers one with NaN)."""
     fwd_launches, bwd_launches = train_launches
     B, T = train["batch"], train["seq"]
     H, D = cfg["num_heads"], cfg["hidden_size"] // cfg["num_heads"]
     scale = 1.0 / math.sqrt(D)
+    causal = min_len is None
+    mask = None
+    if not causal:
+        lens = torch.as_tensor(np.random.default_rng(B * T).integers(
+            min_len, T + 1, B))
+        mask = (torch.arange(T)[None] < lens[:, None]).to(dev)
     n_sets = n_sets_for(5 * B * T * H * D * 2)
     sets = []
     for i in range(n_sets):
         q, k, v, _ = flash_case(dev, torch.bfloat16, B, T, H, D, seed=31 + i)
         do = torch.randn(q.shape, generator=torch.Generator().manual_seed(
             41 + i)).to(dev, torch.bfloat16)
-        o, lse = fa.flash_attention_fused(q, k, v, causal=True)
+        o, lse = fa.flash_attention_fused(q, k, v, mask, causal=causal)
         sets.append(dict(q=q, k=k, v=v, do=do, o=o, lse=lse,
                          delta=fa.flash_attention_bwd_delta(o, do),
                          dq=torch.empty_like(q), dk=torch.empty_like(k),
                          dv=torch.empty_like(v)))
-    shape = f"B={B} T={T} H={H} D={D} causal bf16 ({path})"
+    how = "causal" if causal else \
+        f"not causal, key mask of lengths {min_len}-{T}"
+    shape = f"B={B} T={T} H={H} D={D} {how} bf16 ({path})"
+    suffix = "" if causal else ",masked"
     s0 = sets[0]
 
     def args(s):
-        return s["q"], s["k"], s["v"], None, s["o"], s["lse"], s["do"]
+        return s["q"], s["k"], s["v"], mask, s["o"], s["lse"], s["do"]
 
     # the kernels at this shape against their plain versions, held as
     # in phase 2: dq, dk and dv to DQ_BF16_TOL, the forward's O and lse
     # to their tolerances
-    got = fa.flash_attention_bwd_fused(*args(s0), causal=True)
-    ref = fa.flash_attention_bwd_ref(*args(s0), causal=True)
+    got = fa.flash_attention_bwd_fused(*args(s0), causal=causal)
+    ref = fa.flash_attention_bwd_ref(*args(s0), causal=causal)
     errs = [(a.float() - b.float()).abs().max().item()
             for a, b in zip(got, ref)]
     rels = [rel_err(a, b) for a, b in zip(got, ref)]
     tols = bwd_tols("bf16", T)
     finite = all(bool(torch.isfinite(a).all()) for a in got)
     del got, ref
-    ro, rlse = fa.flash_attention_ref(s0["q"], s0["k"], s0["v"],
-                                      causal=True)
+    ro, rlse = fa.flash_attention_ref(s0["q"], s0["k"], s0["v"], mask,
+                                      causal=causal)
     fwd_err = (s0["o"].float() - ro.float()).abs().max().item()
     lse_err = (s0["lse"] - rlse).abs().max().item()
     del ro, rlse
@@ -1322,8 +1428,8 @@ def training_timings(dev, train_launches, cfg=GPT2, train=TRAIN,
         def run(i):
             s = sets[i]
             fa.flash_attention_bwd_launch(
-                kernel, s["q"], s["k"], s["v"], None, s["do"], s["lse"],
-                s["delta"], [s[n] for n in outs], True, scale)
+                kernel, s["q"], s["k"], s["v"], mask, s["do"], s["lse"],
+                s["delta"], [s[n] for n in outs], causal, scale)
         return run
 
     dq, dkv = launch("dq", ("dq",)), launch("dkv", ("dk", "dv"))
@@ -1332,49 +1438,53 @@ def training_timings(dev, train_launches, cfg=GPT2, train=TRAIN,
     dq_dev = device_ms(dq, n_sets, "flash_bwd_dq_bf16_kernel")[0]
     dkv_dev = device_ms(dkv, n_sets, "flash_bwd_dkv_bf16_kernel")[0]
     wrapper_ms = time_ms(lambda i: fa.flash_attention_bwd_fused(
-        *args(sets[i]), causal=True), n_sets, 10)
+        *args(sets[i]), causal=causal), n_sets, 10)
     def fwd(i):
         fa.flash_attention_fused(sets[i]["q"], sets[i]["k"], sets[i]["v"],
-                                 causal=True)
+                                 mask, causal=causal)
 
     fwd_ms = time_ms(fwd, n_sets, 10)
     fwd_dev = device_ms(fwd, n_sets, "flash_fwd_bf16_kernel")[0]
     plain_bwd_ms = time_ms(lambda i: fa.flash_attention_bwd_ref(
-        *args(sets[i]), causal=True), n_sets, 3)
+        *args(sets[i]), causal=causal), n_sets, 3)
     plain_fwd_ms = time_ms(lambda i: fa.flash_attention_ref(
-        sets[i]["q"], sets[i]["k"], sets[i]["v"], causal=True), n_sets, 3)
+        sets[i]["q"], sets[i]["k"], sets[i]["v"], mask, causal=causal),
+        n_sets, 3)
     # the yardstick: SDPA in its own [B, H, T, D] layout (strided views),
-    # its backward through autograd; never on the port's path
+    # its backward through autograd; never on the port's path.  Under a
+    # key mask it takes a boolean attn_mask (True = attend)
+    sdpa_kw = {"is_causal": True} if causal else \
+        {"attn_mask": mask[:, None, None, :]}
     lib = []
     for s in sets:
         qkv = [s[n].transpose(1, 2).detach().requires_grad_()
                for n in ("q", "k", "v")]
-        out = F.scaled_dot_product_attention(*qkv, is_causal=True)
+        out = F.scaled_dot_product_attention(*qkv, **sdpa_kw)
         lib.append((out, qkv, s["do"].transpose(1, 2)))
     lib_bwd_ms = time_ms(lambda i: torch.autograd.grad(
         lib[i][0], lib[i][1], lib[i][2], retain_graph=True), n_sets, 10)
     lib_fwd_ms = time_ms(lambda i: F.scaled_dot_product_attention(
-        *lib[i][1], is_causal=True), n_sets, 10)
+        *lib[i][1], **sdpa_kw), n_sets, 10)
     print(f"  flash backward wrapper (delta + both kernels) "
           f"{wrapper_ms:.4f} ms; SDPA backward (dq, dk and dv in one "
           f"autograd call) {lib_bwd_ms:.4f} ms; plain backward (one pass, "
           f"all three) {plain_bwd_ms:.4f} ms")
     q0 = s0["q"]
     entries = []
-    bms, by = flash_bound(q0)
+    bms, by = flash_bound(q0, mask)
     entries.append({
-        "name": f"flash_attention_fwd[B={B},T={T}]", "route": "cuda",
+        "name": f"flash_attention_fwd[B={B},T={T}{suffix}]", "route": "cuda",
         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES, "shape": shape,
         "launches": fwd_launches, "max_abs_err": fwd_err, "ms": fwd_ms,
         "kernel_ms": fwd_dev, "plain_ms": plain_fwd_ms, "bound_ms": bms,
         "bound_by": by, "library_ms": lib_fwd_ms})
     for name, replaces, ms, launch_ms, (bms, by), err in (
             ("flash_attention_bwd_dq", DQ_REPLACES, dq_ms, dq_dev,
-             bwd_bound(q0, 3, 1), errs[0]),
+             bwd_bound(q0, 3, 1, mask), errs[0]),
             ("flash_attention_bwd_dkv", DKV_REPLACES, dkv_ms, dkv_dev,
-             bwd_bound(q0, 4, 2), max(errs[1:]))):
+             bwd_bound(q0, 4, 2, mask), max(errs[1:]))):
         entries.append({
-            "name": f"{name}[B={B},T={T}]", "route": "cuda",
+            "name": f"{name}[B={B},T={T}{suffix}]", "route": "cuda",
             "source": BWD_SOURCE, "replaces": replaces, "shape": shape,
             "launches": bwd_launches, "max_abs_err": err, "ms": ms,
             "kernel_ms": launch_ms, "plain_ms": plain_bwd_ms,
@@ -1468,11 +1578,12 @@ def paged_timings(dev, paged_launches, paged_shapes, cfg=GPT2,
 
 
 def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
-                  prefill_shapes, train_launches, llama, modes):
+                  prefill_shapes, train_launches, llama, modes, bert):
     """Phase 7 at the GPT-2 main paths' shapes, then at the Llama main
     path's (``llama``: what :func:`phase_llama_main_path` returns), then
     at phase 9's verify and chunk shapes (``modes``: the launches
-    :func:`phase_modes_llama` returns)."""
+    :func:`phase_modes_llama` returns), then at phase 11b's BERT shapes
+    (``bert``: its launches by path), not causal under key masks."""
     print("== phase 7: kernel timings at the main paths' shapes")
     entries = paged_timings(dev, paged_launches, paged_shapes)
     for (B, T), calls in prefill_shapes.most_common(2):
@@ -1515,6 +1626,12 @@ def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
     entries += training_timings(dev, llama["train_launches"], TINYLLAMA,
                                 LLAMA_TRAIN, "Llama training main path")
     entries += spec_chunk_timings(dev, modes)
+    entries += bert_timings(dev, bert)
+    print_rows(entries)
+    return entries
+
+
+def print_rows(entries):
     for e in entries:
         lib = e["library_ms"]
         print(f"  {e['name']} {e['shape']}: kernel {e['ms']:.4f} ms a "
@@ -1522,8 +1639,27 @@ def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
               f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.5f} ms "
               f"({e['bound_by']}), library "
               f"{'-' if lib is None else f'{lib:.4f} ms'}, max_abs_err "
-              f"{e['max_abs_err']:.2e}")
-    return entries
+              f"{e['max_abs_err']:.2e}, launches {e['launches']}")
+
+
+def bert_timings(dev, bert):
+    """Phase 7's rows of kernels 2-4 at phase 11b's two shapes
+    (``bert``: its launches by path).  ``stack_launches``: the
+    classifier's ``/predict`` server (11b) runs the forward at the
+    classification shape; no server runs the backward or the QA
+    shape."""
+    rows = training_timings(
+        dev, bert["classify"], BERT_BASE, BERT_CLS,
+        "BERT-base classification main path", min_len=BERT_CLS["min_len"])
+    for e in rows:
+        e["stack_launches"] = bert["stack"] \
+            if e["name"].startswith("flash_attention_fwd") else 0
+    qa = training_timings(
+        dev, bert["qa"], BERT_BASE, BERT_QA, "BERT-base QA main path",
+        min_len=BERT_QA["min_len"])
+    for e in qa:
+        e["stack_launches"] = 0
+    return rows + qa
 
 
 def sass_counts(path):
@@ -3113,6 +3249,451 @@ def phase_fleet_llama(dev, card, model):
     return {"fleet": fleet, "single": single, "copy_waves": waves}
 
 
+def bert_rows(rng, n, T, min_len, padded=False):
+    """``n`` rows of the planted two-class task at width ``T``: row i
+    holds ``len_i`` real tokens (drawn from [min_len, T]), ``na`` from
+    :data:`BERT_A` and ``nb`` from :data:`BERT_B` with na != nb,
+    shuffled, labelled ``na > nb``; two token-type segments split
+    inside the real tokens; the mask marks them; pad id 0.
+    ``padded`` makes the last row fully padded (length 0)."""
+    ids = np.zeros((n, T), np.int32)
+    types = np.zeros((n, T), np.int32)
+    lens = rng.integers(min_len, T + 1, n)
+    if padded:
+        lens[-1] = 0
+    label = np.zeros(n, np.int32)
+    for i, L in enumerate(lens):
+        if L < 2:
+            continue
+        na = int(rng.integers(1, L))
+        nb = L - na
+        if na == nb:
+            na, nb = na + 1, nb - 1
+        row = np.concatenate([rng.choice(BERT_A, na),
+                              rng.choice(BERT_B, nb)])
+        rng.shuffle(row)
+        ids[i, :L] = row
+        types[i, int(rng.integers(1, L)):L] = 1
+        label[i] = int(na > nb)
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.int32)
+    return {"input_ids": ids, "token_type_ids": types,
+            "attention_mask": mask, "label": label}
+
+
+def bert_like(model, cfg, **kw):
+    """A BERT of ``model``'s depth, dtype and weights, with ``kw``."""
+    twin = BERT(**cfg, num_layers=model.num_layers, dtype=model.dtype,
+                **kw).to(next(model.parameters()).device)
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def reset_flash():
+    fa.flash_attention_fused.launches = 0
+    fa.flash_attention_bwd_fused.launches = 0
+
+
+def flash_counts():
+    return (fa.flash_attention_fused.launches,
+            fa.flash_attention_bwd_fused.launches)
+
+
+def expect_flash(what, want):
+    got = flash_counts()
+    if got != want:
+        raise AssertionError(f"{what}: flash launches forward/backward "
+                             f"{got} != {want}")
+
+
+def on(dev, rows):
+    """BERT's feature columns of ``rows`` as tensors on ``dev``."""
+    return [torch.as_tensor(rows[c], device=dev) for c in BERT_FEATS]
+
+
+def fit_bert(model, dev, rows, steps, opt, seed=0):
+    """``Estimator.from_torch`` classification fit, one step an epoch
+    (the history is per step); returns (estimator, losses)."""
+    est = Estimator.from_torch(
+        model=model, loss="sparse_categorical_crossentropy", optimizer=opt,
+        feature_cols=BERT_FEATS, label_cols=("label",),
+        config=TrainConfig(deterministic=True, seed=seed), device=dev)
+    hist = est.fit(rows, epochs=steps, batch_size=len(rows["label"]))
+    return est, [h["loss"] for h in hist]
+
+
+def phase_bert_parity(dev, cfg=BERT_BASE):
+    """11a: 2 layers at BERT-base width, f32: the flash kernels
+    (``use_flash=True``) against plain attention on seq and pooled at
+    T = 128 and 384 with a fully padded row; a 5-step SGD fit, kernels
+    vs plain; at dropout 0.1 the same seed twice and remat on vs off."""
+    print("== phase 11a: BERT parity, 2 layers at BERT-base width, f32: "
+          "kernels (use_flash=True) vs plain attention (use_flash=False), "
+          "not causal, key mask with a fully padded row")
+    torch.manual_seed(21)
+    base = BERT(**cfg, num_layers=2, dtype=torch.float32, dropout=0.0,
+                use_flash=True).to(dev)
+    plain = bert_like(base, cfg, dropout=0.0, use_flash=False)
+    for T in BERT_PARITY_T:
+        rows = bert_rows(np.random.default_rng(T), 4, T, T // 4, True)
+        reset_flash()
+        with torch.no_grad():
+            got = base(*on(dev, rows))
+            expect_flash(f"11a forward T={T}", (base.num_layers, 0))
+            want = plain(*on(dev, rows))
+        expect_flash(f"11a plain forward T={T}", (base.num_layers, 0))
+        errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        print(f"  T={T}: seq max_abs_err {errs[0]:.3e}, pooled "
+              f"{errs[1]:.3e} (atol {BERT_PARITY_ATOL:.0e}); row lengths "
+              f"{rows['attention_mask'].sum(1).tolist()}")
+        if not finite or max(errs) > BERT_PARITY_ATOL:
+            raise AssertionError(f"11a T={T}: BERT with the kernels "
+                                 f"disagrees with plain attention: {errs}")
+    # a 5-step SGD fit of a classifier, kernels vs plain (phase 3's rule);
+    # lr 0.1 diverges at this width (0.71 -> 19.3 in 5 steps), 0.01 falls
+    sgd = lambda ps: torch.optim.SGD(ps, lr=0.01)  # noqa: E731
+    rows = bert_rows(np.random.default_rng(5), 4, 128, 32, True)
+    torch.manual_seed(22)
+    head = BERTForSequenceClassification(2, base).classifier.state_dict()
+    steps = 5
+    runs = {}
+    for use_flash in (True, False):
+        model = BERTForSequenceClassification(
+            2, bert_like(base, cfg, dropout=0.0, use_flash=use_flash))
+        model.classifier.load_state_dict(head)
+        reset_flash()
+        _, losses = fit_bert(model, dev, rows, steps, sgd)
+        n = steps * base.num_layers if use_flash else 0
+        expect_flash(f"11a fit use_flash={use_flash}", (n, n))
+        runs[use_flash] = (losses, model.state_dict())
+    (lk, pk), (lp, pp) = runs[True], runs[False]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    param_err = max((pk[n] - pp[n]).abs().max().item() for n in pk)
+    print(f"  SGD fit, {steps} steps of 4 x 128: losses kernels "
+          f"{[round(x, 6) for x in lk]} vs plain "
+          f"{[round(x, 6) for x in lp]}, max rel err {loss_err:.3e} (tol "
+          f"{TRAIN_LOSS_RTOL:.0e}); params max abs diff {param_err:.3e} "
+          f"(tol {TRAIN_PARAM_ATOL:.0e}); launches {steps * 2} forward = "
+          f"backward")
+    if not all(np.isfinite(lk)) or loss_err > TRAIN_LOSS_RTOL \
+            or param_err > TRAIN_PARAM_ATOL or not lk[-1] < lk[0]:
+        raise AssertionError("11a: the BERT fit with the kernels "
+                             "disagrees with plain attention")
+    # dropout 0.1: the same seed twice, then remat on vs off
+    drop = [BERTForSequenceClassification(
+        2, bert_like(base, cfg, dropout=0.1, use_flash=True,
+                     remat=remat)).to(dev) for remat in (False, True)]
+    drop[1].load_state_dict(drop[0].state_dict())
+    again = []
+    for _ in range(2):
+        model = BERTForSequenceClassification(
+            2, bert_like(base, cfg, dropout=0.1, use_flash=True))
+        model.load_state_dict(drop[0].state_dict())
+        again.append(fit_bert(model, dev, rows, 3, sgd, seed=9)[1])
+    print(f"  dropout 0.1, config.seed 9, twice: losses {again[0]} / "
+          f"{again[1]}")
+    if again[0] != again[1]:
+        raise AssertionError(f"11a: one dropout seed gave two loss "
+                             f"histories: {again}")
+    feats = on(dev, rows)
+    y = torch.as_tensor(rows["label"], device=dev).long()
+    grads = []
+    for model, want in zip(drop, ((2, 2), (4, 2))):
+        model.zero_grad()
+        reset_flash()
+        loss = F.cross_entropy(model(*feats, train=True, rng=12345), y)
+        loss.backward()
+        # remat runs each layer's forward again in backward
+        expect_flash(f"11a remat={model.bert.remat}", want)
+        grads.append((loss.item(), {n: p.grad for n, p in
+                                    model.named_parameters()}))
+    (l0, g0), (l1, g1) = grads
+    gerr = max(rel_err(g1[n], g0[n]) for n in g0)
+    print(f"  dropout 0.1, remat on vs off: loss {l1:.7f} / {l0:.7f}, "
+          f"gradients max err {gerr:.3e} relative to max(1, |g|) (tol "
+          f"{REMAT_TOL:.0e}); launches forward 4 / 2, backward 2 / 2")
+    if abs(l1 - l0) > REMAT_TOL * max(1.0, abs(l0)) or gerr > REMAT_TOL:
+        raise AssertionError("11a: remat changed the loss or the "
+                             "gradients at dropout 0.1")
+    free_memory()
+
+
+@contextlib.contextmanager
+def step_times():
+    """Every Estimator training step's time in ms and its loss, while
+    the block runs.  Each step is marked by CUDA events recorded as it
+    is queued, with no sync (the Estimator's loop fetches its metrics
+    only at an epoch's end): ``ms[i]`` runs on the card's clock from
+    step i's start to step i+1's (the last: to its end), so the time
+    the card waits for the host counts.  Read after the block."""
+    inner = TorchEstimator._train_step
+    marks, losses = [], []
+    out = {"ms": [], "loss": []}
+
+    def timed(self, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        mets = inner(self, batch)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        marks.append((start, end))
+        losses.append(mets["loss"])
+        return mets
+
+    TorchEstimator._train_step = timed
+    try:
+        yield out
+    finally:
+        TorchEstimator._train_step = inner
+    torch.cuda.synchronize()
+    starts = [a for a, _ in marks]
+    out["ms"] = [a.elapsed_time(b) for a, b in zip(starts, starts[1:])] \
+        + [marks[-1][0].elapsed_time(marks[-1][1])]
+    out["loss"] = [float(x) for x in losses]
+
+
+@contextlib.contextmanager
+def peak_memory():
+    """The peak device memory while the block runs, and its part above
+    what was allocated when it began (earlier phases' models and
+    caches): ``{"peak": bytes, "above": bytes}``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"base": torch.cuda.memory_allocated()}
+    yield out
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["above"] = out["peak"] - out.pop("base")
+
+
+def report_steps(card, what, times, batch, seq, warm, mem):
+    """Step figures after ``warm`` warm-up steps: the median step, and
+    samples/s over the whole window (every step after the warm-up over
+    their summed time)."""
+    after = times["ms"][warm:]
+    ms, window = float(np.median(after)), float(np.sum(after))
+    rate = 1e3 * batch * len(after) / window
+    if not all(np.isfinite(times["loss"])):
+        raise AssertionError(f"{what}: non-finite loss {times['loss']}")
+    print(f"  [{card}] {what}: {len(times['ms'])} steps of {batch} x {seq}, "
+          f"after {warm} warm-up steps median step {ms:.2f} ms, mean "
+          f"{window / len(after):.2f} ms ({rate:.1f} samples/s, "
+          f"{rate * seq:.0f} tokens/s over the window), peak device "
+          f"memory {mem['peak'] / 2**30:.2f} GiB ({mem['above'] / 2**30:.2f}"
+          f" GiB above what was allocated before the fit); losses "
+          f"{[round(x, 4) for x in times['loss']]}")
+    return {"steps": len(times["ms"]), "median_step_ms": ms,
+            "mean_step_ms": window / len(after), "samples_per_s": rate,
+            "peak_bytes": mem["peak"], "fit_bytes": mem["above"]}
+
+
+def http_predict(port, instance):
+    """One ``POST /predict`` of one instance: (prediction, seconds).  A
+    connection reset before the answer is retried as in
+    :func:`http_generate`."""
+    t0 = time.monotonic()
+    for attempt in range(6):
+        conn = http.client.HTTPConnection("127.0.0.1", port,
+                                          timeout=STACK_TIMEOUT)
+        try:
+            conn.request("POST", "/predict",
+                         json.dumps({"instances": [instance]}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = resp.read()
+            break
+        except (ConnectionResetError, ConnectionRefusedError,
+                BrokenPipeError):
+            conn.close()
+            if attempt == 5:
+                raise
+            CONNECT_RETRIES["n"] += 1
+            time.sleep(0.05)
+    conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"/predict answered {resp.status}: "
+                             f"{body[:400]!r}")
+    return (np.asarray(json.loads(body)["predictions"][0], np.float32),
+            time.monotonic() - t0)
+
+
+def serve_bert(card, im, rows, batch, n, clients):
+    """``ClusterServing`` (micro-batches of up to ``batch`` rows, which
+    ``im`` pads to its one bucket, ``batch``) and ``HttpFrontend``:
+    ``n`` rows of ``rows``, one ``/predict`` each, from ``clients``
+    closed-loop client threads.  Every answer must equal ``im.predict``
+    of its row (the same padded shapes, so the same kernels).  Returns
+    the flash launches and the figures."""
+    want = im.predict(*[rows[c][:n] for c in BERT_FEATS])
+    srv = ClusterServing(im, ServingConfig(
+        batch_size=batch, batch_timeout_ms=5.0,
+        input_cols=list(BERT_FEATS)), embedded_broker=True).start()
+    got, lat, errors = {}, [], []
+    try:
+        fe = HttpFrontend(redis_port=srv.port, timeout=STACK_TIMEOUT,
+                          serving=srv).start()
+        CONNECT_RETRIES["n"] = 0
+        reset_flash()
+
+        def client(c):
+            try:
+                for i in range(c, n, clients):
+                    pred, sec = http_predict(fe.port, {
+                        col: rows[col][i].tolist() for col in BERT_FEATS})
+                    got[i] = pred
+                    lat.append(sec)
+            except Exception as e:     # reported below, fails the phase
+                errors.append(repr(e))
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(STACK_TIMEOUT)
+        wall = time.monotonic() - t0
+        launches = flash_counts()
+        fe.stop()
+    finally:
+        srv.stop()
+    if errors or len(got) != n:
+        raise AssertionError(f"/predict: {len(got)} of {n} answers, "
+                             f"errors {errors[:3]}")
+    delta = max(float(np.abs(got[i] - want[i]).max()) for i in range(n))
+    same = all(np.array_equal(got[i], want[i]) for i in range(n))
+    resets = check_resets("11b /predict")
+    print(f"  [{card}] /predict: {n} requests from {clients} clients in "
+          f"{wall:.3f} s ({n / wall:.1f} req/s), p50 latency "
+          f"{1e3 * float(np.median(lat)):.1f} ms, p99 "
+          f"{1e3 * float(np.quantile(lat, 0.99)):.1f} ms; every answer = "
+          f"InferenceModel.predict of its row: {same} (max |delta| "
+          f"{delta:.3e}); {resets} connects reset; flash forward launches "
+          f"{launches[0]}")
+    if not same or launches[1]:
+        raise AssertionError("11b: /predict answers differ from "
+                             "InferenceModel.predict")
+    return launches[0], {"requests": n, "req_per_s": n / wall,
+                         "p50_ms": 1e3 * float(np.median(lat))}
+
+
+def phase_bert_main_path(dev, card, cfg=BERT_BASE, layers=BERT_LAYERS):
+    """11b: BERT-base in full, bf16, random weights from a seed, dropout
+    0.1: ``NNClassifier`` over an ``XShards`` of numpy dicts fine-tunes
+    the planted task, then held-out accuracy; ``BERTForQuestionAnswering``
+    + ``qa_loss`` trains on the same encoder; the classifier is served:
+    ``Estimator.save`` -> ``InferenceModel.load`` -> ``predict`` against
+    ``Estimator.predict``, then ``ClusterServing`` ``/predict``.
+    Returns the kernels' launches by path and the figures."""
+    c, qa = BERT_CLS, BERT_QA
+    B, T = c["batch"], c["seq"]
+    print(f"== phase 11b: BERT-base main path ({layers} layers, hidden "
+          f"{cfg['hidden_size']}, {cfg['num_heads']} heads, FFN "
+          f"{cfg['intermediate_size']}, vocab {cfg['vocab_size']}), random "
+          f"weights, bf16 compute, dropout 0.1")
+    free_memory()
+    torch.manual_seed(4321)
+    bert = BERT(**cfg, num_layers=layers, dtype=torch.bfloat16, dropout=0.1)
+    model = BERTForSequenceClassification(2, bert)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {n_params / 1e6:.1f} M parameters")
+    rng = np.random.default_rng(31)
+    train = bert_rows(rng, B * c["steps_per_epoch"], T, c["min_len"])
+    held = bert_rows(rng, c["eval_rows"], T, c["min_len"])
+    # BERTClassifier's optimizer, the reference's optax.adamw(2e-5): at
+    # 1e-4 this random-init post-LN model jumps to loss 2.4 and stays at
+    # chance; 1e-5 to 3e-5 reach 0.91-0.97 held-out in 30 steps
+    adamw = lambda ps: torch.optim.AdamW(ps, lr=2e-5,  # noqa: E731
+                                         weight_decay=1e-4)
+    clf = NNClassifier(model, optimizer=adamw, device=dev) \
+        .setFeaturesCol(*BERT_FEATS).setLabelCol("label") \
+        .setBatchSize(B).setMaxEpoch(c["epochs"])
+    out = {}
+    reset_flash()
+    with peak_memory() as mem, step_times() as times:
+        fitted = clf.fit(XShards.partition(train, num_shards=4))
+    steps = c["epochs"] * c["steps_per_epoch"]
+    expect_flash("11b NNClassifier fit", (steps * layers, steps * layers))
+    out["classify"] = report_steps(
+        card, "NNClassifier fit (XShards of numpy dicts)", times, B, T,
+        c["warm"], mem)
+    print(f"  flash forward launches = backward launches = {steps} steps x "
+          f"{layers} layers")
+    cls_fwd, cls_bwd = flash_counts()
+    est = fitted.estimator
+    pred = fitted.transform(XShards.partition(held, num_shards=2))
+    labels = np.asarray([p for s in pred.collect() for p in s["prediction"]])
+    acc = float(np.mean(labels == held["label"]))
+    ev = est.evaluate(held, batch_size=B)
+    print(f"  held-out ({c['eval_rows']} rows): accuracy {acc:.4f} (at "
+          f"least {BERT_MIN_ACC}), loss {ev['loss']:.4f}")
+    out["classify"].update(accuracy=acc, eval_loss=ev["loss"])
+    if not acc >= BERT_MIN_ACC:
+        raise AssertionError(f"11b: the fine-tune did not learn the "
+                             f"planted task: held-out accuracy {acc}")
+    # serving the classifier: an export, loaded into a fresh module
+    export = Path(__file__).resolve().parent / "build" / "bert_export"
+    fitted.save(str(export))
+    fresh = BERTForSequenceClassification(2, BERT(
+        **cfg, num_layers=layers, dtype=torch.bfloat16, dropout=0.1))
+    im = InferenceModel(batch_buckets=(B,)).load(str(export), fresh,
+                                                 device=dev)
+    ref = est.predict(held, batch_size=B)
+    got = im.predict(*[held[col] for col in BERT_FEATS])
+    delta = float(np.abs(got - ref).max())
+    same = bool((got.argmax(-1) == ref.argmax(-1)).all())
+    print(f"  Estimator.save -> InferenceModel.load -> predict vs "
+          f"Estimator.predict on {len(ref)} rows: argmax identical {same}, "
+          f"largest logit delta {delta:.3e}")
+    if not same or got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError("11b: the served model's predictions differ "
+                             "from Estimator.predict")
+    stack_fwd, out["serving"] = serve_bert(card, im, held, B,
+                                           BERT_SERVE["requests"],
+                                           BERT_SERVE["clients"])
+    out["serving"]["logit_delta_vs_estimator"] = delta
+    del im, fresh
+    free_memory()
+    # SQuAD-shaped: start/end logits over 384 positions, on the
+    # fine-tuned encoder
+    qa_model = BERTForQuestionAnswering(bert)
+    rows = bert_rows(rng, qa["batch"] * qa["steps"], qa["seq"],
+                     qa["min_len"])
+    lens = rows["attention_mask"].sum(1)
+    rows["start"] = (rng.random(len(lens)) * lens).astype(np.int32)
+    rows["end"] = np.minimum(rows["start"] + rng.integers(0, 30, len(lens)),
+                             lens - 1).astype(np.int32)
+    qa_est = Estimator.from_torch(
+        model=qa_model, loss=qa_loss, optimizer=lambda ps: torch.optim.AdamW(
+            ps, lr=3e-5, weight_decay=1e-4),
+        feature_cols=BERT_FEATS, label_cols=("start", "end"),
+        config=TrainConfig(seed=5), device=dev)
+    reset_flash()
+    with peak_memory() as mem, step_times() as times:
+        qa_est.fit(rows, epochs=1, batch_size=qa["batch"])
+    n = qa["steps"] * layers
+    expect_flash("11b QA fit", (n, n))
+    out["qa"] = report_steps(card, "BERTForQuestionAnswering + qa_loss fit",
+                             times, qa["batch"], qa["seq"], qa["warm"], mem)
+    print(f"  flash forward launches = backward launches = {qa['steps']} "
+          f"steps x {layers} layers")
+    out["launches"] = {"classify": (cls_fwd, cls_bwd), "qa": (n, n),
+                       "stack": stack_fwd}
+    del qa_est, qa_model
+    free_memory()
+    return out, est
+
+
+def phase_bert_profile(dev, est):
+    """11c: one profiled BERT-base classification step (11b's shape),
+    after phase 7 (CUPTI lost phase 7's records after a profiled
+    step)."""
+    print("== phase 11c: a profiled BERT-base training step (32 x 128)")
+    c = BERT_CLS
+    rows = bert_rows(np.random.default_rng(7), c["batch"], c["seq"],
+                     c["min_len"])
+    profile_step(est, rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3129,8 +3710,23 @@ def main() -> int:
     if sys.argv[1:2] == ["--paged-rounds"]:
         paged_rounds(dev, card, int(sys.argv[2]))
         return 0
+
     def lap(name):
         print(f"[{time.monotonic() - t_start:.1f} s] {name} done")
+
+    if sys.argv[1:2] == ["--bert"]:
+        phase_build()
+        lap("phase 1")
+        phase_bert_parity(dev)
+        bert, bert_est = phase_bert_main_path(dev, card)
+        lap("phases 11a, 11b")
+        rows = bert_timings(dev, bert.pop("launches"))
+        print_rows(rows)
+        phase_bert_profile(dev, bert_est)
+        lap("phase 7's BERT rows, 11c")
+        print(card)
+        print(json.dumps({"kernels": rows, "bert": bert}))
+        return 0
 
     phase_build()
     lap("phase 1")
@@ -3153,11 +3749,19 @@ def main() -> int:
     phase_modes_f32(dev)
     modes = phase_modes_llama(dev, card, llama_model)
     lap("phase 9")
+    # phase 11 runs here too, so that phase 7 can time its shapes; its
+    # profiled step (11c) runs after phase 7
+    phase_bert_parity(dev)
+    bert, bert_est = phase_bert_main_path(dev, card)
+    lap("phases 11a, 11b")
     kernels = phase_timings(dev, paged_launches, paged_shapes,
                             flash_launches, shapes, train_launches, llama,
-                            modes["launches"])
+                            modes["launches"], bert.pop("launches"))
+    phase_bert_profile(dev, bert_est)
+    del bert_est
+    free_memory()
     phase_llama_profile(dev, llama_model)
-    lap("phases 7, 7b")
+    lap("phases 7, 11c, 7b")
     phase_stack_f32(dev, card)
     stack = phase_stack_llama(dev, card, llama_model)
     lap("phase 8")
@@ -3167,8 +3771,9 @@ def main() -> int:
     lap("phase 10b")
     for e in kernels:
         # each kernel's launches in phase 8b's two servers (the paged
-        # server reads through paged, the arena prefills through flash)
-        e["stack_launches"] = (
+        # server reads through paged, the arena prefills through flash);
+        # the BERT rows carry 11b's /predict server's
+        e.setdefault("stack_launches", 
             stack["paged"]["paged"] if e["name"].startswith("paged")
             else stack["arena"]["flash"]
             if e["name"].startswith("flash_attention_fwd") else 0)
@@ -3177,7 +3782,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "stack": {
         name: run["pairs"] for name, run in stack.items()},
         "modes": modes["runs"], "witness": modes["witness"],
-        "serving_modes": serving_modes}))
+        "serving_modes": serving_modes, "bert": bert}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -56,7 +56,12 @@ def test_scan_reaches_every_port_module():
             "analytics_zoo_tpu_torch.serving.flight",
             "analytics_zoo_tpu_torch.serving.queues",
             "analytics_zoo_tpu_torch.serving.server",
-            "analytics_zoo_tpu_torch.serving.http_frontend"} <= mods
+            "analytics_zoo_tpu_torch.serving.http_frontend",
+            "analytics_zoo_tpu_torch.learn.triggers",
+            "analytics_zoo_tpu_torch.utils.transform",
+            "analytics_zoo_tpu_torch.data.shards",
+            "analytics_zoo_tpu_torch.frames.nnframes",
+            "analytics_zoo_tpu_torch.tfpark.text"} <= mods
 
 
 def test_forbidden_name_check_is_exact():

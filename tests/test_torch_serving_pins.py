@@ -1,5 +1,6 @@
-"""The port's copies of the framework-free serving modules, pinned to
-their reference sources.
+"""The port's copies of the framework-free modules (serving, and the
+training path's triggers, transforms and XShards), pinned to their
+reference sources.
 
 Each module of ``analytics_zoo_tpu_torch`` that is a copy of a module of
 ``analytics_zoo_tpu`` must parse to the same syntax tree as its
@@ -40,6 +41,10 @@ PINS = {
                           "ServingConfig.engine_kernel"),
     "serving/http_frontend.py": (),
     "serving/paged_cache.py": (),
+    # the training path's framework-free helpers
+    "learn/triggers.py": (),
+    "utils/transform.py": (),
+    "data/shards.py": (),
 }
 
 
