@@ -2,14 +2,15 @@
 
 A metric is a function ``(preds, targets) -> scalar`` tensor plus a
 name; epoch aggregation is a sample-weighted mean on the host
-(:class:`EpochAccumulator`).  The reference's host-side ``auc`` is not
-copied yet: nothing in the port calls it.
+(:class:`EpochAccumulator`).  :func:`auc` is the reference's host-side
+ROC-AUC (numpy, midranks for ties), copied.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Sequence, Union
 
+import numpy as np
 import torch
 
 
@@ -76,3 +77,25 @@ class EpochAccumulator:
             return {}
         return {k: v / self._n for k, v in self._sums.items()}
 
+
+def auc(scores: np.ndarray, labels: np.ndarray) -> float:
+    """Host-side ROC-AUC via rank statistic (ties get midranks)."""
+    scores = np.asarray(scores).ravel()
+    labels = np.asarray(labels).ravel().astype(bool)
+    n_pos = int(labels.sum())
+    n_neg = labels.size - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    order = np.argsort(scores, kind="mergesort")
+    ranks = np.empty_like(order, dtype=np.float64)
+    sorted_scores = scores[order]
+    i = 0
+    while i < len(sorted_scores):
+        j = i
+        while j + 1 < len(sorted_scores) and \
+                sorted_scores[j + 1] == sorted_scores[i]:
+            j += 1
+        ranks[order[i:j + 1]] = (i + j) / 2.0 + 1.0
+        i = j + 1
+    return float((ranks[labels].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * n_neg))

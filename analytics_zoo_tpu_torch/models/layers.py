@@ -1,0 +1,251 @@
+"""flax's ``Dense``, ``Embed`` and ``Conv`` for the recommenders and the
+forecasting nets, and the converter of their flax trees.
+
+The reference's recommenders (``analytics_zoo_tpu/models/ncf.py``,
+``models/recommendation.py``) and forecasting nets
+(``models/forecast.py``) are built from flax layers; the port builds
+them from these:
+
+- :class:`Dense` and :class:`Embed`: ``nn.Linear`` and ``nn.Embedding``
+  initialised as flax initialises them (a Dense kernel truncated-normal
+  with variance 1 / fan_in and a zero bias; an embedding normal with
+  variance 1 / features).  :class:`LazyDense` and :class:`LazyConv` take
+  their input width from their first input, as a flax layer does, so a
+  net needs no ``input_dim`` (a ``Forecaster`` never knows it: AutoTS
+  adds calendar features to the series);
+- :func:`dense` and :func:`conv`: a flax layer with ``dtype=dtype``,
+  input, kernel and bias all promoted to the compute dtype; a ``None``
+  dtype promotes the input with the f32 parameters, as flax's
+  ``promote_dtype`` does;
+- :func:`params_from_flax`: a flax ``variables["params"]`` tree as the
+  matching port module's ``state_dict``.  A Dense kernel ``[in, out]``
+  transposes to ``[out, in]``, a Conv kernel ``[k, in, out]`` to torch's
+  ``[out, in, k]``, an embedding table stays as it is; the cells of
+  ``models/rnn.py`` fuse their gates (see there).  The port's modules
+  name their parameters as the reference's tree does, so one converter
+  serves every tree.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# flax's truncated normal (cut at 2 standard deviations) has this
+# standard deviation for a unit scale
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's ``lecun_normal``: truncated normal, variance 1 / fan_in."""
+    std = math.sqrt(1.0 / max(1, fan_in)) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense``'s parameters: ``weight [out, in]`` (the kernel
+    transposed) and ``bias``."""
+
+    def reset_parameters(self) -> None:
+        lecun_normal_(self.weight, self.weight.shape[1])
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+class LazyDense(nn.LazyLinear):
+    """A :class:`Dense` whose input width comes from its first input."""
+
+    cls_to_become = Dense
+
+    def reset_parameters(self) -> None:
+        if not self.has_uninitialized_params() and self.in_features != 0:
+            Dense.reset_parameters(self)
+
+
+def make_dense(in_features: Optional[int], out_features: int,
+               bias: bool = True) -> nn.Linear:
+    """A :class:`Dense`, or a :class:`LazyDense` when ``in_features`` is
+    None."""
+    if in_features is None:
+        return LazyDense(out_features, bias=bias)
+    return Dense(in_features, out_features, bias=bias)
+
+
+class Embed(nn.Embedding):
+    """flax ``nn.Embed``: a table initialised normal with variance
+    1 / features (or with ``std``, or zeros when ``std == 0``)."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 std: Optional[float] = None):
+        self._std = std
+        super().__init__(num_embeddings, features)
+
+    def reset_parameters(self) -> None:
+        std = self._std if self._std is not None \
+            else 1.0 / math.sqrt(self.embedding_dim)
+        with torch.no_grad():
+            if std == 0:
+                self.weight.zero_()
+            else:
+                self.weight.normal_(0.0, std)
+
+
+class Conv(nn.Conv1d):
+    """flax ``nn.Conv`` over one spatial axis: ``weight [out, in, k]``
+    (the kernel ``[k, in, out]`` transposed), lecun-normal, zero bias."""
+
+    def reset_parameters(self) -> None:
+        lecun_normal_(self.weight, self.weight.shape[1] *
+                      self.weight.shape[2])
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+class LazyConv(nn.LazyConv1d):
+    """A :class:`Conv` whose input channels come from its first input."""
+
+    cls_to_become = Conv
+
+    def reset_parameters(self) -> None:
+        if not self.has_uninitialized_params() and self.in_channels != 0:
+            Conv.reset_parameters(self)
+
+
+def make_conv(in_channels: Optional[int], out_channels: int,
+              kernel_size: int, dilation: int = 1) -> nn.Conv1d:
+    """A :class:`Conv`, or a :class:`LazyConv` when ``in_channels`` is
+    None."""
+    if in_channels is None:
+        return LazyConv(out_channels, kernel_size, dilation=dilation)
+    return Conv(in_channels, out_channels, kernel_size, dilation=dilation)
+
+
+def materialize(layer: nn.Module, x: torch.Tensor) -> None:
+    """Give a lazy layer its input width from ``x`` (its first input, in
+    the layout its ``forward`` takes), as flax does at the first call."""
+    if isinstance(layer, nn.modules.lazy.LazyModuleMixin) and \
+            layer.has_uninitialized_params():
+        layer._infer_parameters(layer, (x,))
+
+
+def compute_dtype(dtype: Optional[torch.dtype], x: torch.Tensor
+                  ) -> torch.dtype:
+    """flax's ``promote_dtype`` against f32 parameters: ``dtype``, or
+    the input's dtype promoted with f32 when ``dtype`` is None."""
+    return dtype if dtype is not None else \
+        torch.promote_types(x.dtype, torch.float32)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)(x)``: input, kernel and bias promoted
+    to the compute dtype."""
+    materialize(layer, x)
+    dt = compute_dtype(dtype, x)
+    bias = None if layer.bias is None else layer.bias.to(dt)
+    return F.linear(x.to(dt), layer.weight.to(dt), bias)
+
+
+def conv(layer: nn.Conv1d, x: torch.Tensor, dtype: Optional[torch.dtype],
+         padding=(0, 0)) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=dtype)`` on a channels-last ``x [B, T, C]``,
+    padded ``(left, right)`` with zeros, then ``VALID``; the output is
+    channels-last too."""
+    xc = x.transpose(1, 2)
+    materialize(layer, xc)
+    dt = compute_dtype(dtype, x)
+    if padding != (0, 0):
+        xc = F.pad(xc, padding)
+    bias = None if layer.bias is None else layer.bias.to(dt)
+    y = F.conv1d(xc.to(dt), layer.weight.to(dt), bias,
+                 dilation=layer.dilation)
+    return y.transpose(1, 2)
+
+
+def same_padding(kernel_size: int, dilation: int = 1):
+    """flax's ``padding="SAME"`` at stride 1: ``(left, right)``, the
+    odd one out on the right."""
+    total = (kernel_size - 1) * dilation
+    return total // 2, total - total // 2
+
+
+# ---------------------------------------------------------------------------
+# the reference's flax trees
+# ---------------------------------------------------------------------------
+
+_LSTM = ("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho")
+_GRU = ("ir", "iz", "in"), ("hr", "hz", "hn")
+_AUGRU = ("r_x", "u_x", "c_x"), ("r_h", "u_h")
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _kernels(p, names):
+    """The kernels of ``names`` side by side, transposed: ``[sum out,
+    in]``."""
+    return _t(np.concatenate([np.asarray(p[n]["kernel"], np.float32)
+                              for n in names], axis=1).T)
+
+
+def _biases(p, names):
+    return _t(np.concatenate([np.asarray(p[n]["bias"], np.float32)
+                              for n in names]))
+
+
+def params_from_flax(params: Mapping, prefix: str = ""
+                     ) -> Dict[str, torch.Tensor]:
+    """The reference's ``variables["params"]`` (leaves as numpy arrays or
+    anything ``np.asarray`` takes) as the matching port module's
+    ``state_dict``.
+
+    - an ``Embed`` (``embedding``) -> ``weight``;
+    - a ``Dense`` kernel ``[in, out]`` -> ``weight [out, in]``, a
+      ``Conv`` kernel ``[k, in, out]`` -> ``weight [out, in, k]``; ``bias``
+      as it is;
+    - an ``LSTMCell`` (``ii if ig io`` without bias, ``hi hf hg ho`` with)
+      -> ``i.weight [4H, in]``, ``h.weight [4H, H]``, ``h.bias [4H]``;
+    - a ``GRUCell`` (``ir iz in`` with bias, ``hr hz`` without, ``hn``
+      with) -> ``i.weight [3H, in]``, ``i.bias``, ``h.weight [3H, H]``,
+      ``hn_bias [H]``;
+    - an ``AUGRUCell`` (six biased Dense layers) -> ``x.weight [3H, in]``
+      and ``x.bias`` (``r_x u_x c_x``), ``h.weight [2H, H]`` and
+      ``h.bias`` (``r_h u_h``), and ``c_h``.
+    """
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        key = prefix + name
+        keys = set(sub)
+        if keys == {"embedding"}:
+            out[key + ".weight"] = _t(sub["embedding"])
+        elif keys == set(_LSTM[0] + _LSTM[1]):
+            out[key + ".i.weight"] = _kernels(sub, _LSTM[0])
+            out[key + ".h.weight"] = _kernels(sub, _LSTM[1])
+            out[key + ".h.bias"] = _biases(sub, _LSTM[1])
+        elif keys == set(_GRU[0] + _GRU[1]):
+            out[key + ".i.weight"] = _kernels(sub, _GRU[0])
+            out[key + ".i.bias"] = _biases(sub, _GRU[0])
+            out[key + ".h.weight"] = _kernels(sub, _GRU[1])
+            out[key + ".hn_bias"] = _t(sub["hn"]["bias"])
+        elif keys == set(_AUGRU[0] + _AUGRU[1] + ("c_h",)):
+            out[key + ".x.weight"] = _kernels(sub, _AUGRU[0])
+            out[key + ".x.bias"] = _biases(sub, _AUGRU[0])
+            out[key + ".h.weight"] = _kernels(sub, _AUGRU[1])
+            out[key + ".h.bias"] = _biases(sub, _AUGRU[1])
+            out.update(params_from_flax({"c_h": sub["c_h"]}, key + "."))
+        elif "kernel" in keys and keys <= {"kernel", "bias"}:
+            k = np.asarray(sub["kernel"], np.float32)
+            out[key + ".weight"] = _t(k.T if k.ndim == 2
+                                      else k.transpose(2, 1, 0))
+            if "bias" in keys:
+                out[key + ".bias"] = _t(sub["bias"])
+        else:
+            out.update(params_from_flax(sub, key + "."))
+    return out

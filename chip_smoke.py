@@ -200,16 +200,49 @@ fails.  Phases, in order:
    no sync added to the Estimator's loop) and its peak memory, and
    must launch the forward and the backward exactly 12 times a step.
 
+12. The zoo (run last): the recommenders and Zouwu time series, which
+   reach none of the four kernels (embedding gathers, dense towers,
+   convolutions and recurrences in plain PyTorch); the paged and flash
+   launch counters are set to 0 before the phase and must read 0 after.  12a, f32, small
+   widths, each model on the card against the port's own CPU path on
+   the same weights: ``NeuralCF``, ``WideAndDeep`` (``wide``, ``deep``,
+   ``wide_n_deep``), ``SessionRecommender`` with history, ``DIEN``,
+   ``LSTMNet``, ``TCN``, ``MTNet`` and ``Seq2SeqTS``: the forward
+   within 1e-5, a 5-step SGD fit by phase 3's rule; TCN's input
+   gradient exactly 0 outside its receptive field.  12b, the models'
+   default bf16, the shapes of ``bench.py`` and ``examples/`` with
+   synthetic data from a seed: NCF at ``bench_ncf``'s shape (6040 x
+   3706, embeddings 64, batch 32768, 16 steps), then
+   ``examples/train_ncf.py``'s task (200,000 rows, 5 epochs of 4096,
+   validation accuracy above 0.9; the evaluate time and the validation
+   ``auc``), served by ``InferenceModel.load`` and ``/predict`` (64
+   requests from 8 clients, each equal to ``InferenceModel.predict``);
+   Wide&Deep at ``bench_wide_and_deep``'s schema (batch 16384, 16
+   steps); DIEN at the reference's defaults over 3706 items (history
+   50, ragged; batch 1024, 20 steps), then the reference test's planted
+   task (accuracy above 0.85); ``LSTMForecaster`` at ``bench_forecast``'s
+   shape (80,000 points, lookback 96, batch 512, one epoch, holdout
+   mse; then one step under torch.profiler: device time by kernel and
+   the busy share), ``examples/forecast_taxi.py`` (holdout mse below
+   0.15),
+   ``TCNForecaster`` at its defaults on the same windows, one epoch each
+   of ``MTNetForecaster`` and ``Seq2SeqForecaster``, then
+   ``AutoTSTrainer`` (2 samples x 2 epochs, a dict series) and a
+   ``TSPipeline`` save -> load -> predict, equal.  Each fit prints 11b's
+   figures.
+
 The line before the last is ``{"kernels": [...], "stack": ..., "modes":
 [phase 9b's runs], "witness": {...}, "serving_modes": {phase 10},
-"bert": {phase 11b}}``; the last is ``{"ok": true, "device": {...}}``.
+"bert": {phase 11b}, "zoo": {phase 12}}``; the last is ``{"ok": true,
+"device": {...}}``.
 
 ``python3 chip_smoke.py --paged-rounds N`` runs none of the phases: it
 serves phase 4's stream N times after one warm-up, on phase 4's model,
 and prints a line a round (to compare two trees' paged serving in
 alternating processes).  ``python3 chip_smoke.py --bert`` runs phase 1,
 11a, 11b, phase 7's BERT rows and 11c only, and prints those rows and
-11b's figures as its last line.
+11b's figures as its last line.  ``python3 chip_smoke.py --zoo`` runs
+phase 12 only and prints its figures as its last line.
 """
 
 from __future__ import annotations
@@ -233,14 +266,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from analytics_zoo_tpu_torch import init_orca_context, stop_orca_context
 from analytics_zoo_tpu_torch.common.config import TrainConfig
 from analytics_zoo_tpu_torch.data.shards import XShards
 from analytics_zoo_tpu_torch.frames import NNClassifier
 from analytics_zoo_tpu_torch.learn import Estimator
 from analytics_zoo_tpu_torch.learn.estimator import TorchEstimator
 from analytics_zoo_tpu_torch.learn.inference_model import InferenceModel
+from analytics_zoo_tpu_torch.learn.metrics import auc
+from analytics_zoo_tpu_torch.models.forecast import (LSTMNet, MTNet,
+                                                     Seq2SeqTS, TCN)
 from analytics_zoo_tpu_torch.models.lm import (TransformerLM, generate,
                                                lm_loss, pick_next)
+from analytics_zoo_tpu_torch.models.ncf import NeuralCF
+from analytics_zoo_tpu_torch.models.recommendation import (
+    DIEN, ColumnFeatureInfo, SessionRecommender, WideAndDeep)
 from analytics_zoo_tpu_torch.models.transformer import (
     BERT, BERTForQuestionAnswering, BERTForSequenceClassification, qa_loss)
 from analytics_zoo_tpu_torch.ops import _build
@@ -250,6 +290,10 @@ from analytics_zoo_tpu_torch.serving import (ClusterServing, HttpFrontend,
                                              OutputQueue, ServingConfig)
 from analytics_zoo_tpu_torch.serving.continuous import ContinuousEngine
 from analytics_zoo_tpu_torch.serving.paged_cache import SINK_BLOCK
+from analytics_zoo_tpu_torch.zouwu import (AutoTSTrainer, LSTMForecaster,
+                                           MTNetForecaster,
+                                           Seq2SeqForecaster, StandardScaler,
+                                           TCNForecaster, TSPipeline, roll)
 
 # GPT-2 small, as analytics_zoo_tpu/net/hf_net.py builds it
 GPT2 = dict(vocab_size=50257, hidden_size=768, num_heads=12,
@@ -997,6 +1041,10 @@ def profile_step(est, data):
                      and not getattr(e, "is_user_annotation", False)),
                     key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
+    if not events:
+        print(f"  profiled step: {wall_ms:.1f} ms wall (profiler on), no "
+              f"device records (CUPTI lost them after an earlier trace)")
+        return
     print(f"  profiled step: {wall_ms:.1f} ms wall (profiler on), "
           f"{sum(e.count for e in events)} device launches, device "
           f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), by "
@@ -3465,22 +3513,30 @@ def peak_memory():
     out["above"] = out["peak"] - out.pop("base")
 
 
+def shown_losses(losses, keep=30):
+    """Every loss, rounded, or the first and last 5 of a longer fit."""
+    r = [round(x, 4) for x in losses]
+    return r if len(r) <= keep else f"{r[:5]} ... {r[-5:]}"
+
+
 def report_steps(card, what, times, batch, seq, warm, mem):
     """Step figures after ``warm`` warm-up steps: the median step, and
     samples/s over the whole window (every step after the warm-up over
-    their summed time)."""
+    their summed time); tokens/s too where rows have a length ``seq``."""
     after = times["ms"][warm:]
     ms, window = float(np.median(after)), float(np.sum(after))
     rate = 1e3 * batch * len(after) / window
     if not all(np.isfinite(times["loss"])):
         raise AssertionError(f"{what}: non-finite loss {times['loss']}")
-    print(f"  [{card}] {what}: {len(times['ms'])} steps of {batch} x {seq}, "
+    shape = f"{batch} x {seq}" if seq else f"{batch} rows"
+    tokens = f", {rate * seq:.0f} tokens/s" if seq else ""
+    print(f"  [{card}] {what}: {len(times['ms'])} steps of {shape}, "
           f"after {warm} warm-up steps median step {ms:.2f} ms, mean "
-          f"{window / len(after):.2f} ms ({rate:.1f} samples/s, "
-          f"{rate * seq:.0f} tokens/s over the window), peak device "
+          f"{window / len(after):.2f} ms ({rate:.1f} samples/s{tokens} "
+          f"over the window), peak device "
           f"memory {mem['peak'] / 2**30:.2f} GiB ({mem['above'] / 2**30:.2f}"
           f" GiB above what was allocated before the fit); losses "
-          f"{[round(x, 4) for x in times['loss']]}")
+          f"{shown_losses(times['loss'])}")
     return {"steps": len(times["ms"]), "median_step_ms": ms,
             "mean_step_ms": window / len(after), "samples_per_s": rate,
             "peak_bytes": mem["peak"], "fit_bytes": mem["above"]}
@@ -3516,17 +3572,17 @@ def http_predict(port, instance):
             time.monotonic() - t0)
 
 
-def serve_bert(card, im, rows, batch, n, clients):
+def serve_predict(card, im, rows, cols, batch, n, clients, what):
     """``ClusterServing`` (micro-batches of up to ``batch`` rows, which
     ``im`` pads to its one bucket, ``batch``) and ``HttpFrontend``:
-    ``n`` rows of ``rows``, one ``/predict`` each, from ``clients``
-    closed-loop client threads.  Every answer must equal ``im.predict``
-    of its row (the same padded shapes, so the same kernels).  Returns
-    the flash launches and the figures."""
-    want = im.predict(*[rows[c][:n] for c in BERT_FEATS])
+    ``n`` rows of ``rows``, one ``/predict`` each with the input columns
+    ``cols``, from ``clients`` closed-loop client threads.  Every answer
+    must equal ``im.predict`` of its row (the same padded shapes, so the
+    same kernels).  Returns the flash launches and the figures."""
+    want = im.predict(*[rows[c][:n] for c in cols])
     srv = ClusterServing(im, ServingConfig(
         batch_size=batch, batch_timeout_ms=5.0,
-        input_cols=list(BERT_FEATS)), embedded_broker=True).start()
+        input_cols=list(cols)), embedded_broker=True).start()
     got, lat, errors = {}, [], []
     try:
         fe = HttpFrontend(redis_port=srv.port, timeout=STACK_TIMEOUT,
@@ -3538,7 +3594,7 @@ def serve_bert(card, im, rows, batch, n, clients):
             try:
                 for i in range(c, n, clients):
                     pred, sec = http_predict(fe.port, {
-                        col: rows[col][i].tolist() for col in BERT_FEATS})
+                        col: rows[col][i].tolist() for col in cols})
                     got[i] = pred
                     lat.append(sec)
             except Exception as e:     # reported below, fails the phase
@@ -3561,7 +3617,7 @@ def serve_bert(card, im, rows, batch, n, clients):
                              f"errors {errors[:3]}")
     delta = max(float(np.abs(got[i] - want[i]).max()) for i in range(n))
     same = all(np.array_equal(got[i], want[i]) for i in range(n))
-    resets = check_resets("11b /predict")
+    resets = check_resets(f"{what} /predict")
     print(f"  [{card}] /predict: {n} requests from {clients} clients in "
           f"{wall:.3f} s ({n / wall:.1f} req/s), p50 latency "
           f"{1e3 * float(np.median(lat)):.1f} ms, p99 "
@@ -3570,8 +3626,8 @@ def serve_bert(card, im, rows, batch, n, clients):
           f"{delta:.3e}); {resets} connects reset; flash forward launches "
           f"{launches[0]}")
     if not same or launches[1]:
-        raise AssertionError("11b: /predict answers differ from "
-                             "InferenceModel.predict")
+        raise AssertionError(f"{what}: /predict answers differ from "
+                             f"InferenceModel.predict")
     return launches[0], {"requests": n, "req_per_s": n / wall,
                          "p50_ms": 1e3 * float(np.median(lat))}
 
@@ -3647,9 +3703,9 @@ def phase_bert_main_path(dev, card, cfg=BERT_BASE, layers=BERT_LAYERS):
     if not same or got.shape != ref.shape or not np.isfinite(got).all():
         raise AssertionError("11b: the served model's predictions differ "
                              "from Estimator.predict")
-    stack_fwd, out["serving"] = serve_bert(card, im, held, B,
-                                           BERT_SERVE["requests"],
-                                           BERT_SERVE["clients"])
+    stack_fwd, out["serving"] = serve_predict(
+        card, im, held, BERT_FEATS, B, BERT_SERVE["requests"],
+        BERT_SERVE["clients"], "11b")
     out["serving"]["logit_delta_vs_estimator"] = delta
     del im, fresh
     free_memory()
@@ -3694,6 +3750,495 @@ def phase_bert_profile(dev, est):
     profile_step(est, rows)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the zoo — recommenders and Zouwu time series
+# ---------------------------------------------------------------------------
+
+# the shapes of bench.py and examples/, with synthetic data from a seed
+ZOO_NCF_BENCH = dict(users=6040, items=3706, embed=64, hidden=(128, 64, 32),
+                     batch=32768, steps_per_epoch=8, epochs=2, lr=1e-3)
+ZOO_NCF_EXAMPLE = dict(rows=200_000, embed=16, hidden=(32, 16), batch=4096,
+                       epochs=5, lr=3e-3, eval_batch=8192, min_acc=0.9)
+ZOO_SERVE = dict(requests=64, clients=8, batch=64)
+ZOO_WND = dict(batch=16384, steps_per_epoch=8, epochs=2)
+ZOO_DIEN = dict(items=3706, history=50, min_len=5, batch=1024, steps=20)
+ZOO_DIEN_TASK = dict(rows=512, T=10, items=40, epochs=35, batch=64,
+                     min_acc=0.85)
+ZOO_FORECAST_BENCH = dict(points=80_000, lookback=96, units=(32, 16),
+                          batch=512)
+ZOO_TAXI = dict(points=8000, lookback=96, units=(32, 16), epochs=5,
+                batch=256, lr=3e-3, max_mse=0.15)
+ZOO_AUTOTS = dict(n_sampling=2, epochs=2)
+ZOO_WARM = 3                # warm-up steps left out of a fit's figures
+ZOO_ATOL = 1e-5             # 12a: card vs CPU forward, f32
+
+
+def zoo_launches():
+    """The four kernels' launch counters (phase 12 must move none; the
+    flash backward counter counts both backward kernels)."""
+    return (fa.paged_attention_fused.launches,
+            fa.flash_attention_fused.launches,
+            fa.flash_attention_bwd_fused.launches)
+
+
+def zoo_series(n, seed=0):
+    """examples/forecast_taxi.py's half-hourly counts: daily (48) and
+    weekly (336) cycles with noise."""
+    t = np.arange(n, dtype=np.float32)
+    return (10 + 3 * np.sin(2 * np.pi * t / 48)
+            + 1.5 * np.sin(2 * np.pi * t / 336)
+            + 0.3 * np.random.default_rng(seed).normal(size=t.size)
+            ).astype(np.float32)
+
+
+def zoo_small_cases():
+    """12a's models at small widths in f32, without dropout, each with
+    64 rows of its inputs: ``(name, make, data, feature_cols, loss)``;
+    the labels are ``"y"``."""
+    rng = np.random.default_rng(12)
+    n = 64
+    f32 = torch.float32
+    ids = {"user": rng.integers(1, 31, n).astype(np.int32),
+           "item": rng.integers(1, 41, n).astype(np.int32),
+           "y": rng.integers(0, 2, n).astype(np.int32)}
+    info = ColumnFeatureInfo(
+        wide_base_cols=("b0", "b1"), wide_base_dims=(10, 10),
+        indicator_cols=("g",), indicator_dims=(3,),
+        embed_cols=("user", "item"), embed_in_dims=(30, 40),
+        embed_out_dims=(8, 8), continuous_cols=("age",))
+    wide = np.stack([rng.integers(0, 11, n), rng.integers(11, 21, n)], 1)
+    wnd = {"wide_cols": wide.astype(np.int32),
+           "indicator_cols": rng.integers(0, 4, (n, 1)).astype(np.int32),
+           "embed_cols": np.stack([ids["user"], ids["item"]], 1),
+           "continuous_cols": rng.normal(size=(n, 1)).astype(np.float32),
+           "y": ids["y"]}
+    hist = rng.integers(1, 41, (n, 10)).astype(np.int32)
+    hist[:, 6:] = np.where(rng.random((n, 4)) < 0.5, 0, hist[:, 6:])
+    seq = {"item": ids["item"], "history": hist,
+           "session": hist[:, :5], "y": ids["y"]}
+    series = StandardScaler().fit_transform(zoo_series(200)[:, None])
+    x, y = roll(series, 16, 1)
+    _, y2 = roll(series, 16, 2)
+    ts = {"x": x[:n], "y": y[:n]}
+    ts2 = {"x": x[:n], "y": y2[:n]}
+    cce = "sparse_categorical_crossentropy"
+    cases = [("NeuralCF", lambda: NeuralCF(30, 40, dtype=f32), ids,
+              ("user", "item"), cce)]
+    for mt in ("wide", "deep", "wide_n_deep"):
+        m = WideAndDeep(2, info, mt)
+        cases.append((f"WideAndDeep {mt}",
+                      lambda mt=mt: WideAndDeep(2, info, mt, dtype=f32),
+                      wnd, tuple(m.feature_groups()), cce))
+    cases += [
+        ("SessionRecommender + history",
+         lambda: SessionRecommender(40, 16, (12, 8), include_history=True,
+                                    mlp_hidden_layers=(12,), dtype=f32),
+         seq, ("session", "history"), cce),
+        ("DIEN", lambda: DIEN(40, 16, 16, dtype=f32), seq,
+         ("item", "history"), cce),
+        ("LSTMNet", lambda: LSTMNet(1, 1, (16, 8), (0.0, 0.0), dtype=f32),
+         ts, ("x",), "mse"),
+        ("TCN", lambda: TCN(1, 1, (16, 16), dropout=0.0, dtype=f32), ts,
+         ("x",), "mse"),
+        ("MTNet", lambda: MTNet(1, 1, long_num=3, series_length=4,
+                                ar_window=4, cnn_filters=8, rnn_hidden=8,
+                                dropout=0.0, dtype=f32), ts, ("x",), "mse"),
+        ("Seq2SeqTS", lambda: Seq2SeqTS(1, 2, 16, 2, dtype=f32), ts2,
+         ("x",), "mse"),
+    ]
+    return cases
+
+
+def zoo_twins(make, feats, dev):
+    """One model's weights on the CPU and on the card (the CPU copy takes
+    its lazy input widths from a forward first)."""
+    torch.manual_seed(0)
+    cpu = make()
+    with torch.no_grad():
+        cpu(*feats)
+    card = make()
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card.to(dev)
+
+
+def phase_zoo_parity(dev):
+    """12a: each model, f32 at small widths, on the card against the
+    port's own CPU path on the same weights (the card has no JAX): the
+    forward within ``ZOO_ATOL``; a 5-step SGD fit (phase 3's rule: the
+    losses and the parameters); TCN's input gradient exactly 0 outside
+    its receptive field."""
+    print("== phase 12a: the zoo's models, f32, the card vs the CPU on the "
+          "same weights")
+    out = {}
+    for name, make, data, feats, loss in zoo_small_cases():
+        cols = [torch.as_tensor(data[c]) for c in feats]
+        cpu, card = zoo_twins(make, cols, dev)
+        with torch.no_grad():
+            want = cpu(*cols)
+            got = card(*[c.to(dev) for c in cols]).cpu()
+        fwd = float((got - want).abs().max())
+        runs = {}
+        for where, model in (("cpu", cpu), ("card", card)):
+            est = Estimator.from_torch(
+                model=model, loss=loss,
+                optimizer=lambda ps: torch.optim.SGD(ps, lr=0.05),
+                feature_cols=feats, label_cols=("y",),
+                config=TrainConfig(deterministic=True),
+                device=next(model.parameters()).device)
+            hist = est.fit({k: v[:40] for k, v in data.items()}, epochs=5,
+                           batch_size=40)
+            runs[where] = ([h["loss"] for h in hist],
+                           {k: v.cpu() for k, v in
+                            est.model.state_dict().items()})
+        (lc, pc), (lg, pg) = runs["cpu"], runs["card"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        param_err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+        print(f"  {name}: forward max |card - cpu| {fwd:.3e} (tol "
+              f"{ZOO_ATOL:.0e}); SGD 5 steps losses {[round(x, 5) for x in lg]}"
+              f", rel err {loss_err:.3e} (tol {TRAIN_LOSS_RTOL:.0e}), params "
+              f"{param_err:.3e} (tol {TRAIN_PARAM_ATOL:.0e})")
+        if not (fwd <= ZOO_ATOL and loss_err <= TRAIN_LOSS_RTOL
+                and param_err <= TRAIN_PARAM_ATOL and all(np.isfinite(lg))):
+            raise AssertionError(f"12a {name}: the card disagrees with the "
+                                 f"CPU")
+        out[name] = {"forward_err": fwd, "loss_err": loss_err,
+                     "param_err": param_err}
+    # causality: TCN at its defaults (3 blocks, kernel 3, dilations
+    # 1/2/4) sees the last 1 + 2*2*(1+2+4) = 29 steps
+    torch.manual_seed(0)
+    tcn = TCN(1, 1, dtype=torch.float32).to(dev)
+    x = torch.randn(1, 40, 1, device=dev, requires_grad=True)
+    tcn(x)[0, 0, 0].backward()
+    g = x.grad[0, :, 0].abs().cpu()
+    print(f"  TCN (defaults) input gradient: |g| sum outside the receptive "
+          f"field (steps 0-10) {float(g[:11].sum())}, inside "
+          f"{float(g[11:].sum()):.3e}")
+    if float(g[:11].sum()) != 0.0 or not float(g[11:].sum()) > 0:
+        raise AssertionError("12a: TCN is not causal on the card")
+    out["tcn_outside_grad"] = float(g[:11].sum())
+    return out
+
+
+def zoo_fit(card, what, run, batch):
+    """``run()`` (a fit) with 11b's step figures (CUDA events, no sync
+    added) and peak memory; returns (its result, the figures)."""
+    with peak_memory() as mem, step_times() as times:
+        result = run()
+    return result, report_steps(card, what, times, batch, None,
+                                min(ZOO_WARM, len(times["ms"]) - 1), mem)
+
+
+def host_timed(fn):
+    """``fn()`` and its host seconds, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def zoo_ncf(dev, card):
+    """Config #1: bench_ncf's shape, then examples/train_ncf.py's task
+    (validation accuracy above 0.9), served through ``/predict``."""
+    b, e = ZOO_NCF_BENCH, ZOO_NCF_EXAMPLE
+    out = {}
+    rng = np.random.default_rng(0)
+    n = b["batch"] * b["steps_per_epoch"]
+    data = {"user": rng.integers(1, b["users"] + 1, n).astype(np.int32),
+            "item": rng.integers(1, b["items"] + 1, n).astype(np.int32),
+            "label": rng.integers(0, 2, n).astype(np.int32)}
+    torch.manual_seed(0)
+    est = Estimator.from_torch(
+        model=NeuralCF(b["users"], b["items"], user_embed=b["embed"],
+                       item_embed=b["embed"], mf_embed=b["embed"],
+                       hidden_layers=b["hidden"]),
+        loss="sparse_categorical_crossentropy", optimizer=b["lr"],
+        feature_cols=("user", "item"), label_cols=("label",), device=dev)
+    _, out["bench"] = zoo_fit(
+        card, "NCF bench_ncf (6040 x 3706, embed 64)",
+        lambda: est.fit(data, epochs=b["epochs"], batch_size=b["batch"]),
+        b["batch"])
+    del est, data
+    free_memory()
+    # examples/train_ncf.py: even item ids are liked
+    rng = np.random.default_rng(0)
+    n = e["rows"]
+    user = rng.integers(1, b["users"] + 1, n).astype(np.int32)
+    item = rng.integers(1, b["items"] + 1, n).astype(np.int32)
+    rows = {"user": user, "item": item,
+            "label": (item % 2 == 0).astype(np.int32)}
+    split = int(n * 0.9)
+    train = {k: v[:split] for k, v in rows.items()}
+    val = {k: v[split:] for k, v in rows.items()}
+
+    def make():
+        return NeuralCF(b["users"], b["items"], user_embed=e["embed"],
+                        item_embed=e["embed"], mf_embed=e["embed"],
+                        hidden_layers=e["hidden"])
+
+    torch.manual_seed(0)
+    est = Estimator.from_torch(
+        model=make(), loss="sparse_categorical_crossentropy",
+        optimizer=e["lr"], metrics=("accuracy",),
+        feature_cols=("user", "item"), label_cols=("label",), device=dev)
+    hist, fig = zoo_fit(
+        card, "NCF examples/train_ncf.py (embed 16)",
+        lambda: est.fit(train, epochs=e["epochs"], batch_size=e["batch"],
+                        validation_data=val), e["batch"])
+    ev, secs = host_timed(lambda: est.evaluate(val, batch_size=e["eval_batch"]))
+    scores = est.predict(val, batch_size=e["eval_batch"])
+    area = auc(scores[:, 1] - scores[:, 0], val["label"])
+    print(f"  epochs (the Estimator's own samples/s, validation inside "
+          f"the fit): {[round(h['samples_per_sec']) for h in hist]}; "
+          f"val_accuracy by epoch {[round(h['val_accuracy'], 4) for h in hist]}")
+    print(f"  evaluate of {len(val['label'])} rows in chunks of "
+          f"{e['eval_batch']}: {secs:.3f} s (per-row loss and metric, the "
+          f"reference's semantics); accuracy {ev['accuracy']:.4f} (above "
+          f"{e['min_acc']}), loss {ev['loss']:.4f}, auc {area:.4f}")
+    if not ev["accuracy"] > e["min_acc"]:
+        raise AssertionError(f"12b NCF: validation accuracy "
+                             f"{ev['accuracy']} not above {e['min_acc']}")
+    fig.update(val_accuracy=ev["accuracy"], auc=area, evaluate_s=secs,
+               evaluate_rows=len(val["label"]),
+               epoch_samples_per_s=[h["samples_per_sec"] for h in hist])
+    out["example"] = fig
+    # serving: an export, loaded into a fresh module
+    s = ZOO_SERVE
+    export = Path(__file__).resolve().parent / "build" / "ncf_export"
+    est.save(str(export))
+    im = InferenceModel(batch_buckets=(s["batch"],)).load(
+        str(export), make(), device=dev)
+    head = {k: v[:s["batch"]] for k, v in val.items()}
+    ref = est.predict(head, batch_size=s["batch"])
+    got = im.predict(head["user"], head["item"])
+    print(f"  Estimator.save -> InferenceModel.load -> predict = "
+          f"Estimator.predict on {s['batch']} rows: "
+          f"{np.array_equal(got, ref)}")
+    if not np.array_equal(got, ref):
+        raise AssertionError("12b NCF: the served model's predictions "
+                             "differ from Estimator.predict")
+    _, out["serving"] = serve_predict(card, im, val, ("user", "item"),
+                                      s["batch"], s["requests"],
+                                      s["clients"], "12b NCF")
+    del est, im
+    free_memory()
+    return out
+
+
+def zoo_wide_and_deep(dev, card):
+    """Config #5: bench_wide_and_deep's schema and batch."""
+    w = ZOO_WND
+    info = ColumnFeatureInfo(
+        wide_base_cols=("b0", "b1"), wide_base_dims=(100, 100),
+        indicator_cols=("gender",), indicator_dims=(3,),
+        embed_cols=("user", "item"), embed_in_dims=(6040, 3706),
+        embed_out_dims=(64, 64), continuous_cols=("age",))
+    rng = np.random.default_rng(0)
+    n = w["batch"] * w["steps_per_epoch"]
+    data = {
+        "wide_cols": np.stack([rng.integers(1, 101, n),
+                               rng.integers(101, 201, n)], 1).astype(
+                                   np.int32),
+        "indicator_cols": rng.integers(0, 3, (n, 1)).astype(np.int32),
+        "embed_cols": np.stack([rng.integers(0, 6040, n),
+                                rng.integers(0, 3706, n)], 1).astype(
+                                    np.int32),
+        "continuous_cols": rng.normal(size=(n, 1)).astype(np.float32),
+        "label": rng.integers(0, 2, n).astype(np.int32)}
+    torch.manual_seed(0)
+    model = WideAndDeep(class_num=2, column_info=info)
+    est = Estimator.from_torch(
+        model=model, loss="sparse_categorical_crossentropy", optimizer=1e-3,
+        feature_cols=tuple(model.feature_groups()), label_cols=("label",),
+        device=dev)
+    _, fig = zoo_fit(card, "Wide&Deep bench_wide_and_deep", lambda: est.fit(
+        data, epochs=w["epochs"], batch_size=w["batch"]), w["batch"])
+    del est, model
+    free_memory()
+    return fig
+
+
+def dien_task(rng, n, T, n_items):
+    """tests/test_model_zoo.py's planted task: click iff the target item
+    is in the history (ragged padding, half the rows forced positive)."""
+    hist = rng.integers(1, n_items + 1, (n, T)).astype(np.int32)
+    hist[:, T // 2:] = np.where(rng.random((n, T - T // 2)) < 0.3, 0,
+                                hist[:, T // 2:])
+    item = rng.integers(1, n_items + 1, n).astype(np.int32)
+    label = np.array([int(item[i] in hist[i]) for i in range(n)], np.int32)
+    pos = rng.random(n) < 0.5
+    for i in np.flatnonzero(pos & (label == 0)):
+        item[i] = hist[i, rng.integers(0, T // 2)]
+        label[i] = 1
+    return {"item": item, "history": hist, "label": label}
+
+
+def zoo_dien(dev, card):
+    """Config #5: DIEN at the reference's defaults over the MovieLens
+    catalog (history 50, ragged), then the reference test's planted task
+    (accuracy above 0.85)."""
+    d, t = ZOO_DIEN, ZOO_DIEN_TASK
+    out = {}
+    rng = np.random.default_rng(0)
+    n = d["batch"] * d["steps"]
+    hist = rng.integers(1, d["items"] + 1, (n, d["history"])).astype(
+        np.int32)
+    lens = rng.integers(d["min_len"], d["history"] + 1, n)
+    hist[np.arange(d["history"])[None] >= lens[:, None]] = 0
+    data = {"item": rng.integers(1, d["items"] + 1, n).astype(np.int32),
+            "history": hist, "label": rng.integers(0, 2, n).astype(np.int32)}
+    torch.manual_seed(0)
+    est = Estimator.from_torch(
+        model=DIEN(d["items"]), loss="sparse_categorical_crossentropy",
+        optimizer=1e-3, feature_cols=("item", "history"),
+        label_cols=("label",), device=dev)
+    _, out["main"] = zoo_fit(
+        card, f"DIEN (3706 items, history {d['history']})",
+        lambda: est.fit(data, epochs=1, batch_size=d["batch"]), d["batch"])
+    del est, data
+    free_memory()
+    data = dien_task(np.random.default_rng(0), t["rows"], t["T"],
+                     t["items"])
+    torch.manual_seed(0)
+    est = Estimator.from_torch(
+        model=DIEN(item_count=t["items"], item_embed=16, gru_hidden=16),
+        loss="sparse_categorical_crossentropy", optimizer=5e-3,
+        metrics=("accuracy",), feature_cols=("item", "history"),
+        label_cols=("label",), device=dev)
+    _, fig = zoo_fit(card, "DIEN planted history-membership task",
+                     lambda: est.fit(data, epochs=t["epochs"],
+                                     batch_size=t["batch"]), t["batch"])
+    ev = est.evaluate(data, batch_size=t["batch"])
+    print(f"  planted task accuracy {ev['accuracy']:.4f} (above "
+          f"{t['min_acc']})")
+    if not ev["accuracy"] > t["min_acc"]:
+        raise AssertionError(f"12b DIEN: accuracy {ev['accuracy']} not "
+                             f"above {t['min_acc']}")
+    fig["accuracy"] = ev["accuracy"]
+    out["task"] = fig
+    return out
+
+
+def zoo_forecast(dev, card):
+    """Config #4: bench_forecast's LSTMForecaster, examples/
+    forecast_taxi.py (holdout mse below 0.15), TCNForecaster at its
+    defaults on the same windows, one fit each of MTNet and Seq2Seq,
+    then AutoTS on a dict series and a TSPipeline round trip."""
+    fb, tx = ZOO_FORECAST_BENCH, ZOO_TAXI
+    out = {}
+    t = np.arange(fb["points"], dtype=np.float32)
+    series = (10 + 3 * np.sin(2 * np.pi * t / 48)
+              + 0.3 * np.random.default_rng(0).normal(size=t.size))
+    series = StandardScaler().fit_transform(series[:, None].astype(
+        np.float32))
+    x, y = roll(series, fb["lookback"], 1)
+    torch.manual_seed(0)
+    fc = LSTMForecaster(1, 1, lstm_units=fb["units"], device=dev)
+    fc.fit(x[:1024], y[:1024], epochs=1, batch_size=fb["batch"])
+    fc.evaluate(x[:512], y[:512])
+    last, fig = zoo_fit(
+        card, f"LSTMForecaster bench_forecast ({len(x)} windows of "
+        f"{fb['lookback']})",
+        lambda: fc.fit(x, y, epochs=1, batch_size=fb["batch"]), fb["batch"])
+    profile_step(fc.estimator, {"x": x[:fb["batch"]], "y": y[:fb["batch"]]})
+    mse = fc.evaluate(x[-2048:], y[-2048:])["mse"]
+    print(f"  the Estimator's samples/s {last['samples_per_sec']:.1f}; "
+          f"holdout mse (last 2048 windows) {mse:.4f}")
+    fig.update(holdout_mse=mse, epoch_samples_per_s=last["samples_per_sec"])
+    out["lstm_bench"] = fig
+    del fc, x, y
+    free_memory()
+    # examples/forecast_taxi.py
+    scaled = StandardScaler().fit_transform(zoo_series(tx["points"])[:, None])
+    x, y = roll(scaled, tx["lookback"], 1)
+    split = int(len(x) * 0.9)
+    torch.manual_seed(0)
+    fc = LSTMForecaster(1, 1, lstm_units=tx["units"], lr=tx["lr"],
+                        device=dev)
+    _, fig = zoo_fit(card, "LSTMForecaster examples/forecast_taxi.py",
+                     lambda: fc.fit(x[:split], y[:split], epochs=tx["epochs"],
+                                    batch_size=tx["batch"]), tx["batch"])
+    ev = fc.evaluate(x[split:], y[split:], metrics=("mse", "mae"))
+    print(f"  taxi holdout mse {ev['mse']:.4f} (below {tx['max_mse']}), "
+          f"mae {ev['mae']:.4f}")
+    if not ev["mse"] < tx["max_mse"]:
+        raise AssertionError(f"12b taxi: holdout mse {ev['mse']} not below "
+                             f"{tx['max_mse']}")
+    fig.update(holdout_mse=ev["mse"], holdout_mae=ev["mae"])
+    out["taxi_lstm"] = fig
+    torch.manual_seed(0)
+    fc = TCNForecaster(1, 1, device=dev)
+    _, fig = zoo_fit(card, "TCNForecaster (defaults), taxi windows",
+                     lambda: fc.fit(x[:split], y[:split], epochs=tx["epochs"],
+                                    batch_size=tx["batch"]), tx["batch"])
+    fig["holdout_mse"] = fc.evaluate(x[split:], y[split:])["mse"]
+    print(f"  TCN holdout mse {fig['holdout_mse']:.4f}")
+    out["taxi_tcn"] = fig
+    mx, my = roll(scaled, 40, 1)            # (long_num + 1) * series_length
+    for name, fc, fx, fy in (
+            ("MTNetForecaster (defaults)", MTNetForecaster(device=dev), mx,
+             my),
+            ("Seq2SeqForecaster (defaults)", Seq2SeqForecaster(device=dev),
+             x, y)):
+        _, fig = zoo_fit(card, name + ", one epoch of taxi windows",
+                         lambda: fc.fit(fx, fy, epochs=1,
+                                        batch_size=tx["batch"]), tx["batch"])
+        out[name.split("Forecaster")[0].lower()] = fig
+    del fc
+    free_memory()
+    # AutoTS on a dict series (no pandas on the card): trials and the
+    # winner on the context's device
+    init_orca_context("local")
+    try:
+        trainer = AutoTSTrainer(horizon=1)
+        series = {"value": zoo_series(tx["points"])}
+        pipe, secs = host_timed(lambda: trainer.fit(
+            series, n_sampling=ZOO_AUTOTS["n_sampling"],
+            epochs=ZOO_AUTOTS["epochs"]))
+        ev = pipe.evaluate(series, metrics=("mse", "mae"))
+        preds = pipe.predict(series)
+        path = Path(__file__).resolve().parent / "build" / "autots_pipeline"
+        pipe.save(str(path))
+        again = TSPipeline.load(str(path)).predict(series)
+    finally:
+        stop_orca_context()
+    same = bool(np.array_equal(again, preds))
+    print(f"  [{card}] AutoTSTrainer: {ZOO_AUTOTS['n_sampling']} samples x "
+          f"{ZOO_AUTOTS['epochs']} epochs in {secs:.2f} s, best config "
+          f"{pipe.config}; evaluate (original units) mse {ev['mse']:.4f}, "
+          f"mae {ev['mae']:.4f}; TSPipeline save -> load -> predict equal: "
+          f"{same} ({preds.shape[0]} windows)")
+    if not same or not np.isfinite(preds).all():
+        raise AssertionError("12b AutoTS: the loaded pipeline predicts "
+                             "otherwise")
+    out["autots"] = {"seconds": secs, "config": pipe.config,
+                     "mse": ev["mse"], "mae": ev["mae"]}
+    return out
+
+
+def phase_zoo(dev, card):
+    """Phase 12: 12a, then 12b's main paths in bf16; none of the four
+    kernels may launch: every counter is set to 0 first and must read 0
+    after."""
+    fa.paged_attention_fused.launches = 0
+    reset_flash()
+    free_memory()
+    out = {"12a": phase_zoo_parity(dev)}
+    print("== phase 12b: the zoo's main paths, bf16, shapes of bench.py and "
+          "examples/")
+    out["ncf"] = zoo_ncf(dev, card)
+    out["wide_and_deep"] = zoo_wide_and_deep(dev, card)
+    out["dien"] = zoo_dien(dev, card)
+    out["forecast"] = zoo_forecast(dev, card)
+    after = zoo_launches()
+    print(f"  paged / flash forward / flash backward launches during phase "
+          f"12: {after}")
+    if after != (0, 0, 0):
+        raise AssertionError("phase 12 launched an attention kernel")
+    free_memory()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3726,6 +4271,13 @@ def main() -> int:
         lap("phase 7's BERT rows, 11c")
         print(card)
         print(json.dumps({"kernels": rows, "bert": bert}))
+        return 0
+
+    if sys.argv[1:2] == ["--zoo"]:
+        zoo = phase_zoo(dev, card)
+        lap("phase 12")
+        print(card)
+        print(json.dumps({"zoo": zoo}))
         return 0
 
     phase_build()
@@ -3769,6 +4321,9 @@ def main() -> int:
     lap("phase 10a")
     serving_modes["10b"] = phase_fleet_llama(dev, card, llama_model)
     lap("phase 10b")
+    del llama_model
+    zoo = phase_zoo(dev, card)
+    lap("phase 12")
     for e in kernels:
         # each kernel's launches in phase 8b's two servers (the paged
         # server reads through paged, the arena prefills through flash);
@@ -3782,7 +4337,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "stack": {
         name: run["pairs"] for name, run in stack.items()},
         "modes": modes["runs"], "witness": modes["witness"],
-        "serving_modes": serving_modes, "bert": bert}))
+        "serving_modes": serving_modes, "bert": bert, "zoo": zoo}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

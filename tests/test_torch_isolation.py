@@ -61,7 +61,21 @@ def test_scan_reaches_every_port_module():
             "analytics_zoo_tpu_torch.utils.transform",
             "analytics_zoo_tpu_torch.data.shards",
             "analytics_zoo_tpu_torch.frames.nnframes",
-            "analytics_zoo_tpu_torch.tfpark.text"} <= mods
+            "analytics_zoo_tpu_torch.tfpark.text",
+            "analytics_zoo_tpu_torch.models.layers",
+            "analytics_zoo_tpu_torch.models.rnn",
+            "analytics_zoo_tpu_torch.models.ncf",
+            "analytics_zoo_tpu_torch.models.recommendation",
+            "analytics_zoo_tpu_torch.models.forecast",
+            "analytics_zoo_tpu_torch.common.context",
+            "analytics_zoo_tpu_torch.zouwu",
+            "analytics_zoo_tpu_torch.zouwu.preprocessing",
+            "analytics_zoo_tpu_torch.zouwu.forecaster",
+            "analytics_zoo_tpu_torch.zouwu.autots",
+            "analytics_zoo_tpu_torch.automl",
+            "analytics_zoo_tpu_torch.automl.hp",
+            "analytics_zoo_tpu_torch.automl.search",
+            "analytics_zoo_tpu_torch.automl.auto_estimator"} <= mods
 
 
 def test_forbidden_name_check_is_exact():

@@ -1,6 +1,6 @@
-"""The port's copies of the framework-free modules (serving, and the
-training path's triggers, transforms and XShards), pinned to their
-reference sources.
+"""The port's copies of the framework-free modules (serving, the
+training path's triggers, transforms and XShards, Zouwu's preprocessing
+and AutoTS, and AutoML's search), pinned to their reference sources.
 
 Each module of ``analytics_zoo_tpu_torch`` that is a copy of a module of
 ``analytics_zoo_tpu`` must parse to the same syntax tree as its
@@ -45,6 +45,15 @@ PINS = {
     "learn/triggers.py": (),
     "utils/transform.py": (),
     "data/shards.py": (),
+    # Zouwu and AutoML: numpy-only modules, and AutoTS on the port's
+    # forecasters
+    "zouwu/preprocessing.py": (),
+    "zouwu/autots.py": (),
+    "automl/hp.py": (),
+    # distributed trials (jax.process_count, process_allgather) are not
+    # ported: distributed=True raises naming ROADMAP item 6
+    "automl/search.py": ("SearchEngine.__init__", "SearchEngine._nprocs",
+                         "SearchEngine._run_distributed"),
 }
 
 
