@@ -15,47 +15,64 @@
 //   a fully masked row); lse f32 [B*H, Tq] = m + log l, or +1e30 where
 //   l == 0, kept for the backward kernels.
 //
-// Two kernels, chosen by the operand type in flash_attention_fwd (an
-// explicit dispatch, not a fallback):
+// Three kernels, chosen up front by the operand type and, in bf16, by
+// the head dim in flash_attention_fwd (an explicit dispatch, never a
+// fallback after a failed launch):
 //
-// bf16 (every main path: serving and training compute in bf16):
-// flash_fwd_bf16_kernel, FlashAttention-2's design on the tensor cores.
-// What bounds the work: at the training shape (B=8, T=1024, H=12, D=64,
-// causal) the bytes are 50 MB (q, k, v, o once, lse), 15 us at
-// 3.35 TB/s, and the causal q.k and p.v products 12.9 GFLOP, 13 us at the
-// 989 TFLOP/s bf16 tensor rate: the two bounds meet, so the products must
-// run on tensor cores and the loads must stay in flight behind them.
-// One block of 4 warps per (64-row query tile, b*H + h), the heaviest
-// causal tiles first; each warp owns 16 query rows.  The block walks the
-// key tiles of 64 up to the tile's causal frontier min(nk, q_last/64 + 1)
-// (the TPU kernel's _block_live skip).
-//   - Tensor cores: q.k and p.V are mma.sync m16n8k16 bf16 -> f32.  The
-//     warp's Q A fragments are loaded once by ldmatrix and stay in
-//     registers; K's B fragments come from ldmatrix on the K tile (its
-//     rows are already the "col" operand), V's from ldmatrix.trans.
-//   - P never leaves registers: two neighbouring n8 score accumulators,
-//     rounded to bf16 (the TPU cast point) and packed, are one k16 A
-//     fragment of p.V.  Row max and row sum reduce over the 4 lanes of a
-//     quad; the row sum is reduced once, at the end.
-//   - In flight: K and V tiles stay bf16 in shared memory ([64][D + 8],
-//     conflict-free for ldmatrix), two stages filled by 16-byte cp.async;
-//     tile j + 1 is copied while tile j is multiplied.  Rows past Tk are
-//     zero-filled by the copy itself.
-//   - Masks: the causal comparison runs only on a warp's diagonal tile;
-//     the key mask is read as bytes, per tile, only when given; rows past
-//     Tq are never written; a fully masked row keeps o = 0 and
-//     lse = +1e30 exactly.
-//   Shared memory: (64 + 4 x 64) rows of D + 8 bf16: 25 KB (D=32), 45 KB
-//   (D=64), 65 KB (D=96), 85 KB (D=128).
-// Where this stops, and what is left: on Hopper only wgmma reaches the
-// full tensor-core rate, and cp.async spends a thread's instruction slots on
-// every 16-byte copy.  wgmma (a warpgroup's 64-row product, B read from
-// shared memory by the tensor cores themselves, asynchronous) and TMA
-// (one thread moves a whole tile and an mbarrier reports it), with a
-// producer warp and two consumer warpgroups, are the rest of the way to
-// the card's rate.  The design stops at mma.sync because the dq kernel
-// (flash_attention_bwd.cu) shares it: its 16-row warp tile and register
-// fragments carry over unchanged.
+// bf16 at D = 64 and 128 (every main path is D = 64):
+// flash_fwd_wgmma_kernel, FlashAttention-3's design on Hopper's own
+// instructions (hopper.cuh).  What bounds the work: at TinyLlama's
+// training shape (B=4, T=2048, H=32, D=64, causal) the causal q.k and
+// p.v products are 68.8 GFLOP, 0.0695 ms at the 989 TFLOP/s bf16 tensor
+// rate, against 34 MB of bytes (0.010 ms); and its 268.6 M live scores
+// need as many exponentials, about 0.069 ms at the ~3.9 T/s of the
+// special-function units, besides the masking, maxima, sums and
+// conversions around each.  So the softmax of one consumer must run
+// while the tensor cores work on the other's products.
+//   - Grid and roles: one block of 384 threads per (128-row query tile,
+//     b*H + h), a head's tiles neighbours in the grid (the heaviest
+//     causal tile first), so the blocks in flight share each head's K
+//     and V through L2.  Warpgroup 0 is the producer: it gives
+//     registers back (setmaxnreg) and one thread loads the Q tile once
+//     and the K and V tiles of 128 keys into a ring by TMA (kv_stages:
+//     4 at D = 64, 3 at D = 128), each stage with a full and an empty
+//     mbarrier.  Warpgroups 1 and 2 are consumers of 64 query rows each
+//     and take the registers (232 a thread).
+//   - Products: S = Q.K^T is wgmma with A = Q and B = K both from shared
+//     memory (K-major); O += P.V is wgmma with A = P, the S accumulators
+//     rounded to bf16 in registers (the TPU kernel's cast point, p to v's
+//     dtype), and B = V from shared memory (MN-major).  P never leaves
+//     registers.  Descriptors are built once and moved by byte offsets.
+//   - Schedule: turn j issues S(j) and P(j-1).V(j-1) together; the
+//     consumers take turns at the tensor cores (two named barriers), and
+//     each runs tile j's softmax while its P(j-1).V(j-1) is in flight.
+//     The first and last turns are peeled so that every wgmma of the
+//     loop is unconditional (under a branch ptxas serialises them).
+//   - Softmax: the row maxima of the raw scores (four chains a row), the
+//     scale folded into the exponent (one FFMA and one ex2.approx a
+//     score), the m_sub guard of the TPU kernel, the row sums in two
+//     chains; O and l are rescaled once P(j-1).V(j-1) has landed.
+//   - Masks: the block walks the key tiles up to its causal frontier
+//     min(nk, q_last / 128 + 1) (the TPU kernel's _block_live skip).
+//     Only where a warp's rows meet the diagonal, keys run past Tk
+//     (zero-filled by TMA) or a key mask is given is any score masked;
+//     that test is hoisted out of the score loops and is branch-free
+//     inside them (a per-score branch costs each score a convergence
+//     barrier, more than its exponential), the key mask read once a tile
+//     into a bit set.  A fully masked row keeps o = 0 and lse = +1e30,
+//     and rows past Tq are never written.
+//   - D = 128 takes two 64-column TMA boxes per tile (128-byte rows are
+//     the swizzle's width).  Shared memory: the Q tile and the K/V ring,
+//     144 KB (D=64) and 224 KB (D=128), one block an SM.
+//
+// bf16 at D = 32 and 96: flash_fwd_bf16_kernel, FlashAttention-2's
+// design on mma.sync m16n8k16 (tensor_core.cuh), kept for these head
+// dims (no main path runs them).  One block of 4 warps per (64-row query
+// tile, b*H + h); each warp owns 16 query rows and holds its Q fragments
+// in registers; K and V tiles ([64][D + 8] bf16, conflict-free for
+// ldmatrix) come in two stages of 16-byte cp.async; P goes from the
+// score accumulators straight into A fragments.  Shared memory 25 KB
+// (D=32), 65 KB (D=96).
 //
 // f32: flash_fwd_kernel, CUDA-core f32 products, exact f32 operands as
 // the TPU kernel multiplies them (preferred_element_type=f32; TF32
@@ -66,9 +83,10 @@
 // 64 x 64 score tile, and the online-softmax state of a row lives in the
 // 8 lanes that hold its scores.
 //
-// Plain C interface (loaded with ctypes): flash_attention_fwd returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// shape it does not take.
+// Plain C interface (loaded with ctypes): flash_attention_fwd encodes the
+// tensor maps (bf16, D = 64 and 128) and returns cudaGetLastError() after
+// the launch, cudaErrorInvalidValue for a shape it does not take, or the
+// error of a tensor map cuTensorMapEncodeTiled refuses.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +94,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -281,7 +300,7 @@ constexpr size_t bf16_smem_bytes() {
   return sizeof(__nv_bfloat16) * (kBq + 4 * kBk) * (D + tc::kPad);
 }
 
-// bf16 operands on the tensor cores (see the header)
+// bf16 operands on mma.sync, D = 32 and 96 (see the header)
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -424,14 +443,335 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- bf16, D = 64 and 128: warp-specialised wgmma + TMA (see the header)
+
+constexpr int kWgRows = 128;     // query rows a block: two consumers of 64
+constexpr int kWgKeys = 128;     // keys a tile
+// stages of the K/V ring: tile j - 1's V is still read while tile j's
+// K is, and a load must stay in flight behind them: 4 at D = 64 (144 KB
+// of tiles), 3 at D = 128 (224 KB)
+template <int D>
+__host__ __device__ constexpr int kv_stages() {
+  return D <= 64 ? 4 : 3;
+}
+constexpr int kWgThreads = 384;  // the producer warpgroup and two consumers
+constexpr int kConsumers = 256;  // consumer threads
+// registers a thread: 40 x 128 + 232 x 256 <= 65536
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+// named barriers kTurn + c: consumer c's turn at the tensor cores
+// (barrier 0 is __syncthreads)
+constexpr int kTurn = 1;
+
+template <int D>
+struct WgSmem {
+  // 1024-byte aligned tiles of D / 64 boxes [rows][64] (128-byte swizzle)
+  __nv_bfloat16 q[kWgRows * D];
+  __nv_bfloat16 k[kv_stages<D>()][kWgKeys * D];
+  __nv_bfloat16 v[kv_stages<D>()][kWgKeys * D];
+  uint64_t q_full, full[kv_stages<D>()], empty[kv_stages<D>()];
+};
+
+template <int D>
+constexpr size_t wg_smem_bytes() {
+  return sizeof(WgSmem<D>) + 1024;  // + the slack align1024 may skip
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (hop::smem_u32(p) & 1023)) & 1023);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const uint8_t* __restrict__ kv_mask,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int Tq, int Tk, int H,
+                           float scale, int causal) {
+  constexpr int kBox = kWgKeys * 64;  // elements of a [128][64] box
+  constexpr int kStages = kv_stages<D>();
+  constexpr int kNs = kWgKeys / 8;    // n8 blocks of a score row
+  constexpr int kNo = D / 8;          // n8 blocks of an output row
+  extern __shared__ uint8_t smem_raw[];
+  WgSmem<D>& sm = *reinterpret_cast<WgSmem<D>*>(align1024(smem_raw));
+  // a head's query tiles are neighbours in the grid, so the blocks in
+  // flight share their K and V through L2; within a head the last query
+  // tiles carry the most causal work and start first
+  const int n_tiles = (Tq + kWgRows - 1) / kWgRows;
+  const int bh = blockIdx.x / n_tiles;  // b * H + h
+  const int b = bh / H, h = bh % H;
+  const int q0 = (n_tiles - 1 - blockIdx.x % n_tiles) * kWgRows;
+  const int q_last = min(q0 + kWgRows, Tq) - 1;
+  int nk = (Tk + kWgKeys - 1) / kWgKeys;
+  if (causal) nk = min(nk, q_last / kWgKeys + 1);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&sm.full[s], 1);
+      hop::mbar_init(&sm.empty[s], kConsumers);
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer: one thread issues every load
+    hop::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hop::prefetch_map(&tm_q);
+      hop::prefetch_map(&tm_k);
+      hop::prefetch_map(&tm_v);
+      hop::mbar_arrive_expect_tx(&sm.q_full, kWgRows * D * 2);
+      for (int x = 0; x < D / 64; ++x)
+        hop::tma_load_3d(sm.q + x * kWgRows * 64, &tm_q, &sm.q_full,
+                         h * D + 64 * x, q0, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % kStages;
+        // the first pass over the ring finds every stage free
+        hop::mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
+        hop::mbar_arrive_expect_tx(&sm.full[s], 2 * kWgKeys * D * 2);
+        for (int x = 0; x < D / 64; ++x) {
+          hop::tma_load_3d(sm.k[s] + x * kBox, &tm_k, &sm.full[s],
+                           h * D + 64 * x, j * kWgKeys, b);
+          hop::tma_load_3d(sm.v[s] + x * kBox, &tm_v, &sm.full[s],
+                           h * D + 64 * x, j * kWgKeys, b);
+        }
+      }
+    }
+    return;
+  }
+
+  hop::setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;  // this consumer's rows: 64 cw .. 64 cw + 63
+  const int tid = threadIdx.x - 128 * wg;
+  const int lane = tid % 32;
+  const int r0 = 64 * cw + 16 * (tid / 32);  // the warp's first row
+  const int c2 = (lane % 4) * 2;             // the lane's column pair
+  // the lane's two rows, g and g + 8 of the warp's 16
+  const int rows[2] = {q0 + r0 + lane / 4, q0 + r0 + lane / 4 + 8};
+  const uint8_t* mb =
+      kv_mask ? kv_mask + static_cast<size_t>(b) * Tk : nullptr;
+  const float scale2 = scale * tc::kLog2e;  // to base-2 units
+  // this consumer's 64 rows of the Q tile, in every box
+  const __nv_bfloat16* qs = sm.q + 64 * cw * 64;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // per lane row: running max (raw scores) and this lane's part of l
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  // shared-memory descriptors, built once: a k16 step or a stage moves
+  // a descriptor by its byte offset >> 4 (hopper.cuh)
+  const uint64_t q_desc = hop::desc_sw128(qs, 16, 1024);
+  const uint64_t k_desc = hop::desc_sw128(sm.k[0], 16, 1024);
+  const uint64_t v_desc = hop::desc_sw128(sm.v[0], kBox * 2, 1024);
+  constexpr uint64_t kStageStep = kWgKeys * D * 2 / 16;  // one K/V stage
+  // the tile's scores: S = Q . K^T of tile j into s (K-major A and B),
+  // in raw units (the scale is folded into the exponent)
+  float s[kWgKeys / 2];
+  auto issue_scores = [&](int j) {
+    const uint64_t kd = k_desc + (j % kStages) * kStageStep;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // box kk / 4 (kBox elements), k16 step kk % 4 (32 bytes)
+      hop::wgmma_ss<kWgKeys>(
+          s, q_desc + ((kk / 4) * kWgRows * 128 + (kk % 4) * 32) / 16,
+          kd + ((kk / 4) * kBox * 2 + (kk % 4) * 32) / 16, kk > 0);
+    }
+  };
+  // P of the last tile, bf16 A operands of its P . V, which runs while
+  // the next tile's softmax does
+  uint32_t pa[kWgKeys / 16][4];
+  // O += P(j) . V(j), V's rows the k dimension (MN-major, 16 rows a step)
+  auto issue_pv = [&](int j) {
+    const uint64_t vd = v_desc + (j % kStages) * kStageStep;
+#pragma unroll
+    for (int kk = 0; kk < kWgKeys / 16; ++kk)  // 16 rows of 128 bytes
+      hop::wgmma_rs<D>(acc, pa[kk], vd + kk * 16 * 128 / 16);
+  };
+  // masks and exponentials of tile j in s: p in s, the rescale of the
+  // running sums in alpha, this tile's row sums in ls
+  float alpha[2], ls[2][2];
+  auto softmax = [&](int j) {
+    const int k0 = j * kWgKeys;
+    // keys past Tk, masked keys, or (causal) keys past the warp's first
+    // row: only then is any key of this tile dead for this warp.  The
+    // test is hoisted out of the element loops, and inside them it is
+    // branch-free: a per-element branch costs each score a convergence
+    // barrier (BSSY/BSYNC), more than its exponential
+    const bool edge = k0 + kWgKeys > Tk || mb != nullptr ||
+                      (causal && k0 + kWgKeys - 1 > q0 + r0);
+    if (edge) {
+      // bit 2n + c: key k0 + 8n + c2 + c is in range and not masked (the
+      // lane's keys are the same for both its rows)
+      uint32_t keep = 0;
+#pragma unroll
+      for (int n = 0; n < kNs; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          keep |= static_cast<uint32_t>(k0 + n * 8 + c2 + c < Tk)
+                  << (2 * n + c);
+      if (mb != nullptr) {
+#pragma unroll
+        for (int n = 0; n < kNs; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            keep &= ~(static_cast<uint32_t>(
+                          mb[min(k0 + n * 8 + c2 + c, Tk - 1)] == 0)
+                      << (2 * n + c));
+      }
+#pragma unroll
+      for (int n = 0; n < kNs; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = k0 + n * 8 + c2 + (e & 1);
+          const bool dead = ((keep >> (2 * n + (e & 1))) & 1u) == 0u ||
+                            (causal && t > rows[e / 2]);
+          s[4 * n + e] = dead ? kNegInf : s[4 * n + e];
+        }
+    }
+    // row maxima of the raw scores (the scale is positive), four
+    // independent chains a row (max is exact in any order)
+    float mx[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) mx[i][c] = kNegInf;
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mx[e / 2][(n % 2) * 2 + (e & 1)] =
+            fmaxf(mx[e / 2][(n % 2) * 2 + (e & 1)], s[4 * n + e]);
+    float m_sub[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float tile_max = fmaxf(fmaxf(mx[i][0], mx[i][1]),
+                                   fmaxf(mx[i][2], mx[i][3]));
+      const float m_new = fmaxf(m[i], tc::quad_max(tile_max));
+      // a row with nothing live yet subtracts 0 (the m_sub guard), in
+      // base-2 units
+      m_sub[i] = m_new > kNegInf * 0.5f ? m_new * scale2 : 0.f;
+      alpha[i] = hop::ex2((m[i] - m_new) * scale2);
+      m[i] = m_new;
+    }
+    // p in f32, the row sums in two chains a row
+#pragma unroll
+    for (int i = 0; i < 2; ++i) ls[i][0] = ls[i][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = hop::ex2(fmaf(s[4 * n + e], scale2, -m_sub[e / 2]));
+        ls[e / 2][n % 2] += p;
+        s[4 * n + e] = p;
+      }
+  };
+  // fold tile j's softmax in once the last P . V has landed: rescale l
+  // and O, and round p to bf16 (the TPU cast point) straight into A
+  // operands: n8 blocks 2kk and 2kk + 1 are the k16 step kk of P . V
+  auto fold = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = l[i] * alpha[i] + ls[i][0] + ls[i][1];
+#pragma unroll
+      for (int n = 0; n < kNo; ++n) {
+        acc[4 * n + 2 * i] *= alpha[i];
+        acc[4 * n + 2 * i + 1] *= alpha[i];
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+      pa[kk][0] = tc::pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = tc::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = tc::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = tc::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  // Turn j issues S(j) and P(j-1) . V(j-1) together, then runs tile j's
+  // softmax while P(j-1) . V(j-1) is on the tensor cores.  The consumers
+  // take the turns in order (named barriers), so their products reach
+  // the tensor cores one consumer at a time and one consumer's masking
+  // and exponentials run while the other's products do (issuing a wgmma
+  // holds the warp about as long as the product runs).  The first and
+  // last turns are peeled: every wgmma of the loop is unconditional,
+  // which ptxas needs to keep them asynchronous (under a branch it
+  // serialises each one).  Consumer 0 takes the first turn.
+  if (nk > 0) {
+    if (cw == 1) hop::bar_arrive(kTurn, kConsumers);
+    hop::mbar_wait(&sm.q_full, 0);
+    hop::mbar_wait(&sm.full[0], 0);
+    hop::bar_sync(kTurn + cw, kConsumers);
+    hop::wgmma_fence();
+    issue_scores(0);
+    hop::wgmma_commit();
+    hop::bar_arrive(kTurn + (cw ^ 1), kConsumers);
+    hop::wgmma_wait<0>();
+    hop::fence_regs(s);
+    softmax(0);
+    fold();
+    for (int j = 1; j < nk; ++j) {
+      hop::mbar_wait(&sm.full[j % kStages], (j / kStages) & 1);
+      hop::bar_sync(kTurn + cw, kConsumers);
+      hop::wgmma_fence();
+      issue_scores(j);
+      hop::wgmma_commit();
+      issue_pv(j - 1);
+      hop::wgmma_commit();
+      hop::bar_arrive(kTurn + (cw ^ 1), kConsumers);
+      hop::wgmma_wait<1>();  // S(j) has landed; P(j-1) . V(j-1) runs on
+      hop::fence_regs(s);
+      softmax(j);
+      hop::wgmma_wait<0>();  // P(j-1) . V(j-1) has landed
+      hop::fence_regs(acc);
+      hop::fence_regs(pa);
+      hop::mbar_arrive(&sm.empty[(j - 1) % kStages]);  // may be refilled
+      fold();
+    }
+    // the last P . V (consumer 1's last turn has no successor)
+    hop::bar_sync(kTurn + cw, kConsumers);
+    hop::wgmma_fence();
+    issue_pv(nk - 1);
+    hop::wgmma_commit();
+    if (cw == 0) hop::bar_arrive(kTurn + 1, kConsumers);
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    hop::fence_regs(pa);
+    hop::mbar_arrive(&sm.empty[(nk - 1) % kStages]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = tc::quad_sum(l[i]);
+    const int t = rows[i];
+    if (t >= Tq) continue;
+    const float l_safe = li > 0.f ? li : 1.f;
+    __nv_bfloat16* orow =
+        o + (static_cast<size_t>(b) * Tq + t) * H * D + h * D;
+#pragma unroll
+    for (int n = 0; n < kNo; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + c2) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * i] / l_safe,
+                                acc[4 * n + 2 * i + 1] / l_safe);
+    if (c2 == 0)
+      lse[static_cast<size_t>(bh) * Tq + t] =
+          li > 0.f ? m[i] * scale + logf(l_safe) : -kNegInf;
+  }
+}
+
+// the f32 kernel (T = float) or the mma.sync bf16 kernel, 128 threads,
+// one block per 64-row query tile
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* mask, void* o, float* lse, int B, int Tq,
-                   int Tk, int H, int causal, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch_rowwise(const void* q, const void* k, const void* v,
+                           const uint8_t* mask, void* o, float* lse, int B,
+                           int Tq, int Tk, int H, int causal, float scale,
+                           cudaStream_t stream) {
   const dim3 grid(B * H, (Tq + kBq - 1) / kBq);
-  // the operand type picks the kernel: bf16 on the tensor cores, f32 on
-  // the CUDA cores
   void (*kernel)(const T*, const T*, const T*, const uint8_t*, T*, float*,
                  int, int, int, float, int);
   size_t smem;
@@ -453,36 +793,67 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the wgmma kernel: q, k and v through tensor maps
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const uint8_t* mask, void* o, float* lse, int B,
+                         int Tq, int Tk, int H, int causal, float scale,
+                         cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  // with no keys the K and V maps are never read: q stands in for them
+  cudaError_t e = hop::map_bthd(&mq, q, B, Tq, H, D, kWgRows);
+  if (e == cudaSuccess)
+    e = hop::map_bthd(&mk, Tk > 0 ? k : q, B, Tk, H, D, kWgKeys);
+  if (e == cudaSuccess)
+    e = hop::map_bthd(&mv, Tk > 0 ? v : q, B, Tk, H, D, kWgKeys);
+  if (e != cudaSuccess) return e;
+  constexpr size_t smem = wg_smem_bytes<D>();
+  e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const long long blocks =
+      static_cast<long long>(B) * H * ((Tq + kWgRows - 1) / kWgRows);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_wgmma_kernel<D><<<static_cast<unsigned>(blocks), kWgThreads,
+                              smem, stream>>>(
+      mq, mk, mv, mask, static_cast<__nv_bfloat16*>(o), lse, Tq, Tk, H,
+      scale, causal);
+  return cudaGetLastError();
+}
+
 // The head dims the kernels are instantiated for: the multiples of 32 up
-// to 128, the set every kernel of the port takes.  Any other D is
-// refused; the Python dispatch routes it to the plain version up front.
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     const uint8_t* mask, void* o, float* lse, int B, int Tq,
-                     int Tk, int H, int causal, float scale,
+// to 128, the set every kernel of the port takes.  bf16 picks its kernel
+// by D up front: wgmma at 64 and 128, mma.sync at 32 and 96.  Any other
+// D is refused; the Python dispatch routes it to the plain version first.
+cudaError_t launch_d(int bf16, int D, const void* q, const void* k,
+                     const void* v, const uint8_t* mask, void* o, float* lse,
+                     int B, int Tq, int Tk, int H, int causal, float scale,
                      cudaStream_t stream) {
+#define FLASH_ARGS q, k, v, mask, o, lse, B, Tq, Tk, H, causal, scale, stream
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, mask, o, lse, B, Tq, Tk, H, causal,
-                           scale, stream);
+      return bf16 ? launch_rowwise<__nv_bfloat16, 32>(FLASH_ARGS)
+                  : launch_rowwise<float, 32>(FLASH_ARGS);
     case 64:
-      return launch<T, 64>(q, k, v, mask, o, lse, B, Tq, Tk, H, causal,
-                           scale, stream);
+      return bf16 ? launch_wgmma<64>(FLASH_ARGS)
+                  : launch_rowwise<float, 64>(FLASH_ARGS);
     case 96:
-      return launch<T, 96>(q, k, v, mask, o, lse, B, Tq, Tk, H, causal,
-                           scale, stream);
+      return bf16 ? launch_rowwise<__nv_bfloat16, 96>(FLASH_ARGS)
+                  : launch_rowwise<float, 96>(FLASH_ARGS);
     case 128:
-      return launch<T, 128>(q, k, v, mask, o, lse, B, Tq, Tk, H, causal,
-                            scale, stream);
+      return bf16 ? launch_wgmma<128>(FLASH_ARGS)
+                  : launch_rowwise<float, 128>(FLASH_ARGS);
     default:
       return cudaErrorInvalidValue;
   }
+#undef FLASH_ARGS
 }
 
 }  // namespace
 
 // q [B, Tq, H, D], k, v [B, Tk, H, D], all f32 (bf16 = 0) or bf16 (1),
-// contiguous and 16-byte aligned (cp.async); kv_mask [B, Tk] bool (one
+// contiguous and 16-byte aligned (cp.async, TMA); kv_mask [B, Tk] bool (one
 // byte each) or null for all live; o [B, Tq, H, D] in the operand type;
 // lse [B*H, Tq] f32.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -494,12 +865,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       static_cast<long long>(B) * H > 0x7fffffffLL ||
       (Tq + kBq - 1) / kBq > 65535)
     return cudaErrorInvalidValue;
-  const uint8_t* mask = static_cast<const uint8_t*>(kv_mask);
-  float* l = static_cast<float*>(lse);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, mask, o, l, B, Tq, Tk, H,
-                                   causal, scale, st);
-  return launch_d<float>(D, q, k, v, mask, o, l, B, Tq, Tk, H, causal,
-                         scale, st);
+  return launch_d(bf16, D, q, k, v, static_cast<const uint8_t*>(kv_mask), o,
+                  static_cast<float*>(lse), B, Tq, Tk, H, causal, scale,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,5 @@
-// Dense flash-attention backward, for Hopper (sm_90a): two kernels.
+// Dense flash-attention backward, for Hopper (sm_90a): two kernels (dq,
+// and dk/dv), each with an f32 and a bf16 form.
 //
 // Replaces the TPU kernels of analytics_zoo_tpu/ops/flash_attention.py
 // launched by _bwd_call: _bwd_dq_kernel (dq) and _bwd_dkv_kernel (dk and
@@ -33,8 +34,8 @@
 // so in bf16 both run them on the tensor cores with the loads in flight.
 //
 // The dq kernel, bf16 (flash_bwd_dq_bf16_kernel; every training step):
-// the forward kernel's design (flash_attention.cu) with two more
-// products.  One block of 4 warps per (64-row query tile, b*H + h),
+// the mma.sync forward kernel's design (flash_attention.cu's
+// flash_fwd_bf16_kernel) with two more products.  One block of 4 warps per (64-row query tile, b*H + h),
 // heaviest causal tiles first, walking the key tiles up to the causal
 // frontier (the TPU kernel's _block_live skip); each warp owns 16 query
 // rows.
@@ -61,39 +62,69 @@
 //   Shared memory: 30 KB (D=32), 54 KB (D=64), 52 KB (D=96), 68 KB
 //   (D=128).
 //
-// The dk/dv kernel, bf16 (flash_bwd_dkv_bf16_kernel; every training
-// step): the same machinery on the transposed tiles, so all four products
-// are the two helpers above and no new fragment layout is needed.  One
-// block of 4 warps per (64-key tile, b*H + h), the heaviest causal tiles
-// (the first key tiles) first, walking the query tiles from k0 / 64 (the
-// first whose last row reaches k0) to the end; each warp owns 16 keys.
-//   - Resident: the warp's K and V A fragments (ldmatrix once, D <= 64).
-//   - Streamed: the Q and dO tiles with their lse and delta, two stages
-//     of 16-byte (and 4-byte) cp.async, query tile i + 1 in flight while
-//     tile i is multiplied; rows past Tq zero-filled and masked.
-//   - s^T = K.Q^T and dp^T = V.dO^T are mma_abt (the query tile is the
-//     "col" operand); p^T = exp2(s^T * scale * log2 e - lse * log2 e)
-//     and ds^T = p^T * (dp^T - delta) in f32 registers, lse and delta
-//     indexed by the accumulator's column (the query) in shared memory.
-//   - dv += p^T.dO and dk += ds^T.Q are mma_xb on the same row-major
-//     tiles (.trans); its bf16 packing of p^T and ds^T is exactly the TPU
-//     cast points (_bwd_dkv_kernel: p.astype(do.dtype),
-//     ds.astype(q.dtype)), so the mma's A operand is the rounded value.
+// The dk/dv kernel, bf16, D = 64 and 128 (flash_bwd_dkv_wgmma_kernel;
+// every training step): warp-specialised wgmma and TMA (hopper.cuh), as
+// the forward kernel (flash_attention.cu).
+//   - Grid and roles: one block of 384 threads per (128-key tile,
+//     b*H + h), a head's tiles neighbours in the grid (the heaviest
+//     causal tile, the first, first), so the blocks in flight share each
+//     head's Q, dO, lse and delta through L2.
+//     Two consumer warpgroups own 64 keys each; their K and V tiles are
+//     loaded once by TMA and stay in shared memory.  The producer
+//     warpgroup gives registers back (setmaxnreg) and one thread streams
+//     the query tiles (Q and dO rows, their lse and delta) through a
+//     four-stage TMA ring (q_stages) with full and empty mbarriers,
+//     starting, under causal masking, at the first query tile that
+//     reaches k0.
+//   - Products: S^T = K.Q^T and dP^T = V.dO^T are wgmma with A = the
+//     consumer's K or V rows and B = the streamed tile, both from shared
+//     memory (K-major).  p^T = exp2(s^T * scale * log2 e - lse * log2 e)
+//     and ds^T = p^T * (dp^T - delta) are f32 in registers, lse and delta
+//     read from the stage by the accumulator's column (the query).
+//     dV += p^T.dO and dK += ds^T.Q are wgmma with A = p^T and ds^T
+//     rounded to bf16 in registers (the TPU cast points,
+//     _bwd_dkv_kernel's p.astype(do.dtype) and ds.astype(q.dtype)) and
+//     B = dO or Q from shared memory (MN-major).  Descriptors are built
+//     once and moved by byte offsets.
+//   - Schedule: turn j issues tile j's S^T and dP^T with tile j - 1's
+//     dV and dK products; the consumers take turns at the tensor cores
+//     (two named barriers), and each computes tile j's p^T and ds^T while
+//     tile j - 1's products are in flight.  The first and last turns are
+//     peeled so that every wgmma of the loop is unconditional.
+//   - Registers: a thread keeps D / 2 dk and D / 2 dv accumulators, the
+//     S^T and dP^T tiles (queries / 2 each) and the previous tile's p^T
+//     and ds^T as bf16 operands (queries / 4 each), so D = 64 streams
+//     64-query tiles (64 + 64 + 32) and D = 128 32-query tiles
+//     (128 + 32 + 16); consumers run at 232 registers, with no spill.
 //   - Masks: a masked key or one past Tk is dead for the whole loop (its
-//     dk and dv rows are 0); the causal comparison runs only on tiles
-//     that cross a warp's keys, and queries past Tq only on the last.
-//   - Registers: a lane keeps D dk/dv accumulators, D/2 K/V fragment
-//     registers when they stay resident, and two s^T/dp^T tiles of
-//     queries/2 each.  D <= 64 keeps the fragments and walks 64-query
-//     tiles (D=64: 64 + 32 + 64 = 160 before addresses).  D > 64 would
-//     need 208 (D=96) or 256 (D=128) for the same, so it walks 32-query
-//     tiles and re-reads the K and V fragments from shared memory every
-//     tile (mma_abt_smem): 128 (D=96) and 160 (D=128).
-//   Shared memory: 31 KB (D=32), 55 KB (D=64), 52 KB (D=96), 70 KB
-//   (D=128).
-// Where these stop: the same place as the forward kernel (see its
-// header): wgmma and TMA with warp-specialised producers are the rest of
-// the way to the card's rate.
+//     dk and dv rows are 0, rows past Tk are not written); the causal
+//     comparison runs only on tiles that cross a warp's keys, and
+//     queries past Tq (zero-filled by TMA) only on the last tile; the
+//     test is hoisted out of the score loops and branch-free inside
+//     them.  Each query column's lse (scaled to base 2) and delta are
+//     read from the stage once for both of a lane's key rows.  lse
+//     and delta are read as one run of B*H*Tq values (a row of Tq f32 is
+//     not 16-byte aligned unless Tq % 4 == 0, and a 2-D map needs 16-byte
+//     row strides).  TMA starts a box only at a 16-byte aligned value
+//     (an unaligned start faults as an illegal instruction on the H100),
+//     so a tile's box starts at the aligned value at or before its first
+//     query and holds 4 more; values of the neighbouring rows it reads
+//     belong to queries the kernel masks.
+//   Shared memory: the K and V tiles and four stages of Q and dO tiles
+//   with lse and delta: 99 KB (D=64), 130 KB (D=128).
+//
+// The dk/dv kernel, bf16, D = 32 and 96 (flash_bwd_dkv_bf16_kernel):
+// the dq kernel's machinery on the transposed tiles, kept for these head
+// dims (no main path runs them).  One block of 4 warps per (64-key tile,
+// b*H + h), walking the query tiles from the first that reaches k0; each
+// warp owns 16 keys and holds its K and V fragments in registers at
+// D = 32 (64-query tiles) or re-reads them from shared memory at D = 96
+// (32-query tiles); the Q and dO tiles, lse and delta come in two stages
+// of cp.async; s^T, dp^T, p^T and ds^T are mma.sync accumulators and A
+// fragments (mma_abt, mma_xb).  Shared memory 31 KB (D=32), 52 KB
+// (D=96).
+// Where the dq kernel stops: wgmma and TMA with a warp-specialised
+// producer, as above, are the rest of the way to the card's rate.
 //
 // The f32 dq and dk/dv kernels are CUDA-core f32 products
 // (flash_bwd_dq_kernel<float, D>, flash_bwd_dkv_kernel<float, D>).  f32
@@ -125,6 +156,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -602,7 +634,7 @@ constexpr size_t dkv_bf16_smem_bytes() {
          sizeof(float) * 4 * dkv_queries<D>();
 }
 
-// bf16 operands on the tensor cores (see the header)
+// bf16 operands on mma.sync, D = 32 and 96 (see the header)
 template <int D>
 __global__ void __launch_bounds__(kTcThreads)
     flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -764,6 +796,340 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
+// ---- bf16 dk/dv, D = 64 and 128: warp-specialised wgmma + TMA ----------
+
+constexpr int kWgKeys = 128;     // keys a block: two consumers of 64
+// stages of the query-tile ring: tile j - 1's Q and dO are still read
+// while tile j's are, and a load must stay in flight behind them
+template <int D>
+__host__ __device__ constexpr int q_stages() {
+  return 4;
+}
+constexpr int kWgThreads = 384;  // the producer warpgroup and two consumers
+constexpr int kConsumers = 256;  // consumer threads
+// registers a thread: 40 x 128 + 232 x 256 <= 65536
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+// named barriers kTurn + c: consumer c's turn at the tensor cores
+// (barrier 0 is __syncthreads)
+constexpr int kTurn = 1;
+
+// query rows a streamed tile (see the header: registers)
+template <int D>
+__host__ __device__ constexpr int wg_queries() {
+  return D <= 64 ? 64 : 32;
+}
+
+// lse and delta of a query tile are read from the 16-byte aligned value
+// at or before the tile's first (TMA reads a box only from a 16-byte
+// aligned start): kBq + 4 values, in a stage padded to 128 bytes
+template <int D>
+__host__ __device__ constexpr int wg_row_box() {
+  return wg_queries<D>() + 4;
+}
+
+template <int D>
+struct DkvSmem {
+  // 1024-byte aligned tiles of D / 64 boxes [rows][64] (128-byte swizzle)
+  __nv_bfloat16 k[kWgKeys * D];
+  __nv_bfloat16 v[kWgKeys * D];
+  __nv_bfloat16 q[q_stages<D>()][wg_queries<D>() * D];
+  __nv_bfloat16 dout[q_stages<D>()][wg_queries<D>() * D];
+  alignas(128) float lse[q_stages<D>()][wg_queries<D>() + 32];
+  alignas(128) float dlt[q_stages<D>()][wg_queries<D>() + 32];
+  uint64_t kv_full, full[q_stages<D>()], empty[q_stages<D>()];
+};
+
+template <int D>
+constexpr size_t dkv_wg_smem_bytes() {
+  return sizeof(DkvSmem<D>) + 1024;  // + the slack align1024 may skip
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (hop::smem_u32(p) & 1023)) & 1023);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const __grid_constant__ CUtensorMap tm_lse,
+                               const __grid_constant__ CUtensorMap tm_dlt,
+                               const uint8_t* __restrict__ kv_mask,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int Tq,
+                               int Tk, int H, float scale, int causal) {
+  constexpr int kBq = wg_queries<D>();
+  constexpr int kRowBox = wg_row_box<D>();
+  constexpr int kStages = q_stages<D>();
+  constexpr int kKBox = kWgKeys * 64;  // elements of a [128][64] K/V box
+  constexpr int kQBox = kBq * 64;      // elements of a [kBq][64] Q/dO box
+  constexpr int kNs = kBq / 8;         // n8 blocks (queries) of a row
+  constexpr int kNo = D / 8;           // n8 blocks of a dk / dv row
+  extern __shared__ uint8_t smem_raw[];
+  DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(align1024(smem_raw));
+  // a head's key tiles are neighbours in the grid, so the blocks in
+  // flight share their query tiles through L2; within a head the first
+  // key tiles carry the most causal work and start first
+  const int n_tiles = (Tk + kWgKeys - 1) / kWgKeys;
+  const int bh = blockIdx.x / n_tiles;  // b * H + h
+  const int b = bh / H, h = bh % H;
+  const int k0 = (blockIdx.x % n_tiles) * kWgKeys;
+  const int nq = (Tq + kBq - 1) / kBq;
+  // causal: the first query tile whose last row reaches k0
+  const int i0 = causal ? k0 / kBq : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&sm.full[s], 1);
+      hop::mbar_init(&sm.empty[s], kConsumers);
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer: one thread issues every load
+    hop::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hop::prefetch_map(&tm_q);
+      hop::prefetch_map(&tm_k);
+      hop::prefetch_map(&tm_v);
+      hop::prefetch_map(&tm_do);
+      hop::prefetch_map(&tm_lse);
+      hop::prefetch_map(&tm_dlt);
+      hop::mbar_arrive_expect_tx(&sm.kv_full, 2 * kWgKeys * D * 2);
+      for (int x = 0; x < D / 64; ++x) {
+        hop::tma_load_3d(sm.k + x * kKBox, &tm_k, &sm.kv_full,
+                         h * D + 64 * x, k0, b);
+        hop::tma_load_3d(sm.v + x * kKBox, &tm_v, &sm.kv_full,
+                         h * D + 64 * x, k0, b);
+      }
+      for (int i = i0; i < nq; ++i) {
+        const int j = i - i0, s = j % kStages;
+        // the first pass over the ring finds every stage free
+        hop::mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
+        hop::mbar_arrive_expect_tx(&sm.full[s],
+                                   2 * kBq * D * 2 + 2 * kRowBox * 4);
+        for (int x = 0; x < D / 64; ++x) {
+          hop::tma_load_3d(sm.q[s] + x * kQBox, &tm_q, &sm.full[s],
+                           h * D + 64 * x, i * kBq, b);
+          hop::tma_load_3d(sm.dout[s] + x * kQBox, &tm_do, &sm.full[s],
+                           h * D + 64 * x, i * kBq, b);
+        }
+        const int first = (bh * Tq + i * kBq) & ~3;  // 16-byte aligned
+        hop::tma_load_1d(sm.lse[s], &tm_lse, &sm.full[s], first);
+        hop::tma_load_1d(sm.dlt[s], &tm_dlt, &sm.full[s], first);
+      }
+    }
+    return;
+  }
+
+  hop::setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;  // this consumer's keys: k0 + 64 cw ..
+  const int tid = threadIdx.x - 128 * wg;
+  const int lane = tid % 32;
+  const int r0 = 64 * cw + 16 * (tid / 32);  // the warp's first key row
+  const int c2 = (lane % 4) * 2;             // the lane's column pair
+  // the lane's two keys, rows g and g + 8 of the warp's 16
+  const int keys[2] = {k0 + r0 + lane / 4, k0 + r0 + lane / 4 + 8};
+  // keys past Tk and masked keys: dead for the whole loop, so p, ds and
+  // both gradients of that key row are 0
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    live[i] = keys[i] < Tk &&
+              (kv_mask == nullptr ||
+               kv_mask[static_cast<size_t>(b) * Tk + keys[i]] != 0);
+  const float scale2 = scale * tc::kLog2e;  // scores in base-2 units
+  // this consumer's 64 rows of the K and V tiles, in every box
+  const __nv_bfloat16* ks = sm.k + 64 * cw * 64;
+  const __nv_bfloat16* vs = sm.v + 64 * cw * 64;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  // s^T = K . Q^T and dp^T = V . dO^T of query tile j: this consumer's
+  // 64 keys x kBq queries (K-major A and B)
+  // shared-memory descriptors, built once: a k16 step or a stage moves
+  // a descriptor by its byte offset >> 4 (hopper.cuh)
+  const uint64_t k_desc = hop::desc_sw128(ks, 16, 1024);
+  const uint64_t v_desc = hop::desc_sw128(vs, 16, 1024);
+  const uint64_t q_desc = hop::desc_sw128(sm.q[0], 16, 1024);
+  const uint64_t do_desc = hop::desc_sw128(sm.dout[0], 16, 1024);
+  const uint64_t q_mn_desc = hop::desc_sw128(sm.q[0], kQBox * 2, 1024);
+  const uint64_t do_mn_desc = hop::desc_sw128(sm.dout[0], kQBox * 2, 1024);
+  constexpr uint64_t kStageStep = kBq * D * 2 / 16;  // one Q or dO stage
+  float s[kBq / 2], dp[kBq / 2];
+  auto issue_scores = [&](int j) {
+    const uint64_t step = (j % kStages) * kStageStep;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // box kk / 4, k16 step kk % 4
+      hop::wgmma_ss<kBq>(
+          s, k_desc + ((kk / 4) * kKBox * 2 + (kk % 4) * 32) / 16,
+          q_desc + step + ((kk / 4) * kQBox * 2 + (kk % 4) * 32) / 16,
+          kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hop::wgmma_ss<kBq>(
+          dp, v_desc + ((kk / 4) * kKBox * 2 + (kk % 4) * 32) / 16,
+          do_desc + step + ((kk / 4) * kQBox * 2 + (kk % 4) * 32) / 16,
+          kk > 0);
+  };
+  // p^T and ds^T of the last tile, bf16 A operands of its gradient
+  // products, which run while the next tile's scores are computed
+  uint32_t pa[kBq / 16][4], da[kBq / 16][4];
+  // dV += p^T . dO and dK += ds^T . Q of tile j, the queries the k
+  // dimension (MN-major, 16 rows a step)
+  auto issue_grads = [&](int j) {
+    const uint64_t step = (j % kStages) * kStageStep;
+#pragma unroll
+    for (int kk = 0; kk < kBq / 16; ++kk)  // 16 rows of 128 bytes a step
+      hop::wgmma_rs<D>(dv_acc, pa[kk], do_mn_desc + step + kk * 128);
+#pragma unroll
+    for (int kk = 0; kk < kBq / 16; ++kk)
+      hop::wgmma_rs<D>(dk_acc, da[kk], q_mn_desc + step + kk * 128);
+  };
+  // p^T and ds^T of query tile j, f32, in s and dp
+  auto elementwise = [&](int j) {
+    const int q0 = (i0 + j) * kBq;
+    // queries past Tq, or (causal) a query tile that starts before the
+    // warp's last key: only then is any query of the tile dead here
+    const bool edge = q0 + kBq > Tq || (causal && q0 < k0 + r0 + 15);
+    // the tile's first query is value (its row offset % 4) of the box
+    const int skip = (bh * Tq + q0) & 3;
+    const float* lses = sm.lse[j % kStages] + skip;
+    const float* dlts = sm.dlt[j % kStages] + skip;
+    // lse (base-2 units) and delta of the lane's 2 x kNs query columns,
+    // read once for both its key rows
+    float lse2[kNs][2], dlt[kNs][2];
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        lse2[n][c] = lses[n * 8 + c2 + c] * tc::kLog2e;
+        dlt[n][c] = dlts[n * 8 + c2 + c];
+      }
+    // x = s * scale * log2 e - lse * log2 e, NEG_INF where the pair is
+    // dead; the dead test is hoisted out of the element loop and
+    // branch-free inside it (a per-element branch costs each score a
+    // convergence barrier)
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * n + e] = fmaf(s[4 * n + e], scale2, -lse2[n][e & 1]);
+    if (edge || !live[0] || !live[1]) {
+#pragma unroll
+      for (int n = 0; n < kNs; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = q0 + n * 8 + c2 + (e & 1);
+          const bool dead = !live[e / 2] || t >= Tq ||
+                            (causal && keys[e / 2] > t);
+          s[4 * n + e] = dead ? kNegInf : s[4 * n + e];
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = hop::ex2(s[4 * n + e]);
+        s[4 * n + e] = p;                                        // p^T
+        dp[4 * n + e] = p * (dp[4 * n + e] - dlt[n][e & 1]);     // ds^T
+      }
+  };
+  // p^T and ds^T rounded to bf16 straight into A operands (the TPU cast
+  // points): n8 blocks 2kk and 2kk + 1 are the k16 step kk
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kBq / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pa[kk][e] = tc::pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+        da[kk][e] =
+            tc::pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+      }
+  };
+
+  // Turn j issues tile j's S^T and dP^T with tile j - 1's gradient
+  // products; the consumers take turns (named barriers), so one
+  // consumer's products run on the tensor cores while the other does its
+  // exponentials.  The first and last turns are peeled: every wgmma of
+  // the loop is unconditional, which ptxas needs to keep them
+  // asynchronous.  Consumer 0 takes the first turn.
+  const int n_q = nq - i0;  // query tiles this block walks
+  hop::mbar_wait(&sm.kv_full, 0);
+  if (n_q > 0) {
+    if (cw == 1) hop::bar_arrive(kTurn, kConsumers);
+    hop::mbar_wait(&sm.full[0], 0);
+    hop::bar_sync(kTurn + cw, kConsumers);
+    hop::wgmma_fence();
+    issue_scores(0);
+    hop::wgmma_commit();
+    hop::bar_arrive(kTurn + (cw ^ 1), kConsumers);
+    hop::wgmma_wait<0>();
+    hop::fence_regs(s);
+    hop::fence_regs(dp);
+    elementwise(0);
+    pack();
+    for (int j = 1; j < n_q; ++j) {
+      hop::mbar_wait(&sm.full[j % kStages], (j / kStages) & 1);
+      hop::bar_sync(kTurn + cw, kConsumers);
+      hop::wgmma_fence();
+      issue_scores(j);
+      hop::wgmma_commit();
+      issue_grads(j - 1);
+      hop::wgmma_commit();
+      hop::bar_arrive(kTurn + (cw ^ 1), kConsumers);
+      hop::wgmma_wait<1>();  // S^T(j), dP^T(j) have landed
+      hop::fence_regs(s);
+      hop::fence_regs(dp);
+      elementwise(j);
+      hop::wgmma_wait<0>();  // tile j - 1's gradient products have landed
+      hop::fence_regs(dv_acc);
+      hop::fence_regs(dk_acc);
+      hop::fence_regs(pa);
+      hop::fence_regs(da);
+      hop::mbar_arrive(&sm.empty[(j - 1) % kStages]);  // may be refilled
+      pack();
+    }
+    // the last gradient products (consumer 1's last turn has no
+    // successor)
+    hop::bar_sync(kTurn + cw, kConsumers);
+    hop::wgmma_fence();
+    issue_grads(n_q - 1);
+    hop::wgmma_commit();
+    if (cw == 0) hop::bar_arrive(kTurn + 1, kConsumers);
+    hop::wgmma_wait<0>();
+    hop::fence_regs(dv_acc);
+    hop::fence_regs(dk_acc);
+    hop::fence_regs(pa);
+    hop::fence_regs(da);
+    hop::mbar_arrive(&sm.empty[(n_q - 1) % kStages]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = keys[i];
+    if (t >= Tk) continue;  // a key past Tk in the last tile: no row
+    const size_t off = (static_cast<size_t>(b) * Tk + t) * H * D + h * D;
+#pragma unroll
+    for (int n = 0; n < kNo; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + c2) =
+          __floats2bfloat162_rn(scale * dk_acc[4 * n + 2 * i],
+                                scale * dk_acc[4 * n + 2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8 + c2) =
+          __floats2bfloat162_rn(dv_acc[4 * n + 2 * i],
+                                dv_acc[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const uint8_t* mask;
@@ -833,6 +1199,35 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
+// the wgmma dk/dv kernel: every operand through a tensor map
+template <int D>
+cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
+  constexpr int kBq = wg_queries<D>();
+  CUtensorMap mq, mk, mv, mdo, mlse, mdlt;
+  const long long rows = static_cast<long long>(a.B) * a.H * a.Tq;
+  cudaError_t e = hop::map_bthd(&mq, a.q, a.B, a.Tq, a.H, D, kBq);
+  if (e == cudaSuccess) e = hop::map_bthd(&mk, a.k, a.B, a.Tk, a.H, D, kWgKeys);
+  if (e == cudaSuccess) e = hop::map_bthd(&mv, a.v, a.B, a.Tk, a.H, D, kWgKeys);
+  if (e == cudaSuccess) e = hop::map_bthd(&mdo, a.dout, a.B, a.Tq, a.H, D, kBq);
+  if (e == cudaSuccess) e = hop::map_f32(&mlse, a.lse, rows, wg_row_box<D>());
+  if (e == cudaSuccess)
+    e = hop::map_f32(&mdlt, a.delta, rows, wg_row_box<D>());
+  if (e != cudaSuccess) return e;
+  constexpr size_t smem = dkv_wg_smem_bytes<D>();
+  e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const long long blocks = static_cast<long long>(a.B) * a.H *
+                           ((a.Tk + kWgKeys - 1) / kWgKeys);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_bwd_dkv_wgmma_kernel<D><<<static_cast<unsigned>(blocks),
+                                  kWgThreads, smem, a.stream>>>(
+      mq, mk, mv, mdo, mlse, mdlt, a.mask, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), a.Tq, a.Tk, a.H, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
 bool valid(int B, int Tq, int Tk, int H) {
   return B >= 1 && Tq >= 1 && Tk >= 1 && H >= 1 &&
          static_cast<long long>(B) * H <= 0x7fffffffLL &&
@@ -861,7 +1256,7 @@ Args args(const void* q, const void* k, const void* v, const void* kv_mask,
 }  // namespace
 
 // q, dout [B, Tq, H, D] and k, v [B, Tk, H, D], all f32 (bf16 = 0) or
-// bf16 (1), contiguous and 16-byte aligned (cp.async); kv_mask [B, Tk]
+// bf16 (1), contiguous and 16-byte aligned (cp.async, TMA); kv_mask [B, Tk]
 // bool (one byte each) or null for all live; lse, delta [B*H, Tq] f32;
 // dq [B, Tq, H, D] in the operand type.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
@@ -903,18 +1298,20 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   if (!valid(B, Tq, Tk, H)) return cudaErrorInvalidValue;
   const Args a = args(q, k, v, kv_mask, dout, lse, delta, B, Tq, Tk, H,
                       causal, scale, stream);
+  // bf16 picks its kernel by D up front: wgmma at 64 and 128, mma.sync
+  // at 32 and 96
   switch (D) {
     case 32:
       return bf16 ? launch_dkv<__nv_bfloat16, 32>(a, dk, dv)
                   : launch_dkv<float, 32>(a, dk, dv);
     case 64:
-      return bf16 ? launch_dkv<__nv_bfloat16, 64>(a, dk, dv)
+      return bf16 ? launch_dkv_wgmma<64>(a, dk, dv)
                   : launch_dkv<float, 64>(a, dk, dv);
     case 96:
       return bf16 ? launch_dkv<__nv_bfloat16, 96>(a, dk, dv)
                   : launch_dkv<float, 96>(a, dk, dv);
     case 128:
-      return bf16 ? launch_dkv<__nv_bfloat16, 128>(a, dk, dv)
+      return bf16 ? launch_dkv_wgmma<128>(a, dk, dv)
                   : launch_dkv<float, 128>(a, dk, dv);
     default:
       return cudaErrorInvalidValue;

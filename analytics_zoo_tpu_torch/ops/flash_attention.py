@@ -148,8 +148,9 @@ def _check_dense(name, q, k, v, kv_mask, like_q=()):
                              f"device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous operands")
-        # the kernels copy operand rows 16 bytes at a time (cp.async);
-        # the mask is read byte by byte
+        # the kernels copy operand rows 16 bytes at a time (cp.async),
+        # and TMA needs a 16-byte aligned base; the mask is read byte by
+        # byte
         if t is not kv_mask and t.data_ptr() % 16:
             raise ValueError(f"{name} needs 16-byte aligned operands, got "
                              f"one at offset {t.data_ptr() % 16} bytes")
@@ -172,8 +173,9 @@ def flash_attention_fused(q, k, v, kv_mask=None, *, causal: bool,
     only).  Same contract as :func:`flash_attention_ref`.  Takes q, k
     and v contiguous and 16-byte aligned in one dtype, f32 or bf16, head
     dims in :data:`KERNEL_HEAD_DIMS`, kv_mask a contiguous bool ``[B,
-    Tk]``; raises on anything else.  bf16 runs on the tensor cores, f32
-    on the CUDA cores in full f32.
+    Tk]``; raises on anything else.  bf16 runs on the tensor cores
+    (wgmma at head dims 64 and 128, mma.sync at 32 and 96), f32 on the
+    CUDA cores in full f32.
     ``flash_attention_fused.launches`` counts the launches."""
     from analytics_zoo_tpu_torch.ops import _build
 

@@ -9,15 +9,19 @@ fails.  Phases, in order:
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and a build of every kernel from ``ops/csrc``, one ``nvcc``
    per source started together (seconds and the ``ptxas`` register/spill
-   report of each library); then each library's SASS (``cuobjdump
-   -sass``): its tensor-core (``HMMA``), async-copy (``LDGSTS``, which is
-   cp.async) and ``ldmatrix`` (``LDSM``) instructions per kernel.  The
-   run fails, after every kernel is reported, if ``flash_attention``,
-   ``flash_attention_bwd`` or ``paged_attention`` has no ``HMMA`` or no
-   ``LDGSTS``, if one of the bf16 tensor-core kernels at any of the head
-   dims 32, 64, 96, 128 (``SASS_MUST_EXIST``, ``SASS_REQUIRED``) is
-   missing or lacks them, if a paged kernel has no ``LDGSTS``, or if
-   ptxas reports a spill in any kernel.
+   report of each library, and any ptxas warning); then each library's
+   SASS (``cuobjdump -sass``): its tensor-core (``HMMA`` for mma.sync,
+   ``HGMMA`` for wgmma), async-copy (``LDGSTS``, which is cp.async),
+   ``ldmatrix`` (``LDSM``) and TMA (``UTMALDG``) instructions per
+   kernel.  The run fails, after every kernel is reported, if
+   ``flash_attention``, ``flash_attention_bwd`` or ``paged_attention``
+   has no ``HMMA`` or no ``LDGSTS``, if a kernel named in
+   ``SASS_MUST_EXIST`` is missing or one in ``SASS_REQUIRED`` lacks its
+   instructions (the bf16 forward and dk/dv kernels at D = 64 and 128:
+   ``HGMMA`` and ``UTMALDG``; at D = 32 and 96, the dq kernel at every
+   D and the paged tensor-core kernel: ``HMMA`` and ``LDGSTS``; the
+   paged CUDA-core kernel: ``LDGSTS``), if ptxas reports a spill in any
+   kernel, or if ptxas serialises wgmma anywhere.
 2. Kernels against their plain versions on the card, on the same CUDA
    inputs, with stated tolerances: the paged-attention kernel against
    ``paged_attention_ref`` (f32, bf16 and int8 pools x (H, KH) in
@@ -29,9 +33,11 @@ fails.  Phases, in order:
    on O and lse, and the two backward kernels against
    ``flash_attention_bwd_ref`` on dq, dk and dv (each: causal or not x
    key mask or not, with a fully masked row x T in {1, 16, 17, 37, 65,
-   129, 512, 1000} (the mma tile edges among them) x (H, D) in {(12,
-   64), (8, 128), (12, 32), (8, 96)} x f32 and bf16; the forward also
-   with Tq = 37 against Tk = 1000, not causal); then
+   127, 129, 383, 512, 1000} (the 16-, 64- and 128-row tile edges among
+   them) x (H, D) in {(12, 64), (8, 128), (12, 32), (8, 96)} x f32 and
+   bf16; the forward also with Tq = 37 against Tk = 1000, not causal,
+   and both with Tq = 383 against Tk = 129 and 129 against 383, causal
+   (the backward in bf16)); then
    the autograd Function end to end:
    ``torch.autograd.grad`` through ``flash_attention`` against the same
    grad through plain ``full_attention``.
@@ -234,8 +240,18 @@ fails.  Phases, in order:
 The line before the last is ``{"kernels": [...], "stack": ..., "modes":
 [phase 9b's runs], "witness": {...}, "serving_modes": {phase 10},
 "bert": {phase 11b}, "zoo": {phase 12}}``; the last is ``{"ok": true,
-"device": {...}}``.
+"device": {...}}``.  On a failure the script waits for the card (so
+that a device-side assert's lines come out first), then prints
+``chip_smoke: failed after <the last group of phases that finished>``
+on stdout and the traceback and that line on stderr, and exits with 1.
 
+``python3 chip_smoke.py --flash`` runs phase 1, phase 2's flash part
+and phase 7's flash rows (the forward at the arena's two prefill shapes,
+the forward and both backward kernels at GPT-2's and TinyLlama's
+training shapes and at BERT's 32 x 128 and 16 x 384), with ``launches``
+null, and prints the rows as its last line; ``--flash --rows-only``
+runs the rows alone, which also time the kernels of a tree this script
+is copied into (to compare two trees in alternating processes).
 ``python3 chip_smoke.py --paged-rounds N`` runs none of the phases: it
 serves phase 4's stream N times after one warm-up, on phase 4's model,
 and prints a line a round (to compare two trees' paged serving in
@@ -373,31 +389,55 @@ TRAIN = dict(batch=8, seq=1024, steps_per_epoch=10, epochs=2)
 LLAMA_TRAIN = dict(batch=4, seq=2048, steps_per_epoch=5, epochs=2)
 # phase 2's flash grids: (H, D) at every instantiated head dim
 FLASH_GRID = ((12, 64), (8, 128), (12, 32), (8, 96))
-# phase 2's sequence lengths: one key, the m16/k16 and 64-row tile edges
-# (16, 17, 65, 129), ragged (37, 1000) and a whole number of tiles (512)
-SWEEP_T = (1, 16, 17, 37, 65, 129, 512, 1000)
-# instructions counted in each library's SASS: tensor-core products,
-# cp.async copies, ldmatrix loads
-SASS_OPS = ("HMMA", "LDGSTS", "LDSM")
+# phase 2's sequence lengths: one key, the m16/k16, 64-row and 128-row
+# tile edges (16, 17, 65, 127, 129, 383), ragged (37, 1000) and a whole
+# number of tiles (512)
+SWEEP_T = (1, 16, 17, 37, 65, 127, 129, 383, 512, 1000)
+# phase 2's forward cases with Tq != Tk: ragged q and k tiles
+# independently (not causal), and causal diagonals that end inside or
+# past a 128-row tile
+RAGGED_QK = ((37, 1000, False), (383, 129, True), (129, 383, True))
+# instructions counted in each library's SASS: tensor-core products
+# (mma.sync, wgmma), cp.async copies, ldmatrix loads, TMA loads
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "LDSM", "UTMALDG")
 # libraries whose bf16 kernels must run on the tensor cores with cp.async
 TENSOR_CORE_LIBS = ("flash_attention", "flash_attention_bwd",
                     "paged_attention")
 # kernels (name prefix: instructions) that must be in the SASS with
 # these instructions; every instantiation named here must be found
 SASS_REQUIRED = {
+    "flash_fwd_wgmma_kernel<": ("HGMMA", "UTMALDG"),
     "flash_fwd_bf16_kernel<": ("HMMA", "LDGSTS"),
     "flash_bwd_dq_bf16_kernel<": ("HMMA", "LDGSTS"),
+    "flash_bwd_dkv_wgmma_kernel<": ("HGMMA", "UTMALDG"),
     "flash_bwd_dkv_bf16_kernel<": ("HMMA", "LDGSTS"),
     "paged_attention_bf16_kernel<": ("HMMA", "LDGSTS"),
     "paged_attention_kernel<": ("LDGSTS",),
 }
+# the bf16 forward and dk/dv kernels: wgmma at these head dims, mma.sync
+# at the others (the C dispatch, launch_d in flash_attention.cu and
+# flash_attention_bwd_dkv, chooses by D up front)
+WGMMA_HEAD_DIMS = (64, 128)
+MMA_SYNC_HEAD_DIMS = tuple(D for D in fa.KERNEL_HEAD_DIMS
+                           if D not in WGMMA_HEAD_DIMS)
 SASS_MUST_EXIST = tuple(
-    f"{name}<{D}>" for name in ("flash_fwd_bf16_kernel",
-                                "flash_bwd_dq_bf16_kernel",
-                                "flash_bwd_dkv_bf16_kernel",
-                                "paged_attention_bf16_kernel",
-                                "paged_combine_kernel")
-    for D in fa.KERNEL_HEAD_DIMS)
+    f"{name}<{D}>" for name, dims in (
+        ("flash_fwd_wgmma_kernel", WGMMA_HEAD_DIMS),
+        ("flash_fwd_bf16_kernel", MMA_SYNC_HEAD_DIMS),
+        ("flash_bwd_dq_bf16_kernel", fa.KERNEL_HEAD_DIMS),
+        ("flash_bwd_dkv_wgmma_kernel", WGMMA_HEAD_DIMS),
+        ("flash_bwd_dkv_bf16_kernel", MMA_SYNC_HEAD_DIMS),
+        ("paged_attention_bf16_kernel", fa.KERNEL_HEAD_DIMS),
+        ("paged_combine_kernel", fa.KERNEL_HEAD_DIMS))
+    for D in dims)
+# the profiler names of the bf16 forward and dk/dv kernels (either
+# design: this tree's wgmma kernel or an earlier tree's mma.sync one, so
+# that ``--flash --rows-only`` times both trees)
+FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_bf16_kernel")
+DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_bf16_kernel")
+# the arena's two most frequent prefill shapes (B, T) on phase 4's stream
+# (phase 5), which ``--flash`` times without serving the stream
+ARENA_PREFILL = ((3, 512), (4, 256))
 # the profiler names of the paged kernels of one call: the split kernel
 # (either path) and the combine kernel
 PAGED_KERNELS = ("paged_attention_", "paged_combine_kernel")
@@ -536,14 +576,22 @@ def phase_kernel_vs_plain(dev):
                             f"pool={kind} H={H} KH={KH} S={S} "
                             f"sliced={sliced} err={err}")
     check_paged_regimes(dev)
+    phase_flash_vs_plain(dev)
+
+
+def phase_flash_vs_plain(dev):
+    """Phase 2's flash part: the forward kernels against
+    ``flash_attention_ref`` on O and lse, both backward kernels against
+    ``flash_attention_bwd_ref``, then the autograd Function."""
     print("-- flash attention forward (O and lse)")
     n = 0
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for H, D in FLASH_GRID:
             cases = [(T, T, causal, masked) for T in SWEEP_T
                      for causal in (False, True) for masked in (False, True)]
-            # ragged q and k tiles, independently
-            cases += [(37, 1000, False, masked) for masked in (False, True)]
+            cases += [(Tq, Tk, causal, masked)
+                      for Tq, Tk, causal in RAGGED_QK
+                      for masked in (False, True)]
             for Tq, Tk, causal, masked in cases:
                 n += check_forward(dev, kind, dtype, Tq, Tk, H, D, causal,
                                    masked)
@@ -552,11 +600,17 @@ def phase_kernel_vs_plain(dev):
     n = 0
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for H, D in FLASH_GRID:
-            for T in SWEEP_T:
-                for causal in (False, True):
-                    for masked in (False, True):
-                        n += check_backward(dev, kind, dtype, T, H, D,
-                                            causal, masked)
+            cases = [(T, T, causal, masked) for T in SWEEP_T
+                     for causal in (False, True) for masked in (False, True)]
+            # Tq != Tk across the 128-row tiles of the bf16 wgmma dk/dv
+            # kernel (the f32 kernels are held bitwise at Tq = Tk)
+            if kind == "bf16":
+                cases += [(Tq, Tk, True, masked)
+                          for Tq, Tk, _ in RAGGED_QK[1:]
+                          for masked in (False, True)]
+            for Tq, Tk, causal, masked in cases:
+                n += check_backward(dev, kind, dtype, Tq, H, D, causal,
+                                    masked, Tk=Tk)
     print(f"  {n}/{n} backward cases agree")
     check_function_grad(dev)
 
@@ -674,8 +728,9 @@ def bwd_tols(kind, T):
     return ((BWD_ONE_KEY_TOL if T == 1 else 0.0),) * 3
 
 
-def check_backward(dev, kind, dtype, T, H, D, causal, masked):
-    q, k, v, mask = flash_case(dev, dtype, 2, T, H, D, masked, seed=T + D)
+def check_backward(dev, kind, dtype, T, H, D, causal, masked, Tk=None):
+    q, k, v, mask = flash_case(dev, dtype, 2, T, H, D, masked, seed=T + D,
+                               Tk=Tk)
     g = torch.Generator(device="cpu").manual_seed(T + D + 1)
     do = torch.randn(q.shape, generator=g).to(dev, dtype)
     o, lse = fa.flash_attention_fused(q, k, v, mask, causal=causal)
@@ -691,14 +746,14 @@ def check_backward(dev, kind, dtype, T, H, D, causal, masked):
     if masked:
         # the last batch row masks every key: no gradient reaches it
         ok = ok and all(bool((a[-1] == 0).all()) for a in got)
-    print(f"  {kind:4s} H={H:2d} D={D:3d} T={T:4d} causal={int(causal)} "
-          f"mask={int(masked)} dq_err={errs[0]:.3e} (tol {tols[0]:.1e}) "
+    print(f"  {kind:4s} H={H:2d} D={D:3d} T={T:4d} Tk={k.shape[1]:4d} "
+          f"causal={int(causal)} mask={int(masked)} dq_err={errs[0]:.3e} (tol {tols[0]:.1e}) "
           f"dk_err={errs[1]:.3e} dv_err={errs[2]:.3e} (tol {tols[1]:.0e}) "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(
             f"backward kernels disagree with the plain version: {kind} "
-            f"H={H} D={D} T={T} causal={causal} masked={masked} "
+            f"H={H} D={D} T={T} Tk={k.shape[1]} causal={causal} masked={masked} "
             f"errs={errs}")
     return 1
 
@@ -1484,7 +1539,7 @@ def training_timings(dev, train_launches, cfg=GPT2, train=TRAIN,
 
     dq_ms, dkv_ms = time_ms(dq, n_sets, 10), time_ms(dkv, n_sets, 10)
     dq_dev = device_ms(dq, n_sets, "flash_bwd_dq_bf16_kernel")[0]
-    dkv_dev = device_ms(dkv, n_sets, "flash_bwd_dkv_bf16_kernel")[0]
+    dkv_dev = device_ms(dkv, n_sets, DKV_KERNELS)[0]
     wrapper_ms = time_ms(lambda i: fa.flash_attention_bwd_fused(
         *args(sets[i]), causal=causal), n_sets, 10)
     def fwd(i):
@@ -1492,7 +1547,7 @@ def training_timings(dev, train_launches, cfg=GPT2, train=TRAIN,
                                  mask, causal=causal)
 
     fwd_ms = time_ms(fwd, n_sets, 10)
-    fwd_dev = device_ms(fwd, n_sets, "flash_fwd_bf16_kernel")[0]
+    fwd_dev = device_ms(fwd, n_sets, FWD_KERNELS)[0]
     plain_bwd_ms = time_ms(lambda i: fa.flash_attention_bwd_ref(
         *args(sets[i]), causal=causal), n_sets, 3)
     plain_fwd_ms = time_ms(lambda i: fa.flash_attention_ref(
@@ -1625,16 +1680,12 @@ def paged_timings(dev, paged_launches, paged_shapes, cfg=GPT2,
     return entries
 
 
-def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
-                  prefill_shapes, train_launches, llama, modes, bert):
-    """Phase 7 at the GPT-2 main paths' shapes, then at the Llama main
-    path's (``llama``: what :func:`phase_llama_main_path` returns), then
-    at phase 9's verify and chunk shapes (``modes``: the launches
-    :func:`phase_modes_llama` returns), then at phase 11b's BERT shapes
-    (``bert``: its launches by path), not causal under key masks."""
-    print("== phase 7: kernel timings at the main paths' shapes")
-    entries = paged_timings(dev, paged_launches, paged_shapes)
-    for (B, T), calls in prefill_shapes.most_common(2):
+def prefill_timings(dev, shapes, flash_launches):
+    """The flash forward at GPT-2 arena prefill shapes (``shapes``:
+    ((B, T), calls at that shape or None)), beside the plain version,
+    the bound and SDPA."""
+    entries = []
+    for (B, T), calls in shapes:
         H, D = GPT2["num_heads"], GPT2["hidden_size"] // GPT2["num_heads"]
         n_sets = n_sets_for(3 * B * T * H * D * 2)
         sets = [flash_case(dev, torch.bfloat16, B, T, H, D, seed=11 + i)[:3]
@@ -1643,11 +1694,15 @@ def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
         err = (fa.flash_attention_fused(q, k, v, causal=True)[0].float()
                - fa.flash_attention_ref(q, k, v, causal=True)[0].float()
                ).abs().max().item()
+        if err > FLASH_ATOL["bf16"]:
+            raise AssertionError(f"flash forward disagrees with the plain "
+                                 f"version at B={B} T={T}: {err}")
+
         def fwd(i):
             fa.flash_attention_fused(*sets[i], causal=True)
 
         ms = time_ms(fwd, n_sets)
-        launch_ms = device_ms(fwd, n_sets, "flash_fwd_bf16_kernel")[0]
+        launch_ms = device_ms(fwd, n_sets, FWD_KERNELS)[0]
         plain = time_ms(lambda i: fa.flash_attention_ref(*sets[i],
                                                          causal=True),
                         n_sets, iters=20)
@@ -1661,10 +1716,25 @@ def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
             "name": f"flash_attention_fwd[B={B},T={T}]", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
             "shape": f"B={B} T={T} H={H} D={D} causal bf16 "
-                     f"({calls} arena prefill calls at this shape)",
+                     + (f"({calls} arena prefill calls at this shape)"
+                        if calls is not None else "(an arena prefill shape)"),
             "launches": flash_launches, "max_abs_err": err, "ms": ms,
             "kernel_ms": launch_ms, "plain_ms": plain, "bound_ms": bms,
             "bound_by": by, "library_ms": lib_ms})
+    return entries
+
+
+def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
+                  prefill_shapes, train_launches, llama, modes, bert):
+    """Phase 7 at the GPT-2 main paths' shapes, then at the Llama main
+    path's (``llama``: what :func:`phase_llama_main_path` returns), then
+    at phase 9's verify and chunk shapes (``modes``: the launches
+    :func:`phase_modes_llama` returns), then at phase 11b's BERT shapes
+    (``bert``: its launches by path), not causal under key masks."""
+    print("== phase 7: kernel timings at the main paths' shapes")
+    entries = paged_timings(dev, paged_launches, paged_shapes)
+    entries += prefill_timings(dev, prefill_shapes.most_common(2),
+                               flash_launches)
     entries += training_timings(dev, train_launches)
     # the Llama path: its decode tick and largest prefill group (8-way
     # GQA), and its training shape
@@ -1677,6 +1747,22 @@ def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
     entries += bert_timings(dev, bert)
     print_rows(entries)
     return entries
+
+
+def flash_rows(dev):
+    """Phase 7's flash rows alone (``--flash``): the forward at the
+    arena's prefill shapes, the forward and both backward kernels at
+    GPT-2's and TinyLlama's training shapes and at BERT's two shapes;
+    no main path runs, so every ``launches`` is None."""
+    print("== phase 7 (flash rows): kernel timings at the main paths' "
+          "shapes")
+    none = (None, None)
+    rows = prefill_timings(dev, [(s, None) for s in ARENA_PREFILL], None)
+    rows += training_timings(dev, none)
+    rows += training_timings(dev, none, TINYLLAMA, LLAMA_TRAIN,
+                             "Llama training main path")
+    rows += bert_timings(dev, {"classify": none, "qa": none, "stack": None})
+    return rows
 
 
 def print_rows(entries):
@@ -1778,7 +1864,15 @@ def phase_build():
     found, faults = [], []
     for name, path in sorted(paths.items()):
         log = path.with_suffix(".log")
-        ptxas = ptxas_report(log.read_text()) if log.exists() else {}
+        text = log.read_text() if log.exists() else ""
+        ptxas = ptxas_report(text)
+        # ptxas warnings are printed; one that serialises wgmma (each
+        # product waited for before the next is issued) fails the phase
+        for line in text.splitlines():
+            if "warning" in line:
+                print(f"  {name} ptxas: {line.strip()}")
+                if "wgmma" in line and "serializ" in line:
+                    faults.append(f"{name}: {line.strip()}")
         counts = sass_counts(path)
         total = {op: sum(c[op] for c in counts.values()) for op in SASS_OPS}
         print(f"  {name} SASS: " + ", ".join(f"{op} {n}"
@@ -4257,6 +4351,7 @@ def main() -> int:
         return 0
 
     def lap(name):
+        LAST_LAP[0] = name
         print(f"[{time.monotonic() - t_start:.1f} s] {name} done")
 
     if sys.argv[1:2] == ["--bert"]:
@@ -4271,6 +4366,22 @@ def main() -> int:
         lap("phase 7's BERT rows, 11c")
         print(card)
         print(json.dumps({"kernels": rows, "bert": bert}))
+        return 0
+
+    if sys.argv[1:2] == ["--flash"]:
+        # the flash kernels alone; with --rows-only just their timings,
+        # which any tree's kernels give (copy this script into another
+        # tree to time it against this one)
+        if "--rows-only" not in sys.argv[2:]:
+            phase_build()
+            lap("phase 1")
+            phase_flash_vs_plain(dev)
+            lap("phase 2 (flash)")
+        rows = flash_rows(dev)
+        print_rows(rows)
+        lap("phase 7 (flash rows)")
+        print(card)
+        print(json.dumps({"kernels": rows}))
         return 0
 
     if sys.argv[1:2] == ["--zoo"]:
@@ -4344,5 +4455,34 @@ def main() -> int:
     return 0
 
 
+def report_failure():
+    """After an exception: wait for the card first, so that whatever it
+    printed (a device-side assert prints one line a thread) comes out
+    before the report, then name the last group of phases that finished
+    on stdout and print the traceback on stderr, so that the end of
+    either stream says where the run stopped."""
+    import traceback
+
+    card = ""
+    try:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    except Exception as e:      # the error a device-side assert leaves
+        card = f"; the card then reported {e!r}"[:400]
+    print(f"chip_smoke: failed after {LAST_LAP[0]}{card}", flush=True)
+    sys.stdout.flush()
+    traceback.print_exc(file=sys.stderr)
+    print(f"chip_smoke: failed after {LAST_LAP[0]}{card}", file=sys.stderr,
+          flush=True)
+
+
+# the last group of phases that finished (``main``'s laps)
+LAST_LAP = ["nothing"]
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except Exception:
+        report_failure()
+        code = 1
+    sys.exit(code)

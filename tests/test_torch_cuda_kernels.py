@@ -105,12 +105,24 @@ def _flash_case(dev, kind, B, T, H, D, masked, seed=0):
 _FLASH_ATOL = {"f32": 1e-4, "bf16": 2e-2}
 
 
+# Shapes the 128-row tiles of the bf16 wgmma kernels (D = 64 and 128) can
+# get wrong: lengths at and across the tile edges (1, 65, 127, 129, 383),
+# Tq != Tk both ways (causal diagonals that end inside or past a 128-row
+# tile, keys no query reaches), and B*H = 300 (the grid over more than
+# two waves of the card's SMs, one block an SM).
+_WGMMA_SHAPES = [
+    (127, 12, 64), (129, 12, 64), (383, 12, 64), ((65, 383), 12, 64),
+    ((383, 129), 12, 64), ((1, 129), 8, 128), ((127, 65), 8, 128),
+    (383, 8, 128), ((129, 383), 8, 128), (129, 150, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
 @pytest.mark.parametrize("T,H,D", [
     (1, 12, 64), (16, 12, 64), (17, 12, 64), (37, 12, 64), (65, 12, 64),
-    ((37, 1000), 12, 64), (129, 8, 128), (130, 8, 128)])
-@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
+    ((37, 1000), 12, 64), (129, 8, 128), (130, 8, 128)] + _WGMMA_SHAPES)
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
+                                           (True, True)])
 def test_flash_attention_kernel_matches_plain(cuda, kind, T, H, D, causal,
                                               masked):
     Tq, _ = _lengths(T)
@@ -135,8 +147,10 @@ def test_flash_attention_kernel_matches_plain(cuda, kind, T, H, D, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
 @pytest.mark.parametrize("D", _NEW_HEAD_DIMS)
-@pytest.mark.parametrize("T", [1, 17, 65, (37, 130), 130])
-@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
+@pytest.mark.parametrize("T", [1, 17, 65, (37, 130), 130, 127, 383, (65, 383),
+                               (383, 129)])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
+                                           (True, True)])
 def test_flash_attention_kernel_head_dims(cuda, kind, D, T, causal, masked):
     Tq, _ = _lengths(T)
     q, k, v, mask = _flash_case(cuda, kind, 2, T, 4, D, masked, seed=Tq + D)
@@ -308,21 +322,24 @@ _DQ_BF16_TOL = 2.0 ** -7
 def _bwd_tols(kind, T):
     if kind == "bf16":
         return (_DQ_BF16_TOL,) * 3
-    return ((_BWD_ONE_KEY_TOL if T == 1 else 0.0),) * 3
+    # one query row (Tq = 1, causal: it sees one key) counts as one key
+    return ((_BWD_ONE_KEY_TOL if min(_lengths(T)) == 1 else 0.0),) * 3
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
 @pytest.mark.parametrize("T,H,D", [(1, 12, 64), (16, 12, 64), (17, 12, 64),
                                    (37, 12, 64), (65, 12, 64),
-                                   (129, 8, 128), (130, 8, 128)])
+                                   (129, 8, 128), (130, 8, 128)]
+                         + _WGMMA_SHAPES)
 @pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
                                            (True, True)])
 def test_flash_backward_kernels_match_plain(cuda, kind, T, H, D, causal,
                                             masked):
-    q, k, v, mask = _flash_case(cuda, kind, 2, T, H, D, masked, seed=T)
+    Tq, _ = _lengths(T)
+    q, k, v, mask = _flash_case(cuda, kind, 2, T, H, D, masked, seed=Tq)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(
-        T + 1)).to(cuda, q.dtype)
+        Tq + 1)).to(cuda, q.dtype)
     o, lse = fa.flash_attention_fused(q, k, v, mask, causal=causal)
     before = fa.flash_attention_bwd_fused.launches
     got = fa.flash_attention_bwd_fused(q, k, v, mask, o, lse, do,
@@ -354,15 +371,17 @@ def test_flash_backward_kernels_match_plain(cuda, kind, T, H, D, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
 @pytest.mark.parametrize("D", _NEW_HEAD_DIMS)
-@pytest.mark.parametrize("T", [1, 17, 33, 65, 130])
+@pytest.mark.parametrize("T", [1, 17, 33, 65, 130, 127, 383, (65, 383),
+                               (383, 129)])
 @pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
                                            (True, True)])
 def test_flash_backward_kernels_head_dims(cuda, kind, D, T, causal, masked):
     """The dq and dk/dv kernels at the new head dims, across their tile
     edges (32-key dq and 32-query dk/dv tiles at D = 96, 64 at D = 32)."""
-    q, k, v, mask = _flash_case(cuda, kind, 2, T, 4, D, masked, seed=T + D)
+    Tq, _ = _lengths(T)
+    q, k, v, mask = _flash_case(cuda, kind, 2, T, 4, D, masked, seed=Tq + D)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(
-        T + D + 1)).to(cuda, q.dtype)
+        Tq + D + 1)).to(cuda, q.dtype)
     o, lse = fa.flash_attention_fused(q, k, v, mask, causal=causal)
     got = fa.flash_attention_bwd_fused(q, k, v, mask, o, lse, do,
                                        causal=causal)

@@ -9,7 +9,10 @@ These tests parse each source's entry points and hold them to the table
 (same names, same number of parameters, pointer/int/float kinds in the
 same order), check that each source's header names the TPU kernel it
 replaces, and that no source includes a PyTorch header (the build links
-against no PyTorch).
+against no PyTorch).  It also holds ``chip_smoke.py``'s SASS checks to
+the sources: every kernel they require by name must be a ``__global__``
+of some ``csrc/*.cu``, so a renamed kernel fails here and not only on
+the card.
 """
 
 import ctypes
@@ -174,3 +177,61 @@ def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "\n")
     after = {n: _build.library_path(n) for n in _build.SIGNATURES}
     assert all(before[n] != after[n] for n in before)
+
+
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)"
+                     r"\s*)?(\w+)\s*\(")
+
+
+def global_kernels(sources):
+    """Names of the ``__global__`` functions of C/CUDA ``sources``."""
+    return {name for src in sources
+            for name in _GLOBAL.findall(_strip_comments(src))}
+
+
+def sass_names(smoke):
+    """The kernel names ``chip_smoke``'s phase 1 requires in the SASS:
+    every ``SASS_MUST_EXIST`` instantiation and ``SASS_REQUIRED``
+    prefix, without template arguments."""
+    return ({k.split("<")[0] for k in smoke.SASS_MUST_EXIST}
+            | {p.split("<")[0] for p in smoke.SASS_REQUIRED})
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    import sys
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    return chip_smoke
+
+
+def _sources():
+    return [p.read_text() for p in sorted(_build.CSRC.glob("*.cu"))]
+
+
+def test_sass_checked_kernels_are_globals(smoke):
+    names = sass_names(smoke)
+    assert {"flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+            "flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel"} <= names
+    assert sorted(names - global_kernels(_sources())) == []
+
+
+# renames of a kernel that phase 1 requires, which the check must catch
+_RENAMES = {
+    "wgmma forward": ("flash_fwd_wgmma_kernel(", "flash_fwd_tma_kernel("),
+    "wgmma dk/dv": ("flash_bwd_dkv_wgmma_kernel(",
+                    "flash_bwd_dkv_hopper_kernel("),
+    "mma.sync forward": ("flash_fwd_bf16_kernel(", "flash_fwd_mma_kernel("),
+}
+
+
+@pytest.mark.parametrize("rename", sorted(_RENAMES))
+def test_sass_name_check_catches_rename(smoke, rename):
+    old, new = _RENAMES[rename]
+    sources = _sources()
+    assert sum(src.count(old) for src in sources) == 1
+    renamed = [src.replace(old, new) for src in sources]
+    assert old[:-1] in sass_names(smoke) - global_kernels(renamed)
