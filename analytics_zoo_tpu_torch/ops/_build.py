@@ -52,6 +52,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                    _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        "flash_attention_bwd_delta": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
 }
 # one lock over build-and-load (re-entrant: ``load`` builds under it)

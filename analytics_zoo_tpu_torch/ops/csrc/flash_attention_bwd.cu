@@ -1,5 +1,6 @@
 // Dense flash-attention backward, for Hopper (sm_90a): two kernels (dq,
-// and dk/dv), each with an f32 and a bf16 form.
+// and dk/dv), each with an f32 and a bf16 form, and the delta pass that
+// runs before them.
 //
 // Replaces the TPU kernels of analytics_zoo_tpu/ops/flash_attention.py
 // launched by _bwd_call: _bwd_dq_kernel (dq) and _bwd_dkv_kernel (dk and
@@ -10,9 +11,9 @@
 //   with strides: no [B*H, T, D] transpose, no padded copy), optional key
 //   mask [B, Tk] bool, optional causal mask (key t is live for query i iff
 //   t <= i), lse and delta = rowsum(dO * O) f32 [B*H, Tq] (row b*H + h;
-//   lse is what the forward kernel returns, delta is computed outside the
-//   kernels as the reference does).  Scores s = scale * q.k in f32, masked
-//   keys and keys past Tk NEG_INF = -1e30, p = exp(s - lse) (a fully
+//   lse is what the forward kernel returns, delta what the delta pass
+//   below computes).  Scores s = scale * q.k in f32, masked keys and
+//   keys past Tk NEG_INF = -1e30, p = exp(s - lse) (a fully
 //   masked row has lse = +1e30, so its p underflows to 0: no NaN),
 //   dp = dO.v, ds = p * (dp - delta).  The cast points are the TPU
 //   kernels': p is rounded to dO's type before p^T.dO, ds to k's type
@@ -33,34 +34,85 @@
 // 26 us, against 76 MB, 23 us.  Both are bound by the products, barely,
 // so in bf16 both run them on the tensor cores with the loads in flight.
 //
-// The dq kernel, bf16 (flash_bwd_dq_bf16_kernel; every training step):
-// the mma.sync forward kernel's design (flash_attention.cu's
-// flash_fwd_bf16_kernel) with two more products.  One block of 4 warps per (64-row query tile, b*H + h),
-// heaviest causal tiles first, walking the key tiles up to the causal
-// frontier (the TPU kernel's _block_live skip); each warp owns 16 query
-// rows.
-//   - Tensor cores: S = Q.K^T, dP = dO.V^T and dq += dS.K are mma.sync
-//     m16n8k16 bf16 -> f32.  The warp's Q and dO A fragments are loaded
-//     once by ldmatrix and stay in registers, as do the lse and delta of
-//     its rows; K and V give their B fragments by ldmatrix (K and V rows
-//     are the "col" operand of Q.K^T and dO.V^T), K again by
-//     ldmatrix.trans for dS.K.
-//   - dS never leaves registers: ds = p * (dp - delta) in f32, rounded to
-//     bf16 (the TPU cast point, _bwd_dq_kernel's ds.astype(k.dtype)) and
-//     packed from two neighbouring n8 accumulators into one k16 A
-//     fragment.
-//   - In flight: K and V tiles stay bf16 in shared memory ([keys][D + 8],
-//     conflict-free for ldmatrix), two stages filled by 16-byte cp.async;
-//     tile j + 1 is copied while tile j is multiplied, rows past Tk
-//     zero-filled by the copy.
-//   - Registers: a lane holds D/2 f32 dq accumulators, the Q and dO
-//     fragments (D/4 registers each) and the S and dP tiles (keys/2
-//     each): D + keys registers before addresses.  So D <= 64 walks
-//     64-key tiles (96 and 128 registers at D = 32 and 64) and D > 64
-//     32-key tiles (128 and 160 at D = 96 and 128; 64 keys would take
-//     160 and 192).
-//   Shared memory: 30 KB (D=32), 54 KB (D=64), 52 KB (D=96), 68 KB
-//   (D=128).
+// The dq kernel, bf16, D = 64 and 128 (flash_bwd_dq_wgmma_kernel; every
+// training step): warp-specialised wgmma and TMA (hopper.cuh), on the
+// forward kernel's skeleton (flash_attention.cu's flash_fwd_wgmma_kernel).
+//   - Grid and roles: one block of 384 threads per (128-row query tile,
+//     b*H + h), a head's tiles neighbours in the grid (the heaviest
+//     causal tile, the last, first), so the blocks in flight share its K
+//     and V through L2.  The producer warpgroup gives registers back
+//     (setmaxnreg) and one thread loads the Q and dO tiles once, then
+//     streams the key tiles (K and V) through a four-stage TMA ring with
+//     full and empty mbarriers, up to the causal frontier (the TPU
+//     kernel's _block_live skip).  Two consumer warpgroups own 64 query
+//     rows each.
+//   - Products: S = Q.K^T and dP = dO.V^T are wgmma with A and B from
+//     shared memory (K-major, the forward's S pattern, once for Q and K
+//     and once for dO and V).  p = exp2(s * scale * log2 e - lse * log2 e)
+//     and ds = p * (dp - delta) are f32 in registers; dq += dS.K is
+//     wgmma with A = ds rounded to bf16 in registers (the TPU cast point,
+//     _bwd_dq_kernel's ds.astype(k.dtype)) and B = the same stage's K
+//     read MN-major.  A stage is released on its empty barrier only after
+//     its dq product has landed, since K is read twice.
+//   - Schedule: turn j issues tile j's S and dP with tile j - 1's dq
+//     product; the consumers take turns at the tensor cores (two named
+//     barriers), and each computes tile j's ds while the other's products
+//     run.  The first and last turns are peeled so that every wgmma of
+//     the loop is unconditional.
+//   - lse and delta are per row and the block owns its rows: each
+//     consumer thread reads its two rows' values once, by plain loads
+//     (lse scaled to base 2), so no TMA box of them has to start
+//     16-byte aligned.  A row past Tq gets lse = +1e30 and delta = 0
+//     (its p and ds are 0) and is never written.
+//   - Masks: the key mask is read once a tile into a bit set, one byte
+//     a lane and a ballot for every 32 keys (reading each lane's own
+//     2 x keys / 8 bytes, as the forward does, held as many registers at
+//     once, and ptxas spilled); the dead test (keys past Tk, zero-filled
+//     by TMA, masked keys, causal keys past the row) runs only on tiles
+//     that have a dead key for the warp, hoisted out of the score loops
+//     and branch-free inside them.
+//   - Registers: a consumer thread holds D / 2 dq accumulators and the S
+//     and dP tiles (keys / 2 each) while it computes ds, then ds as a
+//     bf16 A operand (keys / 4) until its product is issued, so D = 64
+//     streams 128-key tiles (32 + 128 = 160 live) and D = 128 64-key
+//     tiles (64 + 64 = 128), under the 232 that setmaxnreg gives a
+//     consumer.  (Holding the last tile's dS operand through the next
+//     tile's ds, to overlap its product with that work, is 192 at D = 64,
+//     and ptxas spilled 180 bytes.)
+//   Shared memory: the Q and dO tiles and four stages of K and V tiles:
+//   160 KB (D=64), 192 KB (D=128).
+//
+// The dq kernel, bf16, D = 32 and 96 (flash_bwd_dq_bf16_kernel; no main
+// path runs these head dims): the mma.sync forward kernel's design
+// (flash_attention.cu's flash_fwd_bf16_kernel) with two more products.
+// One block of 4 warps per (64-row query tile, b*H + h), heaviest causal
+// tiles first, walking the key tiles up to the causal frontier; each
+// warp owns 16 query rows.  S = Q.K^T, dP = dO.V^T and dq += dS.K are
+// mma.sync m16n8k16 bf16 -> f32; the warp's Q and dO A fragments are
+// loaded once by ldmatrix and stay in registers, K and V give their B
+// fragments by ldmatrix (K again by ldmatrix.trans for dS.K); dS is
+// rounded to bf16 and packed into A fragments in registers.  K and V
+// tiles stay bf16 in shared memory ([keys][D + 8]), two stages filled by
+// 16-byte cp.async.  A lane holds D/2 f32 dq accumulators, the Q and dO
+// fragments (D/4 each) and the S and dP tiles (keys/2 each), so D = 32
+// walks 64-key tiles and D = 96 32-key tiles.  Shared memory 30 KB
+// (D=32), 52 KB (D=96).
+//
+// The delta pass (flash_bwd_delta_kernel; every training step): delta =
+// rowsum(dO * O) in f32, read by both kernels.  It replaces no Pallas
+// kernel: the JAX package leaves delta to XLA (_bwd_call), which fuses
+// it.  It was added because the eager PyTorch expression wrote f32
+// copies of dO and O and their product (five launches, ~470 MB at
+// TinyLlama's 4 x 2048 training shape, more than the dq kernel's own
+// bound); one pass reads the bf16 (or f32) tensors once and writes the
+// f32 rows: bound by bytes (~68 MB there, 0.020 ms at 3.35 TB/s).  One
+// block per (b, 32-token tile, 8 heads) stages both tiles in shared
+// memory by coalesced 16-byte loads; a thread sums one (token, head) row
+// in f32, product by product in order of d, each product and sum rounded
+// on its own, as the plain version (flash_attention_bwd_delta) does, so
+// the two agree bitwise and the f32 kernels stay exactly equal to the
+// plain backward (a bf16 x bf16 product is exact in f32); each head's 32
+// sums are written as one 128-byte run of its row.  No atomics.
 //
 // The dk/dv kernel, bf16, D = 64 and 128 (flash_bwd_dkv_wgmma_kernel;
 // every training step): warp-specialised wgmma and TMA (hopper.cuh), as
@@ -123,8 +175,6 @@
 // of cp.async; s^T, dp^T, p^T and ds^T are mma.sync accumulators and A
 // fragments (mma_abt, mma_xb).  Shared memory 31 KB (D=32), 52 KB
 // (D=96).
-// Where the dq kernel stops: wgmma and TMA with a warp-specialised
-// producer, as above, are the rest of the way to the card's rate.
 //
 // The f32 dq and dk/dv kernels are CUDA-core f32 products
 // (flash_bwd_dq_kernel<float, D>, flash_bwd_dkv_kernel<float, D>).  f32
@@ -145,10 +195,11 @@
 // 66 / 98 / 130 / 162 KB.
 //
 // Every launch raises the dynamic shared-memory limit first and returns
-// its error if the card refuses.  Plain C interface (loaded with ctypes):
-// flash_attention_bwd_dq and flash_attention_bwd_dkv each return
-// cudaGetLastError() after their launch, or cudaErrorInvalidValue for a
-// shape they do not take.
+// its error if the card refuses, and the wgmma launches return the error
+// of any tensor map they cannot encode.  Plain C interface (loaded with
+// ctypes): flash_attention_bwd_delta, flash_attention_bwd_dq and
+// flash_attention_bwd_dkv each return cudaGetLastError() after their
+// launch, or cudaErrorInvalidValue for a shape they do not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1130,6 +1181,405 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// ---- bf16 dq, D = 64 and 128: warp-specialised wgmma + TMA -------------
+
+constexpr int kWgRows = 128;  // query rows a dq block: two consumers of 64
+// keys a streamed K/V tile (see the header: registers)
+template <int D>
+__host__ __device__ constexpr int dq_wg_keys() {
+  return D <= 64 ? 128 : 64;
+}
+// stages of the K/V ring: tile j - 1's K is still read (dS . K) while
+// tile j's K and V are, and a load must stay in flight behind them
+constexpr int kDqStages = 4;
+
+template <int D>
+struct DqSmem {
+  // 1024-byte aligned tiles of D / 64 boxes [rows][64] (128-byte swizzle)
+  __nv_bfloat16 q[kWgRows * D];
+  __nv_bfloat16 dout[kWgRows * D];
+  __nv_bfloat16 k[kDqStages][dq_wg_keys<D>() * D];
+  __nv_bfloat16 v[kDqStages][dq_wg_keys<D>() * D];
+  uint64_t q_full, full[kDqStages], empty[kDqStages];
+};
+
+template <int D>
+constexpr size_t dq_wg_smem_bytes() {
+  return sizeof(DqSmem<D>) + 1024;  // + the slack align1024 may skip
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const uint8_t* __restrict__ kv_mask,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int Tq, int Tk,
+                              int H, float scale, int causal) {
+  constexpr int kBk = dq_wg_keys<D>();
+  constexpr int kStages = kDqStages;
+  constexpr int kQBox = kWgRows * 64;  // elements of a [128][64] Q/dO box
+  constexpr int kKBox = kBk * 64;      // elements of a [kBk][64] K/V box
+  constexpr int kNs = kBk / 8;         // n8 blocks (keys) of a score row
+  constexpr int kNo = D / 8;           // n8 blocks of a dq row
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(align1024(smem_raw));
+  // a head's query tiles are neighbours in the grid, so the blocks in
+  // flight share its K and V through L2; within a head the last query
+  // tiles carry the most causal work and start first
+  const int n_tiles = (Tq + kWgRows - 1) / kWgRows;
+  const int bh = blockIdx.x / n_tiles;  // b * H + h
+  const int b = bh / H, h = bh % H;
+  const int q0 = (n_tiles - 1 - blockIdx.x % n_tiles) * kWgRows;
+  const int q_last = min(q0 + kWgRows, Tq) - 1;
+  // the key tiles up to the causal frontier (the TPU kernel's
+  // _block_live skip); at least one, since Tk >= 1
+  int nk = (Tk + kBk - 1) / kBk;
+  if (causal) nk = min(nk, q_last / kBk + 1);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&sm.full[s], 1);
+      hop::mbar_init(&sm.empty[s], kConsumers);
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer: one thread issues every load
+    hop::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hop::prefetch_map(&tm_q);
+      hop::prefetch_map(&tm_k);
+      hop::prefetch_map(&tm_v);
+      hop::prefetch_map(&tm_do);
+      hop::mbar_arrive_expect_tx(&sm.q_full, 2 * kWgRows * D * 2);
+      for (int x = 0; x < D / 64; ++x) {
+        hop::tma_load_3d(sm.q + x * kQBox, &tm_q, &sm.q_full,
+                         h * D + 64 * x, q0, b);
+        hop::tma_load_3d(sm.dout + x * kQBox, &tm_do, &sm.q_full,
+                         h * D + 64 * x, q0, b);
+      }
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % kStages;
+        // the first pass over the ring finds every stage free
+        hop::mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
+        hop::mbar_arrive_expect_tx(&sm.full[s], 2 * kBk * D * 2);
+        for (int x = 0; x < D / 64; ++x) {
+          hop::tma_load_3d(sm.k[s] + x * kKBox, &tm_k, &sm.full[s],
+                           h * D + 64 * x, j * kBk, b);
+          hop::tma_load_3d(sm.v[s] + x * kKBox, &tm_v, &sm.full[s],
+                           h * D + 64 * x, j * kBk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  hop::setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;  // this consumer's rows: 64 cw .. 64 cw + 63
+  const int tid = threadIdx.x - 128 * wg;
+  const int lane = tid % 32;
+  const int r0 = 64 * cw + 16 * (tid / 32);  // the warp's first row
+  const int c2 = (lane % 4) * 2;             // the lane's column pair
+  // the lane's two rows, g and g + 8 of the warp's 16
+  const int rows[2] = {q0 + r0 + lane / 4, q0 + r0 + lane / 4 + 8};
+  const uint8_t* mb =
+      kv_mask ? kv_mask + static_cast<size_t>(b) * Tk : nullptr;
+  const float scale2 = scale * tc::kLog2e;  // scores in base-2 units
+  // lse (base-2 units) and delta of the lane's rows, plain loads once: a
+  // row past Tq gets lse = +1e30 and delta = 0, so its p and ds are 0
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t idx = static_cast<size_t>(bh) * Tq + rows[i];
+    lse2[i] = rows[i] < Tq ? lse[idx] * tc::kLog2e : -kNegInf;
+    dlt[i] = rows[i] < Tq ? delta[idx] : 0.f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  // shared-memory descriptors, built once: a k16 step or a stage moves
+  // a descriptor by its byte offset >> 4 (hopper.cuh).  This consumer's
+  // 64 rows of the Q and dO tiles, in every box
+  const uint64_t q_desc = hop::desc_sw128(sm.q + 64 * cw * 64, 16, 1024);
+  const uint64_t do_desc = hop::desc_sw128(sm.dout + 64 * cw * 64, 16, 1024);
+  const uint64_t k_desc = hop::desc_sw128(sm.k[0], 16, 1024);
+  const uint64_t v_desc = hop::desc_sw128(sm.v[0], 16, 1024);
+  const uint64_t k_mn_desc = hop::desc_sw128(sm.k[0], kKBox * 2, 1024);
+  constexpr uint64_t kStageStep = kBk * D * 2 / 16;  // one K or V stage
+  // S = Q . K^T and dP = dO . V^T of key tile j: this consumer's 64 rows
+  // x kBk keys (K-major A and B)
+  float s[kBk / 2], dp[kBk / 2];
+  auto issue_scores = [&](int j) {
+    const uint64_t step = (j % kStages) * kStageStep;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // box kk / 4, k16 step kk % 4
+      hop::wgmma_ss<kBk>(
+          s, q_desc + ((kk / 4) * kQBox * 2 + (kk % 4) * 32) / 16,
+          k_desc + step + ((kk / 4) * kKBox * 2 + (kk % 4) * 32) / 16,
+          kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hop::wgmma_ss<kBk>(
+          dp, do_desc + ((kk / 4) * kQBox * 2 + (kk % 4) * 32) / 16,
+          v_desc + step + ((kk / 4) * kKBox * 2 + (kk % 4) * 32) / 16,
+          kk > 0);
+  };
+  // dS of the last tile, the bf16 A operand of its dq product, which is
+  // issued with the next tile's scores
+  uint32_t da[kBk / 16][4];
+  // dq += dS(j) . K(j), K's rows the k dimension (MN-major, 16 rows a
+  // step), from the stage S(j) read
+  auto issue_dq = [&](int j) {
+    const uint64_t step = (j % kStages) * kStageStep;
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk)  // 16 rows of 128 bytes a step
+      hop::wgmma_rs<D>(acc, da[kk], k_mn_desc + step + kk * 128);
+  };
+  // ds = p * (dp - delta) of key tile j, f32, in s
+  auto elementwise = [&](int j) {
+    const int k0 = j * kBk;
+    // x = s * scale * log2 e - lse * log2 e, then NEG_INF where the pair
+    // is dead: keys past Tk, masked keys, or (causal) keys past the row.
+    // Only then is any key of this tile dead for this warp; the test is
+    // hoisted out of the score loops and branch-free inside them (a
+    // per-score branch costs each score a convergence barrier)
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * n + e] = fmaf(s[4 * n + e], scale2, -lse2[e / 2]);
+    const bool edge = k0 + kBk > Tk || mb != nullptr ||
+                      (causal && k0 + kBk - 1 > q0 + r0);
+    if (edge) {
+      // bit i of word w: key k0 + 32 w + i is in range and not masked.
+      // The key mask is read once a tile, one byte a lane a word, and
+      // shared by ballot (edge is the same for the whole warp): a lane
+      // reading its own 2 x kNs bytes held that many registers at once
+      uint32_t keep[kBk / 32];
+#pragma unroll
+      for (int w = 0; w < kBk / 32; ++w) {
+        const int t = k0 + 32 * w + lane;
+        keep[w] = __ballot_sync(0xffffffffu,
+                                t < Tk && (mb == nullptr || mb[t] != 0));
+      }
+#pragma unroll
+      for (int n = 0; n < kNs; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = n * 8 + c2 + (e & 1);  // key k0 + i, word n / 4
+          const bool dead = ((keep[n / 4] >> (i % 32)) & 1u) == 0u ||
+                            (causal && k0 + i > rows[e / 2]);
+          s[4 * n + e] = dead ? kNegInf : s[4 * n + e];
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * n + e] = hop::ex2(s[4 * n + e]) * (dp[4 * n + e] - dlt[e / 2]);
+  };
+  // ds rounded to bf16 straight into A operands (the TPU cast point,
+  // _bwd_dq_kernel's ds.astype(k.dtype)): n8 blocks 2kk and 2kk + 1 are
+  // the k16 step kk
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        da[kk][e] = tc::pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+  };
+
+  // Turn j issues tile j's S and dP with tile j - 1's dq product; the
+  // consumers take turns (named barriers), so one consumer's products run
+  // on the tensor cores while the other does its exponentials.  A
+  // consumer waits for all three products before its own elementwise
+  // work (issuing a wgmma holds the warps about as long as it runs, so
+  // little of that work could overlap them anyway), which keeps the bf16
+  // dS operand out of the registers that S and dP hold then: 160 live at
+  // D = 64 rather than 192, which spilled.  A stage is released only
+  // after its dq product has landed (K is read twice).  The first and
+  // last turns are peeled: every wgmma of the loop is unconditional,
+  // which ptxas needs to keep them asynchronous.  Consumer 0 takes the
+  // first turn.
+  hop::mbar_wait(&sm.q_full, 0);
+  if (cw == 1) hop::bar_arrive(kTurn, kConsumers);
+  hop::mbar_wait(&sm.full[0], 0);
+  hop::bar_sync(kTurn + cw, kConsumers);
+  hop::wgmma_fence();
+  issue_scores(0);
+  hop::wgmma_commit();
+  hop::bar_arrive(kTurn + (cw ^ 1), kConsumers);
+  hop::wgmma_wait<0>();
+  hop::fence_regs(s);
+  hop::fence_regs(dp);
+  elementwise(0);
+  pack();
+  for (int j = 1; j < nk; ++j) {
+    hop::mbar_wait(&sm.full[j % kStages], (j / kStages) & 1);
+    hop::bar_sync(kTurn + cw, kConsumers);
+    hop::wgmma_fence();
+    issue_scores(j);
+    issue_dq(j - 1);
+    hop::wgmma_commit();
+    hop::bar_arrive(kTurn + (cw ^ 1), kConsumers);
+    hop::wgmma_wait<0>();  // S(j), dP(j) and tile j - 1's dq have landed
+    hop::fence_regs(s);
+    hop::fence_regs(dp);
+    hop::fence_regs(acc);
+    hop::fence_regs(da);
+    hop::mbar_arrive(&sm.empty[(j - 1) % kStages]);  // may be refilled
+    elementwise(j);
+    pack();
+  }
+  // the last dq product (consumer 1's last turn has no successor)
+  hop::bar_sync(kTurn + cw, kConsumers);
+  hop::wgmma_fence();
+  issue_dq(nk - 1);
+  hop::wgmma_commit();
+  if (cw == 0) hop::bar_arrive(kTurn + 1, kConsumers);
+  hop::wgmma_wait<0>();
+  hop::fence_regs(acc);
+  hop::fence_regs(da);
+  hop::mbar_arrive(&sm.empty[(nk - 1) % kStages]);
+
+  // rows past Tq are never written
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = rows[i];
+    if (t >= Tq) continue;
+    __nv_bfloat16* row = dq + (static_cast<size_t>(b) * Tq + t) * H * D + h * D;
+#pragma unroll
+    for (int n = 0; n < kNo; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + c2) =
+          __floats2bfloat162_rn(scale * acc[4 * n + 2 * i],
+                                scale * acc[4 * n + 2 * i + 1]);
+  }
+}
+
+// ---- delta = rowsum(dO * O), one pass over the model's layout -----------
+
+constexpr int kDeltaTokens = 32;  // tokens a block: one 128-byte run of delta
+constexpr int kDeltaMaxThreads = kDeltaTokens * 8;  // at 8 heads a block
+
+// heads a block: 8, or 4 for rows over 256 bytes (f32 at D = 96 and 128),
+// so that a block's two staged tiles stay within 136 KB of shared memory
+template <typename T, int D>
+__host__ __device__ constexpr int delta_heads() {
+  return D * sizeof(T) <= 256 ? 8 : 4;
+}
+
+// one (token, head) row a thread
+template <typename T, int D>
+__host__ __device__ constexpr int delta_threads() {
+  return kDeltaTokens * delta_heads<T, D>();
+}
+
+// the staged O and dO tiles: rows of D values padded by 16 bytes, so that
+// the threads of a warp, reading one row each, hit distinct banks
+template <typename T, int D>
+constexpr size_t delta_smem_bytes() {
+  return 2 * sizeof(uint4) * delta_threads<T, D>() *
+         (D * sizeof(T) / 16 + 1);
+}
+
+// s += the f32 products of 16 bytes of a and b, one at a time in order:
+// 8 bf16 values (each product exact in f32) or 4 f32 values.  Each
+// product and each sum is rounded on its own (no fused multiply-add), as
+// the plain version's multiply and adds are, so the two agree bitwise
+template <typename T>
+__device__ __forceinline__ void dot16(float& s, uint4 a, uint4 b);
+
+template <>
+__device__ __forceinline__ void dot16<__nv_bfloat16>(float& s, uint4 a,
+                                                     uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    s = __fadd_rn(s, __fmul_rn(u.x, w.x));
+    s = __fadd_rn(s, __fmul_rn(u.y, w.y));
+  }
+}
+
+template <>
+__device__ __forceinline__ void dot16<float>(float& s, uint4 a, uint4 b) {
+  s = __fadd_rn(s, __fmul_rn(__uint_as_float(a.x), __uint_as_float(b.x)));
+  s = __fadd_rn(s, __fmul_rn(__uint_as_float(a.y), __uint_as_float(b.y)));
+  s = __fadd_rn(s, __fmul_rn(__uint_as_float(a.z), __uint_as_float(b.z)));
+  s = __fadd_rn(s, __fmul_rn(__uint_as_float(a.w), __uint_as_float(b.w)));
+}
+
+// One block per (b, 32-token tile, 8 or 4 heads).  Each token's run of
+// the block's heads is contiguous in O and dO, so the block copies both
+// tiles into shared memory with 16-byte loads, neighbouring threads on
+// neighbouring addresses (a thread reading its own row touched a line per
+// thread per load, and ran 1.5x slower at TinyLlama's shape); then a
+// thread sums one (token, head) row of D products in order of d (the
+// plain version's order), and the block's sums go out through shared
+// memory, each head's 32 tokens as one 128-byte run of delta's row.
+template <typename T, int D>
+__global__ void __launch_bounds__(kDeltaMaxThreads)
+    flash_bwd_delta_kernel(const T* __restrict__ o,
+                           const T* __restrict__ dout,
+                           float* __restrict__ delta, int Tq, int H) {
+  constexpr int kHeads = delta_heads<T, D>();
+  constexpr int kThreads = delta_threads<T, D>();
+  constexpr int kChunks = D * sizeof(T) / 16;  // 16-byte pieces of a row
+  constexpr int kPitch = kChunks + 1;          // a staged row, padded
+  extern __shared__ uint4 staged[];  // O rows, then dO rows [kThreads][kPitch]
+  __shared__ float sums[kHeads][kDeltaTokens];
+  const int n_tiles = (Tq + kDeltaTokens - 1) / kDeltaTokens;
+  const int n_groups = (H + kHeads - 1) / kHeads;
+  const int b = blockIdx.x / (n_tiles * n_groups);
+  const int t0 = (blockIdx.x / n_groups % n_tiles) * kDeltaTokens;
+  const int h0 = blockIdx.x % n_groups * kHeads;
+  const int nt = min(kDeltaTokens, Tq - t0);
+  const int nh = min(kHeads, H - h0);
+  const size_t tok = static_cast<size_t>(H) * D;  // stride of one token
+  const size_t base = (static_cast<size_t>(b) * Tq + t0) * tok +
+                      static_cast<size_t>(h0) * D;
+  // piece c of head hh of token t: every load of both tiles in flight
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int i = threadIdx.x + kThreads * k;
+    const int t = i / (kHeads * kChunks), hh = i / kChunks % kHeads;
+    const int c = i % kChunks;
+    if (t < nt && hh < nh) {
+      const size_t off = base + t * tok + static_cast<size_t>(hh) * D;
+      const int row = t * kHeads + hh;
+      staged[row * kPitch + c] =
+          __ldg(reinterpret_cast<const uint4*>(o + off) + c);
+      staged[(kThreads + row) * kPitch + c] =
+          __ldg(reinterpret_cast<const uint4*>(dout + off) + c);
+    }
+  }
+  __syncthreads();
+  const int t = threadIdx.x / kHeads, hh = threadIdx.x % kHeads;
+  if (t < nt && hh < nh) {
+    const uint4* x = staged + threadIdx.x * kPitch;
+    const uint4* y = staged + (kThreads + threadIdx.x) * kPitch;
+    float s = -0.f;  // -0 + x = x for every x, as the plain version starts
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) dot16<T>(s, x[c], y[c]);
+    sums[hh][t] = s;
+  }
+  __syncthreads();
+  const int wh = threadIdx.x / kDeltaTokens, wt = threadIdx.x % kDeltaTokens;
+  if (wh < nh && wt < nt)
+    delta[(static_cast<size_t>(b) * H + h0 + wh) * Tq + t0 + wt] =
+        sums[wh][wt];
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const uint8_t* mask;
@@ -1228,6 +1678,52 @@ cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
+// the wgmma dq kernel: q, k, v and dO through tensor maps, lse and delta
+// by plain loads
+template <int D>
+cudaError_t launch_dq_wgmma(const Args& a, void* dq) {
+  constexpr int kBk = dq_wg_keys<D>();
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e = hop::map_bthd(&mq, a.q, a.B, a.Tq, a.H, D, kWgRows);
+  if (e == cudaSuccess) e = hop::map_bthd(&mk, a.k, a.B, a.Tk, a.H, D, kBk);
+  if (e == cudaSuccess) e = hop::map_bthd(&mv, a.v, a.B, a.Tk, a.H, D, kBk);
+  if (e == cudaSuccess)
+    e = hop::map_bthd(&mdo, a.dout, a.B, a.Tq, a.H, D, kWgRows);
+  if (e != cudaSuccess) return e;
+  constexpr size_t smem = dq_wg_smem_bytes<D>();
+  e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const long long blocks = static_cast<long long>(a.B) * a.H *
+                           ((a.Tq + kWgRows - 1) / kWgRows);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_bwd_dq_wgmma_kernel<D><<<static_cast<unsigned>(blocks), kWgThreads,
+                                 smem, a.stream>>>(
+      mq, mk, mv, mdo, a.mask, a.lse, a.delta,
+      static_cast<__nv_bfloat16*>(dq), a.Tq, a.Tk, a.H, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_delta(const void* o, const void* dout, float* delta,
+                         int B, int Tq, int H, cudaStream_t stream) {
+  constexpr int kHeads = delta_heads<T, D>();
+  constexpr size_t smem = delta_smem_bytes<T, D>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_delta_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const long long blocks = static_cast<long long>(B) *
+                           ((Tq + kDeltaTokens - 1) / kDeltaTokens) *
+                           ((H + kHeads - 1) / kHeads);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_bwd_delta_kernel<T, D><<<static_cast<unsigned>(blocks),
+                                 delta_threads<T, D>(), smem, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, Tq, H);
+  return cudaGetLastError();
+}
+
 bool valid(int B, int Tq, int Tk, int H) {
   return B >= 1 && Tq >= 1 && Tk >= 1 && H >= 1 &&
          static_cast<long long>(B) * H <= 0x7fffffffLL &&
@@ -1269,19 +1765,49 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   if (!valid(B, Tq, Tk, H)) return cudaErrorInvalidValue;
   const Args a = args(q, k, v, kv_mask, dout, lse, delta, B, Tq, Tk, H,
                       causal, scale, stream);
-  switch (D) {  // the instantiated head dims (flash_attention.cu)
+  // the instantiated head dims (flash_attention.cu); bf16 picks its
+  // kernel by D up front: wgmma at 64 and 128, mma.sync at 32 and 96
+  switch (D) {
     case 32:
       return bf16 ? launch_dq<__nv_bfloat16, 32>(a, dq)
                   : launch_dq<float, 32>(a, dq);
     case 64:
-      return bf16 ? launch_dq<__nv_bfloat16, 64>(a, dq)
-                  : launch_dq<float, 64>(a, dq);
+      return bf16 ? launch_dq_wgmma<64>(a, dq) : launch_dq<float, 64>(a, dq);
     case 96:
       return bf16 ? launch_dq<__nv_bfloat16, 96>(a, dq)
                   : launch_dq<float, 96>(a, dq);
     case 128:
-      return bf16 ? launch_dq<__nv_bfloat16, 128>(a, dq)
+      return bf16 ? launch_dq_wgmma<128>(a, dq)
                   : launch_dq<float, 128>(a, dq);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// o, dout [B, Tq, H, D], both f32 (bf16 = 0) or bf16 (1), contiguous and
+// 16-byte aligned; delta [B*H, Tq] f32 (row b*H + h), the layout both
+// kernels above read.
+extern "C" int flash_attention_bwd_delta(const void* o, const void* dout,
+                                         void* delta, int bf16, int B,
+                                         int Tq, int H, int D,
+                                         void* stream) {
+  if (B < 1 || Tq < 1 || H < 1) return cudaErrorInvalidValue;
+  float* d = static_cast<float*>(delta);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return bf16 ? launch_delta<__nv_bfloat16, 32>(o, dout, d, B, Tq, H, st)
+                  : launch_delta<float, 32>(o, dout, d, B, Tq, H, st);
+    case 64:
+      return bf16 ? launch_delta<__nv_bfloat16, 64>(o, dout, d, B, Tq, H, st)
+                  : launch_delta<float, 64>(o, dout, d, B, Tq, H, st);
+    case 96:
+      return bf16 ? launch_delta<__nv_bfloat16, 96>(o, dout, d, B, Tq, H, st)
+                  : launch_delta<float, 96>(o, dout, d, B, Tq, H, st);
+    case 128:
+      return bf16
+                 ? launch_delta<__nv_bfloat16, 128>(o, dout, d, B, Tq, H, st)
+                 : launch_delta<float, 128>(o, dout, d, B, Tq, H, st);
     default:
       return cudaErrorInvalidValue;
   }

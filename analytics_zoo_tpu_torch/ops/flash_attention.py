@@ -262,22 +262,70 @@ def flash_attention_bwd_launch(kernel, q, k, v, kv_mask, do, lse, delta,
 
 def flash_attention_bwd_delta(o, do):
     """``delta = rowsum(do * o)`` in f32 as ``[B*H, Tq]`` (row b*H + h),
-    the layout of lse: computed outside the kernels, as the reference
-    does, and read by both of them."""
+    the layout of lse, read by both backward kernels: the plain version
+    of the delta pass (:func:`flash_attention_bwd_delta_fused`).  The
+    reference leaves it to XLA outside its kernels.  The f32 products
+    are summed one at a time in order of d, the kernel's order, so the
+    two agree bitwise (and the f32 backward kernels stay exactly equal
+    to :func:`flash_attention_bwd_ref`)."""
+    B, Tq, H, D = o.shape
+    prod = do.float() * o.float()
+    delta = prod[..., 0]
+    for d in range(1, D):
+        delta = delta + prod[..., d]
+    return delta.transpose(1, 2).reshape(B * H, Tq).contiguous()
+
+
+def flash_attention_bwd_delta_launch(o, do, delta):
+    """Launch the delta pass into a preallocated f32 ``[B*H, Tq]``
+    ``delta``; raises on a refused launch.
+    :func:`flash_attention_bwd_delta_fused` checks the operands and
+    counts; this is the same launch, for timing the kernel alone.  It
+    does not check its operands and does not count."""
+    from analytics_zoo_tpu_torch.ops import _build
+
+    B, Tq, H, D = o.shape
+    rc = _build.load("flash_attention_bwd").flash_attention_bwd_delta(
+        _ptr(o), _ptr(do), _ptr(delta), int(o.dtype == torch.bfloat16),
+        B, Tq, H, D, _stream(o))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd delta kernel launch "
+                           f"failed with CUDA error {rc}")
+
+
+def flash_attention_bwd_delta_fused(o, do):
+    """Launch the CUDA delta pass (CUDA tensors only): one kernel that
+    reads o and do ``[B, Tq, H, D]`` once and writes ``delta`` f32
+    ``[B*H, Tq]``, what :func:`flash_attention_bwd_delta` computes.
+    Takes o and do of one shape and dtype (f32 or bf16), contiguous and
+    16-byte aligned on one CUDA device, head dims in
+    :data:`KERNEL_HEAD_DIMS`; raises on anything else.
+    ``flash_attention_bwd_delta_fused.launches`` counts the launches."""
+    _check_dense("flash_attention_bwd_delta_fused", o, o, o, None,
+                 like_q=(do,))
     B, Tq, H, _ = o.shape
-    return (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
-        B * H, Tq).contiguous()
+    delta = torch.empty((B * H, Tq), dtype=torch.float32, device=o.device)
+    if delta.numel() == 0:
+        return delta
+    flash_attention_bwd_delta_launch(o, do, delta)
+    flash_attention_bwd_delta_fused.launches += 1
+    return delta
+
+
+flash_attention_bwd_delta_fused.launches = 0
 
 
 def flash_attention_bwd_fused(q, k, v, kv_mask, o, lse, do, *,
                               causal: bool, scale: Optional[float] = None):
-    """Launch the CUDA flash backward, the dq kernel then the dk/dv
-    kernel (CUDA tensors only).  Same contract as
+    """Launch the CUDA flash backward: the delta pass, then the dq
+    kernel, then the dk/dv kernel (CUDA tensors only).  Same contract as
     :func:`flash_attention_bwd_ref`.  Takes what
     :func:`flash_attention_fused` takes, with o and do of q's shape and
     dtype and lse a contiguous f32 ``[B*H, Tq]``; raises on anything
-    else.  ``flash_attention_bwd_fused.launches`` counts the calls, one
-    call being both kernels."""
+    else.  bf16 dq runs on wgmma at head dims 64 and 128 and on mma.sync
+    at 32 and 96.  ``flash_attention_bwd_fused.launches`` counts the
+    calls, one call being both kernels (the delta pass counts its own,
+    ``flash_attention_bwd_delta_fused.launches``)."""
     _check_dense("flash_attention_bwd_fused", q, k, v, kv_mask,
                  like_q=(o, do))
     B, Tq, H, D = q.shape
@@ -290,7 +338,7 @@ def flash_attention_bwd_fused(q, k, v, kv_mask, o, lse, do, *,
         scale = 1.0 / math.sqrt(D)
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    delta = flash_attention_bwd_delta(o, do)
+    delta = flash_attention_bwd_delta_fused(o, do)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     args = (q, k, v, kv_mask, do, lse, delta)

@@ -17,11 +17,12 @@ fails.  Phases, in order:
    ``flash_attention``, ``flash_attention_bwd`` or ``paged_attention``
    has no ``HMMA`` or no ``LDGSTS``, if a kernel named in
    ``SASS_MUST_EXIST`` is missing or one in ``SASS_REQUIRED`` lacks its
-   instructions (the bf16 forward and dk/dv kernels at D = 64 and 128:
-   ``HGMMA`` and ``UTMALDG``; at D = 32 and 96, the dq kernel at every
-   D and the paged tensor-core kernel: ``HMMA`` and ``LDGSTS``; the
-   paged CUDA-core kernel: ``LDGSTS``), if ptxas reports a spill in any
-   kernel, or if ptxas serialises wgmma anywhere.
+   instructions (the bf16 forward, dq and dk/dv kernels at D = 64 and
+   128: ``HGMMA`` and ``UTMALDG``; at D = 32 and 96, and the paged
+   tensor-core kernel: ``HMMA`` and ``LDGSTS``; the paged CUDA-core
+   kernel: ``LDGSTS``; the delta pass at every D in f32 and bf16: to
+   exist), if ptxas reports a spill in any kernel, or if ptxas
+   serialises wgmma anywhere.
 2. Kernels against their plain versions on the card, on the same CUDA
    inputs, with stated tolerances: the paged-attention kernel against
    ``paged_attention_ref`` (f32, bf16 and int8 pools x (H, KH) in
@@ -31,7 +32,8 @@ fails.  Phases, in order:
    full, sliced and long (M >= 128, small positions: empty splits)
    tables), the flash-attention forward against ``flash_attention_ref``
    on O and lse, and the two backward kernels against
-   ``flash_attention_bwd_ref`` on dq, dk and dv (each: causal or not x
+   ``flash_attention_bwd_ref`` on dq, dk and dv and the delta pass
+   against ``flash_attention_bwd_delta`` (each: causal or not x
    key mask or not, with a fully masked row x T in {1, 16, 17, 37, 65,
    127, 129, 383, 512, 1000} (the 16-, 64- and 128-row tile edges among
    them) x (H, D) in {(12, 64), (8, 128), (12, 32), (8, 96)} x f32 and
@@ -89,8 +91,9 @@ fails.  Phases, in order:
    to the plain version, at the split count the wrapper picks and at
    1-9 splits;
    flash forward at the arena's two most frequent prefill shapes and at
-   the training shape; both backward kernels at the training shape,
-   where dq, dk, dv, O and lse are first held to their plain versions;
+   the training shape; both backward kernels and the delta pass at the
+   training shape, where dq, dk, dv, delta, O and lse are first held to
+   their plain versions, with the backward wrapper's time a call;
    then the same at the Llama path's shapes: its paged decode tick and
    largest prefill group with 8-way GQA, and the flash kernels at B=4,
    T=2048, H=32, D=64),
@@ -342,6 +345,10 @@ FLASH_REPLACES = "analytics_zoo_tpu/ops/flash_attention.py:83"
 BWD_SOURCE = "analytics_zoo_tpu_torch/ops/csrc/flash_attention_bwd.cu"
 DQ_REPLACES = "analytics_zoo_tpu/ops/flash_attention.py:134"
 DKV_REPLACES = "analytics_zoo_tpu/ops/flash_attention.py:172"
+# the delta pass replaces no Pallas kernel: the reference computes delta
+# with jnp outside its kernels, which XLA fuses
+DELTA_REPLACES = ("none: the reference leaves delta to XLA "
+                  "(analytics_zoo_tpu/ops/flash_attention.py:258)")
 # H100 SXM data sheet: HBM bandwidth, dense bf16 tensor and f32 rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -374,6 +381,11 @@ BWD_ONE_KEY_TOL = 1e-5
 # at most 5.99e-3).  A skipped rounding of p or ds cannot hide in that:
 # the mma's A operand IS the p or ds rounded to bf16.
 DQ_BF16_TOL = 2.0 ** -7
+# the delta pass vs its plain version, relative to max(1, max |plain|):
+# both round the same f32 products and add them one at a time in order
+# of d, so they are bitwise equal (which keeps the f32 backward kernels
+# exactly equal to the plain backward)
+DELTA_TOL = 0.0
 # autograd through the Function vs through plain full_attention (f32):
 # softmax's gradient and exp(s - lse) differ in their last bits, then
 # summation order: relative to max(1, max |plain|)
@@ -408,33 +420,40 @@ TENSOR_CORE_LIBS = ("flash_attention", "flash_attention_bwd",
 SASS_REQUIRED = {
     "flash_fwd_wgmma_kernel<": ("HGMMA", "UTMALDG"),
     "flash_fwd_bf16_kernel<": ("HMMA", "LDGSTS"),
+    "flash_bwd_dq_wgmma_kernel<": ("HGMMA", "UTMALDG"),
     "flash_bwd_dq_bf16_kernel<": ("HMMA", "LDGSTS"),
     "flash_bwd_dkv_wgmma_kernel<": ("HGMMA", "UTMALDG"),
     "flash_bwd_dkv_bf16_kernel<": ("HMMA", "LDGSTS"),
     "paged_attention_bf16_kernel<": ("HMMA", "LDGSTS"),
     "paged_attention_kernel<": ("LDGSTS",),
 }
-# the bf16 forward and dk/dv kernels: wgmma at these head dims, mma.sync
-# at the others (the C dispatch, launch_d in flash_attention.cu and
-# flash_attention_bwd_dkv, chooses by D up front)
+# the bf16 forward, dq and dk/dv kernels: wgmma at these head dims,
+# mma.sync at the others (the C dispatch, launch_d in flash_attention.cu,
+# flash_attention_bwd_dq and flash_attention_bwd_dkv, chooses by D up
+# front)
 WGMMA_HEAD_DIMS = (64, 128)
 MMA_SYNC_HEAD_DIMS = tuple(D for D in fa.KERNEL_HEAD_DIMS
                            if D not in WGMMA_HEAD_DIMS)
 SASS_MUST_EXIST = tuple(
-    f"{name}<{D}>" for name, dims in (
-        ("flash_fwd_wgmma_kernel", WGMMA_HEAD_DIMS),
-        ("flash_fwd_bf16_kernel", MMA_SYNC_HEAD_DIMS),
-        ("flash_bwd_dq_bf16_kernel", fa.KERNEL_HEAD_DIMS),
-        ("flash_bwd_dkv_wgmma_kernel", WGMMA_HEAD_DIMS),
-        ("flash_bwd_dkv_bf16_kernel", MMA_SYNC_HEAD_DIMS),
-        ("paged_attention_bf16_kernel", fa.KERNEL_HEAD_DIMS),
-        ("paged_combine_kernel", fa.KERNEL_HEAD_DIMS))
+    f"{prefix}{D}>" for prefix, dims in (
+        ("flash_fwd_wgmma_kernel<", WGMMA_HEAD_DIMS),
+        ("flash_fwd_bf16_kernel<", MMA_SYNC_HEAD_DIMS),
+        ("flash_bwd_dq_wgmma_kernel<", WGMMA_HEAD_DIMS),
+        ("flash_bwd_dq_bf16_kernel<", MMA_SYNC_HEAD_DIMS),
+        ("flash_bwd_delta_kernel<bf16,", fa.KERNEL_HEAD_DIMS),
+        ("flash_bwd_delta_kernel<f32,", fa.KERNEL_HEAD_DIMS),
+        ("flash_bwd_dkv_wgmma_kernel<", WGMMA_HEAD_DIMS),
+        ("flash_bwd_dkv_bf16_kernel<", MMA_SYNC_HEAD_DIMS),
+        ("paged_attention_bf16_kernel<", fa.KERNEL_HEAD_DIMS),
+        ("paged_combine_kernel<", fa.KERNEL_HEAD_DIMS))
     for D in dims)
-# the profiler names of the bf16 forward and dk/dv kernels (either
+# the profiler names of the bf16 forward, dq and dk/dv kernels (either
 # design: this tree's wgmma kernel or an earlier tree's mma.sync one, so
-# that ``--flash --rows-only`` times both trees)
+# that ``--flash --rows-only`` times both trees), and of the delta pass
 FWD_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_bf16_kernel")
+DQ_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_bf16_kernel")
 DKV_KERNELS = ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_bf16_kernel")
+DELTA_KERNEL = "flash_bwd_delta_kernel"
 # the arena's two most frequent prefill shapes (B, T) on phase 4's stream
 # (phase 5), which ``--flash`` times without serving the stream
 ARENA_PREFILL = ((3, 512), (4, 256))
@@ -738,23 +757,26 @@ def check_backward(dev, kind, dtype, T, H, D, causal, masked, Tk=None):
                                        causal=causal)
     ref = fa.flash_attention_bwd_ref(q, k, v, mask, o, lse, do,
                                      causal=causal)
+    delta_err = rel_err(fa.flash_attention_bwd_delta_fused(o, do),
+                        fa.flash_attention_bwd_delta(o, do))
     torch.cuda.synchronize()
     errs = [rel_err(a, b) for a, b in zip(got, ref)]
     tols = bwd_tols(kind, T)
     ok = all(bool(torch.isfinite(a).all()) for a in got) and \
-        all(e <= t for e, t in zip(errs, tols))
+        all(e <= t for e, t in zip(errs, tols)) and delta_err <= DELTA_TOL
     if masked:
         # the last batch row masks every key: no gradient reaches it
         ok = ok and all(bool((a[-1] == 0).all()) for a in got)
     print(f"  {kind:4s} H={H:2d} D={D:3d} T={T:4d} Tk={k.shape[1]:4d} "
           f"causal={int(causal)} mask={int(masked)} dq_err={errs[0]:.3e} (tol {tols[0]:.1e}) "
           f"dk_err={errs[1]:.3e} dv_err={errs[2]:.3e} (tol {tols[1]:.0e}) "
+          f"delta_err={delta_err:.1e} (tol {DELTA_TOL:.0e}, bitwise) "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(
             f"backward kernels disagree with the plain version: {kind} "
             f"H={H} D={D} T={T} Tk={k.shape[1]} causal={causal} masked={masked} "
-            f"errs={errs}")
+            f"errs={errs} delta_err={delta_err}")
     return 1
 
 
@@ -952,16 +974,11 @@ def training_parity(dev, name, cfg):
         runs = {}
         for use_flash in (True, False):
             model = twin(cfg, base, use_flash)
-            fa.flash_attention_fused.launches = 0
-            fa.flash_attention_bwd_fused.launches = 0
+            reset_flash()
             _, hist = fit_lm(model, dev, toks, steps, 4, opt, True)
             want = steps * base.num_layers if use_flash else 0
-            got = (fa.flash_attention_fused.launches,
-                   fa.flash_attention_bwd_fused.launches)
-            if got != (want, want):
-                raise AssertionError(f"{name} {opt_name} use_flash="
-                                     f"{use_flash}: launches {got} != "
-                                     f"{want} each")
+            expect_flash(f"{name} {opt_name} use_flash={use_flash}",
+                         (want, want))
             runs[use_flash] = ([h["loss"] for h in hist],
                                model.state_dict())
         (lk, pk), (lp, pp) = runs[True], runs[False]
@@ -999,11 +1016,9 @@ def phase_training_main_path(dev, card, model, train=TRAIN,
         0, vocab, (B * per_epoch, T)).astype(np.int32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fused.launches = 0
-    fa.flash_attention_bwd_fused.launches = 0
+    reset_flash()
     est, hist = fit_lm(model, dev, toks, epochs, B, 1e-4, False)
-    fwd = fa.flash_attention_fused.launches
-    bwd = fa.flash_attention_bwd_fused.launches
+    fwd, bwd, delta = flash_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = epochs * per_epoch
     losses = [h["loss"] for h in hist]
@@ -1011,10 +1026,11 @@ def phase_training_main_path(dev, card, model, train=TRAIN,
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
     want = steps * model.num_layers
-    if fwd != want or bwd != want:
+    if fwd != want or bwd != want or delta != want:
         raise AssertionError(
-            f"launches forward {fwd} / backward {bwd} != {steps} steps x "
-            f"{model.num_layers} layers: the plain path ran")
+            f"launches forward {fwd} / backward {bwd} / delta {delta} != "
+            f"{steps} steps x {model.num_layers} layers: the plain path "
+            f"ran")
     last = hist[-1]
     ms_step = 1e3 * B / last["samples_per_sec"]
     print(f"  [{card}] {steps} steps of {B} x {T} tokens, epoch losses "
@@ -1026,7 +1042,8 @@ def phase_training_main_path(dev, card, model, train=TRAIN,
     print(f"  [{card}] peak device memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
     print(f"  flash forward launches {fwd} = backward launches {bwd} = "
-          f"{steps} steps x {model.num_layers} layers")
+          f"delta launches {delta} = {steps} steps x {model.num_layers} "
+          f"layers")
     if profile:
         profile_step(est, {"tokens": toks[:B]})
     # the first fit's optimizer state goes before the second's is made
@@ -1041,7 +1058,7 @@ def phase_training_main_path(dev, card, model, train=TRAIN,
         raise AssertionError(f"repeating one batch did not lower the "
                              f"loss: {rep}")
     free_memory()
-    return fwd, bwd
+    return fwd, bwd, delta
 
 
 def free_memory():
@@ -1459,6 +1476,14 @@ def bwd_bound(q, n_products, n_outputs, mask=None):
     return least_ms(nbytes, ops, q.dtype)
 
 
+def delta_bound(q):
+    """Least time (ms) for one delta pass: dO and O read once and delta
+    written once (f32), or its multiply-adds at the f32 rate."""
+    B, T, H, _ = q.shape
+    nbytes = 2 * q.numel() * q.element_size() + B * H * T * 4
+    return least_ms(nbytes, 2 * q.numel(), torch.float32)
+
+
 def training_timings(dev, train_launches, cfg=GPT2, train=TRAIN,
                      path="training main path", min_len=None):
     """The flash forward and both backward kernels at a training main
@@ -1467,7 +1492,7 @@ def training_timings(dev, train_launches, cfg=GPT2, train=TRAIN,
     backward through autograd).  Causal, or with ``min_len`` (BERT's
     shapes) not causal under a key mask of row lengths drawn from
     [min_len, T] (no fully masked row: SDPA answers one with NaN)."""
-    fwd_launches, bwd_launches = train_launches
+    fwd_launches, bwd_launches, delta_launches = train_launches
     B, T = train["batch"], train["seq"]
     H, D = cfg["num_heads"], cfg["hidden_size"] // cfg["num_heads"]
     scale = 1.0 / math.sqrt(D)
@@ -1526,6 +1551,21 @@ def training_timings(dev, train_launches, cfg=GPT2, train=TRAIN,
         raise AssertionError(f"flash forward disagrees with the plain "
                              f"version at the training shape: o_err "
                              f"{fwd_err} lse_err {lse_err}")
+    # the delta pass (absent from a tree that computes delta eagerly,
+    # which ``--flash --rows-only`` may time): into its own buffers
+    delta_launch = getattr(fa, "flash_attention_bwd_delta_launch", None)
+    if delta_launch is not None:
+        for s in sets:
+            s["delta_k"] = torch.empty_like(s["delta"])
+        delta_launch(s0["o"], s0["do"], s0["delta_k"])
+        delta_err = (s0["delta_k"] - s0["delta"]).abs().max().item()
+        delta_rel = rel_err(s0["delta_k"], s0["delta"])
+        print(f"  {shape}: delta pass max_abs_err {delta_err:.3e}, "
+              f"relative {delta_rel:.3e} (tol {DELTA_TOL:.0e}: bitwise)")
+        if delta_rel > DELTA_TOL:
+            raise AssertionError(f"delta pass disagrees with the plain "
+                                 f"version at the training shape: "
+                                 f"{delta_err}")
 
     def launch(kernel, outs):
         def run(i):
@@ -1538,8 +1578,17 @@ def training_timings(dev, train_launches, cfg=GPT2, train=TRAIN,
     dq, dkv = launch("dq", ("dq",)), launch("dkv", ("dk", "dv"))
 
     dq_ms, dkv_ms = time_ms(dq, n_sets, 10), time_ms(dkv, n_sets, 10)
-    dq_dev = device_ms(dq, n_sets, "flash_bwd_dq_bf16_kernel")[0]
+    dq_dev = device_ms(dq, n_sets, DQ_KERNELS)[0]
     dkv_dev = device_ms(dkv, n_sets, DKV_KERNELS)[0]
+    plain_delta_ms = time_ms(lambda i: fa.flash_attention_bwd_delta(
+        sets[i]["o"], sets[i]["do"]), n_sets, 10)
+    delta_ms = delta_dev = None
+    if delta_launch is not None:
+        def delta(i):
+            delta_launch(sets[i]["o"], sets[i]["do"], sets[i]["delta_k"])
+
+        delta_ms = time_ms(delta, n_sets, 10)
+        delta_dev = device_ms(delta, n_sets, DELTA_KERNEL)[0]
     wrapper_ms = time_ms(lambda i: fa.flash_attention_bwd_fused(
         *args(sets[i]), causal=causal), n_sets, 10)
     def fwd(i):
@@ -1568,10 +1617,13 @@ def training_timings(dev, train_launches, cfg=GPT2, train=TRAIN,
         lib[i][0], lib[i][1], lib[i][2], retain_graph=True), n_sets, 10)
     lib_fwd_ms = time_ms(lambda i: F.scaled_dot_product_attention(
         *lib[i][1], **sdpa_kw), n_sets, 10)
+    delta_says = "not in this tree" if delta_ms is None else \
+        f"{delta_ms:.4f} ms a call, {fmt_ms(delta_dev)} device time"
     print(f"  flash backward wrapper (delta + both kernels) "
           f"{wrapper_ms:.4f} ms; SDPA backward (dq, dk and dv in one "
           f"autograd call) {lib_bwd_ms:.4f} ms; plain backward (one pass, "
-          f"all three) {plain_bwd_ms:.4f} ms")
+          f"all three) {plain_bwd_ms:.4f} ms; delta pass {delta_says}, "
+          f"plain delta {plain_delta_ms:.4f} ms")
     q0 = s0["q"]
     entries = []
     bms, by = flash_bound(q0, mask)
@@ -1592,9 +1644,25 @@ def training_timings(dev, train_launches, cfg=GPT2, train=TRAIN,
             "launches": bwd_launches, "max_abs_err": err, "ms": ms,
             "kernel_ms": launch_ms, "plain_ms": plain_bwd_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_bwd_ms,
+            "wrapper_ms": wrapper_ms,
             "plain": "flash_attention_bwd_ref: dq, dk and dv in one pass",
             "library": "scaled_dot_product_attention backward: dq, dk "
                        "and dv in one call"})
+    if delta_launch is not None:
+        bms, by = delta_bound(q0)
+        entries.append({
+            "name": f"flash_attention_bwd_delta[B={B},T={T}{suffix}]",
+            "route": "cuda", "source": BWD_SOURCE,
+            "replaces": DELTA_REPLACES, "shape": shape,
+            "launches": delta_launches, "max_abs_err": delta_err,
+            "ms": delta_ms, "kernel_ms": delta_dev,
+            "plain_ms": plain_delta_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "wrapper_ms": wrapper_ms,
+            "plain": "flash_attention_bwd_delta: f32 products added d "
+                     "by d, the kernel's order",
+            "library": "none: no one PyTorch call returns the f32 row "
+                       "sums of bf16 operands (einsum and vecdot return "
+                       "bf16)"})
     return entries
 
 
@@ -1756,7 +1824,7 @@ def flash_rows(dev):
     no main path runs, so every ``launches`` is None."""
     print("== phase 7 (flash rows): kernel timings at the main paths' "
           "shapes")
-    none = (None, None)
+    none = (None, None, None)
     rows = prefill_timings(dev, [(s, None) for s in ARENA_PREFILL], None)
     rows += training_timings(dev, none)
     rows += training_timings(dev, none, TINYLLAMA, LLAMA_TRAIN,
@@ -1773,7 +1841,9 @@ def print_rows(entries):
               f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.5f} ms "
               f"({e['bound_by']}), library "
               f"{'-' if lib is None else f'{lib:.4f} ms'}, max_abs_err "
-              f"{e['max_abs_err']:.2e}, launches {e['launches']}")
+              f"{e['max_abs_err']:.2e}, launches {e['launches']}"
+              + (f", backward wrapper {e['wrapper_ms']:.4f} ms a call"
+                 if "wrapper_ms" in e else ""))
 
 
 def bert_timings(dev, bert):
@@ -3433,18 +3503,24 @@ def bert_like(model, cfg, **kw):
 def reset_flash():
     fa.flash_attention_fused.launches = 0
     fa.flash_attention_bwd_fused.launches = 0
+    fa.flash_attention_bwd_delta_fused.launches = 0
 
 
 def flash_counts():
+    """The flash launch counters: forward, backward (one a call of both
+    kernels) and the delta pass."""
     return (fa.flash_attention_fused.launches,
-            fa.flash_attention_bwd_fused.launches)
+            fa.flash_attention_bwd_fused.launches,
+            fa.flash_attention_bwd_delta_fused.launches)
 
 
 def expect_flash(what, want):
-    got = flash_counts()
+    """``want``: (forward, backward) launches; every backward call
+    launches the delta pass once."""
+    got, want = flash_counts(), (*want, want[1])
     if got != want:
-        raise AssertionError(f"{what}: flash launches forward/backward "
-                             f"{got} != {want}")
+        raise AssertionError(f"{what}: flash launches forward/backward/"
+                             f"delta {got} != {want}")
 
 
 def on(dev, rows):
@@ -3768,7 +3844,7 @@ def phase_bert_main_path(dev, card, cfg=BERT_BASE, layers=BERT_LAYERS):
         c["warm"], mem)
     print(f"  flash forward launches = backward launches = {steps} steps x "
           f"{layers} layers")
-    cls_fwd, cls_bwd = flash_counts()
+    cls_launches = flash_counts()
     est = fitted.estimator
     pred = fitted.transform(XShards.partition(held, num_shards=2))
     labels = np.asarray([p for s in pred.collect() for p in s["prediction"]])
@@ -3826,7 +3902,7 @@ def phase_bert_main_path(dev, card, cfg=BERT_BASE, layers=BERT_LAYERS):
                              times, qa["batch"], qa["seq"], qa["warm"], mem)
     print(f"  flash forward launches = backward launches = {qa['steps']} "
           f"steps x {layers} layers")
-    out["launches"] = {"classify": (cls_fwd, cls_bwd), "qa": (n, n),
+    out["launches"] = {"classify": cls_launches, "qa": (n, n, n),
                        "stack": stack_fwd}
     del qa_est, qa_model
     free_memory()
@@ -3868,11 +3944,9 @@ ZOO_ATOL = 1e-5             # 12a: card vs CPU forward, f32
 
 
 def zoo_launches():
-    """The four kernels' launch counters (phase 12 must move none; the
-    flash backward counter counts both backward kernels)."""
-    return (fa.paged_attention_fused.launches,
-            fa.flash_attention_fused.launches,
-            fa.flash_attention_bwd_fused.launches)
+    """The kernels' launch counters (phase 12 must move none; the flash
+    backward counter counts both backward kernels)."""
+    return (fa.paged_attention_fused.launches, *flash_counts())
 
 
 def zoo_series(n, seed=0):
@@ -4325,9 +4399,9 @@ def phase_zoo(dev, card):
     out["dien"] = zoo_dien(dev, card)
     out["forecast"] = zoo_forecast(dev, card)
     after = zoo_launches()
-    print(f"  paged / flash forward / flash backward launches during phase "
-          f"12: {after}")
-    if after != (0, 0, 0):
+    print(f"  paged / flash forward / flash backward / delta launches "
+          f"during phase 12: {after}")
+    if after != (0, 0, 0, 0):
         raise AssertionError("phase 12 launched an attention kernel")
     free_memory()
     return out

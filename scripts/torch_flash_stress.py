@@ -1,13 +1,14 @@
-"""Hold the port's bf16 flash kernels (forward, dq, dk/dv) to themselves
-over many launches on the card.
+"""Hold the port's bf16 flash kernels (forward, delta pass, dq, dk/dv) to
+themselves over many launches on the card.
 
 For each shape (the main paths' training, prefill and BERT shapes, the
-128-row tile edges, Tq != Tk, a grid of many waves) the kernels run once,
-then ``ITERS`` more times into the same outputs: every later output must
-equal the first bitwise (the kernels have no atomics, so any difference
-is a race), every output must be finite and within the bf16 tolerance of
-the plain version, and guard zones of ``GUARD`` elements on both sides
-of every output must keep their sentinel (a stray write fails).
+128-row tile edges, Tq != Tk, an odd Tq, a grid of many waves) the
+kernels run once, then ``ITERS`` more times into the same outputs: every
+later output must equal the first bitwise (the kernels have no atomics,
+so any difference is a race), every output must be finite and within
+the bf16 tolerance of the plain version (the delta pass: bitwise equal
+to it), and guard zones of ``GUARD`` elements on both sides of every
+output must keep their sentinel (a stray write fails).
 
     python3 scripts/torch_flash_stress.py [ITERS]
 
@@ -46,6 +47,7 @@ CASES = [
     (2, 383, 129, 12, 64, True, False),      # Tq != Tk
     (2, 129, 383, 12, 64, True, True),
     (150, 129, 129, 2, 64, True, False),     # B*H = 300, many waves
+    (2, 201, 201, 8, 128, True, True),       # odd Tq (Tq % 4 = 1)
 ]
 
 
@@ -110,7 +112,17 @@ def case(dev, B, Tq, Tk, H, D, causal, masked, iters):
     fwd_err = (o0.float() - ref_o.float()).abs().max().item()
     fwd_guards = guards_ok(ob, o.numel()) and guards_ok(lb, lse.numel())
 
-    delta = fa.flash_attention_bwd_delta(o0, do)
+    db, delta = guarded((B * H, Tq), torch.float32, dev)
+    t0 = time.monotonic()
+    delta_diffs, (delta0,) = repeat_equal(
+        lambda: fa.flash_attention_bwd_delta_launch(o0, do, delta), (delta,),
+        iters)
+    delta_s = time.monotonic() - t0
+    # the plain version sums in the kernel's order: bitwise equal
+    delta_err = (delta0 - fa.flash_attention_bwd_delta(o0, do)).abs().max(
+        ).item()
+    delta_guards = guards_ok(db, delta.numel())
+
     bufs, grads = zip(*(guarded(t.shape, torch.bfloat16, dev)
                         for t in (q, k, v)))
     args = (q, k, v, mask, do, lse0, delta)
@@ -129,12 +141,17 @@ def case(dev, B, Tq, Tk, H, D, causal, masked, iters):
                   for a, r in zip(firsts, refs))
     bwd_guards = all(guards_ok(b, t.numel()) for b, t in zip(bufs, grads))
     finite = all(bool(torch.isfinite(t).all()) for t in (o0, *firsts))
-    ok = (fwd_diffs == 0 and bwd_diffs == 0 and fwd_guards and bwd_guards
-          and finite and fwd_err <= BF16_ATOL and bwd_err <= BF16_ATOL)
+    ok = (fwd_diffs == 0 and bwd_diffs == 0 and delta_diffs == 0
+          and fwd_guards and bwd_guards and delta_guards and finite
+          and fwd_err <= BF16_ATOL and bwd_err <= BF16_ATOL
+          and delta_err == 0)
     print(f"B={B} Tq={Tq} Tk={Tk} H={H} D={D} causal={int(causal)} "
           f"mask={int(masked)} x{iters + 1}: forward {fwd_diffs} differing "
           f"elements, guards {'kept' if fwd_guards else 'WRITTEN'}, err "
-          f"{fwd_err:.3e} ({fwd_s:.2f} s); dq+dk/dv {bwd_diffs} differing, "
+          f"{fwd_err:.3e} ({fwd_s:.2f} s); delta {delta_diffs} differing, "
+          f"guards {'kept' if delta_guards else 'WRITTEN'}, err "
+          f"{delta_err:.1e} ({delta_s:.2f} s); dq+dk/dv {bwd_diffs} "
+          f"differing, "
           f"guards {'kept' if bwd_guards else 'WRITTEN'}, err {bwd_err:.3e} "
           f"({bwd_s:.2f} s); {'ok' if ok else 'FAIL'}", flush=True)
     return ok

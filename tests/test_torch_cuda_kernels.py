@@ -417,3 +417,100 @@ def test_flash_backward_rejects_what_it_does_not_take(cuda):
     small = [x[..., :16].contiguous() for x in (q, k, v, o, do)]
     with pytest.raises(ValueError, match="head dim"):
         bwd(*small[:3], None, small[3], lse, small[4], causal=True)
+
+
+# The wgmma dq kernel's edges (128-row query tiles; 128-key tiles at
+# D = 64, 64-key tiles at D = 128): Tq not a multiple of 128 and Tq % 4
+# != 0 (lse and delta read by plain loads), Tk != Tq both ways, a key
+# mask whose last batch row masks every key, causal at D = 128, and a
+# query tile whose second consumer holds no row (Tq = 3).
+_DQ_EDGES = [
+    (201, 201, 64, True, False), (201, 201, 128, False, True),
+    (202, 75, 64, True, True), (75, 333, 128, True, False),
+    (333, 201, 128, True, True), (3, 513, 64, False, True),
+    (383, 383, 128, True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq,Tk,D,causal,masked", _DQ_EDGES)
+def test_flash_backward_dq_wgmma_edges(cuda, Tq, Tk, D, causal, masked):
+    q, k, v, mask = _flash_case(cuda, "bf16", 2, (Tq, Tk), 4, D, masked,
+                                seed=Tq + Tk)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+        Tq + 1)).to(cuda, q.dtype)
+    o, lse = fa.flash_attention_fused(q, k, v, mask, causal=causal)
+    got = fa.flash_attention_bwd_fused(q, k, v, mask, o, lse, do,
+                                       causal=causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_ref(q, k, v, mask, o, lse, do,
+                                     causal=causal)
+    for g, r in zip(got, ref):
+        scale = max(1.0, r.float().abs().max().item())
+        assert (g.float() - r.float()).abs().max().item() \
+            <= _DQ_BF16_TOL * scale
+    if masked:
+        for g in got:
+            assert (g[-1] == 0).all()
+    # two launches of the dq kernel alone give the same bits (no atomics)
+    delta = fa.flash_attention_bwd_delta(o, do)
+    outs = [torch.full_like(q, 7.0) for _ in range(2)]
+    for out in outs:
+        fa.flash_attention_bwd_launch("dq", q, k, v, mask, do, lse, delta,
+                                      (out,), causal, 1.0 / D ** 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
+def test_bf16_dq_dispatches_by_head_dim(cuda, D):
+    """bf16 dq runs the wgmma kernel at D = 64 and 128 and the mma.sync
+    kernel at 32 and 96 (the profiler's kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, _ = _flash_case(cuda, "bf16", 1, 130, 2, D, False)
+    o, lse = fa.flash_attention_fused(q, k, v, causal=True)
+    do = torch.ones_like(q)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fa.flash_attention_bwd_fused(q, k, v, None, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    want = "flash_bwd_dq_wgmma_kernel" if D in (64, 128) \
+        else "flash_bwd_dq_bf16_kernel"
+    assert want in names
+    assert "flash_bwd_delta_kernel" in names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
+@pytest.mark.parametrize("Tq,H", [(1, 3), (33, 12), (200, 9)])
+def test_flash_backward_delta_kernel_matches_plain(cuda, kind, D, Tq, H):
+    g = torch.Generator().manual_seed(Tq + D)
+    o, do = (torch.randn((2, Tq, H, D), generator=g).to(cuda, _DTYPE[kind])
+             for _ in range(2))
+    before = fa.flash_attention_bwd_delta_fused.launches
+    got = fa.flash_attention_bwd_delta_fused(o, do)
+    again = fa.flash_attention_bwd_delta_fused(o, do)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_delta_fused.launches == before + 2
+    ref = fa.flash_attention_bwd_delta(o, do)
+    assert got.dtype == torch.float32 and got.shape == (2 * H, Tq)
+    # the plain version rounds the same products and adds them in the
+    # kernel's order (d by d): bitwise equal, in f32 as in bf16
+    assert torch.equal(got, ref)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_flash_backward_delta_rejects_what_it_does_not_take(cuda):
+    o = torch.randn((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="dO must match"):
+        fa.flash_attention_bwd_delta_fused(o, o.bfloat16())
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention_bwd_delta_fused(o.cpu(), o.cpu())
+    with pytest.raises(ValueError, match="head dim"):
+        small = o[..., :16].contiguous()
+        fa.flash_attention_bwd_delta_fused(small, small)

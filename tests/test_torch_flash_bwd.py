@@ -172,3 +172,39 @@ def test_no_grad_path_is_unchanged():
         with torch.no_grad():
             out = tfa.flash_attention(*a, causal=True)
         assert out.grad_fn is None and torch.equal(out, ref)
+
+
+# delta: both sides sum the same f32 products (exact for bf16 operands)
+# in f32, in another order: f32 rounding of sums of D terms, relative to
+# max(1, max |delta|)
+_DELTA_TOL = 1e-5
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
+def test_bwd_delta_matches_jax_expression(kind, D):
+    """The plain delta pass (``flash_attention_bwd_delta``, what the CUDA
+    delta kernel is held to on the card) against the reference's own
+    expression in ``_bwd_call``, ``jnp.sum(do.astype(f32) *
+    o.astype(f32), -1)``, on the same (bf16-rounded) inputs, in the
+    reference's [B*H, Tq] row order."""
+    rng = np.random.default_rng(D)
+    o, do = (rng.standard_normal((_B, 37, _H, D)).astype(np.float32)
+             for _ in range(2))
+    got = tfa.flash_attention_bwd_delta(_t(o, kind), _t(do, kind))
+    jo, jdo = _j(o, kind), _j(do, kind)
+    ref = jnp.sum(jdo.astype(jnp.float32) * jo.astype(jnp.float32), -1)
+    ref = np.asarray(ref).transpose(0, 2, 1).reshape(_B * _H, 37)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    atol = _DELTA_TOL * max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(got.numpy(), ref, atol=atol, rtol=0)
+
+
+def test_bwd_delta_kernel_wrapper_takes_cuda_tensors_only():
+    """The delta pass's wrapper launches its kernel or raises: a CPU
+    tensor takes the plain version, never the wrapper."""
+    o = torch.zeros((1, 4, 2, 64), dtype=torch.bfloat16)
+    before = tfa.flash_attention_bwd_delta_fused.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfa.flash_attention_bwd_delta_fused(o, o)
+    assert tfa.flash_attention_bwd_delta_fused.launches == before

@@ -215,7 +215,9 @@ def _sources():
 def test_sass_checked_kernels_are_globals(smoke):
     names = sass_names(smoke)
     assert {"flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
-            "flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel"} <= names
+            "flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
+            "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_bf16_kernel",
+            "flash_bwd_delta_kernel"} <= names
     assert sorted(names - global_kernels(_sources())) == []
 
 
@@ -225,6 +227,8 @@ _RENAMES = {
     "wgmma dk/dv": ("flash_bwd_dkv_wgmma_kernel(",
                     "flash_bwd_dkv_hopper_kernel("),
     "mma.sync forward": ("flash_fwd_bf16_kernel(", "flash_fwd_mma_kernel("),
+    "wgmma dq": ("flash_bwd_dq_wgmma_kernel(", "flash_bwd_dq_hopper_kernel("),
+    "delta pass": ("flash_bwd_delta_kernel(", "flash_bwd_rowsum_kernel("),
 }
 
 
