@@ -41,7 +41,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "paged_attention_splits": (_I, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I),
         "paged_attention_fwd": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                                _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                                _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _P),
     },
     "flash_attention": {
         "flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I,

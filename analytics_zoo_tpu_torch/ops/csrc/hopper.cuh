@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the warp-specialised flash kernels
-// (flash_attention.cu's forward, flash_attention_bwd.cu's dk/dv kernel):
-// the instructions that exist only from sm_90 on, wrapped one function
-// each, and the host-side tensor maps that TMA reads through.
+// (flash_attention.cu's forward, flash_attention_bwd.cu's dq and dk/dv
+// kernels) and the paged kernel's bf16 path (paged_attention.cu): the
+// instructions that exist only from sm_90 on, wrapped one function each,
+// and the host-side tensor maps that TMA reads through.
 //
 //   wgmma.mma_async m64nNk16 bf16 -> f32: one warpgroup (4 warps, 128
 //     threads) multiplies a 64 x 16 A by a 16 x N B into 64 x N f32
@@ -35,12 +36,18 @@
 //     instruction's transpose bit): a k16 step starts 16 rows (2048
 //     bytes) further, its second 8 rows 1024 bytes on (SBO), and the
 //     next 64 columns of N one box further (LBO).
+//     The RS form also takes a K-major B (no transpose): Q in registers
+//     times K^T, as the paged kernel's scores are.
 //   mbarrier: init, arrive, arrive.expect_tx (a TMA load completes the
 //     transaction bytes it was told to expect) and try_wait.parity.
-//   TMA: cp.async.bulk.tensor 1-D and 3-D loads into shared memory,
+//   TMA: cp.async.bulk.tensor 1-D, 2-D and 3-D loads into shared memory,
 //     completing on an mbarrier; rows outside the tensor are zero-filled
 //     by the copy, and a box must start 16-byte aligned in its innermost
 //     dimension (the card faults on any other start).
+//   Clusters: a block's rank and the cluster's size, barrier.cluster
+//     (release / acquire), and loads from another block's shared memory
+//     (mapa + ld.shared::cluster), which the paged kernel's split-K
+//     merge reads.
 //   ex2: 2^x in one ex2.approx (MUFU.EX2), without exp2f's range test.
 //   setmaxnreg: a producer warpgroup gives registers back, the consumer
 //     warpgroups take them; named barriers (bar.sync / bar.arrive with a
@@ -132,6 +139,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// box at (c0, c1) of a 2-D map into shared memory; completes on bar
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // box at c0 of a 1-D map into shared memory; completes on bar
 __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0) {
@@ -140,6 +158,59 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
+}
+
+// ---- thread-block clusters ----------------------------------------------
+
+// this block's rank in its cluster, and the cluster's block count (1 for
+// a launch without clusters)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// every thread of every block of the cluster: the shared-memory writes
+// before it are visible to the whole cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// the address of this block's shared ``p`` in block ``rank``'s shared
+// memory (distributed shared memory), and loads from such an address
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---- registers and named barriers ----------------------------------------
@@ -326,6 +397,38 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (+)= A . B^T, A [64 x 16] bf16 in registers, B [N x 16] K-major in
+// shared memory (descriptor b, no transpose); accumulate = 0 overwrites d
+template <int N>
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[N / 2],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<64>(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
 template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
                                                 const uint32_t (&a)[4],
@@ -406,6 +509,27 @@ inline cudaError_t map_bthd(CUtensorMap* map, const void* base, int B, int T,
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A [rows, D] bf16 tensor as a 2-D map (D, rows): a box of (64 columns,
+// box_rows rows), 128-byte swizzle.  Coordinates (64 j, r0) give rows r0
+// .. r0 + box_rows - 1 of columns 64 j ..; a box that lies past the last
+// row (or before row 0) reads no memory and lands as zeros.
+inline cudaError_t map_rows(CUtensorMap* map, const void* base,
+                            long long rows, int D, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -578,14 +578,33 @@ def cache_attention(q, cache_k, cache_v, visible):
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
+# the bf16 path of the paged kernel that runs on wgmma + TMA and merges
+# its splits inside a thread-block cluster (no workspace): bf16 q and
+# pool at these head dims and block sizes (``use_wgmma`` in
+# ``csrc/paged_attention.cu``)
+PAGED_WGMMA_HEAD_DIMS = (64, 128)
+PAGED_WGMMA_BLOCKS = (8, 16, 32, 64)
+
+
+def paged_wgmma_takes(q_dtype, kv_dtype, head_dim, block_size):
+    """Whether the paged kernel runs this shape on its wgmma path (one
+    launch, splits merged in a cluster, no workspace)."""
+    return (q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16
+            and head_dim in PAGED_WGMMA_HEAD_DIMS
+            and block_size in PAGED_WGMMA_BLOCKS)
+
+
 @functools.lru_cache(maxsize=256)
 def paged_attention_splits(q_bf16, kv_kind, B, S, H, KH, D, bs, M,
                            device_index):
     """How many ranges of logical positions the CUDA kernel splits one
     call into at this shape on CUDA device ``device_index``
-    (``csrc/paged_attention.cu``'s ``paged_attention_splits``: for the
-    few-row kernel, enough CUDA blocks for two waves of the card's SMs,
-    at most 16; one for the tensor-core kernel)."""
+    (``csrc/paged_attention.cu``'s ``paged_attention_splits``: on the
+    wgmma path one, except for a table of 1,024 positions or more on
+    fewer than two blocks an SM: at least 4 tiles of 64 positions a
+    split, at most 8, the size of the cluster that merges them; for the
+    few-row CUDA-core kernel, enough CUDA blocks for two waves of the
+    card's SMs, at most 16; one for the mma.sync kernel)."""
     from analytics_zoo_tpu_torch.ops import _build
 
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -605,10 +624,12 @@ def paged_attention_fused(q, pool_k, pool_v, tables, pos):
     scales), q and pools contiguous and 16-byte aligned, head dims and
     block sizes :func:`paged_kernel_takes` accepts; raises on anything
     else.  Where :func:`paged_attention_splits` gives more than one
-    range of logical positions, the ranges run on separate CUDA blocks
-    and a combine kernel merges them; one call counts as one launch in
-    ``paged_attention_fused.launches``, its split and combine kernels
-    together."""
+    range of logical positions, the ranges run on separate CUDA blocks:
+    on the wgmma path (:func:`paged_wgmma_takes`) the blocks of one
+    thread-block cluster, merged inside it in the same launch; on the
+    others a combine kernel merges them from a workspace.  One call
+    counts as one launch in ``paged_attention_fused.launches``, a split
+    and a combine kernel together."""
     from analytics_zoo_tpu_torch.ops import _build
 
     quant = isinstance(pool_k, QuantKV)
@@ -631,7 +652,8 @@ def paged_attention_fused(q, pool_k, pool_v, tables, pos):
         if not t.is_contiguous():
             raise ValueError("paged_attention_fused needs contiguous "
                              "operands")
-    # the kernels copy q and pool rows 16 bytes at a time (cp.async)
+    # the kernels copy q and pool rows 16 bytes at a time (cp.async; the
+    # wgmma path's TMA boxes start 16-byte aligned too)
     for t in (q, kd, vd):
         if t.data_ptr() % 16:
             raise ValueError(f"paged_attention_fused needs 16-byte aligned "
@@ -669,8 +691,8 @@ def paged_attention_fused(q, pool_k, pool_v, tables, pos):
     splits = paged_attention_splits(q_bf16, _KV_KINDS[kd.dtype], B, S, H,
                                     KH, D, bs, M, q.device.index)
     none = ctypes.c_void_p(0)
-    ws = none
-    if splits > 1:
+    ws = None
+    if splits > 1 and not paged_wgmma_takes(q.dtype, kd.dtype, D, bs):
         # per split: acc [B*S*H, D], then m and l [B*S*H], f32
         ws = torch.empty(splits * B * S * H * (D + 2), dtype=torch.float32,
                          device=q.device)
@@ -679,8 +701,8 @@ def paged_attention_fused(q, pool_k, pool_v, tables, pos):
         _ptr(pool_k.scale) if quant else none,
         _ptr(pool_v.scale) if quant else none,
         _KV_KINDS[kd.dtype], _ptr(tables), _ptr(pos), _ptr(out),
-        none if splits == 1 else _ptr(ws), splits,
-        B, S, H, KH, D, bs, M, _stream(q))
+        none if ws is None else _ptr(ws), splits, B, S, H, KH, D, bs, M, N,
+        _stream(q))
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed with "
                            f"CUDA error {rc}")

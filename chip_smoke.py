@@ -17,12 +17,12 @@ fails.  Phases, in order:
    ``flash_attention``, ``flash_attention_bwd`` or ``paged_attention``
    has no ``HMMA`` or no ``LDGSTS``, if a kernel named in
    ``SASS_MUST_EXIST`` is missing or one in ``SASS_REQUIRED`` lacks its
-   instructions (the bf16 forward, dq and dk/dv kernels at D = 64 and
-   128: ``HGMMA`` and ``UTMALDG``; at D = 32 and 96, and the paged
-   tensor-core kernel: ``HMMA`` and ``LDGSTS``; the paged CUDA-core
-   kernel: ``LDGSTS``; the delta pass at every D in f32 and bf16: to
-   exist), if ptxas reports a spill in any kernel, or if ptxas
-   serialises wgmma anywhere.
+   instructions (the bf16 forward, dq and dk/dv kernels and the paged
+   bf16 kernel at D = 64 and 128: ``HGMMA`` and ``UTMALDG``; at D = 32
+   and 96, and the paged mma.sync kernel: ``HMMA`` and ``LDGSTS``; the
+   paged CUDA-core kernel: ``LDGSTS``; the delta pass at every D in f32
+   and bf16: to exist), if ptxas reports a spill in any kernel, or if
+   ptxas serialises wgmma anywhere.
 2. Kernels against their plain versions on the card, on the same CUDA
    inputs, with stated tolerances: the paged-attention kernel against
    ``paged_attention_ref`` (f32, bf16 and int8 pools x (H, KH) in
@@ -89,7 +89,8 @@ fails.  Phases, in order:
 7. Kernel timings at the main paths' shapes (paged: a decode tick, a
    512-token prefill and every prefill shape of phase 4, each first held
    to the plain version, at the split count the wrapper picks and at
-   1-9 splits;
+   each count of ``PAGED_SPLIT_SWEEP`` (1-9 and 16); a bf16 row at
+   D = 64 must have run the wgmma kernel alone;
    flash forward at the arena's two most frequent prefill shapes and at
    the training shape; both backward kernels and the delta pass at the
    training shape, where dq, dk, dv, delta, O and lse are first held to
@@ -101,10 +102,11 @@ fails.  Phases, in order:
    PyTorch's ``scaled_dot_product_attention`` (forward, or its backward
    through autograd); then the paged kernel at phase 9's shapes: the
    speculative verify at TinyLlama width (B=8, S=5 at unaligned
-   positions: tensor cores), GPT-2's MHA verify (S=5: CUDA cores,
-   split), and a chunked tick's grid (rows at fill frontiers 0, 96 and
-   301, 32-token chunks, a table narrowed to the frontier, an all-sink
-   padding row) in bf16 and int8; then the flash forward and both
+   positions), GPT-2's MHA verify (S=5), and a chunked tick's grid (rows
+   at fill frontiers 0, 96 and 301, 32-token chunks, a table narrowed to
+   the frontier, an all-sink padding row) in bf16 (the wgmma kernel, also
+   at the sweep's split counts) and int8 (CUDA cores, split); then the
+   flash forward and both
    backward kernels at phase 11b's BERT shapes (B=32 T=128 and B=16
    T=384, H=12, D=64, not causal, under a key mask of row lengths
    32-128 / 96-384, no fully masked row), beside SDPA with a boolean
@@ -255,6 +257,14 @@ training shapes and at BERT's 32 x 128 and 16 x 384), with ``launches``
 null, and prints the rows as its last line; ``--flash --rows-only``
 runs the rows alone, which also time the kernels of a tree this script
 is copied into (to compare two trees in alternating processes).
+``python3 chip_smoke.py --paged`` runs phase 1, phase 2's paged part and
+phase 7's paged rows (GPT-2 and TinyLlama decode, a 512-token prefill
+and phase 4's prefill groups at both widths, 9b's verify and chunk
+shapes, and a TinyLlama decode at ~2,000 positions, where the split
+policy splits), each at the sweep's split counts, with ``launches``
+null, and prints the rows as its last line; ``--paged --rows-only``
+runs the rows alone at the split count each tree's policy picks (to
+compare two trees in alternating processes, as ``--flash``).
 ``python3 chip_smoke.py --paged-rounds N`` runs none of the phases: it
 serves phase 4's stream N times after one warm-up, on phase 4's model,
 and prints a line a round (to compare two trees' paged serving in
@@ -424,6 +434,7 @@ SASS_REQUIRED = {
     "flash_bwd_dq_bf16_kernel<": ("HMMA", "LDGSTS"),
     "flash_bwd_dkv_wgmma_kernel<": ("HGMMA", "UTMALDG"),
     "flash_bwd_dkv_bf16_kernel<": ("HMMA", "LDGSTS"),
+    "paged_attention_wgmma_kernel<": ("HGMMA", "UTMALDG"),
     "paged_attention_bf16_kernel<": ("HMMA", "LDGSTS"),
     "paged_attention_kernel<": ("LDGSTS",),
 }
@@ -444,6 +455,7 @@ SASS_MUST_EXIST = tuple(
         ("flash_bwd_delta_kernel<f32,", fa.KERNEL_HEAD_DIMS),
         ("flash_bwd_dkv_wgmma_kernel<", WGMMA_HEAD_DIMS),
         ("flash_bwd_dkv_bf16_kernel<", MMA_SYNC_HEAD_DIMS),
+        ("paged_attention_wgmma_kernel<", WGMMA_HEAD_DIMS),
         ("paged_attention_bf16_kernel<", fa.KERNEL_HEAD_DIMS),
         ("paged_combine_kernel<", fa.KERNEL_HEAD_DIMS))
     for D in dims)
@@ -457,9 +469,22 @@ DELTA_KERNEL = "flash_bwd_delta_kernel"
 # the arena's two most frequent prefill shapes (B, T) on phase 4's stream
 # (phase 5), which ``--flash`` times without serving the stream
 ARENA_PREFILL = ((3, 512), (4, 256))
-# the profiler names of the paged kernels of one call: the split kernel
-# (either path) and the combine kernel
-PAGED_KERNELS = ("paged_attention_", "paged_combine_kernel")
+# the profiler names of the paged kernels of one call: the wgmma kernel
+# (its splits merged in a cluster), or a split kernel (CUDA cores or
+# mma.sync) and the combine kernel; an earlier tree's names are the same,
+# so ``--paged --rows-only`` times both trees
+PAGED_KERNELS = ("paged_attention_wgmma_kernel", "paged_attention_kernel",
+                 "paged_attention_bf16_kernel", "paged_combine_kernel")
+# the split counts phase 7 times each paged shape at: every count the
+# wgmma path's clusters take (1-8), the CUDA-core kernel's 9 at decode,
+# and 16 (ranges beyond the cluster size: a block takes two)
+PAGED_SPLIT_SWEEP = (1, 2, 3, 4, 5, 6, 8, 9, 16)
+# phase 4's prefill groups (rows, suffix bucket, start positions), the
+# same on the GPT-2 and TinyLlama paged paths (phase 4 and 6b print
+# them), which ``--paged`` times without serving the stream
+PAGED_PREFILL = ((4, 512, (0, 0, 0, 0)), (4, 256, (0, 0, 0, 0)),
+                 (2, 256, (256, 256)), (1, 32, (256,)), (2, 128, (0, 0)),
+                 (3, 512, (0, 0, 0)))
 MAIN = dict(max_new_tokens=32, max_slots=8,
             prompt_buckets=(32, 64, 128, 256, 512))
 SHARED = 256
@@ -561,6 +586,13 @@ def flash_case(dev, dtype, B, T, H, D, masked=False, seed=0, Tk=None):
 
 def phase_kernel_vs_plain(dev):
     print("== phase 2: kernels vs plain versions on the card")
+    phase_paged_vs_plain(dev)
+    phase_flash_vs_plain(dev)
+
+
+def phase_paged_vs_plain(dev):
+    """Phase 2's paged part: the pools x heads x S x tables grid, then
+    every regime (:func:`check_paged_regimes`)."""
     print("-- paged attention")
     rng = np.random.default_rng(0)
     B, bs, M = 3, 16, 48
@@ -595,7 +627,6 @@ def phase_kernel_vs_plain(dev):
                             f"pool={kind} H={H} KH={KH} S={S} "
                             f"sliced={sliced} err={err}")
     check_paged_regimes(dev)
-    phase_flash_vs_plain(dev)
 
 
 def phase_flash_vs_plain(dev):
@@ -694,10 +725,11 @@ def check_paged_regimes(dev):
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         ok = bool(torch.isfinite(out).all()) and err <= ATOL[kind]
-        mma = kind == "bf16" and S * G >= 16
+        path = ("wgmma" if fa.paged_wgmma_takes(q.dtype, kd.dtype, D, bs)
+                else "mma" if kind == "bf16" and S * G >= 16 else "cuda")
         print(f"  pool={kind:4s} D={D:3d} bs={bs:2d} S={S:3d} G={G} "
               f"table={table:6s} M={t.shape[1]:3d} splits={splits:2d} "
-              f"{'mma ' if mma else 'cuda'} max_abs_err={err:.3e} "
+              f"{path:5s} max_abs_err={err:.3e} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(
@@ -1686,12 +1718,12 @@ def forced_splits(k):
 
 
 def paged_timings(dev, paged_launches, paged_shapes, cfg=GPT2,
-                  model="GPT-2"):
+                  model="GPT-2", sweep=PAGED_SPLIT_SWEEP):
     """The paged kernel at a decode tick's shape, at a 512-token prefill
     and at every prefill shape of a paged main path (rows, suffix
     bucket, start positions), with ``cfg``'s heads, each held to the
     plain version, then timed at the split count the wrapper picks and
-    at 1, 2, 3, 5 and 9 splits."""
+    at each count of ``sweep`` (none for an empty one)."""
     rng = np.random.default_rng(5)
     H = cfg["num_heads"]
     KH = cfg.get("num_kv_heads") or H
@@ -1722,13 +1754,11 @@ def paged_timings(dev, paged_launches, paged_shapes, cfg=GPT2,
                                            PAGED_M, q.device.index)
         ms = time_ms(paged, n_sets)
         launch_ms, parts = device_ms(paged, n_sets, PAGED_KERNELS)
-        sweep = {}
-        for k in (1, 2, 3, 5, 9):
-            with forced_splits(k):
-                sweep[k] = device_ms(paged, n_sets, PAGED_KERNELS)[0]
+        check_paged_path(label, q, pk, parts)
+        at_splits = split_sweep(paged, n_sets, sweep)
         print(f"  paged {label}: {splits} splits, device time a call by "
               f"kernel {json.dumps(parts)}; at splits "
-              + ", ".join(f"{k}: {fmt_ms(v)}" for k, v in sweep.items()))
+              + ", ".join(f"{k}: {fmt_ms(v)}" for k, v in at_splits.items()))
         plain = time_ms(lambda i: fa.paged_attention_ref(q, pk, pv,
                                                          tabs[i], p),
                         n_sets, iters=20)
@@ -1741,11 +1771,36 @@ def paged_timings(dev, paged_launches, paged_shapes, cfg=GPT2,
             "launches": paged_launches, "max_abs_err": err, "ms": ms,
             "kernel_ms": launch_ms, "plain_ms": plain, "bound_ms": bms,
             "bound_by": by, "splits": splits, "kernel_ms_parts": parts,
-            "kernel_ms_at_splits": sweep,
+            "kernel_ms_at_splits": at_splits,
             # no single PyTorch call computes attention through block
             # tables, so there is no library yardstick
             "library_ms": None})
     return entries
+
+
+def check_paged_path(label, q, pk, parts):
+    """A bf16 row at D = 64/128 and bs 16 must have run the wgmma kernel
+    alone (one launch a call, no combine kernel), where the profiler
+    recorded the call (``parts``) and the tree has that path (an earlier
+    tree timed by ``--paged --rows-only`` has not)."""
+    takes = getattr(fa, "paged_wgmma_takes", None)
+    kd = pk.data if isinstance(pk, fa.QuantKV) else pk
+    if not parts or takes is None \
+            or not takes(q.dtype, kd.dtype, q.shape[-1], kd.shape[2]):
+        return
+    if list(parts) != [f"paged_attention_wgmma_kernel<{q.shape[-1]}>"]:
+        raise AssertionError(f"paged {label} ran {list(parts)}, not the "
+                             f"wgmma kernel alone")
+
+
+def split_sweep(paged, n_sets, sweep):
+    """{k: device ms a call of ``paged`` at k forced splits} for each k of
+    ``sweep``."""
+    at_splits = {}
+    for k in sweep:
+        with forced_splits(k):
+            at_splits[k] = device_ms(paged, n_sets, PAGED_KERNELS)[0]
+    return at_splits
 
 
 def prefill_timings(dev, shapes, flash_launches):
@@ -1811,7 +1866,7 @@ def phase_timings(dev, paged_launches, paged_shapes, flash_launches,
                              TINYLLAMA, "TinyLlama")
     entries += training_timings(dev, llama["train_launches"], TINYLLAMA,
                                 LLAMA_TRAIN, "Llama training main path")
-    entries += spec_chunk_timings(dev, modes)
+    entries += spec_chunk_timings(dev, modes, PAGED_SPLIT_SWEEP)
     entries += bert_timings(dev, bert)
     print_rows(entries)
     return entries
@@ -1830,6 +1885,28 @@ def flash_rows(dev):
     rows += training_timings(dev, none, TINYLLAMA, LLAMA_TRAIN,
                              "Llama training main path")
     rows += bert_timings(dev, {"classify": none, "qa": none, "stack": None})
+    return rows
+
+
+def paged_rows(dev, sweep):
+    """Phase 7's paged rows alone (``--paged``): decode, a 512-token
+    prefill and phase 4's prefill groups (``PAGED_PREFILL``) at GPT-2's
+    and at TinyLlama's width, then phase 9b's verify and chunk shapes;
+    each at the split counts of ``sweep`` too.  No main path runs, so
+    every ``launches`` is None."""
+    print("== phase 7 (paged rows): kernel timings at the main paths' "
+          "shapes")
+    groups = set(PAGED_PREFILL)
+    rows = paged_timings(dev, None, groups, sweep=sweep)
+    rows += paged_timings(dev, None, groups, TINYLLAMA, "TinyLlama",
+                          sweep=sweep)
+    rows += spec_chunk_timings(dev, {"verify": None, "chunk": None}, sweep)
+    # a long context, where the split policy splits (no main path serves
+    # one): TinyLlama decode at ~2,000 positions of a 2,048-position table
+    rng = np.random.default_rng(11)
+    rows += paged_case_rows(dev, [(
+        "TinyLlama long decode", TINYLLAMA, "bf16", 8, 1,
+        rng.integers(1950, 2000, 8), 128, None)], sweep)
     return rows
 
 
@@ -2740,15 +2817,16 @@ def bf16_witness(model, dev, reqs, base, mono, spec, acceptance):
     return w
 
 
-def spec_chunk_timings(dev, p9):
+def spec_chunk_timings(dev, p9, sweep=()):
     """Phase 7's rows for the modes of phase 9: the paged kernel at the
-    speculative verify shape (TinyLlama B=8 S=5, 8-way GQA: tensor
-    cores), at GPT-2's MHA verify (S=5: CUDA cores, split), and at a
-    chunked tick's grid (rows at frontiers 0, 96 and 301, 32-token
-    chunks, a table narrowed to the frontier, an all-sink padding row),
-    bf16 and int8, each held to the plain version first.  ``launches``
+    speculative verify shape (TinyLlama B=8 S=5, 8-way GQA), at GPT-2's
+    MHA verify (S=5), and at a chunked tick's grid (rows at frontiers 0,
+    96 and 301, 32-token chunks, a table narrowed to the frontier, an
+    all-sink padding row), bf16 (the wgmma kernel) and int8 (CUDA cores,
+    split), each held to the plain version first.  ``launches``
     are the calls at that shape in 9b's runs (which serve bf16 pools
-    and no GPT-2 model: 0 for those two rows)."""
+    and no GPT-2 model: 0 for those two rows).  The bf16 rows are also
+    timed at each split count of ``sweep``."""
     rng = np.random.default_rng(9)
     cases = [("TinyLlama verify", TINYLLAMA, "bf16", 8, 5,
               rng.integers(290, 311, 8), PAGED_M, p9["verify"]),
@@ -2758,6 +2836,14 @@ def spec_chunk_timings(dev, p9):
               [0, 96, 301, 0], 32, p9["chunk"]),
              ("TinyLlama chunk grid", TINYLLAMA, "int8", 4, 32,
               [0, 96, 301, 0], 32, 0)]
+    return paged_case_rows(dev, cases, sweep)
+
+
+def paged_case_rows(dev, cases, sweep=()):
+    """Phase 7's rows of the paged kernel at ``cases`` ((label, cfg,
+    pool kind, B, S, positions, table width M, launches)), each held to
+    the plain version first (a "grid" case's last row all sink), the bf16
+    ones also timed at each split count of ``sweep``."""
     entries = []
     for label, cfg, kind, B, S, pos, M, launches in cases:
         H = cfg["num_heads"]
@@ -2779,14 +2865,20 @@ def spec_chunk_timings(dev, p9):
             q.dtype == torch.bfloat16, fa._KV_KINDS[
                 (pk.data if kind == "int8" else pk).dtype],
             B, S, H, KH, D, 16, M, q.device.index)
-        if label == "GPT-2 verify" and splits < 2:
-            raise AssertionError(f"GPT-2 verify ran {splits} split")
 
         def paged(i):
             fa.paged_attention_fused(q, pk, pv, tabs[i], p)
 
         ms = time_ms(paged, n_sets)
         launch_ms, parts = device_ms(paged, n_sets, PAGED_KERNELS)
+        check_paged_path(label, q, pk, parts)
+        at_splits = split_sweep(paged, n_sets,
+                                sweep if kind == "bf16" else ())
+        if at_splits:
+            print(f"  paged {label} {kind}: {splits} splits, device time "
+                  f"a call by kernel {json.dumps(parts)}; at splits "
+                  + ", ".join(f"{k}: {fmt_ms(v)}"
+                              for k, v in at_splits.items()))
         plain = time_ms(lambda i: fa.paged_attention_ref(q, pk, pv,
                                                          tabs[i], p),
                         n_sets, iters=20)
@@ -2799,7 +2891,7 @@ def spec_chunk_timings(dev, p9):
             "launches": launches, "max_abs_err": err, "ms": ms,
             "kernel_ms": launch_ms, "plain_ms": plain, "bound_ms": bms,
             "bound_by": by, "splits": splits, "kernel_ms_parts": parts,
-            "library_ms": None})
+            "kernel_ms_at_splits": at_splits, "library_ms": None})
     return entries
 
 
@@ -4454,6 +4546,23 @@ def main() -> int:
         rows = flash_rows(dev)
         print_rows(rows)
         lap("phase 7 (flash rows)")
+        print(card)
+        print(json.dumps({"kernels": rows}))
+        return 0
+
+    if sys.argv[1:2] == ["--paged"]:
+        # the paged kernels alone; with --rows-only just their timings at
+        # the split count each tree's policy picks (copy this script into
+        # another tree to time it against this one)
+        rows_only = "--rows-only" in sys.argv[2:]
+        if not rows_only:
+            phase_build()
+            lap("phase 1")
+            phase_paged_vs_plain(dev)
+            lap("phase 2 (paged)")
+        rows = paged_rows(dev, () if rows_only else PAGED_SPLIT_SWEEP)
+        print_rows(rows)
+        lap("phase 7 (paged rows)")
         print(card)
         print(json.dumps({"kernels": rows}))
         return 0

@@ -285,6 +285,90 @@ def test_paged_attention_kernel_any_split_count(cuda, kind, S, G, splits,
     assert (out - ref).abs().max().item() <= _ATOL[kind]
 
 
+def _wgmma_case(dev, S, G, D, bs, seed=0, poison=True):
+    """bf16 paged inputs for the wgmma path's grid: B=3 rows of S query
+    tokens, KH=2 kv heads of G query heads each, positions that start
+    and end inside a page, rows 1 and 2 sharing their first blocks (a
+    shared prefix), and (``poison``) every table entry past a row's last
+    live page set to -1 or to an id past the pool.  Returns (args for
+    the kernel, args for the plain version: the same with the poisoned
+    entries set to the sink block 0)."""
+    g = torch.Generator().manual_seed(seed)
+    B, KH = 3, 2
+    H = KH * G
+    # the furthest row's queries start 2 positions into a page, the
+    # others mid-page; row 2 is short (two whole blocks and a part)
+    hi = 3 * bs + 2 + max(0, 80 - S)
+    pos = torch.tensor([hi, hi - bs // 2 - 1, 2 * bs + bs // 2 + 1],
+                       dtype=torch.int32)
+    M = (hi + S - 1) // bs + 3
+    N = B * M + 1
+    kv = [torch.randn((N, KH, bs, D), generator=g).to(dev, torch.bfloat16)
+          for _ in range(2)]
+    q = torch.randn((B, S, H, D), generator=g).to(dev, torch.bfloat16)
+    tables = (1 + torch.randperm(B * M, generator=g)).to(torch.int32)
+    tables = tables.reshape(B, M)
+    shared = (int(pos[2]) + 1) // bs          # row 2's whole blocks
+    tables[1, :shared] = tables[2, :shared]
+    clean = tables.clone()
+    if poison:
+        for b in range(B):
+            live = (int(pos[b]) + S - 1) // bs + 1
+            tables[b, live:] = torch.where(
+                torch.arange(M - live) % 2 == 0, -1, N + 1000 * (b + 1))
+            clean[b, live:] = 0
+    pos = pos.to(dev)
+    return ((q, kv[0], kv[1], tables.to(dev), pos),
+            (q, kv[0], kv[1], clean.to(dev), pos))
+
+
+# (S, G): rows a kv head 1 (MHA decode), 5 (MHA verify), 8 (GQA decode),
+# 40 (GQA verify), 256 (a 32-token GQA chunk: two 128-row tiles) and
+# 4096 (a 512-token GQA prefill group)
+_WGMMA_ROWS = [(1, 1), (5, 1), (1, 8), (5, 8), (32, 8), (512, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,G", _WGMMA_ROWS)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs", [1, 8, 16, 64])
+def test_paged_attention_wgmma_matches_plain(cuda, S, G, D, bs):
+    """bf16 at D = 64/128 (the wgmma kernel at bs 8/16/64; bs 1 takes
+    the earlier kernels, chosen up front): every row count, ragged and
+    shared pages, poisoned table tails, against the plain version."""
+    args, clean = _wgmma_case(cuda, S, G, D, bs, seed=S + G + D + bs)
+    assert fa.paged_wgmma_takes(torch.bfloat16, torch.bfloat16, D, bs) \
+        == (bs != 1)
+    before = fa.paged_attention_fused.launches
+    out = fa.paged_attention(*args)
+    again = fa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert fa.paged_attention_fused.launches == before + 2
+    ref = fa.paged_attention_ref(*clean)
+    assert out.shape == args[0].shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= _ATOL["bf16"]
+    assert torch.equal(out, again)      # no atomics: bitwise repeatable
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,G", [(1, 8), (5, 8), (32, 8), (512, 1)])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 5, 6, 7, 8, 12])
+def test_paged_attention_wgmma_any_split_count(cuda, S, G, D, splits,
+                                               monkeypatch):
+    """Any split count computes the same function on the wgmma path: up
+    to 8 the blocks of one cluster, 12 a cluster of 8 whose blocks take
+    one or two ranges each."""
+    args, clean = _wgmma_case(cuda, S, G, D, 16, seed=splits)
+    monkeypatch.setattr(fa, "paged_attention_splits",
+                        lambda *shape: splits)
+    out = fa.paged_attention_fused(*args)
+    torch.cuda.synchronize()
+    ref = fa.paged_attention_ref(*clean)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= _ATOL["bf16"]
+
+
 @pytest.mark.cuda
 def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda):
     q, pk, pv, tables, pos = _case(cuda, "f32", 12, 12, 5)

@@ -130,6 +130,8 @@ _PAGED_DRIFTS = {
                              "int paged_attention_split_count("),
     "SM count dropped": ("int M,\n                                      "
                          "int sms)", "int M)"),
+    "pool size dropped": ("int M, int N, void* stream)",
+                          "int M, void* stream)"),
 }
 
 
@@ -229,6 +231,8 @@ _RENAMES = {
     "mma.sync forward": ("flash_fwd_bf16_kernel(", "flash_fwd_mma_kernel("),
     "wgmma dq": ("flash_bwd_dq_wgmma_kernel(", "flash_bwd_dq_hopper_kernel("),
     "delta pass": ("flash_bwd_delta_kernel(", "flash_bwd_rowsum_kernel("),
+    "wgmma paged": ("paged_attention_wgmma_kernel(",
+                    "paged_attention_tma_kernel("),
 }
 
 
@@ -239,3 +243,48 @@ def test_sass_name_check_catches_rename(smoke, rename):
     assert sum(src.count(old) for src in sources) == 1
     renamed = [src.replace(old, new) for src in sources]
     assert old[:-1] in sass_names(smoke) - global_kernels(renamed)
+
+
+def test_paged_wgmma_kernel_is_sass_checked(smoke):
+    """Phase 1 requires HGMMA and UTMALDG in the paged wgmma kernel, at
+    both head dims the C dispatch sends to it."""
+    assert smoke.SASS_REQUIRED["paged_attention_wgmma_kernel<"] \
+        == ("HGMMA", "UTMALDG")
+    assert {"paged_attention_wgmma_kernel<64>",
+            "paged_attention_wgmma_kernel<128>"} \
+        <= set(smoke.SASS_MUST_EXIST)
+    assert "paged_attention_wgmma_kernel" in smoke.PAGED_KERNELS
+
+
+def _c_body(src, name):
+    """The text of C function ``name``'s body in ``src``."""
+    src = _strip_comments(src)
+    start = src.index("{", re.search(rf"\b{name}\(", src).end())
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start + 1:i]
+    raise ValueError(name)
+
+
+def test_paged_wgmma_rule_matches_the_dispatch():
+    """``paged_wgmma_takes`` (which decides whether the wrapper allocates
+    a split-K workspace) names the head dims and block sizes the C
+    dispatch sends to the wgmma kernel."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+
+    src = _source("paged_attention")
+    blocks = {int(x) for x in
+              re.findall(r"bs == (\d+)", _c_body(src, "wg_block"))}
+    dims = {int(x) for x in
+            re.findall(r"D == (\d+)", _c_body(src, "use_wgmma"))}
+    assert blocks == set(fa.PAGED_WGMMA_BLOCKS)
+    assert dims == set(fa.PAGED_WGMMA_HEAD_DIMS)
+    import torch
+    bf16 = torch.bfloat16
+    assert fa.paged_wgmma_takes(bf16, bf16, 64, 16)
+    assert not fa.paged_wgmma_takes(torch.float32, bf16, 64, 16)
+    assert not fa.paged_wgmma_takes(bf16, torch.int8, 64, 16)
+    assert not fa.paged_wgmma_takes(bf16, bf16, 96, 16)
+    assert not fa.paged_wgmma_takes(bf16, bf16, 64, 12)
