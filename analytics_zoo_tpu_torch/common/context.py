@@ -100,6 +100,17 @@ def stop_orca_context() -> None:
         _OrcaContextMeta._ctx = None
 
 
+def effective_process_count() -> int:
+    """The number of processes the data plane splits files over: 1, the
+    port runs one process (the reference's ``jax.process_count()``)."""
+    return 1
+
+
+def effective_process_index() -> int:
+    """This process's index among them: 0."""
+    return 0
+
+
 def local_process_scope(mesh_axes=None):
     """The reference's trial-isolation scope for distributed search: not
     ported, there is no multi-process mesh to scope."""

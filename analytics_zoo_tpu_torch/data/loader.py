@@ -1,17 +1,28 @@
-"""Host-side batch iteration: the port's copy of ``NumpyBatchIterator``.
+"""Host-side batch iteration: the port of
+``analytics_zoo_tpu/data/loader.py`` for one device.
 
-The numpy half of ``analytics_zoo_tpu/data/loader.py``, copied as it is:
-the same per-epoch ``np.random.default_rng(seed + epoch).permutation``
-means both packages see the same batches in the same order, shuffled or
-not.  The device half (sharded global batches, prefetch) has no
-counterpart on one device: the Estimator copies each batch to the card.
+- ``NumpyBatchIterator``, copied as it is: the same per-epoch
+  ``np.random.default_rng(seed + epoch).permutation`` means both packages
+  see the same batches in the same order, shuffled or not.
+- ``DataCreator``, copied as it is: every input the Estimator takes
+  (a dict of arrays, an ``(x, y)`` pair, an ``XShards``, a
+  ``FeatureSet`` or ``DiskFeatureSet``, or a callable ``config -> one of
+  those``) normalised to a dict of numpy arrays.
+- ``device_prefetch``: the reference's host-to-device stage on one
+  device, batches of numpy arrays as torch tensors on the device, a few
+  copied ahead.  The sharded global batches of a mesh have no
+  counterpart here (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+import collections
+from typing import Any, Dict, Iterator, Optional, Sequence
 
 import numpy as np
+import torch
+
+from analytics_zoo_tpu_torch.data.shards import XShards
 
 
 class NumpyBatchIterator:
@@ -62,3 +73,79 @@ class NumpyBatchIterator:
         for lo in range(0, end, self.batch_size):
             yield {k: v[lo:lo + self.batch_size] for k, v in arrays.items()}
         self.epoch += 1
+
+
+def device_prefetch(batches, device=None, depth: int = 2, sharding=None
+                    ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Each batch of ``batches`` (dicts of numpy arrays) as torch
+    tensors on ``device`` (``None``: CUDA, raising without it), with up
+    to ``depth`` batches copied ahead of the one handed out.  A
+    ``sharding`` raises: meshes are not ported (ROADMAP Queue 1 item
+    6)."""
+    from analytics_zoo_tpu_torch.device import resolve_device
+
+    if sharding is not None:
+        raise NotImplementedError(
+            "device_prefetch(sharding=...): meshes are not ported "
+            "(ROADMAP Queue 1 item 6); the port feeds one device")
+    dev = resolve_device(device)
+    ahead: collections.deque = collections.deque()
+    for batch in batches:
+        ahead.append({k: torch.as_tensor(np.ascontiguousarray(v)).to(
+            dev, non_blocking=True) for k, v in batch.items()})
+        if len(ahead) > depth:
+            yield ahead.popleft()
+    while ahead:
+        yield ahead.popleft()
+
+
+class DataCreator:
+    """The reference's data-creator contract (SURVEY.md §2.2: estimators
+    accept ``data_creator(config) -> loader``).  Anything acceptable to
+    `Estimator.fit` normalises through here: XShards, dict of ndarrays,
+    (x, y) tuples, or a callable(config) returning one of those."""
+
+    @staticmethod
+    def to_arrays(data: Any, config: Optional[dict] = None,
+                  feature_cols: Optional[Sequence[str]] = None,
+                  label_cols: Optional[Sequence[str]] = None
+                  ) -> Dict[str, np.ndarray]:
+        if callable(data):
+            data = data(config or {})
+        # TFDataset bridging adapter (tfpark surface; duck-typed — also
+        # covers subclasses — to keep the data layer import-free of tfpark)
+        if not isinstance(data, dict) and callable(
+                getattr(data, "to_arrays", None)):
+            data = data.to_arrays()
+        # FeatureSet tiers (import locally — feature_set imports loader)
+        from analytics_zoo_tpu_torch.data import feature_set as _fs
+        if isinstance(data, _fs.DiskFeatureSet):
+            data = data.to_dram()       # eval/predict paths materialise
+        if isinstance(data, _fs.FeatureSet):
+            d = dict(data.arrays)
+        elif isinstance(data, XShards):
+            d = data.to_numpy_dict()
+        elif isinstance(data, dict):
+            d = {k: np.asarray(v) for k, v in data.items()}
+        elif isinstance(data, (tuple, list)) and len(data) == 2:
+            x, y = data
+            d = {}
+            if isinstance(x, dict):
+                d.update({k: np.asarray(v) for k, v in x.items()})
+            else:
+                d["x"] = np.asarray(x)
+            if isinstance(y, dict):
+                d.update({k: np.asarray(v) for k, v in y.items()})
+            else:
+                d["y"] = np.asarray(y)
+        else:
+            raise TypeError(f"unsupported data type {type(data)}")
+        if feature_cols or label_cols:
+            sel = {}
+            for c in list(feature_cols or []) + list(label_cols or []):
+                if c not in d:
+                    raise KeyError(f"column {c!r} not in data "
+                                   f"(have {sorted(d)})")
+                sel[c] = d[c]
+            d = sel
+        return d

@@ -14,8 +14,9 @@ Each ``fit`` builds a fresh Estimator around the same module (the
 module trains in place), with the reference's default optimizer,
 ``optax.adam(1e-3)``: ``torch.optim.Adam(lr=1e-3)``.  ``device`` (the
 port's addition) is where it trains: ``cuda`` unless the caller names
-another.  ``NNImageReader`` raises (ROADMAP Queue 1 item 8: the image
-data plane).
+another.  ``NNImageReader.readImages`` reads a directory of images
+into a pandas DataFrame (the image column and the reference's schema
+columns) through ``data.image.ImageSet``.
 """
 
 from __future__ import annotations
@@ -210,12 +211,39 @@ class NNClassifierModel(NNModel):
 
 
 class NNImageReader:
-    """The reference's image reader; raises until ROADMAP Queue 1 item 8
-    ports the image data plane."""
+    """The reference's image reader: ``readImages(path)`` returns a
+    pandas DataFrame whose ``image`` column holds decoded RGB ndarrays
+    (HWC uint8; float32 after a resize), decoded on the host by the
+    native data plane or PIL (``data/image.py``), beside the schema
+    columns ``origin``, ``height``, ``width``, ``n_channels`` (and
+    ``label`` with ``with_label``); the class names are in
+    ``df.attrs["class_names"]``."""
 
     @staticmethod
     def readImages(path: str, resize_h: int = -1, resize_w: int = -1,
                    with_label: bool = False, num_shards: int = 1):
-        raise NotImplementedError(
-            "NNImageReader is not ported yet (ROADMAP Queue 1 item 8: "
-            "the image data plane)")
+        """Read a dir (or one-subdir-per-class tree when with_label)."""
+        import pandas as pd
+
+        from analytics_zoo_tpu_torch.data.image import ImageResize, ImageSet
+
+        iset = ImageSet.read(path, num_shards=num_shards,
+                             with_label=with_label)
+        if resize_h > 0 and resize_w > 0:
+            iset = iset.transform(ImageResize(resize_h, resize_w))
+        rows = {"origin": [], "image": [], "height": [], "width": [],
+                "n_channels": [], "label": []}
+        for shard in iset.shards.collect():
+            for img, label, p in zip(shard["image"], shard["label"],
+                                     shard["path"]):
+                rows["origin"].append(p)
+                rows["image"].append(img)
+                rows["height"].append(img.shape[0])
+                rows["width"].append(img.shape[1])
+                rows["n_channels"].append(img.shape[2])
+                rows["label"].append(int(label))
+        df = pd.DataFrame(rows)
+        if not with_label:
+            df = df.drop(columns=["label"])
+        df.attrs["class_names"] = iset.class_names
+        return df

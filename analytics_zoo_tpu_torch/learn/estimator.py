@@ -5,7 +5,13 @@ and the ``Estimator`` facade) for a single device.  A torch
 ``nn.Module`` is native here, so ``Estimator.from_torch`` trains it as
 it is, with no conversion.  The contract follows the reference:
 
-- ``fit`` over a dict of numpy arrays: the batches of
+- Inputs: what the reference's take, normalised by
+  :class:`~analytics_zoo_tpu_torch.data.loader.DataCreator`: a dict of
+  numpy arrays, an ``(x, y)`` pair, an ``XShards``, a ``FeatureSet``, a
+  callable ``config -> one of those``, or a ``DiskFeatureSet``, which
+  ``fit`` streams by shuffled row blocks through the native prefetch
+  thread and ``evaluate``/``predict`` read block by block in order.
+- ``fit``: the batches of
   :class:`~analytics_zoo_tpu_torch.data.loader.NumpyBatchIterator`
   (shuffled with ``config.seed`` unless ``config.deterministic``,
   remainder dropped), one step ``loss_fn(model(*feats, train=True),
@@ -14,6 +20,17 @@ it is, with no conversion.  The contract follows the reference:
   reference's keys: ``loss`` and the metrics (sample-weighted means),
   ``num_samples``, ``samples_per_sec`` and ``val_*`` for validation
   data.  Only callbacks that carry ``requests_stop`` may stop a fit.
+- ``config.accum_steps = n`` (the reference's ``_train_step_accum``):
+  a batch runs as ``n`` micro-batches of ``batch / n`` rows in order,
+  each forward and backward on the same parameters, the summed
+  gradients divided by ``n`` feed one optimizer step; the loss is the
+  micro-batches' mean and the metrics see every row.  A batch ``n``
+  does not divide raises.
+- BatchNorm state (the reference's ``batch_stats``) lives in the
+  model's buffers: a training forward (``train=True``) updates them, in
+  order micro-batch by micro-batch; ``evaluate`` and ``predict`` call
+  ``train=False`` and leave them as they are; checkpoints and exports
+  carry them with the ``state_dict``.
 - ``evaluate``: fixed-order chunks, the last padded with weight-0 rows;
   loss and metrics per sample (each row alone), weighted, under
   ``torch.no_grad()`` with ``train=False``.
@@ -42,9 +59,8 @@ not interchangeable: weights cross from the reference only through
 Metrics stay on the device through an epoch and come to the host once
 at its end, so the step loop never waits on the card.  The estimator
 moves the model to its device (``nn.Module.to``, in place).  Not ported
-yet (ROADMAP Queue 1 item 7): LoRA, ``initial_variables`` (load weights
-into the model before handing it over), XShards and DiskFeatureSet
-inputs (``frames.NNEstimator`` takes an ``XShards``), meshes and
+yet (ROADMAP Queue 1 items 6 and 7): LoRA, ``initial_variables`` (load
+weights into the model before handing it over), meshes and
 multi-host.
 """
 
@@ -62,7 +78,9 @@ import torch
 
 from analytics_zoo_tpu_torch.common.config import TrainConfig
 from analytics_zoo_tpu_torch.common.log import logger
-from analytics_zoo_tpu_torch.data.loader import NumpyBatchIterator
+from analytics_zoo_tpu_torch.data.feature_set import DiskFeatureSet
+from analytics_zoo_tpu_torch.data.loader import (DataCreator,
+                                                 NumpyBatchIterator)
 from analytics_zoo_tpu_torch.device import resolve_device
 from analytics_zoo_tpu_torch.learn.metrics import (EpochAccumulator,
                                                    resolve_metrics)
@@ -88,13 +106,14 @@ _MODEL_FILE = "model.pt"
 def _check_config(config: TrainConfig) -> None:
     bad = {n: getattr(config, n) for n, off in _NOT_PORTED.items()
            if getattr(config, n) != off}
-    if int(config.accum_steps or 1) > 1:
-        bad["accum_steps"] = config.accum_steps
     if bad:
         raise NotImplementedError(
             f"TrainConfig {bad} is not ported yet (ROADMAP Queue 1 item "
-            f"7: gradient accumulation, summaries, profiling and fault "
-            f"injection)")
+            f"7: summaries, profiling and fault injection)")
+
+
+def _accum_steps(config: TrainConfig) -> int:
+    return max(1, int(config.accum_steps or 1))
 
 
 def _model_accepts(model, kwarg: str) -> bool:
@@ -102,15 +121,6 @@ def _model_accepts(model, kwarg: str) -> bool:
         return kwarg in inspect.signature(model.forward).parameters
     except (TypeError, ValueError):
         return False
-
-
-def _to_arrays(data) -> Dict[str, np.ndarray]:
-    if not isinstance(data, dict):
-        raise TypeError(
-            f"the port's Estimator takes a dict of numpy arrays, got "
-            f"{type(data).__name__} (XShards, FeatureSet and creator "
-            f"inputs are ROADMAP Queue 1 item 7)")
-    return {k: np.asarray(v) for k, v in data.items()}
 
 
 def _pad_batch(batch: Dict[str, np.ndarray], to: int):
@@ -128,7 +138,14 @@ def _pad_batch(batch: Dict[str, np.ndarray], to: int):
     return out, w
 
 
-def _chunks(arrays: Dict[str, np.ndarray], size: int):
+def _chunks(data, size: int):
+    """``data``'s rows in order, ``size`` at a time (the last chunk
+    short): a ``DiskFeatureSet`` block by block, anything else through
+    ``DataCreator``."""
+    if isinstance(data, DiskFeatureSet):
+        yield from data.batches(size, shuffle=False, drop_remainder=False)
+        return
+    arrays = DataCreator.to_arrays(data)
     n = len(next(iter(arrays.values())))
     for lo in range(0, n, size):
         yield {k: v[lo:lo + size] for k, v in arrays.items()}
@@ -207,10 +224,15 @@ class TorchEstimator:
                                    device=self.device)
                 for k, v in batch.items()}
 
-    def _forward(self, batch, train: bool):
+    def _forward(self, batch, train: bool, micro: Optional[int] = None):
+        """The model on ``batch``; a training forward's dropout seed is
+        ``fold_in(seed, step)``, and micro-batch ``micro``'s
+        ``fold_in`` of that with ``micro`` (the reference's
+        ``fold_in(rng, i)``)."""
         kw = {"train": train} if self._takes_train else {}
         if train and self._takes_rng:
-            kw["rng"] = fold_in(self._seed, self._global_step)
+            rng = fold_in(self._seed, self._global_step)
+            kw["rng"] = rng if micro is None else fold_in(rng, micro)
         return self.model(*[batch[c] for c in self.feature_cols], **kw)
 
     def _labels(self, batch):
@@ -220,15 +242,43 @@ class TorchEstimator:
     def _train_step(self, batch) -> Dict[str, torch.Tensor]:
         labels = self._labels(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        preds = self._forward(batch, train=True)
-        loss = self.loss_fn(preds, labels)
-        loss.backward()
+        accum = _accum_steps(self.config)
+        if accum > 1:
+            loss, preds = self._accumulate(batch, accum)
+        else:
+            preds = self._forward(batch, train=True)
+            loss = self.loss_fn(preds, labels)
+            loss.backward()
         self.optimizer.step()
         with torch.no_grad():
             mets = {"loss": loss.detach()}
             for name, fn in self.metric_fns:
                 mets[name] = fn(preds.detach(), labels)
         return mets
+
+    def _accumulate(self, batch, accum: int):
+        """``accum`` micro-batches' forwards and backwards in order; the
+        summed gradients divided by ``accum``.  Returns the mean loss and
+        every row's predictions."""
+        n = len(next(iter(batch.values())))
+        size = n // accum
+        losses, outs = [], []
+        for i in range(accum):
+            part = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            preds = self._forward(part, train=True, micro=i)
+            loss = self.loss_fn(preds, self._labels(part))
+            loss.backward()
+            losses.append(loss.detach())
+            outs.append(preds)
+        with torch.no_grad():
+            for p in self.model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(accum)
+            # a model may return a tuple of outputs (a QA head's start,
+            # end)
+            preds = torch.cat(outs) if isinstance(outs[0], torch.Tensor) \
+                else tuple(map(torch.cat, zip(*outs)))
+        return sum(losses) / accum, preds
 
     @torch.no_grad()
     def _eval_step(self, batch, weights) -> Dict[str, torch.Tensor]:
@@ -276,11 +326,19 @@ class TorchEstimator:
         trains its epoch's leading batches again."""
         _check_config(self.config)
         batch_size = batch_size or _DEFAULT_BATCH
+        accum = _accum_steps(self.config)
+        if batch_size % accum:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"accum_steps={accum}")
         self._set_cols(feature_cols, label_cols)
-        it = NumpyBatchIterator(
-            _to_arrays(data), batch_size,
-            shuffle=not self.config.deterministic, drop_remainder=True,
-            seed=self.config.seed)
+        shuffle = not self.config.deterministic
+        if isinstance(data, DiskFeatureSet):
+            it = data.batch_iterator(batch_size, shuffle=shuffle,
+                                     seed=self.config.seed)
+        else:
+            it = NumpyBatchIterator(
+                DataCreator.to_arrays(data), batch_size, shuffle=shuffle,
+                drop_remainder=True, seed=self.config.seed)
         if auto_resume:
             if not self.config.checkpoint_dir:
                 raise ValueError(
@@ -370,7 +428,7 @@ class TorchEstimator:
         self._set_cols(feature_cols, label_cols)
         self.model.eval()
         mets_list, counts = [], []
-        for chunk in _chunks(_to_arrays(data), batch_size):
+        for chunk in _chunks(data, batch_size):
             counts.append(len(next(iter(chunk.values()))))
             chunk, w = _pad_batch(chunk, batch_size)
             mets_list.append(self._eval_step(
@@ -391,15 +449,14 @@ class TorchEstimator:
         _check_config(self.config)
         batch_size = batch_size or _DEFAULT_BATCH
         self._set_cols(feature_cols, None)
-        arrays = _to_arrays(data)
-        for c in self.feature_cols:
-            if c not in arrays:
-                raise KeyError(f"feature col {c!r} missing from predict "
-                               f"data")
         self.model.eval()
         outs = []
-        for chunk in _chunks({c: arrays[c] for c in self.feature_cols},
-                             batch_size):
+        for chunk in _chunks(data, batch_size):
+            for c in self.feature_cols:
+                if c not in chunk:
+                    raise KeyError(f"feature col {c!r} missing from "
+                                   f"predict data")
+            chunk = {c: chunk[c] for c in self.feature_cols}
             real = len(next(iter(chunk.values())))
             chunk, _ = _pad_batch(chunk, batch_size)
             preds = self._forward(self._on_device(chunk), train=False)

@@ -17,13 +17,24 @@ them from these:
   input, kernel and bias all promoted to the compute dtype; a ``None``
   dtype promotes the input with the f32 parameters, as flax's
   ``promote_dtype`` does;
+- :class:`Conv2d` and :func:`conv2d`: flax's 2-D ``nn.Conv`` on NCHW
+  tensors (the image models keep them in ``torch.channels_last``
+  memory), with flax's ``padding="SAME"``, which pads a stride-2 conv
+  of an even size one more at the end than at the start
+  (:func:`same_pads`);
+- :class:`BatchNorm`: flax's ``nn.BatchNorm(dtype=float32)`` over the
+  channel axis, whose batch or running statistics follow the ``train``
+  argument, not ``nn.Module.training``;
 - :func:`params_from_flax`: a flax ``variables["params"]`` tree as the
   matching port module's ``state_dict``.  A Dense kernel ``[in, out]``
   transposes to ``[out, in]``, a Conv kernel ``[k, in, out]`` to torch's
-  ``[out, in, k]``, an embedding table stays as it is; the cells of
-  ``models/rnn.py`` fuse their gates (see there).  The port's modules
-  name their parameters as the reference's tree does, so one converter
-  serves every tree.
+  ``[out, in, k]`` and ``[kh, kw, in, out]`` to ``[out, in, kh, kw]``,
+  an embedding table stays as it is, a BatchNorm's ``scale`` becomes
+  ``weight``; the cells of ``models/rnn.py`` fuse their gates (see
+  there).  :func:`batch_stats_from_flax` carries the reference's
+  ``variables["batch_stats"]`` (running means and variances) into the
+  BatchNorms' buffers.  The port's modules name their parameters as the
+  reference's tree does, so one converter serves every tree.
 """
 
 from __future__ import annotations
@@ -168,6 +179,114 @@ def conv(layer: nn.Conv1d, x: torch.Tensor, dtype: Optional[torch.dtype],
     return y.transpose(1, 2)
 
 
+class Conv2d(nn.Conv2d):
+    """flax ``nn.Conv`` over two spatial axes: ``weight [out, in, kh,
+    kw]`` (the kernel ``[kh, kw, in, out]`` transposed), lecun-normal
+    over ``kh * kw * in``, a zero bias where there is one (flax's
+    ``use_bias``).  Applied through :func:`conv2d`."""
+
+    def reset_parameters(self) -> None:
+        w = self.weight
+        lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3])
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+class LazyConv2d(nn.LazyConv2d):
+    """A :class:`Conv2d` whose input channels come from its first
+    input."""
+
+    cls_to_become = Conv2d
+
+    def reset_parameters(self) -> None:
+        if not self.has_uninitialized_params() and self.in_channels != 0:
+            Conv2d.reset_parameters(self)
+
+
+def same_pads(size: int, kernel_size: int, stride: int):
+    """flax's ``padding="SAME"`` along one axis: ``(low, high)`` with
+    ``ceil(size / stride)`` outputs, the odd one out at the end (a
+    stride-2 3x3 conv on 56 pads (0, 1), a 7x7 on 224 pads (2, 3))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel_size - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same(x: torch.Tensor, kernel_size, stride):
+    """``x [N, C, H, W]`` padded with zeros at the end of H and W by what
+    flax's SAME pads there beyond its start; returns it and the start
+    pads ``(ph, pw)``, which the conv itself pads on both sides."""
+    (lh, hh), (lw, hw) = (same_pads(x.shape[2 + i], kernel_size[i],
+                                    stride[i]) for i in range(2))
+    if (hh, hw) != (lh, lw):
+        x = F.pad(x, (0, hw - lw, 0, hh - lh))
+    return x, (lh, lw)
+
+
+def conv2d(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=dtype, padding="SAME")`` on ``x [N, C, H,
+    W]``: input, kernel and bias cast to ``dtype``, padded as flax pads."""
+    materialize(layer, x)
+    x, pads = _pad_same(x, layer.kernel_size, layer.stride)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias,
+                    stride=layer.stride, padding=pads)
+
+
+def max_pool_same(x: torch.Tensor, window: int, stride: int
+                  ) -> torch.Tensor:
+    """flax ``nn.max_pool(x, (window,) * 2, (stride,) * 2,
+    padding="SAME")`` on ``x [N, C, H, W]``: the padding is -inf."""
+    (lh, hh), (lw, hw) = (same_pads(x.shape[2 + i], window, stride)
+                          for i in range(2))
+    x = F.pad(x, (lw, hw, lh, hh), value=float("-inf"))
+    return F.max_pool2d(x, window, stride)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(dtype=float32)`` (momentum 0.99, epsilon
+    1e-5) over dim 1 of ``x [N, C, ...]``: ``weight`` and ``bias``
+    (flax's ``scale`` and ``bias``), and the buffers ``running_mean`` and
+    ``running_var`` (its ``batch_stats``).
+
+    ``forward(x, train)``: with ``train`` the statistics of ``x`` in f32
+    (f64 stays f64, as flax promotes), the variance the biased ``max(0,
+    E[x^2] - E[x]^2)``, and the running buffers move ``0.99 * old + 0.01 *
+    batch`` (the biased variance, not the unbiased one ``F.batch_norm``
+    would store); without ``train`` the running statistics, untouched.
+    The output is f32."""
+
+    MOMENTUM = 0.99
+    EPS = 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        if train:
+            axes = (0,) + tuple(range(2, x.ndim))
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.EPS) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + \
+            self.bias.view(shape)
+
+
 def same_padding(kernel_size: int, dilation: int = 1):
     """flax's ``padding="SAME"`` at stride 1: ``(left, right)``, the
     odd one out on the right."""
@@ -208,8 +327,10 @@ def params_from_flax(params: Mapping, prefix: str = ""
 
     - an ``Embed`` (``embedding``) -> ``weight``;
     - a ``Dense`` kernel ``[in, out]`` -> ``weight [out, in]``, a
-      ``Conv`` kernel ``[k, in, out]`` -> ``weight [out, in, k]``; ``bias``
-      as it is;
+      ``Conv`` kernel ``[k, in, out]`` -> ``weight [out, in, k]`` and
+      ``[kh, kw, in, out]`` -> ``weight [out, in, kh, kw]``; ``bias`` as
+      it is;
+    - a ``BatchNorm`` (``scale``, ``bias``) -> ``weight``, ``bias``;
     - an ``LSTMCell`` (``ii if ig io`` without bias, ``hi hf hg ho`` with)
       -> ``i.weight [4H, in]``, ``h.weight [4H, H]``, ``h.bias [4H]``;
     - a ``GRUCell`` (``ir iz in`` with bias, ``hr hz`` without, ``hn``
@@ -242,10 +363,31 @@ def params_from_flax(params: Mapping, prefix: str = ""
             out.update(params_from_flax({"c_h": sub["c_h"]}, key + "."))
         elif "kernel" in keys and keys <= {"kernel", "bias"}:
             k = np.asarray(sub["kernel"], np.float32)
-            out[key + ".weight"] = _t(k.T if k.ndim == 2
-                                      else k.transpose(2, 1, 0))
+            out[key + ".weight"] = _t(
+                k.T if k.ndim == 2 else k.transpose(2, 1, 0)
+                if k.ndim == 3 else k.transpose(3, 2, 0, 1))
             if "bias" in keys:
                 out[key + ".bias"] = _t(sub["bias"])
+        elif keys == {"scale", "bias"}:
+            out[key + ".weight"] = _t(sub["scale"])
+            out[key + ".bias"] = _t(sub["bias"])
         else:
             out.update(params_from_flax(sub, key + "."))
+    return out
+
+
+def batch_stats_from_flax(batch_stats: Mapping, prefix: str = ""
+                          ) -> Dict[str, torch.Tensor]:
+    """The reference's ``variables["batch_stats"]`` (each BatchNorm's
+    ``mean`` and ``var``) as the port's :class:`BatchNorm` buffers
+    ``running_mean`` and ``running_var``, keyed as in ``state_dict``:
+    load them with :func:`params_from_flax`'s entries."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in batch_stats.items():
+        key = prefix + name
+        if set(sub) == {"mean", "var"}:
+            out[key + ".running_mean"] = _t(sub["mean"])
+            out[key + ".running_var"] = _t(sub["var"])
+        else:
+            out.update(batch_stats_from_flax(sub, key + "."))
     return out

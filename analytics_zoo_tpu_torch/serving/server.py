@@ -5,10 +5,12 @@ one or more ``ContinuousEngine`` replicas, each driven by its own pump
 thread, behind a router, a supervisor and the brownout and SLO
 controllers; ``ServingConfig`` holds its knobs.
 
-A copy of ``analytics_zoo_tpu/serving/server.py`` with two parts not
+A copy of ``analytics_zoo_tpu/serving/server.py`` with one part not
 ported: :meth:`ClusterServing.from_config` (the YAML entry and its
-model-artifact routing; ROADMAP Queue 1 item 5) and the decode of image
-payloads in ``_decode_value`` (item 8) raise ``NotImplementedError``.
+model-artifact routing; ROADMAP Queue 1 item 5) raises
+``NotImplementedError``.  ``IMG!`` payloads (encoded images) decode on
+the host through ``data.image.decode_image_bytes`` and resize to
+``image_shape``, as in the reference.
 Everything else reaches the engine only through the accessors the
 port's ``ContinuousEngine`` provides.
 """
@@ -2146,9 +2148,10 @@ class ClusterServing:
             logger.exception("serving ack failed")
 
     def _decode_value(self, v: bytes) -> np.ndarray:
-        """One request field -> ndarray: a dense tensor (b64 npy).  IMG!
-        payloads (compressed image bytes) raise: their decode is not
-        ported yet."""
+        """One request field -> ndarray.  IMG! payloads are compressed
+        image bytes: native C++ decode (GIL released, RGB-normalised) +
+        optional resize to the configured model input shape; everything
+        else is a dense tensor (b64 npy)."""
         if not v.startswith(IMG_MAGIC):
             arr = decode_ndarray(v)
             if arr.dtype.kind in "SUO":
@@ -2160,8 +2163,17 @@ class ClusterServing:
                     f"numeric ndarrays, or ImageBytes/enqueue_image for "
                     f"encoded images")
             return arr
-        raise NotImplementedError(
-            "image payloads are not ported yet (ROADMAP Queue 1 item 8)")
+        from analytics_zoo_tpu_torch.data.image import decode_image_bytes
+
+        img = decode_image_bytes(v[len(IMG_MAGIC):])
+        if self.config.image_shape:
+            if self._img_resize is None:
+                from analytics_zoo_tpu_torch.data.image import ImageResize
+
+                h, w = self.config.image_shape
+                self._img_resize = ImageResize(int(h), int(w))
+            img = self._img_resize(img)
+        return img
 
     def _publish_error(self, req: Dict[str, bytes], msg: str):
         """One request failed decode/shape checks: publish an error result

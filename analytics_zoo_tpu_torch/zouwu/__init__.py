@@ -1,7 +1,6 @@
 """Zouwu — the time-series toolkit: the port of
-``analytics_zoo_tpu/zouwu`` (forecasters, preprocessing and AutoTS).
-``TCMFForecaster`` is not ported yet: making one raises, naming ROADMAP
-Queue 1 item 8.2."""
+``analytics_zoo_tpu/zouwu`` (forecasters, preprocessing, AutoTS and
+``TCMFForecaster``)."""
 
 from analytics_zoo_tpu_torch.zouwu.forecaster import (
     Forecaster, LSTMForecaster, MTNetForecaster, Seq2SeqForecaster,
@@ -11,14 +10,7 @@ from analytics_zoo_tpu_torch.zouwu.preprocessing import (
     datetime_features, roll, train_val_test_split)
 from analytics_zoo_tpu_torch.zouwu.autots import AutoTSTrainer, TSPipeline
 
-
-class TCMFForecaster:
-    """Not ported yet (ROADMAP Queue 1 item 8.2's remainder)."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TCMFForecaster is not ported yet (ROADMAP Queue 1 item 8.2)")
-
+from analytics_zoo_tpu_torch.zouwu.tcmf import TCMFForecaster
 
 __all__ = [
     "Forecaster", "LSTMForecaster", "TCNForecaster", "MTNetForecaster",

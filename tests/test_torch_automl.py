@@ -322,5 +322,13 @@ def test_entry_points_need_cuda_or_a_device(no_cuda, tmp_path):
 
 
 def test_tcmf_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8.2"):
-        TCMFForecaster()
+    """``TCMFForecaster`` is now ported (``tests/test_torch_tcmf.py``):
+    Zouwu exports the port's class, which runs where it is told and, as
+    every entry point, defaults to the card."""
+    from analytics_zoo_tpu_torch.zouwu.tcmf import TCMFForecaster as T
+
+    assert TCMFForecaster is T
+    assert TCMFForecaster(device="cpu").device == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TCMFForecaster()

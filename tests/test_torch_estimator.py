@@ -14,7 +14,8 @@ schedule (``seed + epoch`` permutations), shuffled or not.
   a run with plain SGD, where they must agree.
 - ``evaluate`` (a row count that needs a padded chunk) and ``predict``.
 - The TrainConfig fields that are not ported raise (the checkpoint
-  fields are ported: ``tests/test_torch_checkpoint.py``), and the
+  fields are ported: ``tests/test_torch_checkpoint.py``, and
+  ``accum_steps``: ``tests/test_torch_image.py``), and the
   default device raises on a CPU-only host while ``device="cpu"``
   runs.
 """
@@ -193,7 +194,7 @@ def test_validation_history_and_stop_callback(weights):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("accum_steps", 2), ("tensorboard_dir", "tb"), ("metrics_jsonl", "m.jsonl"),
+    ("tensorboard_dir", "tb"), ("metrics_jsonl", "m.jsonl"),
     ("profile", ("trace", 5, 5)), ("fault_inject_step", 3),
     ("debug_nans", True)])
 def test_unported_train_config_fields_raise(weights, field, value):

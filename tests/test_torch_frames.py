@@ -193,8 +193,8 @@ def test_nnclassifier_defaults_and_preprocessing(weights):
     feats, y = _rows()
     model = clf.fit(_frame(feats, y))
     assert model.transform(_frame(feats, y))["prediction"].notna().all()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        NNImageReader.readImages("images")
+    with pytest.raises(FileNotFoundError):      # as the reference's
+        NNImageReader.readImages("no-such-images-dir")
 
 
 def _fitted(weights):

@@ -75,7 +75,14 @@ def test_scan_reaches_every_port_module():
             "analytics_zoo_tpu_torch.automl",
             "analytics_zoo_tpu_torch.automl.hp",
             "analytics_zoo_tpu_torch.automl.search",
-            "analytics_zoo_tpu_torch.automl.auto_estimator"} <= mods
+            "analytics_zoo_tpu_torch.automl.auto_estimator",
+            "analytics_zoo_tpu_torch.models.image",
+            "analytics_zoo_tpu_torch.zouwu.tcmf",
+            "analytics_zoo_tpu_torch.common.fs",
+            "analytics_zoo_tpu_torch.native",
+            "analytics_zoo_tpu_torch.data.image",
+            "analytics_zoo_tpu_torch.data.feature_set",
+            "analytics_zoo_tpu_torch.data.readers"} <= mods
 
 
 def test_forbidden_name_check_is_exact():

@@ -280,8 +280,9 @@ def test_two_replicas_match_jax(models):
 
 
 def test_unported_modes_answer_errors(models):
-    """An image payload (item 8) answers an error result naming its
-    item, and ``from_config`` (item 5) raises.  The engine modes of
+    """An image payload that does not decode answers an error result
+    (image payloads are served: ``tests/test_torch_data.py``), and
+    ``from_config`` (item 5) raises.  The engine modes of
     items 4.5 and 4.6 are served: ``/v1/generate`` with a deadline
     answers the JAX tokens, a request whose deadline has passed answers
     the reference's ``deadline_exceeded``, and servers with QoS or the
@@ -302,7 +303,7 @@ def test_unported_modes_answer_errors(models):
     assert st.serving.engines[0].deadline_sheds == 1
     uri = inq.enqueue_image("img", image=b"\x89PNG not an image",
                             col="tokens")
-    with pytest.raises(RuntimeError, match="item 8"):
+    with pytest.raises(RuntimeError, match="cannot identify image"):
         outq.query(uri, timeout=_TIMEOUT)
     # the stack still serves after both
     status, text = st.generate(tokens=_prompts()[2].tolist())

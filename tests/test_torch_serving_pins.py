@@ -1,14 +1,17 @@
 """The port's copies of the framework-free modules (serving, the
 training path's triggers, transforms and XShards, Zouwu's preprocessing
-and AutoTS, and AutoML's search), pinned to their reference sources.
+and AutoTS, AutoML's search, and the host data plane: filesystem,
+native bindings, images, feature sets and readers), pinned to their
+reference sources.
 
 Each module of ``analytics_zoo_tpu_torch`` that is a copy of a module of
 ``analytics_zoo_tpu`` must parse to the same syntax tree as its
 reference once the package is renamed (``analytics_zoo_tpu`` ->
 ``analytics_zoo_tpu_torch``) and every docstring is dropped, apart from
 a closed list of top-level functions or methods per module that the
-port replaces.  Each listed name must exist in both files and really
-differ, so the list cannot outgrow the port.  A copy that drifts from
+port replaces, and of JAX imports a copy drops (``DROPPED``).  Each
+listed name must exist in both files and really differ, so the list
+cannot outgrow the port.  A copy that drifts from
 its reference fails here with the names that differ.
 """
 
@@ -33,11 +36,10 @@ PINS = {
     "serving/frontdoor.py": (),
     "serving/flight.py": (),
     "serving/queues.py": (),
-    # the YAML entry (item 5), the image-payload decode (item 8), and
-    # the paged read's default: the engine picks the CUDA kernel by
-    # shape instead of the reference's CPU-safe "gather"
+    # the YAML entry (item 5) and the paged read's default: the engine
+    # picks the CUDA kernel by shape instead of the reference's CPU-safe
+    # "gather"
     "serving/server.py": ("ClusterServing.from_config",
-                          "ClusterServing._decode_value",
                           "ServingConfig.engine_kernel"),
     "serving/http_frontend.py": (),
     "serving/paged_cache.py": (),
@@ -54,7 +56,20 @@ PINS = {
     # ported: distributed=True raises naming ROADMAP item 6
     "automl/search.py": ("SearchEngine.__init__", "SearchEngine._nprocs",
                          "SearchEngine._run_distributed"),
+    # the host data plane: the scheme-dispatch filesystem, the native
+    # bindings (beside a byte-equal dataplane.cpp), images, readers
+    "common/fs.py": (),
+    "native/__init__.py": (),
+    "data/image.py": (),
+    "data/readers.py": (),
+    # a "{host}" path expands to the port's one process (the reference
+    # asks jax.process_index); both device_streams are the reference's
+    # text, through the port's own loader.device_prefetch
+    "data/feature_set.py": ("_host_path",),
 }
+
+# reference statements a copy leaves out: imports of JAX it does not use
+DROPPED = {"data/readers.py": ("import jax",)}
 
 
 def _strip_docstrings(tree: ast.Module) -> ast.Module:
@@ -71,12 +86,19 @@ def _strip_docstrings(tree: ast.Module) -> ast.Module:
 
 def _items(src: str) -> dict:
     """name -> ast dump of every top-level statement and of every
-    statement of a top-level class (``Class.name``); unnamed
-    statements are keyed by their order among the unnamed ones."""
+    statement of a top-level class (``Class.name``); an import is keyed
+    by what it imports, other unnamed statements by their order among
+    the unnamed ones."""
     tree = _strip_docstrings(ast.parse(src))
     out, unnamed = {}, 0
 
     def key(node, prefix, counter):
+        if isinstance(node, ast.Import):
+            return prefix + "import " + ", ".join(
+                a.name for a in node.names), False
+        if isinstance(node, ast.ImportFrom):
+            return prefix + f"from {node.module} import " + ", ".join(
+                a.name for a in node.names), False
         name = getattr(node, "name", None)
         if name is None and isinstance(node, ast.Assign) and all(
                 isinstance(t, ast.Name) for t in node.targets):
@@ -113,10 +135,13 @@ def test_copy_matches_reference(rel):
     allowed = set(PINS[rel])
     assert allowed <= set(ref) and allowed <= set(port), \
         f"{rel}: listed names missing: {sorted(allowed - set(ref) & set(port))}"
-    missing = sorted(set(ref) - set(port))
+    dropped = set(DROPPED.get(rel, ()))
+    assert dropped <= set(ref) - set(port) and all(
+        re.match(r"(import|from) jax\b", d) for d in dropped), (rel, dropped)
+    missing = sorted(set(ref) - set(port) - dropped)
     extra = sorted(set(port) - set(ref))
     assert not missing and not extra, (rel, missing, extra)
-    differ = sorted(k for k in ref if ref[k] != port[k])
+    differ = sorted(k for k in ref if k not in dropped and ref[k] != port[k])
     assert differ == sorted(allowed), (
         f"{rel}: names that differ from the reference {differ}, names "
         f"allowed to {sorted(allowed)}")
@@ -146,3 +171,10 @@ def test_pin_detects_a_drift():
     assert drifted != src
     a, b = _items(src), _items(drifted)
     assert [k for k in a if a[k] != b[k]] == ["pick_victim"]
+
+
+def test_native_source_is_the_reference():
+    """The port builds its host data plane from the reference's C++
+    source, byte for byte."""
+    assert (PORT / "native" / "dataplane.cpp").read_bytes() == \
+        (REF / "native" / "dataplane.cpp").read_bytes()
