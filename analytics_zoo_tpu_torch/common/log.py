@@ -4,9 +4,8 @@ A copy of ``analytics_zoo_tpu/common/log.py`` with the package renamed:
 the ``analytics_zoo_tpu_torch`` logger, and :class:`MetricLogger`, which
 fans step records out to stderr logging, a JSONL file and a
 TensorBoard writer where one is installed.  The two profiler toggles
-of the reference drive ``jax.profiler``; here they raise
-``NotImplementedError`` naming ROADMAP item 7 (the training path's
-observability fields).
+of the reference drive ``jax.profiler``; here they drive
+``torch.profiler`` and write a gzipped Chrome trace.
 """
 
 from __future__ import annotations
@@ -74,14 +73,38 @@ class MetricLogger:
             self._tb.close()
 
 
-def start_profiler_trace(logdir: str) -> None:
-    """The reference starts a ``jax.profiler`` trace here; the port's
-    profiler toggle is not ported yet."""
-    raise NotImplementedError(
-        "start_profiler_trace is not ported yet (ROADMAP Queue 1 item 7)")
+def start_profiler_trace(logdir: str, cuda: Optional[bool] = None) -> None:
+    """Start a ``torch.profiler`` trace that :func:`stop_profiler_trace`
+    writes under ``logdir`` as a gzipped Chrome trace
+    (``<worker>.<time>.pt.trace.json.gz``): host activity always, the
+    card's kernels too when ``cuda`` (``None``: when a CUDA device is
+    available).  A second start while a trace runs raises, as
+    ``jax.profiler.start_trace`` does."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    if getattr(start_profiler_trace, "active", None) is not None:
+        raise RuntimeError("a profiler trace is already running: only one "
+                           "trace may run at a time")
+    if cuda is None:
+        import torch
+
+        cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(
+                       logdir, use_gzip=True))
+    prof.start()
+    start_profiler_trace.active = prof
 
 
 def stop_profiler_trace() -> None:
-    """Counterpart of :func:`start_profiler_trace`; not ported yet."""
-    raise NotImplementedError(
-        "stop_profiler_trace is not ported yet (ROADMAP Queue 1 item 7)")
+    """Stop the running trace and write it (see
+    :func:`start_profiler_trace`); raises when none runs."""
+    prof = getattr(start_profiler_trace, "active", None)
+    if prof is None:
+        raise RuntimeError("no profiler trace is running")
+    start_profiler_trace.active = None
+    prof.stop()

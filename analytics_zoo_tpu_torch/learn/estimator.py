@@ -56,32 +56,65 @@ and the dropout seed; ``save`` writes ``model.pt`` (the model's
 not interchangeable: weights cross from the reference only through
 ``params_from_flax``.
 
+- ``initial_variables``: a port ``state_dict`` (or ``{"params":
+  state_dict, ...}``, whose other entries, such as running statistics,
+  join it) loaded into the model before it moves to its device.  The
+  keys and shapes must be the model's, and a model with buffers
+  (BatchNorm's running statistics) must get them: either mismatch
+  raises ``ValueError``, as the reference's seeding does.  Adapter
+  entries of a LoRA export (``"__lora__"``) are dropped.
+- ``lora=LoRAConfig(...)`` (``learn/lora.py``): the optimizer (a
+  learning rate, or the callable) gets the adapters alone, and every
+  forward and backward runs on the merged weights with the base frozen
+  for its length; the module's own ``requires_grad`` flags are left as
+  they were.  :meth:`TorchEstimator.lora_params` returns the
+  adapters, :meth:`TorchEstimator.merged_params` a plain
+  ``state_dict`` with them folded in; checkpoints, exports and
+  ``get_model`` carry the adapters under ``"__lora__"``.
+- Observability (the reference's ``fit``): ``metrics_jsonl`` and
+  ``tensorboard_dir`` (:meth:`TorchEstimator.set_tensorboard`) receive
+  the step's metrics every ``log_every_steps`` steps, fetched to the
+  host in one copy there and never between; ``profile = (logdir,
+  start_step, n_steps)`` (:meth:`TorchEstimator.set_profile`) traces
+  ``n_steps`` steps from global step ``start_step`` with
+  ``torch.profiler`` (``common/log.py``), and a fault stops the trace;
+  ``fault_inject_step = N`` raises ``RuntimeError`` right after step
+  N, before that step's checkpoint trigger; ``debug_nans`` checks the
+  loss and the gradients of every step before the optimizer steps and
+  raises ``FloatingPointError`` naming the step, so the parameters
+  stay those of the step before (one sync a step, in this mode only).
+
 Metrics stay on the device through an epoch and come to the host once
-at its end, so the step loop never waits on the card.  The estimator
-moves the model to its device (``nn.Module.to``, in place).  Not ported
-yet (ROADMAP Queue 1 items 6 and 7): LoRA, ``initial_variables`` (load
-weights into the model before handing it over), meshes and
-multi-host.
+at its end and at the log points, so the step loop never waits on the
+card otherwise.  The estimator moves the model to its device
+(``nn.Module.to``, in place).  Not ported yet (ROADMAP Queue 1 items 6
+and 7): meshes and multi-host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import os
 import re
 import shutil
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.config import TrainConfig
-from analytics_zoo_tpu_torch.common.log import logger
+from analytics_zoo_tpu_torch.common.log import (MetricLogger, logger,
+                                             start_profiler_trace,
+                                             stop_profiler_trace)
 from analytics_zoo_tpu_torch.data.feature_set import DiskFeatureSet
 from analytics_zoo_tpu_torch.data.loader import (DataCreator,
                                                  NumpyBatchIterator)
 from analytics_zoo_tpu_torch.device import resolve_device
+from analytics_zoo_tpu_torch.learn.lora import (LORA_KEY, LoRAConfig,
+                                                adapter_params, init_lora,
+                                                merged_state, merged_weights)
 from analytics_zoo_tpu_torch.learn.metrics import (EpochAccumulator,
                                                    resolve_metrics)
 from analytics_zoo_tpu_torch.learn.objectives import get_loss
@@ -91,25 +124,9 @@ from analytics_zoo_tpu_torch.models.transformer import fold_in
 
 _DEFAULT_BATCH = 32     # the reference's batch size when none is given
 
-# TrainConfig fields whose features are not ported yet, with the value
-# that leaves them off: any other value would change a result or an
-# output, so it raises rather than be ignored
-_NOT_PORTED = {"tensorboard_dir": None, "metrics_jsonl": None,
-               "profile": None, "fault_inject_step": 0,
-               "debug_nans": False}
-
 _CKPT_DIR = re.compile(r"^ckpt_(\d+)$")
 _CKPT_FILE = "state.pt"
 _MODEL_FILE = "model.pt"
-
-
-def _check_config(config: TrainConfig) -> None:
-    bad = {n: getattr(config, n) for n, off in _NOT_PORTED.items()
-           if getattr(config, n) != off}
-    if bad:
-        raise NotImplementedError(
-            f"TrainConfig {bad} is not ported yet (ROADMAP Queue 1 item "
-            f"7: summaries, profiling and fault injection)")
 
 
 def _accum_steps(config: TrainConfig) -> int:
@@ -158,6 +175,52 @@ def _fetch_stacked(mets_list) -> Dict[str, np.ndarray]:
             for k in mets_list[0]}
 
 
+def _fetch_one(mets: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """One step's scalar metrics as floats: one device-to-host copy."""
+    names = list(mets)
+    vals = torch.stack([mets[k].detach().float().reshape(())
+                        for k in names]).cpu().tolist()
+    return dict(zip(names, vals))
+
+
+def load_initial_variables(model, variables) -> None:
+    """Load ``variables`` (a port ``state_dict``, or ``{"params":
+    state_dict, ...}`` whose other mapping entries join it) into
+    ``model``, failing loud as the reference's seeding does: a key or
+    shape mismatch raises ``ValueError``, and so does a source without
+    the model's buffers (BatchNorm's running statistics).  An adapter
+    entry (``"__lora__"``) is dropped."""
+    src = dict(variables)
+    if isinstance(src.get("params"), Mapping):
+        extra = {k: v for k, v in src.items() if k != "params"}
+        src = dict(src["params"])
+        for k, v in extra.items():
+            if k != LORA_KEY and isinstance(v, Mapping):
+                src.update(v)
+    src.pop(LORA_KEY, None)
+    want = model.state_dict()
+    buffers = {n for n, _ in model.named_buffers() if n in want}
+    missing, unexpected = set(want) - set(src), set(src) - set(want)
+    if unexpected or missing - buffers or any(
+            tuple(np.shape(src[k])) != tuple(want[k].shape)
+            for k in set(want) & set(src)):
+        raise ValueError(
+            f"initial_variables do not match the model's parameters "
+            f"(missing {sorted(missing)[:4]}, unexpected "
+            f"{sorted(unexpected)[:4]}, or shapes differ): wrong "
+            f"checkpoint for this architecture?")
+    if missing:
+        raise ValueError(
+            f"this model carries batch_stats (BatchNorm running "
+            f"statistics {sorted(missing)[:4]}); initial_variables must "
+            f"include them (pass the full state_dict, not just the "
+            f"parameters): fresh statistics under pretrained weights "
+            f"would silently corrupt inference")
+    model.load_state_dict({k: torch.as_tensor(np.asarray(v))
+                           if not isinstance(v, torch.Tensor) else v
+                           for k, v in src.items()})
+
+
 def _route_train_config(config, kw):
     """``config`` on the facade is the reference's model-creator config
     dict; a TrainConfig passed there is meant for the estimator."""
@@ -182,19 +245,38 @@ class TorchEstimator:
       config: :class:`TrainConfig`.
       device: where to train; ``None`` means CUDA and raises without it
         (:func:`~analytics_zoo_tpu_torch.device.resolve_device`).
+      lora: a :class:`~analytics_zoo_tpu_torch.learn.lora.LoRAConfig` to
+        train rank-r adapters on the frozen model.
+      initial_variables: weights loaded into the model before training
+        (see the module docstring).
+
+    The optimizer receives the parameters that train: the adapters under
+    ``lora``, else the model's parameters that require a gradient.
     """
 
     def __init__(self, model, loss: Union[str, Callable], optimizer, *,
                  metrics: Sequence[Union[str, Callable]] = (),
                  feature_cols: Sequence[str] = ("x",),
                  label_cols: Sequence[str] = ("y",),
-                 config: Optional[TrainConfig] = None, device=None):
+                 config: Optional[TrainConfig] = None, device=None,
+                 lora: Optional[LoRAConfig] = None,
+                 initial_variables=None):
         self.config = config or TrainConfig()
-        _check_config(self.config)
         self.device = resolve_device(device)
+        if initial_variables is not None:
+            # before the move, so the device holds one copy
+            load_initial_variables(model, initial_variables)
         self.model = model.to(self.device)
         self.loss_fn = get_loss(loss)
-        params = list(self.model.parameters())
+        self.lora = lora
+        self._lora = None
+        if lora is not None:
+            self._lora = init_lora(self.model, lora,
+                                   fold_in(self.config.seed, 2))
+            params = adapter_params(self._lora)
+        else:
+            params = [p for p in self.model.parameters() if p.requires_grad]
+        self._trainable = params
         if isinstance(optimizer, (int, float)):
             self.optimizer = torch.optim.Adam(params, lr=float(optimizer))
         elif callable(optimizer):
@@ -212,6 +294,7 @@ class TorchEstimator:
         self._global_step = 0
         # the dropout seed; a restored checkpoint brings its own
         self._seed = int(self.config.seed)
+        self._prof_active = False
 
     def _set_cols(self, feature_cols, label_cols):
         if feature_cols:
@@ -239,6 +322,13 @@ class TorchEstimator:
         ys = [batch[c] for c in self.label_cols]
         return ys[0] if len(ys) == 1 else tuple(ys)
 
+    def _weights(self):
+        """The block runs on the merged weights under LoRA (forward and
+        backward, so a remat recompute reads them too)."""
+        if self._lora is None:
+            return contextlib.nullcontext()
+        return merged_weights(self.model, self._lora, self.lora)
+
     def _train_step(self, batch) -> Dict[str, torch.Tensor]:
         labels = self._labels(batch)
         self.optimizer.zero_grad(set_to_none=True)
@@ -246,9 +336,12 @@ class TorchEstimator:
         if accum > 1:
             loss, preds = self._accumulate(batch, accum)
         else:
-            preds = self._forward(batch, train=True)
-            loss = self.loss_fn(preds, labels)
-            loss.backward()
+            with self._weights():
+                preds = self._forward(batch, train=True)
+                loss = self.loss_fn(preds, labels)
+                loss.backward()
+        if self.config.debug_nans:
+            self._check_finite(loss)
         self.optimizer.step()
         with torch.no_grad():
             mets = {"loss": loss.detach()}
@@ -265,13 +358,14 @@ class TorchEstimator:
         losses, outs = [], []
         for i in range(accum):
             part = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            preds = self._forward(part, train=True, micro=i)
-            loss = self.loss_fn(preds, self._labels(part))
-            loss.backward()
+            with self._weights():
+                preds = self._forward(part, train=True, micro=i)
+                loss = self.loss_fn(preds, self._labels(part))
+                loss.backward()
             losses.append(loss.detach())
             outs.append(preds)
         with torch.no_grad():
-            for p in self.model.parameters():
+            for p in self._trainable:
                 if p.grad is not None:
                     p.grad.div_(accum)
             # a model may return a tuple of outputs (a QA head's start,
@@ -280,12 +374,25 @@ class TorchEstimator:
                 else tuple(map(torch.cat, zip(*outs)))
         return sum(losses) / accum, preds
 
+    def _check_finite(self, loss) -> None:
+        """``debug_nans``: the step's loss and gradients must be finite
+        before the optimizer steps (one sync)."""
+        checks = [torch.isfinite(loss.detach()).all()] + [
+            torch.isfinite(p.grad).all() for p in self._trainable
+            if p.grad is not None]
+        if not bool(torch.stack(checks).all()):
+            raise FloatingPointError(
+                f"NaN or Inf in the loss or the gradients at step "
+                f"{self._global_step + 1} (TrainConfig.debug_nans); the "
+                f"optimizer did not step")
+
     @torch.no_grad()
     def _eval_step(self, batch, weights) -> Dict[str, torch.Tensor]:
         """Per-sample losses and metrics (each row alone, as the
         reference's singleton-batch vmap), weighted by ``weights`` (0 for
         padding rows)."""
-        preds = self._forward(batch, train=False)
+        with self._weights():
+            preds = self._forward(batch, train=False)
         labels = self._labels(batch)
 
         def per_sample(fn):
@@ -324,7 +431,6 @@ class TorchEstimator:
         restarted process goes on where the stopped one saved.  Resume
         is epoch-granular, as in the reference: a mid-epoch checkpoint
         trains its epoch's leading batches again."""
-        _check_config(self.config)
         batch_size = batch_size or _DEFAULT_BATCH
         accum = _accum_steps(self.config)
         if batch_size % accum:
@@ -369,14 +475,56 @@ class TorchEstimator:
             # stop-requesting callbacks restart fresh per fit
             if getattr(cb, "requests_stop", False):
                 getattr(cb, "reset", lambda: None)()
+        mlog = MetricLogger(jsonl_path=self.config.metrics_jsonl,
+                            tensorboard_dir=self.config.tensorboard_dir,
+                            log_every=self.config.log_every_steps)
+        try:
+            return self._fit_epochs(epochs, it, batch_size, validation_data,
+                                    trigger, callbacks, mlog)
+        finally:
+            # a fault must not leak a running trace (the next start would
+            # raise) or an open metrics file
+            if self._prof_active:
+                self._prof_active = False
+                stop_profiler_trace()
+            mlog.close()
+
+    def _fit_epochs(self, epochs, it, batch_size, validation_data, trigger,
+                    callbacks, mlog) -> List[Dict[str, float]]:
+        cfg = self.config
+        prof = cfg.profile          # (logdir, start_step, n_steps)
+        log_every = max(1, int(cfg.log_every_steps))
+        on_card = self.device.type == "cuda"
         history: List[Dict[str, float]] = []
         for _ in range(epochs):
             self.model.train()
             t0 = time.perf_counter()
             step_mets = []
             for b in it.epoch_batches():
-                step_mets.append(self._train_step(self._on_device(b)))
+                # the hot loop never waits on the card, but at log points
+                # (and at a trace's end, so the trace holds its steps)
+                if prof and not self._prof_active and \
+                        self._global_step >= prof[1]:
+                    start_profiler_trace(prof[0], cuda=on_card)
+                    self._prof_active = True
+                mets = self._train_step(self._on_device(b))
+                step_mets.append(mets)
                 self._global_step += 1
+                if self._prof_active and \
+                        self._global_step >= prof[1] + prof[2]:
+                    if on_card:
+                        torch.cuda.synchronize(self.device)
+                    self._prof_active = False
+                    stop_profiler_trace()
+                    prof = None
+                if cfg.fault_inject_step and \
+                        self._global_step == cfg.fault_inject_step:
+                    raise RuntimeError(
+                        f"injected fault at step {self._global_step} "
+                        f"(TrainConfig.fault_inject_step)")
+                if len(step_mets) % log_every == 0:
+                    mlog.log(self._global_step, _fetch_one(mets),
+                             n_samples=batch_size * log_every)
                 if trigger and trigger({"step": self._global_step,
                                         "epoch": self._epoch}):
                     self._maybe_checkpoint()
@@ -413,6 +561,25 @@ class TorchEstimator:
                 break
         return history
 
+    def set_tensorboard(self, log_dir: str, app_name: str = "zoo"):
+        """Metrics every ``log_every_steps`` steps to TensorBoard under
+        ``log_dir/app_name/train`` and to ``log_dir/app_name/
+        train.jsonl``, as the reference's ``set_tensorboard``."""
+        self.config.tensorboard_dir = os.path.join(log_dir, app_name,
+                                                   "train")
+        self.config.metrics_jsonl = os.path.join(log_dir, app_name,
+                                                 "train.jsonl")
+        os.makedirs(self.config.tensorboard_dir, exist_ok=True)
+        return self
+
+    def set_profile(self, logdir: str, start_step: int = 5,
+                    n_steps: int = 5):
+        """Trace ``n_steps`` training steps with ``torch.profiler`` once
+        the global step reaches ``start_step`` (past the warm-up); the
+        trace is a gzipped Chrome trace under ``logdir``."""
+        self.config.profile = (logdir, start_step, n_steps)
+        return self
+
     def _default_trigger(self) -> Optional[Trigger]:
         if not self.config.checkpoint_dir:
             return None
@@ -423,7 +590,6 @@ class TorchEstimator:
     def evaluate(self, data, batch_size: Optional[int] = None,
                  feature_cols=None, label_cols=None) -> Dict[str, float]:
         """Loss and metrics over every row of ``data``, sample-weighted."""
-        _check_config(self.config)
         batch_size = batch_size or _DEFAULT_BATCH
         self._set_cols(feature_cols, label_cols)
         self.model.eval()
@@ -446,7 +612,6 @@ class TorchEstimator:
                 feature_cols=None) -> np.ndarray:
         """The model's outputs for every row of ``data``, as numpy (a
         bf16 output comes back as f32: numpy has no bf16)."""
-        _check_config(self.config)
         batch_size = batch_size or _DEFAULT_BATCH
         self._set_cols(feature_cols, None)
         self.model.eval()
@@ -459,7 +624,8 @@ class TorchEstimator:
             chunk = {c: chunk[c] for c in self.feature_cols}
             real = len(next(iter(chunk.values())))
             chunk, _ = _pad_batch(chunk, batch_size)
-            preds = self._forward(self._on_device(chunk), train=False)
+            with self._weights():
+                preds = self._forward(self._on_device(chunk), train=False)
             if preds.dtype == torch.bfloat16:
                 preds = preds.float()
             outs.append(preds[:real].cpu())
@@ -481,7 +647,7 @@ class TorchEstimator:
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save({"model": self.model.state_dict(),
+        torch.save({"model": self._exported(),
                     "optimizer": self.optimizer.state_dict(),
                     "step": self._global_step, "epoch": self._epoch,
                     "seed": self._seed}, os.path.join(tmp, _CKPT_FILE))
@@ -502,7 +668,7 @@ class TorchEstimator:
         state = torch.load(
             os.path.join(os.path.abspath(path), f"ckpt_{step}", _CKPT_FILE),
             map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state["model"])
+        self._restore(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self._global_step = int(state["step"])
         self._epoch = int(state["epoch"])
@@ -513,18 +679,59 @@ class TorchEstimator:
         ``path/model.pt``, replacing an earlier export: the reference's
         ``Estimator.save``, which ``InferenceModel.load`` serves."""
         os.makedirs(path, exist_ok=True)
-        torch.save(self.model.state_dict(), os.path.join(path, _MODEL_FILE))
+        torch.save(self._exported(), os.path.join(path, _MODEL_FILE))
 
     def load(self, path: str, sample_data=None):
         """Restore a :meth:`save` export into the model.
         ``sample_data`` is accepted for the reference's signature (it
         builds its state from it); a torch module has its own."""
         del sample_data
-        self.model.load_state_dict(load_export(path, self.device))
+        self._restore(load_export(path, self.device))
+
+    def _exported(self):
+        """The model's ``state_dict``, and under LoRA the adapters under
+        ``"__lora__"`` (the reference's params tree carries them)."""
+        state = self.model.state_dict()
+        if self._lora is not None:
+            state[LORA_KEY] = {n: {k: t.detach() for k, t in ab.items()}
+                               for n, ab in self._lora.items()}
+        return state
+
+    def _restore(self, state):
+        state = dict(state)
+        lora = state.pop(LORA_KEY, None)
+        self.model.load_state_dict(state)
+        if self._lora is not None:
+            if lora is None:
+                raise ValueError("this estimator trains LoRA adapters, but "
+                                 "the saved state carries none")
+            with torch.no_grad():
+                for name, ab in self._lora.items():
+                    for k, t in ab.items():
+                        t.copy_(lora[name][k])
 
     def get_model(self):
-        """``(model, state_dict)``: the reference's ``(model, params)``."""
-        return self.model, self.model.state_dict()
+        """``(model, state_dict)``: the reference's ``(model, params)``
+        (under LoRA with the adapters under ``"__lora__"``)."""
+        return self.model, self._exported()
+
+    def lora_params(self):
+        """The adapters alone, ``{name: {"a", "b"}}`` on the host: what a
+        fine-tune ships."""
+        if self._lora is None:
+            raise RuntimeError("no LoRA state: pass lora=LoRAConfig(...)")
+        return {n: {k: t.detach().cpu() for k, t in ab.items()}
+                for n, ab in self._lora.items()}
+
+    def merged_params(self):
+        """The base weights with the adapters folded in (``W +
+        scale·a@b`` in W's layout), a plain ``state_dict`` on the host
+        that the base model loads and
+        ``InferenceModel.load_torch_generator`` serves."""
+        if self._lora is None:
+            raise RuntimeError("no LoRA state: pass lora=LoRAConfig(...)")
+        return {k: v.detach().cpu() for k, v in merged_state(
+            self.model, self._lora, self.lora).items()}
 
 
 def checkpoint_steps(path: str) -> List[int]:

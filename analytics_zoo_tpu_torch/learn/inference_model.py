@@ -26,14 +26,25 @@ counterpart of the reference's ``load_torch``, which converted a torch
 module into flax; here the module runs as it is.  :meth:`load` serves
 an ``Estimator.save`` export.  Rows ``predict_async`` pads a batch with
 are all zeros (for BERT, a fully masked row, which the model keeps
-finite) and never reach the result.  Weight quantization (ROADMAP
-Queue 1 item 7) and the other model formats (``load_flax``,
-``load_tf``, ``load_openvino``: items 8 and 9) raise
-``NotImplementedError``.
+finite) and never reach the result.
+
+``load_torch_generator(quantize="int8" | "bf16")`` serves weight-only
+quantized weights (``learn/quantize.py``; ``quant_stats`` reports the
+reference's byte counts): the model's own copies of the quantized
+weights are released, the handle keeps the quantized ones on the
+device, and each ``predict`` dequantizes them for its generation, as
+the reference dequantizes inside its jitted ``generate``.  The
+speculative path dequantizes once at load and
+:meth:`InferenceModel.make_continuous_engine` once at build, into the
+model, as the reference does; the handle then serves those weights.
+``"int8_mxu"`` raises ``ValueError``, as the reference's generator
+does.  The other model formats (``load_flax``, ``load_tf``,
+``load_openvino``: items 8 and 9) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -121,6 +132,11 @@ class InferenceModel:
         self.spec_stats: Optional[dict] = None
         self._spec_stats_lock = threading.Lock()
         self._spec_draft = None     # (draft model, variables, k)
+        # weight-only quantization: the quantized weights at rest, the
+        # lock the dequantized swap is made under, the byte counts
+        self._qstate: Optional[dict] = None
+        self._quant_lock = threading.Lock()
+        self.quant_stats: Optional[dict] = None
 
     # ---- loading -----------------------------------------------------
 
@@ -148,7 +164,11 @@ class InferenceModel:
         round and the target verifies them in one cached forward, with
         the same greedy tokens.  The prompt buckets then leave room for
         the k+1 verify positions in both models' position tables.
-        Cumulative statistics land in ``spec_stats``."""
+        Cumulative statistics land in ``spec_stats``.
+
+        ``quantize``: ``None``, ``"int8"`` or ``"bf16"``, the target's
+        weights only (see the module docstring); ``quant_stats`` then
+        holds the weight-bytes compression."""
         from analytics_zoo_tpu_torch.device import resolve_device
         from analytics_zoo_tpu_torch.models.lm import generate
         from analytics_zoo_tpu_torch.models.speculative import (
@@ -158,8 +178,10 @@ class InferenceModel:
             raise ValueError(f"max_new_tokens must be >= 1, got "
                              f"{max_new_tokens!r}")
         max_new_tokens = int(max_new_tokens)
-        if quantize:
-            raise _later(f"quantize={quantize!r}", "7")
+        if quantize == "int8_mxu":
+            raise ValueError(
+                "quantize='int8_mxu' is only supported by load_flax "
+                "(flax-linen models); use 'int8' (weight-only) here")
         if (draft_model is None) != (draft_variables is None):
             raise ValueError("pass draft_model and draft_variables "
                              "together (or neither)")
@@ -168,6 +190,9 @@ class InferenceModel:
             model.load_state_dict(variables)
         self.model = model.to(dev).eval()
         self.device = dev
+        self._qstate, self.quant_stats = None, None
+        if quantize:
+            self._quantize(quantize)
         # speculative decoding needs k+1 cache positions of slack and
         # must fit BOTH position tables: checked here, so a request the
         # serving bounds check admits cannot fail at predict time
@@ -188,6 +213,9 @@ class InferenceModel:
         self.spec_stats = None
         self._spec_draft = None
         if draft_model is not None:
+            # the host-side speculative loop would dequantize once a
+            # round: dequantize once here instead
+            self._dequantize_into_model()
             load_draft(model, draft_model, draft_variables)
             draft_model.to(dev).eval()
             k = int(speculation_k)
@@ -213,8 +241,10 @@ class InferenceModel:
                 return toks
         else:
             def apply_fn(prompts, lengths):
-                return generate(self.model, None, prompts, max_new_tokens,
-                                prompt_len=lengths, device=dev)
+                with self._dequantized():
+                    return generate(self.model, None, prompts,
+                                    max_new_tokens, prompt_len=lengths,
+                                    device=dev)
 
         def pre_pad(inputs):
             prompts = np.asarray(inputs[0])
@@ -245,6 +275,45 @@ class InferenceModel:
         self._apply_fn = apply_fn
         self._pre_pad = pre_pad
         return self
+
+    def _quantize(self, mode: str) -> None:
+        """Quantize the model's weights (``learn/quantize.py``), keep the
+        quantized ones and release the model's own copies of them."""
+        from analytics_zoo_tpu_torch.learn.quantize import quantize_params
+
+        params = {n: p.detach() for n, p in self.model.named_parameters()}
+        new, self.quant_stats = quantize_params(params, mode,
+                                                model=self.model)
+        self._qstate = {n: v for n, v in new.items() if v is not params[n]}
+        for name in self._qstate:
+            p = self.model.get_parameter(name)
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+
+    @contextlib.contextmanager
+    def _dequantized(self):
+        """The block runs on the dequantized weights (none to swap in
+        when nothing is quantized); predicts take turns."""
+        if self._qstate is None:
+            yield
+            return
+        from analytics_zoo_tpu_torch.learn.lora import swapped_weights
+        from analytics_zoo_tpu_torch.learn.quantize import dequantize
+
+        with self._quant_lock, swapped_weights(self.model,
+                                               dequantize(self._qstate)):
+            yield
+
+    def _dequantize_into_model(self) -> None:
+        """Dequantize once, into the model's parameters (the speculative
+        path and a continuous engine read them there)."""
+        if self._qstate is None:
+            return
+        from analytics_zoo_tpu_torch.learn.quantize import dequantize
+
+        with self._quant_lock:
+            for name, t in dequantize(self._qstate).items():
+                self.model.get_parameter(name).data = t
+            self._qstate = None
 
     def make_continuous_engine(self, max_slots: int = 8,
                                eos_id: Optional[int] = None,
@@ -288,6 +357,8 @@ class InferenceModel:
         if self._gen_max_new_tokens is None:
             raise ValueError("continuous batching needs a model loaded "
                              "via load_torch_generator")
+        # quantized weights dequantize once, at build
+        self._dequantize_into_model()
         spec = {}
         if self._spec_draft is not None:
             draft, dvars, k = self._spec_draft
@@ -369,6 +440,7 @@ class InferenceModel:
         self._gen_prompt_buckets = None
         self.spec_stats = None
         self._spec_draft = None
+        self._qstate, self.quant_stats = None, None
         return self
 
     def load(self, path: str, model, device=None) -> "InferenceModel":

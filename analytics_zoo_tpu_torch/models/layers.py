@@ -34,13 +34,18 @@ them from these:
   there).  :func:`batch_stats_from_flax` carries the reference's
   ``variables["batch_stats"]`` (running means and variances) into the
   BatchNorms' buffers.  The port's modules name their parameters as the
-  reference's tree does, so one converter serves every tree.
+  reference's tree does, so one converter serves every tree;
+- :func:`flax_leaf`: the other way, leaf by leaf: which reference leaf a
+  port tensor holds and how its axes were laid out, attention
+  projections folded along :data:`HEAD_FOLDS` included.  LoRA and
+  weight-only quantization work in the reference's layout through it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -391,3 +396,57 @@ def batch_stats_from_flax(batch_stats: Mapping, prefix: str = ""
         else:
             out.update(batch_stats_from_flax(sub, key + "."))
     return out
+
+
+# The reference's attention projections are ``DenseGeneral`` kernels with
+# head axes, q/k/v ``[E, H, D]`` and ``attn_out`` ``[H, D, E]``; the port
+# folds each into a 2-D ``nn.Linear`` weight after its first ``n`` (input)
+# axes.  An attention module laid out so carries ``head_folds =
+# HEAD_FOLDS`` and its head dim as ``_d``.
+HEAD_FOLDS = {"query": 1, "key": 1, "value": 1, "attn_out": 2}
+
+
+@dataclass(frozen=True)
+class FlaxLeaf:
+    """A port tensor as the reference's leaf: the port tensor is the leaf
+    (of ``shape``) reshaped to ``folded`` and permuted by ``perm``."""
+    shape: Tuple[int, ...]
+    folded: Tuple[int, ...]
+    perm: Tuple[int, ...]
+
+    def to_port(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(self.folded).permute(self.perm)
+
+    def from_port(self, t: torch.Tensor) -> torch.Tensor:
+        inv = sorted(range(len(self.perm)), key=self.perm.__getitem__)
+        return t.permute(inv).reshape(self.shape)
+
+    @property
+    def last_axis(self) -> int:
+        """The port axis whose trailing part is the leaf's last axis."""
+        return self.perm.index(len(self.folded) - 1)
+
+
+def flax_leaf(model: nn.Module, name: str) -> FlaxLeaf:
+    """The reference leaf behind ``model``'s tensor ``name`` (a
+    ``state_dict`` key): an embedding table and a tensor of one dim as
+    they are, a Dense kernel ``[in, out]`` transposed, a Conv kernel
+    ``[*k, in, out]`` as ``[out, in, *k]``, and an attention projection's
+    head axes folded (:data:`HEAD_FOLDS`; a q/k/v bias is ``[H, D]``)."""
+    owner_name, _, attr = name.rpartition(".")
+    owner = model.get_submodule(owner_name)
+    s = tuple(getattr(owner, attr).shape)
+    parent_name, _, proj = owner_name.rpartition(".")
+    parent = model.get_submodule(parent_name)
+    n_in = getattr(parent, "head_folds", {}).get(proj)
+    if n_in is not None and attr == "weight":
+        out, d = s[0], parent._d
+        shape = (s[1], out // d, d) if n_in == 1 else (s[1] // d, d, out)
+        return FlaxLeaf(shape, (s[1], out), (1, 0))
+    if n_in == 1 and attr == "bias":
+        return FlaxLeaf((s[0] // parent._d, parent._d), s, (0,))
+    if isinstance(owner, nn.Embedding) or len(s) < 2:
+        return FlaxLeaf(s, s, tuple(range(len(s))))
+    k = len(s) - 2
+    folded = tuple(s[2:]) + (s[1], s[0])
+    return FlaxLeaf(folded, folded, (k + 1, k) + tuple(range(k)))

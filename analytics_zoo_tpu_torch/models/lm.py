@@ -15,7 +15,8 @@ grouped-query attention:
   ``models.transformer.dropout``; ``remat`` recomputes each layer in
   backward), and with grad on, the flash branch's gradient runs the
   CUDA backward kernels; :func:`lm_loss` is the reference's training
-  loss;
+  loss, and :class:`LMWithFusedLoss` with :func:`fused_lm_loss` its
+  blockwise form that never keeps the ``[B, T, V]`` logits;
 - the slot-arena cache methods ``decode_step``, ``verify_step``/
   ``verify_hidden`` and ``prefill_chunk``, and :func:`generate`, greedy
   or sampled;
@@ -60,6 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.device import resolve_device
+from analytics_zoo_tpu_torch.models.layers import HEAD_FOLDS
 from analytics_zoo_tpu_torch.models.transformer import (LayerNorm, _dense,
                                                         attention_dispatch,
                                                         dropout, run_layer,
@@ -136,6 +138,9 @@ class DecoderAttention(nn.Module):
     leaves positions to the model's table.  ``use_bias=False`` makes
     every projection bias-free; ``qkv_bias`` (None follows ``use_bias``)
     gives q/k/v biases of their own, the Qwen2 layout."""
+
+    # the reference's head axes, folded into each projection's weight
+    head_folds = HEAD_FOLDS
 
     def __init__(self, hidden_size: int, num_heads: int,
                  num_kv_heads: Optional[int] = None,
@@ -599,6 +604,80 @@ def lm_loss(logits, tokens):
                            tokens[:, 1:].reshape(-1).long())
 
 
+def fused_lm_loss(per_sample_losses, _tokens):
+    """Estimator loss for :class:`LMWithFusedLoss`: the model's output is
+    already each row's cross-entropy, so the loss is their mean."""
+    return per_sample_losses.mean()
+
+
+def _block_ce(hx, yx, mx, emb):
+    """One block's summed masked cross-entropy per row: logits ``[B, tb,
+    V]`` of the f32 hidden slice against the f32 table, made and
+    dropped here (``LMWithFusedLoss`` recomputes them in backward)."""
+    logits = hx @ emb.t()
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         yx.reshape(-1), reduction="none")
+    return (ce.view(yx.shape) * mx).sum(dim=1)
+
+
+class LMWithFusedLoss(nn.Module):
+    """Training wrapper of a tied-head :class:`TransformerLM` that
+    computes the shifted next-token cross-entropy block by block over
+    the sequence, never keeping the ``[B, T, V]`` logits: the reference's
+    ``LMWithFusedLoss``.
+
+    The final hidden states (``lm.hidden_states``) are cut into blocks of
+    ``t_block`` positions (the last padded with zeros and masked out, as
+    the reference pads its scan); each block's f32 head product and
+    cross-entropy run under ``torch.utils.checkpoint`` (non-reentrant),
+    so backward recomputes that block's logits from its hidden slice and
+    the peak holds one block's ``[B, t_block, V]`` at a time.  The cost is
+    one more head product per block in backward.
+
+    ``forward(tokens, train=False, *, rng=None)`` returns each row's mean
+    cross-entropy ``[B]`` (f32); use ``loss=fused_lm_loss`` with the
+    Estimator, and serve or generate with the inner ``lm``.  The mean of
+    the output equals ``lm_loss(lm(tokens), tokens)``.  An untied head
+    raises, as in the reference."""
+
+    def __init__(self, lm: TransformerLM, t_block: int = 512):
+        super().__init__()
+        if not lm.tied_head:
+            raise ValueError(
+                "LMWithFusedLoss computes blockwise logits from the TIED "
+                "embedding table; an untied-head model (tied_head=False, "
+                "e.g. a llama import) would silently train the wrong "
+                "projection: use loss=lm_loss on the plain model")
+        self.lm = lm
+        self.t_block = int(t_block)
+
+    def forward(self, tokens, train: bool = False, *,
+                rng: Optional[int] = None):
+        from torch.utils.checkpoint import checkpoint
+
+        h = self.lm.hidden_states(tokens, train, rng=rng)
+        emb = self.lm.embed.weight.float()
+        hs = h[:, :-1].float()
+        ys = tokens[:, 1:].long()
+        B, n, _ = hs.shape
+        tb = min(self.t_block, n)
+        pad = (-n) % tb
+        if pad:
+            hs = F.pad(hs, (0, 0, 0, pad))
+            ys = F.pad(ys, (0, pad))
+        mask = (torch.arange(n + pad, device=hs.device) < n).float()
+        total = torch.zeros(B, dtype=torch.float32, device=hs.device)
+        for lo in range(0, n + pad, tb):
+            part = (hs[:, lo:lo + tb], ys[:, lo:lo + tb], mask[lo:lo + tb],
+                    emb)
+            if torch.is_grad_enabled():
+                total = total + checkpoint(_block_ce, *part,
+                                           use_reentrant=False)
+            else:
+                total = total + _block_ce(*part)
+        return total / n
+
+
 def top_p_filter(scaled, top_p):
     """Nucleus filter over the last axis, the reference's
     ``top_p_filter``: keep the smallest set of tokens whose
@@ -817,8 +896,7 @@ def params_from_flax(params) -> Dict[str, torch.Tensor]:
         lp, pre = params[f"layer_{i}"], f"layers.{i}."
         for ln in ("ln_attn", "ln_ffn"):
             norm(pre + ln, lp[ln])
-        for name, in_dims in (("query", 1), ("key", 1), ("value", 1),
-                              ("attn_out", 2)):
+        for name, in_dims in HEAD_FOLDS.items():
             linear(f"{pre}attention.{name}", lp["attention"][name], in_dims)
         for name in ("ffn_up", "ffn_down", "ffn_gate"):
             if name in lp:

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from analytics_zoo_tpu_torch.models.layers import HEAD_FOLDS
 from analytics_zoo_tpu_torch.ops.flash_attention import (flash_attention,
                                                          flash_kernel_takes)
 from analytics_zoo_tpu_torch.parallel.ring_attention import full_attention
@@ -201,6 +202,9 @@ class MultiHeadAttention(nn.Module):
     ((H, D))``), :func:`attention_dispatch` with ``causal=False``, and
     ``attn_out`` over the heads.  Each projection is its own contiguous
     tensor, as the flash kernel takes it."""
+
+    # the reference's head axes, folded into each projection's weight
+    head_folds = HEAD_FOLDS
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.bfloat16,
@@ -414,8 +418,7 @@ def params_from_flax(params) -> Dict[str, torch.Tensor]:
         n_layers = sum(1 for k in p if k.startswith("layer_"))
         for i in range(n_layers):
             lp, lpre = p[f"layer_{i}"], f"{pre}layers.{i}."
-            for name, in_dims in (("query", 1), ("key", 1), ("value", 1),
-                                  ("attn_out", 2)):
+            for name, in_dims in HEAD_FOLDS.items():
                 linear(out, f"{lpre}attention.{name}",
                        lp["attention"][name], in_dims)
             for name in ("ffn_up", "ffn_down"):

@@ -285,11 +285,46 @@ fails.  Phases, in order:
    and in f32, the forecasts of the streamed fit, of a dense fit of the
    series moved by 1e-6 relative noise and of the dense fit run again,
    each against the dense fit's.
+14. The fine-tuning remainder (run after 10b, on phase 6b's model,
+   before 12): every counter is set to 0 first, and each kernel's
+   launches over the phase go into the kernels line
+   (``finetune_launches``).  14a, f32 with TF32 off, 2 layers at
+   TinyLlama width from a seed, the card against the port's CPU path on
+   the same weights within ``FT_TOL``, updates and gradients each over
+   the CPU's largest value in that tensor (an update's tolerance adds
+   the f32 rounding of the stored values): a LoRA fit (rank 8, the
+   default targets, 3 SGD steps from nonzero adapters: losses, the
+   adapters' updates and their last-step gradients); the fused loss
+   (``LMWithFusedLoss``, a tied twin, blocks of 16 with the last padded:
+   per-row losses and every gradient, and its mean against ``lm_loss``
+   on the card); one ``DistillLM`` step (the target and its first layer
+   as the draft: loss, the draft's updates and gradients); a
+   ``load_torch_generator(quantize="int8")``'s greedy tokens, equal;
+   with the distilled draft, the paged speculative engine's greedy
+   tokens equal to the monolithic paged engine's; a LoRA fit under
+   ``set_profile`` whose gzipped trace names the flash forward and
+   backward kernels; ``debug_nans`` raising at the poisoned step with
+   the parameters of the step before, and ``fault_inject_step`` then a
+   resume from the step checkpoint.  14b, full width, bf16:
+   TinyLlama-1.1B LoRA (rank 8, AdamW) at 6b's 4 x 2048 for 10 steps,
+   the base bitwise unchanged, beside a full fine-tune of the same
+   steps (median step, tokens/s, peak memory; 6b's gradients are
+   dropped first, so both fits start from the weights alone); GPT-2 small with
+   ``LMWithFusedLoss`` at phase 6's 8 x 1024 beside the plain loss (the
+   first batch's losses within ``FUSED_LOSS_RTOL``); ``distill_draft``
+   of 9b's 2-layer draft against the TinyLlama target, then the paged
+   speculative engine on phase 4's stream with the draft before and
+   after (acceptance and tokens/s, reported); TinyLlama through
+   ``load_torch_generator(quantize="int8")``: ``quant_stats``, the share
+   of greedy tokens equal to the unquantized generator's, and the paged
+   engine built from it.  Every fit's flash launches are exactly its
+   steps times its layers (a distillation's backward: the draft's
+   layers alone), and every engine's paged launches its counters'.
 
 The line before the last is ``{"kernels": [...], "stack": ..., "modes":
 [phase 9b's runs], "witness": {...}, "serving_modes": {phase 10},
 "bert": {phase 11b}, "zoo": {phase 12}, "image": {phase 13a-d},
-"tcmf": {phase 13e}}``; the last is ``{"ok": true,
+"tcmf": {phase 13e}, "finetune": {phase 14}}``; the last is ``{"ok": true,
 "device": {...}}``.  On a failure the script waits for the card (so
 that a device-side assert's lines come out first), then prints
 ``chip_smoke: failed after <the last group of phases that finished>``
@@ -318,6 +353,9 @@ alternating processes).  ``python3 chip_smoke.py --bert`` runs phase 1,
 11b's figures as its last line.  ``python3 chip_smoke.py --zoo`` runs
 phase 12 only and prints its figures as its last line;
 ``python3 chip_smoke.py --image`` runs phase 13 only, likewise.
+``python3 chip_smoke.py --finetune`` runs phase 1 and phase 14 (on a
+TinyLlama built as phase 6b builds it) and prints phase 14's figures and
+launches as its last line.
 """
 
 from __future__ import annotations
@@ -325,12 +363,15 @@ from __future__ import annotations
 import base64
 import collections
 import contextlib
+import copy
 import gc
+import gzip
 import http.client
 import itertools
 import json
 import math
 import re
+import shutil
 import socketserver
 import struct
 import subprocess
@@ -351,8 +392,9 @@ from analytics_zoo_tpu_torch.data.image import (ImageResize,
                                                 decode_image_bytes)
 from analytics_zoo_tpu_torch.data.shards import XShards
 from analytics_zoo_tpu_torch.frames import NNClassifier
-from analytics_zoo_tpu_torch.learn import Estimator
-from analytics_zoo_tpu_torch.learn.estimator import TorchEstimator
+from analytics_zoo_tpu_torch.learn import Estimator, LoRAConfig
+from analytics_zoo_tpu_torch.learn.estimator import (TorchEstimator,
+                                                     latest_checkpoint)
 from analytics_zoo_tpu_torch.learn.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.learn.metrics import auc
 from analytics_zoo_tpu_torch.learn.objectives import (
@@ -361,8 +403,14 @@ from analytics_zoo_tpu_torch.models.forecast import (LSTMNet, MTNet,
                                                      Seq2SeqTS, TCN)
 from analytics_zoo_tpu_torch.models.image import (SimpleCNN, resnet18,
                                                   resnet50)
-from analytics_zoo_tpu_torch.models.lm import (TransformerLM, generate,
-                                               lm_loss, pick_next)
+from analytics_zoo_tpu_torch.learn.triggers import SeveralIteration
+from analytics_zoo_tpu_torch.models.distill import (DistillLM,
+                                                    distill_draft,
+                                                    distill_loss,
+                                                    freeze_target_optimizer)
+from analytics_zoo_tpu_torch.models.lm import (LMWithFusedLoss,
+                                               TransformerLM, fused_lm_loss,
+                                               generate, lm_loss, pick_next)
 from analytics_zoo_tpu_torch.models.ncf import NeuralCF
 from analytics_zoo_tpu_torch.models.recommendation import (
     DIEN, ColumnFeatureInfo, SessionRecommender, WideAndDeep)
@@ -5190,6 +5238,614 @@ def phase_image(dev, card):
     return image, tcmf
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the fine-tuning remainder — LoRA, the fused loss, distillation,
+# weight-only quantization, the profiler hook, debug_nans, fault injection
+# ---------------------------------------------------------------------------
+
+FT_DIR = Path(__file__).resolve().parent / "build" / "finetune"
+# 14a: f32, 2 layers at TinyLlama width, the card against the CPU
+FT_F32 = dict(batch=2, seq=64, steps=3, lr=0.05, rank=8, t_block=16)
+FT_TOL = 1e-4               # losses, updates and gradients, relative
+F32_EPS = float(torch.finfo(torch.float32).eps)
+# 14a's small model for debug_nans and fault injection
+FT_SMALL = dict(GPT2, vocab_size=1000, hidden_size=128, num_heads=2,
+                intermediate_size=256, max_position=64)
+# 14b: full width, bf16
+FT_LORA = dict(rank=8, steps=10, warm=3, lr=1e-4)     # LLAMA_TRAIN's shape
+FT_FUSED = dict(steps=10, warm=3, t_block=512)        # TRAIN's shape
+# the fused and the plain loss of one batch share every bf16 hidden
+# state and run the head and the cross-entropy in f32: only the order of
+# the sums differs
+FUSED_LOSS_RTOL = 1e-4
+FT_DISTILL = dict(rows=64, seq=512, batch=8, epochs=2, layers=2)
+FT_QUANT = dict(prompts=8, width=128, new=32)
+
+
+def ft_scale_err(got, want):
+    """max |got - want| over max(1, max |want|)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+def ft_rel_err(got, want):
+    """max |got - want| over max |want| (over 1 where ``want`` is 0)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    top = float(want.abs().max())
+    return float((got - want).abs().max()) / (top if top else 1.0)
+
+
+def ft_hold_grads(what, card, cpu):
+    """Each gradient on the card against the CPU's, over that leaf's own
+    largest value; prints the range of those values."""
+    tops = [float(g.detach().abs().max()) for g in cpu.values()]
+    print(f"  {what}: max |grad| per leaf on the CPU from {min(tops):.3e} "
+          f"to {max(tops):.3e}")
+    return ft_hold(f"{what}, each over its own max",
+                   max(ft_rel_err(card[n], cpu[n]) for n in cpu))
+
+
+def ft_hold_updates(what, before, card, cpu, steps):
+    """Each tensor's update (after minus ``before``) on the card against
+    the CPU's, over the CPU update's largest value.  The stored f32
+    values round by up to half an ulp a step on each side, so a tensor's
+    tolerance is ``FT_TOL`` plus ``steps`` ulps of its largest value over
+    the same (the floor, printed beside the error)."""
+    worst = (0.0, 0.0, None)
+    tops = []
+    for n, b in before.items():
+        b = b.double()
+        dc, dp = card[n].double().cpu() - b, cpu[n].double().cpu() - b
+        top = float(dp.abs().max())
+        if not top:
+            raise AssertionError(f"14a: {what}: the CPU did not move {n}")
+        tops.append(top)
+        floor = steps * F32_EPS * float(cpu[n].abs().max()) / top
+        err = float((dc - dp).abs().max()) / top
+        if worst[2] is None or err - floor > worst[0] - worst[1]:
+            worst = (err, floor, n)
+    err, floor, n = worst
+    print(f"  {what}: max |update| per tensor on the CPU from "
+          f"{min(tops):.3e} to {max(tops):.3e}; worst {n}: err {err:.3e} "
+          f"over its update (tol {FT_TOL:.0e} + f32 floor {floor:.3e})")
+    if not err <= FT_TOL + floor:
+        raise AssertionError(f"14a: {what}: the card's update of {n} "
+                             f"disagrees with the CPU's ({err:.3e})")
+    return err
+
+
+def ft_counts(totals):
+    """Add the kernels' counters to ``totals`` and set them to 0 (each
+    part of phase 14 checks its own counts first)."""
+    for k, v in zip(("paged", "fwd", "bwd", "delta"), zoo_launches()):
+        totals[k] += v
+    fa.paged_attention_fused.launches = 0
+    reset_flash()
+
+
+def ft_lora_est(model, dev, optimizer, **cfg):
+    """``Estimator.from_torch(lora=...)`` of an LM on ``dev``, with every
+    adapter's ``b`` drawn nonzero on the CPU from one seed (so a step
+    moves both factors, and the card and the CPU start alike)."""
+    est = Estimator.from_torch(
+        model=model, loss=lm_loss, optimizer=optimizer,
+        feature_cols=("tokens",), label_cols=("tokens",),
+        config=TrainConfig(deterministic=True, **cfg), device=dev,
+        lora=LoRAConfig(rank=FT_F32["rank"]))
+    gen = torch.Generator().manual_seed(14)
+    with torch.no_grad():
+        for name in sorted(est._lora):
+            b = est._lora[name]["b"]
+            b.copy_(0.1 * torch.randn(b.shape, generator=gen))
+    return est
+
+
+def ft_hold(what, err, tol=FT_TOL):
+    print(f"  {what}: max err {err:.3e} (tol {tol:.0e})")
+    if not err <= tol:
+        raise AssertionError(f"14a: {what}: the card disagrees with the "
+                             f"CPU ({err:.3e})")
+    return err
+
+
+def finetune_f32(dev, totals):
+    """14a: f32 with TF32 off, 2 layers at TinyLlama width, random
+    weights from a seed, each on the card against the port's CPU path
+    on the same weights and inputs."""
+    print("== phase 14a: the fine-tuning remainder at f32, 2 layers at "
+          "TinyLlama width, card vs CPU")
+    out = {}
+    B, T, steps = FT_F32["batch"], FT_F32["seq"], FT_F32["steps"]
+    vocab = TINYLLAMA["vocab_size"]
+    toks = np.random.default_rng(14).integers(0, vocab, (B, T)).astype(
+        np.int32)
+    torch.manual_seed(14)
+    base = TransformerLM(**TINYLLAMA, num_layers=2, dtype=torch.float32)
+    cpu = torch.device("cpu")
+
+    # LoRA, SGD, one step an epoch (so the history is per step)
+    def lora(d):
+        est = ft_lora_est(copy.deepcopy(base), d, lambda ps:
+                          torch.optim.SGD(ps, lr=FT_F32["lr"]))
+        start = {(n, k): t.detach().cpu().clone()
+                 for n, ab in est._lora.items() for k, t in ab.items()}
+        hist = est.fit({"tokens": toks}, epochs=steps, batch_size=B)
+        # the last step's gradients stay on the adapters
+        grads = {(n, k): t.grad for n, ab in est._lora.items()
+                 for k, t in ab.items()}
+        after = {(n, k): t for n, ab in est.lora_params().items()
+                 for k, t in ab.items()}
+        return [h["loss"] for h in hist], start, after, grads
+    # each pair: the card first and its launches checked, then the CPU
+    lc, start, ac, gc_ = lora(dev)
+    expect_flash("14a LoRA", (steps * 2, steps * 2))
+    ft_counts(totals)
+    lp, start_p, ap, gp = lora(cpu)
+    ft_counts(totals)
+    if any(not torch.equal(start[k], start_p[k]) for k in start):
+        raise AssertionError("14a: the card's and the CPU's adapters "
+                             "started apart")
+    print(f"  LoRA rank {FT_F32['rank']} ({len(ap) // 2} adapted weights), "
+          f"SGD {steps} steps: losses card {[round(x, 6) for x in lc]}, "
+          f"CPU {[round(x, 6) for x in lp]}")
+    out["lora_loss_err"] = ft_hold("LoRA losses (relative)", max(
+        abs(a - b) / abs(b) for a, b in zip(lc, lp)))
+    out["lora_update_err"] = ft_hold_updates(
+        "LoRA adapters' updates over the steps", start, ac, ap, steps)
+    out["lora_grad_err"] = ft_hold_grads("LoRA adapters' last-step "
+                                         "gradients", gc_, gp)
+
+    # the fused loss (TinyLlama's head untied raises: a tied twin)
+    tied_cfg = dict(TINYLLAMA, tied_head=True)
+    torch.manual_seed(15)
+    tied = TransformerLM(**tied_cfg, num_layers=2, dtype=torch.float32)
+
+    def fused(d):
+        m = copy.deepcopy(tied).to(d)
+        t = torch.as_tensor(toks, device=d)
+        rows = LMWithFusedLoss(m, t_block=FT_F32["t_block"])(t, train=True)
+        fused_lm_loss(rows, t).backward()
+        grads = {n: p.grad for n, p in m.named_parameters()}
+        with torch.no_grad():
+            plain = lm_loss(m(t), t)
+        return rows.detach(), grads, float(plain)
+    rc, gc_, pc = fused(dev)
+    # the fused forward and backward, and the plain loss's forward
+    expect_flash("14a fused loss", (4, 2))
+    ft_counts(totals)
+    rp, gp, _ = fused(cpu)
+    ft_counts(totals)
+    out["fused_loss_err"] = ft_hold("fused loss, per row", ft_scale_err(
+        rc, rp))
+    out["fused_grad_err"] = ft_hold_grads("fused loss, every gradient",
+                                          gc_, gp)
+    out["fused_vs_plain"] = ft_hold(
+        "fused loss mean vs lm_loss on the card (relative)",
+        abs(float(rc.mean()) - pc) / abs(pc))
+    del tied
+
+    # one DistillLM step: the target frozen, the draft its first layer
+    draft0, _ = first_layers(base, TINYLLAMA, 1)
+
+    def distill(d):
+        draft = copy.deepcopy(draft0)
+        pair = DistillLM(draft, copy.deepcopy(base), temperature=2.0,
+                         ce_weight=0.1)
+        est = Estimator.from_torch(
+            model=pair, loss=distill_loss,
+            optimizer=freeze_target_optimizer(
+                lambda ps: torch.optim.SGD(ps, lr=FT_F32["lr"])),
+            feature_cols=("tokens",), label_cols=("tokens",),
+            config=TrainConfig(deterministic=True), device=d)
+        hist = est.fit({"tokens": toks}, epochs=1, batch_size=B)
+        return hist[0]["loss"], draft
+    dlc, dc = distill(dev)
+    # the target's 2 layers and the draft's 1 forward, the draft's back
+    expect_flash("14a DistillLM step", (3, 1))
+    ft_counts(totals)
+    dlp, dp = distill(cpu)
+    ft_counts(totals)
+    out["distill_loss_err"] = ft_hold("DistillLM step loss (relative)",
+                                      abs(dlc - dlp) / abs(dlp))
+    params0 = dict(draft0.named_parameters())
+    dcs, dps = (dict(m.named_parameters()) for m in (dc, dp))
+    out["distill_update_err"] = ft_hold_updates(
+        "DistillLM step, the draft's updates",
+        {n: p.detach().cpu() for n, p in params0.items()},
+        {n: p.detach() for n, p in dcs.items()},
+        {n: p.detach() for n, p in dps.items()}, 1)
+    out["distill_grad_err"] = ft_hold_grads(
+        "DistillLM step, the draft's gradients",
+        {n: p.grad for n, p in dcs.items()},
+        {n: p.grad for n, p in dps.items()})
+
+    # the quantized generator's greedy tokens
+    prompt = np.random.default_rng(15).integers(
+        0, vocab, (4, 64)).astype(np.int32)
+
+    def quantized(d):
+        im = InferenceModel(batch_buckets=(4,)).load_torch_generator(
+            copy.deepcopy(base), None, 8, prompt_buckets=(64,),
+            quantize="int8", device=d)
+        return im.predict(prompt), im.quant_stats
+    (qc, stats), (qp, _) = quantized(dev), quantized(cpu)
+    ft_counts(totals)
+    print(f"  int8 generator: quant_stats {stats}; greedy tokens card "
+          f"= CPU: {np.array_equal(qc, qp)}")
+    if not np.array_equal(qc, qp):
+        raise AssertionError(f"14a: quantized greedy tokens differ: card "
+                             f"{qc} vs CPU {qp}")
+
+    # the distilled draft serves: speculative tokens = monolithic
+    target = copy.deepcopy(base).to(dev)
+    dc = dc.to(dev)
+    reqs, _ = prompts(np.random.default_rng(16), [80, 20, 130, 45], 0,
+                      vocab=vocab)
+    kw = dict(max_new_tokens=16, max_slots=4, prompt_buckets=(32, 64, 128,
+                                                              256),
+              block_size=16, paged=True)
+    _, mono, _, _, n_mono = checked_run(target, dev, reqs,
+                                        "14a monolithic", **kw)
+    ft_counts(totals)
+    eng, spec, _, _, n_spec = checked_run(
+        target, dev, reqs, "14a speculative, distilled draft", **kw,
+        draft_model=dc, draft_variables=dc.state_dict(), speculation_k=4)
+    same_tokens(spec, mono, "14a speculative (distilled draft) != "
+                "monolithic")
+    m = eng.cache_metrics()
+    ft_counts(totals)
+    print(f"  distilled draft: speculative greedy tokens = monolithic "
+          f"paged engine's; acceptance {m['spec_accepted']}/"
+          f"{m['spec_proposed']}; paged launches {n_mono} + {n_spec} = the "
+          f"engines' counters")
+    del target, dc, dp, base
+
+    out["profile"] = ft_profile(dev)
+    ft_counts(totals)
+    out["debug_nans"], out["fault"] = ft_debug_and_fault(dev)
+    ft_counts(totals)
+    free_memory()
+    return out
+
+
+def ft_profile(dev):
+    """``set_profile``: a LoRA fit of 4 steps traces steps 2-3 with
+    ``torch.profiler``; the gzipped trace must name the flash forward and
+    backward kernels."""
+    torch.manual_seed(17)
+    with torch.device(dev):
+        model = TransformerLM(**FT_SMALL, num_layers=2, dtype=torch.bfloat16)
+    logdir = FT_DIR / "profile"
+    shutil.rmtree(logdir, ignore_errors=True)
+    est = ft_lora_est(model, dev, 1e-3).set_profile(str(logdir),
+                                                    start_step=2, n_steps=2)
+    toks = np.random.default_rng(17).integers(
+        0, FT_SMALL["vocab_size"], (16, 64)).astype(np.int32)
+    est.fit({"tokens": toks}, epochs=1, batch_size=4)
+    traces = sorted(logdir.glob("**/*.pt.trace.json.gz"))
+    if not traces:
+        raise AssertionError(f"14a: set_profile wrote no trace under "
+                             f"{logdir}")
+    with gzip.open(traces[0], "rt") as f:
+        names = collections.Counter(
+            e.get("name", "") for e in json.load(f)["traceEvents"]
+            if e.get("cat") == "kernel")
+    fwd = sum(c for n, c in names.items() if "flash_fwd" in n)
+    bwd = sum(c for n, c in names.items() if "flash_bwd" in n)
+    print(f"  set_profile(start_step=2, n_steps=2): {traces[0].name}, "
+          f"{sum(names.values())} kernel records, flash forward "
+          f"{fwd}, flash backward {bwd} (dq, dk/dv, delta)")
+    if not fwd or not bwd:
+        raise AssertionError("14a: the profile's trace names no flash "
+                             "forward or backward kernel")
+    return {"kernels": sum(names.values()), "flash_fwd": fwd,
+            "flash_bwd": bwd}
+
+
+def ft_debug_and_fault(dev):
+    """``debug_nans``: the batch of step 3 poisons the loss; the fit
+    raises there with the parameters of step 2.  ``fault_inject_step``:
+    a fault after step 3, a fresh estimator resumes from the step-2
+    checkpoint and finishes."""
+    torch.manual_seed(18)
+    with torch.device(dev):
+        model = TransformerLM(**FT_SMALL, num_layers=2, dtype=torch.float32)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    toks = np.random.default_rng(18).integers(
+        1, FT_SMALL["vocab_size"], (16, 32)).astype(np.int32)
+    toks[8:12, 0] = 0               # step 3's rows (deterministic order)
+
+    def poisoned(logits, t):
+        nan = torch.where(t[:, 0] == 0, float("nan"), 1.0).mean()
+        return lm_loss(logits, t) * nan
+
+    def est_of(m, loss, **cfg):
+        return Estimator.from_torch(
+            model=m, loss=loss, optimizer=1e-3, feature_cols=("tokens",),
+            label_cols=("tokens",), device=dev,
+            config=TrainConfig(deterministic=True, **cfg))
+    est = est_of(model, poisoned, debug_nans=True)
+    try:
+        est.fit({"tokens": toks}, epochs=1, batch_size=4)
+        raise AssertionError("14a: debug_nans did not raise")
+    except FloatingPointError as e:
+        msg = str(e)
+    model2 = copy.deepcopy(model)
+    model2.load_state_dict(state)
+    est_of(model2, poisoned).fit({"tokens": toks[:8]}, epochs=1,
+                                 batch_size=4)
+    # the same two steps on the same device: equal up to the order of
+    # any atomic sums
+    gap = max(ft_scale_err(v, model2.state_dict()[k])
+              for k, v in model.state_dict().items())
+    print(f"  debug_nans: {msg!r}; parameters vs a clean twin after step "
+          f"2: max err {gap:.3e} (tol 1e-6)")
+    if "step 3" not in msg or not gap <= 1e-6:
+        raise AssertionError("14a: debug_nans raised at the wrong step or "
+                             "after the update")
+    ckpt = FT_DIR / "ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    model.load_state_dict(state)
+    est = est_of(model, lm_loss, checkpoint_dir=str(ckpt),
+                 fault_inject_step=3)
+    try:
+        est.fit({"tokens": toks}, epochs=2, batch_size=4,
+                checkpoint_trigger=SeveralIteration(1))
+        raise AssertionError("14a: fault_inject_step did not raise")
+    except RuntimeError as e:
+        fault = str(e)
+    saved = latest_checkpoint(str(ckpt))
+    est = est_of(copy.deepcopy(model), lm_loss, checkpoint_dir=str(ckpt))
+    hist = est.fit({"tokens": toks}, epochs=2, batch_size=4,
+                   auto_resume=True)
+    print(f"  fault_inject_step=3: {fault!r}; newest checkpoint step "
+          f"{saved}; a fresh estimator resumed and ended at step "
+          f"{est._global_step}, losses {[round(h['loss'], 4) for h in hist]}")
+    # resume is epoch-granular: from step 2 (epoch 0) two epochs of 4
+    if "injected fault at step 3" not in fault or saved != 2 \
+            or est._global_step != 10 or not np.isfinite(hist[-1]["loss"]):
+        raise AssertionError("14a: fault injection and resume went wrong")
+    return {"message": msg, "param_err": gap}, {
+        "checkpoint": saved, "resumed_to": est._global_step}
+
+
+def ft_fit_timed(card, what, est, data, batch, seq, warm):
+    """A fit of ``data`` timed step by step (``step_times``), with its
+    peak device memory; returns 11b's figures."""
+    free_memory()
+    with peak_memory() as mem, step_times() as times:
+        est.fit(data, epochs=1, batch_size=batch)
+    return report_steps(card, what, times, batch, seq, warm, mem)
+
+
+def ft_lora_llama(dev, card, model, totals):
+    """14b: TinyLlama LoRA (rank 8, default targets, AdamW) at 6b's 4 x
+    2048, beside a full fine-tune of the same steps; the base must stay
+    bitwise, and each step launch the forward and backward a layer."""
+    B, T = LLAMA_TRAIN["batch"], LLAMA_TRAIN["seq"]
+    steps = FT_LORA["steps"]
+    toks = np.random.default_rng(19).integers(
+        0, TINYLLAMA["vocab_size"], (B * steps, T)).astype(np.int32)
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    est = Estimator.from_torch(
+        model=model, loss=lm_loss,
+        optimizer=lambda ps: torch.optim.AdamW(ps, lr=FT_LORA["lr"]),
+        feature_cols=("tokens",), label_cols=("tokens",),
+        config=TrainConfig(deterministic=True), device=dev,
+        lora=LoRAConfig(rank=FT_LORA["rank"]))
+    n_adapt = sum(t.numel() for ab in est.lora_params().values()
+                  for t in ab.values())
+    lora = ft_fit_timed(card, f"14b LoRA rank {FT_LORA['rank']} "
+                        f"({n_adapt / 1e6:.2f} M adapter parameters)", est,
+                        {"tokens": toks}, B, T, FT_LORA["warm"])
+    expect_flash("14b LoRA", (steps * model.num_layers,) * 2)
+    ft_counts(totals)
+    same = all(torch.equal(v.cpu(), before[k])
+               for k, v in model.state_dict().items())
+    print(f"  base weights bitwise unchanged: {same}; flash forward = "
+          f"backward = {steps} steps x {model.num_layers} layers")
+    if not same:
+        raise AssertionError("14b: LoRA moved the base weights")
+    del est, before
+    free_memory()
+    est = Estimator.from_torch(
+        model=model, loss=lm_loss,
+        optimizer=lambda ps: torch.optim.AdamW(ps, lr=FT_LORA["lr"]),
+        feature_cols=("tokens",), label_cols=("tokens",),
+        config=TrainConfig(deterministic=True), device=dev)
+    full = ft_fit_timed(card, "14b full fine-tune (the same steps)", est,
+                        {"tokens": toks}, B, T, FT_LORA["warm"])
+    expect_flash("14b full fine-tune", (steps * model.num_layers,) * 2)
+    ft_counts(totals)
+    del est
+    free_memory()
+    return {"lora": lora, "full": full, "adapter_params": n_adapt}
+
+
+def ft_fused_gpt2(dev, card, totals):
+    """14b: GPT-2 small with ``LMWithFusedLoss`` at phase 6's 8 x 1024
+    beside the plain ``lm_loss`` fit of the same weights and steps; the
+    first batch's two losses agree within ``FUSED_LOSS_RTOL``."""
+    B, T = TRAIN["batch"], TRAIN["seq"]
+    steps = FT_FUSED["steps"]
+    toks = np.random.default_rng(20).integers(
+        0, GPT2["vocab_size"], (B * steps, T)).astype(np.int32)
+    torch.manual_seed(20)
+    with torch.device(dev):
+        model = TransformerLM(**GPT2, num_layers=12, dtype=torch.bfloat16)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    first = torch.as_tensor(toks[:B], device=dev)
+    with torch.no_grad():
+        plain_loss = float(lm_loss(model(first), first))
+        fused_loss = float(LMWithFusedLoss(model, FT_FUSED["t_block"])(
+            first).mean())
+    rel = abs(fused_loss - plain_loss) / abs(plain_loss)
+    print(f"  first batch: fused loss {fused_loss:.6f}, lm_loss "
+          f"{plain_loss:.6f}, rel err {rel:.3e} (tol {FUSED_LOSS_RTOL:.0e})")
+    if rel > FUSED_LOSS_RTOL:
+        raise AssertionError("14b: the fused loss disagrees with lm_loss")
+    ft_counts(totals)
+    out = {"first_batch_rel_err": rel}
+    for name, m, loss in (
+            ("plain", model, lm_loss),
+            ("fused", LMWithFusedLoss(model, FT_FUSED["t_block"]),
+             fused_lm_loss)):
+        model.load_state_dict(state)
+        est = Estimator.from_torch(
+            model=m, loss=loss, optimizer=1e-4, feature_cols=("tokens",),
+            label_cols=("tokens",), config=TrainConfig(deterministic=True),
+            device=dev)
+        out[name] = ft_fit_timed(
+            card, f"14b GPT-2 small, {name} loss", est, {"tokens": toks}, B,
+            T, FT_FUSED["warm"])
+        expect_flash(f"14b {name} loss", (steps * 12, steps * 12))
+        ft_counts(totals)
+        del est
+    del model, state
+    free_memory()
+    return out
+
+
+def ft_distill_llama(dev, card, model, totals):
+    """14b: ``distill_draft`` of 9b's 2-layer draft against the TinyLlama
+    target, then the paged speculative engine on phase 4's stream with
+    the draft before and after (acceptance and tokens/s reported)."""
+    vocab = TINYLLAMA["vocab_size"]
+    n, T = FT_DISTILL["rows"], FT_DISTILL["seq"]
+    data = {"tokens": np.random.default_rng(21).integers(
+        0, vocab, (n, T)).astype(np.int32)}
+    draft, dvars = first_layers(model, TINYLLAMA, FT_DISTILL["layers"])
+    warm, reqs, _ = main_stream(vocab)
+    base = dict(MAIN, paged=True, block_size=16)
+    out = {}
+    for name in ("undistilled", "distilled"):
+        if name == "distilled":
+            t0 = time.perf_counter()
+            dvars, hist = distill_draft(
+                model, None, draft, data, epochs=FT_DISTILL["epochs"],
+                batch_size=FT_DISTILL["batch"], device=dev)
+            torch.cuda.synchronize()
+            steps = FT_DISTILL["epochs"] * (n // FT_DISTILL["batch"])
+            layers = model.num_layers + draft.num_layers
+            expect_flash("14b distill_draft", (steps * layers,
+                                               steps * draft.num_layers))
+            ft_counts(totals)
+            out["distill_s"] = time.perf_counter() - t0
+            out["distill_losses"] = [h["loss"] for h in hist]
+            print(f"  distill_draft: {steps} steps of {FT_DISTILL['batch']}"
+                  f" x {T} in {out['distill_s']:.1f} s, epoch losses "
+                  f"{[round(x, 4) for x in out['distill_losses']]}; flash "
+                  f"forward {steps} x ({model.num_layers} + "
+                  f"{draft.num_layers}) layers, backward {steps} x "
+                  f"{draft.num_layers} (the draft's alone)")
+        spec = dict(draft_model=draft, draft_variables=dvars,
+                    speculation_k=4)
+        serve(model, dev, warm, **base, **spec)
+        ft_counts(totals)
+        eng, res, secs, first, paged = checked_run(
+            model, dev, reqs, f"14b spec k=4, {name} draft", **base, **spec)
+        check_served(res, reqs, vocab)
+        m = eng.cache_metrics()
+        row = {"tokens_per_s": sum(len(t) for t in res.values()) / secs,
+               "acceptance": m["spec_accepted"] / m["spec_proposed"],
+               "paged_launches": paged}
+        ft_counts(totals)
+        out[name] = row
+        print(f"  [{card}] spec k=4, {name} 2-layer draft: "
+              f"{row['tokens_per_s']:.1f} tokens/s, acceptance "
+              f"{row['acceptance']:.3f}, paged launches {paged} = the "
+              f"engine's counters")
+    del draft, dvars
+    free_memory()
+    return out
+
+
+def ft_quantized_llama(dev, card, model, totals):
+    """14b: TinyLlama through ``load_torch_generator(quantize="int8")``:
+    ``quant_stats``, the share of greedy tokens equal to the unquantized
+    generator's, then the continuous paged engine built from it (which
+    dequantizes once, into the model) on phase 4's stream, its paged
+    launches equal to its counters.  It runs last: the model keeps the
+    dequantized weights."""
+    vocab = TINYLLAMA["vocab_size"]
+    P, W = FT_QUANT["prompts"], FT_QUANT["width"]
+    gen = dict(max_new_tokens=MAIN["max_new_tokens"],
+               prompt_buckets=MAIN["prompt_buckets"], device=dev)
+    batch = np.random.default_rng(22).integers(1, vocab, (P, W)).astype(
+        np.int32)
+    plain = InferenceModel(batch_buckets=(P,)).load_torch_generator(
+        model, None, **gen).predict(batch)
+    free_memory()
+    im = InferenceModel(batch_buckets=(P,)).load_torch_generator(
+        model, None, quantize="int8", **gen)
+    free_memory()
+    at_rest = torch.cuda.memory_allocated()
+    with peak_memory() as mem:
+        t0 = time.perf_counter()
+        got = im.predict(batch)
+        secs = time.perf_counter() - t0
+    agree = float(np.mean(got == plain))
+    print(f"  [{card}] int8 generator: quant_stats {im.quant_stats}; "
+          f"{P} x {MAIN['max_new_tokens']} greedy tokens in {secs:.2f} s, "
+          f"{100 * agree:.1f}% equal to the unquantized generator's; device "
+          f"memory {at_rest / 2**30:.2f} GiB at rest, peak "
+          f"{mem['peak'] / 2**30:.2f} GiB while a predict dequantizes")
+    ft_counts(totals)
+    _, reqs, _ = main_stream(vocab)
+    eng = im.make_continuous_engine(max_slots=MAIN["max_slots"],
+                                    paged=True, block_size=16)
+    out = {}
+    t0 = time.monotonic()
+    for uri, p in reqs:
+        eng.submit(uri, p, lambda u, t: out.__setitem__(u, t))
+    eng.drain()
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    check_served(out, reqs, vocab)
+    paged, want = fa.paged_attention_fused.launches, expected_launches(eng)
+    print(f"  [{card}] its continuous paged engine (dequantized at build): "
+          f"{len(out)} requests, "
+          f"{sum(len(t) for t in out.values()) / secs:.1f} tokens/s, paged "
+          f"launches {paged} = the engine's counters {want[0]}")
+    if eng.kernel != "fused" or paged != want[0] or paged == 0:
+        raise AssertionError("14b: the quantized generator's engine did "
+                             "not read through the paged kernel on every "
+                             "call")
+    ft_counts(totals)
+    return {"quant_stats": im.quant_stats, "greedy_agreement": agree,
+            "at_rest_bytes": at_rest, "predict_peak_bytes": mem["peak"],
+            "engine_tokens_per_s": sum(len(t) for t in out.values()) / secs,
+            "engine_paged_launches": paged}
+
+
+def phase_finetune(dev, card, model):
+    """Phase 14 on ``model`` (phase 6b's TinyLlama): 14a at f32 against
+    the CPU, then 14b at full width.  Returns its figures and the
+    kernels' launches over the phase."""
+    totals = dict.fromkeys(("paged", "fwd", "bwd", "delta"), 0)
+    fa.paged_attention_fused.launches = 0
+    reset_flash()
+    # 6b's fit leaves its last gradients on the model: drop them, so each
+    # 14b fit starts from the weights alone
+    for p in model.parameters():
+        p.grad = None
+    free_memory()
+    FT_DIR.mkdir(parents=True, exist_ok=True)
+    out = {"14a": finetune_f32(dev, totals)}
+    print("== phase 14b: the fine-tuning remainder at full width, bf16")
+    out["lora"] = ft_lora_llama(dev, card, model, totals)
+    out["fused"] = ft_fused_gpt2(dev, card, totals)
+    out["distill"] = ft_distill_llama(dev, card, model, totals)
+    out["quantized"] = ft_quantized_llama(dev, card, model, totals)
+    print(f"  phase 14's launches: paged {totals['paged']}, flash forward "
+          f"{totals['fwd']}, backward {totals['bwd']}, delta "
+          f"{totals['delta']}")
+    free_memory()
+    return out, totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5272,6 +5928,21 @@ def main() -> int:
         print(json.dumps({"image": image, "tcmf": tcmf}))
         return 0
 
+    if sys.argv[1:2] == ["--finetune"]:
+        # phase 1 and phase 14 on a TinyLlama built as phase 6b builds it
+        phase_build()
+        lap("phase 1")
+        torch.manual_seed(4321)
+        with torch.device(dev):
+            llama_model = TransformerLM(**TINYLLAMA,
+                                        num_layers=TINYLLAMA_LAYERS,
+                                        dtype=torch.bfloat16)
+        finetune, ft_launches = phase_finetune(dev, card, llama_model)
+        lap("phase 14")
+        print(card)
+        print(json.dumps({"finetune": finetune, "launches": ft_launches}))
+        return 0
+
     phase_build()
     lap("phase 1")
     phase_kernel_vs_plain(dev)
@@ -5313,6 +5984,8 @@ def main() -> int:
     lap("phase 10a")
     serving_modes["10b"] = phase_fleet_llama(dev, card, llama_model)
     lap("phase 10b")
+    finetune, ft_launches = phase_finetune(dev, card, llama_model)
+    lap("phase 14")
     del llama_model
     zoo = phase_zoo(dev, card)
     lap("phase 12")
@@ -5326,13 +5999,19 @@ def main() -> int:
             stack["paged"]["paged"] if e["name"].startswith("paged")
             else stack["arena"]["flash"]
             if e["name"].startswith("flash_attention_fwd") else 0)
+        # and its launches in phase 14's fine-tuning paths
+        e["finetune_launches"] = ft_launches[
+            "paged" if e["name"].startswith("paged")
+            else "fwd" if e["name"].startswith("flash_attention_fwd")
+            else "delta" if e["name"].startswith("flash_attention_bwd_delta")
+            else "bwd"]
     print(f"whole run {time.monotonic() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, "stack": {
         name: run["pairs"] for name, run in stack.items()},
         "modes": modes["runs"], "witness": modes["witness"],
         "serving_modes": serving_modes, "bert": bert, "zoo": zoo,
-        "image": image, "tcmf": tcmf}))
+        "image": image, "tcmf": tcmf, "finetune": finetune}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,12 +13,18 @@ schedule (``seed + epoch`` permutations), shuffled or not.
   about +-lr whose sign is noise, so the parameters are compared after
   a run with plain SGD, where they must agree.
 - ``evaluate`` (a row count that needs a padded chunk) and ``predict``.
-- The TrainConfig fields that are not ported raise (the checkpoint
-  fields are ported: ``tests/test_torch_checkpoint.py``, and
-  ``accum_steps``: ``tests/test_torch_image.py``), and the
+- The observability and debug TrainConfig fields are honoured (held to
+  the reference in ``tests/test_torch_observability.py``; the
+  checkpoint fields in ``tests/test_torch_checkpoint.py``, and
+  ``accum_steps`` in ``tests/test_torch_image.py``), and the
   default device raises on a CPU-only host while ``device="cpu"``
   runs.
 """
+
+import json
+import os
+import sys
+import types
 
 import jax
 import numpy as np
@@ -197,15 +203,44 @@ def test_validation_history_and_stop_callback(weights):
     ("tensorboard_dir", "tb"), ("metrics_jsonl", "m.jsonl"),
     ("profile", ("trace", 5, 5)), ("fault_inject_step", 3),
     ("debug_nans", True)])
-def test_unported_train_config_fields_raise(weights, field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Estimator.from_torch(model=torch.nn.Linear(2, 2),
-                             config=TrainConfig(**{field: value}),
-                             device="cpu")
+def test_unported_train_config_fields_raise(weights, field, value, tmp_path,
+                                            monkeypatch):
+    """The observability and debug fields, which raised until they were
+    ported, are honoured: set on the config of a fit of 6 steps, each
+    leaves its output (a metrics file, event files, a trace of steps 5
+    and 6), the fault raises after step 3, and ``debug_nans`` trains the
+    same losses (``tests/test_torch_observability.py`` holds each to
+    the reference)."""
+    # TensorBoard's no-TensorFlow mode: the same writer, without a ~17 s
+    # TensorFlow import
+    monkeypatch.setitem(sys.modules, "tensorboard.compat.notf",
+                        types.ModuleType("tensorboard.compat.notf"))
+    if field in ("tensorboard_dir", "metrics_jsonl"):
+        value = str(tmp_path / value)
+    elif field == "profile":
+        value = (str(tmp_path / value[0]),) + value[1:]
+    Estimator.from_torch(model=torch.nn.Linear(2, 2),
+                         config=TrainConfig(**{field: value}), device="cpu")
     est = _port_est(weights, 1e-3)
     setattr(est.config, field, value)
-    with pytest.raises(NotImplementedError, match=field):
-        est.fit({"tokens": weights[2]}, batch_size=8)
+    est.config.log_every_steps = 1
+    if field == "fault_inject_step":
+        with pytest.raises(RuntimeError, match="injected fault at step 3"):
+            est.fit({"tokens": weights[2]}, epochs=2, batch_size=8)
+        return
+    hist = est.fit({"tokens": weights[2]}, epochs=2, batch_size=8)
+    if field == "metrics_jsonl":
+        with open(value) as f:
+            assert [json.loads(r)["step"] for r in f] == [1, 2, 3, 4, 5, 6]
+    elif field == "tensorboard_dir":
+        assert any(n.startswith("events.") for n in os.listdir(value))
+    elif field == "profile":
+        assert any(n.endswith(".pt.trace.json.gz")
+                   for n in os.listdir(value[0]))
+    else:
+        plain = _port_est(weights, 1e-3).fit({"tokens": weights[2]},
+                                              epochs=2, batch_size=8)
+        assert [h["loss"] for h in hist] == [h["loss"] for h in plain]
 
 
 def test_default_device_is_cuda(weights, monkeypatch):

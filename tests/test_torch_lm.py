@@ -224,3 +224,73 @@ def test_later_slice_configs_raise(kw, item):
 def test_unknown_configs_raise(kw):
     with pytest.raises(ValueError, match=next(iter(kw))):
         TransformerLM(dtype=torch.float32, **_CFG, **kw)
+
+
+# The fused loss (``LMWithFusedLoss``)
+_FUSED_T = 13
+
+
+@pytest.mark.parametrize("t_block", [4, 5], ids=["divides", "pads"])
+def test_fused_loss_matches_jax(t_block):
+    """Per-sample losses against the reference's ``LMWithFusedLoss`` (the
+    12 shifted positions in blocks of 4, or of 5 with the last padded and
+    masked), within 1e-5; their mean is ``lm_loss`` of the plain model,
+    and every gradient is the plain path's within 1e-5."""
+    from analytics_zoo_tpu.models.lm import LMWithFusedLoss as JaxFused
+    from analytics_zoo_tpu_torch.models.lm import (LMWithFusedLoss,
+                                                   fused_lm_loss)
+
+    jm, variables, tm = _models(None)
+    fused = JaxFused(lm=jm, t_block=t_block)
+    toks = np.random.default_rng(6).integers(0, 64, (3, _FUSED_T)).astype(
+        np.int32)
+    want = np.asarray(jax.jit(fused.apply)({"params": {
+        "lm": variables["params"]}}, toks))
+    t = torch.from_numpy(toks)
+    per_row = LMWithFusedLoss(tm, t_block=t_block)(t, train=True)
+    np.testing.assert_allclose(per_row.detach().numpy(), want, atol=1e-5,
+                               rtol=0)
+    fused_lm_loss(per_row, t).backward()
+    got = {n: p.grad.clone() for n, p in tm.named_parameters()}
+    tm.zero_grad()
+    plain = lm_loss(tm(t, train=True), t)
+    np.testing.assert_allclose(per_row.mean().item(), plain.item(),
+                               atol=1e-6, rtol=0)
+    plain.backward()
+    for n, p in tm.named_parameters():
+        np.testing.assert_allclose(got[n].numpy(), p.grad.numpy(),
+                                   atol=1e-5, rtol=0, err_msg=n)
+
+
+def test_fused_loss_saves_no_logits():
+    """Nothing of ``B*T*V`` elements is saved for backward (the plain
+    path saves its logits, which the same hook sees), and an untied head
+    raises.  V is above the widths of everything else saved (E = 32,
+    the MLP's 64) and B*T above E, so only a [B, n, V] tensor (or the
+    [V, E] table) could reach ``B*T*V``."""
+    from analytics_zoo_tpu_torch.models.lm import LMWithFusedLoss
+
+    cfg = dict(_CFG, vocab_size=512)
+    tm = TransformerLM(dtype=torch.float32, **cfg)
+    B = 3
+    t = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 512, (B, _FUSED_T)))
+
+    def largest_saved(fn):
+        sizes = []
+
+        def pack(x):
+            sizes.append(x.numel())
+            return x
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+            fn().backward()
+        return max(sizes)
+
+    limit = B * _FUSED_T * cfg["vocab_size"]
+    assert largest_saved(lambda: LMWithFusedLoss(tm, t_block=4)(
+        t, train=True).mean()) < limit
+    assert largest_saved(lambda: lm_loss(tm(t, train=True), t)) >= \
+        B * (_FUSED_T - 1) * cfg["vocab_size"]
+    with pytest.raises(ValueError, match="TIED"):
+        LMWithFusedLoss(TransformerLM(dtype=torch.float32, tied_head=False,
+                                      **_CFG))

@@ -26,7 +26,7 @@ REF, PORT = ROOT / "analytics_zoo_tpu", ROOT / "analytics_zoo_tpu_torch"
 
 # module -> the names the port replaces (and why)
 PINS = {
-    # jax.profiler toggles; the port raises naming ROADMAP item 7
+    # jax.profiler toggles; the port drives torch.profiler
     "common/log.py": ("start_profiler_trace", "stop_profiler_trace"),
     "serving/policy.py": (),
     "serving/telemetry.py": (),
