@@ -777,3 +777,31 @@ class Estimator:
         if optimizer is None:
             optimizer = 1e-3
         return TorchEstimator(model, loss or "mse", optimizer, **kw)
+
+    @staticmethod
+    def from_openvino(*, model_path: Optional[str] = None,
+                      bin_path: Optional[str] = None,
+                      **kw) -> TorchEstimator:
+        """The reference's ``Estimator.from_openvino``: an OpenVINO IR
+        (``net/openvino_ir.py``) behind the Estimator's ``predict`` and
+        ``evaluate`` (``loss`` defaults to ``"mse"``; ``device`` and the
+        column keywords as for :meth:`from_torch`).  Inference-only, as
+        the reference's: ``fit`` raises."""
+        from analytics_zoo_tpu_torch.net.openvino_ir import OpenVINONet
+
+        if not model_path:
+            raise ValueError("from_openvino needs model_path=<model.xml>")
+        net = OpenVINONet.from_ir(model_path, bin_path)
+        # an IR has no parameters, so nothing to optimise
+        est = TorchEstimator(net, kw.pop("loss", None) or "mse",
+                             lambda params: None, **kw)
+
+        def _no_fit(*a, **k):
+            raise NotImplementedError(
+                "OpenVINO estimators are inference-only (the IR is a "
+                "frozen artifact — ref parity with "
+                "zoo.orca.learn.openvino); use predict/evaluate, or "
+                "train the original model via from_torch")
+
+        est.fit = _no_fit
+        return est

@@ -38,8 +38,15 @@ speculative path dequantizes once at load and
 :meth:`InferenceModel.make_continuous_engine` once at build, into the
 model, as the reference does; the handle then serves those weights.
 ``"int8_mxu"`` raises ``ValueError``, as the reference's generator
-does.  The other model formats (``load_flax``, ``load_tf``,
-``load_openvino``: items 8 and 9) raise ``NotImplementedError``.
+does.
+
+:meth:`InferenceModel.load_openvino` serves an OpenVINO IR through the
+port's translator (``net/openvino_ir.py``); ``quantize="int8"`` or
+``"bf16"`` quantizes the IR's ``params`` as the reference does (the
+same int8 values, scales and ``quant_stats``), and each ``predict``
+dequantizes them.  ``load_torch`` also takes a path that ``torch.load``
+reads.  ``load_flax`` (item 8) and ``load_tf`` (the TensorFlow importer,
+Queue 1 item 4) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -397,16 +404,53 @@ class InferenceModel:
         raise _later("InferenceModel.load_flax (flax modules)", "8")
 
     def load_openvino(self, xml_path: str, bin_path: str = None,
-                      quantize: Optional[str] = None):
-        raise _later("InferenceModel.load_openvino", "9")
+                      quantize: Optional[str] = None,
+                      device=None) -> "InferenceModel":
+        """Serve an OpenVINO IR (``.xml`` + ``.bin``) through
+        ``net/openvino_ir.py`` on ``device`` (``cuda`` unless the caller
+        names another).  ``quantize``: ``None``, ``"int8"`` (weight-only
+        symmetric int8, one scale per output channel, the reference's
+        IR int8 role; no calibration set) or ``"bf16"``; the weights
+        stay quantized on the device and each ``predict`` dequantizes
+        them, and ``quant_stats`` reports the compression."""
+        from analytics_zoo_tpu_torch.learn.quantize import (
+            dequantize, quantize_params)
+        from analytics_zoo_tpu_torch.net import Net
+
+        if quantize == "int8_mxu":
+            raise ValueError(
+                "quantize='int8_mxu' is only supported by load_flax "
+                "(flax-linen models); use 'int8' (weight-only) here")
+        net = Net.load_openvino(xml_path, bin_path)
+        self.load_torch(net, device=device)
+        if not quantize:
+            return self
+        params = net.params
+        new, self.quant_stats = quantize_params(params, quantize, model=None)
+        self._qstate = {k: v for k, v in new.items() if v is not params[k]}
+        net.release(self._qstate)
+        dev = self.device
+
+        def apply_fn(*feats):
+            with torch.inference_mode():
+                return net(*[torch.as_tensor(np.ascontiguousarray(f),
+                                             device=dev) for f in feats],
+                           params={**net.params,
+                                   **dequantize(self._qstate)})
+
+        self._apply_fn = apply_fn
+        return self
 
     def load_tf(self, path_or_fn, signature: str = "serving_default",
                 quantize: Optional[str] = None):
-        raise _later("InferenceModel.load_tf", "9")
+        from analytics_zoo_tpu_torch.net import _tf_later
+
+        raise _tf_later("InferenceModel.load_tf")
 
     def load_torch(self, module, device=None) -> "InferenceModel":
-        """Serve a torch ``nn.Module``: ``predict(*inputs)`` feeds the
-        host arrays to ``module``'s forward positionally, as tensors on
+        """Serve a torch ``nn.Module``, or one at a path ``torch.load``
+        reads (``Net.load_torch``): ``predict(*inputs)`` feeds the
+        host arrays to the module's forward positionally, as tensors on
         ``device`` (``cuda`` unless the caller names another), with
         ``train=False`` where the forward takes it, under
         ``torch.inference_mode()``, and returns its output as numpy (a
@@ -414,7 +458,9 @@ class InferenceModel:
         import inspect
 
         from analytics_zoo_tpu_torch.device import resolve_device
+        from analytics_zoo_tpu_torch.net import Net
 
+        module = Net.load_torch(module)
         dev = resolve_device(device)
         self.model = module.to(dev).eval()
         self.device = dev

@@ -35,7 +35,7 @@ ported: it waits for ``load_flax`` (ROADMAP Queue 1 item 8.4).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -49,7 +49,10 @@ def _quant(w: torch.Tensor, leaf: FlaxLeaf) -> dict:
     w = w.detach()
     f = leaf.from_port(w.float() if w.dtype != torch.float64 else w)
     amax = f.abs().amax(dim=tuple(range(f.dim() - 1)), keepdim=True)
-    scale = (torch.clamp(amax, min=1e-12) / 127.0).to(torch.float32)
+    # a tensor divisor: CUDA divides by a Python number as a product
+    # with its reciprocal, one rounding off the reference's quotient
+    scale = (torch.clamp(amax, min=1e-12) / amax.new_tensor(127.0)).to(
+        torch.float32)
     q = torch.clamp(torch.round(f / scale), -127, 127).to(torch.int8)
     # the port axis that holds the leaf's last axis, split as [G, last]
     j, last = leaf.last_axis, leaf.shape[-1]
@@ -65,11 +68,12 @@ def _is_q(v) -> bool:
 
 
 def quantize_params(params: Dict[str, torch.Tensor], mode: str = "int8",
-                    min_size: int = 1024, *, model: nn.Module
+                    min_size: int = 1024, *, model: Optional[nn.Module]
                     ) -> Tuple[dict, Dict[str, float]]:
     """Quantize ``params``, a ``state_dict`` of ``model`` (which tells
-    how each tensor lays out the reference's leaf).  Returns ``(new,
-    stats)``: ``new`` has an int8 dict (``"int8"``) or a bf16 tensor
+    how each tensor lays out the reference's leaf), or with ``model=None``
+    tensors that are the reference's leaves as they are (an OpenVINO
+    IR's ``params``).  Returns ``(new, stats)``: ``new`` has an int8 dict (``"int8"``) or a bf16 tensor
     (``"bf16"``) where the reference's leaf has two or more dims (and,
     for int8, at least ``min_size`` elements) and is floating, the rest
     as they were; ``stats`` the reference's ``weight_bytes_f32``,
@@ -77,7 +81,8 @@ def quantize_params(params: Dict[str, torch.Tensor], mode: str = "int8",
     before = sum(t.numel() * t.element_size() for t in params.values())
     new, after = {}, 0
     for name, t in params.items():
-        leaf = flax_leaf(model, name)
+        leaf = flax_leaf(model, name) if model is not None else FlaxLeaf(
+            tuple(t.shape), tuple(t.shape), tuple(range(t.dim())))
         big = len(leaf.shape) >= 2 and t.dtype in (torch.float32,
                                                    torch.float64)
         if mode == "bf16":

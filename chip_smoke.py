@@ -320,11 +320,45 @@ fails.  Phases, in order:
    engine built from it.  Every fit's flash launches are exactly its
    steps times its layers (a distillation's backward: the draft's
    layers alone), and every engine's paged launches its counters'.
+15. The config-file entry point and its tools (run after 14, on phase
+   6b's model, before 12): each kernel's launches in the phase's main
+   paths go into the kernels line (``tools_launches``).  15a: an
+   OpenVINO IR written here (an image classifier at 32 x 3 x 224 x 224,
+   f32: a stride-2 convolution with unequal pads, inference BatchNorm,
+   ReLU, a padded max pool, a grouped convolution, a ceil-rounded
+   exclude-pad average pool, a pointwise convolution, a mean, a
+   reshape, a matmul, a bias, a softmax) served through
+   ``ClusterServing.from_config`` from a config naming the ``.xml``, on
+   the card (cuDNN's TF32 at PyTorch's default, on) and on the CPU:
+   every output within ``TOOLS_IR_TOL`` of its own size, while the
+   same forward with the IR's TF32 scope taken out must read above it;
+   the ms of an ``InferenceModel.predict``; ``quantize="int8"`` on both:
+   the same ``quant_stats``, int8 values and scales bitwise equal, the
+   same argmax.  15b: BERT-base (12 layers, bf16, random weights from a
+   seed) pickled as ``.pt`` under ``build/``, served by
+   ``serving.__main__.main([config, "--embedded-broker", "--http-port",
+   "0"], block=False)``: 256 ``/predict`` rows of 1 x 128 from 8
+   clients, each within ``TOOLS_BERT_TOL`` of
+   ``InferenceModel().load_torch(path).predict`` with its argmax (the
+   answers shifted by one row must read above it), the
+   flash forward launched and no backward (req/s and p50 beside 11b's);
+   then ``python -m analytics_zoo_tpu_torch.serving`` as a process:
+   its banner's port answers, SIGTERM stops it with exit code 0 and a
+   trace that ``validate_chrome_trace`` accepts.  15c: the paged engine
+   (block size 16, so the kernel) under ``fifo`` and ``qos`` (chunked
+   budget on, prefix cache off, a pool that runs dry) makes the pinned
+   simulator's admission, chunk-grant and preemption sequences on the
+   same schedule, with at least one preemption; then a self-drafted
+   speculative QoS engine with the flight recorder and an SLO watchdog
+   writes a bundle that ``replay_bundle`` and ``python -S
+   serving/debug.py <bundle> --replay`` cross-check (exit code 0); the
+   paged launches equal the engines' counters.
 
 The line before the last is ``{"kernels": [...], "stack": ..., "modes":
 [phase 9b's runs], "witness": {...}, "serving_modes": {phase 10},
 "bert": {phase 11b}, "zoo": {phase 12}, "image": {phase 13a-d},
-"tcmf": {phase 13e}, "finetune": {phase 14}}``; the last is ``{"ok": true,
+"tcmf": {phase 13e}, "finetune": {phase 14}, "tools": {phase 15}}``;
+the last is ``{"ok": true,
 "device": {...}}``.  On a failure the script waits for the card (so
 that a device-side assert's lines come out first), then prints
 ``chip_smoke: failed after <the last group of phases that finished>``
@@ -355,7 +389,8 @@ phase 12 only and prints its figures as its last line;
 ``python3 chip_smoke.py --image`` runs phase 13 only, likewise.
 ``python3 chip_smoke.py --finetune`` runs phase 1 and phase 14 (on a
 TinyLlama built as phase 6b builds it) and prints phase 14's figures and
-launches as its last line.
+launches as its last line; ``python3 chip_smoke.py --tools`` runs phase
+1 and phase 15 likewise.
 """
 
 from __future__ import annotations
@@ -378,6 +413,7 @@ import subprocess
 import sys
 import threading
 import time
+import unittest.mock
 import zlib
 from pathlib import Path
 
@@ -420,9 +456,14 @@ from analytics_zoo_tpu_torch.ops import _build
 from analytics_zoo_tpu_torch.ops import flash_attention as fa
 from analytics_zoo_tpu_torch.parallel.ring_attention import full_attention
 from analytics_zoo_tpu_torch.serving import (ClusterServing, HttpFrontend,
-                                             OutputQueue, ServingConfig)
+                                             InputQueue, OutputQueue,
+                                             ServingConfig,
+                                             validate_chrome_trace)
 from analytics_zoo_tpu_torch.serving.continuous import ContinuousEngine
 from analytics_zoo_tpu_torch.serving.paged_cache import SINK_BLOCK
+from analytics_zoo_tpu_torch.serving.policy import PRIORITIES, QosPolicy
+from analytics_zoo_tpu_torch.serving.sim import (EngineConfig, EngineModel,
+                                                 Request, replay_bundle)
 from analytics_zoo_tpu_torch.zouwu import (AutoTSTrainer, LSTMForecaster,
                                            MTNetForecaster,
                                            Seq2SeqForecaster, StandardScaler,
@@ -3320,8 +3361,6 @@ def deadline_qos_identity(model, dev, reqs, ref, base, kvkw, tag):
     ones never reached the device, so the runs are the same calls).
     QoS: all-standard traffic gives the tokens and the tick-by-tick
     decisions of QoS off."""
-    from analytics_zoo_tpu_torch.serving.policy import QosPolicy
-
     eng = ContinuousEngine(model, device=dev, **base, **kvkw)
     expired = time.monotonic() - 1.0
     (out, errors, _), launches = counted(
@@ -3939,41 +3978,50 @@ def http_predict(port, instance):
             time.monotonic() - t0)
 
 
+def predict_clients(port, instances, clients, what):
+    """``instances`` (one ``/predict`` each) from ``clients`` closed-loop
+    client threads on ``port``; returns (answers by index, latencies,
+    seconds), and fails unless every request was answered."""
+    got, lat, errors = {}, [], []
+    n = len(instances)
+    CONNECT_RETRIES["n"] = 0
+
+    def client(c):
+        try:
+            for i in range(c, n, clients):
+                pred, sec = http_predict(port, instances[i])
+                got[i] = pred
+                lat.append(sec)
+        except Exception as e:     # reported below, fails the phase
+            errors.append(repr(e))
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(STACK_TIMEOUT)
+    wall = time.monotonic() - t0
+    if errors or len(got) != n:
+        raise AssertionError(f"{what}: {len(got)} of {n} answers, errors "
+                             f"{errors[:3]}")
+    return got, lat, wall
+
+
 def serve_instances(card, im, cfg, instances, want, clients, what):
     """``instances`` (one ``/predict`` each) from ``clients`` closed-loop
     client threads through ``ClusterServing(cfg)`` and ``HttpFrontend``;
     every answer must equal its row of ``want`` exactly."""
     srv = ClusterServing(im, cfg, embedded_broker=True).start()
-    got, lat, errors = {}, [], []
     n = len(instances)
     try:
         fe = HttpFrontend(redis_port=srv.port, timeout=STACK_TIMEOUT,
                           serving=srv).start()
-        CONNECT_RETRIES["n"] = 0
-
-        def client(c):
-            try:
-                for i in range(c, n, clients):
-                    pred, sec = http_predict(fe.port, instances[i])
-                    got[i] = pred
-                    lat.append(sec)
-            except Exception as e:     # reported below, fails the phase
-                errors.append(repr(e))
-
-        t0 = time.monotonic()
-        threads = [threading.Thread(target=client, args=(c,))
-                   for c in range(clients)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(STACK_TIMEOUT)
-        wall = time.monotonic() - t0
+        got, lat, wall = predict_clients(fe.port, instances, clients, what)
         fe.stop()
     finally:
         srv.stop()
-    if errors or len(got) != n:
-        raise AssertionError(f"{what}: {len(got)} of {n} answers, errors "
-                             f"{errors[:3]}")
     same = all(np.array_equal(got[i], want[i]) for i in range(n))
     delta = max(float(np.abs(got[i] - want[i]).max()) for i in range(n))
     resets = check_resets(what)
@@ -5846,6 +5894,567 @@ def phase_finetune(dev, card, model):
     return out, totals
 
 
+# phase 15: the config-file entry point and its tools
+TOOLS_DIR = Path(__file__).resolve().parent / "build" / "tools"
+# 15a: an image classifier IR at 32 x 3 x 224 x 224, f32
+TOOLS_IR = dict(batch=32, hw=224, channels=(16, 32, 64), classes=1000,
+                iters=10)
+TOOLS_IR_TOL = 1e-5         # card vs CPU, f32, of each output's own size
+TOOLS_TIE = 1e-4            # 15a: argmax held where the top-2 gap is wider
+# 15b: BERT-base served from a .pt through the CLI
+TOOLS_BERT = dict(requests=256, clients=8, batch=32, seq=128, min_len=32,
+                  process_rows=8)
+TOOLS_BERT_TOL = 1e-4       # bf16 logits, server vs one predict, of
+#                             max(1, |logit|); argmax held where the
+#                             top-2 gap is wider than twice this
+TOOLS_BANNER_S = 300        # the CLI process's start, model load included
+# 15c: TinyLlama's paged engine against the simulator; the pool holds
+# about 2.3 of the longest sequences, so four slots run it dry
+TOOLS_ENGINE = dict(max_new_tokens=16, max_slots=4,
+                    prompt_buckets=(64, 128, 256), chunked=True,
+                    tick_token_budget=64, paged=True, block_size=16)
+TOOLS_BLOCKS = 40
+TOOLS_REQUESTS = dict(n=12, min_len=40, max_len=250, bundle=8)
+
+
+class IRWriter:
+    """A minimal OpenVINO IR writer (the opset-v10 layer, port and edge
+    schema, Const payloads in a .bin), standard library and numpy only:
+    a layer with k inputs has ports 0..k-1 in and k.. out."""
+
+    def __init__(self):
+        self.layers, self.edges, self.blob = [], [], bytearray()
+
+    def layer(self, type_, *srcs, data=None, name=None, n_out=1):
+        lid = str(len(self.layers))
+        self.layers.append((lid, type_, name or f"{type_}_{lid}",
+                            data or {}, len(srcs), n_out))
+        for port, src in enumerate(srcs):
+            self.edges.append((src, str(self.layers[int(src)][4]), lid,
+                               str(port)))
+        return lid
+
+    def const(self, arr, name):
+        arr = np.ascontiguousarray(arr)
+        et = {np.dtype(np.float32): "f32", np.dtype(np.int64): "i64"}[
+            arr.dtype]
+        lid = self.layer("Const", name=name, data={
+            "element_type": et, "shape": ",".join(map(str, arr.shape)),
+            "offset": str(len(self.blob)), "size": str(arr.nbytes)})
+        self.blob += arr.tobytes()
+        return lid
+
+    def write(self, xml_path: Path) -> str:
+        import xml.etree.ElementTree as ET
+
+        net = ET.Element("net", {"name": xml_path.stem, "version": "10"})
+        lys = ET.SubElement(net, "layers")
+        for lid, type_, name, data, n_in, n_out in self.layers:
+            el = ET.SubElement(lys, "layer", {"id": lid, "type": type_,
+                                              "name": name,
+                                              "version": "opset1"})
+            if data:
+                ET.SubElement(el, "data", data)
+            for tag, ports in (("input", range(n_in)),
+                               ("output", range(n_in, n_in + n_out))):
+                if len(ports):
+                    sub = ET.SubElement(el, tag)
+                    for p in ports:
+                        ET.SubElement(sub, "port", {"id": str(p)})
+        edges = ET.SubElement(net, "edges")
+        for f, fp, t, tp in self.edges:
+            ET.SubElement(edges, "edge", {"from-layer": f, "from-port": fp,
+                                          "to-layer": t, "to-port": tp})
+        ET.ElementTree(net).write(xml_path)
+        xml_path.with_suffix(".bin").write_bytes(bytes(self.blob))
+        return str(xml_path)
+
+
+def tools_ir(path: Path, seed=0) -> str:
+    """15a's IR: a convolution with unequal pads (stride 2), inference
+    BatchNorm, ReLU, a padded max pool, a grouped convolution, a
+    ceil-rounded exclude-pad average pool with a ragged last window, a
+    pointwise convolution with a bias, a spatial mean, a reshape, the
+    classifier's matmul and bias, and a softmax; weights from a seed at
+    variance 1 / fan-in."""
+    rng = np.random.default_rng(seed)
+    c1, c2, c3 = TOOLS_IR["channels"]
+    n_cls = TOOLS_IR["classes"]
+
+    def w(*shape, fan_in):
+        return (rng.normal(size=shape) / math.sqrt(fan_in)).astype(
+            np.float32)
+
+    def noise(n, scale):
+        return (rng.normal(size=n) * scale).astype(np.float32)
+
+    ir = IRWriter()
+    x = ir.layer("Parameter", name="image")
+    conv = ir.layer("Convolution", x, ir.const(w(c1, 3, 7, 7, fan_in=147),
+                                               "stem"),
+                    data={"strides": "2,2", "pads_begin": "3,3",
+                          "pads_end": "2,2", "dilations": "1,1"})
+    bn = ir.layer("BatchNormInference", conv,
+                  ir.const(1 + noise(c1, 0.1), "bn_gamma"),
+                  ir.const(noise(c1, 0.1), "bn_beta"),
+                  ir.const(noise(c1, 0.1), "bn_mean"),
+                  ir.const(1 + np.abs(noise(c1, 0.2)), "bn_var"),
+                  data={"epsilon": "1e-5"})
+    pool = ir.layer("MaxPool", ir.layer("ReLU", bn),
+                    data={"kernel": "3,3", "strides": "2,2",
+                          "pads_begin": "1,1", "pads_end": "1,1"})
+    groups = 4
+    gconv = ir.layer("GroupConvolution", pool, ir.const(
+        w(groups, c2 // groups, c1 // groups, 3, 3, fan_in=9 * c1 // groups),
+        "grouped"), data={"strides": "1,1", "pads_begin": "1,1",
+                          "pads_end": "1,1", "dilations": "1,1"})
+    avg = ir.layer("AvgPool", ir.layer("ReLU", gconv),
+                   data={"kernel": "3,3", "strides": "2,2",
+                         "pads_begin": "0,0", "pads_end": "0,0",
+                         "exclude-pad": "true", "rounding_type": "ceil"})
+    point = ir.layer("Add", ir.layer(
+        "Convolution", avg, ir.const(w(c3, c2, 1, 1, fan_in=c2), "point"),
+        data={"strides": "1,1", "pads_begin": "0,0", "pads_end": "0,0",
+              "dilations": "1,1"}),
+        ir.const(noise(c3, 0.1).reshape(1, c3, 1, 1), "point_bias"))
+    mean = ir.layer("ReduceMean", ir.layer("ReLU", point),
+                    ir.const(np.asarray([2, 3], np.int64), "axes"),
+                    data={"keep_dims": "false"})
+    flat = ir.layer("Reshape", mean, ir.const(np.asarray([0, c3], np.int64),
+                                              "flat"),
+                    data={"special_zero": "true"})
+    logits = ir.layer("Add", ir.layer(
+        "MatMul", flat, ir.const(w(c3, n_cls, fan_in=c3), "head"),
+        data={"transpose_a": "false", "transpose_b": "false"}),
+        ir.const(noise(n_cls, 0.1).reshape(1, n_cls), "head_bias"))
+    ir.layer("Result", ir.layer("Softmax", logits, data={"axis": "1"}),
+             n_out=0)
+    return ir.write(path)
+
+
+def tools_config(path: Path, model_path, **params) -> str:
+    """A serving config naming ``model_path``."""
+    path.write_text(f"model:\n  path: {model_path}\nparams:\n" + "".join(
+        f"  {k}: {v}\n" for k, v in params.items()))
+    return str(path)
+
+
+def each_gap(got, want):
+    """The largest gap of ``got`` from ``want``, each element over its own
+    size in ``want``."""
+    return float(np.max(np.abs(got - want) / np.maximum(
+        np.abs(want), np.finfo(np.float32).tiny)))
+
+
+def top2_gap(a):
+    """Per row, the largest value less the second largest."""
+    s = np.sort(a, axis=-1)
+    return s[..., -1] - s[..., -2]
+
+
+def held_argmax(what, got, want, tie):
+    """Argmax of ``got`` equals ``want``'s on every row whose top-2 gap in
+    ``want`` exceeds ``tie``; returns the count of rows under it."""
+    clear = top2_gap(want) > tie
+    same = got.argmax(-1) == want.argmax(-1)
+    if not same[clear].all():
+        raise AssertionError(f"{what}: argmax differs on "
+                             f"{int((~same & clear).sum())} rows")
+    return int((~clear).sum())
+
+
+def serve_queue(serving, key, xs):
+    """Each row of ``xs`` as one request (input ``key``) through the
+    queues of a started ``ClusterServing``; the answers in order."""
+    inq, outq = InputQueue(port=serving.port), OutputQueue(
+        port=serving.port)
+    uris = [inq.enqueue(f"ir-{i}", **{key: x}) for i, x in enumerate(xs)]
+    return np.stack([np.asarray(outq.query(u, timeout=STACK_TIMEOUT))
+                     for u in uris])
+
+
+def tools_ir_phase(dev, card):
+    """15a: the IR served through ``from_config`` on the card and on the
+    CPU; ``quantize="int8"`` on both.  The card runs with cuDNN's TF32 at
+    PyTorch's default (on), so the IR's own precision is what is held;
+    the same forward with the IR's TF32 scope taken out is reported
+    beside it, to show the limit tells the two apart."""
+    from analytics_zoo_tpu_torch.net import openvino_ir
+
+    B, hw = TOOLS_IR["batch"], TOOLS_IR["hw"]
+    print(f"== phase 15a: an OpenVINO IR image classifier ({B} x 3 x {hw} "
+          f"x {hw}, f32) through ClusterServing.from_config, card and CPU")
+    xml = tools_ir(TOOLS_DIR / "classifier.xml")
+    cfg = tools_config(TOOLS_DIR / "ir_config.yaml", xml, batch_size=B)
+    x = np.random.default_rng(1).normal(size=(B, 3, hw, hw)).astype(
+        np.float32)
+    served = {}
+    script_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            srv = ClusterServing.from_config(cfg, embedded_broker=True,
+                                             device=device).start()
+            try:
+                served[name] = serve_queue(srv, "image", x)
+            finally:
+                srv.stop()
+        im = InferenceModel().load_openvino(xml, device=dev)
+        direct = im.predict(x)
+        with unittest.mock.patch.object(
+                openvino_ir, "_full_f32",
+                lambda device: contextlib.nullcontext()):
+            tf32 = each_gap(im.predict(x), served["cpu"])
+        if not torch.backends.cudnn.allow_tf32:
+            raise AssertionError("15a: the IR's forward left cuDNN's TF32 "
+                                 "off")
+    finally:
+        torch.backends.cudnn.allow_tf32 = script_tf32
+    cpu = served["cpu"]
+    err = each_gap(served["card"], cpu)
+    direct_err = each_gap(direct, served["card"])
+    print(f"  served outputs {served['card'].shape} (softmax, "
+          f"{float(cpu.min()):.2e} to {float(cpu.max()):.2e}): card vs CPU "
+          f"{err:.3e} of each output (at most {TOOLS_IR_TOL}); predict vs "
+          f"served on the card {direct_err:.3e}; with TF32 left on in the "
+          f"IR's forward the card would read {tf32:.3e}")
+    if served["card"].shape != (B, TOOLS_IR["classes"]) or not \
+            np.isfinite(served["card"]).all() or not err <= TOOLS_IR_TOL \
+            or not direct_err <= TOOLS_IR_TOL:
+        raise AssertionError("15a: the IR served on the card differs from "
+                             "the CPU")
+    if not tf32 > TOOLS_IR_TOL:
+        raise AssertionError("15a: the limit cannot tell a TF32 forward "
+                             "from an f32 one")
+    times = []
+    for i in range(TOOLS_IR["iters"] + 2):
+        t0 = time.perf_counter()
+        im.predict(x)
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * float(np.median(times[2:]))
+    print(f"  [{card}] InferenceModel.predict of {B} images: median "
+          f"{ms:.2f} ms over {TOOLS_IR['iters']} calls (the host copy of "
+          f"{x.nbytes / 2**20:.0f} MiB and the result's included)")
+    q = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        q[name] = InferenceModel().load_openvino(xml, quantize="int8",
+                                                 device=device)
+    qc, qh = q["card"], q["cpu"]
+    if qc.quant_stats != qh.quant_stats:
+        raise AssertionError(f"15a: quant_stats differ: {qc.quant_stats} "
+                             f"!= {qh.quant_stats}")
+    for k, v in qh._qstate.items():
+        if not (torch.equal(qc._qstate[k]["q"].cpu(), v["q"])
+                and torch.equal(qc._qstate[k]["scale"].cpu(), v["scale"])):
+            raise AssertionError(f"15a: int8 weight {k} differs card vs CPU")
+    pc, ph = qc.predict(x), qh.predict(x)
+    ties = held_argmax("15a int8 card vs CPU", pc, ph, TOOLS_TIE)
+    agree = float(np.mean(pc.argmax(1) == served["cpu"].argmax(1)))
+    print(f"  int8: quant_stats {qc.quant_stats} on both; int8 values and "
+          f"scales bitwise equal; argmax card = CPU ({ties} near ties); "
+          f"int8 argmax = f32 argmax on {agree:.3f} of rows")
+    return {"err": err, "tf32_err": tf32, "predict_ms": ms,
+            "quant_stats": qc.quant_stats,
+            "int8_f32_argmax_agreement": agree}
+
+
+def tools_bert_phase(dev, card, bert_serving=None, cfg=BERT_BASE,
+                     layers=BERT_LAYERS):
+    """15b: BERT-base pickled as ``.pt``, served by the CLI in process
+    (``main(..., block=False)``) and as a process; returns the figures
+    and the in-process server's flash forward launches."""
+    from analytics_zoo_tpu_torch.serving.__main__ import main as serve_main
+
+    c = TOOLS_BERT
+    print(f"== phase 15b: BERT-base ({layers} layers, bf16, random weights "
+          f"from a seed) from a .pt through python -m "
+          f"analytics_zoo_tpu_torch.serving")
+    torch.manual_seed(2024)
+    model = BERTForSequenceClassification(2, BERT(
+        **cfg, num_layers=layers, dtype=torch.bfloat16))
+    pt = TOOLS_DIR / "bert.pt"
+    torch.save(model, pt)
+    del model
+    cfg_path = tools_config(TOOLS_DIR / "bert_config.yaml", pt,
+                            batch_size=c["batch"])
+    rows = bert_rows(np.random.default_rng(41), c["requests"], c["seq"],
+                     c["min_len"])
+    want = InferenceModel().load_torch(str(pt), device=dev).predict(
+        *[rows[f] for f in BERT_FEATS])
+    free_memory()
+    instances = [{f: rows[f][i].tolist() for f in BERT_FEATS}
+                 for i in range(c["requests"])]
+    reset_flash()
+    platform = ["--platform", "gpu" if dev.type == "cuda" else "cpu"]
+    serving, frontend, shutdown = serve_main(
+        [cfg_path, "--embedded-broker", "--http-port", "0"] + platform,
+        block=False)
+    try:
+        got, lat, wall = predict_clients(frontend.port, instances,
+                                         c["clients"], "15b")
+    finally:
+        shutdown()
+    fwd, bwd, _ = flash_counts()
+    n = c["requests"]
+    got = np.stack([got[i] for i in range(n)])
+    delta = float(np.max(np.abs(got - want) / np.maximum(1.0,
+                                                         np.abs(want))))
+    shifted = float(np.max(np.abs(np.roll(got, 1, 0) - want) / np.maximum(
+        1.0, np.abs(want))))
+    ties = held_argmax("15b /predict", got, want, 2 * TOOLS_BERT_TOL)
+    fig = {"requests": n, "req_per_s": n / wall,
+           "p50_ms": 1e3 * float(np.median(lat)), "logit_delta": delta,
+           "shifted_delta": shifted, "near_ties": ties,
+           "flash_fwd_launches": fwd}
+    print(f"  [{card}] CLI /predict: {n} requests of 1 x {c['seq']} from "
+          f"{c['clients']} clients in {wall:.3f} s ({n / wall:.1f} req/s), "
+          f"p50 {fig['p50_ms']:.1f} ms; logits vs InferenceModel()."
+          f"load_torch(path).predict: largest delta {delta:.3e} of max(1, "
+          f"|logit|) (at most {TOOLS_BERT_TOL}; answers shifted by one row "
+          f"would read {shifted:.3e}), argmax equal ({ties} near ties); "
+          f"{check_resets('15b')} connects reset")
+    if bert_serving:
+        print(f"  beside 11b's /predict (ClusterServing built in process, "
+              f"{bert_serving['requests']} requests): "
+              f"{bert_serving['req_per_s']:.1f} req/s, p50 "
+              f"{bert_serving['p50_ms']:.1f} ms")
+    print(f"  flash forward launches while serving: {fwd}, backward {bwd}")
+    if not delta <= TOOLS_BERT_TOL or not shifted > TOOLS_BERT_TOL \
+            or fwd == 0 or bwd:
+        raise AssertionError("15b: the CLI's answers or launches are wrong")
+    fig["process"] = tools_cli_process(cfg_path, platform, instances, want)
+    return fig, fwd
+
+
+def tools_cli_process(cfg_path, platform, instances, want):
+    """``python -m analytics_zoo_tpu_torch.serving`` as a process: its
+    banner's port serves a few rows, then SIGTERM stops it with exit
+    code 0 and a trace that ``validate_chrome_trace`` accepts."""
+    import signal
+
+    trace = TOOLS_DIR / "cli_trace.json"
+    trace.unlink(missing_ok=True)
+    root = Path(__file__).resolve().parent
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "analytics_zoo_tpu_torch.serving", cfg_path,
+         "--embedded-broker", "--http-port", "0", "--trace", str(trace)]
+        + platform,
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        lines = []
+        reader = threading.Thread(
+            target=lambda: lines.append(proc.stdout.readline()), daemon=True)
+        reader.start()
+        reader.join(TOOLS_BANNER_S)
+        if not lines or "http on :" not in lines[0]:
+            proc.kill()
+            raise AssertionError(f"15b: no banner from the CLI process: "
+                                 f"{lines} {proc.stderr.read()[-2000:]}")
+        up = time.monotonic() - t0
+        port = int(lines[0].split("http on :")[1].split()[0])
+        k = TOOLS_BERT["process_rows"]
+        got = np.stack([http_predict(port, instances[i])[0]
+                        for i in range(k)])
+        delta = float(np.max(np.abs(got - want[:k]) / np.maximum(
+            1.0, np.abs(want[:k]))))
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"  as a process: banner after {up:.1f} s, {k} rows answered "
+          f"(largest delta {delta:.3e}), SIGTERM -> exit code "
+          f"{proc.returncode}")
+    if proc.returncode != 0 or "trace written" not in out or \
+            not delta <= TOOLS_BERT_TOL:
+        raise AssertionError(f"15b: the CLI process: rc {proc.returncode}, "
+                             f"{out[-500:]!r} {err[-2000:]}")
+    validate_chrome_trace(json.loads(trace.read_text()))
+    print(f"  its trace ({trace.stat().st_size} bytes) passes "
+          f"validate_chrome_trace")
+    return {"banner_s": up, "rows": k, "logit_delta": delta}
+
+
+def engine_decisions(eng):
+    """Admission order, chunk grants and preemption victims from an
+    engine's telemetry events."""
+    evs = eng.telemetry.events.snapshot()
+    return {
+        "admits": [a["uri"] for ph, nm, ts, d, t, a in evs
+                   if nm == "admitted"],
+        "chunks": [(a["uri"], a["tokens"]) for ph, nm, ts, d, t, a in evs
+                   if nm == "prefill_chunk"],
+        "preempts": [a["uri"] for ph, nm, ts, d, t, a in evs
+                     if nm == "preempted"],
+    }
+
+
+def sim_decisions(reqs, qos, n_blocks, knobs):
+    """The pinned simulator's decisions on the same schedule and knobs."""
+    m = EngineModel(EngineConfig(
+        slots=knobs["max_slots"], max_new_tokens=knobs["max_new_tokens"],
+        prompt_buckets=knobs["prompt_buckets"], chunked=knobs["chunked"],
+        tick_token_budget=knobs["tick_token_budget"], paged=knobs["paged"],
+        block_size=knobs["block_size"], n_blocks=n_blocks), qos=qos)
+    for r in reqs:
+        m.submit(r)
+    for _ in range(100_000):
+        if m.step() == 0 and not m._waiting:
+            break
+    ticks = [e for e in m.events if e["event"] == "tick"]
+    if not all(r.finished and r.tokens == knobs["max_new_tokens"]
+               for r in m.records.values()):
+        raise AssertionError("15c: the simulator left requests unfinished")
+    return {"admits": [u for e in ticks for u in e["admitted"]],
+            "chunks": [(u, n) for e in ticks for u, n in e["chunks"]],
+            "preempts": [u for e in ticks for u in e["preempted"]]}
+
+
+def tools_schedule(n, vocab, seed):
+    """``n`` requests: prompts of ``TOOLS_REQUESTS`` lengths from a seed,
+    priorities in turn; returns (engine submissions, sim requests)."""
+    rng = np.random.default_rng(seed)
+    subs, reqs = [], []
+    for i in range(n):
+        plen = int(rng.integers(TOOLS_REQUESTS["min_len"],
+                                TOOLS_REQUESTS["max_len"] + 1))
+        pri = PRIORITIES[i % 3]
+        subs.append((f"r{i:02d}", rng.integers(
+            1, vocab, size=plen).astype(np.int32), pri))
+        reqs.append(Request(uri=f"r{i:02d}", arrival_t=i * 1e-6,
+                            prompt_len=plen, gen_len=TOOLS_ENGINE[
+                                "max_new_tokens"], priority=pri))
+    return subs, reqs
+
+
+def tools_engine_phase(dev, card, model):
+    """15c: the paged engine (``block_size`` 16: the kernel) against the
+    simulator under ``fifo`` and ``qos``, then a bundle of a speculative
+    QoS engine replayed by ``debug.py --replay`` on a bare interpreter.
+    Returns the figures and the paged launches."""
+    print(f"== phase 15c: the TinyLlama paged engine ({model.num_layers} "
+          f"layers) against the simulator, then a bundle replayed")
+    out, launches = {}, 0
+    vocab = model.vocab_size
+    for variant in ("fifo", "qos"):
+        qos = QosPolicy(aging_s=1e9) if variant == "qos" else None
+        subs, reqs = tools_schedule(TOOLS_REQUESTS["n"], vocab, seed=5)
+        fa.paged_attention_fused.launches = 0
+        eng = ContinuousEngine(model, device=dev, n_blocks=TOOLS_BLOCKS,
+                               enable_prefix_cache=False, qos=qos,
+                               **TOOLS_ENGINE)
+        if eng.kernel != "fused":
+            raise AssertionError(f"15c: the engine resolved {eng.kernel!r}")
+        t0 = time.monotonic()
+        for uri, prompt, pri in subs:
+            eng.submit(uri, prompt, priority=pri)
+        eng.drain()
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        got, want = engine_decisions(eng), sim_decisions(
+            reqs, qos, TOOLS_BLOCKS, TOOLS_ENGINE)
+        paged = fa.paged_attention_fused.launches
+        if paged != expected_launches(eng)[0] or paged == 0:
+            raise AssertionError(f"15c {variant}: paged launches {paged} != "
+                                 f"{expected_launches(eng)[0]}")
+        launches += paged
+        print(f"  {variant}: {len(got['admits'])} admissions, "
+              f"{len(got['chunks'])} chunk grants, {len(got['preempts'])} "
+              f"preemptions in {secs:.2f} s; engine = simulator: "
+              f"{got == want}; paged launches {paged}")
+        if got != want:
+            for k in got:
+                if got[k] != want[k]:
+                    print(f"    {k}: engine {got[k]}\n    {k}: sim    "
+                          f"{want[k]}")
+            raise AssertionError(f"15c {variant}: the engine's decisions "
+                                 f"differ from the simulator's")
+        if not got["preempts"] or len(got["chunks"]) <= len(subs):
+            raise AssertionError(f"15c {variant}: the pool did not run dry "
+                                 f"or no prompt was chunked")
+        out[variant] = {k: len(v) for k, v in got.items()}
+        del eng
+    bundle, paged = tools_bundle(dev, card, model, vocab)
+    out["bundle"] = bundle
+    return out, launches + paged
+
+
+def tools_bundle(dev, card, model, vocab):
+    """A self-drafted speculative QoS engine with the flight recorder and
+    an SLO watchdog; its bundle through ``replay_bundle`` and through
+    ``python -S serving/debug.py --replay``."""
+    import analytics_zoo_tpu_torch.serving.debug as debug_mod
+    from analytics_zoo_tpu_torch.serving.flight import (SloWatchdog,
+                                                        dump_bundle)
+
+    fa.paged_attention_fused.launches = 0
+    eng = ContinuousEngine(model, device=dev, draft_model=model,
+                           draft_variables=model.state_dict(),
+                           speculation_k=2, qos=QosPolicy(),
+                           flight_capacity=256, **TOOLS_ENGINE)
+    wd = SloWatchdog(registry=eng.telemetry.metrics)
+    eng.telemetry.watchdog = wd
+    subs, _ = tools_schedule(TOOLS_REQUESTS["bundle"], vocab, seed=6)
+    for uri, prompt, pri in subs:
+        eng.submit(uri, prompt, priority=pri)
+    eng.drain()
+    torch.cuda.synchronize()
+    paged = fa.paged_attention_fused.launches
+    if paged != expected_launches(eng)[0] or paged == 0:
+        raise AssertionError(f"15c bundle: paged launches {paged} != "
+                             f"{expected_launches(eng)[0]}")
+    k = TOOLS_ENGINE
+    config = {"engine_slots": k["max_slots"], "engine_chunked": True,
+              "engine_tick_token_budget": k["tick_token_budget"],
+              "engine_paged": True, "engine_block_size": k["block_size"],
+              "engine_speculation_k": 2, "qos_enabled": True,
+              "qos_aging_s": 30.0}
+    bundles = TOOLS_DIR / "bundles"
+    shutil.rmtree(bundles, ignore_errors=True)
+    path = dump_bundle(str(bundles), reason="chip_smoke", detail={},
+                       flight=eng.flight, telemetries=[eng.telemetry],
+                       config=config, slo=wd.status(),
+                       spec_acceptance=eng.spec_acceptance())
+    report = replay_bundle(path, seed=0)
+    proc = subprocess.run(
+        [sys.executable, "-S", debug_mod.__file__, path, "--replay"],
+        capture_output=True, text=True, timeout=120)
+    deltas = {cls: d["goodput"]
+              for cls, d in report["sim_vs_observed"].items()}
+    print(f"  bundle of {len(subs)} requests (speculative k=2, self-draft, "
+          f"QoS; paged launches {paged}): replay_bundle ok "
+          f"{report['ok']}; python -S debug.py --replay exit code "
+          f"{proc.returncode}; simulated - observed goodput by class "
+          f"{deltas}; acceptance {eng.spec_acceptance()}")
+    if not report["ok"] or proc.returncode != 0 or \
+            "crosscheck: OK" not in proc.stdout:
+        raise AssertionError(f"15c: the bundle's replay failed: "
+                             f"{report['crosscheck']} {proc.stdout[-1500:]} "
+                             f"{proc.stderr[-1500:]}")
+    return {"ok": report["ok"], "goodput_sim_minus_observed": deltas,
+            "paged_launches": paged}, paged
+
+
+def phase_tools(dev, card, model, bert_serving=None):
+    """Phase 15 on ``model`` (phase 6b's TinyLlama): 15a, 15b, 15c.
+    Returns the figures and the phase's launches of the paged kernel
+    and the flash forward (each launch is counted in its sub-phase's
+    main path: 15b's in-process server, 15c's engines)."""
+    TOOLS_DIR.mkdir(parents=True, exist_ok=True)
+    print("== phase 15: the config-file entry point and its tools")
+    free_memory()
+    out = {"15a": tools_ir_phase(dev, card)}
+    free_memory()
+    out["15b"], fwd = tools_bert_phase(dev, card, bert_serving)
+    free_memory()
+    out["15c"], paged = tools_engine_phase(dev, card, model)
+    free_memory()
+    print(f"  phase 15's launches: paged {paged}, flash forward {fwd}")
+    return out, {"paged": paged, "fwd": fwd}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5943,6 +6552,21 @@ def main() -> int:
         print(json.dumps({"finetune": finetune, "launches": ft_launches}))
         return 0
 
+    if sys.argv[1:2] == ["--tools"]:
+        # phase 1 and phase 15 on a TinyLlama built as phase 6b builds it
+        phase_build()
+        lap("phase 1")
+        torch.manual_seed(4321)
+        with torch.device(dev):
+            llama_model = TransformerLM(**TINYLLAMA,
+                                        num_layers=TINYLLAMA_LAYERS,
+                                        dtype=torch.bfloat16)
+        tools, tools_launches = phase_tools(dev, card, llama_model)
+        lap("phase 15")
+        print(card)
+        print(json.dumps({"tools": tools, "launches": tools_launches}))
+        return 0
+
     phase_build()
     lap("phase 1")
     phase_kernel_vs_plain(dev)
@@ -5986,6 +6610,9 @@ def main() -> int:
     lap("phase 10b")
     finetune, ft_launches = phase_finetune(dev, card, llama_model)
     lap("phase 14")
+    tools, tools_launches = phase_tools(dev, card, llama_model,
+                                        bert.get("serving"))
+    lap("phase 15")
     del llama_model
     zoo = phase_zoo(dev, card)
     lap("phase 12")
@@ -6005,13 +6632,20 @@ def main() -> int:
             else "fwd" if e["name"].startswith("flash_attention_fwd")
             else "delta" if e["name"].startswith("flash_attention_bwd_delta")
             else "bwd"]
+        # and its launches in phase 15's main paths (15b's CLI server
+        # prefills through the flash forward, 15c's engines read paged)
+        e["tools_launches"] = (
+            tools_launches["paged"] if e["name"].startswith("paged")
+            else tools_launches["fwd"]
+            if e["name"].startswith("flash_attention_fwd") else 0)
     print(f"whole run {time.monotonic() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, "stack": {
         name: run["pairs"] for name, run in stack.items()},
         "modes": modes["runs"], "witness": modes["witness"],
         "serving_modes": serving_modes, "bert": bert, "zoo": zoo,
-        "image": image, "tcmf": tcmf, "finetune": finetune}))
+        "image": image, "tcmf": tcmf, "finetune": finetune,
+        "tools": tools}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -279,10 +279,13 @@ def test_two_replicas_match_jax(models):
         st.stop()
 
 
-def test_unported_modes_answer_errors(models):
+def test_unported_modes_answer_errors(models, tmp_path):
     """An image payload that does not decode answers an error result
     (image payloads are served: ``tests/test_torch_data.py``), and
-    ``from_config`` (item 5) raises.  The engine modes of
+    ``from_config`` refuses a SavedModel directory (its TensorFlow
+    loader, ROADMAP Queue 1 item 4, is not ported; ``.xml`` and ``.pt``
+    artifacts serve: ``tests/test_torch_serving_cli.py``).  The engine
+    modes of
     items 4.5 and 4.6 are served: ``/v1/generate`` with a deadline
     answers the JAX tokens, a request whose deadline has passed answers
     the reference's ``deadline_exceeded``, and servers with QoS or the
@@ -319,8 +322,10 @@ def test_unported_modes_answer_errors(models):
                 _jax_tokens(models, p))
         finally:
             st.stop()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ClusterServing.from_config("config.yaml")
+    cfg = tmp_path / "config.yaml"
+    cfg.write_text(f"model:\n  path: {tmp_path}\n")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        ClusterServing.from_config(str(cfg), device="cpu")
 
 
 def test_default_paged_stack_picks_the_kernel():

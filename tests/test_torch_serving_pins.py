@@ -36,13 +36,21 @@ PINS = {
     "serving/frontdoor.py": (),
     "serving/flight.py": (),
     "serving/queues.py": (),
-    # the YAML entry (item 5) and the paged read's default: the engine
-    # picks the CUDA kernel by shape instead of the reference's CPU-safe
-    # "gather"
+    # the config entry (a device to load onto) and the paged read's
+    # default: the engine picks the CUDA kernel by shape instead of the
+    # reference's CPU-safe "gather"
     "serving/server.py": ("ClusterServing.from_config",
                           "ServingConfig.engine_kernel"),
     "serving/http_frontend.py": (),
     "serving/paged_cache.py": (),
+    # the bundle renderer and the simulator: standard library only
+    "serving/debug.py": (),
+    "serving/sim/__init__.py": (),
+    "serving/sim/trace.py": (),
+    "serving/sim/model.py": (),
+    "serving/sim/replay.py": (),
+    "serving/sim/fleet.py": (),
+    "serving/sim/__main__.py": (),
     # the training path's framework-free helpers
     "learn/triggers.py": (),
     "utils/transform.py": (),
