@@ -122,7 +122,16 @@ from analytics_zoo_tpu_torch.learn.triggers import (EveryEpoch,
                                                     SeveralIteration, Trigger)
 from analytics_zoo_tpu_torch.models.transformer import fold_in
 
-_DEFAULT_BATCH = 32     # the reference's batch size when none is given
+def _resolve_batch(batch_size, data, attr: str) -> int:
+    """Explicit batch_size wins; otherwise the data container's own
+    metadata (TFDataset carries the reference's batch_size /
+    batch_per_thread); otherwise the historical default of 32."""
+    if batch_size is not None:
+        return batch_size
+    meta = getattr(data, attr, None)
+    if isinstance(meta, int) and meta > 0:
+        return meta
+    return 32
 
 _CKPT_DIR = re.compile(r"^ckpt_(\d+)$")
 _CKPT_FILE = "state.pt"
@@ -431,7 +440,9 @@ class TorchEstimator:
         restarted process goes on where the stopped one saved.  Resume
         is epoch-granular, as in the reference: a mid-epoch checkpoint
         trains its epoch's leading batches again."""
-        batch_size = batch_size or _DEFAULT_BATCH
+        batch_size = _resolve_batch(batch_size, data, "batch_size")
+        if validation_data is None:
+            validation_data = getattr(data, "val", None)
         accum = _accum_steps(self.config)
         if batch_size % accum:
             raise ValueError(f"global batch {batch_size} not divisible by "
@@ -590,7 +601,7 @@ class TorchEstimator:
     def evaluate(self, data, batch_size: Optional[int] = None,
                  feature_cols=None, label_cols=None) -> Dict[str, float]:
         """Loss and metrics over every row of ``data``, sample-weighted."""
-        batch_size = batch_size or _DEFAULT_BATCH
+        batch_size = _resolve_batch(batch_size, data, "batch_per_thread")
         self._set_cols(feature_cols, label_cols)
         self.model.eval()
         mets_list, counts = [], []
@@ -611,11 +622,19 @@ class TorchEstimator:
     def predict(self, data, batch_size: Optional[int] = None,
                 feature_cols=None) -> np.ndarray:
         """The model's outputs for every row of ``data``, as numpy (a
-        bf16 output comes back as f32: numpy has no bf16)."""
-        batch_size = batch_size or _DEFAULT_BATCH
+        bf16 output comes back as f32: numpy has no bf16); a model that
+        returns a tuple (SSD's locations and class logits) gives a tuple
+        of arrays."""
+        batch_size = _resolve_batch(batch_size, data, "batch_per_thread")
         self._set_cols(feature_cols, None)
         self.model.eval()
         outs = []
+
+        def host(t, real):
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            return t[:real].cpu()
+
         for chunk in _chunks(data, batch_size):
             for c in self.feature_cols:
                 if c not in chunk:
@@ -626,11 +645,11 @@ class TorchEstimator:
             chunk, _ = _pad_batch(chunk, batch_size)
             with self._weights():
                 preds = self._forward(self._on_device(chunk), train=False)
-            if preds.dtype == torch.bfloat16:
-                preds = preds.float()
-            outs.append(preds[:real].cpu())
+            outs.append(tuple(host(t, real) for t in preds)
+                        if isinstance(preds, tuple) else host(preds, real))
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(parts).numpy() for parts in zip(*outs))
         return torch.cat(outs).numpy()
-
 
     # ---- checkpoints and exports ------------------------------------
 

@@ -24,9 +24,12 @@ def mean_absolute_error(preds, targets):
 
 
 def binary_crossentropy(logits, targets):
-    """Targets in {0,1}; preds are logits (pre-sigmoid)."""
-    return F.binary_cross_entropy_with_logits(logits,
+    """Targets in {0,1}; preds are logits (pre-sigmoid).  The two
+    broadcast against each other as optax's do: ``[B, 1]`` logits
+    against ``[B]`` targets score every logit against every target."""
+    logits, targets = torch.broadcast_tensors(logits,
                                               targets.to(logits.dtype))
+    return F.binary_cross_entropy_with_logits(logits, targets)
 
 
 def sparse_categorical_crossentropy(logits, labels):

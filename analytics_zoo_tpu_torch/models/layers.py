@@ -231,12 +231,22 @@ def _pad_same(x: torch.Tensor, kernel_size, stride):
 def conv2d(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype
            ) -> torch.Tensor:
     """flax ``nn.Conv(dtype=dtype, padding="SAME")`` on ``x [N, C, H,
-    W]``: input, kernel and bias cast to ``dtype``, padded as flax pads."""
+    W]``: input, kernel and bias cast to ``dtype``, padded as flax pads.
+
+    On the CPU a strided 1x1 conv (SAME pads nothing there) runs as the
+    1x1 conv of the input's every stride-th row and column, the same
+    products: oneDNN's backward of a strided 1x1 conv over a
+    ``channels_last`` input crashes with several threads at some shapes
+    (torch 2.13, e.g. 4 x 8 x 16 x 16)."""
     materialize(layer, x)
-    x, pads = _pad_same(x, layer.kernel_size, layer.stride)
+    stride = layer.stride
+    if x.device.type == "cpu" and layer.kernel_size == (1, 1) and \
+            stride != (1, 1):
+        x, stride = x[:, :, ::stride[0], ::stride[1]], (1, 1)
+    x, pads = _pad_same(x, layer.kernel_size, stride)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias,
-                    stride=layer.stride, padding=pads)
+                    stride=stride, padding=pads)
 
 
 def max_pool_same(x: torch.Tensor, window: int, stride: int

@@ -353,11 +353,49 @@ fails.  Phases, in order:
    writes a bundle that ``replay_bundle`` and ``python -S
    serving/debug.py <bundle> --replay`` cross-check (exit code 0); the
    paged launches equal the engines' counters.
+16. The zoo's text models and its remaining model families (run after
+   13), which reach none of the four kernels (embedding gathers, cuDNN
+   convolutions, the port's recurrent cells and dense heads in plain
+   PyTorch); the counters are set to 0 before the phase and must read 0
+   after.  16a, f32 with TF32 off, small widths, the card against the
+   port's CPU path on the same weights and inputs within ``TEXT_TOL``:
+   ``TextClassifier`` (cnn, lstm, gru), ``KNRM`` (ranking and
+   classification, padded rows), ``NER``, ``POSTagger``,
+   ``IntentEntity`` (a fully padded row, held relative) and
+   ``intent_entity_loss``, ``AnomalyDetector``, ``Seq2Seq`` (gru and
+   lstm x copy and dense bridges: logits, and ``greedy_generate``'s
+   tokens with an eos identical); SSD at width 8 (eval outputs within
+   ``TEXT_SSD_TOL`` of the CPU's largest magnitude, train outputs and
+   running statistics held to the CPU's float64 evaluation as 13a holds
+   ResNet-50's) and ``multibox_loss`` on a batch whose two boxes share a
+   best anchor, with padding rows (the loss; the matched targets equal
+   to the CPU's and bitwise equal over 5 repeats on the card); a 5-step
+   SGD fit of ``TextClassificationEstimator`` by phase 3's rule, and of
+   ``SSDDetector`` with its updates held to float64 on each run's ReLU
+   signs (13a's rule); one ``GANEstimator`` step on injected noise.
+   16b, bf16, the reference examples' shapes on synthetic data from a
+   seed: text classification at news20's shape (5,000 documents of
+   100-800 words, ``TextSet`` preparation, a 200-d GloVe file written
+   under ``build/text`` and loaded, the cnn encoder for 2 epochs with a
+   held-out accuracy above 0.9, 5 steps of the gru encoder at T = 500, a
+   ``TFDataset`` whose batch metadata sets the step count, and 64
+   ``/predict`` requests from 8 clients through ``InferenceModel.load``,
+   each equal to ``InferenceModel.predict``); KNRM at its defaults on
+   WikiQA's shape from a 300-d GloVe file (held-out binary accuracy above
+   0.85); ``NEREstimator`` (held-out token accuracy above 0.95),
+   ``POSEstimator`` and ``IntentEntityEstimator`` at the reference
+   defaults on CoNLL-2003's shape; ``Seq2Seq`` on a copy task
+   (``greedy_generate``'s equal share and tokens/s); ``AnomalyDetector``
+   (at least 8 of 10 planted spikes found); ``SSDDetector`` at its
+   defaults at 256 px (the last epoch's loss below half the first,
+   ``detect``'s hits); ``GANEstimator`` at MNIST width (minimax, then
+   wasserstein at ``d_steps=5``).  Each fit prints 11b's figures.
 
 The line before the last is ``{"kernels": [...], "stack": ..., "modes":
 [phase 9b's runs], "witness": {...}, "serving_modes": {phase 10},
 "bert": {phase 11b}, "zoo": {phase 12}, "image": {phase 13a-d},
-"tcmf": {phase 13e}, "finetune": {phase 14}, "tools": {phase 15}}``;
+"tcmf": {phase 13e}, "finetune": {phase 14}, "tools": {phase 15},
+"text": {phase 16}}``;
 the last is ``{"ok": true,
 "device": {...}}``.  On a failure the script waits for the card (so
 that a device-side assert's lines come out first), then prints
@@ -386,7 +424,8 @@ alternating processes).  ``python3 chip_smoke.py --bert`` runs phase 1,
 11a, 11b, phase 7's BERT rows and 11c only, and prints those rows and
 11b's figures as its last line.  ``python3 chip_smoke.py --zoo`` runs
 phase 12 only and prints its figures as its last line;
-``python3 chip_smoke.py --image`` runs phase 13 only, likewise.
+``python3 chip_smoke.py --image`` runs phase 13 only, likewise, and
+``python3 chip_smoke.py --text`` phase 16.
 ``python3 chip_smoke.py --finetune`` runs phase 1 and phase 14 (on a
 TinyLlama built as phase 6b builds it) and prints phase 14's figures and
 launches as its last line; ``python3 chip_smoke.py --tools`` runs phase
@@ -399,6 +438,7 @@ import base64
 import collections
 import contextlib
 import copy
+import functools
 import gc
 import gzip
 import http.client
@@ -440,6 +480,26 @@ from analytics_zoo_tpu_torch.models.forecast import (LSTMNet, MTNet,
 from analytics_zoo_tpu_torch.models.image import (SimpleCNN, resnet18,
                                                   resnet50)
 from analytics_zoo_tpu_torch.learn.triggers import SeveralIteration
+import analytics_zoo_tpu_torch.models.detection as det_models
+import analytics_zoo_tpu_torch.models.text as text_models
+from analytics_zoo_tpu_torch.data.text import TextSet, load_glove
+from analytics_zoo_tpu_torch.models.anomaly import (AnomalyDetector,
+                                                    detect_anomalies, unroll)
+from analytics_zoo_tpu_torch.models.detection import (SSD, SSDDetector,
+                                                      match_targets,
+                                                      multibox_loss,
+                                                      ssd_anchors)
+from analytics_zoo_tpu_torch.models.layers import Dense
+from analytics_zoo_tpu_torch.models.seq2seq import Seq2Seq, greedy_generate
+from analytics_zoo_tpu_torch.models.text import KNRM, TextClassifier
+from analytics_zoo_tpu_torch.tfpark import GANEstimator, TFDataset
+from analytics_zoo_tpu_torch.tfpark.text import (IntentEntityEstimator,
+                                                 KNRMEstimator, NEREstimator,
+                                                 POSEstimator,
+                                                 TextClassificationEstimator)
+from analytics_zoo_tpu_torch.tfpark.text.keras import (IntentEntity, NER,
+                                                       POSTagger,
+                                                       intent_entity_loss)
 from analytics_zoo_tpu_torch.models.distill import (DistillLM,
                                                     distill_draft,
                                                     distill_loss,
@@ -5287,6 +5347,888 @@ def phase_image(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the zoo's text models and its remaining model families
+# ---------------------------------------------------------------------------
+
+TEXT_DIR = Path(__file__).resolve().parent / "build" / "text"
+TEXT_TOL = 1e-5             # 16a: card vs CPU, f32
+TEXT_SSD_TOL = 1e-4         # 16a: SSD's convolutions, of the CPU's largest
+#                             magnitude (13a's tolerance)
+# 16b: the reference textclassification example's defaults (news20 with
+# GloVe 6B 200-d), 5,000 synthetic documents of 100-800 words over a
+# Zipf vocabulary of 25,000 words, 20-40 class-marker words planted in
+# each (with 4-10 the cnn reached 0.38 held-out in 2 epochs, run t18a)
+TEXT_NEWS20 = dict(docs=5000, min_len=100, max_len=800, words=25000,
+                   zipf=1.1, markers=3, min_marks=20, max_marks=40,
+                   classes=20, token_length=200, sequence_length=500,
+                   max_words=20000, dim=256, batch=128, epochs=2,
+                   held_out=1000, glove_words=12000, min_acc=0.9,
+                   gru_rows=640, tfdataset_rows=640, tfdataset_batch=64)
+TEXT_SERVE = dict(requests=64, clients=8, batch=8)
+# KNRM at its defaults on WikiQA's shape (GloVe 840B 300-d), the
+# reference test's overlap task; Adam at the test's 1e-2
+TEXT_KNRM = dict(pairs=10000, held_out=2000, vocab=20000, text1=10,
+                 text2=40, embed=300, kernels=21, batch=200, epochs=3,
+                 lr=1e-2, glove_words=8000, min_acc=0.85)
+# the taggers at the reference defaults (embed 100, hidden 100) on
+# CoNLL-2003's shape; NER on the reference test's id task (tag = id % 9)
+# with Adam at the test's 1e-2
+TEXT_TAGGERS = dict(vocab=20000, seq=64, min_len=5, max_len=40, zipf=1.2,
+                    batch=64, steps=20, ner_rows=4096, ner_lr=1e-2,
+                    held_out=512, ner_tags=9, pos_tags=45, intents=8,
+                    entities=9, min_acc=0.95)
+TEXT_SEQ2SEQ = dict(vocab=32, length=10, rows=8192, batch=256, epochs=6,
+                    lr=3e-3, test=512)
+TEXT_ANOMALY = dict(points=10320, unroll=24, spikes=10, epochs=2,
+                    batch=1024, min_hits=8)
+TEXT_SSD = dict(images=256, classes=3, batch=32, epochs=6, detect=32)
+TEXT_GAN = dict(noise=64, hidden=256, out=784, rows=6400, batch=64,
+                steps=100, wgan_d_steps=5)
+
+
+def text_hold(what, err, tol):
+    print(f"    {what}: card vs CPU {err:.3e} (tol {tol:.0e})")
+    if not err <= tol:
+        raise AssertionError(f"16a {what}: the card disagrees with the CPU")
+    return err
+
+
+def text_gap(got, want):
+    """max |got - want| over a tuple or a tensor, on the CPU."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return max(float((g.detach().cpu().double() - w.detach().double())
+                     .abs().max()) for g, w in zip(got, want))
+
+
+def text_tokens(rng, B, T, vocab, pad_rows=(), short=None):
+    t = rng.integers(1, vocab, (B, T)).astype(np.int32)
+    if short is not None:
+        t[0, short:] = 0
+    for r in pad_rows:
+        t[r] = 0
+    return t
+
+
+def text_small_cases():
+    """16a's models at small widths in f32: (name, make, inputs)."""
+    rng = np.random.default_rng(16)
+    f32 = torch.float32
+    toks = text_tokens(rng, 6, 12, 50, short=7)
+    t1 = text_tokens(rng, 6, 5, 40, pad_rows=(5,), short=3)
+    t2 = text_tokens(rng, 6, 9, 40, short=4)
+    t2[1, :3] = t1[1, :3]                          # exact matches
+    tags = text_tokens(rng, 5, 11, 30, pad_rows=(4,), short=6)
+    cases = [(f"TextClassifier {e}", lambda e=e: TextClassifier(
+        5, 50, token_length=16, sequence_length=12, encoder=e,
+        encoder_output_dim=12, dtype=f32), (toks,))
+        for e in ("cnn", "lstm", "gru")]
+    cases += [(f"KNRM {m}", lambda m=m: KNRM(
+        40, 5, 9, embed_dim=16, kernel_num=11, target_mode=m, dtype=f32),
+        (t1, t2)) for m in ("ranking", "classification")]
+    kw = dict(embed_dim=12, hidden=10, dtype=f32)
+    cases += [("NER", lambda: NER(30, num_entities=9, **kw), (tags,)),
+              ("POSTagger", lambda: POSTagger(30, num_pos_tags=45, **kw),
+               (tags,)),
+              ("IntentEntity", lambda: IntentEntity(30, num_intents=8,
+                                                    num_entities=9, **kw),
+               (tags,))]
+    x = rng.standard_normal((7, 12, 2)).astype(np.float32)
+    cases.append(("AnomalyDetector", lambda: AnomalyDetector(
+        (12, 2), hidden_layers=(6, 8), dropouts=(0.2, 0.2), dtype=f32),
+        (x,)))
+    return cases
+
+
+def text_seq2seq_pairs(dev):
+    """16a: ``Seq2Seq`` (gru and lstm x copy and dense bridges), its
+    logits and ``greedy_generate``'s tokens with an eos, card vs CPU."""
+    rng = np.random.default_rng(17)
+    enc = rng.integers(0, 20, (4, 7)).astype(np.int32)
+    dec = rng.integers(0, 20, (4, 5)).astype(np.int32)
+    out = {}
+    for rnn in ("gru", "lstm"):
+        for bridge in ("copy", "dense"):
+            name = f"Seq2Seq {rnn} {bridge}"
+            cpu, card = zoo_twins(lambda: Seq2Seq(
+                20, embed_dim=12, hidden_sizes=(10, 8), rnn_type=rnn,
+                bridge=bridge, dtype=torch.float32),
+                [torch.as_tensor(enc), torch.as_tensor(dec)], dev)
+            with torch.no_grad():
+                want = cpu(torch.as_tensor(enc), torch.as_tensor(dec))
+                got = card(torch.as_tensor(enc, device=dev),
+                           torch.as_tensor(dec, device=dev))
+            err = text_hold(f"{name} logits", text_gap(got, want), TEXT_TOL)
+            free = greedy_generate(cpu, None, enc, 8, device="cpu")
+            eos = int(free[0, 2])
+            a = greedy_generate(cpu, None, enc, 8, eos_id=eos, device="cpu")
+            b = greedy_generate(card, None, enc, 8, eos_id=eos, device=dev)
+            same = torch.equal(a, b.cpu())
+            print(f"    {name} greedy tokens with eos {eos} identical: "
+                  f"{same}")
+            if not same:
+                raise AssertionError(f"16a {name}: greedy tokens differ")
+            out[name] = err
+    return out
+
+
+def text_ssd_pair(dev):
+    """16a: SSD at width 8 on 64 x 64 (f32): eval-mode outputs within
+    ``TEXT_SSD_TOL`` of the CPU's largest magnitude; train-mode outputs
+    and running statistics held to the CPU's float64 evaluation, no
+    further from it than twice the CPU's f32 (13a's rule: the deepest
+    level's batch statistics are ill-conditioned at this width)."""
+    x = np.random.default_rng(18).standard_normal((4, 64, 64, 3)).astype(
+        np.float32)
+
+    def make():
+        return SSD(2, image_size=64, backbone_width=8, dtype=torch.float32)
+    cpu, card = zoo_twins(make, [torch.as_tensor(x)], dev)
+    exact = as_f64(make())
+    exact.load_state_dict(cpu.state_dict())
+    xt = torch.as_tensor(x)
+    out = {}
+    with torch.no_grad():
+        want = cpu(xt, train=True)
+        got = card(xt.to(dev), train=True)
+        ref = exact(xt.double(), train=True)
+    e_card = max(rel_gap(g.cpu(), r) for g, r in zip(got, ref))
+    e_cpu = max(rel_gap(w, r) for w, r in zip(want, ref))
+    s_ref = running_stats(exact)
+    s_card = max(rel_gap(v.cpu(), s_ref[k])
+                 for k, v in running_stats(card).items())
+    s_cpu = max(rel_gap(v, s_ref[k]) for k, v in running_stats(cpu).items())
+    print(f"    SSD train-mode outputs from the CPU's float64: card "
+          f"{e_card:.3e}, CPU {e_cpu:.3e}; running statistics card "
+          f"{s_card:.3e}, CPU {s_cpu:.3e} (card within max(2 x CPU, "
+          f"{TEXT_SSD_TOL:.0e}))")
+    if not (e_card <= max(2 * e_cpu, TEXT_SSD_TOL)
+            and s_card <= max(2 * s_cpu, TEXT_SSD_TOL)):
+        raise AssertionError("16a SSD: the card's train mode is further "
+                             "from float64 than the CPU's")
+    out["train_vs_f64"], out["stats_vs_f64"] = e_card, s_card
+    with torch.no_grad():
+        want = cpu(xt)
+        got = card(xt.to(dev))
+    out["eval"] = text_hold("SSD eval-mode outputs", max(
+        rel_gap(g.cpu(), w) for g, w in zip(got, want)), TEXT_SSD_TOL)
+    return out
+
+
+def shared_anchor_batch(anchors):
+    """Two images: boxes 0 and 1 of image 0 share their best anchor
+    (different classes and coordinates), image 1 one box, the other rows
+    padding (class -1)."""
+    boxes = np.zeros((2, 4, 4), np.float32)
+    classes = np.full((2, 4), -1, np.int32)
+    cy, cx, h, w = anchors[3 * 27]
+    boxes[0, 0] = (cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2)
+    boxes[0, 1] = (cy - 0.45 * h, cx - 0.47 * w, cy + 0.46 * h,
+                   cx + 0.44 * w)
+    classes[0, :2] = (0, 1)
+    boxes[1, 0] = (0.05, 0.55, 0.40, 0.95)
+    classes[1, 0] = 1
+    return boxes, classes
+
+
+def text_multibox_pair(dev):
+    """16a: ``multibox_loss`` on a batch with a shared best anchor and
+    padding rows, card vs CPU: the loss within ``TEXT_TOL`` relative,
+    the matched targets equal to the CPU's (positives and classes
+    bitwise) and bitwise equal across 5 repeats on the card."""
+    anchors = ssd_anchors(64, [8, 16, 32], [0.15, 0.35, 0.6])
+    boxes, classes = shared_anchor_batch(anchors)
+    rng = np.random.default_rng(19)
+    N = anchors.shape[0]
+    loc = rng.standard_normal((2, N, 4)).astype(np.float32)
+    cls = rng.standard_normal((2, N, 3)).astype(np.float32)
+    fn = multibox_loss(anchors, 2)
+    want = float(fn((torch.as_tensor(loc), torch.as_tensor(cls)),
+                    (torch.as_tensor(boxes), torch.as_tensor(classes))))
+    got = float(fn((torch.as_tensor(loc, device=dev),
+                    torch.as_tensor(cls, device=dev)),
+                   (torch.as_tensor(boxes, device=dev),
+                    torch.as_tensor(classes, device=dev))))
+    err = text_hold("multibox_loss (relative)",
+                    abs(got - want) / abs(want), TEXT_TOL)
+    ref = match_targets(anchors, torch.as_tensor(boxes),
+                        torch.as_tensor(classes))
+    runs = [match_targets(anchors, torch.as_tensor(boxes, device=dev),
+                          torch.as_tensor(classes, device=dev))
+            for _ in range(5)]
+    repeat = all(torch.equal(a, b) for run in runs[1:]
+                 for a, b in zip(run, runs[0]))
+    same = torch.equal(runs[0][0].cpu(), ref[0]) and torch.equal(
+        runs[0][1].cpu(), ref[1])
+    loc_gap = float((runs[0][2].cpu() - ref[2]).abs().max())
+    print(f"    matched targets: 5 card repeats bitwise equal {repeat}; "
+          f"positives and classes = the CPU's {same}, offsets max |gap| "
+          f"{loc_gap:.3e}; {int(ref[0].sum())} positives")
+    if not (repeat and same and loc_gap <= TEXT_TOL):
+        raise AssertionError("16a multibox: matched targets differ")
+    return {"loss_err": err, "repeats_equal": repeat, "loc_gap": loc_gap}
+
+
+def text_fit_pair(dev):
+    """16a: a 5-step SGD fit of ``TextClassificationEstimator`` (cnn, f32,
+    dropout taken out: the card's masks are not the CPU's), card vs CPU
+    by phase 3's rule."""
+    rng = np.random.default_rng(20)
+    data = {"tokens": text_tokens(rng, 40, 12, 50, short=6),
+            "y": rng.integers(0, 5, 40).astype(np.int32)}
+    runs = {}
+    f32_text = functools.partial(TextClassifier, dtype=torch.float32)
+    with unittest.mock.patch.object(text_models, "TextClassifier",
+                                    f32_text), \
+            unittest.mock.patch.object(text_models, "dropout",
+                                       lambda x, p, rng, train: x):
+        torch.manual_seed(0)
+        start = None
+        for where in ("cpu", dev):
+            est = TextClassificationEstimator(
+                5, 50, token_length=16, sequence_length=12,
+                encoder_output_dim=12,
+                optimizer=lambda ps: torch.optim.SGD(ps, lr=0.05),
+                config=TrainConfig(deterministic=True), device=where)
+            if start is None:
+                start = copy.deepcopy(est.model.state_dict())
+            else:
+                est.model.load_state_dict(start)
+            hist = est.fit(data, epochs=5, batch_size=40)
+            runs[str(where)] = ([h["loss"] for h in hist],
+                                {k: v.cpu() for k, v in
+                                 est.model.state_dict().items()})
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    param_err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    print(f"    TextClassificationEstimator SGD 5 steps: losses "
+          f"{[round(x, 5) for x in lg]}, rel err {loss_err:.3e} (tol "
+          f"{TRAIN_LOSS_RTOL:.0e}), params {param_err:.3e} (tol "
+          f"{TRAIN_PARAM_ATOL:.0e})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_ATOL):
+        raise AssertionError("16a TextClassificationEstimator fit")
+    return {"loss_err": loss_err, "param_err": param_err}
+
+
+def ssd_boxes(rng, n, size, classes, max_boxes):
+    """The reference test's planted squares (one an image) on dark
+    noise, the class in the square's colour channel: images, boxes
+    (ymin, xmin, ymax, xmax in [0, 1]) and classes (-1 pads)."""
+    x = rng.normal(0.0, 0.05, (n, size, size, 3)).astype(np.float32)
+    boxes = np.zeros((n, max_boxes, 4), np.float32)
+    cls = np.full((n, max_boxes), -1, np.int32)
+    for i in range(n):
+        s = int(rng.integers(size // 4, size // 2))
+        top = int(rng.integers(0, size - s))
+        left = int(rng.integers(0, size - s))
+        c = int(rng.integers(0, classes))
+        x[i, top:top + s, left:left + s] = 0.2
+        x[i, top:top + s, left:left + s, c % 3] = 1.0
+        boxes[i, 0] = (top / size, left / size, (top + s) / size,
+                       (left + s) / size)
+        cls[i, 0] = c
+    return x, boxes, cls
+
+
+def text_ssd_fit_pair(dev):
+    """16a: a 5-step SGD fit of ``SSDDetector`` (f32, width 8, 64 x 64)
+    on the card and on the CPU from the same weights.  Phase 3's rule is
+    reported; each parameter's update is held to the CPU's float64 fit
+    on that run's ReLU signs, as 13a holds ResNet-18's (an input that
+    rounds to the other side of 0 moves a weight's gradient through
+    train-mode BatchNorm), and the running statistics card vs CPU."""
+    rng = np.random.default_rng(21)
+    x, boxes, cls = ssd_boxes(rng, 20, 64, 2, 4)
+    data = {"x": x, "boxes": boxes, "classes": cls}
+
+    def detector(where):
+        with unittest.mock.patch.object(
+                det_models, "SSD", functools.partial(SSD,
+                                                     dtype=torch.float32)):
+            return SSDDetector(
+                num_classes=2, image_size=64, backbone_width=8,
+                optimizer=lambda ps: torch.optim.SGD(ps, lr=1e-3),
+                device=where, config=TrainConfig(deterministic=True))
+
+    def fit(det, d):
+        hist = det.fit(d, epochs=1, batch_size=4)
+        return hist[0]["loss"], {k: v.cpu() for k, v in
+                                 det.model.state_dict().items()}
+
+    cpu = detector("cpu")
+    with torch.no_grad():
+        cpu.model(torch.as_tensor(x[:1]))
+    start = copy.deepcopy(cpu.model.state_dict())
+    card = detector(dev)
+    card.model.load_state_dict(start)
+    m_cpu, m_card = [], []
+    with relu_masks(m_cpu):
+        lc, sc = fit(cpu, data)
+    with relu_masks(m_card):
+        lg, sg = fit(card, data)
+    params = [k for k, _ in cpu.model.named_parameters()]
+    phase3 = max(float((sg[k] - sc[k]).abs().max()) for k in params)
+    loss_err = abs(lg - lc) / abs(lc)
+    out = {"loss_err": loss_err, "phase3_param_err": phase3,
+           "running_stats": text_hold(
+               "SSDDetector 5 SGD steps: running statistics",
+               max(rel_gap(sg[k], sc[k]) for k in sc if "running_" in k),
+               TEXT_SSD_TOL)}
+    data64 = dict(data, x=x.astype(np.float64))
+    exact = {}
+    for name, masks in (("cpu", m_cpu), ("card", m_card)):
+        det = detector("cpu")
+        with torch.no_grad():
+            det.model(torch.as_tensor(x[:1]))
+        det.model.load_state_dict(start)
+        as_f64(det.model)
+        with relu_masks(masks, replay=True):
+            exact[name] = fit(det, data64)[1]
+
+    def moved(state):
+        return {k: state[k].double() - start[k].double() for k in params}
+    (e_card, k_card), (e_cpu, _) = (
+        leaf_gap(moved(sg), moved(exact["card"])),
+        leaf_gap(moved(sc), moved(exact["cpu"])))
+    flips = sign_flips(m_cpu, m_card)
+    print(f"    SSDDetector 5 SGD steps: loss rel err {loss_err:.3e} (tol "
+          f"{TRAIN_LOSS_RTOL:.0e}); phase 3's parameter gap {phase3:.3e} "
+          f"(reported); updates per parameter from the CPU's float64 on "
+          f"the same ReLU signs: card {e_card:.3e} ({k_card}), CPU "
+          f"{e_cpu:.3e} (card within max(2 x CPU, {TEXT_SSD_TOL:.0e})); "
+          f"{flips} ReLU inputs took the other sign on the card")
+    if not (loss_err <= TRAIN_LOSS_RTOL
+            and e_card <= max(2 * e_cpu, TEXT_SSD_TOL)):
+        raise AssertionError("16a SSDDetector fit: the card disagrees")
+    out.update(updates_vs_f64=e_card, cpu_updates_vs_f64=e_cpu,
+               relu_flips=flips)
+    return out
+
+
+class TextGen(torch.nn.Module):
+    """An MLP generator: noise -> Dense -> ReLU -> Dense -> tanh."""
+
+    def __init__(self, noise, hidden, out):
+        super().__init__()
+        self.Dense_0 = Dense(noise, hidden)
+        self.Dense_1 = Dense(hidden, out)
+
+    def forward(self, z):
+        return torch.tanh(self.Dense_1(torch.relu(self.Dense_0(z))))
+
+
+class TextDisc(torch.nn.Module):
+    """An MLP discriminator: sample -> Dense -> leaky ReLU -> Dense."""
+
+    def __init__(self, inp, hidden):
+        super().__init__()
+        self.Dense_0 = Dense(inp, hidden)
+        self.Dense_1 = Dense(hidden, 1)
+
+    def forward(self, x):
+        return self.Dense_1(F.leaky_relu(self.Dense_0(x), 0.2))[..., 0]
+
+
+def text_gan_pair(dev):
+    """16a: one ``GANEstimator`` step (2 discriminator updates, SGD) with
+    the same injected noise on the card and on the CPU: the losses and
+    every parameter after the step."""
+    rng = np.random.default_rng(22)
+    real = rng.standard_normal((16, 6)).astype(np.float32)
+    noises = [rng.standard_normal((16, 8)).astype(np.float32)
+              for _ in range(3)]
+    torch.manual_seed(0)
+    g0, d0 = TextGen(8, 16, 6), TextDisc(6, 16)
+    out = {}
+    for where in ("cpu", dev):
+        gen, disc = copy.deepcopy(g0), copy.deepcopy(d0)
+        est = GANEstimator(
+            gen, disc, noise_dim=8, d_steps=2, device=where,
+            generator_optimizer=lambda ps: torch.optim.SGD(ps, lr=0.05),
+            discriminator_optimizer=lambda ps: torch.optim.SGD(ps, lr=0.05))
+        est._noise = lambda step, i, b, w=where: torch.as_tensor(
+            noises[i], device=w)
+        hist = est.fit(real, epochs=1, batch_size=16)
+        out[str(where)] = (hist[0], {k: v.detach().cpu() for k, v in
+                                     {**{"g." + n: p for n, p in
+                                         gen.state_dict().items()},
+                                      **{"d." + n: p for n, p in
+                                         disc.state_dict().items()}}.items()})
+    (hc, pc), (hg, pg) = out["cpu"], out[str(dev)]
+    loss_err = max(abs(hg[k] - hc[k]) / max(abs(hc[k]), 1e-6)
+                   for k in ("d_loss", "g_loss"))
+    param_err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    print(f"    GANEstimator step (d_steps 2, SGD, injected noise): d_loss "
+          f"{hg['d_loss']:.5f}, g_loss {hg['g_loss']:.5f}, rel err "
+          f"{loss_err:.3e} (tol {TEXT_TOL:.0e}); params {param_err:.3e} "
+          f"(tol {TEXT_TOL:.0e})")
+    if not (loss_err <= TEXT_TOL and param_err <= TEXT_TOL):
+        raise AssertionError("16a GANEstimator step: the card disagrees")
+    return {"loss_err": loss_err, "param_err": param_err}
+
+
+def intent_entity_pair(got, want, tokens, dev):
+    """16a's IntentEntity: its fully padded row (4) pools to -1e9, so
+    that row's intent logits (~1e9) and the joint loss (~1e9 through
+    that row) are held relative."""
+    out = {"IntentEntity": text_hold("IntentEntity forward", max(
+        text_gap(got[0][:4], want[0][:4]), text_gap(got[1], want[1])),
+        TEXT_TOL)}
+    text_hold("IntentEntity padded row's intent logits, relative",
+              text_gap(got[0][4:] / 1e9, want[0][4:] / 1e9), TEXT_TOL)
+    labels = (torch.as_tensor(np.arange(len(tokens)) % 8),
+              torch.as_tensor(tokens % 9))
+    lw = float(intent_entity_loss(want, labels))
+    lg = float(intent_entity_loss(got, tuple(t.to(dev) for t in labels)))
+    out["intent_entity_loss"] = text_hold(
+        "intent_entity_loss (relative)", abs(lg - lw) / abs(lw), TEXT_TOL)
+    return out
+
+
+def phase_text_parity(dev):
+    """16a: each model of the slice at small widths, f32, TF32 off, on
+    the card against the port's own CPU path on the same weights and
+    inputs."""
+    print("== phase 16a: the text and zoo models, f32, the card vs the CPU "
+          "on the same weights")
+    out = {}
+    for name, make, inputs in text_small_cases():
+        cols = [torch.as_tensor(a) for a in inputs]
+        cpu, card = zoo_twins(make, cols, dev)
+        with torch.no_grad():
+            want = cpu(*cols)
+            got = card(*[c.to(dev) for c in cols])
+        if name == "IntentEntity":
+            out.update(intent_entity_pair(got, want, inputs[0], dev))
+        else:
+            out[name] = text_hold(f"{name} forward", text_gap(got, want),
+                                  TEXT_TOL)
+    out.update(text_seq2seq_pairs(dev))
+    out["ssd"] = text_ssd_pair(dev)
+    out["multibox"] = text_multibox_pair(dev)
+    out["text_fit"] = text_fit_pair(dev)
+    out["ssd_fit"] = text_ssd_fit_pair(dev)
+    out["gan_step"] = text_gan_pair(dev)
+    return out
+
+
+def zipf_ids(rng, shape, vocab, a):
+    """Word ranks from a Zipf law over ``vocab`` (ranks past it folded
+    back uniformly), 0-based."""
+    r = rng.zipf(a, size=shape) - 1
+    return np.where(r < vocab, r, rng.integers(0, vocab, shape))
+
+
+def write_glove(path, words, dim, seed):
+    """A GloVe-format text file: one ``word v1 ... v_dim`` line a word."""
+    rng = np.random.default_rng(seed)
+    vecs = rng.normal(0.0, 0.4, (len(words), dim)).astype(np.float32)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        for w, v in zip(words, vecs):
+            f.write(w + " " + " ".join(f"{x:.4f}" for x in v) + "\n")
+
+
+def news20_texts(c):
+    """``c["docs"]`` synthetic documents and their classes: words drawn
+    from a Zipf law over ``c["words"]`` word types, with 20-40 of their
+    class's marker words (one of 3 a class; a topic's words) planted at
+    random places."""
+    rng = np.random.default_rng(160)
+    vocab = np.asarray([f"w{i}" for i in range(c["words"])])
+    labels = rng.integers(0, c["classes"], c["docs"])
+    texts = []
+    for y in labels:
+        n = int(rng.integers(c["min_len"], c["max_len"] + 1))
+        words = vocab[zipf_ids(rng, n, c["words"], c["zipf"])].tolist()
+        for _ in range(int(rng.integers(c["min_marks"],
+                                        c["max_marks"] + 1))):
+            words[int(rng.integers(0, n))] = \
+                f"m{y}x{int(rng.integers(0, c['markers']))}"
+        texts.append(" ".join(words))
+    return texts, labels.astype(np.int32)
+
+
+def text_news20(dev, card):
+    """16b: text classification at news20's shape: TextSet preparation,
+    GloVe, 2 epochs of the cnn encoder (held-out accuracy), 5 steps of
+    the gru encoder, ``TFDataset`` metadata, then ``/predict``."""
+    c = TEXT_NEWS20
+    out = {}
+    texts, labels = news20_texts(c)
+    t0 = time.perf_counter()
+    ts = TextSet.from_texts(texts, labels).tokenize().word2idx(
+        max_words_num=c["max_words"]).shape_sequence(c["sequence_length"])
+    arrays = ts.to_numpy_dict()
+    prep = time.perf_counter() - t0
+    vocab = ts.vocab_size()
+    glove = TEXT_DIR / "glove.synthetic.200d.txt"
+    by_rank = sorted(ts.word_index, key=ts.word_index.get)
+    t0 = time.perf_counter()
+    write_glove(glove, by_rank[:c["glove_words"]] + ["unindexed"],
+                c["token_length"], 161)
+    wrote = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    weights, hits = load_glove(str(glove), ts.word_index, c["token_length"])
+    loaded = time.perf_counter() - t0
+    print(f"  TextSet of {c['docs']} documents ({sum(map(len, texts)) / 1e6:.1f}"
+          f" MB of text) -> {arrays['tokens'].shape}: {prep:.2f} s; vocab "
+          f"{vocab}; GloVe {glove.stat().st_size / 2**20:.1f} MiB written in "
+          f"{wrote:.2f} s, loaded in {loaded:.2f} s, {hits} hits")
+    out.update(prep_s=prep, vocab=vocab, glove_hits=hits, glove_load_s=loaded)
+    n_test = c["held_out"]
+    train = {k: v[:-n_test] for k, v in arrays.items()}
+    test = {k: v[-n_test:] for k, v in arrays.items()}
+    kw = dict(token_length=c["token_length"],
+              sequence_length=c["sequence_length"],
+              encoder_output_dim=c["dim"])
+    torch.manual_seed(0)
+    est = TextClassificationEstimator(c["classes"], vocab, encoder="cnn",
+                                      embed_weights=weights, device=dev,
+                                      **kw)
+    hist, fig = zoo_fit(card, "TextClassifier cnn, news20 shape", lambda:
+                        est.fit(train, epochs=c["epochs"],
+                                batch_size=c["batch"]), c["batch"])
+    ev = est.evaluate(test, batch_size=c["batch"])
+    print(f"  held-out accuracy {ev['accuracy']:.4f} (above {c['min_acc']}), "
+          f"loss {ev['loss']:.4f}; epochs' accuracy "
+          f"{[round(h['accuracy'], 4) for h in hist]}")
+    if not ev["accuracy"] > c["min_acc"]:
+        raise AssertionError(f"16b news20: held-out accuracy "
+                             f"{ev['accuracy']} not above {c['min_acc']}")
+    fig.update(held_out_accuracy=ev["accuracy"])
+    out["cnn"] = fig
+    # the gru encoder at the same width: the Python recurrence at T = 500
+    torch.manual_seed(0)
+    gru = TextClassificationEstimator(c["classes"], vocab, encoder="gru",
+                                      device=dev, **kw)
+    rows = {k: v[:c["gru_rows"]] for k, v in train.items()}
+    _, out["gru"] = zoo_fit(card, "TextClassifier gru, news20 shape (T = "
+                            f"{c['sequence_length']})",
+                            lambda: gru.fit(rows, epochs=1,
+                                            batch_size=c["batch"]),
+                            c["batch"])
+    del gru
+    # a TFDataset's batch metadata sets the step count
+    sub = TextSet.from_texts(texts[:c["tfdataset_rows"]],
+                             labels[:c["tfdataset_rows"]]).tokenize() \
+        .word2idx(existing_index=ts.word_index) \
+        .shape_sequence(c["sequence_length"])
+    ds = TFDataset.from_text_set(sub, batch_size=c["tfdataset_batch"])
+    small = TextClassificationEstimator(c["classes"], vocab, device=dev,
+                                        **kw)
+    with step_times() as times:
+        h = small.fit(ds, epochs=1)
+    want_steps = c["tfdataset_rows"] // c["tfdataset_batch"]
+    print(f"  TFDataset.from_text_set(batch_size={c['tfdataset_batch']}) "
+          f"fed with no batch_size: {len(times['ms'])} steps, "
+          f"{h[0]['num_samples']:.0f} samples (want {want_steps} steps)")
+    if len(times["ms"]) != want_steps:
+        raise AssertionError("16b: the TFDataset's batch metadata did not "
+                             "set the step count")
+    out["tfdataset_steps"] = len(times["ms"])
+    del small
+    # serving: an export behind InferenceModel.load and /predict
+    s = TEXT_SERVE
+    export = TEXT_DIR / "news20_export"
+    est.save(str(export))
+    im = InferenceModel(batch_buckets=(s["batch"],)).load(
+        str(export), TextClassifier(c["classes"], vocab, **kw), device=dev)
+    before = zoo_launches()
+    if before != (0, 0, 0, 0):
+        raise AssertionError(f"16b: attention kernels launched before "
+                             f"serving: {before}")
+    _, out["serving"] = serve_predict(card, im, test, ("tokens",),
+                                      s["batch"], s["requests"],
+                                      s["clients"], "16b news20")
+    del est, im
+    free_memory()
+    return out
+
+
+def knrm_pairs(c):
+    """The reference test's overlap task at WikiQA's shape: a query of
+    5-10 words; a relevant document holds them (and filler), an
+    irrelevant one none of them."""
+    rng = np.random.default_rng(162)
+    vocab = np.asarray([f"k{i}" for i in range(c["vocab"])])
+    q_texts, d_texts, labels = [], [], []
+    for _ in range(c["pairs"]):
+        q = rng.choice(c["vocab"], int(rng.integers(5, c["text1"] + 1)),
+                       replace=False)
+        y = int(rng.random() < 0.5)
+        n = int(rng.integers(20, c["text2"] + 1))
+        d = rng.integers(0, c["vocab"], n)
+        d = d[~np.isin(d, q)]
+        if y:
+            d = np.concatenate([d, np.repeat(q, 2)])
+            rng.shuffle(d)
+        q_texts.append(" ".join(vocab[q]))
+        d_texts.append(" ".join(vocab[d[:c["text2"]]]))
+        labels.append(y)
+    return q_texts, d_texts, np.asarray(labels, np.int32)
+
+
+def text_knrm(dev, card):
+    """16b: KNRM at its defaults on WikiQA's shape from a 300-d GloVe
+    file: binary accuracy on held-out pairs, ``y`` reshaped as the
+    reference test does."""
+    c = TEXT_KNRM
+    q, d, y = knrm_pairs(c)
+    t0 = time.perf_counter()
+    index = TextSet.from_texts(q + d).tokenize().word2idx(
+        max_words_num=c["vocab"]).word_index
+    qs = TextSet.from_texts(q, y).tokenize().word2idx(
+        existing_index=index).shape_sequence(c["text1"])
+    ds = TextSet.from_texts(d).tokenize().word2idx(
+        existing_index=index).shape_sequence(c["text2"])
+    prep = time.perf_counter() - t0
+    glove = TEXT_DIR / "glove.synthetic.300d.txt"
+    write_glove(glove, sorted(index, key=index.get)[:c["glove_words"]],
+                c["embed"], 163)
+    weights, hits = load_glove(str(glove), index, c["embed"])
+    n = c["pairs"] - c["held_out"]
+    qa, da = qs.to_numpy_dict(), ds.to_numpy_dict()
+    train = {"text1": qa["tokens"][:n], "text2": da["tokens"][:n],
+             "y": qa["y"][:n]}
+    test = {"text1": qa["tokens"][n:], "text2": da["tokens"][n:],
+            "y": qa["y"][n:].astype(np.float32).reshape(-1, 1)}
+    torch.manual_seed(0)
+    est = KNRMEstimator(qs.vocab_size(), text1_length=c["text1"],
+                        text2_length=c["text2"], embed_dim=c["embed"],
+                        kernel_num=c["kernels"], embed_weights=weights,
+                        optimizer=c["lr"], device=dev)
+    _, fig = zoo_fit(card, "KNRM, WikiQA shape", lambda: est.fit(
+        train, epochs=c["epochs"], batch_size=c["batch"]), c["batch"])
+    ev = est.evaluate(test, batch_size=c["batch"])
+    print(f"  TextSet pairs {prep:.2f} s, GloVe 300-d hits {hits}; held-out "
+          f"binary accuracy {ev['binary_accuracy']:.4f} (above "
+          f"{c['min_acc']})")
+    if not ev["binary_accuracy"] > c["min_acc"]:
+        raise AssertionError(f"16b KNRM: binary accuracy "
+                             f"{ev['binary_accuracy']} not above "
+                             f"{c['min_acc']}")
+    fig.update(binary_accuracy=ev["binary_accuracy"], glove_hits=hits,
+               prep_s=prep)
+    return fig
+
+
+def conll_sentences(rng, n, c):
+    """Zipf word ids in sentences of 5-40 tokens padded to 64."""
+    lens = rng.integers(c["min_len"], c["max_len"] + 1, n)
+    ids = (zipf_ids(rng, (n, c["seq"]), c["vocab"] - 2, c["zipf"]) + 2
+           ).astype(np.int32)
+    ids[np.arange(c["seq"])[None, :] >= lens[:, None]] = 0
+    return ids
+
+
+def text_taggers(dev, card):
+    """16b: the NER, POS and IntentEntity estimators at the reference
+    defaults on CoNLL-2003's shape; NER learns the reference test's id
+    task (held-out token accuracy)."""
+    c = TEXT_TAGGERS
+    rng = np.random.default_rng(164)
+    out = {}
+    toks = conll_sentences(rng, c["ner_rows"], c)
+    test = conll_sentences(rng, c["held_out"], c)
+    torch.manual_seed(0)
+    ner = NEREstimator(c["ner_tags"], c["vocab"], optimizer=c["ner_lr"],
+                       device=dev)
+    data = {"tokens": toks, "y": toks % c["ner_tags"]}
+    _, fig = zoo_fit(card, f"NEREstimator ({c['ner_tags']} tags)",
+                     lambda: ner.fit(data, epochs=1, batch_size=c["batch"]),
+                     c["batch"])
+    ev = ner.evaluate({"tokens": test, "y": test % c["ner_tags"]},
+                      batch_size=c["held_out"])
+    print(f"  NER held-out token accuracy {ev['token_accuracy']:.4f} (above "
+          f"{c['min_acc']}; padding counts, as in the reference)")
+    if not ev["token_accuracy"] > c["min_acc"]:
+        raise AssertionError(f"16b NER: token accuracy "
+                             f"{ev['token_accuracy']} not above "
+                             f"{c['min_acc']}")
+    fig.update(token_accuracy=ev["token_accuracy"])
+    out["ner"] = fig
+    del ner
+    n = c["batch"] * c["steps"]
+    torch.manual_seed(0)
+    pos = POSEstimator(c["pos_tags"], c["vocab"], device=dev)
+    _, out["pos"] = zoo_fit(card, f"POSEstimator ({c['pos_tags']} tags)",
+                            lambda: pos.fit({"tokens": toks[:n],
+                                             "y": toks[:n] % c["pos_tags"]},
+                                            epochs=1, batch_size=c["batch"]),
+                            c["batch"])
+    del pos
+    intent = (toks[:n, 0] % c["intents"]).astype(np.int32)
+    torch.manual_seed(0)
+    ie = IntentEntityEstimator(c["intents"], c["entities"], c["vocab"],
+                               device=dev)
+    _, out["intent_entity"] = zoo_fit(
+        card, "IntentEntityEstimator", lambda: ie.fit(
+            {"tokens": toks[:n], "intent": intent,
+             "entity": toks[:n] % c["entities"]}, epochs=1,
+            batch_size=c["batch"]), c["batch"])
+    del ie
+    return out
+
+
+def text_seq2seq(dev, card):
+    """16b: ``Seq2Seq`` at its defaults learns a planted copy task;
+    ``greedy_generate``'s share of tokens equal to the source and its
+    tokens/s."""
+    c = TEXT_SEQ2SEQ
+    rng = np.random.default_rng(165)
+
+    def rows(n):
+        src = rng.integers(2, c["vocab"], (n, c["length"])).astype(np.int32)
+        dec = np.concatenate([np.ones((n, 1), np.int32), src[:, :-1]], 1)
+        return {"enc": src, "dec": dec, "y": src}
+    data, test = rows(c["rows"]), rows(c["test"])
+    torch.manual_seed(0)
+    model = Seq2Seq(c["vocab"])
+    est = Estimator.from_torch(model=model,
+                               loss="sparse_categorical_crossentropy",
+                               optimizer=c["lr"], feature_cols=("enc", "dec"),
+                               label_cols=("y",), device=dev)
+    _, fig = zoo_fit(card, "Seq2Seq (gru 128) copy task", lambda: est.fit(
+        data, epochs=c["epochs"], batch_size=c["batch"]), c["batch"])
+    toks, secs = host_timed(lambda: greedy_generate(
+        est.model, None, test["enc"], c["length"], bos_id=1, device=dev))
+    equal = float((toks.cpu().numpy() == test["enc"]).mean())
+    rate = toks.numel() / secs
+    print(f"  greedy_generate of {c['test']} x {c['length']}: tokens equal "
+          f"to the source {equal:.4f}, {rate:.0f} tokens/s ({secs:.3f} s)")
+    fig.update(copy_equal=equal, greedy_tokens_per_s=rate)
+    return fig
+
+
+def text_anomaly(dev, card):
+    """16b: ``AnomalyDetector`` at its defaults over a seasonal series
+    with planted spikes; the spikes among ``detect_anomalies``."""
+    c = TEXT_ANOMALY
+    rng = np.random.default_rng(166)
+    t = np.arange(c["points"], dtype=np.float32)
+    series = (np.sin(2 * np.pi * t / 24) + 0.5 * np.sin(2 * np.pi * t / 168)
+              + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    spikes = np.sort(rng.choice(np.arange(c["unroll"], c["points"]),
+                                c["spikes"], replace=False))
+    series[spikes] += 5.0
+    x, y = unroll(series, c["unroll"])
+    torch.manual_seed(0)
+    est = Estimator.from_torch(model=AnomalyDetector((c["unroll"], 1)),
+                               loss="mse", optimizer=1e-3, device=dev)
+    _, fig = zoo_fit(card, "AnomalyDetector (8, 32, 15)", lambda: est.fit(
+        {"x": x, "y": y}, epochs=c["epochs"], batch_size=c["batch"]),
+        c["batch"])
+    pred = est.predict({"x": x}, batch_size=c["batch"])
+    found = detect_anomalies(y, pred, anomaly_size=c["spikes"])
+    hits = len(set((found + c["unroll"]).tolist()) & set(spikes.tolist()))
+    print(f"  {hits} of {c['spikes']} planted spikes among "
+          f"detect_anomalies(anomaly_size={c['spikes']}) (at least "
+          f"{c['min_hits']})")
+    if hits < c["min_hits"]:
+        raise AssertionError(f"16b AnomalyDetector: {hits} spikes found")
+    fig.update(spike_hits=hits)
+    return fig
+
+
+def text_ssd(dev, card):
+    """16b: ``SSDDetector`` at its defaults on planted squares at 256 px
+    (3 classes): the last epoch's loss below half the first; ``detect``'s
+    localisation hits on training images."""
+    c = TEXT_SSD
+    rng = np.random.default_rng(167)
+    torch.manual_seed(0)
+    det = SSDDetector(num_classes=c["classes"], device=dev)
+    x, boxes, cls = ssd_boxes(rng, c["images"], det.image_size, c["classes"],
+                              det.max_boxes)
+    hist, fig = zoo_fit(card, "SSDDetector (256 px, width 64)", lambda:
+                        det.fit({"x": x, "boxes": boxes, "classes": cls},
+                                epochs=c["epochs"], batch_size=c["batch"]),
+                        c["batch"])
+    losses = [h["loss"] for h in hist]
+    dets = det.detect(x[:c["detect"]], batch_size=c["batch"])
+    hits = 0
+    for i, d in enumerate(dets):
+        if len(d["scores"]):
+            b, g = d["boxes"][0], boxes[i, 0]
+            yx1, yx2 = np.maximum(b[:2], g[:2]), np.minimum(b[2:], g[2:])
+            inter = float(np.prod(np.clip(yx2 - yx1, 0, None)))
+            union = float(np.prod(b[2:] - b[:2]) + np.prod(g[2:] - g[:2])
+                          - inter)
+            hits += inter / max(union, 1e-9) > 0.3
+    print(f"  epoch losses {[round(v, 4) for v in losses]} (last below half "
+          f"the first); detect: {hits} of {c['detect']} training images "
+          f"localised (IoU > 0.3)")
+    if not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError("16b SSDDetector: the loss did not halve")
+    fig.update(epoch_losses=losses, localised=hits)
+    del det
+    free_memory()
+    return fig
+
+
+def text_gan(dev, card):
+    """16b: ``GANEstimator`` with MLPs at MNIST width, 100 steps of
+    minimax, then 100 of wasserstein at ``d_steps=5``."""
+    c = TEXT_GAN
+    rng = np.random.default_rng(168)
+    basis = rng.standard_normal((16, c["out"])).astype(np.float32)
+    real = np.tanh(rng.standard_normal((c["rows"], 16)).astype(np.float32)
+                   @ basis / 4).astype(np.float32)
+    out = {}
+    for loss, d_steps in (("minimax", 1), ("wasserstein", c["wgan_d_steps"])):
+        torch.manual_seed(0)
+        est = GANEstimator(TextGen(c["noise"], c["hidden"], c["out"]),
+                           TextDisc(c["out"], c["hidden"]), loss=loss,
+                           noise_dim=c["noise"], d_steps=d_steps, device=dev)
+        hist, secs = host_timed(lambda: est.fit(real, epochs=1,
+                                                batch_size=c["batch"]))
+        h = hist[0]
+        shape = est.generate(16).shape
+        finite = bool(np.isfinite(h["d_loss"]) and np.isfinite(h["g_loss"]))
+        print(f"  [{card}] GANEstimator {loss} (d_steps {d_steps}): "
+              f"{h['steps']} steps in {secs:.2f} s ({h['steps'] / secs:.1f} "
+              f"steps/s, the first step included); "
+              f"mean d_loss {h['d_loss']:.4f}, g_loss {h['g_loss']:.4f}; "
+              f"generate(16) {shape}")
+        if not finite or h["steps"] != c["steps"] or \
+                shape != (16, c["out"]):
+            raise AssertionError(f"16b GAN {loss}: {h}, {shape}")
+        out[loss] = {"steps_per_s": h["steps"] / secs, "d_loss": h["d_loss"],
+                     "g_loss": h["g_loss"]}
+    return out
+
+
+def phase_text(dev, card):
+    """Phase 16: 16a, then 16b's main paths in bf16 at the reference
+    examples' shapes; none of the four attention kernels may launch:
+    every counter is set to 0 first and must read 0 after."""
+    t0 = time.monotonic()
+    fa.paged_attention_fused.launches = 0
+    reset_flash()
+    free_memory()
+    out = {"16a": phase_text_parity(dev)}
+    print("== phase 16b: the text and zoo main paths, bf16, the reference "
+          "examples' shapes, synthetic data from a seed")
+    out["news20"] = text_news20(dev, card)
+    out["knrm"] = text_knrm(dev, card)
+    out["taggers"] = text_taggers(dev, card)
+    out["seq2seq"] = text_seq2seq(dev, card)
+    out["anomaly"] = text_anomaly(dev, card)
+    out["ssd"] = text_ssd(dev, card)
+    out["gan"] = text_gan(dev, card)
+    after = zoo_launches()
+    print(f"  paged / flash forward / flash backward / delta launches "
+          f"during phase 16: {after}")
+    if after != (0, 0, 0, 0):
+        raise AssertionError("phase 16 launched an attention kernel")
+    out["reduced"] = []
+    out["seconds"] = time.monotonic() - t0
+    free_memory()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 14: the fine-tuning remainder — LoRA, the fused loss, distillation,
 # weight-only quantization, the profiler hook, debug_nans, fault injection
 # ---------------------------------------------------------------------------
@@ -6537,6 +7479,13 @@ def main() -> int:
         print(json.dumps({"image": image, "tcmf": tcmf}))
         return 0
 
+    if sys.argv[1:2] == ["--text"]:
+        text = phase_text(dev, card)
+        lap("phase 16")
+        print(card)
+        print(json.dumps({"text": text}))
+        return 0
+
     if sys.argv[1:2] == ["--finetune"]:
         # phase 1 and phase 14 on a TinyLlama built as phase 6b builds it
         phase_build()
@@ -6618,6 +7567,8 @@ def main() -> int:
     lap("phase 12")
     image, tcmf = phase_image(dev, card)
     lap("phase 13")
+    text = phase_text(dev, card)
+    lap("phase 16")
     for e in kernels:
         # each kernel's launches in phase 8b's two servers (the paged
         # server reads through paged, the arena prefills through flash);
@@ -6645,7 +7596,7 @@ def main() -> int:
         "modes": modes["runs"], "witness": modes["witness"],
         "serving_modes": serving_modes, "bert": bert, "zoo": zoo,
         "image": image, "tcmf": tcmf, "finetune": finetune,
-        "tools": tools}))
+        "tools": tools, "text": text}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -46,6 +46,8 @@ from analytics_zoo_tpu_torch.models.transformer import (
     BERT, BERTForSequenceClassification, params_from_flax)
 from analytics_zoo_tpu_torch.serving import (ClusterServing, HttpFrontend,
                                              ServingConfig)
+from analytics_zoo_tpu_torch.data.text import TextSet
+from analytics_zoo_tpu_torch.models.text import KNRM
 from analytics_zoo_tpu_torch.tfpark.text import (BERTClassifier,
                                                  KNRMEstimator)
 
@@ -125,10 +127,15 @@ def test_bert_classifier_matches_jax(weights, mesh8):
         est.predict({"input_ids": feats["input_ids"]}, batch_size=8),
         np.asarray(ref_est.predict({"input_ids": feats["input_ids"]},
                                    batch_size=8)), atol=_ATOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        est.fit([feats["input_ids"]], epochs=1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        KNRMEstimator(128)
+    # a TextSet input is accepted (its token ids feed the model)
+    ts = TextSet.from_texts(["a b c d", "b c d e f", "c a a"] * 3,
+                            [0, 1, 0] * 3).tokenize().word2idx() \
+        .shape_sequence(16)
+    hist = est.fit(ts, epochs=1, batch_size=8, feature_cols=("tokens",))
+    assert np.isfinite(hist[0]["loss"]) and hist[0]["num_samples"] == 8.0
+    # and the text-matching estimator builds
+    assert isinstance(KNRMEstimator(128, embed_dim=8, kernel_num=3,
+                                    device="cpu").model, KNRM)
     with pytest.raises(NotImplementedError, match="item 6"):
         BERTClassifier(2, partition_rules=(), device="cpu")
 

@@ -82,7 +82,16 @@ def test_scan_reaches_every_port_module():
             "analytics_zoo_tpu_torch.native",
             "analytics_zoo_tpu_torch.data.image",
             "analytics_zoo_tpu_torch.data.feature_set",
-            "analytics_zoo_tpu_torch.data.readers"} <= mods
+            "analytics_zoo_tpu_torch.data.readers",
+            "analytics_zoo_tpu_torch.data.text",
+            "analytics_zoo_tpu_torch.models.text",
+            "analytics_zoo_tpu_torch.models.anomaly",
+            "analytics_zoo_tpu_torch.models.seq2seq",
+            "analytics_zoo_tpu_torch.models.detection",
+            "analytics_zoo_tpu_torch.tfpark",
+            "analytics_zoo_tpu_torch.tfpark.text.keras",
+            "analytics_zoo_tpu_torch.tfpark.gan",
+            "analytics_zoo_tpu_torch.tfpark.tf_dataset"} <= mods
 
 
 def test_forbidden_name_check_is_exact():

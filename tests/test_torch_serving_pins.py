@@ -1,8 +1,8 @@
 """The port's copies of the framework-free modules (serving, the
 training path's triggers, transforms and XShards, Zouwu's preprocessing
-and AutoTS, AutoML's search, and the host data plane: filesystem,
-native bindings, images, feature sets and readers), pinned to their
-reference sources.
+and AutoTS, AutoML's search, the host data plane: filesystem, native
+bindings, images, feature sets and readers, and the text pipeline and
+``TFDataset``), pinned to their reference sources.
 
 Each module of ``analytics_zoo_tpu_torch`` that is a copy of a module of
 ``analytics_zoo_tpu`` must parse to the same syntax tree as its
@@ -12,7 +12,9 @@ a closed list of top-level functions or methods per module that the
 port replaces, and of JAX imports a copy drops (``DROPPED``).  Each
 listed name must exist in both files and really differ, so the list
 cannot outgrow the port.  A copy that drifts from
-its reference fails here with the names that differ.
+its reference fails here with the names that differ.  A module the port
+rewrites on torch may keep a numpy host half of the reference's: those
+names alone are pinned (``PARTIAL_PINS``).
 """
 
 import ast
@@ -74,6 +76,17 @@ PINS = {
     # asks jax.process_index); both device_streams are the reference's
     # text, through the port's own loader.device_prefetch
     "data/feature_set.py": ("_host_path",),
+    # the text pipeline and the tfpark dataset adapter: numpy only
+    "data/text.py": (),
+    "tfpark/tf_dataset.py": (),
+}
+
+# modules the port rewrites on torch but for a numpy host half, which
+# stays the reference's: module -> the names pinned (each must parse to
+# the reference's tree after the rename, docstrings dropped)
+PARTIAL_PINS = {
+    "models/detection.py": ("DEFAULT_ASPECTS", "ssd_anchors",
+                            "_decode_boxes", "_nms", "decode_detections"),
 }
 
 # reference statements a copy leaves out: imports of JAX it does not use
@@ -155,11 +168,22 @@ def test_copy_matches_reference(rel):
         f"allowed to {sorted(allowed)}")
 
 
+@pytest.mark.parametrize("rel", sorted(PARTIAL_PINS))
+def test_host_half_matches_reference(rel):
+    ref = _items(_renamed_reference(rel))
+    port = _items((PORT / rel).read_text())
+    names = PARTIAL_PINS[rel]
+    missing = [n for n in names if n not in ref or n not in port]
+    assert not missing, (rel, missing)
+    differ = [n for n in names if ref[n] != port[n]]
+    assert not differ, (rel, differ)
+
+
 def test_every_copy_has_a_port_docstring():
     """Copied modules carry a docstring of their own that names the
     reference module they copy (the paged cache was copied verbatim
     earlier, docstring included)."""
-    for rel in PINS:
+    for rel in list(PINS) + list(PARTIAL_PINS):
         if rel == "serving/paged_cache.py":
             continue
         doc = ast.get_docstring(ast.parse((PORT / rel).read_text()))
