@@ -258,6 +258,10 @@ class TorchEstimator:
         train rank-r adapters on the frozen model.
       initial_variables: weights loaded into the model before training
         (see the module docstring).
+      param_loss: a callable ``model -> scalar`` added to the training
+        loss of every step (each micro-batch's) and to ``evaluate``'s
+        loss, as the reference adds its ``param_loss(params)`` (the
+        Keras API's regularizer penalty).
 
     The optimizer receives the parameters that train: the adapters under
     ``lora``, else the model's parameters that require a gradient.
@@ -269,8 +273,10 @@ class TorchEstimator:
                  label_cols: Sequence[str] = ("y",),
                  config: Optional[TrainConfig] = None, device=None,
                  lora: Optional[LoRAConfig] = None,
-                 initial_variables=None):
+                 initial_variables=None,
+                 param_loss: Optional[Callable] = None):
         self.config = config or TrainConfig()
+        self.param_loss = param_loss
         self.device = resolve_device(device)
         if initial_variables is not None:
             # before the move, so the device holds one copy
@@ -347,7 +353,7 @@ class TorchEstimator:
         else:
             with self._weights():
                 preds = self._forward(batch, train=True)
-                loss = self.loss_fn(preds, labels)
+                loss = self._loss(preds, labels)
                 loss.backward()
         if self.config.debug_nans:
             self._check_finite(loss)
@@ -369,7 +375,7 @@ class TorchEstimator:
             part = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
             with self._weights():
                 preds = self._forward(part, train=True, micro=i)
-                loss = self.loss_fn(preds, self._labels(part))
+                loss = self._loss(preds, self._labels(part))
                 loss.backward()
             losses.append(loss.detach())
             outs.append(preds)
@@ -382,6 +388,13 @@ class TorchEstimator:
             preds = torch.cat(outs) if isinstance(outs[0], torch.Tensor) \
                 else tuple(map(torch.cat, zip(*outs)))
         return sum(losses) / accum, preds
+
+    def _loss(self, preds, labels):
+        """The training loss: ``loss_fn`` plus ``param_loss``."""
+        loss = self.loss_fn(preds, labels)
+        if self.param_loss is not None:
+            loss = loss + self.param_loss(self.model)
+        return loss
 
     def _check_finite(self, loss) -> None:
         """``debug_nans``: the step's loss and gradients must be finite
@@ -414,6 +427,9 @@ class TorchEstimator:
 
         denom = torch.clamp(weights.sum(), min=1.0)
         mets = {"loss": (per_sample(self.loss_fn) * weights).sum() / denom}
+        if self.param_loss is not None:
+            # keras includes the penalty in evaluate's loss
+            mets["loss"] = mets["loss"] + self.param_loss(self.model)
         for name, fn in self.metric_fns:
             mets[name] = (per_sample(fn) * weights).sum() / denom
         return mets
@@ -796,6 +812,10 @@ class Estimator:
         if optimizer is None:
             optimizer = 1e-3
         return TorchEstimator(model, loss or "mse", optimizer, **kw)
+
+    # The reference's ``from_keras`` is its ``from_flax``, which takes
+    # its Keras-API models; here they are torch modules.
+    from_keras = from_torch
 
     @staticmethod
     def from_openvino(*, model_path: Optional[str] = None,

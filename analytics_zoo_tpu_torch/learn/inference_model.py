@@ -45,13 +45,20 @@ port's translator (``net/openvino_ir.py``); ``quantize="int8"`` or
 ``"bf16"`` quantizes the IR's ``params`` as the reference does (the
 same int8 values, scales and ``quant_stats``), and each ``predict``
 dequantizes them.  ``load_torch`` also takes a path that ``torch.load``
-reads.  ``load_flax`` (item 8) and ``load_tf`` (the TensorFlow importer,
-Queue 1 item 4) raise ``NotImplementedError``.
+reads.  ``load_tf`` (the TensorFlow importer, Queue 1 item 4) raises
+``NotImplementedError``.
+
+:meth:`InferenceModel.load_flax` serves a port model with the
+reference's variables tree, a Keras-API model first, with ``quantize``
+``None``, ``"int8"``, ``"bf16"`` or ``"int8_mxu"`` (int8 x int8 -> int32
+Dense and Conv products; the one loader that takes it, as in the
+reference: the others raise its ``ValueError``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -87,6 +94,54 @@ def filter_prompt_buckets(prompt_buckets: Sequence[int],
 def _later(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def _tree_items(tree, path=()):
+    """``(path, leaf)`` of a nested dict."""
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        for k, v in tree.items():
+            yield from _tree_items(v, path + (str(k),))
+    else:
+        yield path, tree
+
+
+def _unflatten(flat: dict) -> dict:
+    """``{(k1, k2, ...): leaf}`` as the nested dict."""
+    out: dict = {}
+    for path, leaf in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def _attach_int8(leaf, q: dict) -> bool:
+    """Put the int8 kernel ``q`` (the reference's layout, on the card:
+    ``learn.quantize``'s ``{"q", "scale", "view"}``) on
+    the port module that computes the reference's ``nn.Dense``/``nn.Conv``
+    of ``leaf``, as its interceptor would take it; False where the
+    reference keeps the float path (an ``OptimizedLSTMCell``'s gates,
+    whose kernels are not ``nn.Dense`` calls, a ``ConvTranspose``)."""
+    from torch import nn
+
+    from analytics_zoo_tpu_torch.models import rnn
+
+    mod, cell = leaf.module, leaf.cell
+    if cell is not None:
+        if isinstance(cell, rnn.LSTMCell):
+            return False
+        g = 0 if leaf.rows is None else leaf.rows.start // cell.features
+        gates = getattr(mod, "int8_gates", None) or [None] * cell.gates
+        gates[g] = q
+        mod.int8_gates = gates
+        return True
+    if isinstance(mod, (nn.Linear, nn.modules.conv._ConvNd)):
+        mod.int8 = q
+        # the int8 kernel serves: release the float one
+        mod.weight.data = torch.empty(0, device=mod.weight.device)
+        return True
+    return False
 
 
 def _torch_dtype(dtype) -> Optional[torch.dtype]:
@@ -144,6 +199,8 @@ class InferenceModel:
         self._qstate: Optional[dict] = None
         self._quant_lock = threading.Lock()
         self.quant_stats: Optional[dict] = None
+        # load_flax(quantize="int8_mxu"): the layers on int8 products
+        self.int8_layers = 0
 
     # ---- loading -----------------------------------------------------
 
@@ -400,8 +457,114 @@ class InferenceModel:
             qos=qos, flight=flight, flight_capacity=flight_capacity,
             device=self.device, **spec)
 
-    def load_flax(self, model, variables, quantize=None):
-        raise _later("InferenceModel.load_flax (flax modules)", "8")
+    def load_flax(self, model, variables, quantize: Optional[str] = None,
+                  device=None) -> "InferenceModel":
+        """Serve a port model that has a reference counterpart with the
+        reference's variables tree ``{"params": ..., ["batch_stats":
+        ...]}`` (numpy leaves), on ``device`` (``cuda`` unless the caller
+        names another), as :meth:`load_torch` serves a module.
+
+        ``model``: a Keras-API model (``keras.Sequential``/``Model``, or
+        one layer), built from the tree through
+        ``keras.engine.set_variables`` (an unbuilt model builds from its
+        known input shapes first), or any port module whose weights its
+        own module's ``params_from_flax`` (``models.lm``'s,
+        ``models.transformer``'s), else ``models.layers.params_from_flax``
+        (and ``batch_stats_from_flax``), carries.
+
+        ``quantize``: ``None``, ``"int8"`` (weight-only, per-channel
+        symmetric int8), ``"bf16"`` (bf16 weights, f32 compute, as the
+        reference promotes) or ``"int8_mxu"``: the reference's tree is
+        quantized as the reference quantizes it
+        (``learn.quantize.quantize_tree``; ``quant_stats`` its byte
+        counts).  A Keras model keeps the quantized leaves on the device
+        and each ``predict`` dequantizes them into its weights (a leaf
+        that shares a tensor with others, a recurrent cell's gate, is
+        dequantized once at load); another module is loaded with the
+        dequantized weights.  ``"int8_mxu"`` (Keras models only)
+        additionally runs every plain Dense and Conv whose kernel was
+        quantized (the reference interceptor's set: not an
+        ``OptimizedLSTMCell``'s gates, a ``ConvTranspose``, a locally
+        connected or embedding table, which stay on the dequantized
+        weights) as int8 x int8 -> int32 products with dynamic
+        per-tensor activation scales; ``int8_layers`` counts them."""
+        from analytics_zoo_tpu_torch.device import resolve_device
+        from analytics_zoo_tpu_torch.keras.engine import (KerasNet, Layer,
+                                                         flax_leaves,
+                                                         set_variables)
+        from analytics_zoo_tpu_torch.learn.quantize import (dequantize,
+                                                            quantize_params)
+        from analytics_zoo_tpu_torch.models.layers import (
+            batch_stats_from_flax, params_from_flax)
+
+        if quantize not in (None, "int8", "bf16", "int8_mxu"):
+            raise ValueError(f"unknown quantize mode {quantize!r} "
+                             f"(int8|bf16|int8_mxu)")
+        keras = isinstance(model, Layer)
+        if quantize == "int8_mxu" and not keras:
+            raise _later("quantize='int8_mxu' for a module outside the "
+                         "Keras API", "8.5")
+        dev = resolve_device(device)
+        # the reference's leaves, keyed by (collection, *path)
+        flat = {path: torch.as_tensor(np.array(leaf)) for path, leaf in
+                _tree_items({k: variables[k] for k in ("params",
+                                                        "batch_stats")
+                             if k in variables})}
+        new, stats = flat, None
+        if quantize:
+            new, stats = quantize_params(
+                flat, "int8" if quantize == "int8_mxu" else quantize,
+                model=None)
+        deq = _unflatten(dequantize(new))
+        if isinstance(model, KerasNet):
+            model.ensure_built()
+        if keras:
+            set_variables(model, deq)
+        else:
+            # the model's own module's converter where it has one (the
+            # LM's, BERT's), else the generic one
+            convert = getattr(sys.modules.get(type(model).__module__),
+                              "params_from_flax", params_from_flax)
+            model.load_state_dict({
+                **convert(deq["params"]),
+                **batch_stats_from_flax(deq.get("batch_stats", {}))})
+        self.load_torch(model, device=dev)
+        self.quant_stats = stats
+        self.int8_layers = 0
+        if not (quantize and keras):
+            return self
+        leaves = {lf.path: lf for lf in flax_leaves(model)
+                  if lf.collection == "params"}
+        rest = []   # (leaf, its quantized value on the card), at rest
+        for key, v in new.items():
+            if v is flat[key]:
+                continue            # not quantized
+            path = key[1:]
+            lf = leaves[path]
+            v = ({k: t.to(dev) if torch.is_tensor(t) else t
+                  for k, t in v.items()} if isinstance(v, dict)
+                 else v.to(dev))
+            if quantize == "int8_mxu" and path[-1] == "kernel" and \
+                    _attach_int8(lf, v):
+                self.int8_layers += 1
+            elif lf.rows is None:
+                rest.append((lf, v))
+                lf.tensor.data = torch.empty(0, device=dev)
+        inner = self._apply_fn
+
+        def apply_fn(*feats):
+            with self._quant_lock:
+                for lf, v in rest:
+                    w = dequantize({"w": v})["w"]
+                    lf.tensor.data = lf.port_value(w).contiguous()
+                try:
+                    return inner(*feats)
+                finally:
+                    for lf, _ in rest:
+                        lf.tensor.data = torch.empty(0, device=dev)
+
+        self._apply_fn = apply_fn
+        return self
 
     def load_openvino(self, xml_path: str, bin_path: str = None,
                       quantize: Optional[str] = None,

@@ -29,15 +29,31 @@ the same transposition as ``params_from_flax``, and ``stats`` counts the
 reference's bytes.  An int8 weight is a dict ``{"q": int8 tensor in the
 port's layout, "scale": f32 tensor, "view": shape}``: :func:`dequantize`
 multiplies ``q`` viewed as ``view`` (the axis that holds the leaf's last
-axis split in two) by ``scale``.  ``"int8_mxu"`` (int8 matmuls) is not
-ported: it waits for ``load_flax`` (ROADMAP Queue 1 item 8.4).
+axis split in two) by ``scale``.
+
+``InferenceModel.load_flax`` quantizes the reference's own leaves as
+they are (``model=None``), and only it takes ``"int8_mxu"``: activations quantized per tensor at run time
+(:func:`dyn_quant`: ``max|x| / 127`` floored at 1e-12, rounded half to
+even, clipped to +-127), then int8 x int8 -> int32 products
+(:func:`int8_matmul`) rescaled in f32 by ``x_scale * w_scale`` and
+biased (:func:`int8_dense`, :func:`int8_conv`: the reference's
+``_dense_int8`` and ``_conv_int8``).  On the card the product is
+``torch._int_mm`` (cuBLASLt's int8 tensor-core GEMM; the reference's
+``lax.dot_general(preferred_element_type=int32)`` is no Pallas kernel
+either), its operands padded with zeros to what it takes (more than 16
+rows, widths a multiple of 8) and the result sliced; on the CPU the
+same product in float64, exact for int8 operands below 2^53.  A conv
+multiplies its int8 patches (a strided view of the zero-padded input,
+channel-last, one group at a time) by the kernel ``[*k * in, out]``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.models.layers import FlaxLeaf, flax_leaf
@@ -114,3 +130,119 @@ def dequantize(params: dict) -> Dict[str, torch.Tensor]:
         else:
             out[name] = v
     return out
+
+
+# ---------------------------------------------------------------------------
+# the reference's tree (load_flax) and int8 x int8 -> int32 execution
+# ---------------------------------------------------------------------------
+
+
+def dyn_quant(x: torch.Tensor):
+    """The reference's ``_dyn_quant``: per-tensor ``max|x| / 127``
+    floored at 1e-12 (a tensor divisor: CUDA would take a Python number
+    as a reciprocal product), ``x / scale`` rounded half to even and
+    clipped to +-127.  Returns ``(int8 x, f32 scale)``."""
+    amax = torch.amax(torch.abs(x))
+    xs = torch.clamp(amax / amax.new_tensor(127.0), min=1e-12)
+    xq = torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
+    return xq, xs.to(torch.float32)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] @ b [K, N]`` for int8 operands, exact, in int32.  On a
+    CUDA tensor ``torch._int_mm`` (the int8 tensor cores; counted in
+    ``int8_matmul.launches``) on operands padded with zeros to more than
+    16 rows and widths a multiple of 8; on the CPU its plain version in
+    float64."""
+    if not a.is_cuda:
+        return (a.double() @ b.double()).to(torch.int32)
+    M, K = a.shape
+    N = b.shape[1]
+    Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
+    if (Mp, Kp) != (M, K):
+        a = F.pad(a, (0, Kp - K, 0, Mp - M))
+    if (Kp, Np) != (K, N):
+        b = F.pad(b, (0, Np - N, 0, Kp - K))
+    _launch_count.launches += 1
+    out = torch._int_mm(a.contiguous(), b.contiguous())
+    return out[:M, :N]
+
+
+int8_matmul.launches = 0
+# the count stays on this function when a caller wraps the module name
+_launch_count = int8_matmul
+
+
+def _rescale(acc: torch.Tensor, xs: torch.Tensor, q: dict, bias,
+             dtype) -> torch.Tensor:
+    """The reference's ``acc.astype(f32) * (xs * ws)`` (+ bias)."""
+    y = acc.to(torch.float32) * (xs * q["scale"].reshape(-1))
+    if bias is not None:
+        y = y + bias
+    return y.to(dtype) if dtype != torch.float32 else y
+
+
+def int8_dense(x: torch.Tensor, q: dict, bias=None) -> torch.Tensor:
+    """flax ``nn.Dense`` on the int8 path: ``q["q"]`` is the kernel ``[in,
+    out]`` in int8, ``q["scale"]`` its per-output scales."""
+    xq, xs = dyn_quant(x)
+    K, N = q["q"].shape
+    acc = int8_matmul(xq.reshape(-1, K), q["q"]).reshape(x.shape[:-1] + (N,))
+    return _rescale(acc, xs, q, bias, x.dtype)
+
+
+# int8 patch elements copied for one product (128 MiB): bounds im2col's
+# memory for a large batch
+_PATCH_ELEMS = 1 << 27
+
+
+def conv_int32(xq: torch.Tensor, wq: torch.Tensor, strides, pads, dilation,
+               groups: int = 1) -> torch.Tensor:
+    """lax ``conv_general_dilated`` of int8 ``xq [B, *sp, C]`` (channels
+    last) by the int8 kernel ``wq [*k, C / groups, out]`` with
+    ``preferred_element_type=int32``: the patches of the zero-padded
+    input (a strided view), one product a group, whole images at a time
+    up to ``_PATCH_ELEMS`` patch elements."""
+    nsp = xq.dim() - 2
+    B, C = xq.shape[0], xq.shape[-1]
+    kernel = tuple(wq.shape[:nsp])
+    if any(lo or hi for lo, hi in pads):
+        full = xq.new_zeros((B,) + tuple(
+            n + lo + hi for n, (lo, hi) in zip(xq.shape[1:-1], pads)) + (C,))
+        full[(slice(None),) + tuple(slice(lo, lo + n) for n, (lo, _) in
+                                    zip(xq.shape[1:-1], pads))] = xq
+        xq = full
+    p = xq
+    for d, (k, s, r) in enumerate(zip(kernel, strides, dilation)):
+        p = p.unfold(1 + d, (k - 1) * r + 1, s)
+        if r > 1:
+            p = p[..., ::r]
+    # [B, *out, C, *k] -> [B, *out, *k, C]
+    p = p.permute((0,) + tuple(range(1, 1 + nsp))
+                  + tuple(range(2 + nsp, 2 + 2 * nsp)) + (1 + nsp,))
+    out_sp = tuple(p.shape[1:1 + nsp])
+    cg, og = C // groups, wq.shape[-1] // groups
+    kk = math.prod(kernel)
+    p = p.reshape(B, -1, kk, groups, cg)
+    w = wq.reshape(kk, cg, groups, og)
+    rows = p.shape[1]
+    per = max(1, _PATCH_ELEMS // max(1, rows * kk * cg))
+    outs = []
+    for b0 in range(0, B, per):
+        part = p[b0:b0 + per]
+        accs = [int8_matmul(part[:, :, :, g].reshape(-1, kk * cg),
+                            w[:, :, g].reshape(kk * cg, og))
+                for g in range(groups)]
+        acc = accs[0] if groups == 1 else torch.cat(accs, dim=-1)
+        outs.append(acc.reshape((part.shape[0],) + out_sp + (-1,)))
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def int8_conv(x: torch.Tensor, q: dict, bias, strides, pads, dilation,
+              groups: int = 1) -> torch.Tensor:
+    """flax ``nn.Conv`` on the int8 path (channels-last ``x``; ``pads``
+    the (low, high) of each spatial dim): the reference's
+    ``_conv_int8``."""
+    xq, xs = dyn_quant(x)
+    acc = conv_int32(xq, q["q"], strides, pads, dilation, groups)
+    return _rescale(acc, xs, q, bias, x.dtype)

@@ -260,44 +260,52 @@ def max_pool_same(x: torch.Tensor, window: int, stride: int
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(dtype=float32)`` (momentum 0.99, epsilon
-    1e-5) over dim 1 of ``x [N, C, ...]``: ``weight`` and ``bias``
-    (flax's ``scale`` and ``bias``), and the buffers ``running_mean`` and
-    ``running_var`` (its ``batch_stats``).
+    """flax ``nn.BatchNorm(dtype=float32)`` over the channel dim
+    ``axis`` (1 by default: ``x [N, C, ...]``; Keras's
+    ``BatchNormalization`` passes -1, channels-last), with flax's
+    ``momentum`` (0.99) and ``epsilon`` (1e-5 here, the image models'):
+    ``weight`` and ``bias`` (flax's ``scale`` and ``bias``), and the
+    buffers ``running_mean`` and ``running_var`` (its ``batch_stats``).
 
     ``forward(x, train)``: with ``train`` the statistics of ``x`` in f32
     (f64 stays f64, as flax promotes), the variance the biased ``max(0,
-    E[x^2] - E[x]^2)``, and the running buffers move ``0.99 * old + 0.01 *
-    batch`` (the biased variance, not the unbiased one ``F.batch_norm``
-    would store); without ``train`` the running statistics, untouched.
-    The output is f32."""
+    E[x^2] - E[x]^2)``, and the running buffers move ``momentum * old +
+    (1 - momentum) * batch`` (the biased variance, not the unbiased one
+    ``F.batch_norm`` would store); without ``train`` the running
+    statistics, untouched.  The output is f32."""
 
     MOMENTUM = 0.99
     EPS = 1e-5
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, momentum: float = MOMENTUM,
+                 epsilon: float = EPS, axis: int = 1):
         super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.axis = axis
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        shape = (1, -1) + (1,) * (x.ndim - 2)
+        axis = self.axis % x.ndim
+        shape = [1] * x.ndim
+        shape[axis] = -1
         if train:
-            axes = (0,) + tuple(range(2, x.ndim))
+            axes = tuple(i for i in range(x.ndim) if i != axis)
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(axes)
             var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
             with torch.no_grad():
-                m = self.MOMENTUM
+                m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
                                         + (1.0 - m) * mean)
                 self.running_var.copy_(m * self.running_var
                                        + (1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.EPS) * self.weight
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
         return (x - mean.view(shape)) * mul.view(shape) + \
             self.bias.view(shape)
 
@@ -378,9 +386,8 @@ def params_from_flax(params: Mapping, prefix: str = ""
             out.update(params_from_flax({"c_h": sub["c_h"]}, key + "."))
         elif "kernel" in keys and keys <= {"kernel", "bias"}:
             k = np.asarray(sub["kernel"], np.float32)
-            out[key + ".weight"] = _t(
-                k.T if k.ndim == 2 else k.transpose(2, 1, 0)
-                if k.ndim == 3 else k.transpose(3, 2, 0, 1))
+            out[key + ".weight"] = _t(k.T if k.ndim == 2 else k.transpose(
+                (k.ndim - 1, k.ndim - 2) + tuple(range(k.ndim - 2))))
             if "bias" in keys:
                 out[key + ".bias"] = _t(sub["bias"])
         elif keys == {"scale", "bias"}:
@@ -440,7 +447,9 @@ class FlaxLeaf:
 def flax_leaf(model: nn.Module, name: str) -> FlaxLeaf:
     """The reference leaf behind ``model``'s tensor ``name`` (a
     ``state_dict`` key): an embedding table and a tensor of one dim as
-    they are, a Dense kernel ``[in, out]`` transposed, a Conv kernel
+    they are (and every tensor of a module whose ``flax_layout`` is true,
+    which keeps the reference's leaves as they are), a Dense kernel
+    ``[in, out]`` transposed, a Conv kernel
     ``[*k, in, out]`` as ``[out, in, *k]``, and an attention projection's
     head axes folded (:data:`HEAD_FOLDS`; a q/k/v bias is ``[H, D]``)."""
     owner_name, _, attr = name.rpartition(".")
@@ -455,7 +464,8 @@ def flax_leaf(model: nn.Module, name: str) -> FlaxLeaf:
         return FlaxLeaf(shape, (s[1], out), (1, 0))
     if n_in == 1 and attr == "bias":
         return FlaxLeaf((s[0] // parent._d, parent._d), s, (0,))
-    if isinstance(owner, nn.Embedding) or len(s) < 2:
+    if isinstance(owner, nn.Embedding) or len(s) < 2 or \
+            getattr(owner, "flax_layout", False):
         return FlaxLeaf(s, s, tuple(range(len(s))))
     k = len(s) - 2
     folded = tuple(s[2:]) + (s[1], s[0])

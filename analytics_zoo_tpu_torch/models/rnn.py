@@ -57,10 +57,13 @@ class _Cell(nn.Module):
 
     def __init__(self, in_features: Optional[int], features: int,
                  dtype: Optional[torch.dtype], input_bias: bool,
-                 hidden_bias: bool):
+                 hidden_bias: bool, gate_fn=None, activation_fn=None):
         super().__init__()
         self.features = features
         self.dtype = dtype
+        # flax's gate_fn / activation_fn; None: sigmoid / tanh
+        self.gate_fn = gate_fn
+        self.activation_fn = activation_fn
         self.i = make_dense(in_features, self.gates * features, input_bias)
         self.h = nn.Linear(features, self.gates * features, bias=hidden_bias)
         # flax: orthogonal recurrent kernels (one a gate), zero biases
@@ -90,14 +93,17 @@ class _Cell(nn.Module):
 
 
 class LSTMCell(_Cell):
-    """flax ``nn.LSTMCell``; the carry is ``(c, h)``."""
+    """flax ``nn.LSTMCell`` (and ``nn.OptimizedLSTMCell``, which has its
+    parameters); the carry is ``(c, h)``."""
 
     gates = 4
 
     def __init__(self, in_features: Optional[int], features: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, gate_fn=None,
+                 activation_fn=None):
         super().__init__(in_features, features, dtype, input_bias=False,
-                         hidden_bias=True)
+                         hidden_bias=True, gate_fn=gate_fn,
+                         activation_fn=activation_fn)
 
     def initial_carry(self, batch: int, device):
         z = super().initial_carry(batch, device)
@@ -115,8 +121,10 @@ class LSTMCell(_Cell):
         c, h = carry
         g = xp + F.linear(h.to(xp.dtype), weights[0])
         i, f, gg, o = g.chunk(4, dim=-1)
-        new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
-        new_h = torch.sigmoid(o) * torch.tanh(new_c)
+        gate = self.gate_fn or torch.sigmoid
+        act = self.activation_fn or torch.tanh
+        new_c = gate(f) * c + gate(i) * act(gg)
+        new_h = gate(o) * act(new_c)
         return (new_c, new_h), new_h
 
 
@@ -127,9 +135,11 @@ class GRUCell(_Cell):
     gates = 3
 
     def __init__(self, in_features: Optional[int], features: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, gate_fn=None,
+                 activation_fn=None):
         super().__init__(in_features, features, dtype, input_bias=True,
-                         hidden_bias=False)
+                         hidden_bias=False, gate_fn=gate_fn,
+                         activation_fn=activation_fn)
         self.hn_bias = nn.Parameter(torch.zeros(features))
 
     def step_weights(self, dt):
@@ -140,20 +150,22 @@ class GRUCell(_Cell):
         hp = F.linear(h.to(xp.dtype), w)
         xr, xz, xn = xp.chunk(3, dim=-1)
         hr, hz, hn = hp.chunk(3, dim=-1)
-        r = torch.sigmoid(xr + hr)
-        z = torch.sigmoid(xz + hz)
-        n = torch.tanh(xn + r * (hn + bn))
+        gate = self.gate_fn or torch.sigmoid
+        r = gate(xr + hr)
+        z = gate(xz + hz)
+        n = (self.activation_fn or torch.tanh)(xn + r * (hn + bn))
         new_h = (1.0 - z) * n + z * h
         return new_h, new_h
 
 
 class SimpleCell(_Cell):
-    """flax ``nn.SimpleCell`` (tanh, not residual)."""
+    """flax ``nn.SimpleCell`` (tanh unless ``activation_fn``, not
+    residual)."""
 
     def __init__(self, in_features: Optional[int], features: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, activation_fn=None):
         super().__init__(in_features, features, dtype, input_bias=True,
-                         hidden_bias=False)
+                         hidden_bias=False, activation_fn=activation_fn)
 
     def step_weights(self, dt):
         if dt != torch.float32:
@@ -164,7 +176,8 @@ class SimpleCell(_Cell):
         return (self.h.weight.to(dt),)
 
     def step(self, h, xp, weights):
-        new_h = torch.tanh(xp + F.linear(h.to(xp.dtype), weights[0]))
+        new_h = (self.activation_fn or torch.tanh)(
+            xp + F.linear(h.to(xp.dtype), weights[0]))
         return new_h, new_h
 
 

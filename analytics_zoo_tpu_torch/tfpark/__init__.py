@@ -5,8 +5,9 @@ suite (``analytics_zoo_tpu/tfpark/__init__.py``), backed by the port.
 - ``TFPredictor``: ``learn.InferenceModel``;
 - ``GANEstimator``: ``tfpark.gan``; ``TFDataset``: ``tfpark.tf_dataset``;
 - ``text``: the NLP estimators (``tfpark.text``);
-- ``KerasModel``: wraps the Keras-style API's models, which are not
-  ported yet (ROADMAP Queue 1 item 8.4's Keras part); it raises.
+- ``KerasModel``: the Keras-style API's models (``keras/``), which
+  already carry compile/fit/evaluate/predict: it returns one unchanged
+  and raises ``TypeError`` for anything else, as the reference does.
 """
 
 from analytics_zoo_tpu_torch.learn.estimator import Estimator as TFEstimator
@@ -18,13 +19,16 @@ from analytics_zoo_tpu_torch.tfpark import text  # noqa: F401 (NLP estimators)
 
 
 def KerasModel(model):
-    """The reference's ``tfpark.KerasModel`` returns a model of its
-    Keras-style API; that API (``keras/``, ``autograd.py``) is not
-    ported yet."""
-    raise NotImplementedError(
-        "tfpark.KerasModel wraps the Keras-style API (keras/, "
-        "autograd.py), which is not ported yet (ROADMAP Queue 1 item "
-        "8.4, its Keras part)")
+    """ref-parity: ``tfpark.KerasModel`` wrapped a compiled tf.keras
+    model; the port's Keras models already carry compile/fit/evaluate/
+    predict."""
+    from analytics_zoo_tpu_torch.keras.engine import KerasNet
+
+    if not isinstance(model, KerasNet):
+        raise TypeError(
+            f"KerasModel wraps analytics_zoo_tpu_torch.keras models, got "
+            f"{type(model).__name__}")
+    return model
 
 
 __all__ = ["TFEstimator", "TFPredictor", "KerasModel", "GANEstimator",

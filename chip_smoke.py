@@ -390,12 +390,33 @@ fails.  Phases, in order:
    defaults at 256 px (the last epoch's loss below half the first,
    ``detect``'s hits); ``GANEstimator`` at MNIST width (minimax, then
    wasserstein at ``d_steps=5``).  Each fit prints 11b's figures.
+17. The Keras-1.2 API and autograd (run after 16), which reach none of
+   the four kernels either (the counters are set to 0 before the phase
+   and must read 0 after).  17a, f32 with TF32 off: a functional model
+   across the layer families (a strided SAME conv, a separable conv,
+   BatchNorm, max and average pooling, a transposed conv, a
+   bidirectional LSTM, TimeDistributed, a backwards GRU, merge,
+   Highway) card vs CPU within ``KERAS_TOL``; a 5-step SGD fit with an
+   L2 penalty by phase 3's rule; ``load_flax(quantize="int8_mxu")`` on
+   the card and the CPU from one tree: every ``torch._int_mm`` result
+   bitwise equal to the float64 product of its int8 operands, every
+   int32 accumulator bitwise equal to the CPU's, the outputs within
+   ``KERAS_TOL``.  17b, full width, synthetic data from a seed:
+   LeNet-5 through ``Sequential`` at MNIST's shape (128 x 28 x 28 x 1,
+   ``compile("adam")``, a planted 10-class task; held-out accuracy above
+   0.9); an IMDB-shaped functional model (``Embedding(20000, 128)``,
+   ``Bidirectional(LSTM(64))``, ``Dense(1)``, 64 x 200) trained with an
+   ``autograd.custom_loss``, with one profiled step (the device's busy
+   share); VGG-16 (configuration D, 138.4 M parameters) served through
+   ``InferenceModel.load_flax`` at 32 x 224 in each quantize mode
+   (predict ms, images/s, weight bytes, max |delta| and top-1 agreement
+   against f32, 16 int8 layers for ``int8_mxu``).
 
 The line before the last is ``{"kernels": [...], "stack": ..., "modes":
 [phase 9b's runs], "witness": {...}, "serving_modes": {phase 10},
 "bert": {phase 11b}, "zoo": {phase 12}, "image": {phase 13a-d},
 "tcmf": {phase 13e}, "finetune": {phase 14}, "tools": {phase 15},
-"text": {phase 16}}``;
+"text": {phase 16}, "keras": {phase 17}}``;
 the last is ``{"ok": true,
 "device": {...}}``.  On a failure the script waits for the card (so
 that a device-side assert's lines come out first), then prints
@@ -425,7 +446,8 @@ alternating processes).  ``python3 chip_smoke.py --bert`` runs phase 1,
 11b's figures as its last line.  ``python3 chip_smoke.py --zoo`` runs
 phase 12 only and prints its figures as its last line;
 ``python3 chip_smoke.py --image`` runs phase 13 only, likewise, and
-``python3 chip_smoke.py --text`` phase 16.
+``python3 chip_smoke.py --text`` phase 16 and ``python3 chip_smoke.py
+--keras`` phase 17.
 ``python3 chip_smoke.py --finetune`` runs phase 1 and phase 14 (on a
 TinyLlama built as phase 6b builds it) and prints phase 14's figures and
 launches as its last line; ``python3 chip_smoke.py --tools`` runs phase
@@ -472,6 +494,11 @@ from analytics_zoo_tpu_torch.learn import Estimator, LoRAConfig
 from analytics_zoo_tpu_torch.learn.estimator import (TorchEstimator,
                                                      latest_checkpoint)
 from analytics_zoo_tpu_torch.learn.inference_model import InferenceModel
+from analytics_zoo_tpu_torch.learn import quantize as kq
+from analytics_zoo_tpu_torch import autograd as PA
+from analytics_zoo_tpu_torch import keras as PK
+from analytics_zoo_tpu_torch import tfpark
+from analytics_zoo_tpu_torch.keras.engine import get_variables
 from analytics_zoo_tpu_torch.learn.metrics import auc
 from analytics_zoo_tpu_torch.learn.objectives import (
     sparse_categorical_crossentropy)
@@ -1329,7 +1356,9 @@ def profile_step(est, data):
     """One more training step, a one-batch ``fit`` of ``data`` (a dict
     of one batch's columns), under torch.profiler: the device time by
     kernel (top entries) and the device's busy share of the step (its
-    wall time includes the profiler's own cost)."""
+    wall time includes the profiler's own cost), returned as
+    ``{"wall_ms", "busy_ms", "busy_share", "launches"}`` (None when the
+    profiler recorded no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     def step():
@@ -1354,7 +1383,7 @@ def profile_step(est, data):
     if not events:
         print(f"  profiled step: {wall_ms:.1f} ms wall (profiler on), no "
               f"device records (CUPTI lost them after an earlier trace)")
-        return
+        return None
     print(f"  profiled step: {wall_ms:.1f} ms wall (profiler on), "
           f"{sum(e.count for e in events)} device launches, device "
           f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), by "
@@ -1365,6 +1394,9 @@ def profile_step(est, data):
     for e in events[:10]:
         print(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "launches": sum(e.count for e in events)}
 
 
 def check_served(out, reqs, vocab=GPT2["vocab_size"]):
@@ -6229,6 +6261,324 @@ def phase_text(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the Keras-1.2 API and autograd, tfpark.KerasModel,
+# Estimator.from_keras, InferenceModel.load_flax and int8_mxu
+# ---------------------------------------------------------------------------
+
+KERAS_TOL = 1e-5            # 17a: card vs CPU, f32, of max(1, max |CPU|)
+# 17b: LeNet-5 at MNIST's shape on a planted 10-class task
+KERAS_LENET = dict(hw=28, classes=10, batch=128, train=12800, test=2000,
+                   epochs=2, warm=5, bar=0.9)
+# 17b: an IMDB-shaped classifier (the Keras examples' imdb_bidirectional_
+# lstm: 20,000 words, maxlen 200, 128-d embeddings, a 64-unit BiLSTM)
+KERAS_IMDB = dict(vocab=20000, maxlen=200, embed=128, hidden=64, batch=64,
+                  steps=8, warm=2)
+# 17b: VGG-16 (configuration D, arXiv:1409.1556) served at 32 x 224
+KERAS_VGG = dict(hw=224, batch=32, classes=1000, repeats=3)
+VGG16_D = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512,
+           "M", 512, 512, 512, "M")
+
+
+def keras_hold(what, err, tol=KERAS_TOL):
+    print(f"    {what}: card vs CPU {err:.3e} (tol {tol:.0e})")
+    if not err <= tol:
+        raise AssertionError(f"17a {what}: the card disagrees with the CPU")
+    return err
+
+
+def keras_families(K):
+    """17a's functional model: convolution (strided SAME, separable,
+    transposed), pooling, BatchNorm, recurrent layers in both directions
+    and wrappers, merge and Highway."""
+    img, seq = K.Input(shape=(12, 12, 3)), K.Input(shape=(10, 6))
+    x = K.Convolution2D(8, 3, 3, border_mode="same", subsample=(2, 2),
+                        activation="tanh")(img)
+    x = K.SeparableConvolution2D(8, 3, 3, border_mode="same")(x)
+    x = K.BatchNormalization()(x)
+    x = K.MaxPooling2D(pool_size=2)(x)
+    x = K.AveragePooling2D(pool_size=3, strides=1, border_mode="same")(x)
+    x = K.Deconvolution2D(4, 3, 3, subsample=(2, 2), border_mode="same")(x)
+    x = K.GlobalAveragePooling2D()(x)
+    s = K.Bidirectional(layer=K.LSTM(8, return_sequences=True))(seq)
+    s = K.TimeDistributed(layer=K.Dense(5, activation="tanh"))(s)
+    s = K.GRU(8, go_backwards=True)(s)
+    y = K.Highway()(K.merge([K.Dense(8)(x), s], mode="concat"))
+    return K.Model(input=[img, seq], output=K.Dense(4)(y))
+
+
+def keras_int8_net(K):
+    """17a's int8_mxu model: every op between two int8 layers exact
+    (relu, max, reshape), so each int8 input is the CPU's bitwise."""
+    img = K.Input(shape=(8, 8, 8))
+    x = K.Convolution2D(16, 3, 3, border_mode="same", activation="relu")(img)
+    x = K.SeparableConvolution2D(32, 3, 3, border_mode="same",
+                                 depth_multiplier=8, activation="relu")(x)
+    x = K.Flatten()(K.MaxPooling2D(pool_size=2)(x))
+    x = K.Dense(64, activation="relu")(x)
+    return K.Model(input=img, output=K.Dense(16)(x))
+
+
+def keras_fit_pair(dev):
+    """17a: a 5-step SGD fit (L2 on, tanh: no ReLU to flip) card vs CPU
+    by phase 3's rule."""
+    rng = np.random.default_rng(173)
+    X = rng.normal(size=(40, 10, 4)).astype(np.float32)
+    Y = rng.normal(size=(40, 3)).astype(np.float32)
+    torch.manual_seed(0)
+    net = PK.Sequential().add(PK.Convolution1D(
+        8, 3, border_mode="same", activation="tanh",
+        W_regularizer=PK.l2(0.01))).add(PK.LSTM(8)).add(PK.Dense(3))
+    net.build_on(X)
+    runs = {}
+    for where in ("cpu", dev):
+        m = copy.deepcopy(net)
+        m.compile(optimizer="sgd", loss="mse", lr=0.05, device=where)
+        hist = m.fit(X, Y, batch_size=8, nb_epoch=1)
+        runs[str(where)] = (hist[0]["loss"], m.get_weights())
+    (lc, wc), (lg, wg) = runs["cpu"], runs[str(dev)]
+    loss_err = abs(lg - lc) / abs(lc)
+    param_err = max(float(np.abs(a - b).max()) for a, b in zip(wg, wc))
+    print(f"    Keras SGD fit, 5 steps: loss {lg:.6f}, rel err {loss_err:.3e} "
+          f"(tol {TRAIN_LOSS_RTOL:.0e}), params {param_err:.3e} (tol "
+          f"{TRAIN_PARAM_ATOL:.0e})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_ATOL):
+        raise AssertionError("17a Keras fit")
+    return {"loss_err": loss_err, "param_err": param_err}
+
+
+def keras_int8_pair(dev):
+    """17a: ``load_flax(quantize="int8_mxu")`` on the card and the CPU
+    from one tree: every ``torch._int_mm`` result bitwise equal to the
+    float64 product of its int8 operands (exact below 2^53), every int32
+    accumulator bitwise equal to the CPU's, the outputs within
+    KERAS_TOL."""
+    torch.manual_seed(17)
+    net = keras_int8_net(PK).ensure_built()
+    tree = get_variables(net)
+    x = np.random.default_rng(174).normal(size=(8, 8, 8, 8)).astype(
+        np.float32)
+    runs = {}
+    inner_mm, inner_rescale = kq.int8_matmul, kq._rescale
+    for where in ("cpu", dev):
+        mats, accs = [], []
+
+        def mm(a, b):
+            out = inner_mm(a, b)
+            mats.append((a.cpu(), b.cpu(), out.cpu()))
+            return out
+
+        def rescale(acc, *rest):
+            accs.append(acc.cpu())
+            return inner_rescale(acc, *rest)
+
+        im = InferenceModel().load_flax(copy.deepcopy(net), tree,
+                                        quantize="int8_mxu", device=where)
+        with unittest.mock.patch.object(kq, "int8_matmul", mm), \
+                unittest.mock.patch.object(kq, "_rescale", rescale):
+            before = inner_mm.launches
+            out = im.predict(x)
+            launched = inner_mm.launches - before
+        runs[str(where)] = (mats, accs, out, im.int8_layers, launched)
+    (_, ac, oc, nc, _), (mg, ag, og, ng, launched) = runs["cpu"], \
+        runs[str(dev)]
+    exact = all(torch.equal(out, (a.double() @ b.double()).to(torch.int32))
+                for a, b, out in mg)
+    same = len(ac) == len(ag) and all(torch.equal(a, b)
+                                      for a, b in zip(ac, ag))
+    gap = float(np.abs(og - oc).max() / max(1.0, np.abs(oc).max()))
+    print(f"    int8_mxu: {ng} int8 layers (CPU {nc}), {len(mg)} "
+          f"torch._int_mm products ({launched} launches) bitwise = float64: "
+          f"{exact}; {len(ag)} int32 accumulators bitwise = CPU: {same}")
+    on_card = torch.device(dev).type == "cuda"
+    if not (exact and same and ng == nc == 5 and len(mg) > 0
+            and launched == (len(mg) if on_card else 0)):
+        raise AssertionError("17a int8_mxu products")
+    keras_hold("int8_mxu outputs", gap)
+    return {"int8_layers": ng, "int_mm_products": len(mg),
+            "outputs_gap": gap}
+
+
+def phase_keras_parity(dev):
+    print("== phase 17a: the Keras API, f32, TF32 off, card vs CPU")
+    torch.manual_seed(170)
+    net = keras_families(PK).ensure_built()
+    rng = np.random.default_rng(175)
+    xs = [rng.normal(size=(6, 12, 12, 3)).astype(np.float32),
+          rng.normal(size=(6, 10, 6)).astype(np.float32)]
+    want = net(*map(torch.as_tensor, xs)).detach()
+    card = copy.deepcopy(net).to(dev)
+    got = card(*[torch.as_tensor(x, device=dev) for x in xs]).detach()
+    out = {"families": keras_hold(
+        "functional model (conv, pooling, recurrent, wrappers, merge)",
+        text_gap(got, want) / max(1.0, float(want.abs().max())))}
+    out["fit"] = keras_fit_pair(dev)
+    out["int8_mxu"] = keras_int8_pair(dev)
+    return out
+
+
+def keras_lenet(dev, card):
+    """17b: LeNet-5 through ``Sequential`` at MNIST's shape (28 x 28 x 1,
+    batch 128), ``compile("adam")``, on a planted task: each class a
+    random stroke pattern under noise; held-out accuracy above the bar."""
+    c = KERAS_LENET
+    rng = np.random.default_rng(176)
+    protos = (rng.random((c["classes"], c["hw"], c["hw"], 1)) < 0.15)
+    n = c["train"] + c["test"]
+    y = rng.integers(0, c["classes"], n).astype(np.int32)
+    X = (protos[y] * 0.8 + rng.normal(0, 0.5, (n, c["hw"], c["hw"], 1))
+         ).astype(np.float32)
+    torch.manual_seed(176)
+    m = PK.Sequential()
+    m.add(PK.Convolution2D(6, 5, 5, border_mode="same", activation="relu",
+                           input_shape=(c["hw"], c["hw"], 1)))
+    m.add(PK.MaxPooling2D(pool_size=2))
+    m.add(PK.Convolution2D(16, 5, 5, activation="relu"))
+    m.add(PK.MaxPooling2D(pool_size=2))
+    m.add(PK.Flatten()).add(PK.Dense(120, activation="relu"))
+    m.add(PK.Dropout(0.25)).add(PK.Dense(84, activation="relu"))
+    m.add(PK.Dense(c["classes"]))
+    m.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+              metrics=["accuracy"], device=dev)
+    tr = slice(0, c["train"])
+    with step_times() as times, peak_memory() as mem:
+        m.fit(X[tr], y[tr], batch_size=c["batch"], nb_epoch=c["epochs"])
+    out = report_steps(card, "LeNet-5 (Sequential, adam)", times,
+                       c["batch"], None, c["warm"], mem)
+    pred = m.predict_classes(X[c["train"]:], batch_size=500)
+    acc = float((pred == y[c["train"]:]).mean())
+    print(f"    held-out accuracy {acc:.4f} (bar > {c['bar']})")
+    if not acc > c["bar"]:
+        raise AssertionError(f"17b LeNet-5 accuracy {acc}")
+    out["accuracy"] = acc
+    return out
+
+
+def keras_imdb(dev, card):
+    """17b: an IMDB-shaped functional model (``Embedding(20000, 128)``,
+    ``Bidirectional(LSTM(64))``, ``Dense(1)``) at maxlen 200 and batch 64,
+    trained with an ``autograd.custom_loss`` (the logistic loss on the
+    logit); step ms and the device's busy share of a profiled step."""
+    c = KERAS_IMDB
+    rng = np.random.default_rng(177)
+    n = c["batch"] * c["steps"]
+    X = rng.integers(1, c["vocab"], (n, c["maxlen"])).astype(np.int32)
+    Y = rng.integers(0, 2, (n, 1)).astype(np.float32)
+    torch.manual_seed(177)
+    inp = PK.Input(shape=(c["maxlen"],))
+    h = PK.Bidirectional(layer=PK.LSTM(c["hidden"]))(
+        PK.Embedding(c["vocab"], c["embed"])(inp))
+    m = PK.Model(input=inp, output=PK.Dense(1)(h))
+    loss = PA.custom_loss(lambda yt, yp: PA.mean(
+        PA.softplus(yp) - yt * yp, axis=-1))
+    m.compile(optimizer="adam", loss=loss, device=dev)
+    with step_times() as times, peak_memory() as mem:
+        m.fit(X, Y, batch_size=c["batch"], nb_epoch=1)
+    out = report_steps(card, "IMDB BiLSTM (Model, custom_loss)", times,
+                       c["batch"], c["maxlen"], c["warm"], mem)
+    prof = profile_step(m._estimator, {"x0": X[:c["batch"]],
+                                       "y": Y[:c["batch"]]})
+    out["profiled"] = prof
+    return out
+
+
+def keras_vgg16(K, hw):
+    """VGG-16, configuration D, through the Keras API (he_normal convs,
+    so a random net's activations keep their scale through 16 layers)."""
+    m = K.Sequential()
+    for v in VGG16_D:
+        if v == "M":
+            m.add(K.MaxPooling2D(pool_size=2))
+        else:
+            m.add(K.Convolution2D(
+                v, 3, 3, border_mode="same", activation="relu",
+                init="he_normal",
+                **({} if m.n_layers else {"input_shape": (hw, hw, 3)})))
+    m.add(K.Flatten()).add(K.Dense(4096, activation="relu"))
+    m.add(K.Dropout(0.5)).add(K.Dense(4096, activation="relu"))
+    return m.add(K.Dropout(0.5)).add(K.Dense(1000))
+
+
+def keras_vgg(dev, card):
+    """17b: VGG-16 served through ``InferenceModel.load_flax`` at 32 x 224
+    x 224 x 3 in each quantize mode: predict ms and images/s, weight
+    bytes, max |delta| and top-1 agreement against f32, int8 layers."""
+    c = KERAS_VGG
+    torch.manual_seed(178)
+    net = keras_vgg16(PK, c["hw"]).ensure_built()
+    n_params = sum(p.numel() for p in net.parameters())
+    tree = get_variables(net)
+    x = np.random.default_rng(178).random(
+        (c["batch"], c["hw"], c["hw"], 3)).astype(np.float32)
+    out, f32 = {"params": n_params}, None
+    for mode in (None, "bf16", "int8", "int8_mxu"):
+        im = InferenceModel().load_flax(copy.deepcopy(net), tree,
+                                        quantize=mode, device=dev)
+        pred = im.predict(x)
+        ms = []
+        for _ in range(c["repeats"]):
+            t0 = time.perf_counter()
+            im.predict(x)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        if f32 is None:
+            f32 = pred
+        stats = im.quant_stats or {"weight_bytes_f32": 4 * n_params,
+                                   "weight_bytes_quant": 4 * n_params,
+                                   "compression": 1.0}
+        row = {"predict_ms": float(np.median(ms)),
+               "images_per_s": 1e3 * c["batch"] / float(np.median(ms)),
+               "weight_bytes": stats["weight_bytes_quant"],
+               "compression": stats["compression"],
+               "max_abs_delta": float(np.abs(pred - f32).max()),
+               "logit_scale": float(np.abs(f32).max()),
+               "top1_agree": float((pred.argmax(1) == f32.argmax(1)).mean()),
+               "int8_layers": im.int8_layers}
+        print(f"  [{card}] VGG-16 ({n_params / 1e6:.1f} M parameters) "
+              f"load_flax(quantize={mode!r}): predict of {c['batch']} x "
+              f"{c['hw']} median {row['predict_ms']:.2f} ms "
+              f"({row['images_per_s']:.1f} images/s; {ms}), weights "
+              f"{row['weight_bytes'] / 2**20:.1f} MiB ({row['compression']}"
+              f"x), max |delta| to f32 {row['max_abs_delta']:.3e} of "
+              f"logits up to {row['logit_scale']:.3e}, top-1 agreement "
+              f"{row['top1_agree']:.4f}, int8 layers {row['int8_layers']}")
+        if not np.isfinite(pred).all() or pred.shape != (c["batch"],
+                                                         c["classes"]):
+            raise AssertionError(f"17b VGG-16 {mode}: bad predictions")
+        if mode == "int8_mxu" and im.int8_layers != 16:
+            raise AssertionError("17b VGG-16: not every conv and dense "
+                                 "layer ran int8")
+        out[str(mode)] = row
+        del im
+        free_memory()
+    return out
+
+
+def phase_keras(dev, card):
+    """Phase 17: 17a, then 17b's main paths at full width; none of the
+    four attention kernels may launch."""
+    t0 = time.monotonic()
+    fa.paged_attention_fused.launches = 0
+    reset_flash()
+    free_memory()
+    out = {"17a": phase_keras_parity(dev)}
+    print("== phase 17b: the Keras API's main paths, f32, full width, "
+          "synthetic data from a seed")
+    out["lenet"] = keras_lenet(dev, card)
+    out["imdb"] = keras_imdb(dev, card)
+    out["vgg16"] = keras_vgg(dev, card)
+    if tfpark.KerasModel(keras_int8_net(PK)) is None:
+        raise AssertionError("tfpark.KerasModel")
+    after = zoo_launches()
+    print(f"  paged / flash forward / flash backward / delta launches "
+          f"during phase 17: {after}")
+    if after != (0, 0, 0, 0):
+        raise AssertionError("phase 17 launched an attention kernel")
+    out["reduced"] = []
+    out["seconds"] = time.monotonic() - t0
+    free_memory()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 14: the fine-tuning remainder — LoRA, the fused loss, distillation,
 # weight-only quantization, the profiler hook, debug_nans, fault injection
 # ---------------------------------------------------------------------------
@@ -7486,6 +7836,13 @@ def main() -> int:
         print(json.dumps({"text": text}))
         return 0
 
+    if sys.argv[1:2] == ["--keras"]:
+        keras = phase_keras(dev, card)
+        lap("phase 17")
+        print(card)
+        print(json.dumps({"keras": keras}))
+        return 0
+
     if sys.argv[1:2] == ["--finetune"]:
         # phase 1 and phase 14 on a TinyLlama built as phase 6b builds it
         phase_build()
@@ -7569,6 +7926,8 @@ def main() -> int:
     lap("phase 13")
     text = phase_text(dev, card)
     lap("phase 16")
+    keras = phase_keras(dev, card)
+    lap("phase 17")
     for e in kernels:
         # each kernel's launches in phase 8b's two servers (the paged
         # server reads through paged, the arena prefills through flash);
@@ -7596,7 +7955,7 @@ def main() -> int:
         "modes": modes["runs"], "witness": modes["witness"],
         "serving_modes": serving_modes, "bert": bert, "zoo": zoo,
         "image": image, "tcmf": tcmf, "finetune": finetune,
-        "tools": tools, "text": text}))
+        "tools": tools, "text": text, "keras": keras}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

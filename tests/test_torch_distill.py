@@ -30,6 +30,21 @@ from analytics_zoo_tpu_torch.models.lm import (TransformerLM, lm_loss,
                                                params_from_flax)
 from analytics_zoo_tpu_torch.models.speculative import speculative_generate
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """The full suite runs in 6 pytest-xdist workers that share the
+    machine's cores; torch's default of one intra-op thread a core
+    oversubscribes them, and small eager ops then spend their time
+    handing work between threads (the distillation test took 140.6 s in
+    a 6-worker run against 5 s alone). One torch thread for this file,
+    restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 V, T = 64, 160
 _TARGET = dict(vocab_size=V, hidden_size=32, num_layers=2, num_heads=2,
                intermediate_size=64, max_position=T)
@@ -148,3 +163,4 @@ def test_wrong_target_checkpoint_fails_loud(target_setup):
     with pytest.raises(ValueError, match="do not match"):
         distill_draft(target, wrong, _draft(), corpus, epochs=1,
                       batch_size=8, device="cpu")
+

@@ -30,6 +30,7 @@ from analytics_zoo_tpu.data.text import TextSet as JaxTextSet
 from analytics_zoo_tpu.learn.estimator import \
     _resolve_batch as jax_resolve_batch
 from analytics_zoo_tpu.tfpark import TFDataset as JaxTFDataset
+from analytics_zoo_tpu_torch import keras as tkeras
 from analytics_zoo_tpu_torch import tfpark
 from analytics_zoo_tpu_torch.common.config import TrainConfig
 from analytics_zoo_tpu_torch.data.feature_set import (DiskFeatureSet,
@@ -334,5 +335,7 @@ def test_tfpark_namespace():
     assert tfpark.GANEstimator is GANEstimator
     assert tfpark.TFDataset is TFDataset
     assert tfpark.text.NEREstimator.__name__ == "NEREstimator"
-    with pytest.raises(NotImplementedError, match="item 8.4"):
+    with pytest.raises(TypeError, match="KerasModel wraps"):
         tfpark.KerasModel(object())
+    keras_model = tkeras.Sequential().add(tkeras.Dense(2))
+    assert tfpark.KerasModel(keras_model) is keras_model

@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, flax or ``analytics_zoo_tpu`` import.
+"""The port stands alone: no JAX, flax, optax or ``analytics_zoo_tpu``
+import.
 
 ``analytics_zoo_tpu_torch`` starts with the name ``analytics_zoo_tpu``,
 so every check matches module names exactly, or with a ``.`` after
@@ -17,7 +18,7 @@ from analytics_zoo_tpu_torch.ops import flash_attention as tfa
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "analytics_zoo_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "analytics_zoo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "analytics_zoo_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -91,7 +92,16 @@ def test_scan_reaches_every_port_module():
             "analytics_zoo_tpu_torch.tfpark",
             "analytics_zoo_tpu_torch.tfpark.text.keras",
             "analytics_zoo_tpu_torch.tfpark.gan",
-            "analytics_zoo_tpu_torch.tfpark.tf_dataset"} <= mods
+            "analytics_zoo_tpu_torch.tfpark.tf_dataset",
+            "analytics_zoo_tpu_torch.keras",
+            "analytics_zoo_tpu_torch.keras.activations",
+            "analytics_zoo_tpu_torch.keras.initializers",
+            "analytics_zoo_tpu_torch.keras.regularizers",
+            "analytics_zoo_tpu_torch.keras.objectives",
+            "analytics_zoo_tpu_torch.keras.optimizers",
+            "analytics_zoo_tpu_torch.keras.engine",
+            "analytics_zoo_tpu_torch.keras.layers",
+            "analytics_zoo_tpu_torch.autograd"} <= mods
 
 
 def test_forbidden_name_check_is_exact():

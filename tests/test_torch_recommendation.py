@@ -38,6 +38,21 @@ from analytics_zoo_tpu_torch.models.recommendation import (
     DIEN, ColumnFeatureInfo, SessionRecommender, WideAndDeep,
     params_from_flax)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """The full suite runs in 6 pytest-xdist workers that share the
+    machine's cores; torch's default of one intra-op thread a core
+    oversubscribes them, and small eager ops then spend their time
+    handing work between threads (the DIEN fit took 369.5 s in a
+    6-worker run against 8 s alone). One torch thread for this file,
+    restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _ATOL = 1e-5            # forward, f32
 _BF16_ATOL = 3e-2       # forward, bf16, unit-scale outputs
 _LOSS_RTOL = 1e-5       # fit losses, f32
@@ -302,6 +317,7 @@ def test_dien_learns_history_membership():
     assert ev["accuracy"] > 0.85, ev
     preds = est.predict({"item": item[:32], "history": hist[:32]},
                         batch_size=32)
+
     assert preds.shape == (32, 2)
 
 

@@ -34,6 +34,21 @@ from analytics_zoo_tpu_torch.models.forecast import TCN
 from analytics_zoo_tpu_torch.models.layers import params_from_flax
 from analytics_zoo_tpu_torch.zouwu import TCMFForecaster
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """The full suite runs in 6 pytest-xdist workers that share the
+    machine's cores; torch's default of one intra-op thread a core
+    oversubscribes them, and small eager ops then spend their time
+    handing work between threads (the TCMF fit test took 268.0 s in a
+    6-worker run against 10 s alone). One torch thread for this file,
+    restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _ATOL = 1e-5
 _BF16 = 3e-2
 
@@ -196,6 +211,7 @@ def test_fit_forecasts_and_bounds_the_streamed_block():
         np.float32)
     fc = TCMFForecaster(rank=3, window=12, seed=1, series_block=B,
                         collect_memory_stats=True, device="cpu")
+
     fc.fit(big, epochs=2, tcn_epochs=1)
     assert 0 < fc.peak_device_elems <= 4 * B * T < n * T // 4
     assert fc.predict(6).shape == (n, 6)
