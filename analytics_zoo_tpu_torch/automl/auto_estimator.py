@@ -71,7 +71,7 @@ class AutoEstimator:
 
         ``batch_size``/``epochs`` may also live in the search space under
         the same names; config values win.  ``distributed=True`` raises
-        (ROADMAP Queue 1 item 6).
+        (ROADMAP Queue 1 item 6.3).
         """
         val = validation_data if validation_data is not None else data
 

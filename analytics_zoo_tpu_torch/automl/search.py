@@ -5,7 +5,7 @@ A copy of ``analytics_zoo_tpu/automl/search.py``, pinned to it by
 ``SearchEngine``, which runs trials one after another (or on a thread
 pool) on this process's device.  Distributed trials are not ported:
 ``SearchEngine(distributed=True)`` raises ``NotImplementedError`` naming
-ROADMAP Queue 1 item 6, ``_nprocs`` is 1, and the round-based exchange
+ROADMAP Queue 1 item 6.3, ``_nprocs`` is 1, and the round-based exchange
 over ``jax.process_count()`` processes (``_run_distributed``) raises.
 """
 
@@ -82,7 +82,7 @@ class SearchEngine:
         if distributed:
             raise NotImplementedError(
                 "distributed trials (one per process, exchanged every "
-                "round) are not ported: ROADMAP Queue 1 item 6")
+                "round) are not ported: ROADMAP Queue 1 item 6.3")
         self.trainable = trainable
         self.space = search_space
         self.metric = metric
@@ -167,7 +167,7 @@ class SearchEngine:
     def _run_distributed(self):
         raise NotImplementedError(
             "distributed trials (one per process, exchanged every "
-            "round) are not ported: ROADMAP Queue 1 item 6")
+            "round) are not ported: ROADMAP Queue 1 item 6.3")
 
     def best_trial(self) -> Trial:
         # a diverged trial may legitimately report metric=NaN ('done',

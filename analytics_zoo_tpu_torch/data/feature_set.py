@@ -5,11 +5,12 @@
 ``FeatureSet.to_disk`` spills it to a ZREC record file of row blocks,
 which ``DiskFeatureSet`` streams back through the native prefetch thread
 and a ring buffer (shuffled by block each epoch).  Both feed
-``Estimator.fit``, ``evaluate`` and ``predict``.  The port runs one
-process, so a ``{host}`` placeholder in a path expands to 0, and
-``device_stream`` yields batches of torch tensors on the given device
-through ``data.loader.device_prefetch`` (a sharding raises there:
-meshes are ROADMAP Queue 1 item 6).
+``Estimator.fit``, ``evaluate`` and ``predict``.  A ``{host}``
+placeholder in a path expands to this process's rank in the process
+group (0 without one), so each rank spills and streams its own shard
+file, and ``device_stream`` yields batches of torch tensors on the
+given device (or a mesh's) through ``data.loader.device_prefetch``,
+this rank's rows under a ``sharding``.
 """
 
 from __future__ import annotations
@@ -32,8 +33,10 @@ def _host_path(path: str) -> str:
     path template (the multihost DISK-tier contract: each host owns the
     shard file it writes — nothing is replicated)."""
     if "{host}" in path:
-        # the port runs one process (multi-host is ROADMAP Queue 1 item 6)
-        return path.format(host=0)
+        from analytics_zoo_tpu_torch.common.context import \
+            effective_process_index
+
+        return path.format(host=effective_process_index())
     return path
 
 

@@ -8,10 +8,12 @@
   (a dict of arrays, an ``(x, y)`` pair, an ``XShards``, a
   ``FeatureSet`` or ``DiskFeatureSet``, or a callable ``config -> one of
   those``) normalised to a dict of numpy arrays.
-- ``device_prefetch``: the reference's host-to-device stage on one
-  device, batches of numpy arrays as torch tensors on the device, a few
-  copied ahead.  The sharded global batches of a mesh have no
-  counterpart here (ROADMAP Queue 1 item 6).
+- ``device_prefetch``: the reference's host-to-device stage, batches
+  of numpy arrays as torch tensors on the device, a few copied ahead.
+  Given a mesh and a batch placement (``parallel.partition.
+  data_sharding``) each rank receives its rows of every global batch,
+  the port's form of the reference's sharded global batches (one
+  process a rank).
 """
 
 from __future__ import annotations
@@ -78,25 +80,49 @@ class NumpyBatchIterator:
 def device_prefetch(batches, device=None, depth: int = 2, sharding=None
                     ) -> Iterator[Dict[str, torch.Tensor]]:
     """Each batch of ``batches`` (dicts of numpy arrays) as torch
-    tensors on ``device`` (``None``: CUDA, raising without it), with up
-    to ``depth`` batches copied ahead of the one handed out.  A
-    ``sharding`` raises: meshes are not ported (ROADMAP Queue 1 item
-    6)."""
+    tensors on ``device`` (``None``: CUDA, raising without it; a
+    ``parallel.mesh.Mesh``: its rank's device), with up to ``depth``
+    batches copied ahead of the one handed out.  ``sharding`` (a
+    ``parallel.partition.Placement`` of a batch, as ``data_sharding``
+    gives) hands this rank its rows of each global batch: block
+    ``my_group`` of the data-shard groups along dim 0; a global batch
+    they do not divide raises."""
     from analytics_zoo_tpu_torch.device import resolve_device
+    from analytics_zoo_tpu_torch.parallel.mesh import Mesh
+    from analytics_zoo_tpu_torch.parallel.partition import (
+        Placement, data_process_groups)
 
+    if isinstance(device, Mesh):
+        device = device.device
+    share = None
     if sharding is not None:
-        raise NotImplementedError(
-            "device_prefetch(sharding=...): meshes are not ported "
-            "(ROADMAP Queue 1 item 6); the port feeds one device")
+        if not isinstance(sharding, Placement):
+            raise TypeError(f"sharding must be a parallel.partition."
+                            f"Placement (data_sharding(mesh)), got "
+                            f"{type(sharding).__name__}")
+        n_groups, my_group, _ = data_process_groups(sharding)
+        share = (my_group, n_groups)
     dev = resolve_device(device)
     ahead: collections.deque = collections.deque()
     for batch in batches:
+        if share is not None:
+            batch = _rows_of(batch, *share)
         ahead.append({k: torch.as_tensor(np.ascontiguousarray(v)).to(
             dev, non_blocking=True) for k, v in batch.items()})
         if len(ahead) > depth:
             yield ahead.popleft()
     while ahead:
         yield ahead.popleft()
+
+
+def _rows_of(batch: Dict[str, np.ndarray], index: int, count: int):
+    """Block ``index`` of ``count`` equal blocks of a batch's rows."""
+    n = len(next(iter(batch.values())))
+    if n % count:
+        raise ValueError(f"global batch {n} must be positive and "
+                         f"divisible by data-shard group count {count}")
+    per = n // count
+    return {k: v[index * per:(index + 1) * per] for k, v in batch.items()}
 
 
 class DataCreator:

@@ -5,8 +5,9 @@
 directory, a glob or a list of them (local, or a URI through
 ``common.fs``), read each file into a pandas DataFrame (pandas is
 imported when a file is read; numeric CSVs parse through the native
-C++ reader first) and return one shard a file.  The port runs one
-process, so every file lands on it.
+C++ reader first) and return one shard a file.  Files split over the
+processes of the process group round-robin by sorted path (rank ``i``
+reads files ``i, i + n, ...``; one process reads them all).
 """
 
 from __future__ import annotations

@@ -70,6 +70,7 @@ from analytics_zoo_tpu_torch.learn import quantize as Q
 from analytics_zoo_tpu_torch.models import rnn
 from analytics_zoo_tpu_torch.models import layers as ml
 from analytics_zoo_tpu_torch.models.transformer import fold_in
+from analytics_zoo_tpu_torch.parallel.data_parallel import rand as dp_rand
 
 __all__ = [
     # core
@@ -150,7 +151,7 @@ def _dropout(x, p: float, rng, train: bool, broadcast_dims=(), what="Dropout"):
     shape = [1 if d in broadcast_dims else s for d, s in enumerate(x.shape)]
     keep = 1.0 - p
     gen = _random(rng, what, x.device)
-    mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    mask = dp_rand(shape, gen, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

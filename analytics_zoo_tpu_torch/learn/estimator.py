@@ -87,13 +87,35 @@ not interchangeable: weights cross from the reference only through
 Metrics stay on the device through an epoch and come to the host once
 at its end and at the log points, so the step loop never waits on the
 card otherwise.  The estimator moves the model to its device
-(``nn.Module.to``, in place).  Not ported yet (ROADMAP Queue 1 items 6
-and 7): meshes and multi-host.
+(``nn.Module.to``, in place).
+
+Data-parallel training (the reference's dp mesh): ``mesh`` (default:
+the running context's, ``init_orca_context("distributed",
+mesh_axes={"dp": -1})`` under ``torchrun``) with a ``dp`` axis above 1
+runs one process a rank, every rank with the same data, seed and
+model.  The ranks start from rank 0's parameters and buffers
+(broadcast); each takes its rows of every global batch (a global batch
+the data-shard groups do not divide raises the reference's message);
+the gradients are all-reduced and averaged before the optimizer steps
+(one coalesced ``all_reduce``; buffers are never broadcast again);
+losses and metrics are global means.  Dropout draws the global batch's
+mask from the step's generator and each rank keeps its rows, and
+``BatchNorm`` all-reduces its statistics' sums, so dp=N trains what
+dp=1 trains.  ``evaluate`` splits each padded chunk over the ranks and
+adds their weighted sums; ``predict`` gathers every rank's rows and
+returns them in global order on every rank.  Rank 0 writes checkpoints
+and exports (the others wait for it), and every rank restores them.  A
+``DiskFeatureSet`` is host-local: each rank streams its own shard (a
+``{host}`` path), as many steps as the smallest shard gives, and
+evaluates and predicts its own rows.  FSDP, tensor- and
+sequence-parallel training are not ported (ROADMAP Queue 1 items 6.1
+and 6.2).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import inspect
 import os
 import re
@@ -121,6 +143,7 @@ from analytics_zoo_tpu_torch.learn.objectives import get_loss
 from analytics_zoo_tpu_torch.learn.triggers import (EveryEpoch,
                                                     SeveralIteration, Trigger)
 from analytics_zoo_tpu_torch.models.transformer import fold_in
+from analytics_zoo_tpu_torch.parallel import data_parallel as dp
 
 def _resolve_batch(batch_size, data, attr: str) -> int:
     """Explicit batch_size wins; otherwise the data container's own
@@ -175,6 +198,31 @@ def _chunks(data, size: int):
     n = len(next(iter(arrays.values())))
     for lo in range(0, n, size):
         yield {k: v[lo:lo + size] for k, v in arrays.items()}
+
+
+class _MinSteps:
+    """An epoch iterator cut to ``steps`` batches an epoch (host-local
+    shards: every rank runs the smallest shard's step count)."""
+
+    def __init__(self, it, steps: int):
+        self.it, self.steps = it, int(steps)
+
+    @property
+    def epoch(self):
+        return self.it.epoch
+
+    @epoch.setter
+    def epoch(self, v):
+        self.it.epoch = v
+
+    def steps_per_epoch(self) -> int:
+        return self.steps
+
+    def epoch_batches(self):
+        for i, b in enumerate(self.it.epoch_batches()):
+            if i >= self.steps:
+                return
+            yield b
 
 
 def _fetch_stacked(mets_list) -> Dict[str, np.ndarray]:
@@ -274,14 +322,19 @@ class TorchEstimator:
                  config: Optional[TrainConfig] = None, device=None,
                  lora: Optional[LoRAConfig] = None,
                  initial_variables=None,
-                 param_loss: Optional[Callable] = None):
+                 param_loss: Optional[Callable] = None, mesh=None):
         self.config = config or TrainConfig()
         self.param_loss = param_loss
-        self.device = resolve_device(device)
+        self._init_mesh(mesh, device)
+        self.device = resolve_device(
+            device if device is not None or self.mesh is None
+            else self.mesh.device)
         if initial_variables is not None:
             # before the move, so the device holds one copy
             load_initial_variables(model, initial_variables)
         self.model = model.to(self.device)
+        if self._dp > 1:
+            self._sync_start()
         self.loss_fn = get_loss(loss)
         self.lora = lora
         self._lora = None
@@ -310,6 +363,109 @@ class TorchEstimator:
         # the dropout seed; a restored checkpoint brings its own
         self._seed = int(self.config.seed)
         self._prof_active = False
+
+    def _init_mesh(self, mesh, device) -> None:
+        """The data-parallel layout: ``mesh`` or the context's; dp = the
+        data-shard group count of its batch axes."""
+        from analytics_zoo_tpu_torch.common.context import context_mesh
+        from analytics_zoo_tpu_torch.parallel.partition import (
+            data_process_groups, data_sharding)
+
+        if mesh is None and device is None:
+            mesh = context_mesh()
+        self.mesh = mesh
+        self._dp, self._dp_index, self._dp_group = 1, 0, None
+        if mesh is None:
+            return
+        other = {a: n for a, n in mesh.shape.items()
+                 if a not in ("dp",) and n > 1}
+        if other:
+            raise NotImplementedError(
+                f"training on a mesh with {other}: only data parallelism "
+                f"(dp) is ported; FSDP, tensor and sequence parallelism "
+                f"are ROADMAP Queue 1 items 6.1 and 6.2")
+        n_groups, my_group, _ = data_process_groups(data_sharding(mesh))
+        self._dp, self._dp_index = n_groups, my_group
+        self._dp_group = mesh.group("dp")
+
+    def _sync_start(self) -> None:
+        """Every rank starts from rank 0's parameters and buffers."""
+        import torch.distributed as dist
+
+        src = self.mesh.group_ranks("dp")[0]
+        with torch.no_grad():
+            for t in list(self.model.parameters()) + \
+                    list(self.model.buffers()):
+                dist.broadcast(t.data, src, group=self._dp_group)
+
+    def _rows(self):
+        """This rank's share of a global batch, for the layers."""
+        return dp.rows_of_global(self._dp_index, self._dp, self._dp_group)
+
+    def _local(self, batch: Dict[str, np.ndarray], accum: int = 1):
+        """This rank's rows of a global host batch: with ``accum``
+        micro-batches, its share of each in order, so local micro-batch
+        i is its rows of global micro-batch i."""
+        if self._dp == 1:
+            return batch
+        n = len(next(iter(batch.values())))
+        if n % (self._dp * accum):
+            raise ValueError(
+                f"global batch {n} must be positive and divisible by "
+                f"data-shard group count {self._dp}"
+                + (f" x accum_steps={accum}" if accum > 1 else ""))
+        size = n // accum
+        per = size // self._dp
+        idx = np.concatenate([np.arange(i * size + self._dp_index * per,
+                                        i * size + (self._dp_index + 1)
+                                        * per) for i in range(accum)])
+        return {k: v[idx] for k, v in batch.items()}
+
+    def _all_mean(self, values: Dict[str, torch.Tensor]):
+        """Each scalar's mean over the ranks (one all_reduce)."""
+        if self._dp == 1 or not values:
+            return values
+        import torch.distributed as dist
+
+        names = list(values)
+        flat = torch.stack([values[k].detach().float().reshape(())
+                            for k in names])
+        dist.all_reduce(flat, group=self._dp_group)
+        flat /= self._dp
+        return dict(zip(names, flat))
+
+    def _all_reduce_grads(self) -> None:
+        """Average the trainable gradients over the ranks: one coalesced
+        all_reduce in f32, or f64 where a gradient is (a missing gradient
+        counts as zeros)."""
+        import torch.distributed as dist
+
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self._trainable]
+        acc = functools.reduce(torch.promote_types,
+                               (g.dtype for g in grads), torch.float32)
+        flat = torch.cat([g.reshape(-1).to(acc) for g in grads])
+        dist.all_reduce(flat, group=self._dp_group)
+        flat /= self._dp
+        off = 0
+        for p, g in zip(self._trainable, grads):
+            n = g.numel()
+            p.grad = flat[off:off + n].view_as(g).to(g.dtype)
+            off += n
+
+    def _leader(self) -> bool:
+        """Whether this rank writes files (rank 0 of the process group)."""
+        from analytics_zoo_tpu_torch.parallel.mesh import world
+
+        return world()[0] == 0
+
+    def _barrier(self) -> None:
+        from analytics_zoo_tpu_torch.parallel.mesh import world
+
+        if world()[1] > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     def _set_cols(self, feature_cols, label_cols):
         if feature_cols:
@@ -348,13 +504,16 @@ class TorchEstimator:
         labels = self._labels(batch)
         self.optimizer.zero_grad(set_to_none=True)
         accum = _accum_steps(self.config)
-        if accum > 1:
-            loss, preds = self._accumulate(batch, accum)
-        else:
-            with self._weights():
-                preds = self._forward(batch, train=True)
-                loss = self._loss(preds, labels)
-                loss.backward()
+        with self._rows():
+            if accum > 1:
+                loss, preds = self._accumulate(batch, accum)
+            else:
+                with self._weights():
+                    preds = self._forward(batch, train=True)
+                    loss = self._loss(preds, labels)
+                    loss.backward()
+        if self._dp > 1:
+            self._all_reduce_grads()
         if self.config.debug_nans:
             self._check_finite(loss)
         self.optimizer.step()
@@ -362,7 +521,7 @@ class TorchEstimator:
             mets = {"loss": loss.detach()}
             for name, fn in self.metric_fns:
                 mets[name] = fn(preds.detach(), labels)
-        return mets
+        return self._all_mean(mets)
 
     def _accumulate(self, batch, accum: int):
         """``accum`` micro-batches' forwards and backwards in order; the
@@ -409,7 +568,8 @@ class TorchEstimator:
                 f"optimizer did not step")
 
     @torch.no_grad()
-    def _eval_step(self, batch, weights) -> Dict[str, torch.Tensor]:
+    def _eval_step(self, batch, weights, across_ranks: bool = True
+                   ) -> Dict[str, torch.Tensor]:
         """Per-sample losses and metrics (each row alone, as the
         reference's singleton-batch vmap), weighted by ``weights`` (0 for
         padding rows)."""
@@ -425,13 +585,23 @@ class TorchEstimator:
                 rows.append(fn(preds[i:i + 1], lab))
             return torch.stack(rows).float()
 
-        denom = torch.clamp(weights.sum(), min=1.0)
-        mets = {"loss": (per_sample(self.loss_fn) * weights).sum() / denom}
+        sums = {"loss": (per_sample(self.loss_fn) * weights).sum()}
+        for name, fn in self.metric_fns:
+            sums[name] = (per_sample(fn) * weights).sum()
+        count = weights.sum()
+        if self._dp > 1 and across_ranks:
+            # every rank's rows of the chunk: weighted sums added
+            import torch.distributed as dist
+
+            names = list(sums)
+            flat = torch.stack([sums[k].float() for k in names] + [count])
+            dist.all_reduce(flat, group=self._dp_group)
+            sums, count = dict(zip(names, flat[:-1])), flat[-1]
+        denom = torch.clamp(count, min=1.0)
+        mets = {k: v / denom for k, v in sums.items()}
         if self.param_loss is not None:
             # keras includes the penalty in evaluate's loss
             mets["loss"] = mets["loss"] + self.param_loss(self.model)
-        for name, fn in self.metric_fns:
-            mets[name] = (per_sample(fn) * weights).sum() / denom
         return mets
 
     def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None,
@@ -463,11 +633,19 @@ class TorchEstimator:
         if batch_size % accum:
             raise ValueError(f"global batch {batch_size} not divisible by "
                              f"accum_steps={accum}")
+        if batch_size < 1 or batch_size % self._dp:
+            raise ValueError(f"global batch {batch_size} must be positive "
+                             f"and divisible by data-shard group count "
+                             f"{self._dp}")
         self._set_cols(feature_cols, label_cols)
         shuffle = not self.config.deterministic
         if isinstance(data, DiskFeatureSet):
-            it = data.batch_iterator(batch_size, shuffle=shuffle,
+            # host-local: this rank's shard feeds its rows of each step
+            it = data.batch_iterator(batch_size // self._dp, shuffle=shuffle,
                                      seed=self.config.seed)
+            if self._dp > 1:
+                it = _MinSteps(it, self._min_over_ranks(
+                    it.steps_per_epoch()))
         else:
             it = NumpyBatchIterator(
                 DataCreator.to_arrays(data), batch_size, shuffle=shuffle,
@@ -507,7 +685,8 @@ class TorchEstimator:
                             log_every=self.config.log_every_steps)
         try:
             return self._fit_epochs(epochs, it, batch_size, validation_data,
-                                    trigger, callbacks, mlog)
+                                    trigger, callbacks, mlog,
+                                    isinstance(data, DiskFeatureSet))
         finally:
             # a fault must not leak a running trace (the next start would
             # raise) or an open metrics file
@@ -517,7 +696,10 @@ class TorchEstimator:
             mlog.close()
 
     def _fit_epochs(self, epochs, it, batch_size, validation_data, trigger,
-                    callbacks, mlog) -> List[Dict[str, float]]:
+                    callbacks, mlog, host_local: bool
+                    ) -> List[Dict[str, float]]:
+        """The epochs of :meth:`fit`; ``host_local`` batches (a
+        ``DiskFeatureSet``'s) are this rank's rows already."""
         cfg = self.config
         prof = cfg.profile          # (logdir, start_step, n_steps)
         log_every = max(1, int(cfg.log_every_steps))
@@ -534,6 +716,8 @@ class TorchEstimator:
                         self._global_step >= prof[1]:
                     start_profiler_trace(prof[0], cuda=on_card)
                     self._prof_active = True
+                if not host_local:
+                    b = self._local(b, _accum_steps(cfg))
                 mets = self._train_step(self._on_device(b))
                 step_mets.append(mets)
                 self._global_step += 1
@@ -620,19 +804,30 @@ class TorchEstimator:
         batch_size = _resolve_batch(batch_size, data, "batch_per_thread")
         self._set_cols(feature_cols, label_cols)
         self.model.eval()
+        local = self._dp > 1 and isinstance(data, DiskFeatureSet)
+        if self._dp > 1 and not local and batch_size % self._dp:
+            raise ValueError(f"global batch {batch_size} must be positive "
+                             f"and divisible by data-shard group count "
+                             f"{self._dp}")
         mets_list, counts = [], []
         for chunk in _chunks(data, batch_size):
             counts.append(len(next(iter(chunk.values()))))
             chunk, w = _pad_batch(chunk, batch_size)
+            if not local:
+                chunk = self._local(chunk)
+                w = self._local({"w": w})["w"]
             mets_list.append(self._eval_step(
                 self._on_device(chunk),
-                torch.as_tensor(w, device=self.device)))
+                torch.as_tensor(w, device=self.device), not local))
         acc = EpochAccumulator()
         if mets_list:
             fetched = _fetch_stacked(mets_list)
             for i, cnt in enumerate(counts):
                 acc.add({k: float(v[i]) for k, v in fetched.items()}, cnt)
-        return acc.result()
+        result = acc.result()
+        if local:
+            result = self._weighted_over_ranks(result, sum(counts))
+        return result
 
     @torch.no_grad()
     def predict(self, data, batch_size: Optional[int] = None,
@@ -659,13 +854,55 @@ class TorchEstimator:
             chunk = {c: chunk[c] for c in self.feature_cols}
             real = len(next(iter(chunk.values())))
             chunk, _ = _pad_batch(chunk, batch_size)
+            gather = self._dp > 1 and not isinstance(data, DiskFeatureSet)
+            if gather:
+                chunk = self._local(chunk)
             with self._weights():
                 preds = self._forward(self._on_device(chunk), train=False)
+            if gather:
+                # every rank's rows, in global order, on every rank
+                preds = tuple(map(self._gather_rows, preds)) \
+                    if isinstance(preds, tuple) else \
+                    self._gather_rows(preds)
             outs.append(tuple(host(t, real) for t in preds)
                         if isinstance(preds, tuple) else host(preds, real))
         if isinstance(outs[0], tuple):
             return tuple(torch.cat(parts).numpy() for parts in zip(*outs))
         return torch.cat(outs).numpy()
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(t) for _ in range(self._dp)]
+        dist.all_gather(parts, t.contiguous(), group=self._dp_group)
+        return torch.cat(parts)
+
+    def _min_over_ranks(self, n: int) -> int:
+        """The least of every rank's ``n`` (host-local shards train as
+        many steps as the smallest gives: every rank must run the same
+        collectives)."""
+        import torch.distributed as dist
+
+        t = torch.tensor([n], dtype=torch.int64)
+        if dist.get_backend(self._dp_group) != "gloo":
+            t = t.to(self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self._dp_group)
+        return int(t.item())
+
+    def _weighted_over_ranks(self, result: Dict[str, float], n: int
+                             ) -> Dict[str, float]:
+        """Per-rank means over ``n`` rows each, as the mean over every
+        rank's rows (each row once)."""
+        import torch.distributed as dist
+
+        names = sorted(result)
+        t = torch.tensor([result[k] * n for k in names] + [float(n)],
+                         dtype=torch.float64)
+        if dist.get_backend(self._dp_group) != "gloo":
+            t = t.to(self.device)
+        dist.all_reduce(t, group=self._dp_group)
+        total = max(float(t[-1]), 1.0)
+        return {k: float(t[i]) / total for i, k in enumerate(names)}
 
     # ---- checkpoints and exports ------------------------------------
 
@@ -677,6 +914,10 @@ class TorchEstimator:
         """Save the model, the optimizer, the step, the epoch and the
         dropout seed as ``path/ckpt_<step>/state.pt``, then drop all but
         the ``config.keep_checkpoints`` newest checkpoints."""
+        if not self._leader():
+            # rank 0 writes; the others wait until it has
+            self._barrier()
+            return
         path = os.path.abspath(path)
         final = os.path.join(path, f"ckpt_{self._global_step}")
         tmp = final + ".tmp"
@@ -692,6 +933,7 @@ class TorchEstimator:
         keep = max(1, int(self.config.keep_checkpoints))
         for step in checkpoint_steps(path)[:-keep]:
             shutil.rmtree(os.path.join(path, f"ckpt_{step}"))
+        self._barrier()
 
     def load_checkpoint(self, path: str, step: Optional[int] = None):
         """Restore a :meth:`save_checkpoint` (the newest under ``path``,
@@ -713,8 +955,10 @@ class TorchEstimator:
         """Export the trained weights (the model's ``state_dict``) as
         ``path/model.pt``, replacing an earlier export: the reference's
         ``Estimator.save``, which ``InferenceModel.load`` serves."""
-        os.makedirs(path, exist_ok=True)
-        torch.save(self._exported(), os.path.join(path, _MODEL_FILE))
+        if self._leader():
+            os.makedirs(path, exist_ok=True)
+            torch.save(self._exported(), os.path.join(path, _MODEL_FILE))
+        self._barrier()
 
     def load(self, path: str, sample_data=None):
         """Restore a :meth:`save` export into the model.

@@ -413,8 +413,10 @@ class InferenceModel:
         ``speculation_k`` overrides the depth stored at load (``None``
         keeps it) and is refused without a draft.  ``qos``,
         ``elastic_pool``, ``kv_host_store_bytes`` and
-        ``prefix_directory`` pass through to the engine; only ``mesh``
-        (tensor parallelism, ROADMAP item 6) raises there."""
+        ``prefix_directory`` pass through to the engine, and so do
+        ``mesh`` and ``partition_rules`` (tensor parallelism: build it
+        on every rank of the tp line, with this handle's device the
+        rank's)."""
         from analytics_zoo_tpu_torch.serving.continuous import (
             ContinuousEngine)
 

@@ -52,6 +52,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from analytics_zoo_tpu_torch.parallel import data_parallel as dp
+
 # flax's truncated normal (cut at 2 standard deviations) has this
 # standard deviation for a unit scale
 _TRUNC_STD = 0.87962566103423978
@@ -272,7 +274,12 @@ class BatchNorm(nn.Module):
     E[x^2] - E[x]^2)``, and the running buffers move ``momentum * old +
     (1 - momentum) * batch`` (the biased variance, not the unbiased one
     ``F.batch_norm`` would store); without ``train`` the running
-    statistics, untouched.  The output is f32."""
+    statistics, untouched.  The output is f32.  In a data-parallel step
+    (``parallel.data_parallel.rows_of_global``) the statistics are the
+    global batch's: every rank's f32 sums and sums of squares
+    all-reduced, as flax's means over a dp mesh's global batch
+    (``nn.SyncBatchNorm`` stores the unbiased variance, so it does not
+    fit)."""
 
     MOMENTUM = 0.99
     EPS = 1e-5
@@ -295,8 +302,17 @@ class BatchNorm(nn.Module):
         if train:
             axes = tuple(i for i in range(x.ndim) if i != axis)
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            if dp.current() is None:
+                mean = xf.mean(axes)
+                sq = (xf * xf).mean(axes)
+            else:
+                # a data-parallel step: the global batch's statistics,
+                # from every rank's sums (all-reduced with a gradient)
+                n = dp.global_count(x.numel() // x.shape[axis])
+                sums = dp.global_sums(torch.stack([xf.sum(axes),
+                                                   (xf * xf).sum(axes)]))
+                mean, sq = sums[0] / n, sums[1] / n
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

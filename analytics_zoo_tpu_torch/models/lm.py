@@ -57,6 +57,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -69,6 +70,73 @@ from analytics_zoo_tpu_torch.models.transformer import (LayerNorm, _dense,
 from analytics_zoo_tpu_torch.ops.flash_attention import (cache_attention,
                                                          paged_attention,
                                                          paged_kv_update)
+from analytics_zoo_tpu_torch.parallel.partition import (
+    P, match_partition_rules)
+
+# The reference's Megatron layout over its flax tree (paths and axes of
+# the reference's parameters; :func:`shard_lm` maps them onto this
+# model's tensors): q/k/v, ffn_up and ffn_gate column-parallel,
+# attn_out and ffn_down row-parallel, the embedding and an untied head
+# split on the vocab.  A model whose kv heads do not divide tp passes
+# rules with the key/value kernels replicated (``P()``): its KV cache
+# then replicates too.
+LM_PARTITION_RULES = (
+    (r"pos_embed/embedding", P()),      # positions replicate (before the
+    (r"embed/embedding", P("tp", None)),   # vocab rule can re.search-match)
+    (r"(query|key|value)/kernel", P(None, "tp")),
+    (r"attn_out/kernel", P("tp", None)),
+    (r"ffn_up/kernel", P(None, "tp")),
+    (r"ffn_gate/kernel", P(None, "tp")),   # SwiGLU gate: column-parallel
+    (r"ffn_down/kernel", P("tp", None)),
+    (r"lm_head/kernel", P(None, "tp")),    # untied head: vocab-sharded
+    (r".*", P()),
+)
+
+
+class _TP:
+    """This rank's place on a mesh's ``tp`` axis and the collectives the
+    sharded layers run over it (plain ``torch.distributed``: serving
+    needs no gradient through them)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.size = mesh.size("tp")
+        self.rank = mesh.coord("tp")
+        self.group = mesh.group("tp")
+
+    def all_reduce(self, x):
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def all_gather(self, x, dim: int):
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def local(self, x, dim: int):
+        return x.chunk(self.size, dim=dim)[self.rank]
+
+    def feed(self, x, have_local: bool, want_local: bool, dim: int):
+        """``x`` split (or whole) along ``dim`` as the next layer takes
+        it: gathered, cut, or as it is."""
+        if have_local == want_local:
+            return x
+        return self.all_gather(x, dim) if have_local else \
+            self.local(x, dim)
+
+
+def _linear(layer: nn.Linear, x, dtype, tp: Optional[_TP] = None,
+            row: bool = False):
+    """:func:`_dense`; a row-parallel layer (``row``: its input features
+    split over tp) multiplies its shard, all-reduces the f32 partial
+    products and adds the whole bias once."""
+    if tp is None or not row:
+        return _dense(layer, x, dtype)
+    part = F.linear(x.to(dtype), layer.weight.to(dtype)).float()
+    tp.all_reduce(part)
+    if layer.bias is not None:
+        part = part + layer.bias.float()
+    return part.to(dtype)
 
 
 class RMSNorm(nn.Module):
@@ -156,6 +224,11 @@ class DecoderAttention(nn.Module):
                 f"num_heads {H} must be a multiple of num_kv_heads {KH}")
         D = hidden_size // H
         self._h, self._kh, self._d = H, KH, D
+        # tensor parallelism (:func:`shard_lm`): the heads this rank
+        # projects (``_h``, ``_kh`` shrink to its shard), which of q,
+        # k/v and attn_out's input are split
+        self.tp: Optional[_TP] = None
+        self.q_split = self.kv_split = self.out_split = False
         self.dtype = dtype
         self.use_flash = use_flash
         self.rope = pos_encoding == "rope"
@@ -179,24 +252,50 @@ class DecoderAttention(nn.Module):
             k = _apply_rope(k, pos, self.rope_base)
         return q, k, v
 
-    def _expand_kv(self, t):
-        """``[B, T, KH, D] -> [B, T, H, D]`` by repeating each kv head
-        over its query group, as the reference does before the dispatch,
-        so the flash kernel sees plain multi-head operands."""
-        if self._kh == self._h:
+    @staticmethod
+    def _expand_kv(t, heads: int):
+        """``[B, T, KH, D] -> [B, T, heads, D]`` by repeating each kv
+        head over its query group, as the reference does before the
+        dispatch, so the flash kernel sees plain multi-head operands."""
+        if t.shape[2] == heads:
             return t
-        return torch.repeat_interleave(t, self._h // self._kh, dim=2)
+        return torch.repeat_interleave(t, heads // t.shape[2], dim=2)
+
+    def _run_q(self, q):
+        """The query heads attention runs over: this rank's shard, or
+        under a replicated KV cache (``kv_split`` off while q is split:
+        the ``KH % tp`` hatch) every head, gathered, so each rank
+        computes the whole attention against the whole cache."""
+        if self.tp is not None and self.q_split and not self.kv_split:
+            return self.tp.all_gather(q, 2)
+        return q
+
+    def _out(self, o, B: int, S: int):
+        """attn_out of the attention output ``[B, S, heads run, D]``:
+        cut to this rank's heads, or gathered, as attn_out's input is
+        split or whole."""
+        if self.tp is not None:
+            o = self.tp.feed(o, self.q_split and self.kv_split,
+                             self.out_split, 2)
+        return _linear(self.attn_out, o.reshape(B, S, -1), self.dtype,
+                       self.tp, self.out_split)
+
+    @property
+    def _mesh(self):
+        return None if self.tp is None else self.tp.mesh
 
     def forward(self, x, return_kv: bool = False):
         """Causal attention over ``[B, T, E]`` -> ``[B, T, E]``.
         ``return_kv=True`` also returns this layer's K/V projections
         ``[B, T, KH, D]`` (the KV-arena prefill payload; post-rotation
-        under rope)."""
+        under rope; this rank's kv heads under tensor parallelism)."""
         q, k, v = self._qkv(x, torch.arange(x.shape[1], device=x.device))
-        o = attention_dispatch(q, self._expand_kv(k), self._expand_kv(v),
-                               None, causal=True, use_flash=self.use_flash)
-        out = _dense(self.attn_out, o.reshape(x.shape[0], x.shape[1], -1),
-                     self.dtype)
+        q = self._run_q(q)
+        H = q.shape[2]
+        o = attention_dispatch(q, self._expand_kv(k, H),
+                               self._expand_kv(v, H), None, causal=True,
+                               mesh=self._mesh, use_flash=self.use_flash)
+        out = self._out(o, x.shape[0], x.shape[1])
         return (out, k, v) if return_kv else out
 
     def decode(self, x1, cache_k, cache_v, pos):
@@ -224,8 +323,8 @@ class DecoderAttention(nn.Module):
             cache_k[rows, p] = k1[:, 0].to(cache_k.dtype)
             cache_v[rows, p] = v1[:, 0].to(cache_v.dtype)
             visible = (ar[None, :] <= p[:, None])[:, None, None, None, :]
-        o = cache_attention(q, cache_k, cache_v, visible)
-        return _dense(self.attn_out, o.reshape(B, 1, -1), self.dtype)
+        o = cache_attention(self._run_q(q), cache_k, cache_v, visible)
+        return self._out(o, B, 1)
 
     def decode_k(self, xs, cache_k, cache_v, pos):
         """Cached decode of S tokens per row at once against a slot
@@ -244,8 +343,8 @@ class DecoderAttention(nn.Module):
         cache_v[rows[keep], p[keep]] = vs[keep].to(cache_v.dtype)
         visible = (torch.arange(L, device=xs.device)[None, None, :]
                    <= p[:, :, None])[:, None, None, :, :]
-        o = cache_attention(q, cache_k, cache_v, visible)
-        return _dense(self.attn_out, o.reshape(B, S, -1), self.dtype)
+        o = cache_attention(self._run_q(q), cache_k, cache_v, visible)
+        return self._out(o, B, S)
 
     def decode_paged(self, xs, pool_k, pool_v, tables, pos, limit=None,
                      kernel="fused"):
@@ -262,8 +361,9 @@ class DecoderAttention(nn.Module):
         q, ks, vs = self._qkv(xs, pos[:, None].long() + torch.arange(
             S, device=xs.device)[None])
         paged_kv_update(pool_k, pool_v, tables, pos, ks, vs, limit=limit)
-        o = paged_attention(q, pool_k, pool_v, tables, pos, kernel=kernel)
-        return _dense(self.attn_out, o.reshape(B, S, -1), self.dtype)
+        o = paged_attention(self._run_q(q), pool_k, pool_v, tables, pos,
+                            kernel=kernel)
+        return self._out(o, B, S)
 
 
 class DecoderLayer(nn.Module):
@@ -301,6 +401,10 @@ class DecoderLayer(nn.Module):
         if self.swiglu:
             self.ffn_gate = nn.Linear(hidden_size, intermediate_size,
                                       bias=use_bias)
+        # tensor parallelism (:func:`shard_lm`): ffn_up/ffn_gate's output
+        # and ffn_down's input split over tp
+        self.tp: Optional[_TP] = None
+        self.up_split = self.down_split = False
 
     def _mlp(self, x):
         up = _dense(self.ffn_up, x, self.dtype)
@@ -308,7 +412,10 @@ class DecoderLayer(nn.Module):
             h = F.silu(_dense(self.ffn_gate, x, self.dtype)) * up
         else:
             h = F.gelu(up, approximate="tanh")
-        return _dense(self.ffn_down, h, self.dtype)
+        if self.tp is not None:
+            h = self.tp.feed(h, self.up_split, self.down_split, -1)
+        return _linear(self.ffn_down, h, self.dtype, self.tp,
+                       self.down_split)
 
     def _residual(self, x, a, train: bool = False,
                   rng: Optional[int] = None):
@@ -421,6 +528,10 @@ class TransformerLM(nn.Module):
         self.ln_f = _make_norm(norm, hidden_size, ln_eps)
         if not tied_head:
             self.lm_head = nn.Linear(hidden_size, vocab_size, bias=False)
+        # tensor parallelism (:func:`shard_lm`): the embedding's rows and
+        # the head's vocab split over tp
+        self.tp: Optional[_TP] = None
+        self.vocab_split = self.head_split = False
         with torch.no_grad():
             for name, p in self.named_parameters():
                 if name.endswith("bias"):
@@ -433,16 +544,43 @@ class TransformerLM(nn.Module):
         """Heads actually stored in the KV cache (GQA-aware)."""
         return self.num_kv_heads or self.num_heads
 
+    @property
+    def cache_kv_heads(self) -> int:
+        """The kv heads THIS rank's KV cache stores: :attr:`kv_heads`,
+        or its shard under tensor parallelism with the k/v projections
+        split (:func:`shard_lm`)."""
+        if not self.layers:
+            return self.kv_heads
+        return self.layers[0].attention._kh
+
     def _logits(self, x):
-        # f32 logits for a stable softmax/argmax, tied or untied
+        # f32 logits for a stable softmax/argmax, tied or untied; a
+        # vocab-split head computes its slice and gathers the rest, so
+        # every rank picks from the same logits
         if not self.tied_head:
-            return F.linear(x.float(), self.lm_head.weight.float())
-        return x.float() @ self.embed.weight.float().t()
+            out = F.linear(x.float(), self.lm_head.weight.float())
+            split = self.head_split
+        else:
+            out = x.float() @ self.embed.weight.float().t()
+            split = self.vocab_split
+        return self.tp.all_gather(out, -1) if split else out
+
+    def _lookup(self, toks):
+        """The token embeddings; a vocab-split table looks up the ids
+        in its rows (the rest read as 0) and all-reduces, which adds
+        exact zeros."""
+        if not self.vocab_split:
+            return self.embed(toks)
+        n = self.embed.weight.shape[0]
+        ids = toks - self.tp.rank * n
+        ok = (ids >= 0) & (ids < n)
+        x = self.embed(torch.where(ok, ids, torch.zeros_like(ids)))
+        return self.tp.all_reduce(x * ok[..., None].to(x.dtype))
 
     def _embed(self, toks, p):
         """Token embeddings (plus, for learned positions, the table's
         rows at positions ``p``) in the compute dtype."""
-        x = self.embed(toks)
+        x = self._lookup(toks)
         if self.pos_embed is not None:
             # positions past the table (padding columns of a suffix
             # grid) are clamped: their rows are never read, and an
@@ -857,7 +995,8 @@ def generate(model: TransformerLM, variables, prompt, max_new_tokens: int,
     return torch.stack(out, dim=1)
 
 
-def params_from_flax(params) -> Dict[str, torch.Tensor]:
+def params_from_flax(params, model: Optional["TransformerLM"] = None
+                     ) -> Dict[str, torch.Tensor]:
     """The reference ``TransformerLM``'s ``variables["params"]`` tree
     (leaves as numpy arrays or anything ``np.asarray`` takes) as this
     model's ``state_dict``.  ``DenseGeneral`` kernels fold their head
@@ -867,7 +1006,10 @@ def params_from_flax(params) -> Dict[str, torch.Tensor]:
     positions or none (rope), LayerNorm ``scale``/``bias`` or RMSNorm
     ``scale``, any projection with or without its bias (q/k/v biases
     alone, as in Qwen2), ``ffn_gate`` (SwiGLU) and an untied ``lm_head``
-    (``[E, V]`` to ``[V, E]``)."""
+    (``[E, V]`` to ``[V, E]``).  Given a ``model`` sharded by
+    :func:`shard_lm`, each tensor it splits comes back cut to this
+    rank's shard (the tree is converted on the host; the device receives
+    the shards only)."""
     def t(x):
         return torch.from_numpy(np.array(x, dtype=np.float32))
 
@@ -901,4 +1043,205 @@ def params_from_flax(params) -> Dict[str, torch.Tensor]:
         for name in ("ffn_up", "ffn_down", "ffn_gate"):
             if name in lp:
                 linear(pre + name, lp[name], 1)
+    if model is not None and model.tp is not None:
+        own = model.state_dict()
+        out = {k: _rank_piece(model, k, t, own[k].shape)
+               for k, t in out.items()}
     return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the reference's partition rules on this model
+# ---------------------------------------------------------------------------
+
+class _Shape:
+    """A leaf of :func:`flax_shapes`: a shape and nothing else."""
+
+    __slots__ = ("shape",)
+
+    def __init__(self, *shape):
+        self.shape = tuple(int(d) for d in shape)
+
+
+def flax_shapes(model: TransformerLM) -> dict:
+    """The shapes of the reference's ``variables["params"]`` tree for
+    ``model``'s configuration: the kernels and embeddings that partition
+    rules name, in the reference's layout (``query`` ``[E, H, D]``,
+    ``attn_out`` ``[H, D, E]``, ``lm_head`` ``[E, V]``).  Biases and
+    norm scales are left out: they follow their kernels (a split
+    column's bias is cut with it, a row-parallel bias stays whole)."""
+    E, H, KH = model.hidden_size, model.num_heads, model.kv_heads
+    D = E // H
+    tree = {"embed": {"embedding": _Shape(model.vocab_size, E)}}
+    if model.pos_embed is not None:
+        tree["pos_embed"] = {"embedding": _Shape(model.max_position, E)}
+    if not model.tied_head:
+        tree["lm_head"] = {"kernel": _Shape(E, model.vocab_size)}
+    for i, layer in enumerate(model.layers):
+        inter = layer.ffn_up.weight.shape[0]
+        lp = {"attention": {
+            "query": {"kernel": _Shape(E, H, D)},
+            "key": {"kernel": _Shape(E, KH, D)},
+            "value": {"kernel": _Shape(E, KH, D)},
+            "attn_out": {"kernel": _Shape(H, D, E)}},
+            "ffn_up": {"kernel": _Shape(E, inter)},
+            "ffn_down": {"kernel": _Shape(inter, E)}}
+        if layer.swiglu:
+            lp["ffn_gate"] = {"kernel": _Shape(E, inter)}
+        tree[f"layer_{i}"] = lp
+    return tree
+
+
+def _tp_dim(spec, name: str, allowed) -> Optional[int]:
+    """The dim of the reference's tensor ``name`` that ``spec`` splits
+    over ``tp`` (None: whole), which must be one of ``allowed``."""
+    dims = [d for d, e in enumerate(spec)
+            if e == "tp" or (isinstance(e, tuple) and "tp" in e)]
+    if not dims:
+        return None
+    if len(dims) > 1 or dims[0] not in allowed or not (
+            spec[dims[0]] == "tp" or spec[dims[0]] == ("tp",)):
+        raise NotImplementedError(
+            f"{name}: placement {spec} is not one the port serves (the "
+            f"Megatron layout: column-parallel outputs, row-parallel "
+            f"inputs, vocab-split tables; ROADMAP Queue 1 item 6.2)")
+    return dims[0]
+
+
+def _cut(module: nn.Module, attr: str, tp: _TP, dim: int) -> None:
+    """Replace ``module.attr`` with this rank's shard along ``dim``."""
+    t = getattr(module, attr)
+    if t is None:
+        return
+    piece = tp.local(t.detach(), dim).contiguous().clone()
+    setattr(module, attr, nn.Parameter(piece, requires_grad=t.requires_grad))
+
+
+def shard_lm(model: TransformerLM, mesh, rules=None) -> dict:
+    """Shard ``model`` IN PLACE over ``mesh``'s ``tp`` axis under the
+    reference's partition ``rules`` (default :data:`LM_PARTITION_RULES`),
+    and return ``{"kv": bool, "placements": specs}``: whether its k/v
+    projections (so its KV cache) are split, and the rules' placements.
+
+    Each rank keeps its shard of every split tensor: q/k/v, ``ffn_up``
+    and ``ffn_gate`` by output features (their biases with them),
+    ``attn_out`` and ``ffn_down`` by input features (the f32 partial
+    products all-reduced, the bias added once), the embedding and an
+    untied head by vocab rows (a masked lookup then an all-reduce; the
+    logits all-gathered before the pick).  A query head ``h = kh*G + g``
+    stays with its kv head.  A tensor whose split dim does not divide tp
+    stays whole (the rules' divisibility fallback): k/v of a model whose
+    kv heads do not divide tp replicate, every rank gathers the query
+    heads and computes the whole attention against the whole cache, and
+    keeps its heads for ``attn_out``.  ``tp`` of 1 leaves the model as
+    it is."""
+    from analytics_zoo_tpu_torch.parallel.mesh import serving_axes
+
+    serving_axes(mesh, "a tensor-parallel model")
+    specs = match_partition_rules(rules or LM_PARTITION_RULES,
+                                  flax_shapes(model), mesh)
+    out = {"kv": False, "placements": specs}
+    if mesh.size("tp") == 1:
+        return out
+    if model.tp is not None:
+        raise ValueError("this model is already sharded")
+    tp = _TP(mesh)
+
+    def spec(*path):
+        node = specs
+        for k in path:
+            node = node[k]
+        return node
+
+    model.tp = tp
+    e = _tp_dim(spec("embed", "embedding"), "embed", (0,))
+    model.vocab_split = e == 0
+    if model.vocab_split:
+        _cut(model.embed, "weight", tp, 0)
+    if model.pos_embed is not None:
+        _tp_dim(spec("pos_embed", "embedding"), "pos_embed", ())
+    if not model.tied_head:
+        model.head_split = _tp_dim(spec("lm_head", "kernel"), "lm_head",
+                                   (1,)) == 1
+        if model.head_split:
+            _cut(model.lm_head, "weight", tp, 0)
+    for i, layer in enumerate(model.layers):
+        att = layer.attention
+        lp = f"layer_{i}"
+        q = _tp_dim(spec(lp, "attention", "query", "kernel"), "query",
+                    (1,)) == 1
+        k = _tp_dim(spec(lp, "attention", "key", "kernel"), "key",
+                    (1,)) == 1
+        v = _tp_dim(spec(lp, "attention", "value", "kernel"), "value",
+                    (1,)) == 1
+        o = _tp_dim(spec(lp, "attention", "attn_out", "kernel"),
+                    "attn_out", (0,)) == 0
+        if k != v or (k and not q):
+            raise NotImplementedError(
+                f"layer {i}: key split {k}, value split {v}, query split "
+                f"{q}: the port splits k and v together, and only with q "
+                f"(ROADMAP Queue 1 item 6.2)")
+        att.tp, att.q_split, att.kv_split, att.out_split = tp, q, k, o
+        if q:
+            for name in ("weight", "bias"):
+                _cut(att.query, name, tp, 0)
+            att._h //= tp.size
+        if k:
+            for lin in (att.key, att.value):
+                for name in ("weight", "bias"):
+                    _cut(lin, name, tp, 0)
+            att._kh //= tp.size
+        if o:
+            _cut(att.attn_out, "weight", tp, 1)
+        up = _tp_dim(spec(lp, "ffn_up", "kernel"), "ffn_up", (1,)) == 1
+        if layer.swiglu:
+            gate = _tp_dim(spec(lp, "ffn_gate", "kernel"), "ffn_gate",
+                           (1,)) == 1
+            if gate != up:
+                raise NotImplementedError(
+                    f"layer {i}: ffn_gate split {gate} != ffn_up split "
+                    f"{up} (ROADMAP Queue 1 item 6.2)")
+        down = _tp_dim(spec(lp, "ffn_down", "kernel"), "ffn_down",
+                       (0,)) == 0
+        layer.tp, layer.up_split, layer.down_split = tp, up, down
+        if up:
+            for lin in [layer.ffn_up] + ([layer.ffn_gate] if layer.swiglu
+                                         else []):
+                for name in ("weight", "bias"):
+                    _cut(lin, name, tp, 0)
+        if down:
+            _cut(layer.ffn_down, "weight", tp, 1)
+        out["kv"] = out["kv"] or k
+    return out
+
+
+def load_sharded(model: TransformerLM, state: Dict[str, torch.Tensor]
+                 ) -> None:
+    """Load a ``state_dict`` into a (possibly sharded) model: each tensor
+    of the model's own shape as is, a whole tensor of a split one cut to
+    this rank's shard (its split dim is the one whose size differs)."""
+    own = model.state_dict()
+    missing = set(own) - set(state)
+    unexpected = set(state) - set(own)
+    if missing or unexpected:
+        raise ValueError(f"state_dict does not match the model (missing "
+                         f"{sorted(missing)[:4]}, unexpected "
+                         f"{sorted(unexpected)[:4]})")
+    model.load_state_dict({k: _rank_piece(model, k, torch.as_tensor(t),
+                                          own[k].shape)
+                           for k, t in state.items()})
+
+
+def _rank_piece(model: TransformerLM, name: str, t: torch.Tensor, want
+                ) -> torch.Tensor:
+    """``t`` as this rank holds tensor ``name`` of shape ``want``: as it
+    is, or a whole tensor cut along the one dim whose size differs."""
+    if t.shape == want:
+        return t
+    dims = [d for d in range(t.dim()) if t.shape[d] != want[d]]
+    if model.tp is None or t.dim() != len(want) or len(dims) != 1 \
+            or t.shape[dims[0]] != want[dims[0]] * model.tp.size:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} is neither this "
+                         f"rank's {tuple(want)} nor the whole of it")
+    return model.tp.local(t, dims[0]).contiguous()
+

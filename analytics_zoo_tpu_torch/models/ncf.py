@@ -6,8 +6,8 @@ over the concatenated embeddings, merged into an f32 head.  Every table
 has one row more than its count, so 0-based and 1-based ids both fit.
 The embeddings are f32, the tower runs in the model dtype (bf16 by
 default) and the head in f32, the reference's cast points.  Ids may
-arrive as int32.  ``NCF_PARTITION_RULES`` waits for meshes (ROADMAP
-Queue 1 items 6 and 7).
+arrive as int32.  ``NCF_PARTITION_RULES`` waits for tensor-parallel
+training (ROADMAP Queue 1 item 6.2).
 """
 
 from __future__ import annotations

@@ -26,7 +26,7 @@ The port of ``analytics_zoo_tpu/models/recommendation.py``:
 
 Cast points follow the reference: f32 tables, towers in the model dtype
 (bf16 by default), f32 heads.  Ids may arrive as int32.  The partition
-rules wait for meshes (ROADMAP Queue 1 items 6 and 7).
+rules wait for tensor-parallel training (ROADMAP Queue 1 item 6.2).
 """
 
 from __future__ import annotations

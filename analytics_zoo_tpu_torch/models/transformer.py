@@ -3,9 +3,10 @@ family.
 
 The port of ``analytics_zoo_tpu/models/transformer.py``:
 
-- ``flash_ok`` and ``attention_dispatch``, without the mesh branches:
-  the port has no mesh yet (ROADMAP Queue 1 items 6 and 9), so a
-  ``mesh`` argument raises;
+- ``flash_ok`` and ``attention_dispatch``; under a mesh the dispatch
+  runs the flash kernels on this rank's rows and heads as they are, and
+  sequence parallelism (``sp`` above 1) raises (ROADMAP Queue 1 item
+  9); BERT on a mesh raises (items 6.2 and 9);
 - ``MultiHeadAttention``, the post-LN ``TransformerLayer``, ``BERT``
   (word, position and token-type embeddings, ``(sequence, pooled)``
   out), ``BERTForSequenceClassification``, ``BERTForQuestionAnswering``
@@ -13,7 +14,7 @@ The port of ``analytics_zoo_tpu/models/transformer.py``:
   padding mask (``attention_mask > 0``); on a CUDA tensor it runs the
   flash kernels forward and backward.  MoE layers (``moe_experts``),
   a mesh and another ``sp_strategy`` raise (ROADMAP items 2, 6 and 9);
-  ``BERT_PARTITION_RULES`` waits for item 6;
+  ``BERT_PARTITION_RULES`` waits for item 6.2;
 - dropout with explicit seeds (:func:`dropout`, :func:`fold_in`), shared
   with ``models/lm.py``.  A training forward takes ``rng``, an integer
   seed (the Estimator passes ``fold_in(config.seed, step)``, the
@@ -50,8 +51,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from analytics_zoo_tpu_torch.models.layers import HEAD_FOLDS
-from analytics_zoo_tpu_torch.ops.flash_attention import (flash_attention,
-                                                         flash_kernel_takes)
+from analytics_zoo_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_kernel_takes)
+from analytics_zoo_tpu_torch.parallel.data_parallel import rand as dp_rand
 from analytics_zoo_tpu_torch.parallel.ring_attention import full_attention
 
 
@@ -76,11 +78,14 @@ def flash_ok(use_flash: Optional[bool], device, head_dim: int) -> bool:
 def attention_dispatch(q, k, v, kv_mask, *, causal: bool, mesh=None,
                        use_flash: Optional[bool] = None):
     """Flash attention where :func:`flash_ok` picks it, plain full
-    attention otherwise.  q, k, v: ``[B, T, H, D]``."""
-    if mesh is not None:
+    attention otherwise.  q, k, v: ``[B, T, H, D]``, this rank's rows
+    and heads under a ``mesh`` (no collective is needed; sequence
+    parallelism, an ``sp`` axis above 1, raises: ROADMAP Queue 1 item
+    9)."""
+    if mesh is not None and mesh.size("sp") > 1:
         raise NotImplementedError(
-            "attention under a mesh (sequence-parallel or sharded flash) "
-            "is not ported yet (ROADMAP Queue 1 items 6 and 9)")
+            "sequence-parallel attention under a mesh (sp > 1) is not "
+            "ported yet (ROADMAP Queue 1 item 9)")
     if flash_ok(use_flash, q.device, q.shape[-1]):
         return flash_attention(q, k, v, kv_mask, causal=causal)
     return full_attention(q, k, v, kv_mask, causal=causal)
@@ -127,7 +132,8 @@ def dropout(x, p: float, rng: Optional[int], train: bool):
     keep = 1.0 - p
     gen = torch.Generator(device=x.device)
     gen.manual_seed(int(rng))
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    # a data-parallel step draws the global batch's mask, keeps its rows
+    mask = dp_rand(x.shape, gen, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -189,7 +195,7 @@ def _not_ported(mesh, sp_strategy: str, moe_experts: int = 0) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "a mesh (tensor or sequence parallel BERT) is not ported yet "
-            "(ROADMAP Queue 1 items 6 and 9)")
+            "(ROADMAP Queue 1 items 6.2 and 9)")
     if sp_strategy != "ring":
         raise NotImplementedError(
             f"sp_strategy={sp_strategy!r} is not ported yet (ROADMAP "

@@ -412,6 +412,13 @@ def flash_attention(q, k, v, kv_mask=None, *, causal: bool = False,
                                  scale=scale)[0]
 
 
+# The reference's ``sharded_flash_attention``, kept by name: a rank's code
+# already holds its own batch rows and heads, and attention is independent
+# per (row, head), so kernels 2-4 run on them as they are, with no
+# collective (``sp`` > 1 is refused by ``models.transformer``'s dispatch).
+sharded_flash_attention = flash_attention
+
+
 class QuantKV:
     """int8 KV block arena + per-(block, position, kv-head) scales.
 
@@ -725,10 +732,21 @@ def paged_attention(q, pool_k, pool_v, tables, pos, *,
 
     ``kernel="fused"`` launches the CUDA kernel for a CUDA tensor and
     runs :func:`paged_attention_ref` for a CPU tensor;
-    ``kernel="gather"`` always runs :func:`paged_attention_ref`."""
+    ``kernel="gather"`` always runs :func:`paged_attention_ref`.  Under
+    a tensor-parallel mesh, q and the pools are this rank's: its
+    contiguous shard of the kv heads and the query heads ``h = kh*G + g``
+    that read them (an int8 :class:`QuantKV`'s scales cut with their
+    data), or, under the ``KH % tp`` hatch, every head and the whole
+    pool.  Either way the read needs no collective and runs as it is."""
     if kernel not in ("gather", "fused"):
         raise ValueError(f"kernel must be 'gather' or 'fused', got "
                          f"{kernel!r}")
     if kernel == "gather" or q.device.type == "cpu":
         return paged_attention_ref(q, pool_k, pool_v, tables, pos)
     return paged_attention_fused(q, pool_k, pool_v, tables, pos)
+
+
+# The reference's ``_paged_attention_fused_tp``, kept by name: see
+# :func:`paged_attention` on a rank's shard.  Whether ``KH`` divides by tp
+# is checked once, where an engine is built.
+paged_attention_fused_tp = paged_attention

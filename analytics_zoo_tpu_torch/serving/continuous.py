@@ -86,8 +86,21 @@ modes:
 The pools are updated in place (the reference donates them), so every
 ordering rule the reference states is a real hazard here: an evicted
 block is gathered to the host before any write can reuse its id, and
-no device copy runs under the pool lock.  Tensor parallelism (``mesh``)
-raises ``NotImplementedError`` naming its ROADMAP item.
+no device copy runs under the pool lock.
+- **Tensor parallelism** (``mesh`` with a ``tp`` axis, one process a
+  rank): the model is sharded by ``partition_rules``
+  (``models.lm.shard_lm``, default ``LM_PARTITION_RULES``), the arena
+  or pool holds this rank's kv heads from birth (every kv head when
+  they do not divide tp: the replicated hatch), and the block tables
+  and every host decision stay identical on every rank.  Rank 0 of the
+  tp line is the leader: ``submit``, ``abort``, ``set_brownout``,
+  ``register_prefix``, ``unregister_prefix``, ``resize_pool`` and
+  ``step`` on it broadcast each mutation with the tick's clock reading
+  (a gloo control group), the other ranks apply them in the same order
+  from ``follow()``, so admission, preemption, chunk budgets, deadline
+  sheds, the brownout ladder and elastic resizes decide alike
+  everywhere; the pick reads all-gathered logits.  ``stop_followers``
+  ends their loops.
 """
 
 from __future__ import annotations
@@ -105,13 +118,15 @@ import torch
 
 from analytics_zoo_tpu_torch.device import resolve_device
 from analytics_zoo_tpu_torch.learn.inference_model import (
-    _later, _next_bucket, filter_prompt_buckets)
-from analytics_zoo_tpu_torch.models.lm import TransformerLM, pick_next
+    _next_bucket, filter_prompt_buckets)
+from analytics_zoo_tpu_torch.models.lm import (TransformerLM, load_sharded,
+                                               pick_next, shard_lm)
 from analytics_zoo_tpu_torch.models.speculative import (
     accept_proposals, load_draft)
 from analytics_zoo_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS, KV_SCALE_DTYPE, PAGED_MAX_BLOCK, QuantKV,
     paged_kernel_takes)
+from analytics_zoo_tpu_torch.parallel.mesh import serving_axes
 from analytics_zoo_tpu_torch.serving import policy as scheduler_policy
 from analytics_zoo_tpu_torch.serving.flight import FlightRecorder
 from analytics_zoo_tpu_torch.serving.frontdoor import PRIORITIES
@@ -223,12 +238,70 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+class _Lockstep:
+    """The control plane of a tensor-parallel engine: the leader (tp
+    coordinate 0) queues the mutations client threads ask for and, at
+    each flush from its pump thread, broadcasts them with its own over a
+    gloo group; the other ranks receive and apply the same list in the
+    same order.  ``replaying`` marks the application of a message, which
+    runs each mutation's own code."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.group = mesh.control_group("tp")
+        self.src = mesh.group_ranks("tp")[0]
+        self.leader = mesh.coord("tp") == 0
+        self.outbox: list = []
+        self.lock = threading.Lock()
+        # one broadcast-and-apply at a time (the pump's step, a client's
+        # register_prefix), so every rank sees one order
+        self.flush_lock = threading.Lock()
+        # per thread: the pump replays while client threads submit
+        self._local = threading.local()
+
+    @property
+    def replaying(self) -> bool:
+        return getattr(self._local, "on", False)
+
+    @replaying.setter
+    def replaying(self, on: bool) -> None:
+        self._local.on = on
+
+    def post(self, wire, local) -> None:
+        with self.lock:
+            self.outbox.append((wire, local))
+
+    def take(self) -> list:
+        with self.lock:
+            ops, self.outbox = self.outbox, []
+        return ops
+
+    def pending_submits(self) -> int:
+        with self.lock:
+            return sum(1 for w, _ in self.outbox if w[0] == "submit")
+
+    def broadcast(self, obj):
+        box = [obj]
+        self._dist.broadcast_object_list(box, src=self.src,
+                                         group=self.group)
+        return box[0]
+
+
 class ContinuousEngine:
     """Continuous-batching engine over one ``TransformerLM``: the slot
     arena by default, a paged block pool with ``paged=True``.
 
-    Same constructor names as the JAX engine; only ``mesh`` and
-    ``partition_rules`` (tensor parallelism, ROADMAP item 6) raise.
+    Same constructor names as the JAX engine.  ``mesh`` (a
+    ``parallel.mesh.Mesh`` with a ``tp`` axis; every other axis 1) serves
+    the model tensor-parallel: construct the engine on every rank of the
+    tp line with the same arguments; the leader serves (``submit``,
+    ``step``, ``drain``) and the others call :meth:`follow`.  Under the
+    default rules the kv heads must divide tp (``ValueError``);
+    ``partition_rules`` with the key/value kernels replicated take the
+    replicated hatch.  The host KV tier, the prefix directory and
+    handoff do not compose with a mesh.
     ``variables``, when given, is a ``state_dict`` (for example
     from ``models.lm.params_from_flax``) loaded into ``model`` before
     serving; ``None`` serves the model's own weights.  ``device``:
@@ -327,8 +400,21 @@ class ContinuousEngine:
                  flight: Optional[FlightRecorder] = None,
                  flight_capacity: int = 2048,
                  device=None):
-        if mesh is not None or partition_rules is not None:
-            raise _later("tensor-parallel serving (mesh)", "6")
+        self._lockstep: Optional[_Lockstep] = None
+        self._tick_now = 0.0
+        self.mesh = mesh
+        if mesh is not None:
+            serving_axes(mesh, "a ContinuousEngine")
+        tp = 1 if mesh is None else mesh.size("tp")
+        if partition_rules is not None and tp == 1:
+            raise ValueError("partition_rules need a mesh with a tp axis")
+        if tp > 1 and (kv_host_store_bytes > 0
+                       or prefix_directory is not None):
+            raise ValueError(
+                "kv_host_store_bytes / prefix_directory do not compose "
+                "with a tensor-parallel mesh: the host tier would have to "
+                "spill and readmit every rank's kv-head shard in step "
+                "(ROADMAP Queue 1 item 6.5)")
         if kernel not in (None, "gather", "fused"):
             raise ValueError(f"kernel must be 'gather' or 'fused', got "
                              f"{kernel!r}")
@@ -372,13 +458,39 @@ class ContinuousEngine:
                     f"vocab {model.vocab_size}")
             if self._spec_k < 1:
                 raise ValueError("speculation_k must be >= 1")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None or
+                                     device is not None else mesh.device)
+        self._tp = tp
+        self._kv_tp = self._dkv_tp = False
+        if tp > 1:
+            if model.kv_heads % tp and partition_rules is None:
+                raise ValueError(
+                    f"kv_heads={model.kv_heads} must divide by tp={tp} to "
+                    f"shard the KV cache under the default "
+                    f"LM_PARTITION_RULES; narrow-KV (MQA/GQA) models pass "
+                    f"partition_rules with the key/value kernels "
+                    f"replicated (P()): the KV storage then replicates too")
+            # sharded from birth: the model keeps only its shards, then
+            # the whole or sharded variables load into them
+            self._kv_tp = shard_lm(model, mesh, partition_rules)["kv"]
+            if draft_model is not None and draft_model is not model:
+                self._dkv_tp = shard_lm(draft_model, mesh,
+                                        partition_rules)["kv"]
+            elif draft_model is model:
+                self._dkv_tp = self._kv_tp
+            self._lockstep = _Lockstep(mesh)
         if variables is not None:
-            model.load_state_dict(variables)
+            if tp > 1:
+                load_sharded(model, variables)
+            else:
+                model.load_state_dict(variables)
         self.model = model.to(self.device).eval()
         self.draft_model = None
         if draft_model is not None:
-            load_draft(model, draft_model, draft_variables)
+            if tp == 1:
+                load_draft(model, draft_model, draft_variables)
+            elif draft_model is not model:
+                load_sharded(draft_model, draft_variables)
             self.draft_model = draft_model.to(self.device).eval()
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
@@ -449,7 +561,8 @@ class ContinuousEngine:
         S = int(max_slots)
         L = self.max_prompt_width + self.max_new_tokens + extra
         self._S, self._L = S, L
-        H = model.kv_heads
+        # this rank's kv heads: a shard under tp with the k/v split
+        H = model.cache_kv_heads
         cdtype = model.dtype if cache_dtype is None else cache_dtype
         if not (isinstance(cdtype, torch.dtype) and cdtype.is_floating_point):
             raise ValueError(
@@ -500,11 +613,12 @@ class ContinuousEngine:
                 dm = draft_model
                 dD = dm.hidden_size // dm.num_heads
                 self._dck = torch.zeros(
-                    (dm.num_layers, S, L, dm.kv_heads, dD), dtype=cdtype,
-                    device=dev)
+                    (dm.num_layers, S, L, dm.cache_kv_heads, dD),
+                    dtype=cdtype, device=dev)
                 self._dcv = torch.zeros_like(self._dck)
                 self._kv_bytes_per_token += \
-                    2 * dm.num_layers * dm.kv_heads * dD * cdtype.itemsize
+                    2 * dm.num_layers * dm.cache_kv_heads * dD \
+                    * cdtype.itemsize
         else:
             self._init_pool(model, S, L, H, D, cdtype, int(block_size),
                             n_blocks, draft_n_blocks, hbm_fraction,
@@ -527,9 +641,112 @@ class ContinuousEngine:
         # engine without the front door); on: the weighted scheduler,
         # with the same deque surface at every call site
         self._qos = qos
-        self._waiting = (WeightedWaitQueue(qos) if qos is not None
-                         else collections.deque())
+        self._waiting = (WeightedWaitQueue(qos, clock=self._now)
+                         if qos is not None else collections.deque())
         self._register_engine_gauges()
+
+    # ---- tensor-parallel lockstep --------------------------------------
+
+    def _now(self) -> float:
+        """The clock every admission decision reads: ``time.monotonic``,
+        or under a mesh the leader's reading for the tick, so every rank
+        decides alike."""
+        if self._lockstep is None:
+            return time.monotonic()
+        return self._tick_now
+
+    def _agree(self, value):
+        """``value`` as the leader has it (a memory probe, under a mesh);
+        ``value`` itself on one rank.  Every rank calls it together."""
+        if self._lockstep is None:
+            return value
+        return self._lockstep.broadcast(value)
+
+    def _leads(self) -> bool:
+        """Whether a mutation called here must go through the control
+        plane first: a tp leader outside a message's replay.  A follower
+        that is called directly raises: its leader drives it."""
+        ls = self._lockstep
+        if ls is None or ls.replaying:
+            return False
+        if not ls.leader:
+            raise RuntimeError(
+                "this rank follows a tensor-parallel leader: call "
+                "follow(); submit/step/abort go to the tp-rank-0 engine")
+        return True
+
+    def _flush(self, op=None):
+        """Leader: broadcast the queued mutations (and ``op``), then apply
+        them here in the same order; returns ``op``'s result."""
+        ls = self._lockstep
+        with ls.flush_lock:
+            ops = ls.take()
+            if op is not None:
+                ops.append((op, op))
+            ls.broadcast([w for w, _ in ops])
+            out = None
+            for _, local in ops:
+                out = self._apply(local)
+        return out
+
+    def _apply(self, op):
+        """Run one control-plane mutation (leader and followers alike)."""
+        ls = self._lockstep
+        kind = op[0]
+        ls.replaying = True
+        try:
+            if kind == "submit":
+                req = op[1]
+                if ls.leader is False:
+                    self.telemetry.req_enqueued(req.uri)
+                if req.deadline_t > 0.0:
+                    self._deadline_seen = True
+                with self._lock:
+                    self._waiting.append(req)
+                return None
+            if kind == "step":
+                self._tick_now = op[1]
+                return self.step()
+            if kind == "brownout":
+                return self.set_brownout(op[1], op[2])
+            if kind == "abort":
+                return self.abort(op[1])
+            if kind == "prefix":
+                return self.register_prefix(op[1])
+            if kind == "unprefix":
+                return self.unregister_prefix(op[1])
+            if kind == "resize":
+                return self.resize_pool(op[1])
+            if kind == "precompile":
+                return self.precompile_chunked(*op[1:])
+            raise ValueError(f"unknown control-plane op {kind!r}")
+        finally:
+            ls.replaying = False
+
+    def follow(self) -> None:
+        """A follower rank's loop: apply the leader's messages in order
+        until :meth:`stop_followers` (pump thread of this rank).  Returns
+        at once on an engine without a mesh or on the leader."""
+        ls = self._lockstep
+        if ls is None or ls.leader:
+            return
+        with torch.no_grad():
+            while True:
+                ops = ls.broadcast(None)
+                if any(op[0] == "stop" for op in ops):
+                    return
+                for op in ops:
+                    self._apply(op)
+
+    def stop_followers(self) -> None:
+        """Leader: end every follower's :meth:`follow` (after the queued
+        mutations).  A no-op without a mesh or on a follower."""
+        ls = self._lockstep
+        if ls is None or not ls.leader:
+            return
+        with ls.flush_lock:
+            ls.take()
+            ls.broadcast([("stop",)])
 
     def _init_elastic(self, elastic_pool: bool) -> None:
         """The elastic pool's bounds, probed once after the weights and
@@ -557,6 +774,8 @@ class ContinuousEngine:
         free = 0
         if self.device.type == "cuda":
             free = int(torch.cuda.mem_get_info(self.device)[0])
+        # the leader's probe decides for every rank of a tp engine
+        free = self._agree(free)
         self.elastic_probe_free_bytes = free
         per = self._per_block_bytes + self._draft_per_block_bytes
         if free > 0 and per > 0:
@@ -654,12 +873,13 @@ class ContinuousEngine:
         draft_per_block = 0
         if dm is not None:
             dD = dm.hidden_size // dm.num_heads
-            draft_per_block = 2 * dm.num_layers * bs * dm.kv_heads * dD \
-                * cdtype.itemsize
+            draft_per_block = 2 * dm.num_layers * bs * dm.cache_kv_heads \
+                * dD * cdtype.itemsize
         if n_blocks is None:
             lim = 0
             if hbm_fraction is not None and self.device.type == "cuda":
                 lim = int(torch.cuda.mem_get_info(self.device)[1])
+            lim = self._agree(lim)
             if lim:
                 # with a draft the byte budget covers BOTH tenants: the
                 # common block count splits it by per-block cost
@@ -728,7 +948,7 @@ class ContinuousEngine:
                                 event_cb=self.telemetry.pool_event,
                                 name="draft", kv_dtype=_KV_LABELS[cdtype],
                                 bytes_per_block=draft_per_block)
-        dshape = (dm.num_layers, dnb, dm.kv_heads, bs,
+        dshape = (dm.num_layers, dnb, dm.cache_kv_heads, bs,
                   dm.hidden_size // dm.num_heads)
         self._dpk = torch.zeros(dshape, dtype=cdtype, device=dev)
         self._dpv = torch.zeros(dshape, dtype=cdtype, device=dev)
@@ -741,8 +961,10 @@ class ContinuousEngine:
 
     @property
     def n_waiting(self) -> int:
+        pending = 0 if self._lockstep is None \
+            else self._lockstep.pending_submits()
         with self._lock:
-            return len(self._waiting)
+            return len(self._waiting) + pending
 
     def _register_engine_gauges(self) -> None:
         """Scrape-time gauges over engine and pool state, the
@@ -879,10 +1101,15 @@ class ContinuousEngine:
         (arena) or per block (paged), the whole cache's bytes, and
         (arena) the multiplier against a full-head cache in the model
         dtype; the draft's cache and the arena's stored prefixes beside
-        them.  One device, so per-chip bytes equal the total."""
+        them.  Under a mesh ``arena_bytes`` counts every rank's shard and
+        ``arena_bytes_per_chip`` this rank's (equal when the cache
+        replicates)."""
         m = self.model
+        # this rank holds 1/tp of a kv-split cache: the totals count
+        # every rank's shard, the per-chip figures this rank's
+        shards = self._tp if self._kv_tp else 1
         if self.paged:
-            per_block = self._per_block_bytes
+            per_block = self._per_block_bytes * shards
             return {
                 "mode": "paged",
                 "slots": self._S,
@@ -902,8 +1129,9 @@ class ContinuousEngine:
                 "arena_bytes": per_block * self._pool.n_blocks,
                 "arena_equivalent_bytes":
                     (per_block // self._bs) * self._L * self._S,
-                "tp": 1,
-                "arena_bytes_per_chip": per_block * self._pool.n_blocks,
+                "tp": self._tp,
+                "arena_bytes_per_chip":
+                    self._per_block_bytes * self._pool.n_blocks,
                 "draft_arena_bytes": (
                     self._draft_per_block_bytes * self._dpool.n_blocks
                     if self._dpool is not None else 0),
@@ -911,7 +1139,7 @@ class ContinuousEngine:
                                    if self._dpool is not None else 0),
                 "prefix_bytes": 0,
             }
-        H, D = self._ck.shape[3], self._ck.shape[4]
+        H, D = self._ck.shape[3] * shards, self._ck.shape[4]
         per_slot = 2 * m.num_layers * self._L * H * D * \
             self._ck.dtype.itemsize
         full = 2 * m.num_layers * self._L * m.num_heads * D * \
@@ -925,8 +1153,8 @@ class ContinuousEngine:
             "cache_dtype": _dtype_name(self._ck.dtype),
             "bytes_per_slot": per_slot,
             "arena_bytes": per_slot * self._S,
-            "tp": 1,
-            "arena_bytes_per_chip": per_slot * self._S,
+            "tp": self._tp,
+            "arena_bytes_per_chip": per_slot * self._S // shards,
             "capacity_multiplier_vs_mha_model_dtype":
                 round(full / per_slot, 2),
             "draft_arena_bytes": (
@@ -953,6 +1181,8 @@ class ContinuousEngine:
         if tokens.ndim != 1 or len(tokens) < 1:
             raise ValueError("prefix must be a non-empty 1-D int32 array")
         P = len(tokens)
+        if P < self.max_prompt_width and self._leads():
+            return self._flush(("prefix", tokens))
         if P >= self.max_prompt_width:
             raise ValueError(
                 f"prefix length {P} leaves no room for a suffix inside "
@@ -1046,6 +1276,14 @@ class ContinuousEngine:
         which park in the pool's LRU (still shareable) until allocation
         evicts them.  Admitted requests keep what they already have;
         queued requests naming the id fail admission."""
+        if self._lockstep is not None and not self._lockstep.replaying:
+            with self._lock:
+                if pid not in self._prefixes:
+                    raise ValueError(f"unknown prefix id {pid}")
+            if self._leads():
+                # any thread: applied at the leader's next flush
+                self._lockstep.post(("unprefix", pid), ("unprefix", pid))
+            return
         with self._lock:
             if pid not in self._prefixes:
                 raise ValueError(f"unknown prefix id {pid}")
@@ -1062,6 +1300,8 @@ class ContinuousEngine:
         waiting queue, or free its resident slot (and, paged, its blocks
         in both pool tenants).  Returns True if the uri was found.  No
         callback fires."""
+        if self._leads():
+            return self._flush(("abort", uri))
         with self._lock:
             for req in self._waiting:
                 if req.uri == uri:
@@ -1150,6 +1390,10 @@ class ContinuousEngine:
             raise ValueError(
                 f"priority must be one of {PRIORITIES}, got {priority!r}")
         if handoff_cb is not None:
+            if self._lockstep is not None:
+                raise ValueError(
+                    "prefill/decode handoff does not compose with a "
+                    "tensor-parallel mesh (ROADMAP Queue 1 item 6.5)")
             if not self.paged:
                 raise ValueError(
                     "handoff_cb requires paged=True: a prefill/decode "
@@ -1177,12 +1421,19 @@ class ContinuousEngine:
         # stamp AFTER validation: a rejected submit never existed as
         # far as queue-wait/TTFT accounting is concerned
         self.telemetry.req_enqueued(uri)
+        req = _Req(uri, prompt, on_done, on_error, mn, on_token, prefix,
+                   float(temperature), rng_seed, float(top_p), priority,
+                   str(tenant), time.monotonic(), handoff_cb,
+                   deadline_t=deadline_t)
+        if self._leads():
+            # every rank queues it at the leader's next flush; the
+            # followers' copy carries no callbacks
+            self._lockstep.post(("submit", req._replace(
+                on_done=None, on_error=None, on_token=None)),
+                ("submit", req))
+            return
         with self._lock:
-            self._waiting.append(_Req(
-                uri, prompt, on_done, on_error, mn, on_token, prefix,
-                float(temperature), rng_seed, float(top_p), priority,
-                str(tenant), time.monotonic(), handoff_cb,
-                deadline_t=deadline_t))
+            self._waiting.append(req)
 
     def submit_handoff(self, state: dict) -> None:
         """Adopt a prefilled request exported by another engine's
@@ -1193,6 +1444,10 @@ class ContinuousEngine:
         copies, callbacks).  Thread-safe like ``submit``: the source's
         pump may call straight in; every device write happens later on
         THIS engine's pump thread, at admission."""
+        if self._lockstep is not None:
+            raise ValueError(
+                "prefill/decode handoff does not compose with a "
+                "tensor-parallel mesh (ROADMAP Queue 1 item 6.5)")
         if not self.paged:
             raise ValueError(
                 "submit_handoff requires a paged engine: the handoff "
@@ -1294,7 +1549,7 @@ class ContinuousEngine:
         """Admission-time deadline shed: every waiting request whose
         ``deadline_t`` has passed ends now with ``DeadlineExceeded``,
         before any prefill, slot or block is spent on it."""
-        now = time.monotonic()
+        now = self._now()
         with self._lock:
             expired = [r for r in self._waiting
                        if r.deadline_t > 0.0 and now > r.deadline_t]
@@ -2283,6 +2538,8 @@ class ContinuousEngine:
         applied."""
         if not self.paged:
             raise ValueError("resize_pool requires paged=True")
+        if self._leads():
+            return self._flush(("resize", int(target)))
         want = int(target)
         target = max(self._pool_floor,
                      min(want, self._pool_ceiling or want))
@@ -2525,7 +2782,14 @@ class ContinuousEngine:
         the row like generate()'s frozen tail).  Returns the number of
         active slots afterwards (0 = idle).  Runs under
         ``torch.no_grad()`` itself: grad mode is per thread, and the
-        server calls this from its pump thread."""
+        server calls this from its pump thread.  Under a mesh the
+        leader's call broadcasts the queued mutations and its clock
+        reading first, and every rank runs the same tick."""
+        if self._leads():
+            if self.n_active == 0 and not self._waiting and \
+                    not self._lockstep.outbox:
+                return 0
+            return self._flush(("step", time.monotonic()))
         if self.n_active == 0 and not self._waiting:
             return 0
         if self._fault is not None:
@@ -2692,7 +2956,13 @@ class ContinuousEngine:
         rounds (the target decodes alone and the draft's pointer goes
         stale, which costs acceptance after recovery, never tokens: the
         verify picks them), >= 4 admits interactive only.  An engine
-        nobody browns out decides as one without the ladder."""
+        nobody browns out decides as one without the ladder.  Under a
+        mesh the leader applies the level at its next flush, on every
+        rank."""
+        if self._leads():
+            op = ("brownout", int(level), int(standard_max_new))
+            self._lockstep.post(op, op)
+            return
         self._brownout_enabled = True
         self._brownout_level = max(
             0, min(int(level), scheduler_policy.BROWNOUT_MAX_LEVEL))
@@ -2835,7 +3105,7 @@ class ContinuousEngine:
             return scheduler_policy.grant_rank(self._qos, None, 0.0,
                                                st.admit_seq)
         return scheduler_policy.grant_rank(
-            self._qos, req.priority, time.monotonic() - req.enq_t,
+            self._qos, req.priority, self._now() - req.enq_t,
             st.admit_seq)
 
     def _reanchor_prefill(self) -> None:
@@ -3198,6 +3468,9 @@ class ContinuousEngine:
         reference counts them."""
         if not self.chunked:
             raise ValueError("precompile_chunked requires chunked=True")
+        if self._leads():
+            return self._flush(("precompile", sampled, use_topp,
+                                max_chunk_rows))
         dev, S = self.device, self._S
         tok = torch.zeros(S, dtype=torch.int32, device=dev)
         # paged: all-sink tables at position 0; arena: position L-1

@@ -816,20 +816,37 @@ class ClusterServing:
         return cls(im, cfg, embedded_broker=embedded_broker)
 
     def start(self) -> "ClusterServing":
-        self.client = RespClient(self.config.redis_host,
-                                 self.config.redis_port)
-        # one shared consumer group: every worker (thread here; other
-        # ClusterServing PROCESSES on the same broker too) claims disjoint
-        # entries atomically — the Flink-source-parallelism analog
-        try:
-            # MKSTREAM: a real redis-server refuses to create a group on a
-            # stream that has no entries yet (the embedded broker
-            # auto-creates either way)
-            self.client.execute("XGROUP", "CREATE", INPUT_STREAM,
-                                self.GROUP, "0-0", "MKSTREAM")
-        except Exception as e:
-            if "BUSYGROUP" not in str(e):
-                raise
+        # a tensor-parallel engine's other ranks build the same engine
+        # and follow rank 0's: no broker client, no pump
+        mesh = self.engine_mesh
+        if mesh is not None and mesh.size("tp") > 1 and self.n_replicas > 1:
+            # every replica would shard the one model and lead the one
+            # control group: a tp engine is served alone
+            raise ValueError(
+                "engine_mesh with tp > 1 serves one engine: n_replicas > 1 "
+                "over a tensor-parallel mesh is not ported (ROADMAP Queue 1 "
+                "item 6.5)")
+        follower = (mesh is not None and mesh.size("tp") > 1
+                    and mesh.coord("tp") > 0)
+        if follower and not self.config.continuous_batching:
+            raise ValueError("engine_mesh serves a continuous engine: "
+                             "set continuous_batching")
+        if not follower:
+            self.client = RespClient(self.config.redis_host,
+                                     self.config.redis_port)
+            # one shared consumer group: every worker (thread here; other
+            # ClusterServing PROCESSES on the same broker too) claims
+            # disjoint entries atomically — the Flink-source-parallelism
+            # analog
+            try:
+                # MKSTREAM: a real redis-server refuses to create a group
+                # on a stream that has no entries yet (the embedded
+                # broker auto-creates either way)
+                self.client.execute("XGROUP", "CREATE", INPUT_STREAM,
+                                    self.GROUP, "0-0", "MKSTREAM")
+            except Exception as e:
+                if "BUSYGROUP" not in str(e):
+                    raise
         self._threads = []
         if self.config.continuous_batching:
             # each pump thread owns ONE engine's device state; with
@@ -877,6 +894,13 @@ class ClusterServing:
                 flight_capacity=self.config.flight_capacity)
                 for r in range(self.n_replicas)]
             self.engine = self.engines[0]   # back-compat attribute
+            if follower:
+                t = threading.Thread(target=self.engine.follow,
+                                     daemon=True, name="zoo-serving-tp")
+                t.start()
+                self._threads = [t]
+                self._thread = t
+                return self
             for r in range(self.n_replicas):
                 self._pump_live[r] = True
                 t = threading.Thread(target=self._loop_continuous,
@@ -931,8 +955,15 @@ class ClusterServing:
 
     def stop(self):
         self._stop.set()
+        mesh = self.engine_mesh
+        tp = mesh is not None and mesh.size("tp") > 1 and \
+            self.engine is not None
+        follower = tp and mesh.coord("tp") > 0
         for t in getattr(self, "_threads", []):
-            t.join(timeout=5)
+            # a follower's loop ends when the leader's stop arrives
+            t.join(timeout=None if follower else 5)
+        if tp and not follower:
+            self.engine.stop_followers()
         if self.broker is not None:
             self.broker.stop()
         self._decode_pool.shutdown(wait=False)

@@ -23,7 +23,7 @@ betas=(0.5, 0.999), eps=1e-8)``; ``generator_optimizer`` and
 Optimizer``.  ``fit`` returns one entry an epoch: the mean over its
 steps of ``d_loss`` (each step's last discriminator loss) and
 ``g_loss``, ``epoch`` and ``steps``.  ``mesh=`` (a sharded step) is
-ROADMAP Queue 1 item 6 and raises.
+ROADMAP Queue 1 item 6.2 and raises.
 """
 
 from __future__ import annotations
@@ -115,7 +115,7 @@ class GANEstimator:
         if mesh is not None:
             raise NotImplementedError(
                 "a sharded GAN step (mesh=) is not ported yet (ROADMAP "
-                "Queue 1 item 6)")
+                "Queue 1 item 6.2)")
         self.gen = generator
         self.disc = discriminator
         if isinstance(loss, str):

@@ -22,7 +22,7 @@ numpy arrays or an ``(x, y)`` pair, and bind the port's models:
 ``POSEstimator`` and ``IntentEntityEstimator`` (``tfpark.text.keras``;
 the taggers' metric is :func:`token_accuracy`, plain per-token accuracy,
 padding included).  Partition rules (tensor parallelism) are ROADMAP
-Queue 1 item 6 and raise.
+Queue 1 item 6.2 and raise.
 """
 
 from __future__ import annotations
@@ -73,7 +73,7 @@ class TextEstimator:
         if "partition_rules" in kw:
             raise NotImplementedError(
                 "partition_rules (tensor parallelism) are not ported yet "
-                "(ROADMAP Queue 1 item 6)")
+                "(ROADMAP Queue 1 item 6.2)")
         self.estimator = TorchEstimator(
             model, loss, optimizer if optimizer is not None else 1e-3,
             feature_cols=feature_cols, label_cols=label_cols,

@@ -411,12 +411,37 @@ fails.  Phases, in order:
    ``InferenceModel.load_flax`` at 32 x 224 in each quantize mode
    (predict ms, images/s, weight bytes, max |delta| and top-1 agreement
    against f32, 16 int8 layers for ``int8_mxu``).
+18. Tensor-parallel serving and data-parallel training (run after 17;
+   ``--dist`` alone), each rank a process spawned on this card
+   (``torch.multiprocessing``; ``init_orca_context("distributed")``
+   picks gloo, as NCCL refuses two ranks on one device: a check of the
+   code and the per-rank kernels, not of speed).  18a, f32, TinyLlama's
+   width at 2 layers: greedy tokens at tp=2 equal tp=1's for the paged
+   engine through the kernel and through the gather, chunked,
+   speculative (a 1-layer draft), the arena and an int8 pool, each
+   rank's paged and flash launches equal to its engine's calls x layers;
+   the hatch at tp=3 (4 kv heads: the default rules refuse, the
+   replicated k/v rules serve the tp=1 tokens with the whole pool on
+   every rank); each rank's paged read and flash forward on its shard
+   against their plain versions (f32 and bf16); dp=2 against dp=1: a
+   GPT-2-shape LM with dropout 0.1 (SGD parameters within
+   ``DIST_PARAM_TOL`` of their scale) and ResNet-18 on a planted task,
+   four steps: in f64 its parameters and BatchNorm's running statistics
+   within ``DIST_F64_TOL``, which each planted fault of ``DIST_FAULTS``
+   must exceed; in f32 both reported, with each side's distance from
+   the f64 run.  18b, bf16,
+   TinyLlama-1.1B (22 layers) at tp=2 through ``ClusterServing`` (rank
+   0 serves the queues, rank 1 follows): every request whole, tokens/s
+   with the card and its limit, each rank's paged launches = its
+   engine's calls x layers, and the tp=2 dense logits within phase 6b's
+   bf16 bar of the one-rank model's.  Phase 7 then adds the paged read
+   at a rank's decode shape and the flash forward at a rank's heads.
 
 The line before the last is ``{"kernels": [...], "stack": ..., "modes":
 [phase 9b's runs], "witness": {...}, "serving_modes": {phase 10},
 "bert": {phase 11b}, "zoo": {phase 12}, "image": {phase 13a-d},
 "tcmf": {phase 13e}, "finetune": {phase 14}, "tools": {phase 15},
-"text": {phase 16}, "keras": {phase 17}}``;
+"text": {phase 16}, "keras": {phase 17}, "dist": {phase 18}}``;
 the last is ``{"ok": true,
 "device": {...}}``.  On a failure the script waits for the card (so
 that a device-side assert's lines come out first), then prints
@@ -1538,11 +1563,11 @@ def check_bf16_prefill(model, dev, vocab):
     compare_logits("arena prefill", got, ref)
 
 
-def compare_logits(what, got, ref):
+def compare_logits(what, got, ref, versus="kernel vs plain"):
     err = (got - ref).abs().max().item()
     lim = 0.1 * ref.abs().max().item()
     agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    print(f"  bf16 {what} logits, kernel vs plain: max_abs_err "
+    print(f"  bf16 {what} logits, {versus}: max_abs_err "
           f"{err:.4f} (limit {lim:.4f}), argmax agreement {agree:.4f}")
     if not (torch.isfinite(got).all() and err <= lim):
         raise AssertionError(f"bf16 {what} logits disagree with the "
@@ -2041,13 +2066,16 @@ def split_sweep(paged, n_sets, sweep):
     return at_splits
 
 
-def prefill_timings(dev, shapes, flash_launches):
+def prefill_timings(dev, shapes, flash_launches, heads=None, label=""):
     """The flash forward at GPT-2 arena prefill shapes (``shapes``:
-    ((B, T), calls at that shape or None)), beside the plain version,
-    the bound and SDPA."""
+    ((B, T), calls at that shape or None)), or at ``heads`` heads of 64
+    (``label`` names them), beside the plain version, the bound and
+    SDPA."""
     entries = []
     for (B, T), calls in shapes:
         H, D = GPT2["num_heads"], GPT2["hidden_size"] // GPT2["num_heads"]
+        if heads is not None:
+            H, D = heads, 64
         n_sets = n_sets_for(3 * B * T * H * D * 2)
         sets = [flash_case(dev, torch.bfloat16, B, T, H, D, seed=11 + i)[:3]
                 for i in range(n_sets)]
@@ -2074,11 +2102,14 @@ def prefill_timings(dev, shapes, flash_launches):
             *lib[i], is_causal=True), n_sets)
         bms, by = flash_bound(q)
         entries.append({
-            "name": f"flash_attention_fwd[B={B},T={T}]", "route": "cuda",
+            "name": f"flash_attention_fwd[{label + ' ' if label else ''}"
+                    f"B={B},T={T}]", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
             "shape": f"B={B} T={T} H={H} D={D} causal bf16 "
                      + (f"({calls} arena prefill calls at this shape)"
-                        if calls is not None else "(an arena prefill shape)"),
+                        if calls is not None else
+                        "(a rank's heads of phase 18's dense forward)"
+                        if heads is not None else "(an arena prefill shape)"),
             "launches": flash_launches, "max_abs_err": err, "ms": ms,
             "kernel_ms": launch_ms, "plain_ms": plain, "bound_ms": bms,
             "bound_by": by, "library_ms": lib_ms})
@@ -7747,6 +7778,550 @@ def phase_tools(dev, card, model, bert_serving=None):
     return out, {"paged": paged, "fwd": fwd}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: tensor-parallel serving and data-parallel training, one process
+# a rank, every rank on this one card
+# ---------------------------------------------------------------------------
+
+DIST_DIR = Path(__file__).resolve().parent / "build" / "dist"
+DIST_TP = 2
+DIST_HATCH_TP = 3           # TinyLlama's 4 kv heads do not divide 3
+DIST_F32_LAYERS = 2
+DIST_LENGTHS = (40, 75, 20, 110, 60, 33)
+DIST_ENGINE = dict(max_new_tokens=12, max_slots=4,
+                   prompt_buckets=(32, 64, 128))
+DIST_MODES = {
+    "paged fused": dict(paged=True, kernel="fused"),
+    "paged gather": dict(paged=True, kernel="gather"),
+    "chunked": dict(paged=True, kernel="fused", chunked=True,
+                    tick_token_budget=64),
+    "speculative": dict(paged=True, kernel="fused", _draft=1),
+    "arena": dict(),
+    "int8 pool": dict(paged=True, kernel="fused", kv_dtype="int8"),
+}
+DIST_BF16 = dict(requests=8, new=16, slots=8, blocks=200,
+                 buckets=(32, 64, 128, 256))
+DIST_LM = dict(batch=4, seq=128, rows=12, lr=0.01)     # GPT-2 shape, f32
+# four steps, in f64 (held) and in f32 (reported: f32 rounding moves its
+# parameters ~1e-4 apart, so it cannot tell a fault from rounding)
+DIST_RESNET = dict(hw=32, width=16, classes=10, rows=64, batch=16, lr=0.05)
+DIST_PARAM_TOL = 1e-4       # dp=2 vs dp=1 f32 parameters, of max(1, |p|)
+# dp=2 vs dp=1 f64 ResNet parameters and running statistics, of
+# max(1, |p|): above the rounding of its f32 head and loss, far below a
+# planted fault's reading
+DIST_F64_TOL = 1e-5
+# the planted faults the f64 hold must see: gradients left local, and
+# BatchNorm's global sums without the all_reduce in their backward
+DIST_FAULTS = ("grads not all-reduced", "batchnorm sums' backward local")
+DIST_TIMEOUT = 600
+
+
+def dist_run(part, world):
+    """Run ``part`` on ``world`` spawned ranks (``dist_rank``), all on
+    this card, and return each rank's result."""
+    import torch.multiprocessing as tmp
+
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    for f in DIST_DIR.glob(f"{part}_*.pt"):
+        f.unlink()
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = tmp.start_processes(dist_rank, args=(world, port, part),
+                              nprocs=world, join=False,
+                              start_method="spawn")
+    t0 = time.monotonic()
+    while not ctx.join(timeout=5):
+        if time.monotonic() - t0 > DIST_TIMEOUT:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"phase 18 {part}: ranks still running "
+                               f"after {DIST_TIMEOUT} s")
+    return [torch.load(DIST_DIR / f"{part}_{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def dist_rank(rank, world, port, part):
+    """One rank of phase 18 (spawned): joins the process group through
+    ``init_orca_context("distributed")`` from the launcher's variables,
+    runs ``part`` and saves its result."""
+    import os
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    ctx = init_orca_context("distributed", mesh_axes={"tp": world})
+    out = {"tp": dist_tp_rank, "hatch": dist_hatch_rank}[part](
+        rank, ctx.mesh, ctx.device)
+    torch.cuda.synchronize()
+    torch.save(out, DIST_DIR / f"{part}_{rank}.pt")
+    import torch.distributed as dist
+
+    dist.barrier()
+    stop_orca_context()
+    dist.destroy_process_group()
+
+
+def dist_model(dev, layers, dtype, seed=77, **kw):
+    """TinyLlama's width at ``layers`` layers, weights from ``seed`` on
+    the card (every rank draws the same)."""
+    torch.manual_seed(seed)
+    with torch.device(dev):
+        return TransformerLM(**TINYLLAMA, num_layers=layers, dtype=dtype,
+                             **kw)
+
+
+def dist_serve(rank, mesh, dev, state, kw, reqs, rules=None, layers=None):
+    """One engine run of ``reqs``: tokens and the engine on the leader
+    (the follower follows until it stops); kernel counters from 0."""
+    kw = dict(kw)
+    n_draft = kw.pop("_draft", 0)
+    if n_draft:
+        full = dist_model(dev, layers, torch.float32)
+        full.load_state_dict(state)
+        draft, dstate = first_layers(full, TINYLLAMA, n_draft)
+        kw.update(draft_model=draft, draft_variables=dstate,
+                  speculation_k=3)
+        del full
+    reset_flash()
+    fa.paged_attention_fused.launches = 0
+    model = dist_model(dev, layers, torch.float32)
+    eng = ContinuousEngine(model, state, mesh=mesh, partition_rules=rules,
+                           device=dev, block_size=16, **DIST_ENGINE, **kw)
+    if mesh is not None and rank != 0:
+        eng.follow()
+        return eng, None
+    out = {}
+    for uri, prompt in reqs:
+        eng.submit(uri, prompt, lambda u, t: out.__setitem__(u, t.tolist()))
+    eng.drain()
+    if mesh is not None:
+        eng.stop_followers()
+    return eng, out
+
+
+def dist_launches(eng):
+    """This rank's kernel launches for a run, against what the engine's
+    counters say it must have made."""
+    paged_want, flash_want = expected_launches(eng)
+    if eng.kernel == "gather":
+        paged_want = 0
+    return {"paged": fa.paged_attention_fused.launches,
+            "flash": flash_counts()[0], "paged_want": paged_want,
+            "flash_want": flash_want}
+
+
+def dist_twins(rank, mesh, dev, dtype, pos, T):
+    """Each kernel on this rank's shard held to its plain version on the
+    same inputs: the paged read on this rank's kv heads (B=8 S=1 H=16
+    KH=2 at TinyLlama's tp=2 width) and the flash forward on this rank's
+    heads of a [1, T] prefill."""
+    tp = mesh.size("tp")
+    H, KH = TINYLLAMA["num_heads"] // tp, TINYLLAMA["num_kv_heads"] // tp
+    D = TINYLLAMA["hidden_size"] // TINYLLAMA["num_heads"]
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    q, pk, pv, tabs, p = attention_case(dev, kind, H, KH, 1, 8, pos,
+                                        M=PAGED_M, D=D, seed=40 + rank)
+    got = fa.paged_attention_fused_tp(q, pk, pv, tabs[0], p)
+    paged_err = (got - fa.paged_attention_ref(q, pk, pv, tabs[0], p)
+                 ).abs().max().item()
+    fq, fk, fv = flash_case(dev, dtype, 1, T, H, D, seed=50 + rank)[:3]
+    with torch.no_grad():
+        fo = fa.sharded_flash_attention(fq, fk, fv, causal=True)
+    flash_err = (fo.float() - fa.flash_attention_ref(
+        fq, fk, fv, causal=True)[0].float()).abs().max().item()
+    if paged_err > ATOL[kind] or flash_err > FLASH_ATOL[kind]:
+        raise AssertionError(
+            f"rank {rank}: a kernel on its shard disagrees with its plain "
+            f"version (paged {paged_err}, flash {flash_err})")
+    return {"paged_err": paged_err, "flash_err": flash_err,
+            "shape": f"paged B=8 S=1 H={H} KH={KH} D={D} {kind}; flash "
+                     f"B=1 T={T} H={H} D={D} {kind}"}
+
+
+def dist_tp_rank(rank, mesh, dev):
+    """18a (f32, 2 layers) and 18b (bf16, 22 layers) on a tp=2 rank, then
+    18a's data-parallel fits on a dp=2 mesh of the same ranks."""
+    out = {"modes": {}, "launches": {}}
+    vocab = TINYLLAMA["vocab_size"]
+    reqs, _ = prompts(np.random.default_rng(5), DIST_LENGTHS, vocab=vocab)
+    state = dist_model(dev, DIST_F32_LAYERS, torch.float32).state_dict()
+    for mode, kw in DIST_MODES.items():
+        for name, m in (("tp2", mesh), ("tp1", None)):
+            if m is None and rank != 0:
+                continue
+            t0 = time.monotonic()
+            eng, toks = dist_serve(rank, m, dev, state, kw, reqs,
+                                   layers=DIST_F32_LAYERS)
+            torch.cuda.synchronize()
+            if name == "tp2":
+                out["launches"][mode] = dist_launches(eng)
+                out["pool"] = out.get("pool") or (
+                    tuple(eng._pk.shape) if eng.paged and mode ==
+                    "paged fused" else None)
+            if rank == 0:
+                out["modes"][(mode, name)] = (toks,
+                                              time.monotonic() - t0)
+            del eng
+    out["twins_f32"] = dist_twins(rank, mesh, dev, torch.float32,
+                                  (290, 295, 301, 306, 291, 299, 302, 294),
+                                  512)
+    free_memory()
+    out["bf16"] = dist_bf16(rank, mesh, dev)
+    out["twins_bf16"] = dist_twins(rank, mesh, dev, torch.bfloat16,
+                                   (290, 295, 301, 306, 291, 299, 302, 294),
+                                   512)
+    free_memory()
+    from analytics_zoo_tpu_torch.parallel import make_mesh
+
+    out["dp"] = dist_dp(rank, make_mesh(axes={"dp": -1}, device=dev), dev)
+    return out
+
+
+def dist_bf16(rank, mesh, dev):
+    """18b: full-width TinyLlama, 22 layers, bf16, sharded over tp=2,
+    served through ``ClusterServing`` on rank 0 (queue requests) while
+    rank 1 follows; then the tp=2 model's dense logits against the
+    one-rank model's (rank 0) under phase 6b's bf16 tolerance."""
+    t = DIST_BF16
+    vocab = TINYLLAMA["vocab_size"]
+    model = dist_model(dev, TINYLLAMA_LAYERS, torch.bfloat16, seed=4321)
+    im = InferenceModel().load_torch_generator(
+        model, None, t["new"], prompt_buckets=t["buckets"], device=dev)
+    cfg = ServingConfig(prompt_col="tokens", continuous_batching=True,
+                        engine_paged=True, engine_slots=t["slots"],
+                        engine_blocks=t["blocks"])
+    reqs, _ = prompts(np.random.default_rng(6),
+                      [30 + 25 * i for i in range(t["requests"])],
+                      vocab=vocab)
+    reset_flash()
+    fa.paged_attention_fused.launches = 0
+    srv = ClusterServing(im, cfg, embedded_broker=rank == 0,
+                         engine_mesh=mesh).start()
+    res = {}
+    if rank == 0:
+        inq, outq = InputQueue(port=srv.port), OutputQueue(port=srv.port)
+        t0 = time.monotonic()
+        uris = [inq.enqueue(uri, tokens=p) for uri, p in reqs]
+        got = [np.asarray(outq.query(u, timeout=STACK_TIMEOUT)) for u in uris]
+        secs = time.monotonic() - t0
+        n_tok = sum(len(g) for g in got)
+        if any(len(g) != t["new"] for g in got):
+            raise AssertionError(f"18b: a request came back short: "
+                                 f"{[len(g) for g in got]}")
+        res.update(tokens=n_tok, seconds=secs, tokens_per_s=n_tok / secs)
+    srv.stop()
+    eng = srv.engine
+    res["launches"] = dist_launches(eng)
+    res["kernel"] = eng.kernel
+    if res["launches"]["paged"] == 0 or \
+            res["launches"]["paged"] != res["launches"]["paged_want"]:
+        raise AssertionError(f"18b rank {rank}: paged launches "
+                             f"{res['launches']}")
+    res["pool"] = tuple(eng._pk.shape)
+    # dense logits: both ranks run the sharded forward (collectives),
+    # rank 0 holds them to the one-rank model's
+    toks = torch.randint(0, vocab, (1, 512),
+                         generator=torch.Generator().manual_seed(3)).to(dev)
+    reset_flash()
+    with torch.no_grad():
+        got = eng.model(toks)
+    res["flash_launches"] = flash_counts()[0]
+    del srv, eng, im
+    free_memory()
+    if rank == 0:
+        ref = dist_model(dev, TINYLLAMA_LAYERS, torch.bfloat16, seed=4321)
+        with torch.no_grad():
+            want = ref(toks)
+        compare_logits("18b dense", got, want, "tp=2 vs tp=1")
+        res["logits_err"] = (got - want).abs().max().item()
+        res["logits_limit"] = 0.1 * want.abs().max().item()
+        res["argmax_agreement"] = (got.argmax(-1) == want.argmax(-1)
+                                   ).float().mean().item()
+        del ref
+    return res
+
+
+def dist_dp(rank, mesh, dev):
+    """18a's data-parallel half: dp=2 against dp=1 (rank 0) in SGD
+    parameters, a GPT-2-shape LM with dropout 0.1 (2 layers, f32, the
+    flash kernels in forward and backward) and ResNet-18 on a planted
+    image task in f64 and f32 (BatchNorm's running statistics included),
+    then dp=2 in f64 with each of ``DIST_FAULTS`` planted."""
+    out = {}
+    lm = DIST_LM
+    toks = np.random.default_rng(9).integers(
+        0, GPT2["vocab_size"], (lm["rows"], lm["seq"])).astype(np.int32)
+    r = DIST_RESNET
+    rng = np.random.default_rng(7)
+    patterns = rng.normal(size=(r["classes"], r["hw"], r["hw"], 3)).astype(
+        np.float32)
+    data = planted_images(rng, patterns, r["rows"], dict(
+        r, amplitude=0.5))
+    for name, m in (("dp2", mesh), ("dp1", None)):
+        if m is None and rank != 0:
+            continue
+        torch.manual_seed(11)
+        with torch.device(dev):
+            model = TransformerLM(**GPT2, num_layers=2, dropout=0.1,
+                                  dtype=torch.float32)
+        reset_flash()
+        est = TorchEstimator(model, lm_loss, lambda ps: torch.optim.SGD(
+            ps, lr=lm["lr"]), feature_cols=("tokens",),
+            label_cols=("tokens",), config=TrainConfig(deterministic=True),
+            mesh=m, device=None if m is not None else dev)
+        hist = est.fit({"tokens": toks}, epochs=1, batch_size=lm["batch"])
+        out[("lm", name)] = ([h["loss"] for h in hist], {
+            k: v.detach().cpu() for k, v in model.state_dict().items()},
+            flash_counts())
+        del est, model
+        free_memory()
+        for dt in ("f64", "f32"):
+            out[("resnet", dt, name)] = dist_resnet_fit(data, m, dev, dt)
+    for fault in DIST_FAULTS:
+        with dist_fault(fault):
+            out[("fault", fault)] = dist_resnet_fit(data, mesh, dev, "f64")
+    return out
+
+
+def dist_resnet_fit(data, mesh, dev, dt):
+    """ResNet-18 on 18a's planted task, SGD from the same seeded weights
+    in f32, or cast to f64 throughout (its f32 head aside); losses and
+    the state after the fit."""
+    r = DIST_RESNET
+    one = torch.zeros(1, r["hw"], r["hw"], 3)
+    torch.manual_seed(12)
+    net = resnet18(r["classes"], small_inputs=True, width=r["width"],
+                   dtype=torch.float32)
+    with torch.no_grad():
+        net(one)                # the lazy stem takes its weights here
+        if dt == "f64":
+            f64 = resnet18(r["classes"], small_inputs=True,
+                           width=r["width"], dtype=torch.float64)
+            f64(one)
+            f64.load_state_dict(net.state_dict())
+            net = f64.double()
+    est = TorchEstimator(net, "sparse_categorical_crossentropy",
+                         lambda ps: torch.optim.SGD(ps, lr=r["lr"]),
+                         feature_cols=("x",), label_cols=("y",),
+                         config=TrainConfig(deterministic=True),
+                         mesh=mesh, device=None if mesh is not None else dev)
+    hist = est.fit(data, epochs=1, batch_size=r["batch"])
+    got = ([h["loss"] for h in hist], {
+        k: v.detach().cpu() for k, v in net.state_dict().items()})
+    del est, net
+    free_memory()
+    return got
+
+
+def dist_fault(fault):
+    """One of ``DIST_FAULTS`` planted for the fit inside the ``with``."""
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.parallel import data_parallel
+
+    if fault == DIST_FAULTS[0]:
+        return unittest.mock.patch.object(
+            TorchEstimator, "_all_reduce_grads", lambda self: None)
+
+    def forward_only(sums):
+        tot = sums.detach().clone()
+        dist.all_reduce(tot, group=data_parallel.current().group)
+        return sums + (tot - sums.detach())
+    return unittest.mock.patch.object(data_parallel, "global_sums",
+                                      forward_only)
+
+
+def dist_hatch_rank(rank, mesh, dev):
+    """18a's hatch: TinyLlama's 4 kv heads over tp=3 refuse the default
+    rules; with the key and value kernels replicated every rank holds
+    the whole pool and reads it all through the kernel, and
+    the tokens are one rank's."""
+    from analytics_zoo_tpu_torch.models.lm import LM_PARTITION_RULES
+    from analytics_zoo_tpu_torch.parallel import P
+
+    vocab = TINYLLAMA["vocab_size"]
+    reqs, _ = prompts(np.random.default_rng(5), DIST_LENGTHS[:3],
+                      vocab=vocab)
+    state = dist_model(dev, DIST_F32_LAYERS, torch.float32).state_dict()
+    out = {}
+    try:
+        ContinuousEngine(dist_model(dev, DIST_F32_LAYERS, torch.float32),
+                         state, mesh=mesh, device=dev, paged=True,
+                         **DIST_ENGINE)
+    except ValueError as e:
+        out["refused"] = str(e)
+    rules = ((r"(key|value)/kernel", P()),) + LM_PARTITION_RULES
+    kw = dict(paged=True, kernel="fused")
+    eng, toks = dist_serve(rank, mesh, dev, state, kw, reqs, rules=rules,
+                           layers=DIST_F32_LAYERS)
+    out["launches"] = dist_launches(eng)
+    out["pool"] = tuple(eng._pk.shape)
+    cap = eng.capacity_report()
+    out["capacity"] = (cap["arena_bytes_per_chip"], cap["arena_bytes"])
+    if rank == 0:
+        _, solo = dist_serve(rank, None, dev, state, kw, reqs,
+                             layers=DIST_F32_LAYERS)
+        out["tokens"] = (toks, solo)
+    return out
+
+
+def state_rel(got, want, keys):
+    """Largest |got - want| over the tensors ``keys``, each over
+    max(1, its largest |want|)."""
+    return max(((got[k].double() - want[k].double()).abs().max()
+                / max(1.0, want[k].double().abs().max().item())).item()
+               for k in keys)
+
+
+def dp_held(dp, ranks, what):
+    """dp=2 (rank 0) against dp=1 of the fit ``what``: its parameters'
+    and running statistics' largest relative error, the ranks' largest
+    difference, and the dp=2 losses."""
+    (l2, p2, *_), (_, p1, *_) = dp[what + ("dp2",)], dp[what + ("dp1",)]
+    stats = [k for k in p1 if "running_" in k]
+    params = [k for k in p1 if k not in stats and p1[k].is_floating_point()]
+    rank1 = ranks[1]["dp"][what + ("dp2",)][1]
+    return {"params": state_rel(p2, p1, params),
+            "stats": state_rel(p2, p1, stats) if stats else 0.0,
+            "skew": max((rank1[k].double() - p2[k].double()).abs().max()
+                        .item() for k in p2),
+            "losses": l2}
+
+
+def phase_dist(dev, card):
+    """Phase 18: the port's tensor-parallel serving and data-parallel
+    training, each rank a process spawned on this one card (two ranks
+    share it: this checks the code and the per-rank kernels, not their
+    speed).  Returns the figures and each rank's launches."""
+    print(f"== phase 18: tensor-parallel serving and data-parallel "
+          f"training, {DIST_TP} ranks (and {DIST_HATCH_TP} for the hatch) "
+          f"as processes on {torch.cuda.device_count()} card(s) (ranks "
+          f"sharing a card check the code, not speed; each rank prints "
+          f"its backend)")
+    ranks = dist_run("tp", DIST_TP)
+    r0 = ranks[0]
+    print(f"-- 18a f32, TinyLlama width, {DIST_F32_LAYERS} layers, tp=2 vs "
+          f"tp=1, {len(DIST_LENGTHS)} requests x "
+          f"{DIST_ENGINE['max_new_tokens']} tokens; pool per rank "
+          f"{r0['pool']} (4 kv heads / 2)")
+    for mode in DIST_MODES:
+        (t2, s2), (t1, s1) = r0["modes"][(mode, "tp2")], \
+            r0["modes"][(mode, "tp1")]
+        same_tokens(t2, t1, f"18a {mode}: tp=2 != tp=1")
+        launches = [r["launches"][mode] for r in ranks]
+        print(f"  {mode}: greedy tokens tp=2 = tp=1 for {len(t2)} "
+              f"requests; launches per rank (paged, flash) "
+              f"{[(x['paged'], x['flash']) for x in launches]}, each = "
+              f"its engine's calls x layers; {s2:.2f} s vs {s1:.2f} s")
+        for x in launches:
+            if (x["paged"], x["flash"]) != (x["paged_want"],
+                                            x["flash_want"]) or (
+                    x["paged"] + x["flash"] == 0 and mode != "paged gather"):
+                raise AssertionError(f"18a {mode}: launches {x}")
+    hatch = dist_run("hatch", DIST_HATCH_TP)
+    toks, solo = hatch[0]["tokens"]
+    same_tokens(toks, solo, "18a hatch: tp=3 != tp=1")
+    for h in hatch:
+        if "kv_heads=4 must divide by tp=3" not in h["refused"] or \
+                h["pool"][2] != TINYLLAMA["num_kv_heads"] or \
+                h["capacity"][0] != h["capacity"][1] or \
+                h["launches"]["paged"] == 0:
+            raise AssertionError(f"18a hatch: {h}")
+    print(f"  hatch tp=3: default rules refused; k/v replicated, pool "
+          f"{hatch[0]['pool']} on each rank, per-rank bytes = total, "
+          f"tokens = tp=1; paged launches per rank "
+          f"{[h['launches']['paged'] for h in hatch]}")
+    for r, x in enumerate(ranks):
+        for k in ("twins_f32", "twins_bf16"):
+            print(f"  rank {r} {k}: paged max_abs_err "
+                  f"{x[k]['paged_err']:.3e}, flash {x[k]['flash_err']:.3e}"
+                  f" ({x[k]['shape']})")
+    dp = r0["dp"]
+    lm_held = dp_held(dp, ranks, ("lm",))
+    print(f"  dp=2 vs dp=1 lm: losses "
+          f"{[round(x, 6) for x in lm_held['losses']]} vs "
+          f"{[round(x, 6) for x in dp[('lm', 'dp1')][0]]}, SGD "
+          f"parameters max rel err {lm_held['params']:.3e} (tol "
+          f"{DIST_PARAM_TOL:.0e}); flash launches (fwd, bwd, delta) per "
+          f"rank {[x['dp'][('lm', 'dp2')][2] for x in ranks]}, ranks apart "
+          f"{lm_held['skew']:.1e}")
+    if lm_held["params"] > DIST_PARAM_TOL or lm_held["skew"] != 0.0:
+        raise AssertionError("18a dp lm: dp=2 != dp=1")
+    res = {dt: dp_held(dp, ranks, ("resnet", dt)) for dt in ("f64", "f32")}
+    f64 = dp[("resnet", "f64", "dp1")][1]
+    keys = [k for k in f64 if "running_" not in k
+            and f64[k].is_floating_point()]
+    for side in ("dp2", "dp1"):
+        res["f32"][f"{side}_vs_f64"] = state_rel(
+            dp[("resnet", "f32", side)][1], f64, keys)
+    faults = {f: state_rel(dp[("fault", f)][1], f64, keys)
+              for f in DIST_FAULTS}
+    steps = DIST_RESNET["rows"] // DIST_RESNET["batch"]
+    for dt, x in res.items():
+        print(f"  dp=2 vs dp=1 resnet {dt}, {steps} steps: losses "
+              f"{[round(v, 6) for v in x['losses']]}, SGD parameters "
+              f"max rel err {x['params']:.3e}, running "
+              f"statistics {x['stats']:.3e}, ranks apart {x['skew']:.1e}"
+              + (f" (both held, tol {DIST_F64_TOL:.0e})" if dt == "f64"
+                 else f" (reported; parameters from the f64 run: dp=2 "
+                 f"{x['dp2_vs_f64']:.3e}, dp=1 {x['dp1_vs_f64']:.3e})"))
+    print(f"  planted faults, dp=2 f64 vs dp=1 f64 parameters: "
+          + ", ".join(f"{f} {v:.3e}" for f, v in faults.items())
+          + f" (each must exceed {DIST_F64_TOL:.0e})")
+    if max(res["f64"]["params"], res["f64"]["stats"]) > DIST_F64_TOL or \
+            res["f64"]["skew"] != 0.0 or res["f32"]["skew"] != 0.0:
+        raise AssertionError("18a dp resnet: dp=2 != dp=1")
+    if min(faults.values()) <= DIST_F64_TOL:
+        raise AssertionError(f"18a dp resnet: the hold misses a planted "
+                             f"fault {faults}")
+    dp_out = {"lm": lm_held, "resnet": res, "faults": faults}
+    b = r0["bf16"]
+    print(f"-- 18b bf16 TinyLlama-1.1B width, {TINYLLAMA_LAYERS} layers, "
+          f"tp=2 through ClusterServing (rank 0 serves, rank 1 follows), "
+          f"pool per rank {b['pool']}, read {b['kernel']}")
+    print(f"  [{card}; two ranks share one card] {DIST_BF16['requests']} "
+          f"requests x {DIST_BF16['new']} tokens: {b['tokens']} tokens in "
+          f"{b['seconds']:.2f} s, {b['tokens_per_s']:.1f} tokens/s")
+    if any(x["bf16"]["flash_launches"] == 0 for x in ranks):
+        raise AssertionError("18b: a rank's dense forward launched no "
+                             "flash kernel")
+    print(f"  paged launches per rank "
+          f"{[x['bf16']['launches']['paged'] for x in ranks]} (= the "
+          f"engine's calls x layers); dense forward flash launches per "
+          f"rank {[x['bf16']['flash_launches'] for x in ranks]}")
+    return {"modes": list(DIST_MODES), "hatch_tp": DIST_HATCH_TP,
+            "dp": dp_out, "bf16": {k: b[k] for k in (
+                "tokens", "seconds", "tokens_per_s", "logits_err",
+                "logits_limit", "argmax_agreement")},
+            "twins": [{k: x[k] for k in ("twins_f32", "twins_bf16")}
+                      for x in ranks],
+            "launches": {"paged": ranks[0]["bf16"]["launches"]["paged"],
+                         "flash": ranks[0]["bf16"]["flash_launches"]},
+            "card": card, "note": "two ranks share one card"}
+
+
+def dist_rows(dev, launches):
+    """Phase 7's rows at the per-rank shapes of phase 18: the paged read
+    on a tp=2 rank's kv heads at TinyLlama's decode shape, and the flash
+    forward on its heads of a 512-token prefill (bf16)."""
+    cfg = dict(TINYLLAMA, num_heads=TINYLLAMA["num_heads"] // DIST_TP,
+               num_kv_heads=TINYLLAMA["num_kv_heads"] // DIST_TP,
+               hidden_size=TINYLLAMA["hidden_size"] // DIST_TP)
+    pos = (290, 295, 301, 306, 291, 299, 302, 294)
+    rows = paged_case_rows(dev, [("TinyLlama tp=2 rank decode", cfg, "bf16",
+                                  8, 1, pos, PAGED_M, launches["paged"])])
+    rows += prefill_timings(dev, [((1, 512), None)], launches["flash"],
+                            heads=cfg["num_heads"],
+                            label="TinyLlama tp=2 rank")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7858,6 +8433,19 @@ def main() -> int:
         print(json.dumps({"finetune": finetune, "launches": ft_launches}))
         return 0
 
+    if sys.argv[1:2] == ["--dist"]:
+        # phase 1 and phase 18, then its per-rank shapes' kernel rows
+        phase_build()
+        lap("phase 1")
+        dist = phase_dist(dev, card)
+        lap("phase 18")
+        rows = dist_rows(dev, dist["launches"])
+        print_rows(rows)
+        lap("phase 18's kernel rows")
+        print(card)
+        print(json.dumps({"kernels": rows, "dist": dist}))
+        return 0
+
     if sys.argv[1:2] == ["--tools"]:
         # phase 1 and phase 15 on a TinyLlama built as phase 6b builds it
         phase_build()
@@ -7928,6 +8516,8 @@ def main() -> int:
     lap("phase 16")
     keras = phase_keras(dev, card)
     lap("phase 17")
+    dist = phase_dist(dev, card)
+    lap("phase 18")
     for e in kernels:
         # each kernel's launches in phase 8b's two servers (the paged
         # server reads through paged, the arena prefills through flash);
@@ -7948,6 +8538,8 @@ def main() -> int:
             tools_launches["paged"] if e["name"].startswith("paged")
             else tools_launches["fwd"]
             if e["name"].startswith("flash_attention_fwd") else 0)
+    # phase 18's per-rank shapes, with that phase's launches
+    kernels += dist_rows(dev, dist["launches"])
     print(f"whole run {time.monotonic() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, "stack": {
@@ -7955,7 +8547,7 @@ def main() -> int:
         "modes": modes["runs"], "witness": modes["witness"],
         "serving_modes": serving_modes, "bert": bert, "zoo": zoo,
         "image": image, "tcmf": tcmf, "finetune": finetune,
-        "tools": tools, "text": text, "keras": keras}))
+        "tools": tools, "text": text, "keras": keras, "dist": dist}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

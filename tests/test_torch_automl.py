@@ -285,16 +285,20 @@ def test_context_holds_the_device(no_cuda):
         OrcaContext.get_context()
 
 
-@pytest.mark.parametrize("kw", [dict(cluster_mode="multihost"),
-                                dict(cluster_mode="yarn-client"),
-                                dict(mesh_axes={"dp": -1}),
-                                dict(num_devices=2)])
-def test_unported_context_modes_raise(kw):
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(cluster_mode="yarn-client"), ValueError, "multihost"),
+    (dict(cluster_mode="k8s"), ValueError, "Spark-era"),
+    (dict(mesh_axes={"dp": 3}), ValueError, "device count 1"),
+    (dict(num_devices=2), ValueError, "only 1 devices")])
+def test_unported_context_modes_raise(kw, err, match):
+    """Spark-era modes keep the reference's error, and one process
+    holds one rank (the process group's modes run in
+    ``test_torch_mesh.py``); distributed trials are not ported."""
     mode = kw.pop("cluster_mode", "local")
-    with pytest.raises(NotImplementedError, match="items 6 and 7"):
+    with pytest.raises(err, match=match):
         init_orca_context(mode, device="cpu", **kw)
     assert context.context_device() is None
-    with pytest.raises(NotImplementedError, match="items 6 and 7"):
+    with pytest.raises(NotImplementedError, match="item 6.3"):
         context.local_process_scope()
 
 

@@ -213,7 +213,15 @@ def test_estimator_takes_each_kind(tmp_path):
         8, shuffle=False, drop_remainder=False), "cpu"))
     assert [len(b["x"]) for b in batches] == [8, 8, 8]
     assert isinstance(batches[0]["x"], torch.Tensor)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # a batch placement on a one-rank mesh hands the rank every row; a
+    # sharding of another kind raises
+    from analytics_zoo_tpu_torch.parallel import (data_sharding,
+                                                  single_device_mesh)
+    mesh = single_device_mesh(device="cpu")
+    got = list(kinds["feature_set"].device_stream(
+        mesh, 8, sharding=data_sharding(mesh), shuffle=False))
+    assert [len(b["x"]) for b in got] == [8, 8, 8]
+    with pytest.raises(TypeError, match="Placement"):
         next(kinds["feature_set"].device_stream("cpu", 8, sharding=object()))
 
 

@@ -22,6 +22,7 @@ from analytics_zoo_tpu.models.lm import TransformerLM as JaxLM
 from analytics_zoo_tpu.serving.continuous import \
     ContinuousEngine as JaxEngine
 from analytics_zoo_tpu_torch.models.lm import TransformerLM, params_from_flax
+from analytics_zoo_tpu_torch.parallel.mesh import Mesh
 from analytics_zoo_tpu_torch.serving.continuous import ContinuousEngine
 
 _CFG = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
@@ -286,11 +287,13 @@ def test_engine_needs_a_device_or_cuda(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 6")])
+    (dict(mesh=Mesh({"dp": 2, "tp": 1}, "cpu")), "item 6.5")])
 def test_later_slice_modes_raise(models, kw, item):
-    """Only tensor-parallel serving is left to a later slice; the QoS,
-    elastic-pool and host-tier engines are built here and held to the
-    reference in ``test_torch_qos.py`` and ``test_torch_kv_tier.py``."""
+    """Serving on a mesh with axes beyond tp is left to a later slice
+    (tensor-parallel engines run in ``test_torch_tp_serving.py``); the
+    QoS, elastic-pool and host-tier engines are built here and held to
+    the reference in ``test_torch_qos.py`` and
+    ``test_torch_kv_tier.py``."""
     with pytest.raises(NotImplementedError, match=item):
         ContinuousEngine(models[2], device="cpu", **_ENGINE, **kw)
     from analytics_zoo_tpu_torch.serving.policy import QosPolicy

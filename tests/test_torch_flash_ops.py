@@ -24,6 +24,7 @@ from analytics_zoo_tpu.parallel.ring_attention import \
     full_attention as jax_full_attention
 from analytics_zoo_tpu_torch.models import transformer as ttr
 from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+from analytics_zoo_tpu_torch.parallel.mesh import Mesh
 from analytics_zoo_tpu_torch.parallel.ring_attention import full_attention
 
 jfa = importlib.import_module("analytics_zoo_tpu.ops.flash_attention")
@@ -149,7 +150,8 @@ def test_dispatch_picks_the_plain_branch_on_the_cpu(monkeypatch):
                                use_flash=use_flash)
     assert calls == ["full", "flash", "full"]
     with pytest.raises(NotImplementedError, match="mesh"):
-        ttr.attention_dispatch(q, q, q, None, causal=True, mesh=object())
+        ttr.attention_dispatch(q, q, q, None, causal=True,
+                               mesh=Mesh({"sp": 2}, "cpu"))
 
 
 @pytest.mark.parametrize("head_dim,takes", [

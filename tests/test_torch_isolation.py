@@ -101,7 +101,29 @@ def test_scan_reaches_every_port_module():
             "analytics_zoo_tpu_torch.keras.optimizers",
             "analytics_zoo_tpu_torch.keras.engine",
             "analytics_zoo_tpu_torch.keras.layers",
-            "analytics_zoo_tpu_torch.autograd"} <= mods
+            "analytics_zoo_tpu_torch.autograd",
+            "analytics_zoo_tpu_torch.parallel",
+            "analytics_zoo_tpu_torch.parallel.mesh",
+            "analytics_zoo_tpu_torch.parallel.partition",
+            "analytics_zoo_tpu_torch.parallel.data_parallel"} <= mods
+
+
+def test_parallel_modules_import_no_jax_and_start_no_group():
+    """The mesh layer imports torch.distributed only, and importing it
+    starts no process group (a mesh is made at run time)."""
+    code = (
+        "import sys\n"
+        "import analytics_zoo_tpu_torch.parallel as p\n"
+        "import torch.distributed as dist\n"
+        f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + "
+        f"'.') for f in {FORBIDDEN!r})]\n"
+        "assert not bad, bad\n"
+        "assert not dist.is_initialized()\n"
+        "m = p.single_device_mesh(device='cpu')\n"
+        "assert m.shape == {'dp': 1} and m.group('dp') is None\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_forbidden_name_check_is_exact():

@@ -40,9 +40,12 @@ PINS = {
     "serving/queues.py": (),
     # the config entry (a device to load onto) and the paged read's
     # default: the engine picks the CUDA kernel by shape instead of the
-    # reference's CPU-safe "gather"
+    # reference's CPU-safe "gather"; a tensor-parallel engine runs one
+    # process a rank, so start/stop also start and end the other
+    # ranks' follow loop
     "serving/server.py": ("ClusterServing.from_config",
-                          "ServingConfig.engine_kernel"),
+                          "ServingConfig.engine_kernel",
+                          "ClusterServing.start", "ClusterServing.stop"),
     "serving/http_frontend.py": (),
     "serving/paged_cache.py": (),
     # the bundle renderer and the simulator: standard library only
