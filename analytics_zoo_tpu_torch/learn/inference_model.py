@@ -91,11 +91,6 @@ def filter_prompt_buckets(prompt_buckets: Sequence[int],
     return out
 
 
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 def _tree_items(tree, path=()):
     """``(path, leaf)`` of a nested dict."""
     if isinstance(tree, dict) or hasattr(tree, "items"):
@@ -414,9 +409,10 @@ class InferenceModel:
         keeps it) and is refused without a draft.  ``qos``,
         ``elastic_pool``, ``kv_host_store_bytes`` and
         ``prefix_directory`` pass through to the engine, and so do
-        ``mesh`` and ``partition_rules`` (tensor parallelism: build it
-        on every rank of the tp line, with this handle's device the
-        rank's)."""
+        ``mesh`` and ``partition_rules`` (tensor parallelism: build it on
+        every rank of the mesh, with this handle's device the rank's;
+        engines of one handle share its sharded model, each on the lane
+        of the mesh its ``replica_id`` names)."""
         from analytics_zoo_tpu_torch.serving.continuous import (
             ContinuousEngine)
 
@@ -483,13 +479,15 @@ class InferenceModel:
         and each ``predict`` dequantizes them into its weights (a leaf
         that shares a tensor with others, a recurrent cell's gate, is
         dequantized once at load); another module is loaded with the
-        dequantized weights.  ``"int8_mxu"`` (Keras models only)
-        additionally runs every plain Dense and Conv whose kernel was
-        quantized (the reference interceptor's set: not an
-        ``OptimizedLSTMCell``'s gates, a ``ConvTranspose``, a locally
-        connected or embedding table, which stay on the dequantized
-        weights) as int8 x int8 -> int32 products with dynamic
-        per-tensor activation scales; ``int8_layers`` counts them."""
+        dequantized weights.  ``"int8_mxu"`` additionally runs every
+        plain Dense and Conv whose kernel was quantized (the reference
+        interceptor's set, by flax path: not an ``OptimizedLSTMCell``'s
+        gates, a ``ConvTranspose``, a ``DenseGeneral`` such as the
+        attention projections, a locally connected or embedding table,
+        which stay on the dequantized weights) as int8 x int8 -> int32
+        products with dynamic per-tensor activation scales, in a Keras
+        model and in any other module (a ``TransformerLM``, a
+        ``ResNet``); ``int8_layers`` counts them."""
         from analytics_zoo_tpu_torch.device import resolve_device
         from analytics_zoo_tpu_torch.keras.engine import (KerasNet, Layer,
                                                          flax_leaves,
@@ -503,9 +501,6 @@ class InferenceModel:
             raise ValueError(f"unknown quantize mode {quantize!r} "
                              f"(int8|bf16|int8_mxu)")
         keras = isinstance(model, Layer)
-        if quantize == "int8_mxu" and not keras:
-            raise _later("quantize='int8_mxu' for a module outside the "
-                         "Keras API", "8.5")
         dev = resolve_device(device)
         # the reference's leaves, keyed by (collection, *path)
         flat = {path: torch.as_tensor(np.array(leaf)) for path, leaf in
@@ -533,6 +528,9 @@ class InferenceModel:
         self.load_torch(model, device=dev)
         self.quant_stats = stats
         self.int8_layers = 0
+        if quantize == "int8_mxu" and not keras:
+            return self._int8_sites(model, {
+                k: v for k, v in new.items() if v is not flat[k]}, dev)
         if not (quantize and keras):
             return self
         leaves = {lf.path: lf for lf in flax_leaves(model)
@@ -564,6 +562,32 @@ class InferenceModel:
                 finally:
                     for lf, _ in rest:
                         lf.tensor.data = torch.empty(0, device=dev)
+
+        self._apply_fn = apply_fn
+        return self
+
+    def _int8_sites(self, model, quantized: dict, dev) -> "InferenceModel":
+        """``load_flax(quantize="int8_mxu")`` of a module outside the
+        Keras API: the layers the reference's interceptor takes
+        (``learn.quantize.int8_sites``, keyed by flax path) keep their
+        int8 kernels on the device, their float weights released, and
+        every forward of ``predict`` runs them as int8 products
+        (``models.layers.int8_scope``); every other quantized leaf
+        serves its dequantized weights."""
+        from analytics_zoo_tpu_torch.learn.quantize import int8_sites
+        from analytics_zoo_tpu_torch.models.layers import int8_scope
+
+        sites = {}
+        for mod, q in int8_sites(model, quantized).items():
+            sites[mod] = {k: t.to(dev) if torch.is_tensor(t) else t
+                          for k, t in q.items()}
+            mod.weight.data = torch.empty(0, device=dev)
+        self.int8_layers = len(sites)
+        inner = self._apply_fn
+
+        def apply_fn(*feats):
+            with int8_scope(sites):
+                return inner(*feats)
 
         self._apply_fn = apply_fn
         return self

@@ -32,7 +32,11 @@ multiplies ``q`` viewed as ``view`` (the axis that holds the leaf's last
 axis split in two) by ``scale``.
 
 ``InferenceModel.load_flax`` quantizes the reference's own leaves as
-they are (``model=None``), and only it takes ``"int8_mxu"``: activations quantized per tensor at run time
+they are (``model=None``), and only it takes ``"int8_mxu"``, for a
+Keras-API model and for any other port module (the reference's
+``int8_call``: :func:`int8_sites` picks the layers its interceptor
+takes, and ``models.layers.int8_scope`` runs them as int8 for the length
+of a forward): activations quantized per tensor at run time
 (:func:`dyn_quant`: ``max|x| / 127`` floored at 1e-12, rounded half to
 even, clipped to +-127), then int8 x int8 -> int32 products
 (:func:`int8_matmul`) rescaled in f32 by ``x_scale * w_scale`` and
@@ -50,6 +54,7 @@ channel-last, one group at a time) by the kernel ``[*k * in, out]``.
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -246,3 +251,43 @@ def int8_conv(x: torch.Tensor, q: dict, bias, strides, pads, dilation,
     xq, xs = dyn_quant(x)
     acc = conv_int32(xq, q["q"], strides, pads, dilation, groups)
     return _rescale(acc, xs, q, bias, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the reference's interceptor on any port module
+# ---------------------------------------------------------------------------
+
+def flax_module(model: nn.Module, path: Tuple[str, ...]) -> nn.Module:
+    """The port module that computes the reference's module at ``path``
+    (scope names, ``params`` stripped): the same names, the reference's
+    ``layer_<i>`` as the port's ``layers.<i>``."""
+    name = ".".join(f"layers.{p[6:]}" if re.fullmatch(r"layer_\d+", p)
+                    else p for p in path)
+    try:
+        return model.get_submodule(name)
+    except AttributeError:
+        raise ValueError(f"no module of {type(model).__name__} computes "
+                         f"the reference's {'/'.join(path)}") from None
+
+
+def int8_sites(model: nn.Module, quantized: dict) -> Dict[nn.Module, dict]:
+    """The layers the reference's ``int8_call`` takes, keyed by flax path
+    as its ``_qleaf_paths``: each quantized ``kernel`` (``quantized``
+    maps a leaf's path, ``("params", *module path, "kernel")``, to its
+    int8 dict) of a plain ``nn.Dense`` (a 2-D kernel, an ``nn.Linear``
+    here) or an ``nn.Conv`` (1-3 spatial dims, a conv here).  A
+    ``DenseGeneral`` (the attention projections: 3-D kernels), an
+    ``Embed`` table (tied heads read it through ``attend``) and every
+    other leaf stay on the dequantized float weights."""
+    out = {}
+    for path, q in quantized.items():
+        if path[0] != "params" or path[-1] != "kernel":
+            continue
+        mod = flax_module(model, path[1:-1])
+        nd = q["q"].dim()
+        if (nd == 2 and isinstance(mod, nn.Linear)) or (
+                nd - 2 in (1, 2, 3)
+                and isinstance(mod, nn.modules.conv._ConvNd)
+                and not mod.transposed and mod.padding_mode == "zeros"):
+            out[mod] = q
+    return out

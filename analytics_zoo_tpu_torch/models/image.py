@@ -157,7 +157,7 @@ class ResNet(nn.Module):
             return tuple(f.permute(0, 2, 3, 1) for f in features)
         x = x.mean((2, 3), dtype=torch.promote_types(dt, torch.float32)
                    ).to(dt)
-        return dense(self.head, x, torch.float32)
+        return dense(self.head, x.float(), torch.float32)
 
 
 def resnet18(num_classes: int, **kw) -> ResNet:

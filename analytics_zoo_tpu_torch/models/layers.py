@@ -43,7 +43,9 @@ them from these:
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -160,10 +162,42 @@ def compute_dtype(dtype: Optional[torch.dtype], x: torch.Tensor
         torch.promote_types(x.dtype, torch.float32)
 
 
+_INT8 = threading.local()
+
+
+@contextlib.contextmanager
+def int8_scope(sites: Dict[nn.Module, dict]):
+    """For the length of the block, on this thread, each module of
+    ``sites`` computes its product on the int8 path with its int8 kernel
+    (``learn.quantize``'s dict), as the reference's ``int8_call``
+    intercepts its Dense and Conv calls: :func:`dense`, :func:`conv`,
+    :func:`conv2d`, ``models.transformer._dense`` and the LM's untied
+    head consult :func:`int8_of`.  Everything else, training included,
+    runs as it always does."""
+    prev = getattr(_INT8, "sites", None)
+    _INT8.sites = sites
+    try:
+        yield
+    finally:
+        _INT8.sites = prev
+
+
+def int8_of(layer: nn.Module) -> Optional[dict]:
+    """``layer``'s int8 kernel inside :func:`int8_scope`, else None."""
+    sites = getattr(_INT8, "sites", None)
+    return None if sites is None else sites.get(layer)
+
+
 def dense(layer: nn.Linear, x: torch.Tensor,
           dtype: Optional[torch.dtype]) -> torch.Tensor:
     """flax ``nn.Dense(dtype=dtype)(x)``: input, kernel and bias promoted
-    to the compute dtype."""
+    to the compute dtype; inside :func:`int8_scope` the reference's
+    int8 path on ``x`` as it comes."""
+    q = int8_of(layer)
+    if q is not None:
+        from analytics_zoo_tpu_torch.learn.quantize import int8_dense
+
+        return int8_dense(x, q, layer.bias)
     materialize(layer, x)
     dt = compute_dtype(dtype, x)
     bias = None if layer.bias is None else layer.bias.to(dt)
@@ -174,7 +208,13 @@ def conv(layer: nn.Conv1d, x: torch.Tensor, dtype: Optional[torch.dtype],
          padding=(0, 0)) -> torch.Tensor:
     """flax ``nn.Conv(dtype=dtype)`` on a channels-last ``x [B, T, C]``,
     padded ``(left, right)`` with zeros, then ``VALID``; the output is
-    channels-last too."""
+    channels-last too (int8 inside :func:`int8_scope`)."""
+    q = int8_of(layer)
+    if q is not None:
+        from analytics_zoo_tpu_torch.learn.quantize import int8_conv
+
+        return int8_conv(x, q, layer.bias, layer.stride, [padding],
+                         layer.dilation, layer.groups)
     xc = x.transpose(1, 2)
     materialize(layer, xc)
     dt = compute_dtype(dtype, x)
@@ -239,7 +279,17 @@ def conv2d(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype
     1x1 conv of the input's every stride-th row and column, the same
     products: oneDNN's backward of a strided 1x1 conv over a
     ``channels_last`` input crashes with several threads at some shapes
-    (torch 2.13, e.g. 4 x 8 x 16 x 16)."""
+    (torch 2.13, e.g. 4 x 8 x 16 x 16).  Inside :func:`int8_scope` the
+    reference's int8 conv on ``x`` as it comes (channels last)."""
+    q = int8_of(layer)
+    if q is not None:
+        from analytics_zoo_tpu_torch.learn.quantize import int8_conv
+
+        pads = [same_pads(x.shape[2 + i], layer.kernel_size[i],
+                          layer.stride[i]) for i in range(2)]
+        y = int8_conv(x.permute(0, 2, 3, 1), q, layer.bias, layer.stride,
+                      pads, layer.dilation, layer.groups)
+        return y.permute(0, 3, 1, 2)
     materialize(layer, x)
     stride = layer.stride
     if x.device.type == "cpu" and layer.kernel_size == (1, 1) and \

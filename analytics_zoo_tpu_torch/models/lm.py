@@ -53,6 +53,8 @@ same buffers), so those methods return only their outputs.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -62,7 +64,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from analytics_zoo_tpu_torch.device import resolve_device
-from analytics_zoo_tpu_torch.models.layers import HEAD_FOLDS
+from analytics_zoo_tpu_torch.models.layers import HEAD_FOLDS, int8_of
 from analytics_zoo_tpu_torch.models.transformer import (LayerNorm, _dense,
                                                         attention_dispatch,
                                                         dropout, run_layer,
@@ -102,7 +104,26 @@ class _TP:
         self.mesh = mesh
         self.size = mesh.size("tp")
         self.rank = mesh.coord("tp")
-        self.group = mesh.group("tp")
+        self._group = mesh.group("tp")
+        # per thread: the group of the engine this thread runs (several
+        # engines on one rank share the sharded weights, each with its
+        # own group, so two pumps' collectives never pair up)
+        self._local = threading.local()
+
+    @property
+    def group(self):
+        return getattr(self._local, "group", None) or self._group
+
+    @contextlib.contextmanager
+    def using(self, group):
+        """Run this thread's collectives over ``group`` (None: the
+        mesh's own) for the length of the block."""
+        prev = getattr(self._local, "group", None)
+        self._local.group = group
+        try:
+            yield
+        finally:
+            self._local.group = prev
 
     def all_reduce(self, x):
         dist.all_reduce(x, group=self.group)
@@ -558,7 +579,14 @@ class TransformerLM(nn.Module):
         # vocab-split head computes its slice and gathers the rest, so
         # every rank picks from the same logits
         if not self.tied_head:
-            out = F.linear(x.float(), self.lm_head.weight.float())
+            q = int8_of(self.lm_head)
+            if q is not None:
+                from analytics_zoo_tpu_torch.learn.quantize import \
+                    int8_dense
+
+                out = int8_dense(x.float(), q)
+            else:
+                out = F.linear(x.float(), self.lm_head.weight.float())
             split = self.head_split
         else:
             out = x.float() @ self.embed.weight.float().t()
@@ -1134,17 +1162,20 @@ def shard_lm(model: TransformerLM, mesh, rules=None) -> dict:
     kv heads do not divide tp replicate, every rank gathers the query
     heads and computes the whole attention against the whole cache, and
     keeps its heads for ``attn_out``.  ``tp`` of 1 leaves the model as
-    it is."""
-    from analytics_zoo_tpu_torch.parallel.mesh import serving_axes
-
-    serving_axes(mesh, "a tensor-parallel model")
+    it is, and a model already sharded over ``mesh`` (by another engine
+    that serves it) stays as it is (``placements`` is then None)."""
+    if model.tp is not None:
+        if model.tp.mesh is not mesh:
+            raise ValueError("this model is already sharded over "
+                             "another mesh")
+        # sharded for another engine on this mesh: shared as it is
+        return {"kv": any(layer.attention.kv_split
+                          for layer in model.layers), "placements": None}
     specs = match_partition_rules(rules or LM_PARTITION_RULES,
                                   flax_shapes(model), mesh)
     out = {"kv": False, "placements": specs}
     if mesh.size("tp") == 1:
         return out
-    if model.tp is not None:
-        raise ValueError("this model is already sharded")
     tp = _TP(mesh)
 
     def spec(*path):

@@ -50,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from analytics_zoo_tpu_torch.models.layers import HEAD_FOLDS
+from analytics_zoo_tpu_torch.models.layers import HEAD_FOLDS, int8_of
 from analytics_zoo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_kernel_takes)
 from analytics_zoo_tpu_torch.parallel.data_parallel import rand as dp_rand
@@ -163,7 +163,13 @@ def site_seed(rng: Optional[int], i: int) -> Optional[int]:
 
 def _dense(layer: nn.Linear, x, dtype):
     """A flax ``Dense``/``DenseGeneral`` with ``dtype=dtype``: input,
-    kernel and bias all promoted to the compute dtype."""
+    kernel and bias all promoted to the compute dtype; a Dense inside
+    ``layers.int8_scope`` on the reference's int8 path."""
+    q = int8_of(layer)
+    if q is not None:
+        from analytics_zoo_tpu_torch.learn.quantize import int8_dense
+
+        return int8_dense(x, q, layer.bias)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 

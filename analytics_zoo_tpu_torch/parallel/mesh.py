@@ -159,8 +159,11 @@ class Mesh:
         self.shape: Dict[str, int] = dict(sizes)
         self.device = torch.device(device)
         self.device_mesh = device_mesh
-        self._groups: Dict[str, object] = {}
-        self._control = None
+        self._groups: Dict[Tuple[str, int], object] = {}
+        self._control: Dict[int, object] = {}
+        # what this rank's engine on each lane keeps beside its groups
+        # (a serving engine's parked handoff shards), by lane
+        self.lane_boxes: Dict[int, object] = {}
 
     @property
     def devices(self) -> int:
@@ -186,19 +189,29 @@ class Mesh:
             return 0
         return self.coords(self.rank)[axis]
 
-    def group(self, axis: str):
+    def group(self, axis: str, lane: int = 0):
         """The process group of this rank's line along ``axis`` (None
-        when the axis has size 1 or is not in the mesh)."""
+        when the axis has size 1 or is not in the mesh).  ``lane`` 0 is
+        the device mesh's own group; each other lane is a group of its
+        own over the same ranks, made at its first request (a
+        collective over the world: every rank asks for the same lanes in
+        the same order), so that several engines on one rank run their
+        collectives apart."""
         if self.size(axis) == 1:
             return None
-        if axis not in self._groups:
-            self._groups[axis] = self.device_mesh.get_group(axis)
-        return self._groups[axis]
+        if (axis, lane) not in self._groups:
+            if lane == 0:
+                group = self.device_mesh.get_group(axis)
+            else:
+                group = self._new_groups(axis, None)
+            self._groups[(axis, lane)] = group
+        return self._groups[(axis, lane)]
 
-    def group_ranks(self, axis: str) -> Tuple[int, ...]:
-        """The global ranks of this rank's line along ``axis``, in axis
-        order (the first is the line's leader)."""
-        me = self.coords(self.rank)
+    def group_ranks(self, axis: str, rank: Optional[int] = None
+                    ) -> Tuple[int, ...]:
+        """The global ranks of ``rank``'s (this rank's) line along
+        ``axis``, in axis order (the first is the line's leader)."""
+        me = self.coords(self.rank if rank is None else rank)
         out = []
         for rank in range(self.devices):
             c = self.coords(rank)
@@ -206,29 +219,40 @@ class Mesh:
                 out.append(rank)
         return tuple(out)
 
-    def control_group(self, axis: str):
-        """A gloo group over this rank's line along ``axis`` for host
-        messages (``broadcast_object_list``), whatever the data
-        backend, with a long timeout: a server's ranks wait on it while
-        the server idles.  Every rank must call this at the same point
-        (group creation is collective over the whole world)."""
-        if self.size(axis) == 1:
+    def _new_groups(self, axis: Optional[str], backend, **kw):
+        """A new group for every line along ``axis`` (every rank of the
+        mesh for ``None``), made on every rank in the same order (group
+        creation is collective over the world); returns this rank's."""
+        lines = []
+        for rank in range(self.devices):
+            line = self.group_ranks(axis, rank) if axis is not None \
+                else tuple(range(self.devices))
+            if line not in lines:
+                lines.append(line)
+        mine = self.group_ranks(axis) if axis is not None \
+            else tuple(range(self.devices))
+        out = None
+        for line in lines:
+            group = dist.new_group(list(line), backend=backend, **kw)
+            if line == mine:
+                out = group
+        return out
+
+    def control_group(self, lane: int = 0):
+        """A gloo group over every rank of the mesh for host messages
+        (``broadcast_object_list``), whatever the data backend, with a
+        long timeout: a server's ranks wait on it while the server
+        idles.  One group a ``lane`` (an engine's: several engines on
+        one rank each take their own), made at its first request; every
+        rank must ask for the same lanes at the same points (group
+        creation is collective over the whole world).  None on a mesh
+        of one rank."""
+        if self.devices == 1:
             return None
-        if self._control is None:
-            groups = {}
-            seen = set()
-            for rank in range(self.devices):
-                c = self.coords(rank)
-                line = tuple(r for r in range(self.devices)
-                             if all(self.coords(r)[a] == c[a]
-                                    for a in self.axis_names if a != axis))
-                if line not in seen:
-                    seen.add(line)
-                    groups[line] = dist.new_group(
-                        list(line), backend="gloo",
-                        timeout=CONTROL_TIMEOUT)
-            self._control = groups[self.group_ranks(axis)]
-        return self._control
+        if lane not in self._control:
+            self._control[lane] = self._new_groups(
+                None, "gloo", timeout=CONTROL_TIMEOUT)
+        return self._control[lane]
 
     def __repr__(self):
         return f"Mesh({self.shape}, device={self.device})"
@@ -270,16 +294,3 @@ def batch_axes(mesh: Mesh) -> Tuple[str, ...]:
 
 def mesh_batch_size(mesh: Mesh) -> int:
     return int(math.prod(mesh.shape[a] for a in batch_axes(mesh)) or 1)
-
-
-def serving_axes(mesh: Mesh, what: str) -> None:
-    """Tensor-parallel serving runs one engine over the ``tp`` axis; any
-    other axis larger than 1 raises (replicas are served by
-    ``ClusterServing(n_replicas=...)``, more server processes)."""
-    other = {a: s for a, s in mesh.shape.items() if a != "tp" and s > 1}
-    if other:
-        raise NotImplementedError(
-            f"{what} on a mesh with {other}: only the tp axis is served "
-            f"(replicas come from more servers; ROADMAP Queue 1 item "
-            f"6.5)")
-

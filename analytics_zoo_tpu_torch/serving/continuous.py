@@ -92,20 +92,30 @@ no device copy runs under the pool lock.
   (``models.lm.shard_lm``, default ``LM_PARTITION_RULES``), the arena
   or pool holds this rank's kv heads from birth (every kv head when
   they do not divide tp: the replicated hatch), and the block tables
-  and every host decision stay identical on every rank.  Rank 0 of the
-  tp line is the leader: ``submit``, ``abort``, ``set_brownout``,
-  ``register_prefix``, ``unregister_prefix``, ``resize_pool`` and
-  ``step`` on it broadcast each mutation with the tick's clock reading
-  (a gloo control group), the other ranks apply them in the same order
-  from ``follow()``, so admission, preemption, chunk budgets, deadline
-  sheds, the brownout ladder and elastic resizes decide alike
-  everywhere; the pick reads all-gathered logits.  ``stop_followers``
-  ends their loops.
+  and every host decision stay identical on every rank.  Every other
+  axis of the mesh replicates (a ``{"dp": 2, "tp": 2}`` mesh serves the
+  tokens of ``{"tp": 2}`` on each dp line).  The rank at coordinate 0
+  on every axis is the leader: ``submit``, ``submit_handoff``,
+  ``abort``, ``set_brownout``, ``register_prefix``,
+  ``unregister_prefix``, ``resize_pool`` and ``step`` on it broadcast
+  each mutation with the tick's clock reading (a gloo control group
+  over every rank of the mesh), the other ranks apply them in the same
+  order from ``follow()``, so admission, preemption, chunk budgets,
+  deadline sheds, the brownout ladder, elastic resizes, host-tier
+  spills and readmits decide alike everywhere; the pick reads
+  all-gathered logits.  Each rank spills and readmits its own kv-head
+  shard; only the leader publishes to the prefix directory.  A handoff
+  moves each rank's shard of the chain between that rank's two
+  engines (a follower's export waits, keyed by uri, for the replayed
+  adoptions until the leader drops its own copy of the chain).
+  ``stop_followers`` ends their loops.  On a mesh whose ``tp`` is 1 the
+  engine serves this rank alone.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import threading
 import time
@@ -126,7 +136,6 @@ from analytics_zoo_tpu_torch.models.speculative import (
 from analytics_zoo_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS, KV_SCALE_DTYPE, PAGED_MAX_BLOCK, QuantKV,
     paged_kernel_takes)
-from analytics_zoo_tpu_torch.parallel.mesh import serving_axes
 from analytics_zoo_tpu_torch.serving import policy as scheduler_policy
 from analytics_zoo_tpu_torch.serving.flight import FlightRecorder
 from analytics_zoo_tpu_torch.serving.frontdoor import PRIORITIES
@@ -197,6 +206,9 @@ class _Req(NamedTuple):
     # ``handoff_state`` carries the exported chain (``submit_handoff``)
     handoff_cb: Optional[Callable] = None
     handoff_state: Optional[dict] = None
+    # a follower's copy of a handoff_cb request: its export parks this
+    # rank's shard for the replayed adoption (``_HandoffBox``)
+    park_handoff: bool = False
     # absolute ``time.monotonic`` deadline, 0.0 = none: admission sheds
     # an entry already past it before any prefill
     deadline_t: float = 0.0
@@ -238,21 +250,120 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-class _Lockstep:
-    """The control plane of a tensor-parallel engine: the leader (tp
-    coordinate 0) queues the mutations client threads ask for and, at
-    each flush from its pump thread, broadcasts them with its own over a
-    gloo group; the other ranks receive and apply the same list in the
-    same order.  ``replaying`` marks the application of a message, which
-    runs each mutation's own code."""
+class _HandoffBox:
+    """A lane's handoff exports on this rank, keyed by uri.  On a
+    follower the engine's replayed export parks this rank's shard of the
+    chain here, and each replayed adoption of it (on any lane of the
+    rank) takes it, waiting at most ``WAIT_S`` for the export to be
+    replayed.  A shard stays until the leader's release for its uri
+    (:class:`_HandoffLease`) and every adoption the leader posted before
+    that release have been replayed, so a re-sent adoption finds its
+    shard and one never delivered is freed.  The shard never leaves its
+    rank.  On the leader the box counts each export's adoptions for its
+    release."""
 
-    def __init__(self, mesh):
+    WAIT_S = 300.0
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        # uri -> [shard, adoptions replayed, adoptions released or None]
+        self._box: Dict[str, list] = {}
+        self._sent: Dict[str, int] = {}
+
+    def __len__(self) -> int:
+        with self._cv:
+            return len(self._box)
+
+    def put(self, uri: str, kv: dict) -> None:
+        with self._cv:
+            self._box[uri] = [kv, 0, None]
+            self._cv.notify_all()
+
+    def take(self, uri: str) -> dict:
+        with self._cv:
+            if not self._cv.wait_for(lambda: uri in self._box,
+                                     self.WAIT_S):
+                raise RuntimeError(
+                    f"handoff adoption of {uri!r}: this rank's source "
+                    f"engine parked no shard for it in {self.WAIT_S} s")
+            entry = self._box[uri]
+            entry[1] += 1
+            self._drop_if_done(uri)
+            return entry[0]
+
+    def release(self, uri: str, n: int) -> None:
+        """Free ``uri``'s shard once ``n`` adoptions have taken it.  The
+        source lane replays the export before its release, so a release
+        finds its shard unless it was freed already."""
+        with self._cv:
+            if uri in self._box:
+                self._box[uri][2] = n
+                self._drop_if_done(uri)
+
+    def _drop_if_done(self, uri: str) -> None:
+        _, taken, n = self._box[uri]
+        if n is not None and taken >= n:
+            del self._box[uri]
+
+    def sent(self, uri: str) -> None:
+        """Leader: one more adoption of ``uri`` was posted."""
+        with self._cv:
+            self._sent[uri] = self._sent.get(uri, 0) + 1
+
+    def unsend(self, uri: str) -> int:
+        """Leader: the adoptions of ``uri`` posted so far, forgotten."""
+        with self._cv:
+            return self._sent.pop(uri, 0)
+
+
+class _HandoffLease:
+    """The leader's token for one export under a mesh, held in its state
+    dict (and so in every copy a deliverer keeps: a server's pending
+    handoff, an adoption's request): when the last reference dies no
+    adoption of the export can be delivered any more, and the uri is
+    queued for the release its source lane broadcasts at its next flush
+    (``_Lockstep.take``).  The followers' shards live as long as the
+    leader's own copy of the chain."""
+
+    __slots__ = ("uri", "released")
+
+    def __init__(self, uri: str, released: collections.deque):
+        self.uri, self.released = uri, released
+
+    def __del__(self):
+        # a deque append takes no lock: this may run inside any code
+        self.released.append(self.uri)
+
+
+class _Lockstep:
+    """The control plane of a tensor-parallel engine: the leader (the
+    rank at coordinate 0 on every axis) queues the mutations client
+    threads ask for and, at each flush from its pump thread, broadcasts
+    them with its own over a gloo group that spans every rank of the
+    mesh; the other ranks receive and apply the same list in the same
+    order.  ``replaying`` marks the application of a message, which runs
+    each mutation's own code.  ``lane`` picks the engine's own control
+    group and tp data group (``Mesh.control_group``, ``Mesh.group``):
+    engines on one rank each take a lane of their own.  A follower's
+    handoff exports wait in ``handoffs`` (also the mesh's
+    ``lane_boxes[lane]``) for their adoptions and the leader's release
+    (``released``: the uris whose :class:`_HandoffLease` died)."""
+
+    def __init__(self, mesh, lane: int = 0):
         import torch.distributed as dist
 
         self._dist = dist
-        self.group = mesh.control_group("tp")
-        self.src = mesh.group_ranks("tp")[0]
-        self.leader = mesh.coord("tp") == 0
+        self.lane = lane
+        self.group = mesh.control_group(lane)
+        self.src = 0
+        self.leader = mesh.rank == 0
+        # lane 0's tp group is the one the sharded model holds
+        self.data_group = mesh.group("tp", lane) if lane else None
+        # the newest engine on a lane replaces the last, and its parked
+        # shards with it; a destination engine finds them on the mesh
+        self.handoffs = mesh.lane_boxes[lane] = _HandoffBox()
+        # leader: uris of exports whose lease died, to release
+        self.released: collections.deque = collections.deque()
         self.outbox: list = []
         self.lock = threading.Lock()
         # one broadcast-and-apply at a time (the pump's step, a client's
@@ -276,6 +387,12 @@ class _Lockstep:
     def take(self) -> list:
         with self.lock:
             ops, self.outbox = self.outbox, []
+        # each release counts the adoptions posted before it, so it may
+        # pass an adoption still queued on another lane
+        while self.released:
+            uri = self.released.popleft()
+            op = ("release", uri, self.handoffs.unsend(uri))
+            ops.append((op, op))
         return ops
 
     def pending_submits(self) -> int:
@@ -294,14 +411,18 @@ class ContinuousEngine:
     arena by default, a paged block pool with ``paged=True``.
 
     Same constructor names as the JAX engine.  ``mesh`` (a
-    ``parallel.mesh.Mesh`` with a ``tp`` axis; every other axis 1) serves
-    the model tensor-parallel: construct the engine on every rank of the
-    tp line with the same arguments; the leader serves (``submit``,
-    ``step``, ``drain``) and the others call :meth:`follow`.  Under the
-    default rules the kv heads must divide tp (``ValueError``);
-    ``partition_rules`` with the key/value kernels replicated take the
-    replicated hatch.  The host KV tier, the prefix directory and
-    handoff do not compose with a mesh.
+    ``parallel.mesh.Mesh`` with a ``tp`` axis; every other axis
+    replicates) serves the model tensor-parallel: construct the engine
+    on every rank of the mesh with the same arguments; the leader (rank
+    0) serves (``submit``, ``step``, ``drain``) and the others call
+    :meth:`follow`.  Under the default rules the kv heads must divide tp
+    (``ValueError``); ``partition_rules`` with the key/value kernels
+    replicated take the replicated hatch.  ``replica_id`` is also the
+    engine's lane of the mesh: its own control and tp groups (replica
+    0: the mesh's own), so several engines on one mesh
+    (``ClusterServing`` replicas) share one sharded copy of the model,
+    each with its own collectives; every rank builds them in the same
+    order.
     ``variables``, when given, is a ``state_dict`` (for example
     from ``models.lm.params_from_flax``) loaded into ``model`` before
     serving; ``None`` serves the model's own weights.  ``device``:
@@ -403,18 +524,9 @@ class ContinuousEngine:
         self._lockstep: Optional[_Lockstep] = None
         self._tick_now = 0.0
         self.mesh = mesh
-        if mesh is not None:
-            serving_axes(mesh, "a ContinuousEngine")
         tp = 1 if mesh is None else mesh.size("tp")
         if partition_rules is not None and tp == 1:
             raise ValueError("partition_rules need a mesh with a tp axis")
-        if tp > 1 and (kv_host_store_bytes > 0
-                       or prefix_directory is not None):
-            raise ValueError(
-                "kv_host_store_bytes / prefix_directory do not compose "
-                "with a tensor-parallel mesh: the host tier would have to "
-                "spill and readmit every rank's kv-head shard in step "
-                "(ROADMAP Queue 1 item 6.5)")
         if kernel not in (None, "gather", "fused"):
             raise ValueError(f"kernel must be 'gather' or 'fused', got "
                              f"{kernel!r}")
@@ -478,7 +590,10 @@ class ContinuousEngine:
                                         partition_rules)["kv"]
             elif draft_model is model:
                 self._dkv_tp = self._kv_tp
-            self._lockstep = _Lockstep(mesh)
+            self._lockstep = _Lockstep(mesh, int(replica_id))
+            if not self._lockstep.leader:
+                # the leader alone speaks for the replica fleet-wide
+                prefix_directory = None
         if variables is not None:
             if tp > 1:
                 load_sharded(model, variables)
@@ -543,6 +658,9 @@ class ContinuousEngine:
         # handoff traffic: rows exported at first token / adopted
         self._handoffs_out = 0
         self._handoffs_in = 0
+        # the host tier counts whole blocks (every rank's shard), as the
+        # reference's store does, so each rank evicts where it does
+        self._kv_shards = tp if self._kv_tp else 1
         D = model.hidden_size // model.num_heads
         self.kernel = self._resolve_kernel(kernel, D, int(block_size))
         # the draft tenant's read, resolved by its own shape
@@ -690,10 +808,15 @@ class ContinuousEngine:
         return out
 
     def _apply(self, op):
-        """Run one control-plane mutation (leader and followers alike)."""
+        """Run one control-plane mutation (leader and followers alike),
+        its collectives over this engine's tp group."""
         ls = self._lockstep
         kind = op[0]
         ls.replaying = True
+        lanes = contextlib.ExitStack()
+        for m in (self.model, self.draft_model):
+            if m is not None and m.tp is not None:
+                lanes.enter_context(m.tp.using(ls.data_group))
         try:
             if kind == "submit":
                 req = op[1]
@@ -719,9 +842,18 @@ class ContinuousEngine:
                 return self.resize_pool(op[1])
             if kind == "precompile":
                 return self.precompile_chunked(*op[1:])
+            if kind == "handoff":
+                state = op[1]
+                if "k" not in state:
+                    box = self.mesh.lane_boxes[state["lane"]]
+                    state = dict(state, **box.take(state["uri"]))
+                return self._enqueue_handoff(state)
+            if kind == "release":
+                return ls.handoffs.release(op[1], op[2])
             raise ValueError(f"unknown control-plane op {kind!r}")
         finally:
             ls.replaying = False
+            lanes.close()
 
     def follow(self) -> None:
         """A follower rank's loop: apply the leader's messages in order
@@ -1390,10 +1522,6 @@ class ContinuousEngine:
             raise ValueError(
                 f"priority must be one of {PRIORITIES}, got {priority!r}")
         if handoff_cb is not None:
-            if self._lockstep is not None:
-                raise ValueError(
-                    "prefill/decode handoff does not compose with a "
-                    "tensor-parallel mesh (ROADMAP Queue 1 item 6.5)")
             if not self.paged:
                 raise ValueError(
                     "handoff_cb requires paged=True: a prefill/decode "
@@ -1427,9 +1555,11 @@ class ContinuousEngine:
                    deadline_t=deadline_t)
         if self._leads():
             # every rank queues it at the leader's next flush; the
-            # followers' copy carries no callbacks
+            # followers' copy carries no callbacks, and a handoff's
+            # export parks each follower's shard on its rank
             self._lockstep.post(("submit", req._replace(
-                on_done=None, on_error=None, on_token=None)),
+                on_done=None, on_error=None, on_token=None,
+                handoff_cb=None, park_handoff=handoff_cb is not None)),
                 ("submit", req))
             return
         with self._lock:
@@ -1443,11 +1573,10 @@ class ContinuousEngine:
         the source (prompt, emitted tokens, chain hashes, the K/V
         copies, callbacks).  Thread-safe like ``submit``: the source's
         pump may call straight in; every device write happens later on
-        THIS engine's pump thread, at admission."""
-        if self._lockstep is not None:
-            raise ValueError(
-                "prefill/decode handoff does not compose with a "
-                "tensor-parallel mesh (ROADMAP Queue 1 item 6.5)")
+        THIS engine's pump thread, at admission.  Under a mesh the leader
+        posts the adoption to its followers without the K/V and the
+        callbacks: each follower adopts its own shard of the chain, which
+        its rank's source engine exported."""
         if not self.paged:
             raise ValueError(
                 "submit_handoff requires a paged engine: the handoff "
@@ -1477,12 +1606,28 @@ class ContinuousEngine:
             raise ValueError(
                 f"handoff max_new {mn} exceeds engine budget "
                 f"{self.max_new_tokens}")
+        ls = self._lockstep
+        if ls is not None and ls.leader:
+            # posted even from inside the leader's own replay (a source's
+            # handoff callback adopting on this engine): the followers
+            # adopt only what they replay
+            self.mesh.lane_boxes[state["lane"]].sent(state["uri"])
+            ls.post(("handoff", {
+                k: v for k, v in state.items()
+                if k not in ("k", "v", "lease") and not callable(v)}),
+                ("handoff", state))
+            return
+        self._leads()
+        self._enqueue_handoff(state)
+
+    def _enqueue_handoff(self, state: dict) -> None:
+        """Queue a validated handoff for admission."""
         self.telemetry.req_enqueued(state["uri"])
         with self._lock:
             self._waiting.append(_Req(
                 state["uri"], np.asarray(state["prompt"], np.int32),
-                state.get("on_done"), state.get("on_error"), mn,
-                state.get("on_token"),
+                state.get("on_done"), state.get("on_error"),
+                int(state["max_new"]), state.get("on_token"),
                 priority=state.get("priority", "standard"),
                 tenant=state.get("tenant", ""), enq_t=time.monotonic(),
                 handoff_state=state))
@@ -2370,7 +2515,11 @@ class ContinuousEngine:
         new tensors: the ids are released below and the pools are
         written in place, so a view would change under the
         destination), then free the slot as a completion does.  The
-        state dict is self-contained."""
+        state dict is self-contained.  Under a mesh it names this
+        engine's lane, and a follower parks its shard in its box instead
+        of calling back: the leader's callback speaks for every rank,
+        and the leader's state holds the :class:`_HandoffLease` that
+        frees the followers' shards after its last copy."""
         blocks = list(self._row_blocks[slot])
         with self._pool_lock:
             chain = self._pool.export_chain(blocks)
@@ -2396,6 +2545,11 @@ class ContinuousEngine:
             "on_error": st.req.on_error,
             "on_token": st.on_token,
         }
+        if self._lockstep is not None:
+            state["lane"] = self._lockstep.lane
+            if self._lockstep.leader:
+                state["lease"] = _HandoffLease(st.uri,
+                                               self._lockstep.released)
         self._slots[slot] = None
         self._done[slot] = True
         self._free.append(slot)
@@ -2404,6 +2558,10 @@ class ContinuousEngine:
         # this engine's part is over; the destination runs its own
         # enqueue -> admit -> finish lifecycle
         self.telemetry.req_finished(st.uri, slot, len(st.tokens))
+        if st.req.park_handoff:
+            self._lockstep.handoffs.put(st.uri, {"k": state["k"],
+                                                 "v": state["v"]})
+            return
         try:
             st.req.handoff_cb(state)
         except Exception as e:
@@ -2470,9 +2628,10 @@ class ContinuousEngine:
         for i, (_, hash_) in enumerate(pending):
             payload = {key: _kv_map(lambda x: x[:, i:i + 1].clone(), kv)
                        for key, kv in fetched.items()}
-            if self._kv_store.put(hash_, payload, self._per_block_bytes):
+            nbytes = self._per_block_bytes * self._kv_shards
+            if self._kv_store.put(hash_, payload, nbytes):
                 self._kv_spills += 1
-                self._kv_spill_bytes += self._per_block_bytes
+                self._kv_spill_bytes += nbytes
                 if self._prefix_directory is not None:
                     self._prefix_directory.publish(
                         self._replica_id, hash_, TIER_HOST)
@@ -2749,7 +2908,8 @@ class ContinuousEngine:
             (self.eos_id is not None and token == self.eos_id)
         if not done:
             if (len(st.tokens) == 1 and st.req is not None
-                    and st.req.handoff_cb is not None):
+                    and (st.req.handoff_cb is not None
+                         or st.req.park_handoff)):
                 # prefill role: the first token is this engine's last;
                 # export the row instead of decoding it here
                 self._handoff_slot(slot, st)
@@ -2787,7 +2947,8 @@ class ContinuousEngine:
         reading first, and every rank runs the same tick."""
         if self._leads():
             if self.n_active == 0 and not self._waiting and \
-                    not self._lockstep.outbox:
+                    not self._lockstep.outbox and \
+                    not self._lockstep.released:
                 return 0
             return self._flush(("step", time.monotonic()))
         if self.n_active == 0 and not self._waiting:

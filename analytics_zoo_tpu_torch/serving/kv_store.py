@@ -3,8 +3,11 @@ chains (:class:`HostKVStore`) and a fleet-wide index of which replica
 holds which chain hash (:class:`PrefixDirectory`).
 
 A copy of ``analytics_zoo_tpu/serving/kv_store.py`` (stdlib only).  The
-server builds a ``PrefixDirectory`` when its config asks for one; the
-engine's host tier is ROADMAP Queue 1 item 4.6.
+server builds a ``PrefixDirectory`` when its config asks for one, and
+``serving.continuous.ContinuousEngine(kv_host_store_bytes=...)`` spills
+to and readmits from a ``HostKVStore``; under a tensor-parallel mesh
+each rank's store holds that rank's kv-head shard of a block and counts
+the whole block's bytes, so every rank evicts where one rank would.
 """
 
 import threading

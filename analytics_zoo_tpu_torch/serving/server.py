@@ -816,18 +816,13 @@ class ClusterServing:
         return cls(im, cfg, embedded_broker=embedded_broker)
 
     def start(self) -> "ClusterServing":
-        # a tensor-parallel engine's other ranks build the same engine
-        # and follow rank 0's: no broker client, no pump
+        # a tensor-parallel engine's other ranks build the same engines
+        # (one a replica, each on the lane of the mesh its replica id
+        # names, sharing the one sharded model) and follow rank 0's: no
+        # broker client, no pump, no router
         mesh = self.engine_mesh
-        if mesh is not None and mesh.size("tp") > 1 and self.n_replicas > 1:
-            # every replica would shard the one model and lead the one
-            # control group: a tp engine is served alone
-            raise ValueError(
-                "engine_mesh with tp > 1 serves one engine: n_replicas > 1 "
-                "over a tensor-parallel mesh is not ported (ROADMAP Queue 1 "
-                "item 6.5)")
         follower = (mesh is not None and mesh.size("tp") > 1
-                    and mesh.coord("tp") > 0)
+                    and mesh.rank != 0)
         if follower and not self.config.continuous_batching:
             raise ValueError("engine_mesh serves a continuous engine: "
                              "set continuous_batching")
@@ -895,11 +890,12 @@ class ClusterServing:
                 for r in range(self.n_replicas)]
             self.engine = self.engines[0]   # back-compat attribute
             if follower:
-                t = threading.Thread(target=self.engine.follow,
-                                     daemon=True, name="zoo-serving-tp")
-                t.start()
-                self._threads = [t]
-                self._thread = t
+                for r, eng in enumerate(self.engines):
+                    t = threading.Thread(target=eng.follow, daemon=True,
+                                         name=f"zoo-serving-tp-{r}")
+                    t.start()
+                    self._threads.append(t)
+                self._thread = self._threads[0]
                 return self
             for r in range(self.n_replicas):
                 self._pump_live[r] = True
@@ -958,12 +954,13 @@ class ClusterServing:
         mesh = self.engine_mesh
         tp = mesh is not None and mesh.size("tp") > 1 and \
             self.engine is not None
-        follower = tp and mesh.coord("tp") > 0
+        follower = tp and mesh.rank != 0
         for t in getattr(self, "_threads", []):
-            # a follower's loop ends when the leader's stop arrives
+            # a follower's loops end when the leader's stops arrive
             t.join(timeout=None if follower else 5)
         if tp and not follower:
-            self.engine.stop_followers()
+            for eng in self.engines:
+                eng.stop_followers()
         if self.broker is not None:
             self.broker.stop()
         self._decode_pool.shutdown(wait=False)

@@ -179,7 +179,7 @@ fails.  Phases, in order:
    ``ClusterServing`` (fleet prefix directory, host tiers, elastic
    pools, QoS with mixed priorities, the brownout controller; clients
    send a 429 again), the stream twice with an idle pause between (the
-   second pass readmits), alternated twice with 8b's paged server:
+   second pass readmits), then 8b's paged server once:
    every request completes, every handoff is adopted and acked, the
    pools end idle and consistent, launches equal the engines' counters;
    prints tokens/s, client TTFT, the handoff histogram, the tiers',
@@ -232,7 +232,7 @@ fails.  Phases, in order:
    steps); DIEN at the reference's defaults over 3706 items (history
    50, ragged; batch 1024, 20 steps), then the reference test's planted
    task (accuracy above 0.85); ``LSTMForecaster`` at ``bench_forecast``'s
-   shape (80,000 points, lookback 96, batch 512, one epoch, holdout
+   shape cut to 40,000 points (lookback 96, batch 512, one epoch, holdout
    mse; then one step under torch.profiler: device time by kernel and
    the busy share), ``examples/forecast_taxi.py`` (holdout mse below
    0.15),
@@ -436,12 +436,41 @@ fails.  Phases, in order:
    engine's calls x layers, and the tp=2 dense logits within phase 6b's
    bf16 bar of the one-rank model's.  Phase 7 then adds the paged read
    at a rank's decode shape and the flash forward at a rank's heads.
+19. Serving beyond one tensor-parallel line and ``int8_mxu`` on any
+   module (run after 18; ``--mesh`` alone), ranks spawned as in 18.
+   19a, f32, TinyLlama's width at 2 layers: a ``{"dp": 2, "tp": 2}``
+   engine on four ranks serves 18a's stream with tp=1's tokens through
+   the paged kernel and through the arena's flash prefill; at tp=2 a
+   host tier on an 8-block pool spills and readmits a chain with tp=1's
+   tokens and spill, readmit and saved-token counts on every rank, and
+   tp=2 without the tier's tokens; ``ClusterServing(n_replicas=2,
+   replica_roles=["prefill", "decode"], engine_mesh=tp2,
+   prefix_directory=True)`` with host tiers answers every request with
+   the one-rank fleet's tokens, at least one handoff and one
+   directory-routed hit.  Every rank's launches equal its engines' calls
+   x layers.  19b, bf16, TinyLlama-1.1B (22 layers) in that fleet: 8
+   requests of 30-205 tokens (four after a 256-token prefix) x 16, all
+   whole, tokens/s, handoffs, directory hits, spills and readmits with
+   the card and its limit, and the tp=2 dense logits within phase 6b's
+   bar of the one-rank model's.  19c, f32, TF32 off:
+   ``InferenceModel.load_flax(..., quantize="int8_mxu")`` on GPT-2 small
+   with an untied head (8 x 128 tokens) and ResNet-50 (32 x 224) from
+   the reference's trees of seeded weights: the int8 layers the
+   reference's interceptor takes (``INT8_REF_LAYERS``), the first int8
+   layer's int32 accumulators bitwise equal to the CPU's, every
+   ``torch._int_mm`` product bitwise equal to its float64 product, the
+   max relative delta against f32 under the reference's 0.1, top-1
+   agreement, weight bytes, and 10 ``predict`` calls each cut at a
+   device sync into the forward and the output's copy to the host
+   (``--mesh`` also traces one of each).  Each kernel row of the
+   ``kernels`` line carries ``mesh_launches``: rank 0's launches in 19b.
 
 The line before the last is ``{"kernels": [...], "stack": ..., "modes":
 [phase 9b's runs], "witness": {...}, "serving_modes": {phase 10},
 "bert": {phase 11b}, "zoo": {phase 12}, "image": {phase 13a-d},
 "tcmf": {phase 13e}, "finetune": {phase 14}, "tools": {phase 15},
-"text": {phase 16}, "keras": {phase 17}, "dist": {phase 18}}``;
+"text": {phase 16}, "keras": {phase 17}, "dist": {phase 18}, "mesh":
+{phase 19}}``;
 the last is ``{"ok": true,
 "device": {...}}``.  On a failure the script waits for the card (so
 that a device-side assert's lines come out first), then prints
@@ -476,7 +505,9 @@ phase 12 only and prints its figures as its last line;
 ``python3 chip_smoke.py --finetune`` runs phase 1 and phase 14 (on a
 TinyLlama built as phase 6b builds it) and prints phase 14's figures and
 launches as its last line; ``python3 chip_smoke.py --tools`` runs phase
-1 and phase 15 likewise.
+1 and phase 15 likewise.  ``python3 chip_smoke.py --mesh`` runs phase 1,
+phase 19 and phase 7's rows at a tp=2 rank's shapes with 19b's launches,
+and prints them and phase 19's figures as its last line.
 """
 
 from __future__ import annotations
@@ -3789,11 +3820,12 @@ def phase_fleet_llama(dev, card, model):
     """10b: phase 6b's 22-layer bf16 model on phase 4's stream through
     a two-replica prefill/decode ``ClusterServing`` (fleet prefix
     directory, host KV tiers, elastic pools, QoS with mixed priorities,
-    the brownout controller), alternated twice with phase 8b's
-    single-replica paged server."""
+    the brownout controller), then phase 8b's single-replica paged
+    server: one pair, so that the whole run keeps its margin inside the
+    time limit (a pair takes ~65 s)."""
     print(f"== phase 10b: two-replica prefill/decode fleet at TinyLlama-1.1B "
           f"width ({model.num_layers} layers, bf16): directory, host tier, "
-          f"elastic pools, QoS, brownout; alternated with 8b's paged server")
+          f"elastic pools, QoS, brownout; then 8b's paged server")
     im = InferenceModel().load_torch_generator(
         model, None, MAIN["max_new_tokens"],
         prompt_buckets=MAIN["prompt_buckets"], device=dev)
@@ -3802,17 +3834,11 @@ def phase_fleet_llama(dev, card, model):
     single_cfg = dict(continuous_batching=True,
                       engine_slots=MAIN["max_slots"], engine_paged=True,
                       engine_block_size=16)
-    fleet, single = [], []
-    for r in range(2):
-        for which in (("fleet", "single") if r == 0
-                      else ("single", "fleet")):
-            if which == "fleet":
-                fleet.append(fleet_run(im, card, warm, reqs,
-                                       model.num_layers))
-            else:
-                single.append(stack_run(im, card, "paged", single_cfg, warm,
-                                        reqs, shared, model.num_layers))
-            free_memory()
+    fleet = [fleet_run(im, card, warm, reqs, model.num_layers)]
+    free_memory()
+    single = [stack_run(im, card, "paged", single_cfg, warm, reqs, shared,
+                        model.num_layers)]
+    free_memory()
     print(f"  [{card}] fleet pass-1 tokens/s "
           f"{[round(f['tokens_per_s'][0], 1) for f in fleet]}, pass-2 "
           f"{[round(f['tokens_per_s'][1], 1) for f in fleet]} vs single "
@@ -4315,7 +4341,9 @@ ZOO_WND = dict(batch=16384, steps_per_epoch=8, epochs=2)
 ZOO_DIEN = dict(items=3706, history=50, min_len=5, batch=1024, steps=20)
 ZOO_DIEN_TASK = dict(rows=512, T=10, items=40, epochs=35, batch=64,
                      min_acc=0.85)
-ZOO_FORECAST_BENCH = dict(points=80_000, lookback=96, units=(32, 16),
+# bench_forecast's shape at half its 80,000 points (one epoch of 78
+# steps), so that the whole run keeps its margin inside the time limit
+ZOO_FORECAST_BENCH = dict(points=40_000, lookback=96, units=(32, 16),
                           batch=512)
 ZOO_TAXI = dict(points=8000, lookback=96, units=(32, 16), epochs=5,
                 batch=256, lr=3e-3, max_mse=0.15)
@@ -7837,14 +7865,14 @@ def dist_run(part, world):
         if time.monotonic() - t0 > DIST_TIMEOUT:
             for p in ctx.processes:
                 p.kill()
-            raise TimeoutError(f"phase 18 {part}: ranks still running "
+            raise TimeoutError(f"phase 18/19 {part}: ranks still running "
                                f"after {DIST_TIMEOUT} s")
     return [torch.load(DIST_DIR / f"{part}_{r}.pt", weights_only=False)
             for r in range(world)]
 
 
 def dist_rank(rank, world, port, part):
-    """One rank of phase 18 (spawned): joins the process group through
+    """One rank of phase 18 or 19 (spawned): joins the process group through
     ``init_orca_context("distributed")`` from the launcher's variables,
     runs ``part`` and saves its result."""
     import os
@@ -7855,9 +7883,10 @@ def dist_rank(rank, world, port, part):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    ctx = init_orca_context("distributed", mesh_axes={"tp": world})
-    out = {"tp": dist_tp_rank, "hatch": dist_hatch_rank}[part](
-        rank, ctx.mesh, ctx.device)
+    fn, axes = dist_parts()[part]
+    ctx = init_orca_context("distributed",
+                            mesh_axes=axes or {"tp": world})
+    out = fn(rank, ctx.mesh, ctx.device)
     torch.cuda.synchronize()
     torch.save(out, DIST_DIR / f"{part}_{rank}.pt")
     import torch.distributed as dist
@@ -7865,6 +7894,14 @@ def dist_rank(rank, world, port, part):
     dist.barrier()
     stop_orca_context()
     dist.destroy_process_group()
+
+
+def dist_parts():
+    """Each spawned part's rank function and mesh axes (None: tp over
+    every rank)."""
+    return {"tp": (dist_tp_rank, None), "hatch": (dist_hatch_rank, None),
+            "dptp": (mesh_dptp_rank, MESH_DPTP),
+            "mesh": (mesh_tp_rank, None)}
 
 
 def dist_model(dev, layers, dtype, seed=77, **kw):
@@ -8322,6 +8359,650 @@ def dist_rows(dev, launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 19: serving beyond one tensor-parallel line, int8_mxu on any module
+# ---------------------------------------------------------------------------
+
+MESH_LAYERS = 2                 # 19a's f32 model: TinyLlama's width
+MESH_DPTP = {"dp": 2, "tp": 2}
+MESH_DPTP_MODES = {"paged fused": dict(paged=True, kernel="fused"),
+                   "arena": dict()}
+# 19a's host tier: a0 cold, b and c churn an 8-block pool until a0's
+# chain (three full blocks) spills to the host store, a1 readmits it
+MESH_TIER = dict(max_new_tokens=12, max_slots=2, prompt_buckets=(32, 64),
+                 paged=True, kernel="fused", block_size=16, n_blocks=8)
+MESH_TIER_STORE = 1 << 30
+MESH_TIER_LEN = 60
+MESH_TIER_COUNTS = ("kv_spills", "kv_readmits", "kv_readmit_tokens_saved",
+                    "kv_spill_bytes", "kv_store_bytes")
+# the prefill/decode fleet: two replicas a rank over a tp=2 engine_mesh,
+# the directory and host tiers; requests in two waves, the second's
+# prefix sharers routed by the first's published chain
+MESH_FLEET = dict(prompt_col="tokens", continuous_batching=True,
+                  engine_paged=True, n_replicas=2,
+                  replica_roles=["prefill", "decode"],
+                  prefix_directory=True,
+                  engine_kv_host_store_bytes=MESH_TIER_STORE)
+MESH_FLEET_F32 = dict(requests=6, new=8, slots=2, blocks=40,
+                      buckets=(32, 64, 128), shared=48, lengths=(20, 80))
+# 19b: TinyLlama-1.1B, 22 layers, bf16, 8 requests of 30-205 tokens x 16,
+# four of them after one 256-token prefix
+MESH_BF16 = dict(requests=8, new=16, slots=4, blocks=72,
+                 buckets=(32, 64, 128, 256, 512), shared=256,
+                 sharers=(0, 3, 5, 7))
+# 19c: load_flax(quantize="int8_mxu") on a TransformerLM and a ResNet,
+# f32, at full width; their int8 layer counts are the reference
+# interceptor's, which tests/test_torch_int8_modules.py records
+INT8_GPT2 = dict(batch=8, seq=128, repeats=10)
+INT8_RESNET = dict(batch=32, hw=224, classes=1000, repeats=10)
+INT8_REF_LAYERS = {"GPT-2 small, untied head": 25, "ResNet-50": 54}
+INT8_REL = 0.1                  # the reference's bound against f32
+
+
+def mesh_serve_pair(rank, mesh, eng, reqs, what):
+    """Drive ``eng`` with ``reqs`` (one at a time, drained) on the leader
+    while the followers follow; tokens on the leader, None elsewhere."""
+    if mesh is not None and rank != 0:
+        eng.follow()
+        return None
+    got = {}
+    for uri, p in reqs:
+        eng.submit(uri, p, lambda u, t: got.__setitem__(u, t.tolist()))
+        eng.drain()
+    if mesh is not None:
+        eng.stop_followers()
+    if len(got) != len(reqs):
+        raise AssertionError(f"{what}: {len(got)} of {len(reqs)} answered")
+    return got
+
+
+def mesh_dptp_rank(rank, mesh, dev):
+    """19a on a dp=2 x tp=2 mesh of four ranks: 18a's stream through the
+    paged engine (the kernel) and the arena, tokens against tp=1 on rank
+    0, each rank's launches against its engine's calls x layers."""
+    out = {"coords": mesh.coords(rank), "modes": {}, "launches": {}}
+    reqs, _ = prompts(np.random.default_rng(5), DIST_LENGTHS,
+                      vocab=TINYLLAMA["vocab_size"])
+    state = dist_model(dev, MESH_LAYERS, torch.float32).state_dict()
+    for mode, kw in MESH_DPTP_MODES.items():
+        for name, m in (("dp2tp2", mesh), ("tp1", None)):
+            if m is None and rank != 0:
+                continue
+            eng, toks = dist_serve(rank, m, dev, state, kw, reqs,
+                                   layers=MESH_LAYERS)
+            torch.cuda.synchronize()
+            if name == "dp2tp2":
+                out["launches"][mode] = dist_launches(eng)
+                out["pool"] = tuple((eng._pk if eng.paged
+                                     else eng._ck).shape)
+            if rank == 0:
+                out["modes"][(mode, name)] = toks
+            del eng
+            free_memory()
+    return out
+
+
+def mesh_tier(rank, mesh, dev):
+    """19a's host tier at tp=2: the reference's spill/readmit pin (a0
+    cold, b and c churn the pool, a1 readmits), with the tier, without
+    it and at tp=1."""
+    vocab = TINYLLAMA["vocab_size"]
+    rng = np.random.default_rng(19)
+    pa, pb, pc = (rng.integers(1, vocab, MESH_TIER_LEN).astype(np.int32)
+                  for _ in range(3))
+    seq = [("a0", pa), ("b", pb), ("c", pc), ("a1", pa)]
+    state = dist_model(dev, MESH_LAYERS, torch.float32).state_dict()
+    out = {}
+    for name, m, store in (("tp2", mesh, MESH_TIER_STORE),
+                           ("tp2 no tier", mesh, 0),
+                           ("tp1", None, MESH_TIER_STORE)):
+        if m is None and rank != 0:
+            continue
+        reset_flash()
+        fa.paged_attention_fused.launches = 0
+        eng = ContinuousEngine(dist_model(dev, MESH_LAYERS, torch.float32),
+                               state, mesh=m, device=dev,
+                               kv_host_store_bytes=store, **MESH_TIER)
+        toks = mesh_serve_pair(rank, m, eng, seq, f"19a tier {name}")
+        torch.cuda.synchronize()
+        cm = eng.cache_metrics()
+        out[name] = {"tokens": toks, "launches": dist_launches(eng),
+                     "counts": {k: cm[k] for k in MESH_TIER_COUNTS}}
+        del eng
+        free_memory()
+    return out
+
+
+def mesh_fleet(rank, mesh, dev, model, c, reqs, waves, tag):
+    """``ClusterServing(n_replicas=2, replica_roles=["prefill",
+    "decode"], engine_mesh=mesh, prefix_directory=True)`` with host
+    tiers: rank 0 serves ``reqs`` in ``waves`` (lists of indices, each
+    answered before the next is sent), the other ranks follow.  Returns
+    the answers, seconds, directory hits, each engine's counters and
+    this rank's paged launches against its engines' calls x layers."""
+    im = InferenceModel().load_torch_generator(
+        model, None, c["new"], prompt_buckets=c["buckets"], device=dev)
+    cfg = ServingConfig(**MESH_FLEET, engine_slots=c["slots"],
+                        engine_blocks=c["blocks"])
+    reset_flash()
+    fa.paged_attention_fused.launches = 0
+    srv = ClusterServing(im, cfg, embedded_broker=rank == 0,
+                         engine_mesh=mesh).start()
+    res, hits = {}, []
+    if rank == 0:
+        probe = srv._prefix_directory.match_depths
+
+        def counted(hashes):
+            depths = probe(hashes)
+            hits.append(max(depths.values(), default=0))
+            return depths
+        srv._prefix_directory.match_depths = counted
+        inq, outq = InputQueue(port=srv.port), OutputQueue(port=srv.port)
+        got, t0 = {}, time.monotonic()
+        for wave in waves:
+            uris = {inq.enqueue(reqs[i][0], tokens=reqs[i][1]): reqs[i][0]
+                    for i in wave}
+            for u, name in uris.items():
+                got[name] = np.asarray(outq.query(
+                    u, timeout=STACK_TIMEOUT)).tolist()
+        res["seconds"] = time.monotonic() - t0
+        if sorted(got) != sorted(u for u, _ in reqs) or any(
+                len(t) != c["new"] for t in got.values()):
+            raise AssertionError(f"{tag}: a request came back short or "
+                                 f"not at all: {sorted(got)}")
+        res["tokens"] = got
+        res["router_handoffs"] = srv.router_status()["handoffs"]
+    srv.stop()
+    torch.cuda.synchronize()
+    res["directory_hits"] = sum(1 for h in hits if h > 0)
+    res["engines"] = [{k: e.cache_metrics()[k] for k in (
+        "handoffs_out", "handoffs_in", "kv_spills", "kv_readmits",
+        "kv_readmit_tokens_saved", "prefix_hits")} for e in srv.engines]
+    want = sum(expected_launches(e)[0] for e in srv.engines)
+    res["launches"] = {"paged": fa.paged_attention_fused.launches,
+                       "paged_want": want, "flash": flash_counts()[0]}
+    res["kernels"] = [e.kernel for e in srv.engines]
+    res["pool"] = tuple(srv.engines[0]._pk.shape)
+    res["model"] = srv.engine.model
+    del srv, im
+    return res
+
+
+def mesh_fleet_reqs(c, vocab, seed):
+    """``c["requests"]`` prompts, every other one after one shared
+    prefix of ``c["shared"]`` tokens; waves: the first half (one sharer
+    in it), then the rest."""
+    n = c["requests"]
+    rng = np.random.default_rng(seed)
+    sharers = c.get("sharers") or tuple(range(1, n, 2))
+    if "lengths" in c:
+        lo, hi = c["lengths"]
+        lengths = [int(x) for x in rng.integers(lo, hi, n)]
+    else:
+        lengths = [30 + 25 * i for i in range(n)]
+    for i in sharers:
+        lengths[i] += c["shared"]
+    reqs, _ = prompts(rng, lengths, c["shared"], sharers, vocab=vocab)
+    first = sorted(set(range(n // 2)) | {sharers[0]})
+    return reqs, [first, [i for i in range(n) if i not in first]]
+
+
+def mesh_tp_rank(rank, mesh, dev):
+    """19a's tier and f32 fleet, then 19b, on a tp=2 rank."""
+    out = {"tier": mesh_tier(rank, mesh, dev)}
+    c = MESH_FLEET_F32
+    reqs, waves = mesh_fleet_reqs(c, TINYLLAMA["vocab_size"], 23)
+    fleet = mesh_fleet(rank, mesh, dev, dist_model(
+        dev, MESH_LAYERS, torch.float32, seed=78), c, reqs, waves,
+        "19a fleet")
+    fleet.pop("model")
+    out["fleet"] = fleet
+    free_memory()
+    if rank == 0:
+        solo = mesh_fleet(rank, None, dev, dist_model(
+            dev, MESH_LAYERS, torch.float32, seed=78), c, reqs, waves,
+            "19a one-rank fleet")
+        solo.pop("model")
+        out["fleet_solo"] = solo
+        free_memory()
+    out["bf16"] = mesh_bf16(rank, mesh, dev)
+    return out
+
+
+def mesh_bf16(rank, mesh, dev):
+    """19b: full-width TinyLlama-1.1B (22 layers, bf16) at tp=2 through a
+    prefill/decode ``ClusterServing`` of two replicas a rank with host
+    tiers and the directory; then the tp=2 model's dense logits against
+    the one-rank model's (rank 0)."""
+    c = MESH_BF16
+    vocab = TINYLLAMA["vocab_size"]
+    reqs, waves = mesh_fleet_reqs(c, vocab, 24)
+    res = mesh_fleet(rank, mesh, dev, dist_model(
+        dev, TINYLLAMA_LAYERS, torch.bfloat16, seed=4321), c, reqs, waves,
+        "19b")
+    model = res.pop("model")
+    res.pop("tokens", None)
+    toks = torch.randint(0, vocab, (1, 512),
+                         generator=torch.Generator().manual_seed(3)).to(dev)
+    reset_flash()
+    with torch.no_grad():
+        got = model(toks)
+    res["flash_launches"] = flash_counts()[0]
+    del model
+    free_memory()
+    if rank == 0:
+        ref = dist_model(dev, TINYLLAMA_LAYERS, torch.bfloat16, seed=4321)
+        with torch.no_grad():
+            want = ref(toks)
+        compare_logits("19b dense", got, want, "tp=2 vs tp=1")
+        res["logits_err"] = (got - want).abs().max().item()
+        res["logits_limit"] = 0.1 * want.abs().max().item()
+        res["argmax_agreement"] = (got.argmax(-1) == want.argmax(-1)
+                                   ).float().mean().item()
+        del ref
+    free_memory()
+    return res
+
+
+def lm_flax_tree(model) -> dict:
+    """``model``'s weights as the reference ``TransformerLM``'s variables
+    tree (numpy, the reference's layout): the inverse of
+    ``models.lm.params_from_flax``."""
+    sd = {k: v.detach().float().cpu().numpy()
+          for k, v in model.state_dict().items()}
+    H, KH = model.num_heads, model.kv_heads
+    D = model.hidden_size // H
+
+    def norm(name):
+        out = {"scale": sd[name + ".scale"]}
+        if name + ".bias" in sd:
+            out["bias"] = sd[name + ".bias"]
+        return out
+
+    def linear(name, heads=None, out_heads=None):
+        w = sd[name + ".weight"]            # [out, in]
+        k = w.T
+        if heads is not None:               # [E, heads * D] -> [E, h, D]
+            k = k.reshape(k.shape[0], heads, D)
+        if out_heads is not None:           # [H * D, E] -> [H, D, E]
+            k = k.reshape(out_heads, D, k.shape[1])
+        p = {"kernel": np.ascontiguousarray(k)}
+        if name + ".bias" in sd:
+            b = sd[name + ".bias"]
+            p["bias"] = b.reshape(heads, D) if heads is not None else b
+        return p
+
+    params = {"embed": {"embedding": sd["embed.weight"]},
+              "ln_f": norm("ln_f")}
+    if "pos_embed.weight" in sd:
+        params["pos_embed"] = {"embedding": sd["pos_embed.weight"]}
+    if "lm_head.weight" in sd:
+        params["lm_head"] = linear("lm_head")
+    for i, layer in enumerate(model.layers):
+        pre = f"layers.{i}."
+        lp = {"ln_attn": norm(pre + "ln_attn"), "ln_ffn": norm(pre + "ln_ffn"),
+              "attention": {
+                  "query": linear(pre + "attention.query", H),
+                  "key": linear(pre + "attention.key", KH),
+                  "value": linear(pre + "attention.value", KH),
+                  "attn_out": linear(pre + "attention.attn_out",
+                                     out_heads=H)}}
+        for name in ("ffn_up", "ffn_down", "ffn_gate"):
+            if pre + name + ".weight" in sd:
+                lp[name] = linear(pre + name)
+        params[f"layer_{i}"] = lp
+    return {"params": params}
+
+
+def image_flax_tree(model) -> dict:
+    """An image model's weights and running statistics as the reference's
+    ``{"params", "batch_stats"}`` tree: the inverse of
+    ``models.layers.params_from_flax`` and ``batch_stats_from_flax`` for
+    convs, dense layers and BatchNorms."""
+    from analytics_zoo_tpu_torch.models.layers import BatchNorm
+
+    params, stats = {}, {}
+
+    def put(tree, name, leaves):
+        node = tree
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        node.update({k: v.detach().float().cpu().numpy()
+                     for k, v in leaves.items()})
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.modules.conv._ConvNd):
+            w = mod.weight
+            leaves = {"kernel": w.permute(*range(2, w.dim()), 1, 0)}
+        elif isinstance(mod, torch.nn.Linear):
+            leaves = {"kernel": mod.weight.t()}
+        elif isinstance(mod, BatchNorm):
+            put(params, name, {"scale": mod.weight, "bias": mod.bias})
+            put(stats, name, {"mean": mod.running_mean,
+                              "var": mod.running_var})
+            continue
+        else:
+            continue
+        if mod.bias is not None:
+            leaves["bias"] = mod.bias
+        put(params, name, leaves)
+    return {"params": params, "batch_stats": stats}
+
+
+def int8_first_layer(dev, im, x):
+    """``im.predict(x)`` on the card, capturing the first int8 layer's
+    call (its input, int8 kernel and the rest) and int32 accumulator, and
+    every ``torch._int_mm`` result against the float64 product of its
+    int8 operands (exact: |sums| stay below 2^53), on the card; then the
+    same first layer on the CPU from the same input.  Returns (output,
+    whether the first accumulator is bitwise the CPU's, whether every
+    product is exact, the products, their launches)."""
+    first, products = {}, []
+    inner_mm, inner_rescale = kq.int8_matmul, kq._rescale
+    inner = {"dense": kq.int8_dense, "conv": kq.int8_conv}
+
+    def wrap(kind):
+        def call(*args):
+            if "args" not in first:
+                first.update(kind=kind, args=args)
+            return inner[kind](*args)
+        return call
+
+    def mm(a, b):
+        out = inner_mm(a, b)
+        products.append(bool(torch.equal(
+            out, (a.double() @ b.double()).to(torch.int32))))
+        return out
+
+    def rescale(acc, *rest):
+        first.setdefault("acc", acc.cpu())
+        return inner_rescale(acc, *rest)
+
+    before = inner_mm.launches
+    with unittest.mock.patch.object(kq, "int8_dense", wrap("dense")), \
+            unittest.mock.patch.object(kq, "int8_conv", wrap("conv")), \
+            unittest.mock.patch.object(kq, "int8_matmul", mm), \
+            unittest.mock.patch.object(kq, "_rescale", rescale):
+        out = im.predict(x)
+    launched = inner_mm.launches - before
+
+    def cpu(v):
+        if torch.is_tensor(v):
+            return v.cpu()
+        if isinstance(v, dict):
+            return {k: cpu(t) for k, t in v.items()}
+        return v
+    got = {}
+
+    def cpu_rescale(acc, *rest):
+        got.setdefault("acc", acc)
+        return inner_rescale(acc, *rest)
+    with unittest.mock.patch.object(kq, "_rescale", cpu_rescale):
+        inner[first["kind"]](*map(cpu, first["args"]))
+    same = torch.equal(first["acc"], got["acc"])
+    return out, same, all(products), len(products), launched
+
+
+def predict_times(dev, im, x, repeats):
+    """``repeats`` predicts of ``x`` after a warm one, each cut at a
+    device synchronisation into the forward (the inputs' copy and every
+    kernel) and the copy of the output to the host: two lists of ms."""
+    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" \
+        else (lambda: None)
+    im.predict(x)
+    fwd, copy = [], []
+    for _ in range(repeats):
+        sync()
+        t0 = time.perf_counter()
+        wait = im.predict_async(x)
+        sync()
+        t1 = time.perf_counter()
+        wait()
+        t2 = time.perf_counter()
+        fwd.append(1e3 * (t1 - t0))
+        copy.append(1e3 * (t2 - t1))
+    return fwd, copy
+
+
+def profile_predict(dev, im, x, what):
+    """One predict of ``x`` under torch.profiler: its device time by
+    kind (GEMMs, of which the int8 ones, copies, the rest) and its top
+    kernels, printed; nothing off the card or when CUPTI records no
+    device rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if torch.device(dev).type != "cuda":
+        return
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        im.predict(x)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA")
+                     and not getattr(e, "is_user_annotation", False)),
+                    key=dev_us, reverse=True)
+    if not events:
+        print(f"    {what} traced: no device records")
+        return
+    busy = sum(dev_us(e) for e in events) / 1e3
+    kinds = kinds_ms(events, busy)
+
+    def ms(*keys):
+        return sum(dev_us(e) for e in events
+                   if any(k in e.key.lower() for k in keys)) / 1e3
+    print(f"    {what} traced: device busy {busy:.2f} ms in "
+          f"{sum(e.count for e in events)} launches: GEMMs "
+          f"{kinds['GEMMs']:.2f} ms (int8: "
+          f"{ms('s8', 'i8', 'int8', 'imma'):.2f}), host copies {ms('memcpy dtoh'):.2f}, device copies "
+          f"{ms('memcpy dtod', 'memcpy htod'):.2f}; top kernels: " + "; ".join(
+              f"{dev_us(e) / 1e3:.2f} ms x{e.count} {e.key[:60]}"
+              for e in events[:4]))
+
+
+def int8_model_row(dev, card, name, make, tree, x, repeats, trace):
+    """One model of 19c: ``load_flax`` f32 and ``quantize="int8_mxu"`` on
+    the card from ``tree``; int8 layers against the reference's count,
+    the first layer's accumulator against the CPU's, the delta and top-1
+    agreement against f32, the forward and host-copy ms of ``predict``
+    (medians and ranges over ``repeats``; with ``trace``, one traced
+    call each), weight bytes."""
+    f32_im = InferenceModel().load_flax(make(), tree, device=dev)
+    want = f32_im.predict(x)
+    fwd_f32, copy_f32 = predict_times(dev, f32_im, x, repeats)
+    if trace:
+        profile_predict(dev, f32_im, x, f"{name} f32")
+    del f32_im
+    free_memory()
+    im = InferenceModel().load_flax(make(), tree, quantize="int8_mxu",
+                                    device=dev)
+    got, same, exact, n_mm, launched = int8_first_layer(dev, im, x)
+    fwd, copy = predict_times(dev, im, x, repeats)
+    if trace:
+        profile_predict(dev, im, x, f"{name} int8_mxu")
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+
+    def span(v):
+        return f"{np.median(v):.2f} ({min(v):.2f}-{max(v):.2f})"
+    row = {"int8_layers": im.int8_layers,
+           "reference_int8_layers": INT8_REF_LAYERS[name],
+           "first_acc_bitwise": bool(same), "int_mm_exact": bool(exact),
+           "int_mm_products": n_mm, "int_mm_launches": launched,
+           "max_rel_delta": rel, "top1_agree": agree,
+           "forward_ms": fwd, "forward_ms_f32": fwd_f32,
+           "copy_ms": copy, "copy_ms_f32": copy_f32,
+           "predict_ms": float(np.median(np.add(fwd, copy))),
+           "predict_ms_f32": float(np.median(np.add(fwd_f32, copy_f32))),
+           "weight_bytes_f32": im.quant_stats["weight_bytes_f32"],
+           "weight_bytes_quant": im.quant_stats["weight_bytes_quant"]}
+    print(f"  [{card}] {name} load_flax(quantize='int8_mxu'): "
+          f"{row['int8_layers']} int8 layers (the reference's interceptor "
+          f"takes {row['reference_int8_layers']}); first layer's int32 "
+          f"accumulators bitwise = CPU: {same}; {n_mm} torch._int_mm "
+          f"products ({launched} launches) bitwise = float64: {exact}; max "
+          f"rel delta to f32 {rel:.4e} (bound {INT8_REL}), top-1 agreement "
+          f"{agree:.4f}; predict over {repeats} calls, median (range) ms: "
+          f"forward {span(fwd)} (f32 {span(fwd_f32)}), copy to the host "
+          f"{span(copy)} (f32 {span(copy_f32)}); weights "
+          f"{row['weight_bytes_quant'] / 2**20:.1f} MiB (f32 "
+          f"{row['weight_bytes_f32'] / 2**20:.1f})")
+    if not (np.isfinite(got).all() and same and exact and rel < INT8_REL
+            and row["int8_layers"] == row["reference_int8_layers"]
+            and n_mm > 0 and launched == (
+                n_mm if torch.device(dev).type == "cuda" else 0)):
+        raise AssertionError(f"19c {name}: {row}")
+    del im
+    free_memory()
+    return row
+
+
+def phase_int8_modules(dev, card, trace=False):
+    """19c: ``InferenceModel.load_flax(quantize="int8_mxu")`` on GPT-2
+    small with an untied head (12 layers) and ResNet-50, f32, random
+    weights from a seed carried as the reference's trees."""
+    print("-- 19c int8_mxu on any module: GPT-2 small (untied head) and "
+          "ResNet-50, f32, TF32 off")
+    torch.manual_seed(190)
+    cfg = dict(GPT2, num_layers=12, tied_head=False, dtype=torch.float32)
+    lm_tree = lm_flax_tree(TransformerLM(**cfg))
+    c = INT8_GPT2
+    toks = np.random.default_rng(191).integers(
+        0, GPT2["vocab_size"], (c["batch"], c["seq"])).astype(np.int32)
+    out = {"gpt2": int8_model_row(
+        dev, card, "GPT-2 small, untied head",
+        lambda: TransformerLM(**cfg), lm_tree, toks, c["repeats"], trace)}
+    del lm_tree
+    c = INT8_RESNET
+    torch.manual_seed(192)
+    net = resnet50(c["classes"], dtype=torch.float32)
+    with torch.no_grad():
+        net(torch.zeros(1, 32, 32, 3))      # the lazy stem's weights
+    img_tree = image_flax_tree(net)
+    x = np.random.default_rng(193).normal(
+        size=(c["batch"], c["hw"], c["hw"], 3)).astype(np.float32)
+    out["resnet50"] = int8_model_row(
+        dev, card, "ResNet-50", lambda: resnet50(c["classes"],
+                                                 dtype=torch.float32),
+        img_tree, x, c["repeats"], trace)
+    return out
+
+
+def phase_mesh(dev, card, trace=False):
+    """Phase 19: 19a (f32) engines on a dp=2 x tp=2 mesh of four ranks,
+    then on two tp=2 ranks the host tier and a prefill/decode fleet of
+    two replicas a rank, 19b the fleet at TinyLlama-1.1B's full width
+    (bf16), and 19c int8_mxu on a TransformerLM and a ResNet in this
+    process (``trace``: one traced ``predict`` of each, ``--mesh``
+    only).  Ranks are processes on this one card (gloo).  Returns the
+    figures and rank 0's launches in 19b."""
+    t0 = time.monotonic()
+    print(f"== phase 19: serving beyond one tensor-parallel line and "
+          f"int8_mxu on any module; ranks as processes on "
+          f"{torch.cuda.device_count()} card(s) (ranks sharing a card "
+          f"check the code, not speed)")
+    dptp = dist_run("dptp", 4)
+    r0 = dptp[0]
+    print(f"-- 19a f32, TinyLlama width, {MESH_LAYERS} layers, dp=2 x tp=2 "
+          f"(4 ranks, coordinates "
+          f"{[(r['coords']['dp'], r['coords']['tp']) for r in dptp]}) vs "
+          f"tp=1, {len(DIST_LENGTHS)} requests; pool per rank {r0['pool']}")
+    for mode in MESH_DPTP_MODES:
+        same_tokens(r0["modes"][(mode, "dp2tp2")], r0["modes"][(mode, "tp1")],
+                    f"19a {mode}: dp2 x tp2 != tp=1")
+        launches = [r["launches"][mode] for r in dptp]
+        print(f"  {mode}: greedy tokens = tp=1; launches per rank (paged, "
+              f"flash) {[(x['paged'], x['flash']) for x in launches]}, each "
+              f"= its engine's calls x layers")
+        for x in launches:
+            if (x["paged"], x["flash"]) != (x["paged_want"],
+                                            x["flash_want"]) or \
+                    x["paged"] + x["flash"] == 0:
+                raise AssertionError(f"19a {mode}: launches {x}")
+    ranks = dist_run("mesh", DIST_TP)
+    tier = [r["tier"] for r in ranks]
+    t2, t1, bare = tier[0]["tp2"], tier[0]["tp1"], tier[0]["tp2 no tier"]
+    same_tokens(t2["tokens"], t1["tokens"], "19a tier: tp=2 != tp=1")
+    same_tokens(t2["tokens"], bare["tokens"],
+                "19a tier: tp=2 with the tier != without")
+    for r, x in enumerate(tier):
+        if x["tp2"]["counts"] != t1["counts"] or \
+                x["tp2"]["launches"]["paged"] != \
+                x["tp2"]["launches"]["paged_want"]:
+            raise AssertionError(f"19a tier rank {r}: {x['tp2']} vs {t1}")
+    if t1["counts"]["kv_spills"] < 1 or t1["counts"]["kv_readmits"] < 1 or \
+            t1["tokens"]["a1"] != t1["tokens"]["a0"]:
+        raise AssertionError(f"19a tier: no spill and readmit {t1}")
+    print(f"  host tier (n_blocks {MESH_TIER['n_blocks']}): tokens tp=2 = "
+          f"tp=1 = tp=2 without the tier; counts on each rank = tp=1's "
+          f"{t1['counts']}; paged launches per rank "
+          f"{[x['tp2']['launches']['paged'] for x in tier]}")
+    f2, f1 = ranks[0]["fleet"], ranks[0]["fleet_solo"]
+    same_tokens(f2["tokens"], f1["tokens"],
+                "19a fleet: tp=2 replicas != one-rank replicas")
+    n = MESH_FLEET_F32["requests"]
+    for r, x in enumerate(ranks):
+        e = x["fleet"]["engines"]
+        if e[0]["handoffs_out"] != n or e[1]["handoffs_in"] != n or \
+                x["fleet"]["launches"]["paged"] != \
+                x["fleet"]["launches"]["paged_want"] or \
+                x["fleet"]["kernels"] != ["fused", "fused"]:
+            raise AssertionError(f"19a fleet rank {r}: {x['fleet']}")
+    if f2["router_handoffs"] != n or f2["directory_hits"] < 1:
+        raise AssertionError(f"19a fleet: handoffs "
+                             f"{f2['router_handoffs']}, directory hits "
+                             f"{f2['directory_hits']}")
+    print(f"  prefill/decode fleet, 2 replicas a rank on lanes of the "
+          f"mesh: {n} requests whole, tokens = the one-rank fleet's; "
+          f"{f2['router_handoffs']} handoffs, {f2['directory_hits']} "
+          f"directory-routed hits; paged launches per rank "
+          f"{[x['fleet']['launches']['paged'] for x in ranks]} = the "
+          f"engines' calls x layers")
+    b = ranks[0]["bf16"]
+    c = MESH_BF16
+    n_tok = c["requests"] * c["new"]
+    spills = [sum(e["kv_spills"] for e in x["bf16"]["engines"])
+              for x in ranks]
+    readmits = [sum(e["kv_readmits"] for e in x["bf16"]["engines"])
+                for x in ranks]
+    print(f"-- 19b bf16 TinyLlama-1.1B width, {TINYLLAMA_LAYERS} layers, "
+          f"tp=2 prefill/decode fleet (2 replicas a rank), host tiers and "
+          f"the directory; pool per rank {b['pool']}")
+    print(f"  [{card}; two ranks share one card] {c['requests']} requests "
+          f"of 30-205 tokens (four after a {c['shared']}-token prefix) x "
+          f"{c['new']}: {n_tok} tokens in {b['seconds']:.2f} s, "
+          f"{n_tok / b['seconds']:.1f} tokens/s; {b['router_handoffs']} "
+          f"handoffs, {b['directory_hits']} directory-routed hits, spills "
+          f"per rank {spills}, readmits {readmits}; paged launches per "
+          f"rank {[x['bf16']['launches']['paged'] for x in ranks]} (= the "
+          f"engines' calls x layers)")
+    for r, x in enumerate(ranks):
+        if x["bf16"]["launches"]["paged"] != \
+                x["bf16"]["launches"]["paged_want"] or \
+                x["bf16"]["launches"]["paged"] == 0 or \
+                x["bf16"]["flash_launches"] == 0 or \
+                spills[r] != spills[0] or readmits[r] != readmits[0]:
+            raise AssertionError(f"19b rank {r}: {x['bf16']}")
+    if b["router_handoffs"] != c["requests"]:
+        raise AssertionError(f"19b: {b['router_handoffs']} handoffs")
+    int8 = phase_int8_modules(dev, card, trace)
+    secs = time.monotonic() - t0
+    print(f"  phase 19 {secs:.1f} s")
+    return {"dptp_modes": list(MESH_DPTP_MODES),
+            "tier": t1["counts"], "fleet_f32": {
+                k: f2[k] for k in ("router_handoffs", "directory_hits")},
+            "bf16": {"tokens": n_tok, "seconds": b["seconds"],
+                     "tokens_per_s": n_tok / b["seconds"],
+                     "handoffs": b["router_handoffs"],
+                     "directory_hits": b["directory_hits"],
+                     "spills": spills[0], "readmits": readmits[0],
+                     "logits_err": b["logits_err"],
+                     "logits_limit": b["logits_limit"],
+                     "argmax_agreement": b["argmax_agreement"]},
+            "int8": int8, "seconds": secs,
+            "launches": {"paged": b["launches"]["paged"],
+                         "flash": b["flash_launches"]},
+            "card": card, "note": "ranks share one card"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8446,6 +9127,19 @@ def main() -> int:
         print(json.dumps({"kernels": rows, "dist": dist}))
         return 0
 
+    if sys.argv[1:2] == ["--mesh"]:
+        # phase 1 and phase 19, then the per-rank shapes' kernel rows
+        phase_build()
+        lap("phase 1")
+        mesh = phase_mesh(dev, card, trace=True)
+        lap("phase 19")
+        rows = dist_rows(dev, mesh["launches"])
+        print_rows(rows)
+        lap("phase 19's kernel rows")
+        print(card)
+        print(json.dumps({"kernels": rows, "mesh": mesh}))
+        return 0
+
     if sys.argv[1:2] == ["--tools"]:
         # phase 1 and phase 15 on a TinyLlama built as phase 6b builds it
         phase_build()
@@ -8518,6 +9212,8 @@ def main() -> int:
     lap("phase 17")
     dist = phase_dist(dev, card)
     lap("phase 18")
+    mesh = phase_mesh(dev, card)
+    lap("phase 19")
     for e in kernels:
         # each kernel's launches in phase 8b's two servers (the paged
         # server reads through paged, the arena prefills through flash);
@@ -8540,6 +9236,13 @@ def main() -> int:
             if e["name"].startswith("flash_attention_fwd") else 0)
     # phase 18's per-rank shapes, with that phase's launches
     kernels += dist_rows(dev, dist["launches"])
+    for e in kernels:
+        # and each kernel's launches on rank 0 in phase 19b's tp=2 fleet
+        # (its paged reads, its dense forward's flash prefill)
+        e["mesh_launches"] = (
+            mesh["launches"]["paged"] if e["name"].startswith("paged")
+            else mesh["launches"]["flash"]
+            if e["name"].startswith("flash_attention_fwd") else 0)
     print(f"whole run {time.monotonic() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, "stack": {
@@ -8547,7 +9250,8 @@ def main() -> int:
         "modes": modes["runs"], "witness": modes["witness"],
         "serving_modes": serving_modes, "bert": bert, "zoo": zoo,
         "image": image, "tcmf": tcmf, "finetune": finetune,
-        "tools": tools, "text": text, "keras": keras, "dist": dist}))
+        "tools": tools, "text": text, "keras": keras, "dist": dist,
+        "mesh": mesh}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -253,25 +253,26 @@ def scenario_tp(rank, world, outdir):
     cfg = ServingConfig(prompt_col="tokens", continuous_batching=True,
                         engine_paged=True, engine_block_size=4,
                         engine_slots=2)
-    try:
-        ClusterServing(im, ServingConfig(continuous_batching=True,
-                                         n_replicas=2),
-                       engine_mesh=mesh).start()
-    except ValueError as e:
-        out["replicas_error"] = str(e)
-    srv = ClusterServing(im, cfg, embedded_broker=rank == 0,
-                         engine_mesh=mesh).start()
-    if rank == 0:
-        from analytics_zoo_tpu_torch.serving.queues import (InputQueue,
-                                                            OutputQueue)
+    # one replica, then two over the same mesh (two engines a rank on
+    # lanes of their own, sharing the model the first server sharded)
+    for key, n in (("served", 1), ("served_replicas", 2)):
+        srv = ClusterServing(
+            im, ServingConfig(prompt_col="tokens", continuous_batching=True,
+                              engine_paged=True, engine_block_size=4,
+                              engine_slots=2, n_replicas=n),
+            embedded_broker=rank == 0, engine_mesh=mesh).start()
+        if rank == 0:
+            from analytics_zoo_tpu_torch.serving.queues import (InputQueue,
+                                                                OutputQueue)
 
-        inq, outq = InputQueue(port=srv.port), OutputQueue(port=srv.port)
-        uris = [inq.enqueue(f"s{i}", tokens=p)
-                for i, p in enumerate(inp["prompts"].values())]
-        out["served"] = [np.asarray(outq.query(u, timeout=120)).tolist()
-                         for u in uris]
-        out["served_kernel"] = srv.engine.kernel
-    srv.stop()
+            inq, outq = InputQueue(port=srv.port), OutputQueue(port=srv.port)
+            uris = [inq.enqueue(f"{key}{i}", tokens=p)
+                    for i, p in enumerate(inp["prompts"].values())]
+            out[key] = [np.asarray(outq.query(u, timeout=120)).tolist()
+                        for u in uris]
+            out[key + "_kernel"] = srv.engine.kernel
+            out[key + "_engines"] = len(srv.engines)
+        srv.stop()
     if rank == 0:
         # the same requests through one rank's engine
         eng = ContinuousEngine(TransformerLM(**inp["cfg"]), inp["state"],
@@ -286,6 +287,323 @@ def scenario_tp(rank, world, outdir):
         out["served_solo"] = [solo[u] for u in inp["prompts"]]
     context.stop_orca_context()
     return out
+
+
+def scenario_dptp(rank, world, outdir):
+    """Engines on a ``{"dp": 2, "tp": 2}`` mesh: rank 0 leads every dp
+    line, each line shards over its own tp pair; rank 0 also serves the
+    same stream alone."""
+    from analytics_zoo_tpu_torch.common import context
+
+    inp = torch.load(os.path.join(outdir, "tp_in.pt"), weights_only=False)
+    mesh = context.init_orca_context("distributed",
+                                     mesh_axes={"dp": 2, "tp": 2},
+                                     device="cpu").mesh
+    out = {"tokens": {}, "coords": mesh.coords(rank), "calls": {}}
+    for combo in inp["combos"]:
+        prompts = inp["prompts_chunked" if "chunked" in combo
+                      else "prompts"]
+        for name, m in (("dp2tp2", mesh), ("tp1", None)):
+            if m is None and rank != 0:
+                continue
+            eng, got = _serve(inp, rank, m, COMBOS[combo], prompts,
+                              sampled="u2")
+            out["tokens"][(combo, name)] = got
+            if name == "dp2tp2":
+                out["calls"][combo] = (
+                    eng.prefill_calls, eng.decode_ticks, eng.chunk_calls,
+                    tuple((eng._pk if eng.paged else eng._ck).shape))
+    context.stop_orca_context()
+    return out
+
+
+TIER = dict(max_new_tokens=4, max_slots=2, prompt_buckets=(8, 16),
+            paged=True, block_size=4, n_blocks=8, device="cpu")
+TIER_METRICS = ("kv_spills", "kv_readmits", "kv_readmit_tokens_saved",
+                "kv_spill_bytes", "kv_store_bytes", "referenced_blocks")
+
+
+def _follow_or_lead(rank, engines, lead):
+    """Followers run every engine's loop (a thread each); the leader
+    runs ``lead()`` and then stops them."""
+    import threading
+
+    if rank != 0:
+        threads = [threading.Thread(target=e.follow) for e in engines]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return None
+    try:
+        return lead()
+    finally:
+        for e in engines:
+            e.stop_followers()
+
+
+def _tier_runs(inp, rank, mesh, out):
+    """The reference's host-tier pins on every rank: a0 cold, b and c
+    churn the 8-block pool until a0's chain spills, a1 readmits it."""
+    from analytics_zoo_tpu_torch.models.lm import TransformerLM
+    from analytics_zoo_tpu_torch.serving.continuous import ContinuousEngine
+    from analytics_zoo_tpu_torch.serving.kv_store import (PrefixDirectory,
+                                                          TIER_HBM)
+
+    seq = [("a0", inp["PA"]), ("b", inp["PB"]), ("c", inp["PC"]),
+           ("a1", inp["PA"])]
+    for kv in ("bf16", "int8"):
+        for extra in ("paged", "chunked"):
+            kw = dict(TIER, kv_dtype=kv)
+            if extra == "chunked":
+                kw.update(chunked=True, tick_token_budget=8)
+            for name, m, store in (("tp2", mesh, 1 << 20),
+                                   ("tp2_bare", mesh, 0),
+                                   ("tp1", None, 1 << 20)):
+                if m is None and rank != 0:
+                    continue
+                d = PrefixDirectory()
+                eng = ContinuousEngine(
+                    TransformerLM(**inp["cfg"]), inp["state"], mesh=m,
+                    kv_host_store_bytes=store, replica_id=3,
+                    prefix_directory=d if store else None, **kw)
+                got, claims = {}, []
+
+                def lead():
+                    for u, p in seq:
+                        eng.submit(u, p, on_done=lambda uri, t:
+                                   got.__setitem__(uri, t.tolist()))
+                        eng.drain()
+                        if store:
+                            hs = eng._pool.block_hashes(
+                                [int(t) for t in inp["PA"]])
+                            claims.append(d.lookup(hs[0]))
+                if m is None:
+                    lead()
+                else:
+                    _follow_or_lead(rank, [eng], lead)
+                cm = eng.cache_metrics()
+                key = (kv, extra, name)
+                out["tier"][key] = {
+                    "tokens": got, "claims": claims,
+                    "metrics": {k: cm[k] for k in TIER_METRICS},
+                    "flight": [(r["kind"], r.get("kv_spills"),
+                                r.get("kv_readmits"))
+                               for r in eng.flight.snapshot()],
+                    "directory": d.metrics()}
+                eng._pool.check()
+                if not store:
+                    continue
+                hs = eng._pool.block_hashes([int(t) for t in inp["PA"]])
+                info = out["tier"][key]
+                info["stored"] = [h in eng._kv_store for h in hs]
+                # a dry pool's readmit rolls back, the store stays whole
+                # (local to each rank: no collective)
+                held = []
+                with eng._pool_lock:
+                    while True:
+                        blk = eng._pool.allocate()
+                        if blk is None:
+                            break
+                        held.append(blk)
+                    before = len(eng._kv_store)
+                    info["dry"] = (eng._store_readmit(hs, 0, len(hs)),
+                                   len(eng._kv_store) == before)
+                    for blk in held:
+                        eng._pool.release(blk)
+                eng._pool.check()
+                # a store eviction retracts the leader's host claim
+                eng._kv_store.pop(hs[0])
+                info["after_pop"] = d.lookup(hs[0])
+                info["hbm_claim"] = TIER_HBM
+
+
+def _handoff_pair(inp, rank, mesh, out):
+    """Engine A prefills and exports at first token, engine B (lane 1)
+    adopts and decodes: each rank moves its own shard."""
+    from analytics_zoo_tpu_torch.models.lm import TransformerLM
+    from analytics_zoo_tpu_torch.serving.continuous import ContinuousEngine
+
+    for kv in (None, "int8"):
+        got = {}
+        kw = dict(mesh=mesh, max_new_tokens=5, max_slots=3,
+                  prompt_buckets=(8, 16), paged=True, block_size=4,
+                  kv_dtype=kv, device="cpu")
+        a = ContinuousEngine(TransformerLM(**inp["cfg"]), inp["state"],
+                             **kw)
+        # the second engine (replica 1) shares the sharded model on a
+        # lane of its own
+        b = ContinuousEngine(a.model, None, replica_id=1, **kw)
+
+        def lead():
+            for u, p in inp["handoff_prompts"].items():
+                a.submit(u, p, on_done=lambda uri, t: got.__setitem__(
+                    uri, t.tolist()), handoff_cb=b.submit_handoff)
+            while len(got) < len(inp["handoff_prompts"]):
+                a.step()
+                b.step()
+        _follow_or_lead(rank, [a, b], lead)
+        for e in (a, b):
+            e._pool.check()
+        out["handoff"][kv] = {
+            "tokens": got, "counts": (a._handoffs_out, b._handoffs_in),
+            "idle": (a._pool.num_referenced(), b._pool.num_referenced(),
+                     a.n_active, b.n_active)}
+
+
+def _handoff_resend(inp, rank, mesh, out):
+    """A parked shard lives until the leader drops its own copy of the
+    export: the first of 20 exports is adopted again after the 19 others
+    (an ack-timeout retry), an export whose delivery fails is freed
+    unadopted, one is adopted by its own source, and every rank's box
+    ends empty."""
+    from analytics_zoo_tpu_torch.models.lm import TransformerLM
+    from analytics_zoo_tpu_torch.serving.continuous import ContinuousEngine
+
+    kw = dict(mesh=mesh, max_new_tokens=5, max_slots=3,
+              prompt_buckets=(8, 16), paged=True, block_size=4,
+              device="cpu")
+    a = ContinuousEngine(TransformerLM(**inp["cfg"]), inp["state"], **kw)
+    b = ContinuousEngine(a.model, None, replica_id=1, **kw)
+    prompts = {f"{u}-{i}": p for i in range(5)
+               for u, p in inp["handoff_prompts"].items()}
+    first = next(iter(prompts))
+    got, states, again, errors = {}, {}, {}, []
+
+    def deliver(state):
+        states[state["uri"]] = state
+        b.submit_handoff(state)
+
+    def fail(state):
+        raise RuntimeError("no replica took the handoff")
+
+    def lead():
+        for u, p in prompts.items():
+            a.submit(u, p, on_done=lambda uri, t: got.__setitem__(
+                uri, t.tolist()), handoff_cb=deliver)
+        while len(got) < len(prompts):
+            a.step()
+            b.step()
+        b.submit_handoff(dict(states[first], on_done=lambda uri, t:
+                              again.__setitem__(uri, t.tolist())))
+        while not again:
+            b.step()
+        states.clear()      # the deliverer's last copies
+        a.submit("lost", next(iter(inp["handoff_prompts"].values())),
+                 on_error=lambda uri, e: errors.append(uri),
+                 handoff_cb=fail)
+        while not errors:
+            a.step()
+        # a source adopting its own export (the router's last resort):
+        # posted from inside its replay, so every rank adopts it
+        a.submit("self", next(iter(inp["handoff_prompts"].values())),
+                 on_done=lambda uri, t: again.__setitem__(uri, t.tolist()),
+                 handoff_cb=a.submit_handoff)
+        while "self" not in again:
+            a.step()
+        a.step()            # flushes the last releases
+        return a._lockstep.handoffs._sent
+    sent = _follow_or_lead(rank, [a, b], lead)
+    for e in (a, b):
+        e._pool.check()
+    out["resend"] = {
+        "tokens": got, "again": again.get(first), "errors": errors,
+        "self": again.get("self"), "sent": sent,
+        "parked": len(a._lockstep.handoffs),
+        "counts": (a._handoffs_out, a._handoffs_in, b._handoffs_in),
+        "idle": (a._pool.num_referenced(), b._pool.num_referenced(),
+                 a.n_active, b.n_active)}
+
+
+FLEET = dict(prompt_col="tokens", continuous_batching=True, engine_slots=2,
+             n_replicas=2, engine_paged=True, engine_block_size=4,
+             engine_blocks=24)
+FLEET_MODES = {
+    "replicas": {},
+    "roles": dict(replica_roles=["prefill", "decode"],
+                  prefix_directory=True,
+                  engine_kv_host_store_bytes=1 << 20),
+}
+
+
+def _fleet(inp, rank, mesh, out):
+    """``ClusterServing(n_replicas=2)`` over the tp mesh, with and
+    without prefill/decode roles, the directory and host tiers; rank 0
+    also runs the same fleets alone."""
+    from analytics_zoo_tpu_torch.learn.inference_model import InferenceModel
+    from analytics_zoo_tpu_torch.models.lm import TransformerLM
+    from analytics_zoo_tpu_torch.serving.queues import (InputQueue,
+                                                        OutputQueue)
+    from analytics_zoo_tpu_torch.serving.server import (ClusterServing,
+                                                        ServingConfig)
+
+    ims = {}
+    for mode, extra in FLEET_MODES.items():
+        for name, m in (("tp2", mesh), ("tp1", None)):
+            if m is None and rank != 0:
+                continue
+            if name not in ims:
+                ims[name] = InferenceModel().load_torch_generator(
+                    TransformerLM(**inp["cfg"]), inp["state"], 4,
+                    prompt_buckets=(8, 16), device="cpu")
+            srv = ClusterServing(ims[name], ServingConfig(**FLEET, **extra),
+                                 embedded_broker=rank == 0,
+                                 engine_mesh=m).start()
+            hits = []
+            if rank == 0 and srv._prefix_directory is not None:
+                probe = srv._prefix_directory.match_depths
+
+                def counted(hashes, probe=probe):
+                    depths = probe(hashes)
+                    hits.append(max(depths.values(), default=0))
+                    return depths
+                srv._prefix_directory.match_depths = counted
+            got = None
+            if rank == 0:
+                inq, outq = InputQueue(port=srv.port), \
+                    OutputQueue(port=srv.port)
+                got = {}
+                # one at a time: each sees the fleet the last one left
+                for u, p in inp["fleet_prompts"].items():
+                    inq.enqueue(f"{mode}-{u}", tokens=p)
+                    got[u] = np.asarray(outq.query(
+                        f"{mode}-{u}", timeout=120)).tolist()
+            srv.stop()
+            status = srv.router_status() if rank == 0 else None
+            out["fleet"][(mode, name)] = {
+                "tokens": got, "hits": hits, "status": status,
+                "engines": [(e._handoffs_out, e._handoffs_in,
+                             e._pool.num_referenced(), e.n_active,
+                             e.cache_metrics()["kv_spills"])
+                            for e in srv.engines],
+                # exports the leader has not released yet
+                "unreleased": [len(e._lockstep.handoffs._sent)
+                               for e in srv.engines
+                               if e._lockstep is not None]}
+
+
+def _on_tp2(rank, outdir, *runs):
+    """``runs`` on a ``{"tp": 2}`` mesh, over ``tier_in.pt``'s inputs."""
+    from analytics_zoo_tpu_torch.common import context
+
+    inp = torch.load(os.path.join(outdir, "tier_in.pt"), weights_only=False)
+    mesh = context.init_orca_context("distributed", mesh_axes={"tp": 2},
+                                     device="cpu").mesh
+    out = {"tier": {}, "handoff": {}, "fleet": {}, "resend": {}}
+    for run in runs:
+        run(inp, rank, mesh, out)
+    context.stop_orca_context()
+    return out
+
+
+def scenario_tier(rank, world, outdir):
+    """The host tier and the prefix directory on a ``{"tp": 2}`` mesh."""
+    return _on_tp2(rank, outdir, _tier_runs)
+
+
+def scenario_fleet(rank, world, outdir):
+    """Handoff and replicas on a ``{"tp": 2}`` mesh."""
+    return _on_tp2(rank, outdir, _handoff_pair, _handoff_resend, _fleet)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Shared by the port's tensor-parallel serving tests
 (``test_torch_tp_*.py``): the reference's weights converted for the
-workers, and the JAX engine's tokens on the 8-device CPU mesh at tp=2.
+workers, the host tier's and the fleet's inputs, and the JAX engine's
+tokens on the 8-device CPU mesh at tp=2.
 Each test module starts one two-rank worker launch
 (``_torch_dist_worker.py`` scenario ``tp``, the combos it names) and
 computes the JAX tokens while the workers run."""
@@ -143,3 +144,39 @@ def check_combo(tp, combo):
         if u == "u2" and "spec" not in combo:
             continue            # sampled on the port side
         assert got[(combo, "tp2")][u] == toks, (combo, u)
+
+
+# the host tier's and the fleet's inputs (test_torch_tp_tier.py and
+# test_torch_tp_fleet.py)
+PA = np.arange(1, 14, dtype=np.int32)          # 13 tokens, 3 full blocks
+PB = np.arange(15, 28, dtype=np.int32)         # disjoint head
+PC = np.array([2, 4, 6, 8, 10, 12, 14, 16, 18, 20, 22, 24, 26], np.int32)
+
+
+def _token_prompts(seed, n, lo, hi):
+    rng = np.random.default_rng(seed)
+    return {f"h{i}": rng.integers(1, 32, int(rng.integers(lo, hi)))
+            .astype(np.int32) for i in range(n)}
+
+
+def _fleet_prompts():
+    """Six prompts, three of them sharing a 9-token head (two full
+    blocks the directory can route by)."""
+    out = _token_prompts(5, 6, 3, 8)
+    head = np.arange(3, 12, dtype=np.int32)
+    for i in (1, 3, 5):
+        out[f"h{i}"] = np.concatenate([head, out[f"h{i}"][:2]])
+    return out
+
+
+def tier_inputs(outdir):
+    """The weights (the reference's init, converted) and prompts the
+    workers read (``tier_in.pt``), and the JAX model and its tree."""
+    jm, jv = _jax_model(CFG, 0)
+    inp = {"cfg": dict(CFG, dtype=torch.float32),
+           "state": params_from_flax(jv["params"]),
+           "PA": PA, "PB": PB, "PC": PC,
+           "handoff_prompts": _token_prompts(11, 4, 2, 14),
+           "fleet_prompts": _fleet_prompts()}
+    torch.save(inp, outdir / "tier_in.pt")
+    return inp, jm, jv

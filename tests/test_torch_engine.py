@@ -286,16 +286,23 @@ def test_engine_needs_a_device_or_cuda(models):
         ContinuousEngine(tm, **_ENGINE)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mesh=Mesh({"dp": 2, "tp": 1}, "cpu")), "item 6.5")])
+@pytest.mark.parametrize("kw,item", [pytest.param(
+    dict(mesh=Mesh({"dp": 2, "tp": 1}, "cpu")), "dp", id="kw0-item 6.5")])
 def test_later_slice_modes_raise(models, kw, item):
-    """Serving on a mesh with axes beyond tp is left to a later slice
-    (tensor-parallel engines run in ``test_torch_tp_serving.py``); the
-    QoS, elastic-pool and host-tier engines are built here and held to
-    the reference in ``test_torch_qos.py`` and
-    ``test_torch_kv_tier.py``."""
-    with pytest.raises(NotImplementedError, match=item):
-        ContinuousEngine(models[2], device="cpu", **_ENGINE, **kw)
+    """A mesh with axes beyond tp serves (each axis but tp replicates,
+    as in the reference; at tp 1 the engine serves this rank alone, with
+    no control plane): its tokens equal a mesh-less engine's.  The
+    tensor-parallel engines run in ``test_torch_tp_serving.py`` and
+    ``test_torch_tp_mesh.py``; the QoS, elastic-pool and host-tier
+    engines are built here and held to the reference in
+    ``test_torch_qos.py`` and ``test_torch_kv_tier.py``."""
+    on_mesh = ContinuousEngine(models[2], device="cpu", **_ENGINE, **kw)
+    assert on_mesh.mesh.size(item) == 2 and on_mesh._lockstep is None
+    got = _run(on_mesh)[0]
+    ref = _run(ContinuousEngine(models[2], device="cpu", **_ENGINE))[0]
+    assert sorted(got) == sorted(ref) == sorted(u for u, _ in _stream())
+    for u in ref:
+        np.testing.assert_array_equal(got[u], ref[u], err_msg=u)
     from analytics_zoo_tpu_torch.serving.policy import QosPolicy
     for ok in (dict(qos=QosPolicy()),
                dict(paged=True, elastic_pool=True),

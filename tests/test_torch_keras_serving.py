@@ -246,16 +246,12 @@ def test_int8_matmul_pads_to_the_int8_gemm_shapes(monkeypatch):
 
 
 def test_int8_mxu_only_through_load_flax():
-    """The other loaders keep the reference's ValueError; a module
-    outside the Keras API is not taken yet; a bad mode raises."""
-    from analytics_zoo_tpu_torch.models.layers import Dense
-
+    """The other loaders keep the reference's ValueError; a bad mode
+    raises.  (Modules outside the Keras API take int8_mxu through
+    ``load_flax``: ``test_torch_int8_modules.py``.)"""
     with pytest.raises(ValueError, match="int8_mxu"):
         InferenceModel().load_torch_generator(
             None, None, max_new_tokens=2, quantize="int8_mxu")
-    with pytest.raises(NotImplementedError, match="item 8.5"):
-        InferenceModel().load_flax(Dense(4, 2), {"params": {}},
-                                   quantize="int8_mxu", device="cpu")
     with pytest.raises(ValueError, match="unknown quantize"):
         InferenceModel().load_flax(_served(PK), {}, quantize="fp8",
                                    device="cpu")

@@ -14,7 +14,7 @@ compared with JAX).  The pool and the arena hold each rank's kv heads
 whose kv heads do not divide tp is refused under the default rules and
 replicates its cache under the hatch rules.  ``ClusterServing`` on rank
 0 answers queue requests as one rank's engine does while rank 1
-follows.  The port's tp=2 runs
+follows, with one replica and with two.  The port's tp=2 runs
 every read through ``paged_attention_fused_tp`` (``kernel="fused"``, its
 plain version on the CPU) or the gather.  The speculative combos are in
 ``test_torch_tp_spec.py``, the fused ones in ``test_torch_tp_fused.py``
@@ -101,8 +101,12 @@ def test_cluster_serving_answers_through_a_follower(tp):
 
 
 def test_cluster_serving_refuses_replicas_on_a_tp_mesh(tp):
-    """``n_replicas > 1`` with a tp=2 ``engine_mesh`` is refused when the
-    server starts, on every rank, naming its ROADMAP item."""
-    for r in tp[1]:
-        assert "n_replicas > 1 over a tensor-parallel mesh" in \
-            r["replicas_error"] and "item 6.5" in r["replicas_error"]
+    """``n_replicas=2`` with a tp=2 ``engine_mesh`` serves (it was
+    refused before replicas took lanes of their own): two engines on
+    each rank share the one sharded model, each with its own control
+    and tp groups, and rank 0's queue answers equal one rank's paged
+    engine."""
+    r0 = tp[1][0]
+    assert r0["served_replicas_engines"] == 2
+    assert r0["served_replicas"] == r0["served_solo"]
+    assert r0["served_replicas_kernel"] == "fused"
