@@ -19,13 +19,16 @@ and a :class:`~analytics_zoo_tpu_torch.parallel.mesh.Mesh`:
   ``cuda:LOCAL_RANK``, or the shared card when there are fewer cards
   than ranks.
 
-``mesh_axes`` (default ``{"dp": -1}``) lays the mesh over the ranks.
-While a context is up, ``device.resolve_device(None)`` returns its
-device, so an entry point that takes no ``device`` runs where the
-context says; :func:`effective_process_count` and
-:func:`effective_process_index` are the process group's (1 and 0
-without one); ``stop_orca_context()`` drops the context and leaves the
-process group running (a later context reuses it).  Spark-era modes
+``mesh_axes`` (default ``{"dp": -1}``) lays the mesh over the ranks;
+a training mesh takes ``dp``, ``sp`` and ``tp`` together (``{"dp": 2,
+"sp": 2, "tp": 2}`` on eight ranks), and the Estimator trains on the
+context's mesh when it is given none.  While a context is up,
+``device.resolve_device(None)`` returns its device, so an entry point
+that takes no ``device`` runs where the context says;
+:func:`effective_process_count` and :func:`effective_process_index` are
+the process group's (1 and 0 without one); ``stop_orca_context()``
+drops the context and leaves the process group running (a later
+context reuses it).  Spark-era modes
 (yarn, k8s, standalone) raise the reference's ``ValueError``;
 ``local_process_scope`` (distributed trials) raises
 ``NotImplementedError`` naming ROADMAP Queue 1 item 6.3.

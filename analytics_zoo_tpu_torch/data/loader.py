@@ -14,6 +14,11 @@
   data_sharding``) each rank receives its rows of every global batch,
   the port's form of the reference's sharded global batches (one
   process a rank).
+- ``data_shard``: the readers' ``(num_hosts, host_index)`` for a rank of
+  a mesh: the data-shard groups of its batch axes, so that under tp and
+  sp every rank of one dp coordinate reads the same files (the
+  reference's processes are hosts; the port's are ranks, and the ranks
+  of a tp or sp line are replicas of one host's rows).
 """
 
 from __future__ import annotations
@@ -113,6 +118,22 @@ def device_prefetch(batches, device=None, depth: int = 2, sharding=None
             yield ahead.popleft()
     while ahead:
         yield ahead.popleft()
+
+
+def data_shard(mesh=None):
+    """``(num_hosts, host_index)`` to give ``data.readers``'s
+    ``read_csv``/``read_json``/``read_parquet`` on ``mesh`` (default: the
+    running context's): the count of its data-shard groups and this
+    rank's (its dp coordinate); ``(1, 0)`` without a mesh."""
+    from analytics_zoo_tpu_torch.common.context import context_mesh
+    from analytics_zoo_tpu_torch.parallel.partition import (
+        data_process_groups, data_sharding)
+
+    mesh = mesh if mesh is not None else context_mesh()
+    if mesh is None or mesh.devices == 1:
+        return 1, 0
+    n_groups, my_group, _ = data_process_groups(data_sharding(mesh))
+    return n_groups, my_group
 
 
 def _rows_of(batch: Dict[str, np.ndarray], index: int, count: int):

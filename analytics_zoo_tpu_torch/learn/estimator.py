@@ -107,15 +107,32 @@ returns them in global order on every rank.  Rank 0 writes checkpoints
 and exports (the others wait for it), and every rank restores them.  A
 ``DiskFeatureSet`` is host-local: each rank streams its own shard (a
 ``{host}`` path), as many steps as the smallest shard gives, and
-evaluates and predicts its own rows.  FSDP, tensor- and
-sequence-parallel training are not ported (ROADMAP Queue 1 items 6.1
-and 6.2).
+evaluates and predicts its own rows.
+
+Tensor- and sequence-parallel training (the reference's ``tp`` and
+``sp`` axes, with or without ``dp``): ``partition_rules`` (the
+reference's rules over its parameter tree, ``DP_RULES`` by default; a
+``lora`` config puts ``LORA_RULES`` ahead of them, so the adapters
+replicate) cut the model's parameters to each rank's shards
+(``parallel.partition.shard_module``) after every rank has taken rank
+0's weights; the model's own layers run the collectives, with the
+conjugate gradients of ``parallel.collectives`` (BERT and
+``TransformerLM`` in Megatron's layout, vocab-parallel embedding
+tables elsewhere), and a model built with ``mesh=`` splits the
+sequence over ``sp``.  The ranks that share a dp coordinate take the
+same rows.  Gradients are averaged over dp x sp (the sp convention of
+``parallel.collectives``); a tp rank's gradients are its shards' and
+replicated parameters' own, equal on every tp rank.  Checkpoints and
+exports hold whole tensors in the tp=1 layout, the optimizer's state
+included (rank 0 writes what the ranks gather), so a checkpoint
+restores onto any mesh, and ``get_model``/``merged_params`` return
+whole tensors.  FSDP (item 6.1), pipeline and expert axes (item 9)
+raise.
 """
 
 from __future__ import annotations
 
 import contextlib
-import functools
 import inspect
 import os
 import re
@@ -134,16 +151,21 @@ from analytics_zoo_tpu_torch.data.feature_set import DiskFeatureSet
 from analytics_zoo_tpu_torch.data.loader import (DataCreator,
                                                  NumpyBatchIterator)
 from analytics_zoo_tpu_torch.device import resolve_device
-from analytics_zoo_tpu_torch.learn.lora import (LORA_KEY, LoRAConfig,
-                                                adapter_params, init_lora,
-                                                merged_state, merged_weights)
+from analytics_zoo_tpu_torch.learn.lora import (LORA_KEY, LORA_RULES,
+                                                LoRAConfig, adapter_params,
+                                                init_lora, merged_state,
+                                                merged_weights)
 from analytics_zoo_tpu_torch.learn.metrics import (EpochAccumulator,
                                                    resolve_metrics)
 from analytics_zoo_tpu_torch.learn.objectives import get_loss
 from analytics_zoo_tpu_torch.learn.triggers import (EveryEpoch,
                                                     SeveralIteration, Trigger)
+from analytics_zoo_tpu_torch.models.layers import flax_leaf
 from analytics_zoo_tpu_torch.models.transformer import fold_in
 from analytics_zoo_tpu_torch.parallel import data_parallel as dp
+from analytics_zoo_tpu_torch.parallel.partition import (
+    DP_RULES, P, check_rules, gather_state, gather_tensor, shard_module,
+    shard_state, shard_tensor)
 
 def _resolve_batch(batch_size, data, attr: str) -> int:
     """Explicit batch_size wins; otherwise the data container's own
@@ -310,6 +332,9 @@ class TorchEstimator:
         loss of every step (each micro-batch's) and to ``evaluate``'s
         loss, as the reference adds its ``param_loss(params)`` (the
         Keras API's regularizer penalty).
+      partition_rules: the reference's ``(path regex, placement)`` rules
+        for a mesh with a ``tp`` axis (see the module docstring).
+      mesh: the training mesh (default: the running context's).
 
     The optimizer receives the parameters that train: the adapters under
     ``lora``, else the model's parameters that require a gradient.
@@ -322,7 +347,8 @@ class TorchEstimator:
                  config: Optional[TrainConfig] = None, device=None,
                  lora: Optional[LoRAConfig] = None,
                  initial_variables=None,
-                 param_loss: Optional[Callable] = None, mesh=None):
+                 param_loss: Optional[Callable] = None, mesh=None,
+                 partition_rules=None):
         self.config = config or TrainConfig()
         self.param_loss = param_loss
         self._init_mesh(mesh, device)
@@ -333,18 +359,36 @@ class TorchEstimator:
             # before the move, so the device holds one copy
             load_initial_variables(model, initial_variables)
         self.model = model.to(self.device)
-        if self._dp > 1:
+        if self.mesh is not None and self.mesh.devices > 1:
             self._sync_start()
         self.loss_fn = get_loss(loss)
         self.lora = lora
         self._lora = None
+        self._lora_leaves = None
         if lora is not None:
+            # on the whole weights, before any shard is cut
             self._lora = init_lora(self.model, lora,
                                    fold_in(self.config.seed, 2))
+            self._lora_leaves = {n: flax_leaf(self.model, n)
+                                 for n in self._lora}
+        self.rules = tuple(partition_rules) if partition_rules is not None \
+            else DP_RULES
+        if lora is not None:
+            self.rules = tuple(LORA_RULES) + self.rules
+        # the placement of every parameter cut to this rank's shard
+        self._placements: Dict[str, P] = {}
+        if self.mesh is not None and self.mesh.size("tp") > 1:
+            self._placements = shard_module(self.model, self.mesh,
+                                            self.rules)
+        else:
+            check_rules(self.rules)
+        if lora is not None:
             params = adapter_params(self._lora)
         else:
             params = [p for p in self.model.parameters() if p.requires_grad]
         self._trainable = params
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        self._trainable_names = [names.get(id(p)) for p in params]
         if isinstance(optimizer, (int, float)):
             self.optimizer = torch.optim.Adam(params, lr=float(optimizer))
         elif callable(optimizer):
@@ -375,28 +419,30 @@ class TorchEstimator:
             mesh = context_mesh()
         self.mesh = mesh
         self._dp, self._dp_index, self._dp_group = 1, 0, None
+        self._sp_group, self._grad_div = None, 1
         if mesh is None:
             return
+        items = {"fsdp": "item 6.1 (FSDP)", "pp": "item 9 (pipeline)",
+                 "ep": "item 9 (expert parallelism)"}
         other = {a: n for a, n in mesh.shape.items()
-                 if a not in ("dp",) and n > 1}
+                 if a not in ("dp", "tp", "sp") and n > 1}
         if other:
+            named = sorted({items.get(a, "item 9") for a in other})
             raise NotImplementedError(
-                f"training on a mesh with {other}: only data parallelism "
-                f"(dp) is ported; FSDP, tensor and sequence parallelism "
-                f"are ROADMAP Queue 1 items 6.1 and 6.2")
+                f"training on a mesh with {other}: the port trains over "
+                f"dp, tp and sp; the rest is ROADMAP Queue 1 "
+                f"{' and '.join(named)}")
         n_groups, my_group, _ = data_process_groups(data_sharding(mesh))
         self._dp, self._dp_index = n_groups, my_group
         self._dp_group = mesh.group("dp")
+        self._sp_group = mesh.group("sp")
+        self._grad_div = self._dp * mesh.size("sp")
 
     def _sync_start(self) -> None:
-        """Every rank starts from rank 0's parameters and buffers."""
-        import torch.distributed as dist
-
-        src = self.mesh.group_ranks("dp")[0]
-        with torch.no_grad():
-            for t in list(self.model.parameters()) + \
-                    list(self.model.buffers()):
-                dist.broadcast(t.data, src, group=self._dp_group)
+        """Every rank starts from rank 0's parameters and buffers (the
+        whole tensors, before any shard is cut)."""
+        dp.broadcast_start(list(self.model.parameters())
+                           + list(self.model.buffers()))
 
     def _rows(self):
         """This rank's share of a global batch, for the layers."""
@@ -425,33 +471,14 @@ class TorchEstimator:
         """Each scalar's mean over the ranks (one all_reduce)."""
         if self._dp == 1 or not values:
             return values
-        import torch.distributed as dist
-
-        names = list(values)
-        flat = torch.stack([values[k].detach().float().reshape(())
-                            for k in names])
-        dist.all_reduce(flat, group=self._dp_group)
-        flat /= self._dp
-        return dict(zip(names, flat))
+        return dp.mean_over(values, self._dp_group, self._dp)
 
     def _all_reduce_grads(self) -> None:
-        """Average the trainable gradients over the ranks: one coalesced
-        all_reduce in f32, or f64 where a gradient is (a missing gradient
-        counts as zeros)."""
-        import torch.distributed as dist
-
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self._trainable]
-        acc = functools.reduce(torch.promote_types,
-                               (g.dtype for g in grads), torch.float32)
-        flat = torch.cat([g.reshape(-1).to(acc) for g in grads])
-        dist.all_reduce(flat, group=self._dp_group)
-        flat /= self._dp
-        off = 0
-        for p, g in zip(self._trainable, grads):
-            n = g.numel()
-            p.grad = flat[off:off + n].view_as(g).to(g.dtype)
-            off += n
+        """Average the trainable gradients over dp x sp (one coalesced
+        all_reduce a line).  A tp line's ranks hold the gradients of
+        their own shards and equal ones of replicated parameters."""
+        dp.average_grads(self._trainable, (self._dp_group, self._sp_group),
+                         self._grad_div)
 
     def _leader(self) -> bool:
         """Whether this rank writes files (rank 0 of the process group)."""
@@ -498,7 +525,9 @@ class TorchEstimator:
         backward, so a remat recompute reads them too)."""
         if self._lora is None:
             return contextlib.nullcontext()
-        return merged_weights(self.model, self._lora, self.lora)
+        return merged_weights(self.model, self._lora, self.lora,
+                              self._lora_leaves, self._placements,
+                              self.mesh)
 
     def _train_step(self, batch) -> Dict[str, torch.Tensor]:
         labels = self._labels(batch)
@@ -512,7 +541,7 @@ class TorchEstimator:
                     preds = self._forward(batch, train=True)
                     loss = self._loss(preds, labels)
                     loss.backward()
-        if self._dp > 1:
+        if self._grad_div > 1:
             self._all_reduce_grads()
         if self.config.debug_nans:
             self._check_finite(loss)
@@ -914,6 +943,8 @@ class TorchEstimator:
         """Save the model, the optimizer, the step, the epoch and the
         dropout seed as ``path/ckpt_<step>/state.pt``, then drop all but
         the ``config.keep_checkpoints`` newest checkpoints."""
+        # every rank joins the gathers of its shards
+        model, opt = self._exported(), self._optimizer_state()
         if not self._leader():
             # rank 0 writes; the others wait until it has
             self._barrier()
@@ -923,8 +954,7 @@ class TorchEstimator:
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save({"model": self._exported(),
-                    "optimizer": self.optimizer.state_dict(),
+        torch.save({"model": model, "optimizer": opt,
                     "step": self._global_step, "epoch": self._epoch,
                     "seed": self._seed}, os.path.join(tmp, _CKPT_FILE))
         # a checkpoint appears whole or not at all
@@ -946,7 +976,8 @@ class TorchEstimator:
             os.path.join(os.path.abspath(path), f"ckpt_{step}", _CKPT_FILE),
             map_location=self.device, weights_only=True)
         self._restore(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.optimizer.load_state_dict(self._optimizer_shards(
+            state["optimizer"]))
         self._global_step = int(state["step"])
         self._epoch = int(state["epoch"])
         self._seed = int(state["seed"])
@@ -955,9 +986,10 @@ class TorchEstimator:
         """Export the trained weights (the model's ``state_dict``) as
         ``path/model.pt``, replacing an earlier export: the reference's
         ``Estimator.save``, which ``InferenceModel.load`` serves."""
+        state = self._exported()
         if self._leader():
             os.makedirs(path, exist_ok=True)
-            torch.save(self._exported(), os.path.join(path, _MODEL_FILE))
+            torch.save(state, os.path.join(path, _MODEL_FILE))
         self._barrier()
 
     def load(self, path: str, sample_data=None):
@@ -967,10 +999,49 @@ class TorchEstimator:
         del sample_data
         self._restore(load_export(path, self.device))
 
-    def _exported(self):
-        """The model's ``state_dict``, and under LoRA the adapters under
-        ``"__lora__"`` (the reference's params tree carries them)."""
+    def _whole_state(self):
+        """The model's ``state_dict`` as whole tensors (each rank's
+        shards gathered: a collective over the mesh under tp)."""
         state = self.model.state_dict()
+        if self._placements:
+            state = gather_state(state, self._placements, self.mesh)
+        return state
+
+    def _optimizer_state(self):
+        """The optimizer's ``state_dict`` with every per-parameter
+        tensor of a cut parameter's shape gathered whole (Adam's
+        moments), so it restores onto any mesh."""
+        state = self.optimizer.state_dict()
+        if not self._placements:
+            return state
+        return self._map_optimizer(state, lambda t, spec: gather_tensor(
+            t, spec, self.mesh))
+
+    def _optimizer_shards(self, state):
+        """A saved optimizer state (whole tensors) cut to this rank's
+        shards."""
+        if not self._placements:
+            return state
+        return self._map_optimizer(state, lambda t, spec: shard_tensor(
+            t, spec, self.mesh))
+
+    def _map_optimizer(self, state, fn):
+        out = dict(state)
+        out["state"] = {}
+        for idx, st in state["state"].items():
+            name = self._trainable_names[int(idx)]
+            spec = self._placements.get(name)
+            out["state"][idx] = {
+                k: fn(v.to(self.device), spec)
+                if spec is not None and isinstance(v, torch.Tensor)
+                and v.dim() > 0 else v for k, v in st.items()}
+        return out
+
+    def _exported(self):
+        """The model's ``state_dict`` (whole tensors), and under LoRA
+        the adapters under ``"__lora__"`` (the reference's params tree
+        carries them)."""
+        state = self._whole_state()
         if self._lora is not None:
             state[LORA_KEY] = {n: {k: t.detach() for k, t in ab.items()}
                                for n, ab in self._lora.items()}
@@ -979,6 +1050,8 @@ class TorchEstimator:
     def _restore(self, state):
         state = dict(state)
         lora = state.pop(LORA_KEY, None)
+        if self._placements:
+            state = shard_state(state, self._placements, self.mesh)
         self.model.load_state_dict(state)
         if self._lora is not None:
             if lora is None:
@@ -1010,7 +1083,8 @@ class TorchEstimator:
         if self._lora is None:
             raise RuntimeError("no LoRA state: pass lora=LoRAConfig(...)")
         return {k: v.detach().cpu() for k, v in merged_state(
-            self.model, self._lora, self.lora).items()}
+            self.model, self._lora, self.lora, self._whole_state(),
+            self._lora_leaves).items()}
 
 
 def checkpoint_steps(path: str) -> List[int]:

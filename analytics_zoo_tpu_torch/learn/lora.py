@@ -43,8 +43,16 @@ import torch
 from torch import nn
 
 from analytics_zoo_tpu_torch.models.layers import FlaxLeaf, flax_leaf
+from analytics_zoo_tpu_torch.parallel import collectives as cc
+from analytics_zoo_tpu_torch.parallel.partition import P
 
 LORA_KEY = "__lora__"
+
+# placed ahead of a model's partition rules, as the reference places
+# them: the adapters replicate on every rank while the base weights shard
+# (the port keeps the adapters beside the model, so no model parameter
+# matches this rule)
+LORA_RULES = ((re.escape(LORA_KEY), P()),)
 
 DEFAULT_TARGETS = (r"(query|key|value|attn_out|ffn_up|ffn_down"
                    r"|Dense_\d+|dense\w*)/kernel$")
@@ -167,24 +175,33 @@ def adapter_params(lora: Dict[str, Dict[str, torch.Tensor]]
 
 
 def merge_weight(w: torch.Tensor, ab, scale: float,
-                 leaf: FlaxLeaf) -> torch.Tensor:
+                 leaf: FlaxLeaf, spec=None, mesh=None) -> torch.Tensor:
     """``W + scale·a@b`` in f32, cast to W's dtype (the reference's
     ``(W + delta).astype(W.dtype)``), the delta laid out as ``leaf``
-    lays out the reference's kernel."""
-    delta = (ab["a"].float() @ ab["b"].float()) * scale
-    return (w.float() + leaf.to_port(delta.reshape(leaf.shape))).to(w.dtype)
+    lays out the reference's kernel.  Under tensor parallelism ``w`` is
+    this rank's shard under placement ``spec`` (port dims; ``leaf`` the
+    whole kernel's): the replicated adapters' whole delta is cut to the
+    same shard by ``collectives.scatter_to``, whose backward gathers the
+    ranks' parts, so the adapters' gradients are whole on every rank."""
+    delta = leaf.to_port(((ab["a"].float() @ ab["b"].float()) * scale)
+                         .reshape(leaf.shape))
+    for dim, entry in enumerate(spec or ()):
+        if entry is not None:
+            delta = cc.scatter_to(delta, cc.Line.of(mesh, entry), dim)
+    return (w.float() + delta).to(w.dtype)
 
 
-def merged_state(model: nn.Module, lora, cfg: LoRAConfig
-                 ) -> Dict[str, torch.Tensor]:
-    """The model's ``state_dict`` with every adapter folded in: a plain
-    ``state_dict`` (no adapter entries) that the base model loads and
-    serves."""
-    state = model.state_dict()
+def merged_state(model: nn.Module, lora, cfg: LoRAConfig, state=None,
+                 leaves=None) -> Dict[str, torch.Tensor]:
+    """The model's ``state_dict`` (or the whole tensors ``state`` of a
+    sharded one, with the whole kernels' ``leaves``) with every adapter
+    folded in: a plain ``state_dict`` (no adapter entries) that the base
+    model loads and serves."""
+    state = model.state_dict() if state is None else dict(state)
     with torch.no_grad():
         for name, ab in lora.items():
-            state[name] = merge_weight(state[name], ab, cfg.scale,
-                                       flax_leaf(model, name))
+            leaf = leaves[name] if leaves else flax_leaf(model, name)
+            state[name] = merge_weight(state[name], ab, cfg.scale, leaf)
     return state
 
 
@@ -224,14 +241,20 @@ def swapped_weights(model: nn.Module, tensors: Dict[str, torch.Tensor]):
 
 
 @contextlib.contextmanager
-def merged_weights(model: nn.Module, lora, cfg: LoRAConfig):
+def merged_weights(model: nn.Module, lora, cfg: LoRAConfig, leaves=None,
+                   placements=None, mesh=None):
     """Run the block on ``W + scale·a@b`` for every adapted weight, the
-    base frozen (:func:`frozen`), so only the adapters get gradients."""
+    base frozen (:func:`frozen`), so only the adapters get gradients.
+    A sharded model passes its whole kernels' ``leaves`` and its
+    ``placements`` (:func:`merge_weight`)."""
+    placements = placements or {}
     with frozen(model):
         params = dict(model.named_parameters())
-        merged = {name: merge_weight(params[name], ab, cfg.scale,
-                                     flax_leaf(model, name))
-                  for name, ab in lora.items()}
+        merged = {name: merge_weight(
+            params[name], ab, cfg.scale,
+            leaves[name] if leaves else flax_leaf(model, name),
+            placements.get(name), mesh)
+            for name, ab in lora.items()}
         with swapped_weights(model, merged):
             yield
 

@@ -59,7 +59,6 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -67,13 +66,16 @@ from analytics_zoo_tpu_torch.device import resolve_device
 from analytics_zoo_tpu_torch.models.layers import HEAD_FOLDS, int8_of
 from analytics_zoo_tpu_torch.models.transformer import (LayerNorm, _dense,
                                                         attention_dispatch,
-                                                        dropout, run_layer,
+                                                        dropout, row_dense,
+                                                        run_layer,
                                                         site_seed)
 from analytics_zoo_tpu_torch.ops.flash_attention import (cache_attention,
                                                          paged_attention,
                                                          paged_kv_update)
+from analytics_zoo_tpu_torch.parallel import collectives as cc
+from analytics_zoo_tpu_torch.parallel import data_parallel as dpar
 from analytics_zoo_tpu_torch.parallel.partition import (
-    P, match_partition_rules)
+    P, cut_params, param_placements, tp_dim, vocab_lookup)
 
 # The reference's Megatron layout over its flax tree (paths and axes of
 # the reference's parameters; :func:`shard_lm` maps them onto this
@@ -97,14 +99,17 @@ LM_PARTITION_RULES = (
 
 class _TP:
     """This rank's place on a mesh's ``tp`` axis and the collectives the
-    sharded layers run over it (plain ``torch.distributed``: serving
-    needs no gradient through them)."""
+    sharded layers run over it: the conjugate operators of
+    ``parallel.collectives``, which are the plain collectives with
+    gradients off (serving)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
         self.size = mesh.size("tp")
         self.rank = mesh.coord("tp")
         self._group = mesh.group("tp")
+        # one line per process group the collectives run over
+        self._lines: Dict[int, cc.Line] = {}
         # per thread: the group of the engine this thread runs (several
         # engines on one rank share the sharded weights, each with its
         # own group, so two pumps' collectives never pair up)
@@ -125,17 +130,30 @@ class _TP:
         finally:
             self._local.group = prev
 
-    def all_reduce(self, x):
-        dist.all_reduce(x, group=self.group)
-        return x
+    @property
+    def line(self) -> cc.Line:
+        """The tp line this thread's collectives run over."""
+        group = self.group
+        line = self._lines.get(id(group))
+        if line is None:
+            line = self._lines[id(group)] = cc.Line(
+                group, self.rank, self.size, self.mesh.group_ranks("tp"),
+                "tp")
+        return line
 
     def all_gather(self, x, dim: int):
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts, dim=dim)
+        """The ranks' pieces along ``dim`` (backward: this rank's
+        slice)."""
+        return cc.gather_from(x, self.line, dim)
 
     def local(self, x, dim: int):
-        return x.chunk(self.size, dim=dim)[self.rank]
+        """This rank's piece of a whole ``x`` (backward: all-gather)."""
+        return cc.scatter_to(x, self.line, dim)
+
+    def copy(self, x):
+        """The input of a column-parallel layer: itself forward, its
+        gradient summed over the line backward."""
+        return cc.copy_to(x, self.line)
 
     def feed(self, x, have_local: bool, want_local: bool, dim: int):
         """``x`` split (or whole) along ``dim`` as the next layer takes
@@ -148,16 +166,11 @@ class _TP:
 
 def _linear(layer: nn.Linear, x, dtype, tp: Optional[_TP] = None,
             row: bool = False):
-    """:func:`_dense`; a row-parallel layer (``row``: its input features
-    split over tp) multiplies its shard, all-reduces the f32 partial
-    products and adds the whole bias once."""
+    """:func:`_dense`, or a row-parallel layer (``row``: its input
+    features split over tp) through :func:`row_dense`."""
     if tp is None or not row:
         return _dense(layer, x, dtype)
-    part = F.linear(x.to(dtype), layer.weight.to(dtype)).float()
-    tp.all_reduce(part)
-    if layer.bias is not None:
-        part = part + layer.bias.float()
-    return part.to(dtype)
+    return row_dense(layer, x, dtype, tp.line)
 
 
 class RMSNorm(nn.Module):
@@ -250,6 +263,9 @@ class DecoderAttention(nn.Module):
         # k/v and attn_out's input are split
         self.tp: Optional[_TP] = None
         self.q_split = self.kv_split = self.out_split = False
+        # sequence parallelism (``TransformerLM(mesh=)``)
+        self.sp_mesh = None
+        self.sp_strategy = "ring"
         self.dtype = dtype
         self.use_flash = use_flash
         self.rope = pos_encoding == "rope"
@@ -260,14 +276,17 @@ class DecoderAttention(nn.Module):
         self.value = nn.Linear(hidden_size, KH * D, bias=qkvb)
         self.attn_out = nn.Linear(H * D, hidden_size, bias=use_bias)
 
-    def _qkv(self, x, pos):
-        """q ``[B, T, H, D]``, k and v ``[B, T, KH, D]`` of ``x``; under
-        rope q and k are rotated at positions ``pos`` (broadcastable
-        against T, see :func:`_apply_rope`)."""
+    def _qkv(self, x, pos, xkv=None):
+        """q ``[B, T, H, D]``, k and v ``[B, T, KH, D]`` of ``x`` (k and
+        v of ``xkv`` where given); under rope q and k are rotated at
+        positions ``pos`` (broadcastable against T, see
+        :func:`_apply_rope`)."""
         B, T, _ = x.shape
+        xkv = x if xkv is None else xkv
         q = _dense(self.query, x, self.dtype).view(B, T, self._h, self._d)
-        k = _dense(self.key, x, self.dtype).view(B, T, self._kh, self._d)
-        v = _dense(self.value, x, self.dtype).view(B, T, self._kh, self._d)
+        k = _dense(self.key, xkv, self.dtype).view(B, T, self._kh, self._d)
+        v = _dense(self.value, xkv, self.dtype).view(B, T, self._kh,
+                                                      self._d)
         if self.rope:
             q = _apply_rope(q, pos, self.rope_base)
             k = _apply_rope(k, pos, self.rope_base)
@@ -303,21 +322,62 @@ class DecoderAttention(nn.Module):
 
     @property
     def _mesh(self):
-        return None if self.tp is None else self.tp.mesh
+        """The mesh the dense forward's attention dispatch sees: the
+        model's sequence-parallel mesh while its layers hold a chunk of
+        the sequence, else none (a tp rank's heads need no collective
+        there)."""
+        if self.sp_mesh is not None and dpar.current_seq() is not None:
+            return self.sp_mesh
+        return None
 
     def forward(self, x, return_kv: bool = False):
         """Causal attention over ``[B, T, E]`` -> ``[B, T, E]``.
         ``return_kv=True`` also returns this layer's K/V projections
         ``[B, T, KH, D]`` (the KV-arena prefill payload; post-rotation
-        under rope; this rank's kv heads under tensor parallelism)."""
-        q, k, v = self._qkv(x, torch.arange(x.shape[1], device=x.device))
+        under rope; this rank's kv heads under tensor parallelism).
+        Under a sequence share (``TransformerLM(mesh=)`` with sp above
+        1) x is this rank's chunk, at global positions."""
+        B, T, _ = x.shape
+        pos = torch.arange(T, device=x.device)
+        seq = dpar.current_seq()
+        if seq is not None:
+            pos = pos + seq[0] * T
+        if self.tp is not None and torch.is_grad_enabled():
+            out, k, v = self._forward_tp_grad(x, pos)
+            return (out, k, v) if return_kv else out
+        q, k, v = self._qkv(x, pos)
         q = self._run_q(q)
         H = q.shape[2]
         o = attention_dispatch(q, self._expand_kv(k, H),
                                self._expand_kv(v, H), None, causal=True,
-                               mesh=self._mesh, use_flash=self.use_flash)
-        out = self._out(o, x.shape[0], x.shape[1])
+                               mesh=self._mesh, use_flash=self.use_flash,
+                               sp_strategy=self.sp_strategy)
+        out = self._out(o, B, T)
         return (out, k, v) if return_kv else out
+
+    def _forward_tp_grad(self, x, pos):
+        """The tensor-parallel dense forward with gradients: the input
+        of the split projections through ``_TP.copy``, and each rank's
+        query heads paired with their own kv heads.  Under the ``KH %
+        tp`` hatch (k/v whole while q splits) the whole K/V go through
+        ``_TP.copy`` too, so the kv projections' gradient is summed over
+        the ranks whose query heads read them."""
+        tp, (B, T, _) = self.tp, x.shape
+        xq = tp.copy(x) if self.q_split else x
+        q, k, v = self._qkv(xq, pos, xq if self.kv_split else x)
+        if self.q_split and not self.kv_split:
+            heads = self._h * tp.size
+            kx, vx = (self._expand_kv(tp.copy(t), heads).narrow(
+                2, tp.rank * self._h, self._h) for t in (k, v))
+        else:
+            kx, vx = (self._expand_kv(t, self._h) for t in (k, v))
+        o = attention_dispatch(q, kx, vx, None, causal=True,
+                               mesh=self._mesh, use_flash=self.use_flash,
+                               sp_strategy=self.sp_strategy)
+        o = tp.feed(o, self.q_split, self.out_split, 2)
+        out = _linear(self.attn_out, o.reshape(B, T, -1), self.dtype, tp,
+                      self.out_split)
+        return out, k, v
 
     def decode(self, x1, cache_k, cache_v, pos):
         """One cached decode step against a slot arena, IN PLACE.
@@ -428,6 +488,8 @@ class DecoderLayer(nn.Module):
         self.up_split = self.down_split = False
 
     def _mlp(self, x):
+        if self.tp is not None and self.up_split:
+            x = self.tp.copy(x)
         up = _dense(self.ffn_up, x, self.dtype)
         if self.swiglu:
             h = F.silu(_dense(self.ffn_gate, x, self.dtype)) * up
@@ -515,8 +577,11 @@ class TransformerLM(nn.Module):
                  use_bias: bool = True, tied_head: bool = True,
                  moe_experts: int = 0, rope_base: float = 10000.0,
                  qkv_bias: Optional[bool] = None, dropout: float = 0.0,
-                 remat: bool = False):
+                 remat: bool = False, mesh=None, sp_strategy: str = "ring"):
         super().__init__()
+        if sp_strategy not in ("ring", "ulysses"):
+            raise ValueError(f"unknown sp strategy {sp_strategy!r} "
+                             "(expected 'ring' or 'ulysses')")
         if moe_experts:
             raise NotImplementedError(
                 f"moe_experts={moe_experts!r} is not ported yet (ROADMAP "
@@ -547,6 +612,11 @@ class TransformerLM(nn.Module):
                          qkv_bias=qkv_bias)
             for _ in range(num_layers))
         self.ln_f = _make_norm(norm, hidden_size, ln_eps)
+        # the sequence-parallel mesh of the dense forward
+        self.mesh = mesh
+        for layer in self.layers:
+            layer.attention.sp_mesh = mesh
+            layer.attention.sp_strategy = sp_strategy
         if not tied_head:
             self.lm_head = nn.Linear(hidden_size, vocab_size, bias=False)
         # tensor parallelism (:func:`shard_lm`): the embedding's rows and
@@ -559,6 +629,12 @@ class TransformerLM(nn.Module):
                     p.zero_()
                 elif not name.endswith("scale"):
                     p.normal_(0.0, 0.02)
+
+    def tp_shard(self, mesh, placements) -> dict:
+        """Shard over ``mesh``'s ``tp`` axis under ``placements`` (the
+        Estimator's ``partition_rules``, matched by
+        ``parallel.partition.shard_module``): :func:`shard_lm_placed`."""
+        return shard_lm_placed(self, mesh, placements)
 
     @property
     def kv_heads(self) -> int:
@@ -578,6 +654,8 @@ class TransformerLM(nn.Module):
         # f32 logits for a stable softmax/argmax, tied or untied; a
         # vocab-split head computes its slice and gathers the rest, so
         # every rank picks from the same logits
+        if self.head_split if not self.tied_head else self.vocab_split:
+            x = self.tp.copy(x)
         if not self.tied_head:
             q = int8_of(self.lm_head)
             if q is not None:
@@ -595,15 +673,10 @@ class TransformerLM(nn.Module):
 
     def _lookup(self, toks):
         """The token embeddings; a vocab-split table looks up the ids
-        in its rows (the rest read as 0) and all-reduces, which adds
-        exact zeros."""
+        in its rows (``parallel.partition.vocab_lookup``)."""
         if not self.vocab_split:
             return self.embed(toks)
-        n = self.embed.weight.shape[0]
-        ids = toks - self.tp.rank * n
-        ok = (ids >= 0) & (ids < n)
-        x = self.embed(torch.where(ok, ids, torch.zeros_like(ids)))
-        return self.tp.all_reduce(x * ok[..., None].to(x.dtype))
+        return vocab_lookup(self.embed.weight, toks, self.tp.line)
 
     def _embed(self, toks, p):
         """Token embeddings (plus, for learned positions, the table's
@@ -621,12 +694,21 @@ class TransformerLM(nn.Module):
         """Final-norm hidden states ``[B, T, E]`` (f32) of the
         causal forward: the forward minus the vocab head.  ``train``
         applies dropout, layer i's masks seeded from ``site_seed(rng,
-        i)``, and ``remat`` recomputes each layer in backward."""
+        i)``, and ``remat`` recomputes each layer in backward.  With a
+        ``mesh`` whose ``sp`` is above 1 the layers run on this rank's
+        chunk of the sequence (the causal ring over global positions)
+        and the whole is gathered after the final norm."""
         x = self._embed_prompt(tokens)
-        for i, layer in enumerate(self.layers):
-            x = run_layer(layer, self.remat, train, x, train,
-                          site_seed(rng, i))
-        return self.ln_f(x)
+        sp = cc.Line.of(self.mesh, "sp")
+        if x.shape[1] % sp.size:
+            raise ValueError(f"sequence length {x.shape[1]} does not "
+                             f"divide over sp={sp.size}")
+        x = cc.split_seq(x, sp)
+        with dpar.seq_of_global(sp.index, sp.size):
+            for i, layer in enumerate(self.layers):
+                x = run_layer(layer, self.remat, train, x, train,
+                              site_seed(rng, i))
+        return cc.gather_seq(self.ln_f(x), sp)
 
     def forward(self, tokens, train: bool = False, *,
                 rng: Optional[int] = None):
@@ -776,11 +858,14 @@ def fused_lm_loss(per_sample_losses, _tokens):
     return per_sample_losses.mean()
 
 
-def _block_ce(hx, yx, mx, emb):
+def _block_ce(hx, yx, mx, emb, tp=None):
     """One block's summed masked cross-entropy per row: logits ``[B, tb,
     V]`` of the f32 hidden slice against the f32 table, made and
-    dropped here (``LMWithFusedLoss`` recomputes them in backward)."""
+    dropped here (``LMWithFusedLoss`` recomputes them in backward).  A
+    vocab-split table's logits are gathered over ``tp``."""
     logits = hx @ emb.t()
+    if tp is not None:
+        logits = tp.all_gather(logits, -1)
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                          yx.reshape(-1), reduction="none")
     return (ce.view(yx.shape) * mx).sum(dim=1)
@@ -823,6 +908,9 @@ class LMWithFusedLoss(nn.Module):
 
         h = self.lm.hidden_states(tokens, train, rng=rng)
         emb = self.lm.embed.weight.float()
+        tp = self.lm.tp if self.lm.vocab_split else None
+        if tp is not None:
+            h = tp.copy(h)
         hs = h[:, :-1].float()
         ys = tokens[:, 1:].long()
         B, n, _ = hs.shape
@@ -835,7 +923,7 @@ class LMWithFusedLoss(nn.Module):
         total = torch.zeros(B, dtype=torch.float32, device=hs.device)
         for lo in range(0, n + pad, tb):
             part = (hs[:, lo:lo + tb], ys[:, lo:lo + tb], mask[lo:lo + tb],
-                    emb)
+                    emb, tp)
             if torch.is_grad_enabled():
                 total = total + checkpoint(_block_ce, *part,
                                            use_reentrant=False)
@@ -1082,74 +1170,31 @@ def params_from_flax(params, model: Optional["TransformerLM"] = None
 # tensor parallelism: the reference's partition rules on this model
 # ---------------------------------------------------------------------------
 
-class _Shape:
-    """A leaf of :func:`flax_shapes`: a shape and nothing else."""
-
-    __slots__ = ("shape",)
-
-    def __init__(self, *shape):
-        self.shape = tuple(int(d) for d in shape)
-
-
-def flax_shapes(model: TransformerLM) -> dict:
-    """The shapes of the reference's ``variables["params"]`` tree for
-    ``model``'s configuration: the kernels and embeddings that partition
-    rules name, in the reference's layout (``query`` ``[E, H, D]``,
-    ``attn_out`` ``[H, D, E]``, ``lm_head`` ``[E, V]``).  Biases and
-    norm scales are left out: they follow their kernels (a split
-    column's bias is cut with it, a row-parallel bias stays whole)."""
-    E, H, KH = model.hidden_size, model.num_heads, model.kv_heads
-    D = E // H
-    tree = {"embed": {"embedding": _Shape(model.vocab_size, E)}}
-    if model.pos_embed is not None:
-        tree["pos_embed"] = {"embedding": _Shape(model.max_position, E)}
-    if not model.tied_head:
-        tree["lm_head"] = {"kernel": _Shape(E, model.vocab_size)}
-    for i, layer in enumerate(model.layers):
-        inter = layer.ffn_up.weight.shape[0]
-        lp = {"attention": {
-            "query": {"kernel": _Shape(E, H, D)},
-            "key": {"kernel": _Shape(E, KH, D)},
-            "value": {"kernel": _Shape(E, KH, D)},
-            "attn_out": {"kernel": _Shape(H, D, E)}},
-            "ffn_up": {"kernel": _Shape(E, inter)},
-            "ffn_down": {"kernel": _Shape(inter, E)}}
-        if layer.swiglu:
-            lp["ffn_gate"] = {"kernel": _Shape(E, inter)}
-        tree[f"layer_{i}"] = lp
-    return tree
-
-
-def _tp_dim(spec, name: str, allowed) -> Optional[int]:
-    """The dim of the reference's tensor ``name`` that ``spec`` splits
-    over ``tp`` (None: whole), which must be one of ``allowed``."""
-    dims = [d for d, e in enumerate(spec)
-            if e == "tp" or (isinstance(e, tuple) and "tp" in e)]
-    if not dims:
-        return None
-    if len(dims) > 1 or dims[0] not in allowed or not (
-            spec[dims[0]] == "tp" or spec[dims[0]] == ("tp",)):
-        raise NotImplementedError(
-            f"{name}: placement {spec} is not one the port serves (the "
-            f"Megatron layout: column-parallel outputs, row-parallel "
-            f"inputs, vocab-split tables; ROADMAP Queue 1 item 6.2)")
-    return dims[0]
-
-
-def _cut(module: nn.Module, attr: str, tp: _TP, dim: int) -> None:
-    """Replace ``module.attr`` with this rank's shard along ``dim``."""
-    t = getattr(module, attr)
-    if t is None:
-        return
-    piece = tp.local(t.detach(), dim).contiguous().clone()
-    setattr(module, attr, nn.Parameter(piece, requires_grad=t.requires_grad))
-
-
 def shard_lm(model: TransformerLM, mesh, rules=None) -> dict:
     """Shard ``model`` IN PLACE over ``mesh``'s ``tp`` axis under the
-    reference's partition ``rules`` (default :data:`LM_PARTITION_RULES`),
-    and return ``{"kv": bool, "placements": specs}``: whether its k/v
-    projections (so its KV cache) are split, and the rules' placements.
+    reference's partition ``rules`` (default :data:`LM_PARTITION_RULES`,
+    matched once by ``parallel.partition.param_placements``), and return
+    ``{"kv": bool}``: whether its k/v projections (so its KV cache) are
+    split.  ``tp`` of 1 leaves the model as it is, and a model already
+    sharded over ``mesh`` (by another engine that serves it) stays as it
+    is.  :func:`shard_lm_placed` does the cutting."""
+    if model.tp is not None:
+        if model.tp.mesh is not mesh:
+            raise ValueError("this model is already sharded over "
+                             "another mesh")
+        # sharded for another engine on this mesh: shared as it is
+        return {"kv": any(layer.attention.kv_split
+                          for layer in model.layers)}
+    if mesh.size("tp") > 1:
+        shard_lm_placed(model, mesh, param_placements(
+            model, rules or LM_PARTITION_RULES, mesh))
+    return {"kv": any(layer.attention.kv_split for layer in model.layers)}
+
+
+def shard_lm_placed(model: TransformerLM, mesh, placements) -> dict:
+    """Shard ``model`` IN PLACE over ``mesh``'s ``tp`` axis (above 1)
+    under ``placements`` (each parameter's placement in the port's dims)
+    and return the placements of the parameters cut.
 
     Each rank keeps its shard of every split tensor: q/k/v, ``ffn_up``
     and ``ffn_gate`` by output features (their biases with them),
@@ -1161,89 +1206,60 @@ def shard_lm(model: TransformerLM, mesh, rules=None) -> dict:
     stays whole (the rules' divisibility fallback): k/v of a model whose
     kv heads do not divide tp replicate, every rank gathers the query
     heads and computes the whole attention against the whole cache, and
-    keeps its heads for ``attn_out``.  ``tp`` of 1 leaves the model as
-    it is, and a model already sharded over ``mesh`` (by another engine
-    that serves it) stays as it is (``placements`` is then None)."""
-    if model.tp is not None:
-        if model.tp.mesh is not mesh:
-            raise ValueError("this model is already sharded over "
-                             "another mesh")
-        # sharded for another engine on this mesh: shared as it is
-        return {"kv": any(layer.attention.kv_split
-                          for layer in model.layers), "placements": None}
-    specs = match_partition_rules(rules or LM_PARTITION_RULES,
-                                  flax_shapes(model), mesh)
-    out = {"kv": False, "placements": specs}
-    if mesh.size("tp") == 1:
-        return out
+    keeps its heads for ``attn_out``."""
     tp = _TP(mesh)
 
-    def spec(*path):
-        node = specs
-        for k in path:
-            node = node[k]
-        return node
+    def split(name, dim):
+        return tp_dim(placements, name, (dim,)) == dim
 
     model.tp = tp
-    e = _tp_dim(spec("embed", "embedding"), "embed", (0,))
-    model.vocab_split = e == 0
+    dims = {}
+    model.vocab_split = split("embed.weight", 0)
     if model.vocab_split:
-        _cut(model.embed, "weight", tp, 0)
-    if model.pos_embed is not None:
-        _tp_dim(spec("pos_embed", "embedding"), "pos_embed", ())
+        dims["embed.weight"] = 0
     if not model.tied_head:
-        model.head_split = _tp_dim(spec("lm_head", "kernel"), "lm_head",
-                                   (1,)) == 1
+        model.head_split = split("lm_head.weight", 0)
         if model.head_split:
-            _cut(model.lm_head, "weight", tp, 0)
+            dims["lm_head.weight"] = 0
     for i, layer in enumerate(model.layers):
         att = layer.attention
-        lp = f"layer_{i}"
-        q = _tp_dim(spec(lp, "attention", "query", "kernel"), "query",
-                    (1,)) == 1
-        k = _tp_dim(spec(lp, "attention", "key", "kernel"), "key",
-                    (1,)) == 1
-        v = _tp_dim(spec(lp, "attention", "value", "kernel"), "value",
-                    (1,)) == 1
-        o = _tp_dim(spec(lp, "attention", "attn_out", "kernel"),
-                    "attn_out", (0,)) == 0
+        pre = f"layers.{i}."
+        q, k, v = (split(f"{pre}attention.{n}.weight", 0)
+                   for n in ("query", "key", "value"))
+        o = split(pre + "attention.attn_out.weight", 1)
         if k != v or (k and not q):
             raise NotImplementedError(
                 f"layer {i}: key split {k}, value split {v}, query split "
                 f"{q}: the port splits k and v together, and only with q "
-                f"(ROADMAP Queue 1 item 6.2)")
+                f"(ROADMAP Queue 1 item 6.6)")
         att.tp, att.q_split, att.kv_split, att.out_split = tp, q, k, o
+        cols = (["query"] if q else []) + (["key", "value"] if k else [])
+        dims.update({f"{pre}attention.{n}.{a}": 0 for n in cols
+                     for a in ("weight", "bias")})
         if q:
-            for name in ("weight", "bias"):
-                _cut(att.query, name, tp, 0)
             att._h //= tp.size
         if k:
-            for lin in (att.key, att.value):
-                for name in ("weight", "bias"):
-                    _cut(lin, name, tp, 0)
             att._kh //= tp.size
         if o:
-            _cut(att.attn_out, "weight", tp, 1)
-        up = _tp_dim(spec(lp, "ffn_up", "kernel"), "ffn_up", (1,)) == 1
-        if layer.swiglu:
-            gate = _tp_dim(spec(lp, "ffn_gate", "kernel"), "ffn_gate",
-                           (1,)) == 1
-            if gate != up:
-                raise NotImplementedError(
-                    f"layer {i}: ffn_gate split {gate} != ffn_up split "
-                    f"{up} (ROADMAP Queue 1 item 6.2)")
-        down = _tp_dim(spec(lp, "ffn_down", "kernel"), "ffn_down",
-                       (0,)) == 0
+            dims[pre + "attention.attn_out.weight"] = 1
+        up = split(pre + "ffn_up.weight", 0)
+        if layer.swiglu and split(pre + "ffn_gate.weight", 0) != up:
+            raise NotImplementedError(
+                f"layer {i}: ffn_gate split differs from ffn_up's "
+                f"(ROADMAP Queue 1 item 6.6)")
+        down = split(pre + "ffn_down.weight", 1)
         layer.tp, layer.up_split, layer.down_split = tp, up, down
         if up:
-            for lin in [layer.ffn_up] + ([layer.ffn_gate] if layer.swiglu
-                                         else []):
-                for name in ("weight", "bias"):
-                    _cut(lin, name, tp, 0)
+            dims.update({f"{pre}{n}.{a}": 0 for n in
+                         ["ffn_up"] + (["ffn_gate"] if layer.swiglu else [])
+                         for a in ("weight", "bias")})
         if down:
-            _cut(layer.ffn_down, "weight", tp, 1)
-        out["kv"] = out["kv"] or k
-    return out
+            dims[pre + "ffn_down.weight"] = 1
+    for name in placements:
+        if name not in dims:
+            # the rest stays whole: a split of it raises
+            tp_dim(placements, name)
+    return cut_params(model, mesh, dims)
 
 
 def load_sharded(model: TransformerLM, state: Dict[str, torch.Tensor]

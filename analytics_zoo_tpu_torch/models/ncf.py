@@ -6,8 +6,11 @@ over the concatenated embeddings, merged into an f32 head.  Every table
 has one row more than its count, so 0-based and 1-based ids both fit.
 The embeddings are f32, the tower runs in the model dtype (bf16 by
 default) and the head in f32, the reference's cast points.  Ids may
-arrive as int32.  ``NCF_PARTITION_RULES`` waits for tensor-parallel
-training (ROADMAP Queue 1 item 6.2).
+arrive as int32.  ``NCF_PARTITION_RULES`` (the reference's) split every
+embedding table on its rows over ``tp`` when the Estimator gets them
+(``partition_rules=``): each rank looks ids up in its rows and the
+lookups are summed (``parallel.partition.vocab_split``); a table whose
+rows do not divide tp (65 rows on tp=2) stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +24,13 @@ from torch import nn
 # this module's state_dict
 from analytics_zoo_tpu_torch.models.layers import (  # noqa: F401
     Dense, Embed, dense, params_from_flax)
+from analytics_zoo_tpu_torch.parallel.partition import P
+
+# vocab-dim sharding for the embedding tables; replicated dense tower
+NCF_PARTITION_RULES = (
+    (r"embedding", P("tp", None)),
+    (r".*", P()),
+)
 
 
 class NeuralCF(nn.Module):

@@ -25,8 +25,11 @@ The port of ``analytics_zoo_tpu/models/recommendation.py``:
   in f32.
 
 Cast points follow the reference: f32 tables, towers in the model dtype
-(bf16 by default), f32 heads.  Ids may arrive as int32.  The partition
-rules wait for tensor-parallel training (ROADMAP Queue 1 item 6.2).
+(bf16 by default), f32 heads.  Ids may arrive as int32.
+``WND_PARTITION_RULES`` (the reference's) split every embedding table on
+its rows over ``tp`` under the Estimator's ``partition_rules=``
+(vocab-parallel lookups, ``parallel.partition.vocab_split``); a table
+whose rows do not divide tp stays whole.
 """
 
 from __future__ import annotations
@@ -44,6 +47,12 @@ from torch import nn
 from analytics_zoo_tpu_torch.models.layers import (  # noqa: F401
     Dense, Embed, dense, params_from_flax)
 from analytics_zoo_tpu_torch.models.rnn import RNNStack
+from analytics_zoo_tpu_torch.parallel.partition import P
+
+WND_PARTITION_RULES = (
+    (r"embedding", P("tp", None)),
+    (r".*", P()),
+)
 
 
 @dataclasses.dataclass

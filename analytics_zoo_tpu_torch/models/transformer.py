@@ -3,18 +3,30 @@ family.
 
 The port of ``analytics_zoo_tpu/models/transformer.py``:
 
-- ``flash_ok`` and ``attention_dispatch``; under a mesh the dispatch
-  runs the flash kernels on this rank's rows and heads as they are, and
-  sequence parallelism (``sp`` above 1) raises (ROADMAP Queue 1 item
-  9); BERT on a mesh raises (items 6.2 and 9);
+- ``flash_ok`` and ``attention_dispatch``: under a mesh with ``sp``
+  above 1 the ring or ulysses attention of ``parallel.ring_attention``
+  (``sp_strategy``), else the flash kernels on this rank's rows and
+  heads as they are (a tensor-parallel rank's H/tp heads), else plain
+  full attention;
 - ``MultiHeadAttention``, the post-LN ``TransformerLayer``, ``BERT``
   (word, position and token-type embeddings, ``(sequence, pooled)``
   out), ``BERTForSequenceClassification``, ``BERTForQuestionAnswering``
   and :func:`qa_loss`.  BERT's attention is non-causal with a key
   padding mask (``attention_mask > 0``); on a CUDA tensor it runs the
-  flash kernels forward and backward.  MoE layers (``moe_experts``),
-  a mesh and another ``sp_strategy`` raise (ROADMAP items 2, 6 and 9);
-  ``BERT_PARTITION_RULES`` waits for item 6.2;
+  flash kernels forward and backward.  MoE layers (``moe_experts``)
+  raise (ROADMAP item 2);
+- tensor and sequence parallelism: ``BERT_PARTITION_RULES`` (the
+  reference's Megatron layout) shard a BERT through its ``tp_shard``
+  (the Estimator's ``partition_rules``): q/k/v and ``ffn_up``
+  column-parallel (their input through ``collectives.copy_to``, each
+  rank its H/tp heads and I/tp columns), ``attn_out`` and ``ffn_down``
+  row-parallel (f32 partial products through ``collectives.
+  reduce_from``, the bias added once), ``word_embeddings`` split on the
+  vocab; a dim the axis does not divide stays whole.  ``BERT(mesh=)``
+  with ``sp`` above 1 splits the sequence after the embeddings (which
+  take global positions) and gathers it before the pooler
+  (``collectives.gather_seq``), the counterpart of the reference's
+  ``_constrain_seq``; dropout then draws the global sequence's masks;
 - dropout with explicit seeds (:func:`dropout`, :func:`fold_in`), shared
   with ``models/lm.py``.  A training forward takes ``rng``, an integer
   seed (the Estimator passes ``fold_in(config.seed, step)``, the
@@ -53,8 +65,24 @@ from torch.utils.checkpoint import checkpoint
 from analytics_zoo_tpu_torch.models.layers import HEAD_FOLDS, int8_of
 from analytics_zoo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_kernel_takes)
-from analytics_zoo_tpu_torch.parallel.data_parallel import rand as dp_rand
-from analytics_zoo_tpu_torch.parallel.ring_attention import full_attention
+from analytics_zoo_tpu_torch.parallel import collectives as cc
+from analytics_zoo_tpu_torch.parallel import data_parallel as dpar
+from analytics_zoo_tpu_torch.parallel.partition import (P, cut_params,
+                                                        tp_dim, vocab_split)
+from analytics_zoo_tpu_torch.parallel.ring_attention import (
+    full_attention, ring_self_attention)
+
+# The reference's Megatron layout over its flax tree: q/k/v and ffn_up
+# column-parallel, attn_out and ffn_down row-parallel, the word table
+# split on the vocab.
+BERT_PARTITION_RULES = (
+    (r"word_embeddings/embedding", P("tp", None)),
+    (r"(query|key|value)/kernel", P(None, "tp")),
+    (r"attn_out/kernel", P("tp", None)),
+    (r"ffn_up/kernel", P(None, "tp")),
+    (r"ffn_down/kernel", P("tp", None)),
+    (r".*", P()),
+)
 
 
 def flash_ok(use_flash: Optional[bool], device, head_dim: int) -> bool:
@@ -76,16 +104,16 @@ def flash_ok(use_flash: Optional[bool], device, head_dim: int) -> bool:
 
 
 def attention_dispatch(q, k, v, kv_mask, *, causal: bool, mesh=None,
-                       use_flash: Optional[bool] = None):
-    """Flash attention where :func:`flash_ok` picks it, plain full
-    attention otherwise.  q, k, v: ``[B, T, H, D]``, this rank's rows
-    and heads under a ``mesh`` (no collective is needed; sequence
-    parallelism, an ``sp`` axis above 1, raises: ROADMAP Queue 1 item
-    9)."""
+                       use_flash: Optional[bool] = None,
+                       sp_strategy: str = "ring"):
+    """The attention every layer shares: the sequence-parallel ring or
+    ulysses attention (``sp_strategy``) when ``mesh`` splits the
+    sequence (``sp`` above 1), else flash attention where
+    :func:`flash_ok` picks it, else plain full attention.  q, k, v:
+    ``[B, T, H, D]``, this rank's rows, sequence chunk and heads."""
     if mesh is not None and mesh.size("sp") > 1:
-        raise NotImplementedError(
-            "sequence-parallel attention under a mesh (sp > 1) is not "
-            "ported yet (ROADMAP Queue 1 item 9)")
+        return ring_self_attention(q, k, v, mesh, kv_mask, causal=causal,
+                                   strategy=sp_strategy)
     if flash_ok(use_flash, q.device, q.shape[-1]):
         return flash_attention(q, k, v, kv_mask, causal=causal)
     return full_attention(q, k, v, kv_mask, causal=causal)
@@ -133,7 +161,7 @@ def dropout(x, p: float, rng: Optional[int], train: bool):
     gen = torch.Generator(device=x.device)
     gen.manual_seed(int(rng))
     # a data-parallel step draws the global batch's mask, keeps its rows
-    mask = dp_rand(x.shape, gen, x.device) < keep
+    mask = dpar.rand(x.shape, gen, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -193,19 +221,35 @@ class LayerNorm(nn.Module):
         return (xf - mean) * mul + self.bias
 
 
-def _not_ported(mesh, sp_strategy: str, moe_experts: int = 0) -> None:
+def _not_ported(moe_experts: int = 0) -> None:
     if moe_experts:
         raise NotImplementedError(
             f"moe_experts={moe_experts!r} is not ported yet (ROADMAP "
             f"Queue 1 item 2: MoE layers)")
-    if mesh is not None:
+
+
+def row_dense(layer: nn.Linear, x, dtype, line):
+    """A row-parallel Dense: this rank's input features times its shard
+    of the weight, the f32 partial products summed over the tp ``line``
+    (``collectives.reduce_from``), the whole bias added once, cast to
+    ``dtype``."""
+    part = F.linear(x.to(dtype), layer.weight.to(dtype)).float()
+    part = cc.reduce_from(part, line)
+    if layer.bias is not None:
+        part = part + layer.bias.float()
+    return part.to(dtype)
+
+
+def _megatron_pair(placements, col: str, row: str, what: str) -> bool:
+    """Whether a column-parallel ``col`` and the row-parallel ``row``
+    that reads it are split (both or neither)."""
+    c, r = tp_dim(placements, col, (0,)), tp_dim(placements, row, (1,))
+    if (c is None) != (r is None):
         raise NotImplementedError(
-            "a mesh (tensor or sequence parallel BERT) is not ported yet "
-            "(ROADMAP Queue 1 items 6.2 and 9)")
-    if sp_strategy != "ring":
-        raise NotImplementedError(
-            f"sp_strategy={sp_strategy!r} is not ported yet (ROADMAP "
-            f"Queue 1 item 9: sequence parallelism)")
+            f"{what}: {col} split on {c} with {row} split on {r}; the "
+            f"port trains Megatron's pair (columns of the first, rows of "
+            f"the second) or both whole (ROADMAP Queue 1 item 6.6)")
+    return c is not None
 
 
 class MultiHeadAttention(nn.Module):
@@ -223,23 +267,42 @@ class MultiHeadAttention(nn.Module):
                  use_flash: Optional[bool] = None, mesh=None,
                  sp_strategy: str = "ring"):
         super().__init__()
-        _not_ported(mesh, sp_strategy)
         self._h, self._d = num_heads, head_dim
         self.dtype = dtype
         self.use_flash = use_flash
+        self.mesh = mesh
+        self.sp_strategy = sp_strategy
+        # the tp line this rank's heads are split over (:meth:`tp_split`)
+        self.tp_line: Optional[cc.Line] = None
         HD = num_heads * head_dim
         self.query = nn.Linear(hidden_size, HD)
         self.key = nn.Linear(hidden_size, HD)
         self.value = nn.Linear(hidden_size, HD)
         self.attn_out = nn.Linear(HD, hidden_size)
 
+    def tp_split(self, mesh) -> dict:
+        """Keep this rank's H/tp heads: q/k/v's output rows (and biases)
+        and attn_out's input columns; returns their placements."""
+        dims = {f"{lin}.{attr}": 0 for lin in ("query", "key", "value")
+                for attr in ("weight", "bias")}
+        dims["attn_out.weight"] = 1
+        self.tp_line = cc.Line.of(mesh, "tp")
+        self._h //= self.tp_line.size
+        return cut_params(self, mesh, dims)
+
     def forward(self, x, kv_mask=None, train: bool = False):
         del train
         B, T, _ = x.shape
-        q, k, v = (_dense(lin, x, self.dtype).view(B, T, self._h, self._d)
+        xin = cc.copy_to(x, self.tp_line)
+        q, k, v = (_dense(lin, xin, self.dtype).view(B, T, self._h,
+                                                      self._d)
                    for lin in (self.query, self.key, self.value))
         o = attention_dispatch(q, k, v, kv_mask, causal=False,
-                               use_flash=self.use_flash)
+                               mesh=self.mesh, use_flash=self.use_flash,
+                               sp_strategy=self.sp_strategy)
+        if self.tp_line is not None:
+            return row_dense(self.attn_out, o.reshape(B, T, -1), self.dtype,
+                             self.tp_line)
         return _dense(self.attn_out, o.reshape(B, T, -1), self.dtype)
 
 
@@ -254,24 +317,37 @@ class TransformerLayer(nn.Module):
                  use_flash: Optional[bool] = None, mesh=None,
                  num_experts: int = 0, sp_strategy: str = "ring"):
         super().__init__()
-        _not_ported(mesh, sp_strategy, num_experts)
+        _not_ported(num_experts)
         self.dropout = float(dropout)
         self.dtype = dtype
         self.attention = MultiHeadAttention(
             hidden_size, num_heads, hidden_size // num_heads, dtype=dtype,
-            use_flash=use_flash)
+            use_flash=use_flash, mesh=mesh, sp_strategy=sp_strategy)
         self.ln_attn = LayerNorm(hidden_size)
         self.ffn_up = nn.Linear(hidden_size, intermediate_size)
         self.ffn_down = nn.Linear(intermediate_size, hidden_size)
         self.ln_ffn = LayerNorm(hidden_size)
+        # the tp line ffn_up's columns and ffn_down's rows are split over
+        self.tp_line: Optional[cc.Line] = None
+
+    def tp_split(self, mesh) -> dict:
+        """Keep this rank's I/tp columns of ffn_up (and its bias) and
+        rows of ffn_down's input; returns their placements."""
+        self.tp_line = cc.Line.of(mesh, "tp")
+        return cut_params(self, mesh, {"ffn_up.weight": 0, "ffn_up.bias": 0,
+                                       "ffn_down.weight": 1})
 
     def forward(self, x, kv_mask=None, train: bool = False,
                 rng: Optional[int] = None):
         a = self.attention(x, kv_mask, train)
         a = dropout(a, self.dropout, site_seed(rng, 0), train)
         x = self.ln_attn(x + a)
-        h = _dense(self.ffn_up, x, self.dtype)
-        h = _dense(self.ffn_down, F.gelu(h, approximate="tanh"), self.dtype)
+        h = _dense(self.ffn_up, cc.copy_to(x, self.tp_line), self.dtype)
+        h = F.gelu(h, approximate="tanh")
+        if self.tp_line is not None:
+            h = row_dense(self.ffn_down, h, self.dtype, self.tp_line)
+        else:
+            h = _dense(self.ffn_down, h, self.dtype)
         h = dropout(h, self.dropout, site_seed(rng, 1), train)
         return self.ln_ffn(x + h)
 
@@ -284,6 +360,12 @@ class BERT(nn.Module):
     ``attention_mask`` marks the keys that attend (``> 0``); a row with
     none attends nothing and gives finite outputs.  ``use_flash`` picks
     the attention (:func:`flash_ok`).
+
+    ``mesh`` with an ``sp`` axis above 1 splits the sequence (its
+    length must divide by sp) over it, with ``sp_strategy`` ``"ring"``
+    or ``"ulysses"``; ``tp_shard`` (the Estimator's ``partition_rules``)
+    splits the layers over ``tp``.  Both return the whole sequence and
+    the pooled output on every rank.
 
     Parameters are created f32 with BERT's initialisation (normal 0.02,
     zero biases, unit norm scales) from the global torch generator; seed
@@ -300,7 +382,11 @@ class BERT(nn.Module):
                  moe_top_k: int = 2, sp_strategy: str = "ring"):
         super().__init__()
         del moe_every, moe_top_k
-        _not_ported(mesh, sp_strategy, moe_experts)
+        _not_ported(moe_experts)
+        if sp_strategy not in ("ring", "ulysses"):
+            raise ValueError(f"unknown sp strategy {sp_strategy!r} "
+                             "(expected 'ring' or 'ulysses')")
+        self.mesh = mesh
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_heads = num_heads
@@ -314,7 +400,8 @@ class BERT(nn.Module):
         self.emb_ln = LayerNorm(hidden_size)
         self.layers = nn.ModuleList(
             TransformerLayer(hidden_size, num_heads, intermediate_size,
-                             dropout, dtype=dtype, use_flash=use_flash)
+                             dropout, dtype=dtype, use_flash=use_flash,
+                             mesh=mesh, sp_strategy=sp_strategy)
             for _ in range(num_layers))
         self.pooler = nn.Linear(hidden_size, hidden_size)
         _init_normal(self)
@@ -332,18 +419,64 @@ class BERT(nn.Module):
              + self.position_embeddings(
                  torch.arange(T, device=ids.device))[None]
              + self.token_type_embeddings(token_type_ids.long()))
-        x = self.emb_ln(x)
-        x = dropout(x, self.dropout, site_seed(rng, 0), train)
-        x = x.to(self.dtype)
+        sp = cc.Line.of(self.mesh, "sp")
+        if T % sp.size:
+            raise ValueError(f"sequence length {T} does not divide over "
+                             f"sp={sp.size}")
+        # this rank's chunk of the sequence (positions are global: the
+        # embeddings were summed over the whole of it)
+        x = cc.split_seq(self.emb_ln(x), sp)
         kv_mask = None if attention_mask is None else \
-            (attention_mask > 0).contiguous()
-        for i, layer in enumerate(self.layers):
-            x = run_layer(layer, self.remat, train, x, kv_mask, train,
-                          site_seed(rng, i + 1))
+            cc.split_seq(attention_mask > 0, sp)
+        with dpar.seq_of_global(sp.index, sp.size):
+            x = dropout(x, self.dropout, site_seed(rng, 0), train)
+            x = x.to(self.dtype)
+            for i, layer in enumerate(self.layers):
+                x = run_layer(layer, self.remat, train, x, kv_mask, train,
+                              site_seed(rng, i + 1))
+        x = cc.gather_seq(x, sp)
         pooled = torch.tanh(F.linear(x[:, 0].float(),
                                      self.pooler.weight.float(),
                                      self.pooler.bias.float()))
         return x.float(), pooled
+
+    def tp_shard(self, mesh, placements) -> dict:
+        """Shard this encoder over ``mesh``'s ``tp`` axis under
+        ``placements`` (``parallel.partition.shard_module``: each
+        parameter's placement in the port's dims): a layer's q/k/v with
+        its attn_out and its ffn_up with its ffn_down split in
+        Megatron's pairs, the word table on its rows, the rest whole.
+        Returns the placements of the parameters cut."""
+        cut = {}
+        for i, layer in enumerate(self.layers):
+            pre = f"layers.{i}."
+            att = pre + "attention."
+            qkv = {tp_dim(placements, f"{att}{n}.weight", (0,))
+                   for n in ("query", "key", "value")}
+            if len(qkv) > 1:
+                raise NotImplementedError(
+                    f"layer {i}: query, key and value split differently "
+                    f"({qkv}); the port splits them together (ROADMAP "
+                    f"Queue 1 item 6.6)")
+            if _megatron_pair(placements, att + "query.weight",
+                              att + "attn_out.weight",
+                              f"layer {i} attention"):
+                cut.update({att + n: s for n, s in
+                            layer.attention.tp_split(mesh).items()})
+            if _megatron_pair(placements, pre + "ffn_up.weight",
+                              pre + "ffn_down.weight", f"layer {i} MLP"):
+                cut.update({pre + n: s
+                            for n, s in layer.tp_split(mesh).items()})
+        if tp_dim(placements, "word_embeddings.weight", (0,)) == 0:
+            cut["word_embeddings.weight"] = vocab_split(
+                self.word_embeddings, mesh)
+        handled = ("query.", "key.", "value.", "attn_out.", "ffn_up.",
+                   "ffn_down.", "word_embeddings.")
+        for name in placements:
+            if not any(h in name for h in handled):
+                # the rest stays whole: a split of it raises
+                tp_dim(placements, name)
+        return cut
 
 
 def _init_normal(module: nn.Module) -> None:

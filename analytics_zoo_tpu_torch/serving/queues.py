@@ -152,10 +152,14 @@ class OutputQueue:
         Waits on the per-uri signal stream with XREAD BLOCK — one blocking
         round-trip instead of a poll storm (the broker's condvar wakes the
         read the instant the server publishes).  `poll_interval` is kept
-        for API compatibility; it only paces the legacy fallback path."""
+        for API compatibility; it only paces the legacy fallback path.
+        Each XREAD blocks at most half the connection's own socket
+        timeout: a read the socket gave up on would leave its late reply
+        on the connection, where the next command would take it."""
         deadline = time.monotonic() + timeout
         key = RESULT_PREFIX + uri
         sig = SIGNAL_PREFIX + uri
+        limit = self.client.sock.gettimeout()
         h = self.client.execute("HGETALL", key)
         while not h:
             remaining = deadline - time.monotonic()
@@ -164,10 +168,11 @@ class OutputQueue:
                 # broker; remove it so abandoned queries don't leak keys
                 self.client.execute("DEL", sig)
                 return None
+            wait = remaining if limit is None else min(remaining, limit / 2)
             try:
                 self.client.execute(
                     "XREAD", "COUNT", 1, "BLOCK",
-                    max(1, int(remaining * 1000)), "STREAMS", sig, "0-0")
+                    max(1, int(wait * 1000)), "STREAMS", sig, "0-0")
             except Exception:
                 time.sleep(poll_interval)   # legacy broker: plain polling
             h = self.client.execute("HGETALL", key)

@@ -22,8 +22,17 @@ betas=(0.5, 0.999), eps=1e-8)``; ``generator_optimizer`` and
 ``discriminator_optimizer`` take a learning rate (Adam) or ``params ->
 Optimizer``.  ``fit`` returns one entry an epoch: the mean over its
 steps of ``d_loss`` (each step's last discriminator loss) and
-``g_loss``, ``epoch`` and ``steps``.  ``mesh=`` (a sharded step) is
-ROADMAP Queue 1 item 6.2 and raises.
+``g_loss``, ``epoch`` and ``steps``.
+
+``mesh=`` (default: the running context's, on the card) runs data
+parallelism over the mesh's batch axes (``dp``), one process a rank, as
+the reference shards its batch over them and replicates over the rest:
+the ranks start from rank 0's weights, each takes its rows of every
+global batch and of every noise draw (the global batch's draw, its rows
+kept), the generator's and the discriminator's gradients are averaged
+over dp before each optimizer steps, and the losses are means over dp,
+so dp=N trains what dp=1 trains.  Ranks on another axis compute as the
+rank of their dp coordinate does.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from analytics_zoo_tpu_torch.data.loader import (DataCreator,
                                                  NumpyBatchIterator)
 from analytics_zoo_tpu_torch.device import resolve_device
 from analytics_zoo_tpu_torch.models.transformer import fold_in
+from analytics_zoo_tpu_torch.parallel import data_parallel
 
 
 def _bce(logits, target: float):
@@ -112,10 +122,20 @@ class GANEstimator:
                  generator_optimizer=None, discriminator_optimizer=None,
                  noise_dim: int = 64, d_steps: int = 1,
                  mesh=None, seed: int = 0, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded GAN step (mesh=) is not ported yet (ROADMAP "
-                "Queue 1 item 6.2)")
+        from analytics_zoo_tpu_torch.common.context import context_mesh
+        from analytics_zoo_tpu_torch.parallel.partition import (
+            data_process_groups, data_sharding)
+
+        if mesh is None and device is None:
+            mesh = context_mesh()
+        self.mesh = mesh
+        self._dp, self._dp_index, self._dp_group = 1, 0, None
+        if mesh is not None and mesh.devices > 1:
+            self._dp, self._dp_index, _ = data_process_groups(
+                data_sharding(mesh))
+            self._dp_group = mesh.group("dp")
+            if device is None:
+                device = mesh.device
         self.gen = generator
         self.disc = discriminator
         if isinstance(loss, str):
@@ -146,6 +166,11 @@ class GANEstimator:
         with torch.no_grad():
             noise = torch.zeros(1, self.noise_dim, device=self.device)
             self.disc(self.gen(noise))
+            if self.mesh is not None and self.mesh.devices > 1:
+                # every rank starts from rank 0's weights
+                data_parallel.broadcast_start(
+                    [t for m in (self.gen, self.disc)
+                     for t in list(m.parameters()) + list(m.buffers())])
         self.state = {
             "g_opt": _optimizer(self._g_spec, list(self.gen.parameters())),
             "d_opt": _optimizer(self._d_spec, list(self.disc.parameters())),
@@ -157,11 +182,24 @@ class GANEstimator:
                     f"{n:,}", self.device)
 
     def _noise(self, step: int, i: int, b: int) -> torch.Tensor:
-        """Draw ``i`` of step ``step``: ``[b, noise_dim]`` N(0, 1), f32."""
+        """Draw ``i`` of step ``step``: ``[b, noise_dim]`` N(0, 1), f32
+        (under dp this rank's ``b`` rows of the global batch's draw)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(fold_in(fold_in(self.seed, step), i))
-        return torch.randn((b, self.noise_dim), generator=gen,
-                           device=self.device)
+        z = torch.randn((b * self._dp, self.noise_dim), generator=gen,
+                        device=self.device)
+        return z[self._dp_index * b:(self._dp_index + 1) * b]
+
+    def _dp_step(self, opt, params) -> None:
+        """Average ``params``' gradients over dp, then step ``opt``."""
+        if self._dp > 1:
+            data_parallel.average_grads(params, (self._dp_group,), self._dp)
+        opt.step()
+
+    def _dp_mean(self, mets: Dict[str, torch.Tensor]):
+        if self._dp == 1:
+            return mets
+        return data_parallel.mean_over(mets, self._dp_group, self._dp)
 
     def _step(self, real: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One training step on the batch ``real``: ``d_steps``
@@ -175,7 +213,7 @@ class GANEstimator:
             d_opt.zero_grad(set_to_none=True)
             d_loss = self.d_loss_fn(self.disc(real), self.disc(fake))
             d_loss.backward()
-            d_opt.step()
+            self._dp_step(d_opt, list(self.disc.parameters()))
         noise = self._noise(step, self.d_steps, b)
         g_opt.zero_grad(set_to_none=True)
         self.disc.requires_grad_(False)
@@ -184,9 +222,10 @@ class GANEstimator:
             g_loss.backward()
         finally:
             self.disc.requires_grad_(True)
-        g_opt.step()
+        self._dp_step(g_opt, list(self.gen.parameters()))
         st["step"] = step + 1
-        return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach()}
+        return self._dp_mean({"d_loss": d_loss.detach(),
+                              "g_loss": g_loss.detach()})
 
     # ------------------------------------------------------------------
 
@@ -207,12 +246,18 @@ class GANEstimator:
                 f"{sorted(arrays)} — ambiguous which one holds the real "
                 "samples")
         self._ensure_state(real)
+        if batch_size % self._dp:
+            raise ValueError(f"global batch {batch_size} must be positive "
+                             f"and divisible by data-shard group count "
+                             f"{self._dp}")
         it = NumpyBatchIterator({"x": real}, batch_size, seed=self.seed)
+        per = batch_size // self._dp
         history = []
         for ep in range(epochs):
             acc: list = []
             for b in it.epoch_batches():
-                x = torch.as_tensor(np.ascontiguousarray(b["x"]),
+                rows = b["x"][self._dp_index * per:(self._dp_index + 1) * per]
+                x = torch.as_tensor(np.ascontiguousarray(rows),
                                     device=self.device)
                 acc.append(self._step(x))
             n = len(acc)

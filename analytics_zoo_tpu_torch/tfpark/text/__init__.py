@@ -21,8 +21,11 @@ numpy arrays or an ``(x, y)`` pair, and bind the port's models:
 ``[B, 1]`` f32, ``evaluate`` and ``predict`` do not), ``NEREstimator``,
 ``POSEstimator`` and ``IntentEntityEstimator`` (``tfpark.text.keras``;
 the taggers' metric is :func:`token_accuracy`, plain per-token accuracy,
-padding included).  Partition rules (tensor parallelism) are ROADMAP
-Queue 1 item 6.2 and raise.
+padding included).  ``partition_rules=`` (and ``mesh=``) go to the
+Estimator, which shards the model over a mesh's ``tp`` axis;
+``BERTClassifier`` defaults to ``BERT_PARTITION_RULES``, as the
+reference does, and on a mesh without ``tp`` (or with none) they
+replicate.
 """
 
 from __future__ import annotations
@@ -70,10 +73,6 @@ class TextEstimator:
                  feature_cols: Sequence[str] = ("tokens",),
                  label_cols: Sequence[str] = ("y",),
                  metrics: Sequence = ("accuracy",), **kw):
-        if "partition_rules" in kw:
-            raise NotImplementedError(
-                "partition_rules (tensor parallelism) are not ported yet "
-                "(ROADMAP Queue 1 item 6.2)")
         self.estimator = TorchEstimator(
             model, loss, optimizer if optimizer is not None else 1e-3,
             feature_cols=feature_cols, label_cols=label_cols,
@@ -178,13 +177,15 @@ class BERTClassifier(TextEstimator):
     sparse categorical cross-entropy on ``y`` and the features are
     ``input_ids`` alone, as in the reference (train a masked or
     two-segment BERT through ``Estimator.from_torch`` or
-    ``frames.NNClassifier`` with more feature columns)."""
+    ``frames.NNClassifier`` with more feature columns).
+    ``partition_rules`` default to ``BERT_PARTITION_RULES``."""
 
     def __init__(self, num_classes: int, *, bert=None, optimizer=None,
                  **kw):
         from analytics_zoo_tpu_torch.models.transformer import (
-            BERTForSequenceClassification)
+            BERT_PARTITION_RULES, BERTForSequenceClassification)
 
+        kw.setdefault("partition_rules", BERT_PARTITION_RULES)
         super().__init__(
             BERTForSequenceClassification(num_classes=num_classes,
                                           bert=bert),

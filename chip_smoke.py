@@ -594,7 +594,8 @@ from analytics_zoo_tpu_torch.models.ncf import NeuralCF
 from analytics_zoo_tpu_torch.models.recommendation import (
     DIEN, ColumnFeatureInfo, SessionRecommender, WideAndDeep)
 from analytics_zoo_tpu_torch.models.transformer import (
-    BERT, BERTForQuestionAnswering, BERTForSequenceClassification, qa_loss)
+    BERT, BERT_PARTITION_RULES, BERTForQuestionAnswering,
+    BERTForSequenceClassification, qa_loss)
 from analytics_zoo_tpu_torch.ops import _build
 from analytics_zoo_tpu_torch.ops import flash_attention as fa
 from analytics_zoo_tpu_torch.parallel.ring_attention import full_attention
@@ -4341,13 +4342,15 @@ ZOO_WND = dict(batch=16384, steps_per_epoch=8, epochs=2)
 ZOO_DIEN = dict(items=3706, history=50, min_len=5, batch=1024, steps=20)
 ZOO_DIEN_TASK = dict(rows=512, T=10, items=40, epochs=35, batch=64,
                      min_acc=0.85)
-# bench_forecast's shape at half its 80,000 points (one epoch of 78
-# steps), so that the whole run keeps its margin inside the time limit
-ZOO_FORECAST_BENCH = dict(points=40_000, lookback=96, units=(32, 16),
+# bench_forecast's shape at a quarter of its 80,000 points (one epoch
+# of 38 steps), the taxi example at 4 of its 5 epochs and AutoTS's
+# trials at one epoch, so that the whole run keeps its margin inside the
+# time limit with phase 20 (depth only: every check stays)
+ZOO_FORECAST_BENCH = dict(points=20_000, lookback=96, units=(32, 16),
                           batch=512)
-ZOO_TAXI = dict(points=8000, lookback=96, units=(32, 16), epochs=5,
+ZOO_TAXI = dict(points=8000, lookback=96, units=(32, 16), epochs=4,
                 batch=256, lr=3e-3, max_mse=0.15)
-ZOO_AUTOTS = dict(n_sampling=2, epochs=2)
+ZOO_AUTOTS = dict(n_sampling=2, epochs=1)
 ZOO_WARM = 3                # warm-up steps left out of a fit's figures
 ZOO_ATOL = 1e-5             # 12a: card vs CPU forward, f32
 
@@ -7883,10 +7886,18 @@ def dist_rank(rank, world, port, part):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    fn, axes = dist_parts()[part]
+    # "a+b": part b runs after part a in the same launch (its own mesh
+    # over the same ranks), saving a launch's start-up
+    names = part.split("+")
+    fn, axes = dist_parts()[names[0]]
     ctx = init_orca_context("distributed",
                             mesh_axes=axes or {"tp": world})
     out = fn(rank, ctx.mesh, ctx.device)
+    if len(names) > 1:
+        out = {names[0]: out}
+        for extra in names[1:]:
+            free_memory()
+            out[extra] = dist_parts()[extra][0](rank, ctx.mesh, ctx.device)
     torch.cuda.synchronize()
     torch.save(out, DIST_DIR / f"{part}_{rank}.pt")
     import torch.distributed as dist
@@ -7901,7 +7912,16 @@ def dist_parts():
     every rank)."""
     return {"tp": (dist_tp_rank, None), "hatch": (dist_hatch_rank, None),
             "dptp": (mesh_dptp_rank, MESH_DPTP),
-            "mesh": (mesh_tp_rank, None)}
+            "mesh": (mesh_tp_rank, None),
+            "train": (train_rank, TRAIN_AXES),
+            "train_bf16": (train_bf16_rank, None)}
+
+
+def dist_split(ranks, first, extra):
+    """A two-part launch's results: the first part's, the extra's."""
+    if extra is None:
+        return ranks, None
+    return [r[first] for r in ranks], [r[extra] for r in ranks]
 
 
 def dist_model(dev, layers, dtype, seed=77, **kw):
@@ -8231,17 +8251,21 @@ def dp_held(dp, ranks, what):
             "losses": l2}
 
 
-def phase_dist(dev, card):
+def phase_dist(dev, card, extra=None):
     """Phase 18: the port's tensor-parallel serving and data-parallel
     training, each rank a process spawned on this one card (two ranks
     share it: this checks the code and the per-rank kernels, not their
-    speed).  Returns the figures and each rank's launches."""
+    speed).  Returns the figures and each rank's launches; ``extra``
+    (a part of ``dist_parts``) runs after 18's part in the same launch,
+    and its results go under ``"extra"``."""
     print(f"== phase 18: tensor-parallel serving and data-parallel "
           f"training, {DIST_TP} ranks (and {DIST_HATCH_TP} for the hatch) "
           f"as processes on {torch.cuda.device_count()} card(s) (ranks "
           f"sharing a card check the code, not speed; each rank prints "
           f"its backend)")
-    ranks = dist_run("tp", DIST_TP)
+    ranks, extra_ranks = dist_split(
+        dist_run("tp" + (f"+{extra}" if extra else ""), DIST_TP), "tp",
+        extra)
     r0 = ranks[0]
     print(f"-- 18a f32, TinyLlama width, {DIST_F32_LAYERS} layers, tp=2 vs "
           f"tp=1, {len(DIST_LENGTHS)} requests x "
@@ -8340,7 +8364,8 @@ def phase_dist(dev, card):
                       for x in ranks],
             "launches": {"paged": ranks[0]["bf16"]["launches"]["paged"],
                          "flash": ranks[0]["bf16"]["flash_launches"]},
-            "card": card, "note": "two ranks share one card"}
+            "card": card, "note": "two ranks share one card",
+            "extra": extra_ranks}
 
 
 def dist_rows(dev, launches):
@@ -8886,7 +8911,7 @@ def phase_int8_modules(dev, card, trace=False):
     return out
 
 
-def phase_mesh(dev, card, trace=False):
+def phase_mesh(dev, card, trace=False, extra=None):
     """Phase 19: 19a (f32) engines on a dp=2 x tp=2 mesh of four ranks,
     then on two tp=2 ranks the host tier and a prefill/decode fleet of
     two replicas a rank, 19b the fleet at TinyLlama-1.1B's full width
@@ -8899,7 +8924,8 @@ def phase_mesh(dev, card, trace=False):
           f"int8_mxu on any module; ranks as processes on "
           f"{torch.cuda.device_count()} card(s) (ranks sharing a card "
           f"check the code, not speed)")
-    dptp = dist_run("dptp", 4)
+    dptp, extra_ranks = dist_split(
+        dist_run("dptp" + (f"+{extra}" if extra else ""), 4), "dptp", extra)
     r0 = dptp[0]
     print(f"-- 19a f32, TinyLlama width, {MESH_LAYERS} layers, dp=2 x tp=2 "
           f"(4 ranks, coordinates "
@@ -9000,7 +9026,567 @@ def phase_mesh(dev, card, trace=False):
             "int8": int8, "seconds": secs,
             "launches": {"paged": b["launches"]["paged"],
                          "flash": b["flash_launches"]},
-            "card": card, "note": "ranks share one card"}
+            "card": card, "note": "ranks share one card",
+            "extra": extra_ranks}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: tensor- and sequence-parallel training, one process a rank,
+# every rank on this one card
+# ---------------------------------------------------------------------------
+
+TRAIN_AXES = {"sp": 2, "tp": 2}     # 20a's four ranks
+# 20a (f32): BERT-base width at 2 layers, one batch of 16 x 128 under a
+# key mask of row lengths 32-128, 4 steps (an epoch each: the history is
+# per step)
+TRAIN_BERT = dict(layers=2, batch=16, seq=128, min_len=32, steps=4,
+                  lr=0.01, adam=1e-4)
+TRAIN_BERT_MESHES = {        # (the model's sp mesh?, strategy, tp rules?)
+    "tp=2": (False, "ring", True), "sp=2 ring": (True, "ring", False),
+    "sp=2 ulysses": (True, "ulysses", False),
+    "tp=2 x sp=2": (True, "ring", True)}
+TRAIN_LM = dict(layers=2, batch=4, seq=128, steps=4, lr=0.01)
+# NCF at tp=2: MovieLens-1M's users (a 6,041-row table: whole, the
+# rules' fallback) beside 3,705 items (3,706 rows: split)
+TRAIN_NCF = dict(users=6040, items=3705, embed=64, hidden=(128, 64, 32),
+                 batch=1024, steps=4, lr=0.1)
+TRAIN_ADAM_REL = 1e-4        # 20a Adam losses, relative
+TRAIN_FAULTS = {             # the conjugate operator each fault breaks
+    "column input without its backward all-reduce": "copy_to",
+    "row sum through the library's autograd all_reduce": "reduce_from"}
+# 20b (bf16): tfpark.text.BERTClassifier, BERT-base, 12 layers, its
+# default BERT_PARTITION_RULES on tp=2, GLUE-shaped 32 x 128, 10 steps
+TRAIN_BF16 = dict(batch=32, seq=128, min_len=32, steps=10, warm=1)
+TRAIN_FIRST_REL = 1e-2       # 20b's first loss, tp=2 against tp=1
+# 20b's first-step gradients, tp=2 against tp=1, leaf by leaf: the
+# largest ||g - g1|| / ||g1|| over every rank's shards
+TRAIN_GRAD_REL = 5e-2
+TRAIN_GRAD_FAULT = "column input without its backward all-reduce"
+
+
+def planted(fault):
+    """One of ``TRAIN_FAULTS`` planted in ``parallel.collectives`` for
+    the fit inside the ``with``."""
+    from torch.distributed.nn.functional import all_reduce
+
+    from analytics_zoo_tpu_torch.parallel import collectives as cc
+
+    if TRAIN_FAULTS[fault] == "copy_to":
+        return unittest.mock.patch.object(cc, "copy_to",
+                                          lambda x, line: x)
+
+    def library(x, line):
+        if line is None or line.size == 1:
+            return x
+        return all_reduce(x, group=line.group)
+    return unittest.mock.patch.object(cc, "reduce_from", library)
+
+
+def copy_state(model_or_state):
+    """An f32 copy of a model's (or a ``state_dict``'s) tensors on their
+    device: 20a's comparisons run there, not on the host."""
+    sd = model_or_state if isinstance(model_or_state, dict) else \
+        model_or_state.state_dict()
+    return {k: v.detach().float().clone() for k, v in sd.items()}
+
+
+TRAIN_TIMES = collections.defaultdict(float)   # 20a's seconds by stage
+
+
+def train_fit(model, dev, mesh, rules, data, cols, loss, opt, steps, batch):
+    """One Estimator fit on ``mesh`` (None: one rank on ``dev``) of
+    ``steps`` epochs of one ``batch``-row batch (``data``), so the
+    history is per step; returns (per-step losses, whole host state)."""
+    t0 = time.monotonic()
+    est = TorchEstimator(model, loss, opt, feature_cols=cols[0],
+                         label_cols=cols[1],
+                         config=TrainConfig(deterministic=True), mesh=mesh,
+                         device=None if mesh is not None else dev,
+                         partition_rules=rules)
+    t1 = time.monotonic()
+    hist = est.fit(data, epochs=steps, batch_size=batch)
+    t2 = time.monotonic()
+    got = [h["loss"] for h in hist], copy_state(est.get_model()[1])
+    del est
+    TRAIN_TIMES["build"] += t1 - t0
+    TRAIN_TIMES["fit" if mesh is not None else "one-rank fit"] += t2 - t1
+    TRAIN_TIMES["gather"] += time.monotonic() - t2
+    return got
+
+
+def rank_flash_twins(dev, dtype, B, T, H, D, min_len, seed):
+    """Kernels 2-4 and the delta pass on a tp rank's H heads of BERT's
+    shape (not causal, a key mask of row lengths from [min_len, T]),
+    each held to its plain version on the same inputs."""
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    q, k, v = flash_case(dev, dtype, B, T, H, D, seed=seed)[:3]
+    lens = torch.as_tensor(np.random.default_rng(seed).integers(
+        min_len, T + 1, B))
+    mask = (torch.arange(T)[None] < lens[:, None]).to(dev)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g).to(dev, dtype)
+    o, lse = fa.flash_attention_fused(q, k, v, mask, causal=False)
+    ro, rlse = fa.flash_attention_ref(q, k, v, mask, causal=False)
+    fwd = (o.float() - ro.float()).abs().max().item()
+    got = fa.flash_attention_bwd_fused(q, k, v, mask, o, lse, do,
+                                       causal=False)
+    ref = fa.flash_attention_bwd_ref(q, k, v, mask, o, lse, do,
+                                     causal=False)
+    delta = rel_err(fa.flash_attention_bwd_delta_fused(o, do),
+                    fa.flash_attention_bwd_delta(o, do))
+    torch.cuda.synchronize()
+    bwd = [rel_err(a, b) for a, b in zip(got, ref)]
+    tols = bwd_tols(kind, T)
+    if fwd > FLASH_ATOL[kind] or delta > DELTA_TOL or any(
+            e > t for e, t in zip(bwd, tols)):
+        raise AssertionError(f"a tp rank's flash kernels disagree with the "
+                             f"plain versions ({kind}): fwd {fwd}, dq/dk/dv "
+                             f"{bwd}, delta {delta}")
+    return {"shape": f"B={B} T={T} H={H} D={D} {kind}, key mask "
+                     f"{min_len}-{T}", "fwd_err": fwd, "dq_err": bwd[0],
+            "dk_err": bwd[1], "dv_err": bwd[2], "delta_err": delta}
+
+
+def fingerprint(state):
+    """Each tensor's f64 sum and sum of magnitudes: a few bytes a
+    tensor that two ranks holding the same weights give alike."""
+    return torch.stack([torch.stack([v.double().sum(), v.double().abs()
+                                     .sum()]) for v in state.values()]).cpu()
+
+
+def against(got, one, launches=None):
+    """A mesh fit's record: its losses and fingerprint, and on rank 0
+    (``one``: one rank's fit) its parameters' largest error over
+    max(1, |p|) and its losses' largest relative error."""
+    t0 = time.monotonic()
+    losses, state = got
+    rec = {"losses": losses, "print": fingerprint(state),
+           "launches": launches}
+    if one is not None:
+        rec["params"] = state_rel(state, one[1], list(one[1]))
+        rec["loss_rel"] = max(abs(a - b) / abs(b)
+                              for a, b in zip(losses, one[0]))
+    TRAIN_TIMES["compare"] += time.monotonic() - t0
+    return rec
+
+
+def train_rank(rank, mesh, dev):
+    """20a on one of four ranks (f32): BERT at BERT-base width on four
+    meshes laid over the ranks, the LM at TinyLlama's width at tp=2 and
+    on the sp=2 causal ring, NCF at tp=2, each against one rank (rank 0
+    holds its fits and compares); BERT at tp=2 with each of
+    ``TRAIN_FAULTS`` planted; this rank's flash kernels on its BERT
+    heads."""
+    from analytics_zoo_tpu_torch.models.lm import LM_PARTITION_RULES
+    from analytics_zoo_tpu_torch.models.ncf import NCF_PARTITION_RULES
+    from analytics_zoo_tpu_torch.parallel import DP_RULES, make_mesh
+
+    mesh = make_mesh(axes=TRAIN_AXES, device=dev)
+    out = {"coords": mesh.coords(rank), "seconds": {}}
+    t0 = time.monotonic()
+    c = TRAIN_BERT
+    rows = bert_rows(np.random.default_rng(31), c["batch"], c["seq"],
+                     c["min_len"])
+    torch.manual_seed(21)
+    with torch.device(dev):
+        base = BERTForSequenceClassification(2, BERT(
+            **BERT_BASE, num_layers=c["layers"], dtype=torch.float32,
+            dropout=0.0))
+    state = copy_state(base)
+    del base
+
+    def bert(sp_mesh=None, strategy="ring"):
+        with torch.device(dev):
+            m = BERTForSequenceClassification(2, BERT(
+                **BERT_BASE, num_layers=c["layers"], dtype=torch.float32,
+                dropout=0.0, mesh=sp_mesh, sp_strategy=strategy))
+        m.load_state_dict(state)
+        return m
+
+    cls = BERT_FEATS, ("label",)
+    opts = {"sgd": lambda ps: torch.optim.SGD(ps, lr=c["lr"]),
+            "adam": c["adam"]}
+    one = {}
+    for opt, o in opts.items():
+        if rank == 0:
+            one[opt] = train_fit(bert(), dev, None, None, rows, cls,
+                                 "sparse_categorical_crossentropy", o,
+                                 c["steps"], c["batch"])
+            out[("bert", opt, "one")] = one[opt][0]
+        for name, (sp, strategy, tp) in TRAIN_BERT_MESHES.items():
+            reset_flash()
+            got = train_fit(
+                bert(mesh if sp else None, strategy), dev, mesh,
+                BERT_PARTITION_RULES if tp else DP_RULES, rows, cls,
+                "sparse_categorical_crossentropy", o, c["steps"],
+                c["batch"])
+            out[("bert", opt, name)] = against(got, one.get(opt),
+                                               flash_counts())
+            free_memory()
+    for fault in TRAIN_FAULTS:
+        with planted(fault):
+            out[("fault", fault)] = against(train_fit(
+                bert(), dev, mesh, BERT_PARTITION_RULES, rows, cls,
+                "sparse_categorical_crossentropy", opts["sgd"],
+                c["steps"], c["batch"]), one.get("sgd"))
+    one.clear()
+    free_memory()
+    out["seconds"]["bert"] = time.monotonic() - t0
+    H = BERT_BASE["num_heads"] // mesh.size("tp")
+    out["twins"] = rank_flash_twins(
+        dev, torch.float32, c["batch"], c["seq"], H,
+        BERT_BASE["hidden_size"] // BERT_BASE["num_heads"], c["min_len"],
+        60 + rank)
+    # the LM at TinyLlama's width: tp=2 (4 kv heads over 2), sp=2 ring
+    lc = TRAIN_LM
+    t0 = time.monotonic()
+    toks = np.random.default_rng(32).integers(
+        0, TINYLLAMA["vocab_size"], (lc["batch"], lc["seq"])).astype(
+            np.int32)
+    lm_state = copy_state(dist_model(dev, lc["layers"], torch.float32))
+    free_memory()
+
+    def lm(sp_mesh=None):
+        with torch.device(dev):
+            m = TransformerLM(**TINYLLAMA, num_layers=lc["layers"],
+                              dtype=torch.float32, mesh=sp_mesh)
+        m.load_state_dict(lm_state)
+        return m
+
+    lm_cols = ("tokens",), ("tokens",)
+    sgd = lambda ps: torch.optim.SGD(ps, lr=lc["lr"])  # noqa: E731
+    data = {"tokens": toks}
+    if rank == 0:
+        one["lm"] = train_fit(lm(), dev, None, None, data, lm_cols,
+                              lm_loss, sgd, lc["steps"], lc["batch"])
+        free_memory()
+    for name, sp, rules in (("tp=2", False, LM_PARTITION_RULES),
+                            ("sp=2 ring", True, DP_RULES)):
+        reset_flash()
+        got = train_fit(lm(mesh if sp else None), dev, mesh, rules, data,
+                        lm_cols, lm_loss, sgd, lc["steps"], lc["batch"])
+        out[("lm", name)] = against(got, one.get("lm"), flash_counts())
+        del got
+        free_memory()
+    one.clear()
+    out["seconds"]["lm"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    # NCF at tp=2
+    nc = TRAIN_NCF
+    rng = np.random.default_rng(33)
+    n = nc["batch"]
+    ncf_data = {"user": rng.integers(1, nc["users"] + 1, n).astype(np.int32),
+                "item": rng.integers(1, nc["items"] + 1, n).astype(np.int32),
+                "label": rng.integers(0, 2, n).astype(np.int32)}
+    torch.manual_seed(23)
+    ncf_state = copy_state(NeuralCF(
+        nc["users"], nc["items"], user_embed=nc["embed"],
+        item_embed=nc["embed"], mf_embed=nc["embed"],
+        hidden_layers=nc["hidden"], dtype=torch.float32))
+
+    def ncf():
+        m = NeuralCF(nc["users"], nc["items"], user_embed=nc["embed"],
+                     item_embed=nc["embed"], mf_embed=nc["embed"],
+                     hidden_layers=nc["hidden"], dtype=torch.float32)
+        m.load_state_dict(ncf_state)
+        return m
+
+    ncf_cols = ("user", "item"), ("label",)
+    nsgd = lambda ps: torch.optim.SGD(ps, lr=nc["lr"])  # noqa: E731
+    if rank == 0:
+        one["ncf"] = train_fit(ncf(), dev, None, None, ncf_data, ncf_cols,
+                               "sparse_categorical_crossentropy", nsgd,
+                               nc["steps"], nc["batch"])
+    out[("ncf", "tp=2")] = against(train_fit(
+        ncf(), dev, mesh, NCF_PARTITION_RULES, ncf_data, ncf_cols,
+        "sparse_categorical_crossentropy", nsgd, nc["steps"],
+        nc["batch"]), one.get("ncf"))
+    free_memory()
+    out["seconds"]["ncf"] = time.monotonic() - t0
+    out["seconds"].update(TRAIN_TIMES)
+    return out
+
+
+@contextlib.contextmanager
+def first_step_grads():
+    """The gradients of the first Estimator training step in the block
+    (this rank's shards), ``{name: f32 copy}``, as that step left them
+    for its optimizer."""
+    inner = TorchEstimator._train_step
+    out = {}
+
+    def step(self, batch):
+        mets = inner(self, batch)
+        if not out:
+            out.update({n: p.grad.detach().float().clone()
+                        for n, p in self.model.named_parameters()
+                        if p.grad is not None})
+        return mets
+
+    TorchEstimator._train_step = step
+    try:
+        yield out
+    finally:
+        TorchEstimator._train_step = inner
+
+
+def grads_against(got, one, placements, mesh):
+    """The largest per-leaf error of this rank's gradients ``got``
+    against one rank's whole ``one`` cut as the leaf is
+    (``||g - g1|| / ||g1||``), with its leaf; every leaf of ``one``
+    must be there.  The key projections' biases are left out: their
+    gradient is 0 in exact arithmetic (the bias adds one constant to
+    every key's score of a query, which the softmax cancels), so both
+    sides read rounding noise."""
+    from analytics_zoo_tpu_torch.parallel import shard_tensor
+
+    if set(got) != set(one):
+        raise AssertionError(f"20b: gradient leaves differ: "
+                             f"{sorted(set(got) ^ set(one))[:4]}")
+    errs = {}
+    for n, g in got.items():
+        if n.endswith("attention.key.bias"):
+            continue
+        ref = one[n] if n not in placements else \
+            shard_tensor(one[n], placements[n], mesh)
+        errs[n] = ((g - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def train_bf16_rank(rank, mesh, dev):
+    """20b on one of two tp ranks: ``tfpark.text.BERTClassifier`` with
+    BERT-base (12 layers, bf16, dropout 0.1) under its default rules,
+    GLUE-shaped 32 x 128 rows with their key mask, 10 AdamW steps timed
+    by CUDA events; each rank also takes the first step at tp=1 on the
+    same weights and batch, and holds its first step's gradients to
+    tp=1's leaf by leaf, then again with ``TRAIN_GRAD_FAULT`` planted
+    (one step); this rank's flash kernels on its 6 heads (bf16)."""
+    from analytics_zoo_tpu_torch.parallel import make_mesh
+    from analytics_zoo_tpu_torch.tfpark.text import BERTClassifier
+
+    mesh = make_mesh(axes={"tp": 2}, device=dev)
+    c = TRAIN_BF16
+    rows = bert_rows(np.random.default_rng(34), c["batch"] * c["steps"],
+                     c["seq"], c["min_len"])
+    rows["y"] = rows.pop("label")
+    first = {k: v[:c["batch"]] for k, v in rows.items()}
+
+    def classifier(m, device=None):
+        torch.manual_seed(24)
+        with torch.device(dev):
+            bert = BERT(**BERT_BASE, num_layers=BERT_LAYERS)
+        return BERTClassifier(2, bert=bert, mesh=m, device=device,
+                              config=TrainConfig(deterministic=True))
+
+    out = {"coords": mesh.coords(rank)}
+    t0 = time.monotonic()
+    one = classifier(None, dev)
+    with first_step_grads() as one_grads:
+        hist = one.fit(first, batch_size=c["batch"],
+                       feature_cols=BERT_FEATS)
+    out["first_one"] = hist[0]["loss"]
+    del one
+    free_memory()
+    est = classifier(mesh)
+    out["split"] = len(est.estimator._placements)
+    reset_flash()
+    with peak_memory() as mem, step_times() as times, \
+            first_step_grads() as grads:
+        est.fit(rows, batch_size=c["batch"], feature_cols=BERT_FEATS)
+    out["launches"] = flash_counts()
+    out["times"], out["mem"] = times, mem
+    out["grads"] = grads_against(grads, one_grads,
+                                 est.estimator._placements, mesh)
+    del est, grads
+    free_memory()
+    with planted(TRAIN_GRAD_FAULT):
+        est = classifier(mesh)
+        with first_step_grads() as grads:
+            est.fit(first, batch_size=c["batch"], feature_cols=BERT_FEATS)
+        out["grads_fault"] = grads_against(
+            grads, one_grads, est.estimator._placements, mesh)
+    del est, grads, one_grads
+    free_memory()
+    out["seconds"] = time.monotonic() - t0
+    out["twins"] = rank_flash_twins(
+        dev, torch.bfloat16, c["batch"], c["seq"],
+        BERT_BASE["num_heads"] // 2,
+        BERT_BASE["hidden_size"] // BERT_BASE["num_heads"], c["min_len"],
+        70 + rank)
+    return out
+
+
+def ranks_apart(ranks, key):
+    """The largest gap of a fit's fingerprint between a rank and rank 0,
+    over max(1, |rank 0's|)."""
+    p0 = ranks[0][key]["print"]
+    return max(((r[key]["print"] - p0).abs() / p0.abs().clamp(min=1.0))
+               .max().item() for r in ranks)
+
+
+def phase_train(dev, card, a_ranks=None, b_ranks=None):
+    """Phase 20: 20a (f32) and 20b (bf16).  ``a_ranks``/``b_ranks``:
+    the ranks' results when a phase-18/19 launch ran them (the whole
+    run), else this phase starts its own.  Returns the figures and 20b's
+    per-rank launches."""
+    t0 = time.monotonic()
+    print(f"== phase 20: tensor- and sequence-parallel training, ranks as "
+          f"processes on {torch.cuda.device_count()} card(s) (ranks "
+          f"sharing a card check the code and each rank's kernels, not "
+          f"speed)")
+    piggyback = a_ranks is not None
+    if a_ranks is None:
+        a_ranks = dist_run("train", 4)
+    r0 = a_ranks[0]
+    c = TRAIN_BERT
+    print(f"-- 20a f32 (TF32 off), 4 ranks at coordinates "
+          f"{[(r['coords']['sp'], r['coords']['tp']) for r in a_ranks]} "
+          f"(sp, tp); BERT-base width, {c['layers']} layers, "
+          f"{c['batch']} x {c['seq']} (key mask {c['min_len']}-{c['seq']}),"
+          f" {c['steps']} steps, each mesh against one rank")
+    held = {}
+    steps = c["steps"] * c["layers"]
+    for name in TRAIN_BERT_MESHES:
+        sgd, adam = r0[("bert", "sgd", name)], r0[("bert", "adam", name)]
+        skew = ranks_apart(a_ranks, ("bert", "sgd", name))
+        launches = [r[("bert", "sgd", name)]["launches"] for r in a_ranks]
+        held[name] = {"sgd_params": sgd["params"],
+                      "adam_losses": adam["loss_rel"], "ranks_apart": skew,
+                      "flash_launches": launches[0]}
+        print(f"  BERT {name}: SGD parameters max rel err "
+              f"{sgd['params']:.3e} (tol {DIST_PARAM_TOL:.0e}), Adam losses "
+              f"{adam['loss_rel']:.3e} (tol {TRAIN_ADAM_REL:.0e}), ranks "
+              f"apart {skew:.1e}; flash launches (fwd, bwd, delta) per rank "
+              f"{launches}")
+        want = (steps,) * 3 if name == "tp=2" else (0, 0, 0)
+        if sgd["params"] > DIST_PARAM_TOL or \
+                adam["loss_rel"] > TRAIN_ADAM_REL or \
+                any(tuple(x) != want for x in launches):
+            raise AssertionError(f"20a BERT {name}: {held[name]}")
+    faults = {f: r0[("fault", f)]["params"] for f in TRAIN_FAULTS}
+    print("  planted faults, BERT tp=2 SGD parameters against one rank: "
+          + ", ".join(f"{f} {v:.3e}" for f, v in faults.items())
+          + f" (each must exceed {DIST_PARAM_TOL:.0e})")
+    if min(faults.values()) <= DIST_PARAM_TOL:
+        raise AssertionError(f"20a: the hold misses a planted fault "
+                             f"{faults}")
+    for r, x in enumerate(a_ranks):
+        t = x["twins"]
+        print(f"  rank {r} flash on its heads ({t['shape']}): fwd "
+              f"{t['fwd_err']:.3e}, dq {t['dq_err']:.3e}, dk "
+              f"{t['dk_err']:.3e}, dv {t['dv_err']:.3e}, delta "
+              f"{t['delta_err']:.1e}")
+    lc = TRAIN_LM
+    for name in ("tp=2", "sp=2 ring"):
+        x = r0[("lm", name)]
+        launches = [r[("lm", name)]["launches"] for r in a_ranks]
+        held[f"lm {name}"] = {"params": x["params"],
+                              "losses": x["loss_rel"],
+                              "ranks_apart": ranks_apart(a_ranks,
+                                                         ("lm", name)),
+                              "flash_launches": launches[0]}
+        print(f"  LM TinyLlama width ({TINYLLAMA['num_heads']} heads over "
+              f"{TINYLLAMA['num_kv_heads']} kv heads), {lc['layers']} "
+              f"layers, {lc['batch']} x {lc['seq']}, {name}: SGD parameters "
+              f"max rel err {x['params']:.3e}, losses {x['loss_rel']:.3e}, "
+              f"ranks apart {held[f'lm {name}']['ranks_apart']:.1e}; flash "
+              f"launches per rank {launches}")
+        want = (lc["steps"] * lc["layers"],) * 3 if name == "tp=2" else \
+            (0, 0, 0)
+        if x["params"] > DIST_PARAM_TOL or \
+                x["loss_rel"] > TRAIN_ADAM_REL or \
+                any(tuple(v) != want for v in launches):
+            raise AssertionError(f"20a LM {name}: {held[f'lm {name}']}")
+    print(f"  20a seconds on rank 0 (BERT, LM, NCF): "
+          f"{ {k: round(v, 1) for k, v in r0['seconds'].items()} }")
+    x = r0[("ncf", "tp=2")]
+    held["ncf tp=2"] = {"params": x["params"], "losses": x["loss_rel"]}
+    print(f"  NCF tp=2 ({TRAIN_NCF['users']} users: a whole table; "
+          f"{TRAIN_NCF['items']} items: split): SGD parameters max rel err "
+          f"{x['params']:.3e}, losses {x['loss_rel']:.3e}")
+    if x["params"] > DIST_PARAM_TOL or x["loss_rel"] > TRAIN_ADAM_REL:
+        raise AssertionError(f"20a NCF: {x}")
+    if b_ranks is None:
+        b_ranks = dist_run("train_bf16", 2)
+    b = TRAIN_BF16
+    layers = BERT_LAYERS
+    want = (b["steps"] * layers,) * 3
+    first = b_ranks[0]["times"]["loss"][0]
+    first_rel = abs(first - b_ranks[0]["first_one"]) / \
+        abs(b_ranks[0]["first_one"])
+    print(f"-- 20b bf16, tfpark.text.BERTClassifier, BERT-base "
+          f"({layers} layers) under its default BERT_PARTITION_RULES on "
+          f"tp=2 ({b_ranks[0]['split']} tensors cut a rank), "
+          f"{b['batch']} x {b['seq']} key-masked, {b['steps']} AdamW steps")
+    figures = []
+    for r, x in enumerate(b_ranks):
+        print(f"  rank {r}:", end="")
+        figures.append(report_steps(card, f"rank {r}", x["times"],
+                                    b["batch"], b["seq"], b["warm"],
+                                    x["mem"]))
+        t = x["twins"]
+        print(f"  rank {r} flash launches (fwd, bwd, delta) "
+              f"{x['launches']} (want {want}); its kernels on its heads "
+              f"({t['shape']}): fwd {t['fwd_err']:.3e}, dq {t['dq_err']:.3e}"
+              f", dk {t['dk_err']:.3e}, dv {t['dv_err']:.3e}, delta "
+              f"{t['delta_err']:.1e}")
+        if tuple(x["launches"]) != want:
+            raise AssertionError(f"20b rank {r}: launches {x['launches']} "
+                                 f"!= {want}")
+    losses = b_ranks[0]["times"]["loss"]
+    print(f"  [{card}] first step loss tp=2 {first:.5f} vs tp=1 "
+          f"{b_ranks[0]['first_one']:.5f} on the same weights and batch: "
+          f"rel {first_rel:.2e} (tol {TRAIN_FIRST_REL:.0e}); losses "
+          f"{shown_losses(losses)}")
+    grad = max(x["grads"][0] for x in b_ranks)
+    fault = min(x["grads_fault"][0] for x in b_ranks)
+    print(f"  [{card}] first step's gradients, every leaf of each rank "
+          f"against tp=1's cut the same way (||g - g1|| / ||g1||): "
+          + ", ".join(f"rank {r} {x['grads'][0]:.3e} ({x['grads'][1]})"
+                      for r, x in enumerate(b_ranks))
+          + f" (limit {TRAIN_GRAD_REL:.0e}); with '{TRAIN_GRAD_FAULT}' "
+          f"planted: "
+          + ", ".join(f"rank {r} {x['grads_fault'][0]:.3e} "
+                      f"({x['grads_fault'][1]})"
+                      for r, x in enumerate(b_ranks))
+          + " (must exceed the limit)")
+    print(f"  20b seconds on rank 0 (tp=1's step, the fit, the planted "
+          f"step): {b_ranks[0]['seconds']:.1f}")
+    falls = bool(np.mean(losses[-3:]) < np.mean(losses[:3]))
+    print(f"  the loss {'falls' if falls else 'does not fall'} over the "
+          f"{len(losses)} steps (mean of the last 3 against the first 3)")
+    if first_rel > TRAIN_FIRST_REL or not all(np.isfinite(losses)) or \
+            not falls or grad > TRAIN_GRAD_REL or fault <= TRAIN_GRAD_REL:
+        raise AssertionError(f"20b: first loss rel {first_rel}, gradients "
+                             f"{grad} (planted fault {fault}), losses "
+                             f"{losses}")
+    secs = time.monotonic() - t0
+    ranks_secs = {"20a": sum(r0["seconds"][k] for k in ("bert", "lm",
+                                                       "ncf")),
+                  "20b": b_ranks[0]["seconds"]}
+    print(f"  phase 20 {secs:.1f} s here; its ranks' work on rank 0: 20a "
+          f"{ranks_secs['20a']:.1f} s, 20b {ranks_secs['20b']:.1f} s"
+          + (" (inside phases 19's and 18's launches)" if piggyback
+             else ""))
+    return {"20a": held, "faults": faults,
+            "20b": {"ranks": figures, "first_loss_rel": first_rel,
+                    "grads_rel": grad, "grads_fault_rel": fault,
+                    "losses": losses, "loss_falls": falls},
+            "seconds": secs, "rank_seconds": ranks_secs, "card": card,
+            "note": "ranks share one card",
+            "launches": tuple(b_ranks[0]["launches"])}
+
+
+def train_rows(dev, launches):
+    """Phase 7's rows of kernels 2-4 and the delta pass at a tp=2 rank's
+    BERT-base shape in 20b (6 of 12 heads, 32 x 128, key mask 32-128,
+    bf16), with 20b's per-rank launches."""
+    cfg = dict(BERT_BASE, num_heads=BERT_BASE["num_heads"] // 2,
+               hidden_size=BERT_BASE["hidden_size"] // 2)
+    return training_timings(dev, launches, cfg, TRAIN_BF16,
+                            "BERT-base tp=2 rank (20b)",
+                            min_len=TRAIN_BF16["min_len"])
 
 
 def main() -> int:
@@ -9140,6 +9726,22 @@ def main() -> int:
         print(json.dumps({"kernels": rows, "mesh": mesh}))
         return 0
 
+    if sys.argv[1:2] == ["--train-mesh"]:
+        # phase 1 and phase 20 in launches of its own, then 20b's rows
+        phase_build()
+        lap("phase 1")
+        train = phase_train(dev, card)
+        lap("phase 20")
+        rows = train_rows(dev, train.pop("launches"))
+        print_rows(rows)
+        lap("phase 20's kernel rows")
+        print(card)
+        print(json.dumps({"kernels": rows, "train": train}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if sys.argv[1:2] == ["--tools"]:
         # phase 1 and phase 15 on a TinyLlama built as phase 6b builds it
         phase_build()
@@ -9210,10 +9812,15 @@ def main() -> int:
     lap("phase 16")
     keras = phase_keras(dev, card)
     lap("phase 17")
-    dist = phase_dist(dev, card)
+    # phase 20's ranks run in phase 18's and 19's launches (20b on the
+    # two tp ranks, 20a on the four), saving two launches' start-up
+    dist = phase_dist(dev, card, extra="train_bf16")
     lap("phase 18")
-    mesh = phase_mesh(dev, card)
+    mesh = phase_mesh(dev, card, extra="train")
     lap("phase 19")
+    train = phase_train(dev, card, a_ranks=mesh.pop("extra"),
+                        b_ranks=dist.pop("extra"))
+    lap("phase 20")
     for e in kernels:
         # each kernel's launches in phase 8b's two servers (the paged
         # server reads through paged, the arena prefills through flash);
@@ -9243,6 +9850,8 @@ def main() -> int:
             mesh["launches"]["paged"] if e["name"].startswith("paged")
             else mesh["launches"]["flash"]
             if e["name"].startswith("flash_attention_fwd") else 0)
+    # phase 20b's per-rank shape, with its launches on rank 0
+    kernels += train_rows(dev, train.pop("launches"))
     print(f"whole run {time.monotonic() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, "stack": {
@@ -9251,7 +9860,7 @@ def main() -> int:
         "serving_modes": serving_modes, "bert": bert, "zoo": zoo,
         "image": image, "tcmf": tcmf, "finetune": finetune,
         "tools": tools, "text": text, "keras": keras, "dist": dist,
-        "mesh": mesh}))
+        "mesh": mesh, "train": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,6 +7,7 @@ the CPU and saves what it observed to ``<outdir>/<scenario>_<rank>.pt``.
 Inputs the test made (weights, data) are read from ``<outdir>``.
 Imports torch and the port only."""
 
+import copy
 import os
 import sys
 
@@ -713,6 +714,394 @@ def scenario_dp(rank, world, outdir):
     got = list(device_prefetch(FeatureSet(data).batches(8, shuffle=False),
                                mesh, sharding=data_sharding(mesh)))
     out["prefetch"] = [b["y"].tolist() for b in got]
+    context.stop_orca_context()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor- and sequence-parallel training
+# ---------------------------------------------------------------------------
+
+def _whole(t, spec, mesh):
+    from analytics_zoo_tpu_torch.parallel import gather_tensor
+
+    return gather_tensor(t.detach().contiguous(), spec, mesh)
+
+
+def scenario_ring(rank, world, outdir):
+    """Ring and ulysses attention at sp=2 and sp=4 (outputs and q/k/v
+    gradients gathered), BERT on a dp2 x sp2 x tp2 mesh and the LM's
+    causal ring on dp2 x sp4, forward."""
+    from analytics_zoo_tpu_torch.common import context
+    from analytics_zoo_tpu_torch.models.lm import TransformerLM
+    from analytics_zoo_tpu_torch.models.transformer import (
+        BERT, BERT_PARTITION_RULES)
+    from analytics_zoo_tpu_torch.parallel import P, make_mesh
+    from analytics_zoo_tpu_torch.parallel import collectives as cc
+    from analytics_zoo_tpu_torch.parallel.partition import (batch_rows,
+                                                            shard_module)
+    from analytics_zoo_tpu_torch.parallel.ring_attention import \
+        ring_self_attention
+
+    inp = torch.load(os.path.join(outdir, "ring_in.pt"), weights_only=False)
+    mesh3 = context.init_orca_context(
+        "distributed", mesh_axes={"dp": 2, "sp": 2, "tp": 2},
+        device="cpu").mesh
+    q, k, v, g = (torch.from_numpy(inp[n]) for n in "qkvg")
+    mask = torch.from_numpy(inp["mask"])
+    out = {}
+    for sp in (2, 4):
+        mesh = make_mesh(axes={"dp": world // sp, "sp": sp}, device="cpu")
+        line = cc.Line.of(mesh, "sp")
+
+        def cut(t):
+            n = t.shape[1] // sp
+            return t[:, line.index * n:(line.index + 1) * n].contiguous()
+
+        for strategy in ("ring", "ulysses"):
+            for causal in (False, True):
+                for masked in (False, True):
+                    ql, kl, vl = (cut(t).requires_grad_() for t in (q, k, v))
+                    o = ring_self_attention(
+                        ql, kl, vl, mesh, cut(mask) if masked else None,
+                        causal=causal, strategy=strategy)
+                    (o * cut(g)).sum().backward()
+                    out[(sp, strategy, causal, masked)] = [
+                        _whole(t, P(None, "sp"), mesh)
+                        for t in (o, ql.grad, kl.grad, vl.grad)]
+        try:
+            ring_self_attention(cut(q)[:, :, :3].contiguous(),
+                                cut(k)[:, :, :3].contiguous(),
+                                cut(v)[:, :, :3].contiguous(), mesh,
+                                strategy="ulysses")
+        except ValueError as e:
+            out[("ulysses_heads", sp)] = str(e)
+    # BERT, the reference's dp2 x sp2 x tp2 equivalence
+    ids, amask = (torch.from_numpy(inp[n]) for n in ("ids", "amask"))
+    bert = BERT(**inp["bert_cfg"], dtype=torch.float32, use_flash=False,
+                mesh=mesh3)
+    bert.load_state_dict(inp["bert_state"])
+    shard_module(bert, mesh3, BERT_PARTITION_RULES)
+    r = batch_rows(mesh3, len(ids))
+    with torch.no_grad():
+        seq, pooled = bert(ids[r], attention_mask=amask[r])
+    out["bert"] = (_whole(seq, P("dp"), mesh3), _whole(pooled, P("dp"),
+                                                       mesh3))
+    # the LM's causal ring on dp2 x sp4
+    mesh = make_mesh(axes={"dp": 2, "sp": 4}, device="cpu")
+    lm = TransformerLM(**inp["lm_cfg"], mesh=mesh)
+    lm.load_state_dict(inp["lm_state"])
+    toks = torch.from_numpy(inp["toks"])
+    r = batch_rows(mesh, len(toks))
+    with torch.no_grad():
+        out["lm"] = _whole(lm(toks[r]), P("dp"), mesh)
+    context.stop_orca_context()
+    return out if rank == 0 else {}
+
+
+def _tp_est(model, loss, opt, cols, mesh, rules=None, lora=None, **cfg):
+    from analytics_zoo_tpu_torch.common.config import TrainConfig
+    from analytics_zoo_tpu_torch.learn.estimator import TorchEstimator
+
+    feats, labels = cols
+    return TorchEstimator(
+        model, loss, opt, feature_cols=feats, label_cols=labels,
+        config=TrainConfig(deterministic=True, **cfg), mesh=mesh,
+        device=None if mesh is not None else "cpu",
+        partition_rules=rules, lora=lora)
+
+
+def _whole_grads(model, placements, mesh):
+    """Every parameter's gradient, whole (shards gathered)."""
+    return {n: _whole(p.grad, placements[n], mesh) if n in placements
+            else p.grad.detach().clone()
+            for n, p in model.named_parameters()}
+
+
+def scenario_tptrain(rank, world, outdir):
+    """Training on {"dp": 2, "tp": 2} (A) and {"sp": 2, "tp": 2} (B):
+    BERT and the LM (GPT-2 and Llama shapes, MHA and GQA with and
+    without KH % tp) under the reference's rules, SGD states and Adam
+    losses; tp gradients against one rank's and with two planted
+    faults; dropout against one rank; LoRA on A; a dp=4 checkpoint
+    through B and back; sharded flash gradients on a rank's heads."""
+    from analytics_zoo_tpu_torch.common import context
+    from analytics_zoo_tpu_torch.learn.lora import LoRAConfig
+    from analytics_zoo_tpu_torch.models import lm as tlm
+    from analytics_zoo_tpu_torch.models import transformer as ttr
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    from analytics_zoo_tpu_torch.parallel import P, make_mesh
+    from analytics_zoo_tpu_torch.parallel import collectives as cc
+    from analytics_zoo_tpu_torch.parallel.partition import shard_module
+
+    inp = torch.load(os.path.join(outdir, "tptrain_in.pt"),
+                     weights_only=False)
+    mesh_a = context.init_orca_context(
+        "distributed", mesh_axes={"dp": 2, "tp": 2}, device="cpu").mesh
+    mesh_b = make_mesh(axes={"sp": 2, "tp": 2}, device="cpu")
+    meshes = {"A": mesh_a, "B": mesh_b}
+    out = {}
+    cls = ("input_ids", "token_type_ids", "attention_mask"), ("y",)
+    lmc = ("tokens",), ("tokens",)
+    sgd = lambda ps: torch.optim.SGD(ps, lr=0.1)  # noqa: E731
+
+    def bert(mesh=None, dropout=0.0):
+        m = ttr.BERTForSequenceClassification(3, ttr.BERT(
+            **inp["bert_cfg"], dtype=torch.float32, use_flash=False,
+            dropout=dropout, mesh=mesh))
+        m.load_state_dict(inp["bert_state"])
+        return m
+
+    def lm(kind, mesh=None, dropout=0.0):
+        m = tlm.TransformerLM(**inp["lm_cfg"][kind], dtype=torch.float32,
+                              use_flash=False, dropout=dropout, mesh=mesh)
+        m.load_state_dict(inp["lm_state"][kind])
+        return m
+
+    def fit(est, data, epochs=1):
+        hist = est.fit(data, epochs=epochs, batch_size=8)
+        return [h["loss"] for h in hist], copy.deepcopy(est.get_model()[1])
+
+    # the Estimator against the reference (the test holds both meshes to
+    # the JAX Estimator's run)
+    for mk, mesh in meshes.items():
+        sp_mesh = mesh if mk == "B" else None
+        out[("bert", "sgd", mk)] = fit(_tp_est(
+            bert(sp_mesh), "sparse_categorical_crossentropy", sgd, cls,
+            mesh, ttr.BERT_PARTITION_RULES), inp["cls_data"])
+        for kind in ("mha", "gqa1", "gqa2"):
+            out[("lm", kind, "sgd", mk)] = fit(_tp_est(
+                lm(kind, sp_mesh), tlm.lm_loss, sgd, lmc, mesh,
+                tlm.LM_PARTITION_RULES), inp["lm_data"])
+        out[("lm", "gqa1", "adam", mk)] = fit(_tp_est(
+            lm("gqa1", sp_mesh), tlm.lm_loss, 1e-3, lmc, mesh,
+            tlm.LM_PARTITION_RULES), inp["lm_data"], 2)[0]
+
+    # the blockwise fused loss over a vocab-split table, against one rank
+    for mk, mesh in (("A", mesh_a), ("one", None)):
+        out[("fused", mk)] = fit(_tp_est(
+            tlm.LMWithFusedLoss(lm("mha"), t_block=5), tlm.fused_lm_loss,
+            sgd, lmc, mesh, tlm.LM_PARTITION_RULES), inp["lm_data"])
+
+    # accum_steps, evaluate (a padded chunk) and predict (rows in global
+    # order on every rank) on both meshes against one rank
+    for mk, mesh in list(meshes.items()) + [("one", None)]:
+        est = _tp_est(bert(mesh if mk == "B" else None),
+                      "sparse_categorical_crossentropy", sgd, cls, mesh,
+                      ttr.BERT_PARTITION_RULES, accum_steps=2)
+        got = fit(est, inp["cls_data"])
+        out[("accum", mk)] = got + (
+            est.evaluate(inp["cls_data"], batch_size=6),
+            est.predict({c: inp["cls_data"][c][:10] for c in cls[0]},
+                        batch_size=4))
+
+    # tp=2 gradients of every parameter against one rank's, then with a
+    # planted fault: a column-parallel input without its backward
+    # all-reduce, and a row-parallel sum through the library's autograd
+    # all_reduce (its backward all-reduces the gradient again)
+    batch = {k: torch.from_numpy(v[:8]) for k, v in inp["cls_data"].items()}
+    lm_batch = torch.from_numpy(inp["lm_data"]["tokens"][:8])
+
+    def grads(kind, mesh):
+        if kind == "bert":
+            m = bert()
+            run = lambda: torch.nn.functional.cross_entropy(  # noqa: E731
+                m(batch["input_ids"], batch["token_type_ids"],
+                  batch["attention_mask"]), batch["y"].long())
+            rules = ttr.BERT_PARTITION_RULES
+        else:
+            m = lm(kind)
+            run = lambda: tlm.lm_loss(m(lm_batch), lm_batch)  # noqa: E731
+            rules = tlm.LM_PARTITION_RULES
+        placements = shard_module(m, mesh, rules) if mesh else {}
+        run().backward()
+        return _whole_grads(m, placements, mesh)
+
+    from torch.distributed.nn.functional import all_reduce as lib_all_reduce
+    faults = {
+        "copy_to_plain": ("copy_to", lambda x, line: x),
+        "reduce_from_library": ("reduce_from", lambda x, line: (
+            lib_all_reduce(x, group=line.group) if line is not None
+            and line.size > 1 else x))}
+    for kind in ("bert", "mha", "gqa1"):
+        out[("grads", kind, "tp1")] = grads(kind, None)
+        out[("grads", kind, "tp2")] = grads(kind, mesh_b)
+        for fault, (name, fn) in faults.items():
+            keep = getattr(cc, name)
+            setattr(cc, name, fn)
+            try:
+                out[("grads", kind, fault)] = grads(kind, mesh_b)
+            finally:
+                setattr(cc, name, keep)
+
+    # dropout: the global tensor's masks, so tp=2 (and sp=2 x tp=2)
+    # trains what one rank trains
+    for name, sp_mesh in (("tp2", None), ("sp2tp2", mesh_b)):
+        out[("dropout", "bert", name)] = fit(_tp_est(
+            bert(sp_mesh, 0.1), "sparse_categorical_crossentropy", sgd,
+            cls, mesh_b, ttr.BERT_PARTITION_RULES), inp["cls_data"])
+        out[("dropout", "lm", name)] = fit(_tp_est(
+            lm("gqa2", sp_mesh, 0.1), tlm.lm_loss, sgd, lmc, mesh_b,
+            tlm.LM_PARTITION_RULES), inp["lm_data"])
+    out[("dropout", "bert", "one")] = fit(_tp_est(
+        bert(None, 0.1), "sparse_categorical_crossentropy", sgd, cls,
+        None), inp["cls_data"])
+    out[("dropout", "lm", "one")] = fit(_tp_est(
+        lm("gqa2", None, 0.1), tlm.lm_loss, sgd, lmc, None),
+        inp["lm_data"])
+
+    # LoRA on dp2 x tp2: adapters replicate, the base shards
+    est_l = _tp_est(lm("mha"), tlm.lm_loss,
+                    lambda ps: torch.optim.AdamW(ps, lr=1e-2,
+                                                 weight_decay=1e-4),
+                    lmc, mesh_a, tlm.LM_PARTITION_RULES,
+                    lora=LoRAConfig(rank=4))
+    hist = est_l.fit(inp["lm_data"], epochs=3, batch_size=8)
+    out["lora"] = ([h["loss"] for h in hist], est_l.lora_params(),
+                   {k: v for k, v in est_l.merged_params().items()})
+
+    # a dp=4 checkpoint restores onto sp2 x tp2, and a checkpoint written
+    # there onto dp=4 again
+    mesh_dp = make_mesh(axes={"dp": 4}, device="cpu")
+    ck1, ck2 = (os.path.join(outdir, n) for n in ("ck1", "ck2"))
+
+    def bert_est(mesh, sp_mesh, **cfg):
+        return _tp_est(bert(sp_mesh), "sparse_categorical_crossentropy",
+                       1e-3, cls, mesh, ttr.BERT_PARTITION_RULES, **cfg)
+
+    est_dp = bert_est(mesh_dp, None, checkpoint_dir=ck1)
+    est_dp.fit(inp["cls_data"], epochs=1, batch_size=8)
+    est_b = bert_est(mesh_b, mesh_b)
+    est_b.load_checkpoint(ck1)
+    # copies: the estimators train on in place
+    snap = lambda est: copy.deepcopy((est.get_model()[1],  # noqa: E731
+                                      est._optimizer_state()))
+    (dp_state, dp_opt), (b_state, b_opt) = snap(est_dp), snap(est_b)
+    out["ckpt_in"] = (dp_state, b_state, dp_opt, b_opt)
+    out["ckpt_next"] = (fit(est_dp, inp["cls_data"]),
+                        fit(est_b, inp["cls_data"]))
+    est_b.save_checkpoint(ck2)
+    est_back = bert_est(mesh_dp, None)
+    est_back.load_checkpoint(ck2)
+    (b_state, b_opt), (back, back_opt) = snap(est_b), snap(est_back)
+    out["ckpt_back"] = (b_state, back, b_opt, back_opt)
+
+    # the flash path's gradients on this rank's heads (tp coordinate of A)
+    q, k, v, g = (torch.from_numpy(inp["flash"][n]) for n in "qkvg")
+    mask = torch.from_numpy(inp["flash"]["mask"])
+    t = mesh_a.coord("tp")
+    heads = slice(2 * t, 2 * t + 2)
+    mine = [x[:, :, heads].contiguous().requires_grad_() for x in (q, k, v)]
+    (fa.sharded_flash_attention(*mine, mask, causal=True)
+     * g[:, :, heads]).sum().backward()
+    out["flash_mine"] = [_whole(x.grad, P(None, None, "tp"), mesh_a)
+                         for x in mine]
+    context.stop_orca_context()
+    return out
+
+
+def scenario_tpzoo(rank, world, outdir):
+    """The zoo on a {"tp": 2} mesh: NCF (a 65-row table stays whole, a
+    64-row one splits) and Wide & Deep under their rules, SGD states and
+    Adam losses; BERTClassifier with its default rules and
+    TextEstimator(partition_rules=) against one rank; a GANEstimator on
+    a {"dp": 2} mesh against one rank; the readers' shard of a rank."""
+    from analytics_zoo_tpu_torch.common import context
+    from analytics_zoo_tpu_torch.data.loader import data_shard
+    from analytics_zoo_tpu_torch.models import ncf, recommendation, \
+        transformer as ttr
+    from analytics_zoo_tpu_torch.parallel import make_mesh
+    from analytics_zoo_tpu_torch.tfpark import gan as tgan
+    from analytics_zoo_tpu_torch.tfpark.text import (BERTClassifier,
+                                                     TextEstimator)
+
+    inp = torch.load(os.path.join(outdir, "tpzoo_in.pt"), weights_only=False)
+    mesh = context.init_orca_context("distributed", mesh_axes={"tp": 2},
+                                     device="cpu").mesh
+    out = {"data_shard": data_shard(), "data_shard_dp": None}
+    sgd = lambda ps: torch.optim.SGD(ps, lr=0.1)  # noqa: E731
+
+    def fit(est, data, epochs=1, bs=16):
+        hist = est.fit(data, epochs=epochs, batch_size=bs)
+        return [h["loss"] for h in hist], copy.deepcopy(est.get_model()[1])
+
+    def ncf_model():
+        m = ncf.NeuralCF(**inp["ncf_cfg"], dtype=torch.float32)
+        m.load_state_dict(inp["ncf_state"])
+        return m
+
+    cols = ("user", "item"), ("label",)
+    for m, name in ((mesh, "tp2"), (None, "one")):
+        for opt, o, ep in (("sgd", sgd, 1), ("adam", 5e-3, 2)):
+            est = _tp_est(ncf_model(), "sparse_categorical_crossentropy",
+                          o, cols, m, ncf.NCF_PARTITION_RULES)
+            out[("ncf", opt, name)] = fit(est, inp["ncf_data"], ep)
+            if m is not None:
+                out[("ncf_split", opt)] = sorted(est._placements)
+
+    def wnd_model():
+        mm = recommendation.WideAndDeep(
+            2, recommendation.ColumnFeatureInfo(**inp["wnd_info"]),
+            dtype=torch.float32)
+        mm.load_state_dict(inp["wnd_state"])
+        return mm
+
+    wcols = ("wide_cols", "indicator_cols", "embed_cols",
+             "continuous_cols"), ("label",)
+    for m, name in ((mesh, "tp2"), (None, "one")):
+        est = _tp_est(wnd_model(), "sparse_categorical_crossentropy", sgd,
+                      wcols, m, recommendation.WND_PARTITION_RULES)
+        out[("wnd", name)] = fit(est, inp["wnd_data"])
+        if m is not None:
+            out["wnd_split"] = sorted(est._placements)
+
+    def bert():
+        mm = ttr.BERT(**inp["bert_cfg"], dtype=torch.float32,
+                      use_flash=False, dropout=0.1)
+        mm.load_state_dict(inp["bert_state"])
+        return mm
+
+    for m, dev in ((mesh, None), (None, "cpu")):
+        name = "tp2" if m is not None else "one"
+        est = BERTClassifier(3, bert=bert(), mesh=m, device=dev,
+                             optimizer=sgd)
+        torch.manual_seed(0)
+        est.model.classifier.load_state_dict(inp["cls_head"])
+        out[("bertcls", name)] = fit(est.estimator, inp["text_data"], 1, 8)
+        if m is not None:
+            out["bertcls_split"] = len(est.estimator._placements)
+        model = ttr.BERTForSequenceClassification(3, bert())
+        model.classifier.load_state_dict(inp["cls_head"])
+        te = TextEstimator(model, "sparse_categorical_crossentropy", sgd,
+                           feature_cols=("input_ids",), mesh=m, device=dev,
+                           partition_rules=ttr.BERT_PARTITION_RULES)
+        out[("textest", name)] = (te.fit(inp["text_data"], batch_size=8),
+                                  copy.deepcopy(te.estimator.get_model()[1]))
+
+    # a GANEstimator on dp=2 over the same two ranks
+    dp_mesh = make_mesh(axes={"dp": 2}, device="cpu")
+    out["data_shard_dp"] = data_shard(dp_mesh)
+    from analytics_zoo_tpu_torch.models.layers import Dense
+
+    class _Net(torch.nn.Module):
+        def __init__(self, n_in, n_out, squeeze):
+            super().__init__()
+            self.Dense_0, self.Dense_1 = Dense(n_in, 16), Dense(16, n_out)
+            self.squeeze = squeeze
+
+        def forward(self, x):
+            y = self.Dense_1(torch.tanh(self.Dense_0(x)))
+            return y[..., 0] if self.squeeze else y
+
+    for m, dev in ((dp_mesh, None), (None, "cpu")):
+        torch.manual_seed(0)
+        g, d = _Net(4, 2, False), _Net(2, 1, True)
+        est = tgan.GANEstimator(g, d, noise_dim=4, mesh=m, device=dev,
+                                seed=3)
+        hist = est.fit(inp["gan_data"], epochs=2, batch_size=8)
+        out[("gan", "dp2" if m is not None else "one")] = (
+            hist, copy.deepcopy(est.gen.state_dict()),
+            copy.deepcopy(est.disc.state_dict()))
     context.stop_orca_context()
     return out
 

@@ -149,9 +149,13 @@ def test_dispatch_picks_the_plain_branch_on_the_cpu(monkeypatch):
         ttr.attention_dispatch(q, q, q, None, causal=True,
                                use_flash=use_flash)
     assert calls == ["full", "flash", "full"]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ttr.attention_dispatch(q, q, q, None, causal=True,
-                               mesh=Mesh({"sp": 2}, "cpu"))
+    # a mesh that splits the sequence dispatches to the sp attention
+    monkeypatch.setattr(ttr, "ring_self_attention",
+                        lambda *a, **kw: calls.append(kw["strategy"]))
+    ttr.attention_dispatch(q, q, q, None, causal=True,
+                           mesh=Mesh({"sp": 2}, "cpu"),
+                           sp_strategy="ulysses")
+    assert calls[-1] == "ulysses"
 
 
 @pytest.mark.parametrize("head_dim,takes", [

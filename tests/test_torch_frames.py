@@ -43,7 +43,8 @@ from analytics_zoo_tpu_torch.frames import (NNClassifier, NNImageReader,
 from analytics_zoo_tpu_torch.learn import Estimator
 from analytics_zoo_tpu_torch.learn.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.models.transformer import (
-    BERT, BERTForSequenceClassification, params_from_flax)
+    BERT, BERT_PARTITION_RULES, BERTForSequenceClassification,
+    params_from_flax)
 from analytics_zoo_tpu_torch.serving import (ClusterServing, HttpFrontend,
                                              ServingConfig)
 from analytics_zoo_tpu_torch.data.text import TextSet
@@ -136,8 +137,14 @@ def test_bert_classifier_matches_jax(weights, mesh8):
     # and the text-matching estimator builds
     assert isinstance(KNRMEstimator(128, embed_dim=8, kernel_num=3,
                                     device="cpu").model, KNRM)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        BERTClassifier(2, partition_rules=(), device="cpu")
+    # partition rules are ported: BERT_PARTITION_RULES by default, any
+    # rules given (they replicate without a tp axis)
+    small = dict(vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,
+                 intermediate_size=32, max_position=16)
+    assert BERTClassifier(2, bert=BERT(**small), device="cpu").estimator \
+        .rules == BERT_PARTITION_RULES
+    assert BERTClassifier(2, bert=BERT(**small), partition_rules=(),
+                          device="cpu").estimator.rules == ()
 
 
 def _frame(feats, y):

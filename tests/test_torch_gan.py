@@ -42,6 +42,7 @@ from analytics_zoo_tpu_torch.learn import Estimator
 from analytics_zoo_tpu_torch.learn.estimator import _resolve_batch
 from analytics_zoo_tpu_torch.learn.inference_model import InferenceModel
 from analytics_zoo_tpu_torch.models.layers import Dense, params_from_flax
+from analytics_zoo_tpu_torch.parallel.mesh import Mesh
 from analytics_zoo_tpu_torch.tfpark import GANEstimator, TFDataset
 from analytics_zoo_tpu_torch.tfpark import gan as tgan
 
@@ -230,8 +231,9 @@ def test_gan_same_seed_same_history():
 def test_gan_errors():
     with pytest.raises(RuntimeError, match="fit first"):
         GANEstimator(Gen(4), Disc(), noise_dim=4, device="cpu").generate(2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        GANEstimator(Gen(4), Disc(), mesh=object(), device="cpu")
+    # a mesh is ported: one rank's mesh trains as no mesh does
+    assert GANEstimator(Gen(4), Disc(), mesh=Mesh({"dp": 1}, "cpu"),
+                        device="cpu")._dp == 1
     with pytest.raises(ValueError, match="unknown GAN loss"):
         GANEstimator(Gen(4), Disc(), loss="hinge", device="cpu")
     est = GANEstimator(Gen(4), Disc(), noise_dim=4, device="cpu")

@@ -37,7 +37,11 @@ PINS = {
     "serving/resp.py": (),
     "serving/frontdoor.py": (),
     "serving/flight.py": (),
-    "serving/queues.py": (),
+    # a result later than the client's socket timeout: the port's query
+    # blocks in slices of half that timeout (the reference's blocks the
+    # whole wait, and a timed-out read's late reply desyncs the
+    # connection; tests/test_torch_queues.py)
+    "serving/queues.py": ("OutputQueue.query",),
     # the config entry (a device to load onto) and the paged read's
     # default: the engine picks the CUDA kernel by shape instead of the
     # reference's CPU-safe "gather"; a tensor-parallel engine runs one
